@@ -1,0 +1,52 @@
+"""Carry slate_tpu state across into the port, byte for byte.
+
+Both packages store a matrix as one tile array in the same (cyclic) order,
+so a reference ``TileStorage.data`` (as a numpy array) becomes the port's
+``TileStorage.data`` unchanged, and a reference matrix becomes the port's
+matrix of the same class over the same view.  Nothing here imports the
+reference: a matrix is read through its attributes, which both packages
+share.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.grid import Grid
+from .core.matrix import (BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix,
+                          Matrix, SymmetricMatrix, TriangularMatrix)
+from .core.storage import TileStorage, as_tensor
+from .exceptions import slate_error
+from .types import Diag, Op, TileKind, Uplo
+
+_CLASSES = {cls.__name__: cls for cls in (Matrix, TriangularMatrix,
+                                          SymmetricMatrix, HermitianMatrix)}
+
+
+def storage_from_jax(data, m: int, n: int, mb: int, nb: int,
+                     device=None) -> TileStorage:
+    """The port's TileStorage holding the tiles ``data`` (a reference
+    ``TileStorage.data`` as a numpy array, from a 1 x 1 grid) of an
+    m x n matrix in mb x nb tiles, in the same tile order.  ``device=None``
+    means CUDA."""
+    return TileStorage(as_tensor(np.asarray(data), device), m, n, mb, nb,
+                       Grid(1, 1))
+
+
+def matrix_from_jax(M, device=None) -> BaseMatrix:
+    """The port's matrix of the same class, view and structure as the
+    reference matrix ``M`` (Matrix, TriangularMatrix, SymmetricMatrix or
+    HermitianMatrix on a 1 x 1 grid), over the same tile bytes."""
+    cls = _CLASSES.get(type(M).__name__)
+    slate_error(cls is not None,
+                f"matrix_from_jax: {type(M).__name__} is not ported")
+    st = M.storage
+    slate_error(st.grid.p * st.grid.q == 1,
+                "matrix_from_jax: the port holds 1 x 1 grids only")
+    storage = storage_from_jax(st.data, st.m, st.n, st.mb, st.nb, device)
+    v = cls.__new__(cls)
+    BaseMatrix.__init__(v, storage, M.io, M.jo, M._mt, M._nt,
+                        Op(M.op.value), TileKind(M.kind.value))
+    if issubclass(cls, BaseTrapezoidMatrix):
+        v._apply_extra_aux((Uplo(M.uplo.value), Diag(M.diag.value)))
+    return v

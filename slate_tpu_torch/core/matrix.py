@@ -1,0 +1,252 @@
+"""Matrix classes (port of slate_tpu/core/matrix.py): general, triangular,
+symmetric and Hermitian.  The band classes are not ported yet.
+
+As in the reference, a matrix is its storage plus view metadata
+(tile offset, extent, ``op``); ``transpose``/``conj_transpose`` share the
+storage and only change ``op``.  Drivers return new matrices; they never
+write into a caller's storage.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..exceptions import slate_error
+from ..types import Diag, Op, TileKind, Uplo, compose_op, is_complex
+from . import layout
+from .grid import Grid
+from .storage import TileStorage, as_tensor
+
+__all__ = ["BaseMatrix", "Matrix", "BaseTrapezoidMatrix", "TriangularMatrix",
+           "SymmetricMatrix", "HermitianMatrix"]
+
+
+class BaseMatrix:
+    """Shared base: storage + (tile-offset, extent, op) view metadata.
+
+    View coordinates (io, jo, mt, nt) index the *storage* tile grid; ``op``
+    transposes on top, applied in accessors (BaseMatrix.hh:4048-4088).
+    """
+
+    uplo: Uplo = Uplo.General
+    diag: Diag = Diag.NonUnit
+
+    def __init__(self, storage: TileStorage, io: int = 0, jo: int = 0,
+                 mt: Optional[int] = None, nt: Optional[int] = None,
+                 op: Op = Op.NoTrans, kind: TileKind = TileKind.SlateOwned):
+        self.storage = storage
+        self.io, self.jo = int(io), int(jo)
+        self._mt = storage.Mt - self.io if mt is None else int(mt)
+        self._nt = storage.Nt - self.jo if nt is None else int(nt)
+        self.op = op
+        self.kind = kind
+        slate_error(0 <= self.io and self.io + self._mt <= storage.Mt and
+                    0 <= self.jo and self.jo + self._nt <= storage.Nt,
+                    "view out of range")
+
+    def _extra_aux(self):
+        return ()
+
+    def _apply_extra_aux(self, extra):
+        pass
+
+    def _same_view(self, storage: TileStorage, op: Op | None = None):
+        """This view's class and metadata over ``storage`` (and ``op``)."""
+        v = self.__class__.__new__(self.__class__)
+        BaseMatrix.__init__(v, storage, self.io, self.jo, self._mt, self._nt,
+                            self.op if op is None else op, self.kind)
+        v._apply_extra_aux(self._extra_aux())
+        return v
+
+    # ---- shape accessors (op-aware) ----
+    @property
+    def grid(self) -> Grid:
+        return self.storage.grid
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.storage.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.storage.device
+
+    def _m_store(self) -> int:
+        st = self.storage
+        if self._mt == 0:
+            return 0
+        return (self._mt - 1) * st.mb + st.tile_mb(self.io + self._mt - 1)
+
+    def _n_store(self) -> int:
+        st = self.storage
+        if self._nt == 0:
+            return 0
+        return (self._nt - 1) * st.nb + st.tile_nb(self.jo + self._nt - 1)
+
+    @property
+    def m(self) -> int:
+        return self._m_store() if self.op is Op.NoTrans else self._n_store()
+
+    @property
+    def n(self) -> int:
+        return self._n_store() if self.op is Op.NoTrans else self._m_store()
+
+    @property
+    def mt(self) -> int:
+        return self._mt if self.op is Op.NoTrans else self._nt
+
+    @property
+    def nt(self) -> int:
+        return self._nt if self.op is Op.NoTrans else self._mt
+
+    @property
+    def mb(self) -> int:
+        return self.storage.mb if self.op is Op.NoTrans else self.storage.nb
+
+    @property
+    def nb(self) -> int:
+        return self.storage.nb if self.op is Op.NoTrans else self.storage.mb
+
+    # ---- views (zero-copy: share self.storage) ----
+    def transpose(self):
+        return self._same_view(self.storage, compose_op(self.op, Op.Trans))
+
+    def conj_transpose(self):
+        if not is_complex(self.dtype):
+            return self.transpose()
+        return self._same_view(self.storage,
+                               compose_op(self.op, Op.ConjTrans))
+
+    def is_root_view(self) -> bool:
+        return (self.io == 0 and self.jo == 0 and
+                self._mt == self.storage.Mt and self._nt == self.storage.Nt)
+
+    # ---- materialisation ----
+    def _dense_store(self) -> torch.Tensor:
+        """Dense [m, n] of the untransposed view region (may share memory
+        with the storage)."""
+        st = self.storage
+        if self.is_root_view():
+            return st.to_dense()
+        tiles = st.canonical()[self.io:self.io + self._mt,
+                               self.jo:self.jo + self._nt]
+        return layout.untile_dense(tiles, self._m_store(), self._n_store())
+
+    def to_dense(self) -> torch.Tensor:
+        """The view as a dense [m, n] tensor, op applied and structure
+        expanded (subclasses override ``_expand``)."""
+        d = self._expand(self._dense_store())
+        if self.op is Op.Trans:
+            d = d.T
+        elif self.op is Op.ConjTrans:
+            d = d.conj().T
+        return d
+
+    def _expand(self, dense: torch.Tensor) -> torch.Tensor:
+        return dense
+
+    def to_numpy(self) -> np.ndarray:
+        return self.to_dense().resolve_conj().cpu().numpy()
+
+    def __repr__(self):
+        extra = "" if self.op is Op.NoTrans else f", op={self.op.name}"
+        return (f"{self.__class__.__name__}({self.m}x{self.n}, "
+                f"tiles {self.mb}x{self.nb}, grid {self.grid.p}x"
+                f"{self.grid.q}, {self.device}{extra})")
+
+
+class Matrix(BaseMatrix):
+    """General m x n matrix (ref: include/slate/Matrix.hh:58-163)."""
+
+    @classmethod
+    def from_numpy(cls, a, mb, nb=None, grid=None, kind=TileKind.UserOwned,
+                   device=None):
+        """Import host data (ref: fromLAPACK).  ``device=None`` means CUDA
+        and raises without it; ``device="cpu"`` runs the plain versions."""
+        st = TileStorage.from_dense(as_tensor(a, device), mb, nb or mb,
+                                    grid or Grid(1, 1))
+        return cls(st, kind=kind)
+
+
+class BaseTrapezoidMatrix(BaseMatrix):
+    """Upper/lower trapezoid storage base
+    (ref: include/slate/BaseTrapezoidMatrix.hh)."""
+
+    def __init__(self, storage, uplo: Uplo = Uplo.Lower,
+                 diag: Diag = Diag.NonUnit, **kw):
+        super().__init__(storage, **kw)
+        self.uplo = uplo
+        self.diag = diag
+
+    def _extra_aux(self):
+        return (self.uplo, self.diag)
+
+    def _apply_extra_aux(self, extra):
+        self.uplo, self.diag = extra
+
+    @classmethod
+    def _from_view(cls, src: BaseMatrix, uplo: Uplo,
+                   diag: Diag = Diag.NonUnit):
+        v = cls.__new__(cls)
+        BaseMatrix.__init__(v, src.storage, src.io, src.jo, src._mt, src._nt,
+                            src.op, src.kind)
+        # A lower view of a transposed matrix is an upper view of storage.
+        if src.op is not Op.NoTrans:
+            uplo = Uplo.Upper if uplo is Uplo.Lower else Uplo.Lower
+        v._apply_extra_aux((uplo, diag))
+        return v
+
+    def _uplo_logical(self) -> Uplo:
+        """uplo as seen through op (ref: BaseMatrix::uploLogical)."""
+        if self.op is Op.NoTrans:
+            return self.uplo
+        return Uplo.Upper if self.uplo is Uplo.Lower else Uplo.Lower
+
+    def _expand(self, dense):
+        d = torch.tril(dense) if self.uplo is Uplo.Lower else torch.triu(dense)
+        if self.diag is Diag.Unit:
+            d.diagonal().fill_(1)
+        return d
+
+
+class TriangularMatrix(BaseTrapezoidMatrix):
+    """ref: include/slate/TriangularMatrix.hh"""
+
+    @classmethod
+    def from_numpy(cls, a, mb, uplo=Uplo.Lower, diag=Diag.NonUnit, grid=None,
+                   device=None):
+        return cls._from_view(Matrix.from_numpy(a, mb, mb, grid,
+                                                device=device), uplo, diag)
+
+
+class SymmetricMatrix(BaseTrapezoidMatrix):
+    """ref: include/slate/SymmetricMatrix.hh: only the uplo triangle is
+    referenced; _expand mirrors it."""
+
+    @classmethod
+    def from_numpy(cls, a, mb, uplo=Uplo.Lower, grid=None, device=None):
+        return cls._from_view(Matrix.from_numpy(a, mb, mb, grid,
+                                                device=device), uplo)
+
+    def _expand(self, dense):
+        tri = BaseTrapezoidMatrix._expand(self, dense)
+        return tri + tri.T - torch.diag(tri.diagonal())
+
+
+class HermitianMatrix(BaseTrapezoidMatrix):
+    """ref: include/slate/HermitianMatrix.hh"""
+
+    @classmethod
+    def from_numpy(cls, a, mb, uplo=Uplo.Lower, grid=None, device=None):
+        return cls._from_view(Matrix.from_numpy(a, mb, mb, grid,
+                                                device=device), uplo)
+
+    def _expand(self, dense):
+        tri = BaseTrapezoidMatrix._expand(self, dense)
+        d = tri.diagonal().real.clone()
+        full = tri + tri.conj().T
+        full.diagonal().copy_(d.to(full.dtype))
+        return full

@@ -1,0 +1,30 @@
+// Shared by every kernel source of slate_tpu_torch: the C entry point that
+// turns an error code into text, and the launch prologue.
+//
+// Each source is built alone into a shared library with a plain C interface
+// (slate_tpu_torch/internal/kernels.py). Every entry point takes the device
+// index and PyTorch's current stream first, launches there, allocates nothing,
+// and returns cudaGetLastError() after its launch.
+#pragma once
+
+#include <cuda_runtime.h>
+
+extern "C" const char* slate_cuda_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+// This library links its own CUDA runtime, whose current device is not
+// PyTorch's: select the operands' device before every launch.
+#define SLATE_SET_DEVICE(dev)                        \
+  do {                                               \
+    cudaError_t e_ = cudaSetDevice(dev);             \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+// Opt a kernel into more than 48 KB of dynamic shared memory.
+#define SLATE_SET_SMEM(kernel, bytes)                                        \
+  do {                                                                       \
+    cudaError_t e_ = cudaFuncSetAttribute(                                   \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(bytes)); \
+    if (e_ != cudaSuccess) return static_cast<int>(e_);                      \
+  } while (0)

@@ -1,0 +1,1 @@
+"""internal layer of slate_tpu_torch (see the package docstring)."""

@@ -1,0 +1,161 @@
+"""Build and bind the hand-written CUDA kernels of ``slate_tpu_torch/csrc``.
+
+Each ``csrc/*.cu`` file is compiled on first use by ``nvcc`` for sm_90a
+into a shared library with a plain C interface and loaded with
+``ctypes``; nothing includes PyTorch's headers, so a build takes seconds.
+Libraries go to ``slate_tpu_torch/_build/`` under a name that hashes the
+sources and flags, so an edited source is never served a stale build.
+``build_all`` starts one ``nvcc`` per source at once.
+
+Every C entry point launches on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()`` after its launch; the
+wrapper raises on a nonzero code.  Each :class:`CudaKernel` counts its
+launches in the plain integer ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I64 = ctypes.c_longlong
+I32 = ctypes.c_int
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc, or
+    the first ``nvcc`` on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("slate_tpu_torch: nvcc not found; the CUDA "
+                           "kernels are built on the machine with the GPU")
+    return found
+
+
+class CudaKernel:
+    """One kernel source, its lazily built library, and its launch count.
+
+    ``functions`` maps each exported C symbol to its ctypes argument
+    types; every symbol returns a CUDA error code (0 = launched)."""
+
+    def __init__(self, name: str, source: str,
+                 functions: dict[str, list]):
+        self.name = name
+        self.source = CSRC_DIR / source
+        self.functions = functions
+        self.launches = 0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [self.source, *sorted(CSRC_DIR.glob("*.cuh"))]:
+            h.update(path.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self) -> subprocess.Popen | None:
+        """Start nvcc for this source unless its library exists; returns
+        the process (its log goes next to the library) or None."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w", encoding="utf-8")
+        try:
+            proc = subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o",
+                 str(tmp), str(self.source)],
+                stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            log.close()
+        proc.tmp_path, proc.out_path = tmp, out
+        return proc
+
+    @staticmethod
+    def finish_build(proc: subprocess.Popen) -> None:
+        """Wait for a build started by :meth:`start_build`; raise with the
+        compiler's log when it failed."""
+        rc = proc.wait()
+        if rc != 0:
+            log = proc.out_path.with_suffix(".log").read_text()
+            raise RuntimeError(f"nvcc failed ({rc}) for {proc.out_path.name}:"
+                               f"\n{log}")
+        os.replace(proc.tmp_path, proc.out_path)
+
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed."""
+        with self._lock:
+            if self._lib is None:
+                proc = self.start_build()
+                if proc is not None:
+                    self.finish_build(proc)
+                lib = ctypes.CDLL(str(self.library_path()))
+                for sym, argtypes in self.functions.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.slate_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.slate_cuda_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def launch(self, symbol: str, *args) -> None:
+        """Call one C entry point and count the launch; raise if CUDA
+        refused it (the kernel then never ran)."""
+        lib = self.lib()
+        rc = getattr(lib, symbol)(*args)
+        if rc != 0:
+            msg = lib.slate_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: {symbol} failed to launch: "
+                               f"CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+def build_all(kernels) -> None:
+    """Build every kernel's library at once: one nvcc process per source,
+    all started before any is waited for."""
+    procs = [p for p in (k.start_build() for k in kernels) if p is not None]
+    errors = []
+    for proc in procs:
+        try:
+            CudaKernel.finish_build(proc)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
+    """``t``'s device index and the raw handle of PyTorch's current
+    stream there: the first two arguments of every C entry point."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_f32(name: str, *tensors) -> None:
+    """Raise unless every tensor is float32 on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all operands must be on one CUDA "
+                             f"device (got {t.device} and {dev})")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes float32 only "
+                             f"(got {t.dtype})")

@@ -1,0 +1,144 @@
+"""HealthInfo and the ErrorPolicy glue (port of slate_tpu/robust/health.py).
+
+The reference carries health as traced scalars so that it survives jit;
+the port runs eagerly, so each field is a plain Python value, read from
+the device once per driver call.  The fields, ``ok``, ``merge`` and
+``finalize`` keep the reference's contract (health.py:26-60).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..options import ErrorPolicy, Option, Options, get_option
+from ..types import eps
+
+
+class HealthInfo(NamedTuple):
+    """Numerical health of one factor/solve.
+
+    nonfinite        any NaN/Inf in the result
+    info             LAPACK-style code: 0 healthy, k > 0 the 1-based index
+                     of the first zero/non-finite pivot
+    min_pivot        smallest |pivot| seen
+    min_pivot_index  0-based position of ``min_pivot`` (-1: none)
+    growth           max|factor| / max|input| (1.0 when not tracked)
+    iters            refinement iterations (0 for direct solves)
+    converged        iterative convergence (True for direct paths)
+    abft_detected    checksum mismatches found (0: checksums not ported)
+    abft_corrected   of those, how many were repaired in place
+    abft_site        first detection's tile, ``ti * 65536 + tj``; -1 none
+    """
+
+    nonfinite: bool
+    info: int
+    min_pivot: float
+    min_pivot_index: int
+    growth: float
+    iters: int
+    converged: bool
+    abft_detected: int = 0
+    abft_corrected: int = 0
+    abft_site: int = -1
+
+    @property
+    def ok(self) -> bool:
+        """No failure flag set; an uncorrected checksum mismatch fails."""
+        return (not self.nonfinite and self.info == 0 and self.converged
+                and self.abft_detected == self.abft_corrected)
+
+    def describe(self) -> str:
+        """Human summary (used in exception messages)."""
+        return (f"info={self.info} nonfinite={self.nonfinite} "
+                f"min_pivot={self.min_pivot:.3e}@{self.min_pivot_index} "
+                f"growth={self.growth:.3e} iters={self.iters} "
+                f"converged={self.converged}")
+
+
+def healthy() -> HealthInfo:
+    return HealthInfo(nonfinite=False, info=0, min_pivot=math.inf,
+                      min_pivot_index=-1, growth=1.0, iters=0,
+                      converged=True)
+
+
+def from_result(x: torch.Tensor) -> HealthInfo:
+    """Health of a computed result: the non-finite flag only."""
+    return healthy()._replace(nonfinite=not bool(torch.isfinite(x).all()))
+
+
+def merge(*hs: HealthInfo) -> HealthInfo:
+    """Combine phase healths (factor + solve + ...): worst-of on every
+    field; ``info`` keeps the first nonzero code; iters accumulate."""
+    out = hs[0]
+    for h in hs[1:]:
+        out = HealthInfo(
+            nonfinite=out.nonfinite or h.nonfinite,
+            info=out.info if out.info != 0 else h.info,
+            min_pivot=min(out.min_pivot, h.min_pivot),
+            min_pivot_index=(out.min_pivot_index
+                             if out.min_pivot <= h.min_pivot
+                             else h.min_pivot_index),
+            growth=max(out.growth, h.growth),
+            iters=out.iters + h.iters,
+            converged=out.converged and h.converged,
+            abft_detected=out.abft_detected + h.abft_detected,
+            abft_corrected=out.abft_corrected + h.abft_corrected,
+            abft_site=out.abft_site if out.abft_site >= 0 else h.abft_site,
+        )
+    return out
+
+
+def error_policy(opts: Options | None) -> ErrorPolicy:
+    return get_option(opts, Option.ErrorPolicy)
+
+
+def growth_limit(dtype: torch.dtype) -> float:
+    """Pivot-growth escalation threshold: 1/sqrt(eps) of the real dtype."""
+    return 1.0 / math.sqrt(eps(dtype))
+
+
+def acceptable(h: HealthInfo, dtype: torch.dtype) -> bool:
+    """ok AND pivot growth within the dtype's escalation threshold."""
+    return h.ok and h.growth <= growth_limit(dtype)
+
+
+def _poison(result):
+    """NaN-fill every matrix of a result (a matrix or a tuple of them):
+    the ErrorPolicy.Nan guarantee that a failed result is never finite."""
+    from ..core.matrix import BaseMatrix
+    from ..core.storage import TileStorage
+    if isinstance(result, tuple):
+        return tuple(_poison(r) for r in result)
+    if isinstance(result, BaseMatrix):
+        st = result.storage
+        data = torch.full_like(st.data, math.nan)
+        return result._same_view(
+            TileStorage(data, st.m, st.n, st.mb, st.nb, st.grid))
+    return result
+
+
+def finalize(name: str, result, h: HealthInfo, opts: Options | None,
+             make_exc=None):
+    """Resolve a driver result against Option.ErrorPolicy, the one seam
+    every factor/solve driver routes its failures through.
+
+    Raise  bad health raises ``make_exc(h)`` (typed)
+    Nan    NaN-poison the result where bad; never raise
+    Info   return ``(result, h)``
+    """
+    policy = error_policy(opts)
+    if policy is ErrorPolicy.Info:
+        return result, h
+    if h.ok:
+        return result
+    if policy is ErrorPolicy.Nan:
+        return _poison(result)
+    raise (make_exc(h) if make_exc is not None else _default_exc(name, h))
+
+
+def _default_exc(name: str, h: HealthInfo):
+    from ..exceptions import SlateSingularError
+    return SlateSingularError(f"{name}: {h.describe()}", info=h.info)

@@ -1,0 +1,94 @@
+"""slate_tpu_torch's CUDA kernels on the card, held against their plain
+PyTorch versions.
+
+These tests need an NVIDIA GPU with nvcc (the kernels build for sm_90a at
+first use) and skip without one.  The file imports neither JAX nor
+slate_tpu, so that it runs on the machine with the card, where JAX is not
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import slate_tpu_torch as st
+from slate_tpu_torch.internal import chol_kernels as ck
+from slate_tpu_torch.internal.tri_inv import TRI_INV, upper_tri_inv, \
+    upper_tri_inv_plain
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain version, both f32 on the card: the sums run in another
+# order (and K0 is a back substitution, not the series), on inputs with
+# cond <= ~5, so the outputs differ by a few n eps relative.
+RTOL, ATOL = 1e-4, 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build with nvcc for "
+                    "sm_90a and run only on the card")
+    return torch.device("cuda")
+
+
+def _spd(rng, n):
+    g = rng.standard_normal((n, n))
+    return (g @ g.T / n + np.eye(n)).astype(np.float32)
+
+
+def _panel(rng, m, nb, k, cuda):
+    """left @ lead has O(1) entries (left ~ N(0,1) / K^(1/4)), so a skipped
+    K slice or TF32 products land far above the tolerance; the top block of
+    col - left @ lead is SPD with cond <= ~5."""
+    base = rng.standard_normal((m, nb)).astype(np.float32)
+    base[:nb] = base[:nb] @ base[:nb].T / nb + np.eye(nb)
+    left = (rng.standard_normal((m, k)) / max(k, 1) ** 0.25).astype(np.float32)
+    col = base + left @ left[:nb].T
+    col, left = torch.from_numpy(col).to(cuda), torch.from_numpy(left).to(cuda)
+    return col, left, left[:nb].T                 # lead: a transposed view
+
+
+def test_kernels_match_plain_versions(cuda):
+    rng = np.random.default_rng(8)
+    u = torch.from_numpy(np.linalg.cholesky(_spd(rng, 128)).T.copy()).to(cuda)
+    before = TRI_INV.launches
+    torch.testing.assert_close(upper_tri_inv(u), upper_tri_inv_plain(u),
+                               rtol=RTOL, atol=ATOL)
+    assert TRI_INV.launches == before + 1
+    a = torch.from_numpy(_spd(rng, 128)).to(cuda)
+    torch.testing.assert_close(ck.chol_tile(a, 8), ck.chol_tile_plain(a, 8),
+                               rtol=RTOL, atol=ATOL)
+    for nb, k in ((128, 0), (128, 100), (64, 384), (32, 33)):
+        col, left, lead = _panel(rng, 4 * nb, nb, k, cuda)
+        launches = ck.CHOL_PANEL.launches, TRI_INV.launches
+        for got, want in zip(ck.chol_panel_fused(col, left, lead, 8),
+                             ck.chol_panel_plain(col, left, lead, 8)):
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        # K2's diagonal and below-diagonal launches, K0 between them
+        assert (ck.CHOL_PANEL.launches, TRI_INV.launches) == \
+            (launches[0] + 2, launches[1] + 1)
+    with pytest.raises(ValueError, match="float32"):
+        ck.chol_tile(a.double(), 8)
+    with pytest.raises(ValueError, match="nb = 256"):
+        col, left, lead = _panel(rng, 512, 256, 8, cuda)
+        ck.chol_panel_fused(col, left, lead, 8)
+
+
+def test_posv_on_the_card_matches_the_cpu_route(cuda):
+    rng = np.random.default_rng(9)
+    n, nb = 512, 128
+    a = _spd(rng, n) * n
+    b = rng.standard_normal((n, 4)).astype(np.float32)
+    before = ck.CHOL_PANEL.launches, TRI_INV.launches
+    _, Xg = st.posv(st.SymmetricMatrix.from_numpy(a, nb),
+                    st.Matrix.from_numpy(b, nb))
+    assert ck.CHOL_PANEL.launches - before[0] == 2 * n // nb - 1
+    assert TRI_INV.launches - before[1] == n // nb - 1
+    _, Xc = st.posv(st.SymmetricMatrix.from_numpy(a, nb, device="cpu"),
+                    st.Matrix.from_numpy(b, nb, device="cpu"))
+    want = Xc.to_numpy()
+    np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
+                               atol=RTOL * np.abs(want).max())
