@@ -8,9 +8,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
   1. print the card's name and power limit (nvidia-smi), then build every
      kernel from slate_tpu_torch/csrc (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, element by element with the tolerance stated
-     beside each check, and time kernel, plain version and library call;
-  3. the main path at full width: ``slate_tpu_torch.posv`` on an SPD
+     main paths' shapes, with the tolerance stated beside each check (K4:
+     equal indices), and time kernel, plain version and library call;
+  3. the Cholesky path at full width: ``slate_tpu_torch.posv`` on an SPD
      matrix built as in examples/ex07 (A = G G^T + n I, G Gaussian from
      --seed), n = 20480, nb = 128, 128 right-hand sides, f32: the scaled
      residual and the error against an f64 solve, each under a bound that
@@ -19,10 +19,20 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      GFLOP/s; then a small posv held against the same solve on the CPU;
   4. the tile route: posv at n = 2048 with the fused panel's plan set to
      the library, so that potrf_tile runs K1 (n/nb launches);
-  5. print the launch counts, the card line, the kernels line, and last
+  5. the LU path at full width: ``slate_tpu_torch.gesv`` with MethodLU.CALU
+     on A = Q of the QR of a Gaussian (cond 1, a real pivot choice in every
+     column), the same n, nb and right-hand sides: residual and forward
+     error under bounds that its TF32 control exceeds, and K4, K3 and K0
+     launched as often as the tournament's control flow gives for these
+     shapes; then the NoPiv route (K3 only) on a diagonally dominant
+     matrix, the library route (gesv's default method, PartialPiv, with
+     the fallback ladder off: no hand kernel), and a small CALU gesv held
+     against the CPU;
+  6. print the launch counts, the card line, the kernels line, and last
      the result line.
-With --trace it also breaks one warm posv of phase 3 down by phase (host
-clock) and by kernel (torch.profiler), with the device's idle share.
+With --trace it also breaks one warm posv and one warm CALU gesv down by
+phase (host clock) and by kernel (torch.profiler), with the device's idle
+share.
 
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
@@ -43,8 +53,10 @@ PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM, HBM3
 EPS32 = torch.finfo(torch.float32).eps
 # kernel vs plain version, element by element: |kernel - plain| <= ATOL +
-# RTOL |plain|.  Both are f32 on inputs with cond <= ~5 and O(1) entries;
-# only the order of the sums differs (K0: back substitution vs the series).
+# RTOL |plain|.  Both are f32 with the same steps; only the order of the
+# sums differs, on inputs with O(1) entries (cond <= ~5 for K0-K2; K3's
+# pivoted top tile has cond ~100 and |L| <= ~3).  K4 is held to equal
+# indices instead.
 RTOL = ATOL = 1e-4
 # posv at n = 20480 (ex07's A, cond <= 5): the scaled residual
 # ||AX-B||_F / (||A||_F ||X||_F n eps_f32), with AX-B formed in f64, and
@@ -53,6 +65,13 @@ RTOL = ATOL = 1e-4
 # run checks the second half on a TF32 solve (PERF.md has the numbers).
 RESIDUAL_BOUND = 1e-4
 FORWARD_BOUND = 1e-4
+# gesv at n = 20480 (A orthogonal): the same two measures.  Pivoted LU of
+# an orthogonal matrix grows its pivots by a few hundred, so f32 lands
+# near 1e-3 and 5e-4 (as LAPACK's sgesv does on such matrices), TF32 near
+# 0.8 and 0.4; the bounds sit ~10x above the first and ~80x below the
+# second, and every run checks both halves (PERF.md has the numbers).
+GESV_RESIDUAL_BOUND = 1e-2
+GESV_FORWARD_BOUND = 5e-3
 
 
 def emit(obj) -> None:
@@ -113,10 +132,12 @@ def tf32(fn):
 
 
 def check(name, shape, got, want, reason, kernel_ms, plain_ms, library_ms,
-          flops, nbytes, control=None) -> dict:
+          flops, nbytes, control=None, witness=None) -> dict:
     """Hold each kernel output against the plain version's, element by
     element; raise on any miss, and, when ``control`` (the plain version
-    with TF32 products) is given, if the control does not miss."""
+    with TF32 products) is given, if the control does not miss.  A
+    ``witness`` (the library call's outputs) is held against the kernel's
+    with the same tolerance."""
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     b_ms, b_by = bound(flops, nbytes)
     row = {"check": name, "shape": shape, "max_abs_err": max(errs),
@@ -127,10 +148,16 @@ def check(name, shape, got, want, reason, kernel_ms, plain_ms, library_ms,
     if control is not None:
         row["tf32_control_max_abs_err"] = max(
             float((c - w).abs().max()) for c, w in zip(control, want))
+    if witness is not None:
+        row["library_vs_kernel_max_abs_err"] = max(
+            float((v - g).abs().max()) for v, g in zip(witness, got))
     emit(row)
     if not within_tol(got, want):
         raise AssertionError(f"{name} {shape}: kernel and plain version "
                              f"differ beyond the tolerance (max {errs})")
+    if witness is not None and not within_tol(witness, got):
+        raise AssertionError(f"{name} {shape}: the library call and the "
+                             f"kernel differ beyond the tolerance")
     if control is not None and within_tol(control, want):
         raise AssertionError(f"{name} {shape}: the tolerance does not "
                              f"catch TF32 products")
@@ -149,7 +176,8 @@ def check_kernels(gen) -> dict:
         rows["upper_tri_inv"] = check(
             "upper_tri_inv", {"n": n}, [upper_tri_inv(u)],
             [upper_tri_inv_plain(u)],
-            "back substitution vs the nilpotent series on U with cond <= ~3",
+            "back substitution in both, sums in another order, on U with "
+            "cond <= ~3",
             time_ms(lambda: upper_tri_inv(u), 50),
             time_ms(lambda: upper_tri_inv_plain(u), 20),
             time_ms(lambda: torch.linalg.solve_triangular(u, eye, upper=True),
@@ -220,6 +248,123 @@ def check_kernels(gen) -> dict:
     return rows
 
 
+def check_lu_kernels(gen) -> dict:
+    """K3 on CALU-permuted Gaussian panels, the main path's first panel
+    and a small one, also held against the library's unpivoted LU; K4 on
+    main-path round-1 batches (4096 and 5120 rows), a tree round, and a
+    chunk with dead rows."""
+    from slate_tpu_torch.internal.getrf import panel_lu, tournament_perm
+    from slate_tpu_torch.internal.lu_kernels import (
+        lu_panel_fused, lu_panel_plain, lu_select, lu_select_plain)
+    rows = {}
+    nb = 128
+    for w in (20480, 1024):
+        g = torch.randn(w, nb, generator=gen, device="cuda")
+        # the main path's block rows for a panel of w rows (mpt = 4)
+        x = g[tournament_perm(g, max(nb, -(-w // (4 * nb)) * nb))]
+
+        def library():
+            return torch.linalg.lu_factor_ex(x, pivot=False)[0]
+        got = lu_panel_fused(x, 8)
+        row = check(
+            "lu_panel_fused", {"W": w, "nb": nb, "bw": 8},
+            [got], [lu_panel_plain(x, 8)],
+            "the same slab loop and K0 back substitution in both, sums in "
+            "another order; pivoted top tile (cond ~100), |L| <= ~3; the "
+            "library's unpivoted LU solves for L where both multiply by U^-1",
+            time_ms(lambda: lu_panel_fused(x, 8), 10),
+            time_ms(lambda: lu_panel_plain(x, 8), 3),
+            time_ms(library, 10),
+            # W nb^2 - nb^3/3: the tile's LU, then L21 = A21 U^-1
+            2 * nb ** 3 / 3 + (w - nb) * nb * nb,
+            4 * 2 * w * nb,
+            control=[tf32(lambda: lu_panel_plain(x, 8))],
+            witness=[library()])
+        if w == 20480:
+            rows["lu_panel_fused"] = row
+    for g, w, nrows in ((4, 4096, None), (4, 5120, None), (2, 256, None),
+                        (2, 512, 300)):
+        x = torch.randn(g, w, nb, generator=gen, device="cuda")
+        got = lu_select(x, nrows=nrows)
+        plain = lu_select_plain(x, nrows)
+        library = (None if nrows is not None else
+                   panel_lu(x)[1][:, :nb])
+        equal = bool(torch.equal(got, plain)) and (
+            library is None or bool(torch.equal(got, library)))
+        # per chunk: the partial-pivot LU's W nb^2 - nb^3/3 flops; the
+        # chunk and its live-row count read, nb indices written
+        b_ms, b_by = bound(g * (w * nb * nb - nb ** 3 / 3),
+                           g * (4 * w * nb + 4 + 8 * nb))
+        row = {"check": "lu_select", "shape": {"G": g, "W": w, "nb": nb,
+                                                "bw": 8, "nrows": nrows},
+               "max_abs_err": float((got - plain).abs().max()),
+               "indices_equal_plain_and_lu_factor": equal,
+               "tol_reason": "pivot rows: equal indices, to the plain "
+                             "version's and (all rows live) to lu_factor's",
+               "kernel_ms": time_ms(lambda: lu_select(x, nrows=nrows), 10),
+               "plain_ms": time_ms(lambda: lu_select_plain(x, nrows), 2),
+               "library_ms": (time_ms(lambda: torch.linalg.lu_factor_ex(x),
+                                      5) if nrows is None else None),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        if not equal:
+            raise AssertionError(f"lu_select {row['shape']}: pivot rows "
+                                 f"differ from the plain version's or "
+                                 f"lu_factor's")
+        if w == 4096:
+            rows["lu_select"] = row
+    return rows
+
+
+def orthogonal(n: int, gen: torch.Generator) -> torch.Tensor:
+    """Q of the QR of a Gaussian: cond 1, a real pivot choice in every
+    column."""
+    return torch.linalg.qr(torch.randn(n, n, generator=gen,
+                                       device="cuda"))[0]
+
+
+def expected_calu_launches(n: int, nb: int, fits, mpt: int = 4,
+                           depth: int = 2) -> dict:
+    """K4, K3 and K0 launches of getrf_tntpiv on an n x n matrix, replayed
+    from the tournament's control flow (internal/getrf.py) on the shapes:
+    a panel of W > nb rows splits into blocks of br rows; round 1 (when
+    br > nb) and each reduction round of ``depth`` candidate sets are one
+    K4 launch if ``fits(block height)``, else lu_factor; K3 then launches
+    twice (K0 between); a panel of nb rows takes lu_factor alone."""
+    k4 = k3 = 0
+    for k0 in range(0, n, nb):
+        w = n - k0
+        if w <= nb:
+            continue
+        br = max(nb, -(-w // (mpt * nb)) * nb)
+        blocks = -(-w // br)
+        rounds = [br] if br > nb else []
+        while blocks > 1:
+            rounds.append(depth * nb)
+            blocks = -(-blocks // depth)
+        k4 += sum(fits(h) for h in rounds)
+        k3 += 2
+    return {"lu_select": k4, "lu_panel_fused": k3, "upper_tri_inv": k3 // 2}
+
+
+def run_gesv(st, a, b, nb, opts=None):
+    """gesv on device matrices; returns (factors, X dense, wall seconds)."""
+    A = st.Matrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    F, X = st.gesv(A, B, opts)[:2]
+    x = X.to_dense()
+    torch.cuda.synchronize()
+    return F, x, time.perf_counter() - t0
+
+
+def growth(F, a) -> float:
+    """The ladder's pivot growth max|LU| / max|A| (robust/recovery.py
+    escalates past 1/sqrt(eps), 2896 in f32)."""
+    return float(F.LU.to_dense().abs().max() / a.abs().max())
+
+
 def accuracy(a, x, b, x64) -> tuple[float, float]:
     """(scaled residual ||AX-B||_F / (||A||_F ||X||_F n eps_f32), with the
     residual formed in f64 so that its own rounding does not count, and
@@ -273,8 +418,6 @@ def _busy_seconds(events) -> float:
 def trace_posv(st, a, b, nb) -> None:
     """Where one warm posv's time goes: host-clock phases, then the device
     time by kernel and the device's idle share under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from slate_tpu_torch.drivers.cholesky import _potrf_dense_blocked
     A = st.SymmetricMatrix.from_numpy(a, nb)
     B = st.Matrix.from_numpy(b, nb)
@@ -290,9 +433,16 @@ def trace_posv(st, a, b, nb) -> None:
     emit({"phase": "trace_host_clock_s", "posv": t_posv, "to_dense": t_dense,
           "factor": t_factor, "tile_factor": t_tile, "trsm_forward": t_fwd,
           "trsm_backward": t_bwd})
+    profile_device("posv", lambda: st.posv(A, B))
+
+
+def profile_device(label, fn) -> None:
+    """Device time by kernel and the device's idle share of one ``fn()``
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(lambda: st.posv(A, B))
+        _, wall = _timed(fn)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict[str, float] = {}
@@ -300,10 +450,49 @@ def trace_posv(st, a, b, nb) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     busy = _busy_seconds(kernels) if kernels else None
-    emit({"phase": "trace_profile", "wall_s": wall,
+    emit({"phase": "trace_profile", "of": label, "wall_s": wall,
           "device_busy_s": busy if busy is not None else "not measured",
           "device_idle_share": (1 - busy / wall) if busy else "not measured",
           "kernel_ms": {k: v * 1e-3 for k, v in top}})
+
+
+def trace_gesv(st, a, b, nb, opts) -> None:
+    """Where one warm CALU gesv's time goes: each phase of the blocked
+    factor timed on the host clock with the device synchronised around it
+    (tournament, K3 panel, U12 solve, trailing matmul, row moves), then
+    the device time by kernel under torch.profiler."""
+    from slate_tpu_torch.drivers import lu as dl
+    from slate_tpu_torch.internal import getrf as ig
+    run_gesv(st, a, b, nb, opts)                     # warm-up
+    spent: dict[str, float] = {}
+    patched = [(ig, "tournament_perm", "tournament"),
+               (ig, "panel_lu_nopiv", "k3_panel"),
+               (dl, "_solve_u12", "u12_solve"),
+               (dl, "_update_trailing", "trailing_matmul"),
+               (dl, "_apply_row_perm", "row_moves")]
+    saved = [getattr(mod, name) for mod, name, _ in patched]
+
+    def timed(fn, phase):
+        def run(*args, **kw):
+            out, dt = _timed(lambda: fn(*args, **kw))
+            spent[phase] = spent.get(phase, 0.0) + dt
+            return out
+        return run
+
+    try:
+        for (mod, name, phase), fn in zip(patched, saved):
+            setattr(mod, name, timed(fn, phase))
+        _, _, wall = run_gesv(st, a, b, nb, opts)
+    finally:
+        for (mod, name, _), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+    _, _, wall_plain = run_gesv(st, a, b, nb, opts)
+    emit({"phase": "trace_host_clock_s", "of": "gesv CALU",
+          "gesv_with_phase_syncs": wall, "gesv": wall_plain,
+          "outside_phases": wall - sum(spent.values()), **spent})
+    A = st.Matrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    profile_device("gesv CALU", lambda: st.gesv(A, B, opts))
 
 
 def main(argv=None) -> int:
@@ -313,7 +502,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nb", type=int, default=128)
     ap.add_argument("--nrhs", type=int, default=128)
     ap.add_argument("--trace", action="store_true",
-                    help="also break one warm posv down by phase and kernel")
+                    help="also break one warm posv and one warm CALU gesv "
+                         "down by phase and kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -321,10 +511,20 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     import slate_tpu_torch as st
     from slate_tpu_torch.internal.chol_kernels import CHOL_PANEL, CHOL_TILE
+    from slate_tpu_torch.internal.getrf import _lu_select_ok
     from slate_tpu_torch.internal.kernels import build_all
+    from slate_tpu_torch.internal.lu_kernels import LU_PANEL, LU_SELECT
     from slate_tpu_torch.internal.tri_inv import TRI_INV
     kernels = {"upper_tri_inv": TRI_INV, "chol_tile": CHOL_TILE,
-               "chol_panel_fused": CHOL_PANEL}
+               "chol_panel_fused": CHOL_PANEL, "lu_panel_fused": LU_PANEL,
+               "lu_select": LU_SELECT}
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
 
     card = card_line()
     print(card, flush=True)
@@ -340,6 +540,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = check_kernels(gen)
+    rows.update(check_lu_kernels(gen))
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -348,10 +549,9 @@ def main(argv=None) -> int:
     del g
     a.diagonal().add_(n)
     b = torch.randn(n, nrhs, generator=gen, device="cuda")
-    for k in kernels.values():
-        k.launches = 0
+    reset()
     x, wall = run_posv(st, a, b, nb)
-    main_launches = {name: k.launches for name, k in kernels.items()}
+    main_launches = counts()
     _, wall_repeat = run_posv(st, a, b, nb)
     x64 = solve_f64(a, b)
     res, fwd = accuracy(a, x, b, x64)
@@ -380,7 +580,8 @@ def main(argv=None) -> int:
         raise AssertionError("the accuracy bounds do not catch TF32 "
                              f"products: residual {res_tf}, forward {fwd_tf}")
     want = {"chol_panel_fused": 2 * (n // nb) - 1,
-            "upper_tri_inv": n // nb - 1, "chol_tile": 0}
+            "upper_tri_inv": n // nb - 1, "chol_tile": 0,
+            "lu_panel_fused": 0, "lu_select": 0}
     if main_launches != want:
         raise AssertionError(f"posv launches {main_launches} != {want}")
     del x, x64, x_tf
@@ -407,39 +608,162 @@ def main(argv=None) -> int:
     nt = 2048
     a_t = spd(nt, gen) * nt
     b_t = torch.randn(nt, nrhs, generator=gen, device="cuda")
-    for k in kernels.values():
-        k.launches = 0
+    reset()
     with st.plan_override("potrf_panel", st.LIBRARY_PLAN):
         x_t, wall_t = run_posv(st, a_t, b_t, nb)
-    tile_launches = {name: k.launches for name, k in kernels.items()}
+    tile_launches = counts()
     res_t, fwd_t = accuracy(a_t, x_t, b_t, solve_f64(a_t, b_t))
     emit({"phase": "posv_tile_route", "n": nt, "nb": nb, "wall_s": wall_t,
           "scaled_residual": res_t, "forward_error_vs_f64": fwd_t,
           "launches": tile_launches})
-    want_t = {"chol_panel_fused": 0, "upper_tri_inv": 0, "chol_tile": nt // nb}
+    want_t = {**{name: 0 for name in kernels}, "chol_tile": nt // nb}
     if (tile_launches != want_t or not res_t < RESIDUAL_BOUND
             or not fwd_t < FORWARD_BOUND):
         raise AssertionError(f"tile route: launches {tile_launches} (want "
                              f"{want_t}), residual {res_t}, forward {fwd_t}")
 
+    del a_t, b_t, x_t
+
+    # ---- the LU path at full width: gesv with CALU ----
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    a = orthogonal(n, gen)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    reset()
+    F, x, wall = run_gesv(st, a, b, nb, calu)
+    calu_launches = counts()
+    perm, calu_growth = F.perm, growth(F, a)
+    del F
+    _, _, wall_repeat = run_gesv(st, a, b, nb, calu)
+    x64 = torch.linalg.solve(a.double(), b.double())
+    res, fwd = accuracy(a, x, b, x64)
+    flops = 2 * n ** 3 / 3 + 2 * n * n * nrhs
+    emit({"phase": "gesv_calu", "n": n, "nb": nb, "nrhs": nrhs,
+          "dtype": "float32", "wall_s": wall, "wall_s_repeat": wall_repeat,
+          "gflops": flops / wall / 1e9,
+          "gflops_repeat": flops / wall_repeat / 1e9,
+          "scaled_residual": res, "residual_bound": GESV_RESIDUAL_BOUND,
+          "forward_error_vs_f64": fwd, "forward_bound": GESV_FORWARD_BOUND,
+          "pivot_growth": calu_growth, "launches": calu_launches,
+          "card": card})
+    _, x_tf, _ = tf32(lambda: run_gesv(st, a, b, nb, calu))
+    res_tf, fwd_tf = accuracy(a, x_tf, b, x64)
+    emit({"phase": "gesv_calu_tf32_control", "n": n,
+          "scaled_residual": res_tf, "forward_error_vs_f64": fwd_tf})
+    if not (torch.isfinite(x).all() and x.shape == (n, nrhs)
+            and torch.equal(torch.sort(perm).values,
+                            torch.arange(n, device="cuda"))):
+        raise AssertionError("gesv: non-finite or misshapen solution, or "
+                             "perm is not a permutation")
+    if not (res < GESV_RESIDUAL_BOUND and fwd < GESV_FORWARD_BOUND):
+        raise AssertionError(f"gesv: scaled residual {res} (bound "
+                             f"{GESV_RESIDUAL_BOUND}), forward error {fwd} "
+                             f"(bound {GESV_FORWARD_BOUND})")
+    if not (res_tf > GESV_RESIDUAL_BOUND and fwd_tf > GESV_FORWARD_BOUND):
+        raise AssertionError("the gesv accuracy bounds do not catch TF32 "
+                             f"products: residual {res_tf}, forward {fwd_tf}")
+    # every round at this size fits K4's slab (5120-row chunks at most)
+    want = {**{name: 0 for name in kernels},
+            **expected_calu_launches(n, nb, lambda h: _lu_select_ok(
+                torch.empty((1, h, nb), device="cuda"), nb))}
+    if calu_launches != want:
+        raise AssertionError(f"gesv CALU launches {calu_launches} != {want}")
+    del x, x_tf
+    if args.trace:
+        trace_gesv(st, a, b, nb, calu)
+
+    # ---- the library route: gesv's default method, PartialPiv ----
+    # alone: the pivot growth of an orthogonal matrix this size lies near
+    # the ladder's limit, past which the default gesv would go on to CALU
+    pp = {st.Option.MethodLU: st.MethodLU.PartialPiv,
+          st.Option.UseFallbackSolver: False,
+          st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    reset()
+    F, x, wall_pp = run_gesv(st, a, b, nb, pp)
+    pp_launches = counts()
+    pp_growth = growth(F, a)
+    del F
+    _, _, wall_pp_repeat = run_gesv(st, a, b, nb, pp)
+    res_pp, fwd_pp = accuracy(a, x, b, x64)
+    emit({"phase": "gesv_partialpiv_library_route", "n": n,
+          "wall_s": wall_pp, "wall_s_repeat": wall_pp_repeat,
+          "gflops_repeat": flops / wall_pp_repeat / 1e9,
+          "scaled_residual": res_pp, "forward_error_vs_f64": fwd_pp,
+          "pivot_growth": pp_growth, "launches": pp_launches})
+    if (any(pp_launches.values()) or not res_pp < GESV_RESIDUAL_BOUND
+            or not fwd_pp < GESV_FORWARD_BOUND):
+        raise AssertionError(f"PartialPiv gesv: launches {pp_launches} "
+                             f"(want none), residual {res_pp}, forward "
+                             f"{fwd_pp}")
+    del a, b, x, x64
+
+    # ---- the NoPiv route: K3 on every panel ----
+    nn = 8192
+    a_n = torch.randn(nn, nn, generator=gen, device="cuda")
+    a_n.diagonal().add_(nn)                  # strictly diagonally dominant
+    b_n = torch.randn(nn, nrhs, generator=gen, device="cuda")
+    reset()
+    _, x_n, wall_n = run_gesv(st, a_n, b_n, nb,
+                              {st.Option.MethodLU: st.MethodLU.NoPiv})
+    nopiv_launches = counts()
+    res_n, fwd_n = accuracy(a_n, x_n, b_n,
+                            torch.linalg.solve(a_n.double(), b_n.double()))
+    emit({"phase": "gesv_nopiv_route", "n": nn, "nb": nb, "wall_s": wall_n,
+          "scaled_residual": res_n, "forward_error_vs_f64": fwd_n,
+          "launches": nopiv_launches})
+    want_n = {**{name: 0 for name in kernels},
+              "lu_panel_fused": 2 * (nn // nb) - 1,
+              "upper_tri_inv": nn // nb - 1}
+    if (nopiv_launches != want_n or not res_n < GESV_RESIDUAL_BOUND
+            or not fwd_n < GESV_FORWARD_BOUND):
+        raise AssertionError(f"NoPiv route: launches {nopiv_launches} (want "
+                             f"{want_n}), residual {res_n}, forward {fwd_n}")
+    del a_n, b_n, x_n
+
+    # ---- a small CALU solve held against the same solve on the CPU ----
+    a_s = orthogonal(ns, gen)
+    b_s = torch.randn(ns, 4, generator=gen, device="cuda")
+    F_g, x_g, _ = run_gesv(st, a_s, b_s, nb, calu)
+    F_c, X_c = st.gesv(st.Matrix.from_numpy(a_s.cpu(), nb, device="cpu"),
+                       st.Matrix.from_numpy(b_s.cpu(), nb, device="cpu"),
+                       calu)
+    x_c = X_c.to_dense()
+    diff = float((x_g.cpu() - x_c).abs().max() / x_c.abs().max())
+    same_perm = bool(torch.equal(F_g.perm.cpu(), F_c.perm))
+    emit({"phase": "gesv_calu_vs_cpu", "n": ns, "rel_max_diff": diff,
+          "tol": 1e-4, "perm_equal": same_perm})
+    if not (diff <= 1e-4 and same_perm):
+        raise AssertionError(f"CALU gesv on the card vs the CPU: {diff} > "
+                             f"1e-4 or perm differs ({same_perm})")
+
     # ---- the record ----
-    emit({"launch_counts": {**main_launches,
-                            "chol_tile": tile_launches["chol_tile"]}})
+    emit({"launch_counts": {"posv": main_launches,
+                            "posv_tile_route": tile_launches,
+                            "gesv_calu": calu_launches,
+                            "gesv_nopiv_route": nopiv_launches,
+                            "gesv_partialpiv_library_route": pp_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
-                          "slate_tpu/internal/pallas_tri.py:28"),
+                          "slate_tpu/internal/pallas_tri.py:28", "posv",
+                          main_launches),
         "chol_tile": ("slate_tpu_torch/csrc/chol_tile.cu",
-                      "slate_tpu/internal/pallas_chol.py:320"),
+                      "slate_tpu/internal/pallas_chol.py:320",
+                      "posv_tile_route", tile_launches),
         "chol_panel_fused": ("slate_tpu_torch/csrc/chol_panel.cu",
-                             "slate_tpu/internal/pallas_chol.py:180"),
+                             "slate_tpu/internal/pallas_chol.py:180", "posv",
+                             main_launches),
+        "lu_panel_fused": ("slate_tpu_torch/csrc/lu_panel.cu",
+                           "slate_tpu/internal/pallas_lu.py:217",
+                           "gesv_calu", calu_launches),
+        "lu_select": ("slate_tpu_torch/csrc/lu_select.cu",
+                      "slate_tpu/internal/pallas_lu.py:346", "gesv_calu",
+                      calu_launches),
     }
     line = []
-    for name, (source, ref) in replaces.items():
+    for name, (source, ref, path, launches) in replaces.items():
         r = rows[name]
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": ref,
-                     "launches": (tile_launches[name] if name == "chol_tile"
-                                  else main_launches[name]),
+                     "replaces": ref, "launches": launches[name],
+                     "path": path,
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -3,9 +3,10 @@
 Both packages store a matrix as one tile array in the same (cyclic) order,
 so a reference ``TileStorage.data`` (as a numpy array) becomes the port's
 ``TileStorage.data`` unchanged, and a reference matrix becomes the port's
-matrix of the same class over the same view.  Nothing here imports the
-reference: a matrix is read through its attributes, which both packages
-share.
+matrix of the same class over the same view.  LU factors carry their
+packed matrix and ``perm``, RBT factors their butterflies besides.
+Nothing here imports the reference: objects are read through the
+attributes both packages share.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from .core.grid import Grid
 from .core.matrix import (BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix,
                           Matrix, SymmetricMatrix, TriangularMatrix)
 from .core.storage import TileStorage, as_tensor
+from .drivers.lu import LUFactors, RBTFactors
 from .exceptions import slate_error
 from .types import Diag, Op, TileKind, Uplo
 
@@ -50,3 +52,20 @@ def matrix_from_jax(M, device=None) -> BaseMatrix:
     if issubclass(cls, BaseTrapezoidMatrix):
         v._apply_extra_aux((Uplo(M.uplo.value), Diag(M.diag.value)))
     return v
+
+
+def lu_factors_from_jax(F, device=None) -> LUFactors:
+    """The port's LUFactors of a reference ``LUFactors`` (packed L\\U
+    matrix and ``perm``, A[perm] = L U)."""
+    return LUFactors(matrix_from_jax(F.LU, device),
+                     as_tensor(np.asarray(F.perm).astype(np.int64), device))
+
+
+def rbt_factors_from_jax(R, device=None) -> RBTFactors:
+    """The port's RBTFactors of a reference ``RBTFactors``: its NoPiv
+    factors of the transformed matrix and its two butterflies."""
+    def levels(bf):
+        return tuple((as_tensor(np.asarray(r0), device),
+                      as_tensor(np.asarray(r1), device)) for r0, r1 in bf)
+    return RBTFactors(lu_factors_from_jax(R.F, device), levels(R.u),
+                      levels(R.v), int(R.n))

@@ -13,18 +13,22 @@ extern "C" const char* slate_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// This library links its own CUDA runtime, whose current device is not
-// PyTorch's: select the operands' device before every launch.
-#define SLATE_SET_DEVICE(dev)                        \
-  do {                                               \
-    cudaError_t e_ = cudaSetDevice(dev);             \
-    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+// A refused runtime call also becomes the runtime's last error, which the
+// next launch's cudaGetLastError() would report: clear it before returning.
+#define SLATE_RETURN_IF_ERROR(expr)      \
+  do {                                   \
+    cudaError_t e_ = (expr);             \
+    if (e_ != cudaSuccess) {             \
+      cudaGetLastError();                \
+      return static_cast<int>(e_);       \
+    }                                    \
   } while (0)
 
+// This library links its own CUDA runtime, whose current device is not
+// PyTorch's: select the operands' device before every launch.
+#define SLATE_SET_DEVICE(dev) SLATE_RETURN_IF_ERROR(cudaSetDevice(dev))
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
-#define SLATE_SET_SMEM(kernel, bytes)                                        \
-  do {                                                                       \
-    cudaError_t e_ = cudaFuncSetAttribute(                                   \
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(bytes)); \
-    if (e_ != cudaSuccess) return static_cast<int>(e_);                      \
-  } while (0)
+#define SLATE_SET_SMEM(kernel, bytes)                \
+  SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(        \
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(bytes)))

@@ -117,15 +117,19 @@ class CudaKernel:
                 self._lib = lib
             return self._lib
 
-    def launch(self, symbol: str, *args) -> None:
-        """Call one C entry point and count the launch; raise if CUDA
-        refused it (the kernel then never ran)."""
+    def call(self, symbol: str, *args) -> None:
+        """Call one C entry point; raise if it returns a CUDA error."""
         lib = self.lib()
         rc = getattr(lib, symbol)(*args)
         if rc != 0:
             msg = lib.slate_cuda_error_string(rc).decode()
-            raise RuntimeError(f"{self.name}: {symbol} failed to launch: "
-                               f"CUDA error {rc} ({msg})")
+            raise RuntimeError(f"{self.name}: {symbol} failed: CUDA error "
+                               f"{rc} ({msg})")
+
+    def launch(self, symbol: str, *args) -> None:
+        """Call one C entry point that launches the kernel and count the
+        launch; raise if CUDA refused it (the kernel then never ran)."""
+        self.call(symbol, *args)
         self.launches += 1
 
 

@@ -1,0 +1,178 @@
+"""K3 and K4: the fused no-pivot LU panel and the CALU pivot selection (port
+of slate_tpu/internal/pallas_lu.py ``lu_panel_fused`` and
+``lu_select_pallas``).
+
+Each kernel has a plain version here that repeats its arithmetic in torch
+ops: the CPU tests run it, and on the card it is only the comparison.  A
+wrapper takes the plain version for CPU tensors only; for CUDA tensors it
+launches the kernel (``csrc/lu_panel.cu``, ``csrc/lu_select.cu``) or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
+    device_and_stream
+from .tri_inv import upper_tri_inv, upper_tri_inv_plain
+
+LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
+    "slate_lu_panel_diag": [I32, P, P, I64, I64, I32, I32, P],
+    "slate_lu_panel_below": [I32, P, P, I64, I64, I32, I32, P, P]})
+LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
+    "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P,
+                        P],
+    "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+
+PANEL_NB = (32, 64, 96, 128)   # K3's instantiated widths, as K2's
+SELECT_MAX_NB = 128            # K4: four columns a lane
+
+
+def select_fits(device: torch.device, w: int, nb: int, bw: int) -> bool:
+    """True when K4 can take a round of w-row chunks on this CUDA device:
+    the kernel's own count of its shared memory (the w x bw slab and its
+    scratch) against the device's per-block limit."""
+    fits = ctypes.c_int(0)
+    LU_SELECT.call("slate_lu_select_fits", device.index, w, nb, bw,
+                   ctypes.byref(fits))
+    return bool(fits.value)
+
+
+def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
+    """Unpivoted packed L\\U of a square tile by the column loop of
+    ``_lu_factor_in_place`` (pallas_lu.py:137), in bw-row slabs: the slab's
+    rows eliminate against themselves column by column (a zero pivot
+    divides by 1, as the reference does), then the tile's rows below the
+    slab get l21 = A21 D^-1 (D the slab's upper block, inverted by K0's
+    back substitution) and the rank-bw trailing update."""
+    s = a.clone()
+    n = s.shape[0]
+    for j0 in range(0, n, bw):
+        j1 = j0 + bw
+        for j in range(j0, j1):
+            piv = s[j, j]
+            l = s[j + 1:j1, j] / torch.where(piv == 0, 1.0, piv)
+            s[j + 1:j1, j + 1:] -= l[:, None] * s[j, j + 1:]
+            s[j + 1:j1, j] = l
+        if j1 < n:
+            l21 = s[j1:, j0:j1] @ upper_tri_inv_plain(s[j0:j1, j0:j1])
+            s[j1:, j1:] -= l21 @ s[j0:j1, j1:]
+            s[j1:, j0:j1] = l21
+    return s
+
+
+def lu_panel_plain(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
+    """The fused panel in torch ops: row tile 0 by :func:`lu_tile_plain`,
+    the rows below times U^-1 (K0's back substitution on triu(tile 0))."""
+    nb = panel.shape[1]
+    top = lu_tile_plain(panel[:nb], bw)
+    if panel.shape[0] == nb:
+        return top
+    return torch.cat([top, panel[nb:] @ upper_tri_inv_plain(top)])
+
+
+def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
+    """Fused unpivoted LU panel: the packed L\\U of [W, nb], W % nb == 0,
+    unit lower diagonal implied (getrf.panel_lu_nopiv's contract).  Any
+    strides.  A CPU tensor takes the plain version; CUDA tensors launch K3
+    (f32, nb in {32, 64, 96, 128}) or raise.  On CUDA, on the current
+    stream: K3's diagonal launch (row tile 0), and when W > nb, K0 on
+    triu(tile 0) (counted by K0's wrapper) and K3's launch for the rows
+    below.  LU_PANEL counts K3's one or two launches."""
+    w, nb = panel.shape
+    if w < nb or w % nb or bw < 1 or nb % bw:
+        raise ValueError(f"lu_panel_fused: needs W % nb == 0 and nb % bw == "
+                         f"0, got {tuple(panel.shape)} and bw={bw}")
+    if panel.device.type == "cpu":
+        return lu_panel_plain(panel, bw)
+    check_cuda_f32("lu_panel_fused", panel)
+    if nb not in PANEL_NB:
+        raise ValueError(f"lu_panel_fused: nb = {nb} not in {PANEL_NB}")
+    out = torch.empty((w, nb), dtype=panel.dtype, device=panel.device)
+    dev, stream = device_and_stream(panel)
+    strides = (panel.data_ptr(), panel.stride(0), panel.stride(1), nb)
+    LU_PANEL.launch("slate_lu_panel_diag", dev, stream, *strides, bw,
+                    out.data_ptr())
+    if w > nb:
+        uinv = upper_tri_inv(out[:nb])               # K0 on triu(tile 0)
+        LU_PANEL.launch("slate_lu_panel_below", dev, stream, *strides, w,
+                        uinv.data_ptr(), out.data_ptr())
+    return out
+
+
+def _live_rows(nrows, g: int, w: int, device) -> torch.Tensor:
+    """[g] int32 live-row counts from None (all), an int or a tensor."""
+    if nrows is None:
+        nrows = w
+    if isinstance(nrows, int):
+        return torch.full((g,), nrows, dtype=torch.int32, device=device)
+    return (torch.as_tensor(nrows, device=device).to(torch.int32).expand(g)
+            .contiguous())
+
+
+def lu_select_plain(chunks: torch.Tensor, nrows=None,
+                    bw: int = 8) -> torch.Tensor:
+    """K4's steps in torch ops over a batch [G, W, nb]: per bw-column slab,
+    column by column the masked argmax (first maximum; dead rows count -1),
+    the live rows' multipliers (0 for a zero pivot) and the slab's later
+    columns; then the U rows of the slab's pivots and the trailing update
+    of the rows still live.  Returns [G, nb] int64."""
+    g, w, nb = chunks.shape
+    gi = torch.arange(g, device=chunks.device)
+    ws = chunks.clone()
+    live = (torch.arange(w, device=chunks.device)[None, :]
+            < _live_rows(nrows, g, w, chunks.device)[:, None])
+    piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
+    for j0 in range(0, nb, bw):
+        j1 = j0 + bw
+        slab = ws[:, :, j0:j1].clone()
+        for i in range(bw):
+            col = slab[:, :, i]
+            p = torch.where(live, col.abs(), -1.0).argmax(dim=1)
+            piv[:, j0 + i] = p
+            pv = col[gi, p]
+            live[gi, p] = False
+            mult = torch.where(live & (pv != 0)[:, None],
+                               col / torch.where(pv == 0, 1.0, pv)[:, None],
+                               0.0)
+            slab[:, :, i] = torch.where(live, mult, col)
+            prow = slab[gi, p, i + 1:]
+            slab[:, :, i + 1:] -= mult[:, :, None] * prow[:, None]
+        if j1 < nb:
+            rows = piv[:, j0:j1]
+            us = []
+            for i in range(bw):
+                u = ws[gi, rows[:, i], j1:]
+                for k in range(i):
+                    u = u - slab[gi, rows[:, i], k][:, None] * us[k]
+                us.append(u)
+            mult = torch.where(live[:, :, None], slab, 0.0)
+            ws[:, :, j1:] -= mult @ torch.stack(us, dim=1)
+    return piv
+
+
+def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
+    """Partial-pivot rows of each chunk of a round: [G, W, nb] -> [G, nb]
+    int64, in elimination order; rows at or past ``nrows`` (None: all
+    live; an int or a [G] tensor) are dead.  On input without ties this is
+    lax.linalg.lu's perm[:nb] of each chunk.  A CPU tensor takes the plain
+    version; CUDA tensors launch K4 once for the whole batch (f32, within
+    :func:`select_fits`) or raise."""
+    g, w, nb = chunks.shape
+    if bw < 1 or nb % bw or w < nb:
+        raise ValueError(f"lu_select: needs W >= nb and nb % bw == 0, got "
+                         f"{tuple(chunks.shape)} and bw={bw}")
+    if chunks.device.type == "cpu":
+        return lu_select_plain(chunks, nrows, bw)
+    check_cuda_f32("lu_select", chunks)
+    live = _live_rows(nrows, g, w, chunks.device)
+    ws = torch.empty((g, w, nb), dtype=chunks.dtype, device=chunks.device)
+    piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
+    LU_SELECT.launch("slate_lu_select", *device_and_stream(chunks),
+                     chunks.data_ptr(), chunks.stride(0), chunks.stride(1),
+                     chunks.stride(2), live.data_ptr(), g, w, nb, bw,
+                     ws.data_ptr(), piv.data_ptr())
+    return piv

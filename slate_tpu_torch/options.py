@@ -101,6 +101,15 @@ class Option(enum.Enum):
     PrintPrecision = "print_precision"
 
 
+class MethodLU(enum.Enum):
+    """LU pivoting variant (ref: method.hh:277-316)."""
+
+    Auto = "auto"
+    PartialPiv = "PPLU"
+    CALU = "CALU"  # tournament pivoting (tntpiv)
+    NoPiv = "NoPiv"
+
+
 class GridOrder(enum.Enum):
     """Process-grid numbering order (ref: enums.hh:127-131)."""
 
@@ -110,16 +119,20 @@ class GridOrder(enum.Enum):
 
 Options = Mapping[Option, Any]
 
-# The defaults of the options this slice reads; every other key reads as
-# None until the slice that uses it brings its default over.
+# The defaults of the options the ported slices read; every other key reads
+# as None until the slice that uses it brings its default over.
 _DEFAULTS = {
+    Option.MaxPanelThreads: 4,
     Option.Target: Target.auto,
     Option.ErrorPolicy: ErrorPolicy.Raise,
     Option.Speculate: Speculate.Auto,
     Option.Abft: Abft.Auto,
     Option.Precision: Precision.Auto,
     Option.UseFallbackSolver: True,
+    Option.PivotThreshold: 1.0,
+    Option.MethodLU: MethodLU.Auto,
     Option.HoldLocalWorkspace: False,
+    Option.Depth: 2,
 }
 
 _UNSET = object()
@@ -163,6 +176,14 @@ def resolve_speculate(opts: Options | None) -> bool:
     """Resolve Option.Speculate once at a driver boundary: True only for
     an explicit ``Speculate.On``."""
     return get_option(opts, Option.Speculate) is Speculate.On
+
+
+def select_lu_method(opts: Options | None) -> MethodLU:
+    """MethodLU.Auto resolves to partial pivoting (ref: options.py:367)."""
+    m = get_option(opts, Option.MethodLU)
+    if m is not MethodLU.Auto:
+        return m
+    return MethodLU.PartialPiv
 
 
 def resolve_abft(opts: Options | None) -> bool:

@@ -64,6 +64,27 @@ def healthy() -> HealthInfo:
                       converged=True)
 
 
+def from_pivots(diag: torch.Tensor) -> HealthInfo:
+    """Health of a factorization from its pivots (ref: health.py:99; the
+    port has no caller for its ``growth`` and ``valid`` arguments).
+
+    ``diag``: the factor's diagonal (U's for LU), any dtype.  ``info`` is
+    the 1-based index of the first exactly-zero or non-finite pivot, 0 if
+    none; the minimum is taken as ``torch.argmin`` takes it (a NaN wins)."""
+    mag = diag.abs()
+    bad = (mag == 0) | ~torch.isfinite(mag)
+    mpi = torch.argmin(mag)
+    any_bad, first_bad, mpi_v, minpiv, nonfinite = torch.stack([
+        bad.any().double(), torch.argmax(bad.int()).double(), mpi.double(),
+        mag[mpi].double(), (~torch.isfinite(mag)).any().double(),
+    ]).tolist()
+    return healthy()._replace(
+        nonfinite=bool(nonfinite),
+        info=int(first_bad) + 1 if any_bad else 0,
+        min_pivot=minpiv,
+        min_pivot_index=int(mpi_v))
+
+
 def from_result(x: torch.Tensor) -> HealthInfo:
     """Health of a computed result: the non-finite flag only."""
     return healthy()._replace(nonfinite=not bool(torch.isfinite(x).all()))
@@ -111,7 +132,10 @@ def _poison(result):
     from ..core.matrix import BaseMatrix
     from ..core.storage import TileStorage
     if isinstance(result, tuple):
-        return tuple(_poison(r) for r in result)
+        parts = [_poison(r) for r in result]
+        # a NamedTuple (LUFactors) keeps its type; integer leaves (perm) stay
+        return (type(result)(*parts) if hasattr(result, "_fields")
+                else tuple(parts))
     if isinstance(result, BaseMatrix):
         st = result.storage
         data = torch.full_like(st.data, math.nan)

@@ -1,19 +1,27 @@
-"""posv's retry ladder (port of the posv part of
+"""The retry ladders of gesv and posv (port of the gesv and posv parts of
 slate_tpu/robust/recovery.py).
 
-posv factors and solves once under ErrorPolicy.Info and resolves the
-health at its boundary.  With ``Option.UseFallbackSolver`` (the default)
-the reference retries a non-HPD input as Hermitian-indefinite (hesv) and
-then as plain LU (gesv); those solvers are not ported yet, so here that
-rung raises ``NotImplementedError`` when it is reached (a HPD input never
-reaches it).  The bf16 rung (Speculate + Precision = bf16) raises too.
+Each solver factors and solves under ErrorPolicy.Info and resolves the
+health at its boundary.
+
+- gesv escalates the pivoting on an unhealthy factor, NoPiv -> PartialPiv
+  -> CALU, through :func:`bounded_retry` (``Option.UseFallbackSolver``).
+  Its speculative first rung (``Option.Speculate = On``: the RBT
+  preconditioned NoPiv solve, refined and certified) raises
+  ``NotImplementedError``: it needs gemm, norm and the certificates.
+- posv: with ``Option.UseFallbackSolver`` (the default) the reference
+  retries a non-HPD input as Hermitian-indefinite (hesv) and then as
+  plain LU (gesv); hesv is not ported yet, so that rung raises
+  ``NotImplementedError`` when it is reached (a HPD input never reaches
+  it).  The bf16 rung (Speculate + Precision = bf16) raises too.
 """
 
 from __future__ import annotations
 
-from ..exceptions import SlateNotPositiveDefiniteError, not_ported
-from ..options import (ErrorPolicy, Option, Options, Precision, get_option,
-                       resolve_speculate)
+from ..exceptions import (SlateNotPositiveDefiniteError, SlateSingularError,
+                          not_ported)
+from ..options import (ErrorPolicy, MethodLU, Option, Options, Precision,
+                       get_option, resolve_speculate, select_lu_method)
 from . import health as _h
 
 
@@ -42,6 +50,60 @@ def bounded_retry(first, fallbacks, *, dtype, max_retries: int = 2):
     return result, h, used
 
 
+_LU_CHAIN = {
+    MethodLU.NoPiv: (MethodLU.NoPiv, MethodLU.PartialPiv, MethodLU.CALU),
+    MethodLU.PartialPiv: (MethodLU.PartialPiv, MethodLU.CALU),
+    MethodLU.CALU: (MethodLU.CALU,),
+}
+
+
+def _lu_attempt(A, B, opts, method):
+    """One factor+solve attempt under ErrorPolicy.Info; health merges the
+    factor's pivot record with the solution's finiteness."""
+    from ..drivers import lu as _lu
+    o = _with(opts, MethodLU=method, ErrorPolicy=ErrorPolicy.Info)
+    factor = {MethodLU.NoPiv: _lu.getrf_nopiv,
+              MethodLU.CALU: _lu.getrf_tntpiv}.get(method, _lu.getrf)
+    F, fh = factor(A, o)
+    X = _lu.getrs(F, B, o)
+    return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
+
+
+def gesv_with_recovery(A, B, opts: Options | None = None):
+    """gesv body: the requested method first, then (with
+    Option.UseFallbackSolver) the rest of its pivoting ladder while the
+    health is not acceptable.  Returns ``(F, X)`` under Raise/Nan,
+    ``(F, X, HealthInfo)`` under Info."""
+    method = select_lu_method(opts)
+    if resolve_speculate(opts):
+        raise not_ported("gesv's speculative RBT rung (Option.Speculate = "
+                         "On: getrf_rbt with refinement and a residual "
+                         "certificate)", "queue 1, item 6 (robustness)")
+    chain = _LU_CHAIN[method]
+    fb_methods = (chain[1:] if get_option(opts, Option.UseFallbackSolver)
+                  else ())
+    (F, X), h, _ = bounded_retry(
+        _lu_attempt(A, B, opts, chain[0]),
+        [lambda m=m: _lu_attempt(A, B, opts, m) for m in fb_methods],
+        dtype=A.dtype, max_retries=max(len(fb_methods), 1))
+    return _finalize_solve("gesv", F, X, h, opts, _singular_exc("gesv"))
+
+
+def gesv_nopiv_raw(A, B, opts: Options | None = None):
+    """gesv_nopiv body: one NoPiv attempt, no escalation and no growth
+    demotion: a finite (if catastrophic) NoPiv solve returns, as in the
+    reference."""
+    (F, X), h = _lu_attempt(A, B, opts, MethodLU.NoPiv)
+    return _finalize_solve("gesv_nopiv", F, X, h, opts,
+                           _singular_exc("gesv_nopiv"))
+
+
+def _singular_exc(name):
+    return lambda h: SlateSingularError(
+        f"{name}: singular or numerically unusable factor "
+        f"({h.describe()})", info=h.info)
+
+
 def _chol_attempt(A, B, opts):
     """One potrf+potrs attempt under Info: an indefinite input NaN-fills
     the factor, which reads as ``nonfinite``."""
@@ -53,10 +115,10 @@ def _chol_attempt(A, B, opts):
 
 
 def _indefinite_fallback():
-    raise not_ported("posv's fallback to hesv and gesv for a matrix that is "
-                     "not positive definite (Option.UseFallbackSolver; set "
-                     "it False to get the Cholesky result and its health)",
-                     "queue 1, items 4 (gesv) and 8 (hesv)")
+    raise not_ported("posv's fallback to hesv (then gesv) for a matrix "
+                     "that is not positive definite (Option.UseFallbackSolver;"
+                     " set it False to get the Cholesky result and its "
+                     "health)", "queue 1, item 8 (hesv)")
 
 
 def posv_with_recovery(A, B, opts: Options | None = None):

@@ -14,15 +14,17 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
-OPS = ("potrf_tile", "potrf_panel")
+OPS = ("potrf_tile", "potrf_panel", "getrf_panel", "lu_select")
 KERNELS = ("cuda", "torch")
 
 
 class TilePlan(NamedTuple):
     """One dispatch decision: ``kernel`` "cuda" (the hand-written kernel)
-    or "torch" (PyTorch's library call), and the row-panel width ``bw`` of
-    the Cholesky column loop.  (The reference's plan also names a tile
-    width; the port tiles by the matrix's ``nb`` alone, so it has none.)"""
+    or "torch" (PyTorch's library call), and the slab width ``bw`` of the
+    kernel's column loop (the Cholesky and no-pivot LU tile factors, and
+    the pivot selection), which the plain version and the CUDA kernel both
+    honour.  (The reference's plan also names a tile width; the port tiles
+    by the matrix's ``nb`` alone, so it has none.)"""
     kernel: str = "cuda"
     bw: int = 8
 

@@ -15,6 +15,9 @@ import torch
 
 import slate_tpu_torch as st
 from slate_tpu_torch.internal import chol_kernels as ck
+from slate_tpu_torch.internal import getrf as ig
+from slate_tpu_torch.internal import lu_kernels as lk
+from slate_tpu_torch.internal.getrf import panel_lu
 from slate_tpu_torch.internal.tri_inv import TRI_INV, upper_tri_inv, \
     upper_tri_inv_plain
 
@@ -89,6 +92,70 @@ def test_posv_on_the_card_matches_the_cpu_route(cuda):
     assert TRI_INV.launches - before[1] == n // nb - 1
     _, Xc = st.posv(st.SymmetricMatrix.from_numpy(a, nb, device="cpu"),
                     st.Matrix.from_numpy(b, nb, device="cpu"))
+    want = Xc.to_numpy()
+    np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
+                               atol=RTOL * np.abs(want).max())
+
+
+def _pivoted_panel(rng, m, nb, cuda):
+    """A Gaussian panel in its partial-pivoting row order: the kind of
+    panel the CALU final factor hands K3 (U with cond ~100)."""
+    g = torch.from_numpy(rng.standard_normal((m, nb)).astype(np.float32))
+    return g[panel_lu(g)[1]].to(cuda)
+
+
+def test_lu_kernels_match_plain_versions(cuda):
+    rng = np.random.default_rng(10)
+    for m, nb in ((1024, 128), (512, 64), (128, 128)):
+        x = _pivoted_panel(rng, m, nb, cuda)
+        launches = lk.LU_PANEL.launches, TRI_INV.launches
+        torch.testing.assert_close(lk.lu_panel_fused(x, 8),
+                                   lk.lu_panel_plain(x, 8), rtol=RTOL,
+                                   atol=ATOL)
+        # K3's diagonal launch, and when there are rows below, K0 and K3's
+        # launch for them
+        below = int(m > nb)
+        assert (lk.LU_PANEL.launches, TRI_INV.launches) == \
+            (launches[0] + 1 + below, launches[1] + below)
+    for g, w, nrows in ((2, 256, None), (3, 1024, None), (2, 512, 300)):
+        x = torch.from_numpy(rng.standard_normal((g, w, 128)).astype(
+            np.float32)).to(cuda)
+        before = lk.LU_SELECT.launches
+        got = lk.lu_select(x, nrows=nrows)
+        assert lk.LU_SELECT.launches == before + 1     # one launch a round
+        assert torch.equal(got, lk.lu_select_plain(x, nrows))
+        if nrows is None:
+            assert torch.equal(got, panel_lu(x)[1][:, :128])
+    # the gate asks the kernel: 5120-row chunks (round 1 of the tallest
+    # panels at n = 20480) fit, 8192 rows do not, and a launch past the
+    # limit raises and leaves no error behind for the next launch
+    assert ig._lu_select_ok(torch.zeros((1, 5120, 128), device=cuda), 128)
+    assert not ig._lu_select_ok(torch.zeros((1, 8192, 128), device=cuda),
+                                128)
+    with pytest.raises(RuntimeError, match="slate_lu_select"):
+        lk.lu_select(torch.zeros((1, 8192, 128), device=cuda))
+    x = torch.from_numpy(rng.standard_normal((1, 5120, 128)).astype(
+        np.float32)).to(cuda)
+    assert torch.equal(lk.lu_select(x), lk.lu_select_plain(x))
+
+
+def test_calu_gesv_on_the_card_matches_the_cpu_route(cuda):
+    rng = np.random.default_rng(11)
+    n, nb = 512, 128
+    q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    a = (q * np.sqrt(n)).astype(np.float32)
+    b = rng.standard_normal((n, 4)).astype(np.float32)
+    opts = {st.Option.MethodLU: st.MethodLU.CALU}
+    before = lk.LU_SELECT.launches, lk.LU_PANEL.launches
+    Fg, Xg = st.gesv(st.Matrix.from_numpy(a, nb),
+                     st.Matrix.from_numpy(b, nb), opts)
+    # panels of 4, 3 and 2 tiles: 2 + 2 + 1 tournament rounds and K3 twice
+    # on each; the last single-tile panel takes the library's pivoted LU
+    assert lk.LU_SELECT.launches - before[0] == 5
+    assert lk.LU_PANEL.launches - before[1] == 6
+    Fc, Xc = st.gesv(st.Matrix.from_numpy(a, nb, device="cpu"),
+                     st.Matrix.from_numpy(b, nb, device="cpu"), opts)
+    assert torch.equal(Fg.perm.cpu(), Fc.perm)
     want = Xc.to_numpy()
     np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
                                atol=RTOL * np.abs(want).max())
