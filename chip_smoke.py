@@ -9,7 +9,12 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      kernel from slate_tpu_torch/csrc (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes, with the tolerance stated beside each check (K4:
-     equal indices), and time kernel, plain version and library call;
+     equal indices), and time kernel, plain version and library call; K5
+     (qr_panel) at [8192, 128] and [4224, 128] (the first and last panels
+     of the gels below), [1000, 128], [512, 40] and a [512, 48] panel with
+     a zero column and alpha = -0.0, also against torch.geqrf's panel and
+     build_t of its taus, and each shape timed on householder_panel_blocked
+     (the CholQR2 route of panels past K5's 2^20-element cap);
   3. the Cholesky path at full width: ``slate_tpu_torch.posv`` on an SPD
      matrix built as in examples/ex07 (A = G G^T + n I, G Gaussian from
      --seed), n = 20480, nb = 128, 128 right-hand sides, f32: the scaled
@@ -28,12 +33,28 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      matrix, the library route (gesv's default method, PartialPiv, with
      the fallback ladder off: no hand kernel), and a small CALU gesv held
      against the CPU;
-  6. print the launch counts, the card line, the kernels line, and last
+  6. the QR path at full width: ``slate_tpu_torch.gels`` with default
+     options at m = 8192, n = 4096 (m < 3n: Householder QR), 128
+     right-hand sides, nb = 128, f32, A Gaussian and B = A X0 + a residual
+     orthogonal to range(A): the scaled normal-equations residual and the
+     error against an f64 lstsq, each under a bound that the same solve
+     with TF32 products exceeds; K5 launched once a panel (32), K0-K4
+     never; wall time and GFLOP/s (LAPACK's geqrf + ormqr + trsm counts);
+  7. BASELINE.md config 4 cut to f32 and one card, gels at 200000 x 1024
+     (a ragged last tile row): the default route, CholQR, launches K2 and
+     K0 as potrf at n = 1024 does (15 and 7); MethodGels.QR forced takes
+     no hand kernel (every panel is past K5's cap); accuracy (bounds that
+     a TF32 solve exceeds) and walls of both; then small QR checks against the CPU (gels with m < n, cholqr,
+     unmqr in all four (side, op) pairs, qr_multiply's ||Q^T Q - I||);
+  8. print the launch counts, the card line, the kernels line, and last
      the result line.
-With --trace it also breaks one warm posv and one warm CALU gesv down by
-phase (host clock) and by kernel (torch.profiler), with the device's idle
-share.
+With --trace it also breaks one warm posv, one warm CALU gesv and one
+warm QR gels down by phase (host clock) and by kernel (torch.profiler),
+with the device's idle share.
 
+The Cholesky and LU phases draw their matrices from one generator seeded
+with --seed, the QR phases (K5's check included) from their own, seeded
+with --seed + 1, so that adding to one slice moves no other's matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -72,6 +93,21 @@ FORWARD_BOUND = 1e-4
 # second, and every run checks both halves (PERF.md has the numbers).
 GESV_RESIDUAL_BOUND = 1e-2
 GESV_FORWARD_BOUND = 5e-3
+# gels at 8192 x 4096 (A Gaussian, cond ~6, a residual orthogonal to
+# range(A)): the scaled normal-equations residual ||A^T (B - AX)||_F /
+# (||A||_F (||A||_F ||X||_F + ||B||_F) n eps_f32), formed in f64, and the
+# forward error against an f64 least-squares solve.  f32 gives ~3e-7 and
+# ~1e-6, TF32 ~3e-4 and ~1e-3; the bounds sit ~30x from each, and every
+# run checks both halves (PERF.md has the numbers).
+GELS_SHAPE = (8192, 4096)       # m < 3n: Householder QR, 32 K5 panels
+GELS_RESIDUAL_BOUND = 1e-5
+GELS_FORWARD_BOUND = 3e-5
+# config 4 (200000 x 1024, cond ~1.2): CholQR's semi-normal equations give
+# ~2e-5 and ~4e-6, the QR route ~3e-6 and ~7e-7, TF32 ~5e-3 and ~1e-3 on
+# either route; the bounds sit 10-25x from each.
+CFG4_SHAPE = (200000, 1024)     # BASELINE.md config 4, the last tile ragged
+CFG4_RESIDUAL_BOUND = 2e-4
+CFG4_FORWARD_BOUND = 1e-4
 
 
 def emit(obj) -> None:
@@ -316,6 +352,212 @@ def check_lu_kernels(gen) -> dict:
     return rows
 
 
+def qr_flops(mm: int, w: int) -> float:
+    """A Householder panel [mm, w] with its T: 2 mm w^2 - 2 w^3 / 3 for the
+    reflectors and their application, mm w^2 - w^3 / 3 for larft's T."""
+    return 3 * mm * w * w - w ** 3
+
+
+def check_qr_kernels(gen) -> dict:
+    """K5 against its plain version on the first and last panels of the
+    main gels (8192 and 4224 rows), an mm that is no multiple of 8, a
+    narrow panel, and a panel with an exactly-zero column and alpha = -0.0
+    in column 0; torch.geqrf's packed panel and build_t of its taus held
+    against K5's on the Gaussian panels; each shape also timed on
+    householder_panel_blocked, the CholQR2 route that panels past K5's
+    cap take."""
+    from slate_tpu_torch.internal.qr import build_t, householder_panel_blocked
+    from slate_tpu_torch.internal.qr_kernels import qr_panel, qr_panel_plain
+    rows = {}
+    for mm, w, special in ((8192, 128, False), (4224, 128, False),
+                           (1000, 128, False), (512, 40, False),
+                           (512, 48, True)):
+        x = torch.randn(mm, w, generator=gen, device="cuda")
+        if special:
+            x[:, 5] = 0.0
+            x[0, 0] = -0.0
+        got = qr_panel(x)
+
+        def library():
+            return torch.geqrf(x)
+        witness = None
+        if not special:
+            # LAPACK's sign of beta is the reference's on these inputs;
+            # at alpha = -0.0 a library may take copysign's
+            packed_l, tau_l = library()
+            witness = [packed_l, build_t(packed_l, tau_l)]
+        row = check(
+            "qr_panel", {"mm": mm, "w": w, "bw": 8,
+                         "zero_column_and_alpha_-0": special},
+            list(got), list(qr_panel_plain(x)),
+            "the same slab loop in both, sums over mm rows in another "
+            "order; Gaussian panel, |R| <= ~sqrt(mm), |V| <= 1, T ~ 1",
+            time_ms(lambda: qr_panel(x), 10),
+            time_ms(lambda: qr_panel_plain(x), 2),
+            time_ms(library, 10),
+            qr_flops(mm, w), 4 * (2 * mm * w + w * w),
+            control=tf32(lambda: list(qr_panel_plain(x))),
+            witness=witness)
+        row["cholqr2_route_ms"] = time_ms(
+            lambda: householder_panel_blocked(x), 5)
+        emit({"phase": "qr_panel_routes", "mm": mm, "w": w,
+              "k5_ms": row["kernel_ms"],
+              "householder_panel_blocked_ms": row["cholqr2_route_ms"]})
+        if special:
+            if not (torch.equal(got[0][:, 5], x[:, 5])
+                    and float(got[1][5, 5]) == 0.0
+                    and float(got[0][0, 0]) < 0):
+                raise AssertionError("qr_panel: the zero column was not "
+                                     "left as it was, or beta at alpha = "
+                                     "-0.0 is not -mu")
+        if (mm, w) == (8192, 128):
+            rows["qr_panel"] = row
+    return rows
+
+
+def lstsq_problem(m: int, n: int, nrhs: int, gen: torch.Generator):
+    """A Gaussian [m, n] and B = A X0 + a residual orthogonal to range(A)
+    (projected out in f64), so that the least-squares solution is X0 and
+    the residual is real; returns (A, B, X_f64) with X_f64 the f64
+    least-squares solution of the f32 (A, B)."""
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    x0 = torch.randn(n, nrhs, generator=gen, device="cuda")
+    r = torch.randn(m, nrhs, generator=gen, device="cuda").double()
+    a64 = a.double()
+    r -= a64 @ torch.linalg.lstsq(a64, r).solution
+    b = (a @ x0 + r.float()).contiguous()
+    x64 = torch.linalg.lstsq(a64, b.double()).solution
+    return a, b, x64
+
+
+def lstsq_accuracy(a, x, b, x64) -> tuple[float, float]:
+    """(the scaled normal-equations residual ||A^T (B - A X)||_F /
+    (||A||_F (||A||_F ||X||_F + ||B||_F) n eps_f32), formed in f64, and
+    the forward error max|X - X_f64| / max|X_f64|)."""
+    a64, x = a.double(), x.double()
+    ne = a64.T @ (b.double() - a64 @ x)
+    na = torch.linalg.norm(a64)
+    res = float(torch.linalg.norm(ne) / (
+        na * (na * torch.linalg.norm(x) + torch.linalg.norm(b.double()))
+        * a.shape[1] * EPS32))
+    fwd = float((x - x64).abs().max() / x64.abs().max())
+    return res, fwd
+
+
+def run_gels(st, a, b, nb, opts=None):
+    """gels on device matrices; returns (X dense, wall seconds)."""
+    A = st.Matrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X = st.gels(A, B, opts)
+    x = X.to_dense()
+    torch.cuda.synchronize()
+    return x, time.perf_counter() - t0
+
+
+def gels_flops(m: int, n: int, nrhs: int) -> float:
+    """LAPACK's counts: geqrf 2mn^2 - 2n^3/3, ormqr 4mn nrhs - 2n^2 nrhs,
+    trsm n^2 nrhs."""
+    return (2 * m * n * n - 2 * n ** 3 / 3 + 4 * m * n * nrhs
+            - 2 * n * n * nrhs + n * n * nrhs)
+
+
+def trace_gels(st, a, b, nb) -> None:
+    """Where one warm QR-route gels' time goes: the K5 panels, the larfb
+    trailing updates (apply_q_left), unmqr on B and the triangular solve,
+    each timed on the host clock with the device synchronised around it
+    (a phase inside another counts to the outer one), then the device time
+    by kernel under torch.profiler."""
+    from slate_tpu_torch.drivers import qr as dq
+    run_gels(st, a, b, nb)                           # warm-up
+    spent: dict[str, float] = {}
+    patched = [(dq, "geqrf_panel", "k5_panel"),
+               (dq, "apply_q_left", "trailing_update"),
+               (dq, "unmqr", "unmqr_on_b"),
+               (dq, "_solve_r", "triangular_solve")]
+    saved = [getattr(mod, name) for mod, name, _ in patched]
+    depth = [0]
+
+    def timed(fn, phase):
+        def run(*args, **kw):
+            if depth[0]:
+                return fn(*args, **kw)
+            depth[0] += 1
+            try:
+                out, dt = _timed(lambda: fn(*args, **kw))
+            finally:
+                depth[0] -= 1
+            spent[phase] = spent.get(phase, 0.0) + dt
+            return out
+        return run
+
+    try:
+        for (mod, name, phase), fn in zip(patched, saved):
+            setattr(mod, name, timed(fn, phase))
+        _, wall = run_gels(st, a, b, nb)
+    finally:
+        for (mod, name, _), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+    _, wall_plain = run_gels(st, a, b, nb)
+    emit({"phase": "trace_host_clock_s", "of": "gels QR",
+          "gels_with_phase_syncs": wall, "gels": wall_plain,
+          "outside_phases": wall - sum(spent.values()), **spent})
+    A = st.Matrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    profile_device("gels QR", lambda: st.gels(A, B))
+    # K5 on the first panel by slab width: the column passes read the slab
+    # once a column (cost ~ bw), the wide passes the panel once a slab
+    # (cost ~ 1 / bw)
+    from slate_tpu_torch.internal.qr_kernels import qr_panel
+    first = a[:, :nb]
+    emit({"phase": "trace_qr_panel_by_slab_width", "mm": a.shape[0],
+          "w": nb, "ms": {bw: time_ms(lambda: qr_panel(first, bw), 5)
+                          for bw in (1, 2, 4, 8)}})
+
+
+def check_qr_small(st, gen, nb) -> None:
+    """Small QR checks against the same calls on the CPU: gels with m < n
+    (the LQ minimum-norm branch), cholqr, unmqr in all four (side, op)
+    pairs on the card's factors, and qr_multiply's ||Q^T Q - I||."""
+    def cpu(t):
+        return st.Matrix.from_numpy(t.cpu(), nb, device="cpu")
+
+    def close(name, got, want, tol=1e-4):
+        diff = float((got.cpu() - want).abs().max() / want.abs().max())
+        emit({"phase": "qr_vs_cpu", "check": name, "rel_max_diff": diff,
+              "tol": tol})
+        if not diff <= tol:
+            raise AssertionError(f"{name} on the card vs the CPU: {diff} > "
+                                 f"{tol}")
+
+    a = torch.randn(384, 1024, generator=gen, device="cuda")
+    b = torch.randn(384, 4, generator=gen, device="cuda")
+    close("gels_min_norm", st.gels(st.Matrix.from_numpy(a, nb),
+                                   st.Matrix.from_numpy(b, nb)).to_dense(),
+          st.gels(cpu(a), cpu(b)).to_dense())
+    a = torch.randn(1024, 256, generator=gen, device="cuda")
+    Q, R = st.cholqr(st.Matrix.from_numpy(a, nb))
+    Qc, Rc = st.cholqr(cpu(a))
+    close("cholqr_Q", Q.to_dense(), Qc.to_dense())
+    close("cholqr_R", R.to_dense(), Rc.to_dense())
+    F = st.geqrf(st.Matrix.from_numpy(a, nb))
+    Fc = st.QRFactors(cpu(F.QR.to_dense()), F.T.cpu())
+    for side, op in (("l", "n"), ("l", "t"), ("r", "n"), ("r", "t")):
+        c = torch.randn(*((1024, 8) if side == "l" else (8, 1024)),
+                        generator=gen, device="cuda")
+        close(f"unmqr_{side}{op}",
+              st.unmqr(side, op, F, st.Matrix.from_numpy(c, nb)).to_dense(),
+              st.unmqr(side, op, Fc, cpu(c)).to_dense())
+    q = st.qr_multiply(F).to_dense().double()
+    orth = float((q.T @ q - torch.eye(256, device="cuda",
+                                      dtype=torch.float64)).abs().max())
+    emit({"phase": "qr_multiply_orthogonality", "m": 1024, "n": 256,
+          "max_abs_QtQ_minus_I": orth, "tol": 1e-5})
+    if not orth <= 1e-5:
+        raise AssertionError(f"qr_multiply: ||Q^T Q - I|| = {orth}")
+
+
 def orthogonal(n: int, gen: torch.Generator) -> torch.Tensor:
     """Q of the QR of a Gaussian: cond 1, a real pivot choice in every
     column."""
@@ -502,8 +744,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nb", type=int, default=128)
     ap.add_argument("--nrhs", type=int, default=128)
     ap.add_argument("--trace", action="store_true",
-                    help="also break one warm posv and one warm CALU gesv "
-                         "down by phase and kernel")
+                    help="also break one warm posv, one warm CALU gesv and "
+                         "one warm QR gels down by phase and kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -514,10 +756,11 @@ def main(argv=None) -> int:
     from slate_tpu_torch.internal.getrf import _lu_select_ok
     from slate_tpu_torch.internal.kernels import build_all
     from slate_tpu_torch.internal.lu_kernels import LU_PANEL, LU_SELECT
+    from slate_tpu_torch.internal.qr_kernels import QR_PANEL
     from slate_tpu_torch.internal.tri_inv import TRI_INV
     kernels = {"upper_tri_inv": TRI_INV, "chol_tile": CHOL_TILE,
                "chol_panel_fused": CHOL_PANEL, "lu_panel_fused": LU_PANEL,
-               "lu_select": LU_SELECT}
+               "lu_select": LU_SELECT, "qr_panel": QR_PANEL}
 
     def reset():
         for k in kernels.values():
@@ -538,9 +781,14 @@ def main(argv=None) -> int:
               "lines": [ln.strip() for ln in lines
                         if "registers" in ln or "spill" in ln]})
 
+    # the Cholesky and LU phases draw from one stream, the QR phases from
+    # their own (seeded from --seed too), so that no QR draw moves an
+    # earlier phase's matrices, nor an earlier phase's draw a QR one's
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    qr_gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     rows = check_kernels(gen)
     rows.update(check_lu_kernels(gen))
+    rows.update(check_qr_kernels(qr_gen))
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -579,9 +827,9 @@ def main(argv=None) -> int:
     if not (res_tf > RESIDUAL_BOUND and fwd_tf > FORWARD_BOUND):
         raise AssertionError("the accuracy bounds do not catch TF32 "
                              f"products: residual {res_tf}, forward {fwd_tf}")
-    want = {"chol_panel_fused": 2 * (n // nb) - 1,
-            "upper_tri_inv": n // nb - 1, "chol_tile": 0,
-            "lu_panel_fused": 0, "lu_select": 0}
+    want = {**{name: 0 for name in kernels},
+            "chol_panel_fused": 2 * (n // nb) - 1,
+            "upper_tri_inv": n // nb - 1}
     if main_launches != want:
         raise AssertionError(f"posv launches {main_launches} != {want}")
     del x, x64, x_tf
@@ -735,12 +983,96 @@ def main(argv=None) -> int:
         raise AssertionError(f"CALU gesv on the card vs the CPU: {diff} > "
                              f"1e-4 or perm differs ({same_perm})")
 
+    del a_s, b_s, x_g, F_g, F_c, X_c, x_c
+
+    # ---- the QR path at full width: gels, Householder QR with K5 ----
+    mq, nq = GELS_SHAPE
+    a, b, x64 = lstsq_problem(mq, nq, nrhs, qr_gen)
+    reset()
+    x, wall = run_gels(st, a, b, nb)
+    qr_launches = counts()
+    _, wall_repeat = run_gels(st, a, b, nb)
+    res, fwd = lstsq_accuracy(a, x, b, x64)
+    flops = gels_flops(mq, nq, nrhs)
+    emit({"phase": "gels_qr", "m": mq, "n": nq, "nb": nb, "nrhs": nrhs,
+          "dtype": "float32", "wall_s": wall, "wall_s_repeat": wall_repeat,
+          "gflops": flops / wall / 1e9,
+          "gflops_repeat": flops / wall_repeat / 1e9,
+          "scaled_ne_residual": res, "residual_bound": GELS_RESIDUAL_BOUND,
+          "forward_error_vs_f64": fwd, "forward_bound": GELS_FORWARD_BOUND,
+          "launches": qr_launches, "card": card})
+    x_tf, _ = tf32(lambda: run_gels(st, a, b, nb))
+    res_tf, fwd_tf = lstsq_accuracy(a, x_tf, b, x64)
+    emit({"phase": "gels_qr_tf32_control", "m": mq, "n": nq,
+          "scaled_ne_residual": res_tf, "forward_error_vs_f64": fwd_tf})
+    if not (torch.isfinite(x).all() and x.shape == (nq, nrhs)):
+        raise AssertionError("gels: non-finite or misshapen solution")
+    if not (res < GELS_RESIDUAL_BOUND and fwd < GELS_FORWARD_BOUND):
+        raise AssertionError(f"gels: scaled residual {res} (bound "
+                             f"{GELS_RESIDUAL_BOUND}), forward error {fwd} "
+                             f"(bound {GELS_FORWARD_BOUND})")
+    if not (res_tf > GELS_RESIDUAL_BOUND and fwd_tf > GELS_FORWARD_BOUND):
+        raise AssertionError("the gels accuracy bounds do not catch TF32 "
+                             f"products: residual {res_tf}, forward {fwd_tf}")
+    # one K5 launch a panel, every panel inside the gate at nb = 128
+    want = {**{name: 0 for name in kernels}, "qr_panel": -(-nq // nb)}
+    if qr_launches != want:
+        raise AssertionError(f"gels QR launches {qr_launches} != {want}")
+    del x, x_tf
+    if args.trace:
+        trace_gels(st, a, b, nb)
+    del a, b, x64
+
+    # ---- BASELINE config 4, cut to f32 and one card: 200000 x 1024 ----
+    m4, n4 = CFG4_SHAPE
+    a, b, x64 = lstsq_problem(m4, n4, nrhs, qr_gen)
+    cfg4 = {}
+    for route, opts, want4 in (
+            ("cholqr_default", None,
+             {"chol_panel_fused": 2 * (n4 // nb) - 1,
+              "upper_tri_inv": n4 // nb - 1}),
+            ("qr_forced", {st.Option.MethodGels: st.MethodGels.QR}, {})):
+        reset()
+        x, wall = run_gels(st, a, b, nb, opts)
+        launches = counts()
+        _, wall_repeat = run_gels(st, a, b, nb, opts)
+        res, fwd = lstsq_accuracy(a, x, b, x64)
+        x_tf, _ = tf32(lambda: run_gels(st, a, b, nb, opts))
+        res_tf, fwd_tf = lstsq_accuracy(a, x_tf, b, x64)
+        cfg4[route] = launches
+        emit({"phase": f"gels_config4_{route}", "m": m4, "n": n4, "nb": nb,
+              "nrhs": nrhs, "wall_s": wall, "wall_s_repeat": wall_repeat,
+              "gflops_repeat": gels_flops(m4, n4, nrhs) / wall_repeat / 1e9,
+              "scaled_ne_residual": res, "residual_bound": CFG4_RESIDUAL_BOUND,
+              "forward_error_vs_f64": fwd, "forward_bound": CFG4_FORWARD_BOUND,
+              "tf32_scaled_ne_residual": res_tf,
+              "tf32_forward_error_vs_f64": fwd_tf, "launches": launches})
+        want4 = {**{name: 0 for name in kernels}, **want4}
+        if (launches != want4 or not res < CFG4_RESIDUAL_BOUND
+                or not fwd < CFG4_FORWARD_BOUND):
+            raise AssertionError(f"config 4 {route}: launches {launches} "
+                                 f"(want {want4}), residual {res}, forward "
+                                 f"{fwd}")
+        if not (res_tf > CFG4_RESIDUAL_BOUND and fwd_tf > CFG4_FORWARD_BOUND):
+            raise AssertionError(f"config 4 {route}: the bounds do not catch "
+                                 f"TF32 products: residual {res_tf}, "
+                                 f"forward {fwd_tf}")
+        del x, x_tf
+    del a, b, x64
+
+    # ---- small QR checks held against the CPU ----
+    check_qr_small(st, qr_gen, nb)
+
     # ---- the record ----
     emit({"launch_counts": {"posv": main_launches,
                             "posv_tile_route": tile_launches,
                             "gesv_calu": calu_launches,
                             "gesv_nopiv_route": nopiv_launches,
-                            "gesv_partialpiv_library_route": pp_launches}})
+                            "gesv_partialpiv_library_route": pp_launches,
+                            "gels_qr": qr_launches,
+                            "gels_config4_cholqr_default":
+                                cfg4["cholqr_default"],
+                            "gels_config4_qr_forced": cfg4["qr_forced"]}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
@@ -757,6 +1089,9 @@ def main(argv=None) -> int:
         "lu_select": ("slate_tpu_torch/csrc/lu_select.cu",
                       "slate_tpu/internal/pallas_lu.py:346", "gesv_calu",
                       calu_launches),
+        "qr_panel": ("slate_tpu_torch/csrc/qr_panel.cu",
+                     "slate_tpu/internal/pallas_qr.py:129", "gels_qr",
+                     qr_launches),
     }
     line = []
     for name, (source, ref, path, launches) in replaces.items():

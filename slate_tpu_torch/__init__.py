@@ -12,7 +12,14 @@ first use).  The ported slices carry the single-device solvers on tiled
   library's pivoted LU), CALU (``getrf_tntpiv``: K4 selects each
   tournament round's pivots, K3 factors the permuted panel, K0 between)
   and NoPiv (``getrf_nopiv``, ``gesv_nopiv``: K3), plus ``getrf_rbt``,
-  ``getri`` and ``getriOOP``.
+  ``getri`` and ``getriOOP``;
+- QR and least squares, ``geqrf``/``gelqf``/``unmqr``/``unmlq``/
+  ``qr_multiply``, ``cholqr``, ``gels_cholqr``, ``gels_qr`` and ``gels``
+  (``MethodGels``: CholQR through herk, potrf and trsm; Householder QR
+  through K5, the Householder panel with its compact-WY T);
+- the rest of BLAS-3 on the single device: ``gemm`` (``gemmA``,
+  ``gemmC``), ``trmm``, ``herk``/``syrk``/``her2k``/``syr2k`` and
+  ``hemm``/``symm``, besides ``trsm``.
 
 Matrices are placed on CUDA unless the caller passes ``device="cpu"``;
 with no GPU, ``device=None`` raises.  On CPU tensors every kernel wrapper
@@ -28,8 +35,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .types import Diag, Op, Side, TileKind, Uplo  # noqa: E402,F401
 from .options import (  # noqa: E402,F401
-    Abft, ErrorPolicy, GridOrder, MethodLU, Option, Precision, Speculate,
-    Target,
+    Abft, ErrorPolicy, GridOrder, MethodCholQR, MethodGels, MethodGemm,
+    MethodHemm, MethodLU, Option, Precision, Speculate, Target,
 )
 from .exceptions import (  # noqa: E402,F401
     SlateError, SlateNotConvergedError, SlateNotPositiveDefiniteError,
@@ -45,9 +52,16 @@ from .robust.health import HealthInfo  # noqa: E402,F401
 from .tune.plans import (  # noqa: E402,F401
     CUDA_PLAN, LIBRARY_PLAN, TilePlan, plan_override,
 )
-from .drivers.blas3 import trsm  # noqa: E402,F401
+from .drivers.blas3 import (  # noqa: E402,F401
+    gemm, gemmA, gemmC, hemm, hemmA, her2k, herk, symm, syr2k, syrk, trmm,
+    trsm,
+)
 from .drivers.cholesky import posv, potrf, potrs  # noqa: E402,F401
 from .drivers.lu import (  # noqa: E402,F401
     LUFactors, RBTFactors, gesv, gesv_nopiv, getrf, getrf_nopiv, getrf_ooc,
     getrf_rbt, getrf_tntpiv, getri, getriOOP, getrs,
+)
+from .drivers.qr import (  # noqa: E402,F401
+    LQFactors, QRFactors, cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf,
+    qr_multiply, unmlq, unmqr,
 )

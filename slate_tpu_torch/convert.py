@@ -4,7 +4,8 @@ Both packages store a matrix as one tile array in the same (cyclic) order,
 so a reference ``TileStorage.data`` (as a numpy array) becomes the port's
 ``TileStorage.data`` unchanged, and a reference matrix becomes the port's
 matrix of the same class over the same view.  LU factors carry their
-packed matrix and ``perm``, RBT factors their butterflies besides.
+packed matrix and ``perm``, RBT factors their butterflies besides, QR and
+LQ factors their packed matrix and the stack of T triangles.
 Nothing here imports the reference: objects are read through the
 attributes both packages share.
 """
@@ -18,6 +19,7 @@ from .core.matrix import (BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix,
                           Matrix, SymmetricMatrix, TriangularMatrix)
 from .core.storage import TileStorage, as_tensor
 from .drivers.lu import LUFactors, RBTFactors
+from .drivers.qr import LQFactors, QRFactors
 from .exceptions import slate_error
 from .types import Diag, Op, TileKind, Uplo
 
@@ -69,3 +71,16 @@ def rbt_factors_from_jax(R, device=None) -> RBTFactors:
                       as_tensor(np.asarray(r1), device)) for r0, r1 in bf)
     return RBTFactors(lu_factors_from_jax(R.F, device), levels(R.u),
                       levels(R.v), int(R.n))
+
+
+def qr_factors_from_jax(F, device=None) -> QRFactors:
+    """The port's QRFactors of a reference ``QRFactors``: the packed V\\R
+    matrix and the T stack [K, nb, nb], byte for byte."""
+    return QRFactors(matrix_from_jax(F.QR, device),
+                     as_tensor(np.asarray(F.T), device))
+
+
+def lq_factors_from_jax(F, device=None) -> LQFactors:
+    """The port's LQFactors of a reference ``LQFactors`` (the QR factors of
+    A^H)."""
+    return LQFactors(qr_factors_from_jax(F.F, device))

@@ -151,6 +151,28 @@ class BaseMatrix:
     def to_numpy(self) -> np.ndarray:
         return self.to_dense().resolve_conj().cpu().numpy()
 
+    def with_dense(self, dense: torch.Tensor):
+        """A same-view matrix whose view region holds ``dense`` (a new
+        storage; the parent storage's regions outside the view are
+        kept).  ``dense`` must lie on this matrix' device."""
+        slate_error(dense.device == self.device,
+                    f"with_dense: data on {dense.device}, matrix on "
+                    f"{self.device}")
+        if self.op is Op.Trans:
+            dense = dense.T
+        elif self.op is Op.ConjTrans:
+            dense = dense.conj().T
+        st = self.storage
+        if self.is_root_view():
+            new_st = st.with_dense(dense)
+        else:
+            tiles = st.canonical().clone()
+            sub = layout.tile_dense(dense.to(st.dtype), st.mb, st.nb)
+            tiles[self.io:self.io + sub.shape[0],
+                  self.jo:self.jo + sub.shape[1]] = sub
+            new_st = st.with_canonical(tiles)
+        return self._same_view(new_st)
+
     def __repr__(self):
         extra = "" if self.op is Op.NoTrans else f", op={self.op.name}"
         return (f"{self.__class__.__name__}({self.m}x{self.n}, "
@@ -160,6 +182,13 @@ class BaseMatrix:
 
 class Matrix(BaseMatrix):
     """General m x n matrix (ref: include/slate/Matrix.hh:58-163)."""
+
+    @classmethod
+    def zeros(cls, m, n, mb, nb=None, grid=None, dtype=torch.float32,
+              device=None):
+        """An all-zero m x n matrix; ``device=None`` means CUDA."""
+        return cls(TileStorage.zeros(m, n, mb, nb or mb, grid or Grid(1, 1),
+                                     dtype, device))
 
     @classmethod
     def from_numpy(cls, a, mb, nb=None, grid=None, kind=TileKind.UserOwned,
@@ -210,6 +239,12 @@ class BaseTrapezoidMatrix(BaseMatrix):
         if self.diag is Diag.Unit:
             d.diagonal().fill_(1)
         return d
+
+    def general(self) -> Matrix:
+        """Expand to a general Matrix (materialises the structure)."""
+        g = Matrix.zeros(self.m, self.n, self.mb, self.nb, self.grid,
+                         self.dtype, self.device)
+        return g.with_dense(self.to_dense())
 
 
 class TriangularMatrix(BaseTrapezoidMatrix):

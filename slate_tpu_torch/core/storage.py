@@ -66,6 +66,27 @@ class TileStorage:
 
     # ---- constructors ----
     @classmethod
+    def zeros(cls, m, n, mb, nb, grid: Grid | None = None,
+              dtype=torch.float32, device=None):
+        """All-zero tiles on ``device`` (``None`` means CUDA, as
+        :func:`resolve_device` reads it)."""
+        grid = grid or Grid(1, 1)
+        Mt, Nt = layout.num_tiles(m, mb), layout.num_tiles(n, nb)
+        mtl, ntl = -(-Mt // grid.p), -(-Nt // grid.q)
+        data = torch.zeros((grid.p * mtl, grid.q * ntl, mb, nb), dtype=dtype,
+                           device=resolve_device(device))
+        return cls(data, m, n, mb, nb, grid)
+
+    def with_dense(self, dense: torch.Tensor) -> "TileStorage":
+        """This storage's tiling over ``dense``, on ``dense``'s device."""
+        return TileStorage.from_dense(dense, self.mb, self.nb, self.grid)
+
+    def with_canonical(self, tiles: torch.Tensor) -> "TileStorage":
+        """This storage's shape over canonical tiles [Mt, Nt, mb, nb]."""
+        data = layout.canonical_to_cyclic(tiles, self.grid.p, self.grid.q)
+        return TileStorage(data, self.m, self.n, self.mb, self.nb, self.grid)
+
+    @classmethod
     def from_dense(cls, dense: torch.Tensor, mb, nb,
                    grid: Grid | None = None):
         """Tile a dense tensor on the device it lies on (ref:

@@ -1,0 +1,109 @@
+"""K5: the Householder QR panel with its compact-WY T (port of
+slate_tpu/internal/pallas_qr.py ``qr_panel_pallas``).
+
+``qr_panel_plain`` repeats the kernel's arithmetic in torch ops, with the
+kernel's slab blocking: the CPU tests run it, and on the card it is only
+the comparison.  ``qr_panel`` takes it for CPU tensors only; for CUDA
+tensors it launches the kernel (``csrc/qr_panel.cu``, whose per-panel
+routine is ``csrc/qr_panel.cuh``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
+    device_and_stream
+
+QR_PANEL = CudaKernel("qr_panel", "qr_panel.cu", {
+    "slate_qr_panel": [I32, P, P, I64, I64, I32, I32, I32, P, P],
+    "slate_qr_panel_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+
+
+def panel_fits(device: torch.device, mm: int, w: int, bw: int) -> bool:
+    """True when K5 takes a [mm, w] panel at slab width bw on this CUDA
+    device: the kernel's own limits and its count of its shared memory
+    (T and scratch) against the device's per-block limit."""
+    fits = ctypes.c_int(0)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    QR_PANEL.call("slate_qr_panel_fits", index, mm, w, bw,
+                  ctypes.byref(fits))
+    return bool(fits.value)
+
+
+def qr_panel_plain(a: torch.Tensor, bw: int = 8):
+    """K5's steps in torch ops on a real panel [mm, w], mm >= w: per slab
+    of bw columns, column by column the larfg scalars of qr.py ``_larfg``
+    from one product over the slab's rows below the diagonal (s_t =
+    x^T P[:, t]; s_j = x^T x), w_t = P[j, t] + scale s_t (the reflector's
+    row for t > j, T's recursion V_t^T v_j for t < j), the column and the
+    slab's later columns written (a column with mu = 0 is left as it is);
+    then Z = Vs^T P[j0:, :], which merges the slab's T into the panel's,
+    T12 = -T1 (V1^T Vs) Ts, and the compact-WY update of the columns to
+    the right, A_right -= Vs (Ts^T Z).  Returns (packed, T)."""
+    mm, w = a.shape
+    if mm < w or bw < 1 or a.is_complex():
+        raise ValueError(f"qr_panel_plain: needs a real [mm, w] panel with "
+                         f"mm >= w and bw >= 1, got {tuple(a.shape)}, "
+                         f"{a.dtype}, bw={bw}")
+    p = a.clone(memory_format=torch.contiguous_format)
+    T = torch.zeros((w, w), dtype=a.dtype, device=a.device)
+    rows = torch.arange(mm, device=a.device)
+    for j0 in range(0, w, bw):
+        j1 = min(j0 + bw, w)
+        for j in range(j0, j1):
+            jl = j - j0
+            x = p[j + 1:, j]
+            s = x @ p[j + 1:, j0:j1]
+            alpha = p[j, j]
+            mu = torch.sqrt(alpha * alpha + s[jl])
+            live = mu > 0
+            beta = torch.where(alpha >= 0, -mu, mu)
+            sb = torch.where(live, beta, 1.0)
+            tau = torch.where(live, (sb - alpha) / sb, 0.0)
+            scale = torch.where(live, 1 / (alpha - sb), 0.0)
+            g = p[j, j0:j1] + scale * s
+            T[j, j] = tau
+            if jl:
+                T[j0:j, j] = -tau * (T[j0:j, j0:j] @ g[:jl])
+            v = torch.cat([torch.ones_like(alpha)[None], x * scale])
+            upd = p[j:, j + 1:j1] - tau * v[:, None] * g[None, jl + 1:]
+            p[j:, j + 1:j1] = torch.where(live, upd, p[j:, j + 1:j1])
+            col = torch.cat([beta[None], x * scale])
+            p[j:, j] = torch.where(live, col, p[j:, j])
+        if j0 == 0 and j1 == w:
+            break
+        r = rows[j0:, None]
+        d = torch.arange(j0, j1, device=a.device)[None, :]
+        vs = torch.where(r > d, p[j0:, j0:j1],
+                         (r == d).to(a.dtype))        # [mm - j0, nbs]
+        z = vs.T @ p[j0:]                             # Vs^T P[j0:, :]
+        ts = T[j0:j1, j0:j1]
+        if j0:
+            T[:j0, j0:j1] = -(T[:j0, :j0] @ (z[:, :j0].T @ ts))
+        if j1 < w:
+            p[j0:, j1:] -= vs @ (ts.T @ z[:, j1:])
+    return p, T
+
+
+def qr_panel(a: torch.Tensor, bw: int = 8):
+    """Householder QR of a panel [mm, w], mm >= w: (packed, T) with
+    ``householder_panel``'s packing and ``build_t``'s T (qr.py), Q = I -
+    V T V^T.  Any strides.  A CPU tensor takes the plain version; a CUDA
+    tensor launches K5 once (f32, within :func:`panel_fits`) or raises."""
+    mm, w = a.shape
+    if mm < w or w < 1 or bw < 1:
+        raise ValueError(f"qr_panel: needs mm >= w >= 1 and bw >= 1, got "
+                         f"{tuple(a.shape)} and bw={bw}")
+    if a.device.type == "cpu":
+        return qr_panel_plain(a, bw)
+    check_cuda_f32("qr_panel", a)
+    packed = torch.empty((mm, w), dtype=a.dtype, device=a.device)
+    T = torch.empty((w, w), dtype=a.dtype, device=a.device)
+    QR_PANEL.launch("slate_qr_panel", *device_and_stream(a), a.data_ptr(),
+                    a.stride(0), a.stride(1), mm, w, bw, packed.data_ptr(),
+                    T.data_ptr())
+    return packed, T

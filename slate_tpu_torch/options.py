@@ -101,6 +101,38 @@ class Option(enum.Enum):
     PrintPrecision = "print_precision"
 
 
+class MethodGemm(enum.Enum):
+    """gemm variant selection (ref: method.hh:76-112).  On one device both
+    variants are the same product; the choice is read and validated."""
+
+    Auto = "auto"
+    gemmA = "gemmA"  # stationary A, reduce over C owners
+    gemmC = "gemmC"  # stationary C (SUMMA); default for nt >= 2
+
+
+class MethodHemm(enum.Enum):
+    Auto = "auto"
+    hemmA = "hemmA"
+    hemmC = "hemmC"
+
+
+class MethodCholQR(enum.Enum):
+    """A^H A accumulation method inside cholqr (ref: method.hh:114-160)."""
+
+    Auto = "auto"
+    GemmA = "gemmA"
+    GemmC = "gemmC"
+    HerkC = "herkC"
+
+
+class MethodGels(enum.Enum):
+    """Least-squares path (ref: method.hh:236-275)."""
+
+    Auto = "auto"
+    QR = "qr"
+    CholQR = "cholqr"
+
+
 class MethodLU(enum.Enum):
     """LU pivoting variant (ref: method.hh:277-316)."""
 
@@ -130,6 +162,10 @@ _DEFAULTS = {
     Option.Precision: Precision.Auto,
     Option.UseFallbackSolver: True,
     Option.PivotThreshold: 1.0,
+    Option.MethodGemm: MethodGemm.Auto,
+    Option.MethodHemm: MethodHemm.Auto,
+    Option.MethodCholQR: MethodCholQR.Auto,
+    Option.MethodGels: MethodGels.Auto,
     Option.MethodLU: MethodLU.Auto,
     Option.HoldLocalWorkspace: False,
     Option.Depth: 2,
@@ -176,6 +212,34 @@ def resolve_speculate(opts: Options | None) -> bool:
     """Resolve Option.Speculate once at a driver boundary: True only for
     an explicit ``Speculate.On``."""
     return get_option(opts, Option.Speculate) is Speculate.On
+
+
+def method_option(opts: Options | None, key: Option, enum_cls):
+    """Read a method option (MethodGemm, MethodHemm, MethodCholQR,
+    MethodGels), validated: a value that is not of its enum raises."""
+    m = get_option(opts, key)
+    if not isinstance(m, enum_cls):
+        raise ValueError(f"{key.name}: expected a {enum_cls.__name__}, got "
+                         f"{m!r}")
+    return m
+
+
+def select_gemm_method(opts: Options | None, nt: int) -> MethodGemm:
+    """ref: method.hh:87-98: gemmA when C is a single block column, else
+    gemmC."""
+    m = method_option(opts, Option.MethodGemm, MethodGemm)
+    if m is not MethodGemm.Auto:
+        return m
+    return MethodGemm.gemmA if nt < 2 else MethodGemm.gemmC
+
+
+def select_gels_method(opts: Options | None, m: int, n: int) -> MethodGels:
+    """ref: method.hh:236-275: CholQR for tall-skinny problems (m >= 3 n),
+    else Householder QR."""
+    meth = method_option(opts, Option.MethodGels, MethodGels)
+    if meth is not MethodGels.Auto:
+        return meth
+    return MethodGels.CholQR if m >= 3 * n else MethodGels.QR
 
 
 def select_lu_method(opts: Options | None) -> MethodLU:

@@ -1,5 +1,5 @@
-"""The retry ladders of gesv and posv (port of the gesv and posv parts of
-slate_tpu/robust/recovery.py).
+"""The retry ladders of gesv, posv and gels (port of the gesv, posv and
+gels parts of slate_tpu/robust/recovery.py).
 
 Each solver factors and solves under ErrorPolicy.Info and resolves the
 health at its boundary.
@@ -14,14 +14,20 @@ health at its boundary.
   plain LU (gesv); hesv is not ported yet, so that rung raises
   ``NotImplementedError`` when it is reached (a HPD input never reaches
   it).  The bf16 rung (Speculate + Precision = bf16) raises too.
+- gels (m >= n) takes CholQR or Householder QR per ``select_gels_method``,
+  and with ``Option.UseFallbackSolver`` retries a failed CholQR by QR.
+  Its speculative rungs (``Option.Speculate = On``: certified CholQR2,
+  and below it with ``Option.Precision = bf16`` the bf16 QR) raise
+  ``NotImplementedError``: they need the least-squares certificate.
 """
 
 from __future__ import annotations
 
 from ..exceptions import (SlateNotPositiveDefiniteError, SlateSingularError,
                           not_ported)
-from ..options import (ErrorPolicy, MethodLU, Option, Options, Precision,
-                       get_option, resolve_speculate, select_lu_method)
+from ..options import (ErrorPolicy, MethodGels, MethodLU, Option, Options,
+                       Precision, get_option, resolve_speculate,
+                       select_gels_method, select_lu_method)
 from . import health as _h
 
 
@@ -139,6 +145,34 @@ def posv_with_recovery(A, B, opts: Options | None = None):
         lambda hh: SlateNotPositiveDefiniteError(
             f"posv: not positive definite and fallback failed "
             f"({hh.describe()})", info=hh.info))
+
+
+def gels_with_recovery(A, B, opts: Options | None = None):
+    """gels body for m >= n (drivers/qr.py delegates here): the CholQR
+    semi-normal-equations attempt when select_gels_method picks CholQR
+    (m >= 3 n by default), with Option.UseFallbackSolver a Householder QR
+    retry when its health fails; the QR attempt alone otherwise.  Both
+    resolve ErrorPolicy here: ``X``, or ``(X, HealthInfo)`` under Info."""
+    from ..drivers import qr as _qr
+    if resolve_speculate(opts):
+        low = get_option(opts, Option.Precision) is Precision.Bf16
+        raise not_ported(
+            "gels's speculative " + ("qr_bf16 rung (Option.Speculate with "
+                                     "Option.Precision = bf16)" if low else
+                                     "cholqr2 rung (Option.Speculate = On: "
+                                     "refined and certified CholQR2)"),
+            "queue 1, item 6 (robustness)")
+    if select_gels_method(opts, A.m, A.n) is MethodGels.CholQR:
+        first = _qr._gels_cholqr_attempt(A, B, opts)
+        fallbacks = ([lambda: _qr._gels_qr_attempt(A, B, opts)]
+                     if get_option(opts, Option.UseFallbackSolver) else [])
+        exc = _qr._gram_exc("gels")
+    else:
+        first, fallbacks = _qr._gels_qr_attempt(A, B, opts), []
+        exc = _singular_exc("gels")
+    X, h, _ = bounded_retry(first, fallbacks, dtype=A.dtype,
+                            max_retries=max(len(fallbacks), 1))
+    return _h.finalize("gels", X, h, opts, exc)
 
 
 def _finalize_solve(name, F, X, h, opts, make_exc):

@@ -17,6 +17,8 @@ import slate_tpu_torch as st
 from slate_tpu_torch.internal import chol_kernels as ck
 from slate_tpu_torch.internal import getrf as ig
 from slate_tpu_torch.internal import lu_kernels as lk
+from slate_tpu_torch.internal import qr as iq
+from slate_tpu_torch.internal import qr_kernels as qk
 from slate_tpu_torch.internal.getrf import panel_lu
 from slate_tpu_torch.internal.tri_inv import TRI_INV, upper_tri_inv, \
     upper_tri_inv_plain
@@ -156,6 +158,69 @@ def test_calu_gesv_on_the_card_matches_the_cpu_route(cuda):
     Fc, Xc = st.gesv(st.Matrix.from_numpy(a, nb, device="cpu"),
                      st.Matrix.from_numpy(b, nb, device="cpu"), opts)
     assert torch.equal(Fg.perm.cpu(), Fc.perm)
+    want = Xc.to_numpy()
+    np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
+                               atol=RTOL * np.abs(want).max())
+
+
+def test_qr_panel_matches_its_plain_version(cuda):
+    """K5 on the first and last panels of the smoke's gels (8192 and 4224
+    rows), a ragged mm, a narrow panel, and a zero column with alpha =
+    -0.0 (that column stays as it was; beta = -mu at alpha = -0.0)."""
+    rng = np.random.default_rng(12)
+    for m, w, bw in ((8192, 128, 8), (4224, 128, 8), (1000, 128, 5),
+                     (512, 40, 8), (300, 48, 1)):
+        a = rng.standard_normal((m, w)).astype(np.float32)
+        if w == 48:
+            a[:, 5] = 0.0
+            a[0, 0] = -0.0
+        x = torch.from_numpy(a).to(cuda)
+        before = qk.QR_PANEL.launches
+        got = qk.qr_panel(x, bw)
+        assert qk.QR_PANEL.launches == before + 1       # one launch a panel
+        for g, p in zip(got, qk.qr_panel_plain(x, bw)):
+            torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+        if w == 48:
+            assert torch.equal(got[0][:, 5], x[:, 5])
+            assert got[1][5, 5] == 0.0 and got[0][0, 0] < 0
+    # strided input: a transposed view
+    xt = torch.from_numpy(rng.standard_normal((64, 700)).astype(
+        np.float32)).to(cuda).T
+    for g, p in zip(qk.qr_panel(xt), qk.qr_panel_plain(xt)):
+        torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+
+
+def test_qr_panel_gate_asks_the_kernel(cuda):
+    """The gate takes every panel of the smoke's gels (w = 128, mm up to
+    8192 = the 2^20-element cap) and narrow ones; past the cap, past 128
+    columns or past the slab limit it does not, and a launch the kernel
+    refuses raises and leaves no error behind."""
+    assert iq._qr_panel_ok(torch.zeros((8192, 128), device=cuda))
+    assert iq._qr_panel_ok(torch.zeros((4224, 128), device=cuda))
+    assert iq._qr_panel_ok(torch.zeros((7, 1), device=cuda))
+    assert not iq._qr_panel_ok(torch.zeros((8193, 128), device=cuda))
+    assert not iq._qr_panel_ok(torch.zeros((512, 129), device=cuda))
+    assert qk.panel_fits(cuda, 100000, 128, 8)     # mm: no shared memory
+    assert not qk.panel_fits(cuda, 512, 128, 9)
+    assert not qk.panel_fits(cuda, 100, 101, 8)   # mm < w
+    with pytest.raises(RuntimeError, match="slate_qr_panel"):
+        qk.qr_panel(torch.zeros((512, 129), device=cuda))
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (256, 128)).astype(np.float32)).to(cuda)
+    for g, p in zip(qk.qr_panel(x), qk.qr_panel_plain(x)):
+        torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+
+
+def test_gels_qr_route_on_the_card_matches_the_cpu_route(cuda):
+    rng = np.random.default_rng(14)
+    m, n, nb = 640, 256, 128
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    b = rng.standard_normal((m, 4)).astype(np.float32)
+    before = qk.QR_PANEL.launches
+    Xg = st.gels(st.Matrix.from_numpy(a, nb), st.Matrix.from_numpy(b, nb))
+    assert qk.QR_PANEL.launches - before == n // nb      # K5 on each panel
+    Xc = st.gels(st.Matrix.from_numpy(a, nb, device="cpu"),
+                 st.Matrix.from_numpy(b, nb, device="cpu"))
     want = Xc.to_numpy()
     np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
                                atol=RTOL * np.abs(want).max())

@@ -1,0 +1,392 @@
+"""The port's QR and least-squares drivers (geqrf, gelqf, unmqr, unmlq,
+qr_multiply, cholqr, gels_cholqr, gels_qr, gels) and the rest of BLAS-3,
+against slate_tpu's on the CPU.
+
+The reference's public drivers are wrapped in ``@annotate``, which calls
+``jax.core.trace_state_clean``; the installed JAX no longer exports that
+name, so the ``ref_drivers`` fixture restores it on the test side only.
+The reference's default plan sends every panel to XLA
+(``householder_panel_blocked``: CholQR2 reconstruction on tall panels),
+whose R may differ from a Householder panel's in the sign of a row; R is
+compared up to those signs (as tests/test_pallas.py does), solutions
+directly, and one shape against the reference forced onto its Pallas
+panel, whose signs K5 shares.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import slate_tpu as ref
+from slate_tpu.tune import TilePlan as RefPlan
+from slate_tpu.tune import plan_override as ref_override
+
+import slate_tpu_torch as st
+from slate_tpu_torch.convert import (lq_factors_from_jax, matrix_from_jax,
+                                     qr_factors_from_jax)
+from slate_tpu_torch.drivers import qr as dq
+
+# f32 parity: both sides are blocked Householder (or CholQR) solves of the
+# same bytes, sums in another order; on the Gaussian matrices below
+# (cond <= ~10) factors and solutions agree to a few n eps of their
+# largest entry, which 1e-4 of max|.| holds with room.
+F32_RTOL = 1e-4
+
+
+@pytest.fixture
+def ref_drivers(monkeypatch):
+    monkeypatch.setattr(jax.core, "trace_state_clean",
+                        jax._src.core.trace_state_clean, raising=False)
+
+
+def _gauss(seed, m, n, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal((m, n)).astype(dtype)
+
+
+def _close(got, want, rtol=F32_RTOL):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rtol * np.abs(want).max())
+
+
+def _cpu(a, nb, nb2=None):
+    return st.Matrix.from_numpy(a, nb, nb2, device="cpu")
+
+
+def _opts(pkg, **kv):
+    return {getattr(pkg.Option, k): v for k, v in kv.items()}
+
+
+@pytest.mark.parametrize("m,n,nb,dtype,rtol", [
+    (200, 80, 32, np.float32, F32_RTOL), (96, 40, 16, np.float64, 1e-12),
+    (48, 32, 16, np.complex64, F32_RTOL)])
+def test_geqrf_matches_reference(ref_drivers, m, n, nb, dtype, rtol):
+    """|R| against the reference's, and the port's own Q R = A and
+    Q^H Q = I; f32 takes K5 (a narrow last panel at n = 80: its T is
+    zero-padded), f64 and complex64 the blocked panel."""
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((m, n))
+    if np.iscomplexobj(np.zeros(1, dtype)):
+        a = a + 1j * rng.standard_normal((m, n))
+    a = a.astype(dtype)
+    Fr = ref.geqrf(ref.Matrix.from_numpy(a, nb))
+    F = st.geqrf(_cpu(a, nb))
+    assert isinstance(F, st.QRFactors) and F.T.shape == (-(-n // nb), nb, nb)
+    r = np.triu(F.QR.to_numpy()[:n])
+    _close(np.abs(r), np.abs(np.triu(Fr.QR.to_numpy()[:n])), rtol)
+    q = st.qr_multiply(F).to_numpy()
+    _close(q @ r, a, rtol)
+    np.testing.assert_allclose(q.conj().T @ q, np.eye(n), atol=10 * rtol)
+    if n % nb:
+        w = n % nb
+        np.testing.assert_array_equal(F.T[-1].numpy()[w:], 0)
+        np.testing.assert_array_equal(F.T[-1].numpy()[:, w:], 0)
+
+
+def test_geqrf_matches_the_reference_on_its_pallas_plan(ref_drivers):
+    """The reference forced onto its Pallas Householder panel (interpret
+    mode), whose signs are K5's: packed factor and T stack directly."""
+    m, n, nb = 384, 256, 128
+    a = _gauss(2, m, n)
+    with ref_override("geqrf_panel", RefPlan(kernel="pallas", nb=nb, bw=8)):
+        Fr = ref.geqrf(ref.Matrix.from_numpy(a, nb))
+    F = st.geqrf(_cpu(a, nb))
+    _close(F.QR.to_numpy(), Fr.QR.to_numpy())
+    _close(F.T.numpy(), np.asarray(Fr.T))
+
+
+@pytest.mark.parametrize("side,op", [("l", "n"), ("l", "c"), ("r", "n"),
+                                     ("r", "t")])
+def test_unmqr_on_the_references_factors(ref_drivers, side, op):
+    """The reference's QRFactors carried across byte for byte
+    (qr_factors_from_jax), then Q or Q^H applied from either side by both
+    packages."""
+    m, n, nb = 120, 72, 32
+    Fr = ref.geqrf(ref.Matrix.from_numpy(_gauss(3, m, n), nb))
+    F = qr_factors_from_jax(Fr, device="cpu")
+    np.testing.assert_array_equal(F.T.numpy(), np.asarray(Fr.T))
+    np.testing.assert_array_equal(F.QR.to_numpy(), Fr.QR.to_numpy())
+    c = _gauss(4, m, 5) if side == "l" else _gauss(4, 5, m)
+    want = ref.unmqr(side, op, Fr, ref.Matrix.from_numpy(c, nb)).to_numpy()
+    got = st.unmqr(side, op, F, _cpu(c, nb)).to_numpy()
+    _close(got, want)
+
+
+def test_gelqf_unmlq_and_qr_multiply(ref_drivers):
+    m, n, nb = 48, 100, 32
+    a = _gauss(5, m, n)
+    Fr = ref.gelqf(ref.Matrix.from_numpy(a, nb))
+    F = st.gelqf(_cpu(a, nb))
+    assert isinstance(F, st.LQFactors)
+    _close(np.abs(np.triu(F.F.QR.to_numpy()[:m])),
+           np.abs(np.triu(Fr.F.QR.to_numpy()[:m])))
+    Fc = lq_factors_from_jax(Fr, device="cpu")
+    c = _gauss(6, n, 3)
+    for op in ("n", "c"):
+        _close(st.unmlq("l", op, Fc, _cpu(c, nb)).to_numpy(),
+               ref.unmlq("l", op, Fr, ref.Matrix.from_numpy(c, nb))
+               .to_numpy())
+    q = st.qr_multiply(F.F).to_numpy()                  # [n, m], thin
+    np.testing.assert_allclose(q.T @ q, np.eye(m), atol=1e-5)
+    with pytest.raises(st.SlateError, match="undefined for complex"):
+        st.unmqr("l", "t", st.geqrf(_cpu(a.astype(np.complex64), nb)),
+                 _cpu(np.zeros((m, 2), np.complex64), nb))
+
+
+def test_cholqr_matches_reference(ref_drivers):
+    """CholQR's Q and R are unique (R with a positive diagonal)."""
+    m, n, nb = 200, 64, 32
+    a = _gauss(7, m, n)
+    Qr, Rr = ref.cholqr(ref.Matrix.from_numpy(a, nb))
+    Q, R = st.cholqr(_cpu(a, nb))
+    _close(Q.to_numpy(), Qr.to_numpy())
+    _close(R.to_numpy(), Rr.to_numpy())
+    for meth in ("GemmA", "GemmC"):
+        _, R2 = st.cholqr(_cpu(a, nb), _opts(
+            st, MethodCholQR=getattr(st.MethodCholQR, meth)))
+        _close(R2.to_numpy(), R.to_numpy())
+
+
+@pytest.mark.parametrize("m,n,method", [
+    (300, 64, "Auto"), (200, 96, "Auto"), (300, 64, "QR"),
+    (200, 96, "CholQR"), (40, 100, "Auto")])
+def test_gels_matches_reference(ref_drivers, m, n, method):
+    """gels down both select_gels_method branches (300 x 64: CholQR by
+    default; 200 x 96: QR), each forced the other way, and the m < n
+    minimum-norm branch through gelqf; X against the reference's and the
+    f64 least-squares (or minimum-norm) solution."""
+    nb = 32
+    a, b = _gauss(8, m, n), _gauss(9, m, 3)
+    Xr = ref.gels(ref.Matrix.from_numpy(a, nb), ref.Matrix.from_numpy(b, nb),
+                  _opts(ref, MethodGels=getattr(ref.MethodGels, method)))
+    X = st.gels(_cpu(a, nb), _cpu(b, nb),
+                _opts(st, MethodGels=getattr(st.MethodGels, method)))
+    assert (X.m, X.n) == (n, 3)
+    _close(X.to_numpy(), Xr.to_numpy())
+    x64 = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64),
+                          rcond=None)[0]
+    _close(X.to_numpy(), x64)
+
+
+def test_gels_cholqr_and_gels_qr_match_reference(ref_drivers):
+    m, n, nb = 160, 48, 32
+    a, b = _gauss(10, m, n), _gauss(11, m, 2)
+    for name in ("gels_cholqr", "gels_qr"):
+        Xr = getattr(ref, name)(ref.Matrix.from_numpy(a, nb),
+                                ref.Matrix.from_numpy(b, nb))
+        X = getattr(st, name)(_cpu(a, nb), _cpu(b, nb))
+        _close(X.to_numpy(), Xr.to_numpy())
+    with pytest.raises(st.SlateError, match="m >= n"):
+        st.gels_qr(_cpu(a.T.copy(), nb), _cpu(b[:n], nb))
+
+
+def _gram_breaker(seed, m=120, n=40):
+    """f64 A with eight columns within 1e-9 of others: cond(A) ~ 1e9, so
+    A^H A (cond ~ 1e18, past 1/eps) fails Cholesky, while Householder QR
+    solves it to ~1e-7."""
+    a = _gauss(seed, m, n, np.float64)
+    noise = _gauss(seed + 1, m, 8, np.float64)
+    a[:, 30:38] = a[:, 2:10] + 1e-9 * noise
+    return a
+
+
+def test_gels_fallback_from_cholqr_to_qr(ref_drivers):
+    """m >= 3 n picks CholQR; its Gram matrix fails Cholesky, and the
+    UseFallbackSolver rung (the default) retries by Householder QR in both
+    packages; with the rung off, the failed attempt's health comes back."""
+    nb = 16
+    a, b = _gram_breaker(12), _gauss(14, 120, 2, np.float64)
+    Xr, hr = ref.gels(ref.Matrix.from_numpy(a, nb),
+                      ref.Matrix.from_numpy(b, nb),
+                      _opts(ref, ErrorPolicy=ref.ErrorPolicy.Info))
+    X, h = st.gels(_cpu(a, nb), _cpu(b, nb),
+                   _opts(st, ErrorPolicy=st.ErrorPolicy.Info))
+    assert h.ok and bool(hr.ok)
+    _close(X.to_numpy(), Xr.to_numpy(), 1e-5)
+    x64 = np.linalg.lstsq(a, b, rcond=None)[0]
+    _close(X.to_numpy(), x64, 1e-5)
+    no_fb = _opts(st, ErrorPolicy=st.ErrorPolicy.Info,
+                  UseFallbackSolver=False)
+    _, h1 = st.gels(_cpu(a, nb), _cpu(b, nb), no_fb)
+    _, hr1 = ref.gels(ref.Matrix.from_numpy(a, nb),
+                      ref.Matrix.from_numpy(b, nb),
+                      _opts(ref, ErrorPolicy=ref.ErrorPolicy.Info,
+                            UseFallbackSolver=False))
+    assert not h1.ok and not bool(hr1.ok)
+    assert (h1.info > 0) == (int(hr1.info) > 0)
+    with pytest.raises(st.SlateNotPositiveDefiniteError, match="Gram"):
+        st.gels(_cpu(a, nb), _cpu(b, nb),
+                _opts(st, UseFallbackSolver=False))
+
+
+def test_info_return_shapes_and_unported_rungs():
+    a, b = _gauss(15, 96, 24), _gauss(16, 96, 2)
+    info = _opts(st, ErrorPolicy=st.ErrorPolicy.Info)
+    for meth in (st.MethodGels.CholQR, st.MethodGels.QR):
+        X, h = st.gels(_cpu(a, 32), _cpu(b, 32),
+                       {**info, st.Option.MethodGels: meth})
+        assert isinstance(h, st.HealthInfo) and h.ok and X.n == 2
+    X, h = st.gels(_cpu(a.T.copy(), 32), _cpu(b[:24], 32), info)
+    assert h.ok and (X.m, X.n) == (96, 2)
+    (Q, R), h = st.cholqr(_cpu(a, 32), info)
+    assert h.ok and (Q.m, Q.n, R.m) == (96, 24, 24)
+    X, h = st.gels_cholqr(_cpu(a, 32), _cpu(b, 32), info)
+    assert h.ok
+    with pytest.raises(NotImplementedError, match="cholqr2 rung"):
+        st.gels(_cpu(a, 32), _cpu(b, 32),
+                _opts(st, Speculate=st.Speculate.On))
+    with pytest.raises(NotImplementedError, match="qr_bf16 rung"):
+        st.gels(_cpu(a, 32), _cpu(b, 32),
+                _opts(st, Speculate=st.Speculate.On,
+                      Precision=st.Precision.Bf16))
+    with pytest.raises(NotImplementedError, match="certify_lstsq"):
+        dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None, refine=1,
+                                certify=True)
+    with pytest.raises(NotImplementedError, match="Target.mesh"):
+        st.geqrf(_cpu(a, 32), _opts(st, Target=st.Target.mesh))
+    with pytest.raises(ValueError, match="MethodGels"):
+        st.gels(_cpu(a, 32), _cpu(b, 32), _opts(st, MethodGels="qr"))
+
+
+def test_gels_cholqr_refinement_sweep():
+    """One corrected semi-normal-equations sweep (the speculative rung's
+    refine) moves X toward the f64 solution, not away."""
+    a, b = _gauss(17, 200, 40), _gauss(18, 200, 2)
+    x64 = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64),
+                          rcond=None)[0]
+    X0, _ = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None)
+    X1, h = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None,
+                                    refine=1)
+    assert h.ok
+    e0 = np.abs(X0.to_numpy() - x64).max()
+    e1 = np.abs(X1.to_numpy() - x64).max()
+    assert e1 <= 2 * e0 and e1 < 1e-5
+
+
+# ---------------------------------------------------------------- BLAS-3
+
+def _pair(a, nb=16, cls="Matrix", **kw):
+    """The same matrix in both packages (f64 or complex128)."""
+    R = getattr(ref, cls).from_numpy(a, nb, **kw)
+    return R, matrix_from_jax(R, device="cpu")
+
+
+def _cplx(seed, m, n):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
+
+
+def test_hemm_is_gemm_for_every_method():
+    """On one device every MethodHemm value is gemm of the expanded A, on
+    either side: the same bytes, C's tiling, and the literal beta = 0
+    skip (a NaN in C never reaches the product)."""
+    H = st.HermitianMatrix.from_numpy(_cplx(46, 32, 32), 16,
+                                      uplo=st.Uplo.Lower, device="cpu")
+    B = st.Matrix.from_numpy(_cplx(47, 32, 20), 16, device="cpu")
+    R = st.Matrix.from_numpy(_cplx(48, 20, 32), 16, device="cpu")
+    alpha = 0.7 - 0.2j
+    for side, x, want in (("l", B, st.gemm(alpha, H, B)),
+                          ("r", R, st.gemm(alpha, R, H))):
+        nan = st.Matrix.from_numpy(np.full((want.m, want.n), np.nan + 0j),
+                                   16, device="cpu")
+        for meth in st.MethodHemm:
+            o = _opts(st, MethodHemm=meth)
+            got = st.hemm(side, alpha, H, x, 0.0, None, o)
+            assert (got.mb, got.nb) == (want.mb, want.nb)
+            assert torch.equal(got.to_dense(), want.to_dense())
+            assert torch.equal(
+                st.hemm(side, alpha, H, x, 0.0, nan, o).to_dense(),
+                want.to_dense())
+        assert torch.equal(st.hemmA(side, alpha, H, x).to_dense(),
+                           want.to_dense())
+    with pytest.raises(ValueError, match="MethodHemm"):
+        st.hemm("l", 1.0, H, B, 0.0, None, _opts(st, MethodHemm="hemmA"))
+
+
+def test_gemm_family_matches_reference(ref_drivers):
+    Ar, A = _pair(_gauss(20, 40, 24, np.float64))
+    Br, B = _pair(_gauss(21, 24, 36, np.float64))
+    Cr, C = _pair(_gauss(22, 40, 36, np.float64))
+    for args in ((1.0, 0.0), (-2.0, 0.5)):
+        want = ref.gemm(args[0], Ar, Br, args[1], Cr).to_numpy()
+        for fn in (st.gemm, st.gemmA, st.gemmC):
+            np.testing.assert_allclose(
+                fn(args[0], A, B, args[1], C).to_numpy(), want, atol=1e-12)
+    np.testing.assert_allclose(st.gemm(1.5, A, B).to_numpy(),
+                               ref.gemm(1.5, Ar, Br).to_numpy(), atol=1e-12)
+    At = A.transpose()
+    np.testing.assert_allclose(
+        st.gemm(1.0, At, C).to_numpy(),
+        ref.gemm(1.0, Ar.transpose(), Cr).to_numpy(), atol=1e-12)
+    # the literal beta = 0 skips C: 0 * NaN is never formed
+    nan = st.Matrix.from_numpy(np.full((40, 36), np.nan), 16, device="cpu")
+    assert np.isfinite(st.gemm(1.0, A, B, 0.0, nan).to_numpy()).all()
+    with pytest.raises(ValueError, match="MethodGemm"):
+        st.gemm(1.0, A, B, 0.0, None, _opts(st, MethodGemm="gemmA"))
+
+
+def test_trmm_rank_k_and_hemm_match_reference(ref_drivers):
+    a = _cplx(23, 32, 32)
+    Tr, T = _pair(a, cls="TriangularMatrix", uplo=ref.Uplo.Upper,
+                  diag=ref.Diag.Unit)
+    Br, B = _pair(_cplx(24, 32, 20))
+    Rr, R = _pair(_cplx(25, 20, 32))
+    for side, (xr, x) in (("l", (Br, B)), ("r", (Rr, R))):
+        np.testing.assert_allclose(
+            st.trmm(side, 0.5, T, x).to_numpy(),
+            ref.trmm(side, 0.5, Tr, xr).to_numpy(), atol=1e-12)
+    Kr, K = _pair(_cplx(26, 32, 12))
+    Lr, L = _pair(_cplx(27, 32, 12))
+    alpha = 0.7 - 0.2j
+    for cls, fn, args in (("HermitianMatrix", "herk", (1.5,)),
+                          ("SymmetricMatrix", "syrk", (1.5,)),
+                          ("HermitianMatrix", "her2k", (alpha, "B")),
+                          ("SymmetricMatrix", "syr2k", (alpha, "B"))):
+        Cr, C = _pair(_cplx(28, 32, 32), cls=cls, uplo=ref.Uplo.Lower)
+        if args[-1] == "B":
+            want = getattr(ref, fn)(args[0], Kr, Lr, 0.5, Cr)
+            got = getattr(st, fn)(args[0], K, L, 0.5, C)
+        else:
+            want = getattr(ref, fn)(args[0], Kr, 0.5, Cr)
+            got = getattr(st, fn)(args[0], K, 0.5, C)
+        assert type(got).__name__ == cls
+        np.testing.assert_allclose(got.to_numpy(), want.to_numpy(),
+                                   atol=1e-11)
+    Hr, H = _pair(_cplx(29, 32, 32), cls="HermitianMatrix",
+                  uplo=ref.Uplo.Lower)
+    for side, (xr, x) in (("l", (Br, B)), ("r", (Rr, R))):
+        for meth in ("Auto", "hemmA", "hemmC"):
+            o = _opts(ref, MethodHemm=getattr(ref.MethodHemm, meth))
+            want = ref.hemm(side, alpha, Hr, xr, 0.0, None, o).to_numpy()
+            got = st.hemm(side, alpha, H, x, 0.0, None, _opts(
+                st, MethodHemm=getattr(st.MethodHemm, meth))).to_numpy()
+            np.testing.assert_allclose(got, want, atol=1e-11)
+        np.testing.assert_allclose(
+            st.hemmA(side, alpha, H, x).to_numpy(),
+            ref.hemmA(side, alpha, Hr, xr).to_numpy(), atol=1e-11)
+    Sr, S = _pair(_gauss(30, 32, 32, np.float64), cls="SymmetricMatrix")
+    Er, E = _pair(_gauss(31, 32, 8, np.float64))
+    np.testing.assert_allclose(st.symm("l", 2.0, S, E).to_numpy(),
+                               ref.symm("l", 2.0, Sr, Er).to_numpy(),
+                               atol=1e-12)
+
+
+def test_zeros_with_dense_and_general_match_reference():
+    a = _gauss(32, 40, 24, np.float64)
+    Z = st.Matrix.zeros(40, 24, 16, device="cpu")
+    assert Z.dtype == torch.float32 and not Z.to_numpy().any()
+    Rr, R = _pair(a)
+    d = _gauss(33, 24, 40, np.float64)
+    got = R.transpose().with_dense(torch.from_numpy(d))
+    want = Rr.transpose().with_dense(d)
+    assert got.op is st.Op.Trans
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+    np.testing.assert_array_equal(got.storage.data.numpy(),
+                                  np.asarray(want.storage.data))
+    Tr, T = _pair(_gauss(34, 32, 32, np.float64), cls="TriangularMatrix",
+                  uplo=ref.Uplo.Lower, diag=ref.Diag.Unit)
+    G = T.general()
+    assert type(G) is st.Matrix
+    np.testing.assert_array_equal(G.to_numpy(), Tr.general().to_numpy())
+    with pytest.raises(st.SlateError, match="with_dense"):
+        R.with_dense(torch.zeros((40, 24), device="meta"))
