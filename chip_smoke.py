@@ -46,21 +46,38 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      no hand kernel (every panel is past K5's cap); accuracy (bounds that
      a TF32 solve exceeds) and walls of both; then small QR checks against the CPU (gels with m < n, cholqr,
      unmqr in all four (side, op) pairs, qr_multiply's ||Q^T Q - I||);
-  8. print the launch counts, the card line, the kernels line, and last
+  8. the serving path: K6 (chol_panel_batched) and K7 (lu_panel_batched)
+     at B = 8, M = 4096, nb = 128, k = 0 and 16, and K8 (qr_panel_batched)
+     at [8, 4096, 128] and [8, 1024, 128], each in f32 and bf16 storage,
+     against their plain versions (bf16: ATOL + 2^-7 |plain|) with dead
+     tiles and filler slots bit-equal to the input; then a seeded
+     120-request mixed stream through ``slate_tpu_torch.serve.Server``
+     (solve and chol_solve at n = 96 .. 4000, least squares at m = 2n,
+     16 right-hand sides, five planted failures) on the ragged route cold
+     and warm (K6, K7, K8 and the safe rungs' K5 launched as replayed from
+     the batches the server ran; the planted requests escalated, the
+     zero-column one quarantined; every healthy result under a residual
+     bound that the same stream with TF32 products exceeds), on the
+     per-problem route (agreeing with the ragged one), with the bf16 rung
+     (K6-K8 on bf16 storage; escalated results bit-equal to the f32
+     stream's), and a small stream held against the CPU route;
+  9. print the launch counts, the card line, the kernels line, and last
      the result line.
-With --trace it also breaks one warm posv, one warm CALU gesv and one
-warm QR gels down by phase (host clock) and by kernel (torch.profiler),
-with the device's idle share.
+With --trace it also breaks one warm posv, one warm CALU gesv, one warm
+QR gels and one warm serving stream down by phase (host clock) and by
+kernel (torch.profiler), with the device's idle share.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
-with --seed + 1, so that adding to one slice moves no other's matrices.
+with --seed + 1, and the serving phases from a third, --seed + 2, so that
+adding to one slice moves no other's matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -108,6 +125,27 @@ GELS_FORWARD_BOUND = 3e-5
 CFG4_SHAPE = (200000, 1024)     # BASELINE.md config 4, the last tile ragged
 CFG4_RESIDUAL_BOUND = 2e-4
 CFG4_FORWARD_BOUND = 1e-4
+# kernels on bf16 storage vs their plain versions: both form the same f32
+# values up to the order of their sums, then each store rounds to bf16's 8
+# significant bits, so they may land one bf16 ulp (2^-7 relative) apart:
+# |kernel - plain| <= ATOL + BF16_RTOL |plain|
+BF16_RTOL = 2.0 ** -7
+# the serving stream (its own generator, --seed + 2): 40 requests an op,
+# 16 right-hand sides; solve and chol_solve at these n (buckets 128 to
+# 4096), least squares at m = 2n (the largest bucket (4096, 2048))
+SERVE_SOLVE_NS = (96, 200, 450, 900, 1900, 4000)
+SERVE_LSQ_NS = (96, 200, 450, 900, 1900)
+SERVE_PER_OP = 40
+SERVE_NRHS = 16
+# the worst healthy result's scaled residual (solve, chol_solve) and
+# scaled normal-equations residual (least squares), as serve_residual
+# forms them in f64; PERF.md has the f32 and TF32 values they sit between
+SERVE_RESIDUAL_BOUND = 0.1
+SERVE_LSQ_BOUND = 1e-2
+# the per-problem route against the ragged route, max |x_pp - x_ragged| /
+# max |x_ragged| per healthy request: both are backward-stable f32 solves
+# of problems with cond <= ~10 (CholQR's semi-normal equations square it)
+SERVE_ROUTE_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -150,10 +188,11 @@ def spd(n: int, gen: torch.Generator) -> torch.Tensor:
     return g @ g.T / n + torch.eye(n, device="cuda")
 
 
-def within_tol(got, want) -> bool:
-    """|got - want| <= ATOL + RTOL |want| for every element of every
-    output."""
-    return all(bool(((g - w).abs() <= ATOL + RTOL * w.abs()).all())
+def within_tol(got, want, rtol: float = RTOL) -> bool:
+    """|got - want| <= ATOL + rtol |want| for every element of every
+    output (compared in f32, so bf16 outputs too)."""
+    return all(bool(((g.float() - w.float()).abs()
+                     <= ATOL + rtol * w.float().abs()).all())
                for g, w in zip(got, want))
 
 
@@ -168,16 +207,18 @@ def tf32(fn):
 
 
 def check(name, shape, got, want, reason, kernel_ms, plain_ms, library_ms,
-          flops, nbytes, control=None, witness=None) -> dict:
+          flops, nbytes, control=None, witness=None,
+          rtol: float = RTOL) -> dict:
     """Hold each kernel output against the plain version's, element by
-    element; raise on any miss, and, when ``control`` (the plain version
-    with TF32 products) is given, if the control does not miss.  A
-    ``witness`` (the library call's outputs) is held against the kernel's
-    with the same tolerance."""
-    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    element, within ATOL + rtol |plain|; raise on any miss, and, when
+    ``control`` (the plain version with TF32 products) is given, if the
+    control does not miss.  A ``witness`` (the library call's outputs) is
+    held against the kernel's with the same tolerance."""
+    errs = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)]
     b_ms, b_by = bound(flops, nbytes)
     row = {"check": name, "shape": shape, "max_abs_err": max(errs),
-           "max_abs_err_by_output": errs, "rtol": RTOL, "atol": ATOL,
+           "max_abs_err_by_output": errs, "rtol": rtol, "atol": ATOL,
            "tol_reason": reason, "kernel_ms": kernel_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": b_ms, "bound_by": b_by}
@@ -188,13 +229,13 @@ def check(name, shape, got, want, reason, kernel_ms, plain_ms, library_ms,
         row["library_vs_kernel_max_abs_err"] = max(
             float((v - g).abs().max()) for v, g in zip(witness, got))
     emit(row)
-    if not within_tol(got, want):
+    if not within_tol(got, want, rtol):
         raise AssertionError(f"{name} {shape}: kernel and plain version "
                              f"differ beyond the tolerance (max {errs})")
-    if witness is not None and not within_tol(witness, got):
+    if witness is not None and not within_tol(witness, got, rtol):
         raise AssertionError(f"{name} {shape}: the library call and the "
                              f"kernel differ beyond the tolerance")
-    if control is not None and within_tol(control, want):
+    if control is not None and within_tol(control, want, rtol):
         raise AssertionError(f"{name} {shape}: the tolerance does not "
                              f"catch TF32 products")
     return row
@@ -737,6 +778,514 @@ def trace_gesv(st, a, b, nb, opts) -> None:
     profile_device("gesv CALU", lambda: st.gesv(A, B, opts))
 
 
+# ---- the serving slice: K6, K7, K8 and serve.Server -----------------------
+
+SERVE_B, SERVE_M, SERVE_NB = 8, 4096, 128   # K6/K7 checks: a full bucket
+SERVE_TILES = {0: (32, 32, 20, 9, 1, 32, 0, 16),      # live, partly dead,
+               16: (48, 48, 30, 9, 17, 0, 40, 48)}    # and wholly dead
+
+
+def serve_panel_inputs(gen, chol: bool, k: int, dtype):
+    """A batch of K6/K7 operands at a serving shape: B = 8 problems of
+    M = 4096 rows, nb = 128, K = k nb columns of history with O(1)
+    products (left, lead ~ N(0,1) / K^(1/4), drawn apart), strided as
+    batch_potrf and batch_getrf pass them (lead a transposed view for
+    Cholesky); the top block of col - left @ lead SPD with cond <= ~5
+    (Cholesky) or G / sqrt(nb) + 2 I (LU).  bf16: the same values rounded."""
+    b, m, nb, kk = SERVE_B, SERVE_M, SERVE_NB, k * SERVE_NB
+    scale = max(kk, 1) ** -0.25
+    left = (torch.randn(b, m, kk + 8, generator=gen, device="cuda")
+            * scale)[:, :, 8:]
+    if chol:
+        lead = (torch.randn(b, nb, kk + 8, generator=gen, device="cuda")
+                * scale)[:, :, 8:].mT
+    else:
+        lead = (torch.randn(b, kk, nb + 8, generator=gen, device="cuda")
+                * scale)[:, :, 8:]
+    base = torch.randn(b, m, nb, generator=gen, device="cuda")
+    top = base[:, :nb]
+    eye = torch.eye(nb, device="cuda")
+    base[:, :nb] = (top @ top.mT / nb + eye if chol
+                    else top / nb ** 0.5 + 2 * eye)
+    col = base + left @ lead
+    return col.to(dtype), left.to(dtype), lead.to(dtype)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw storage bits (NaN-proof bit equality)."""
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+def check_serve_kernels(gen) -> dict:
+    """K6 and K7 at B = 8, M = 4096, nb = 128, k = 0 and k = 16, K8 at
+    [8, 4096, 128] and [8, 1024, 128] with a rows = 0 slot, each in f32
+    and bf16: kernel vs plain version (f32: ATOL + RTOL |plain|; bf16:
+    ATOL + 2^-7 |plain|, one bf16 ulp at the store), dead tiles and filler
+    slots bit-equal to the input, and the bound counted on live tiles."""
+    from slate_tpu_torch.internal import chol_kernels as ck
+    from slate_tpu_torch.internal import lu_kernels as lk
+    from slate_tpu_torch.internal import qr_kernels as qk
+    rows = {}
+    nb = SERVE_NB
+    for name, chol, kern, plain in (
+            ("chol_panel_batched", True, ck.chol_panel_batched,
+             ck.chol_panel_batched_plain),
+            ("lu_panel_batched", False, lk.lu_panel_batched,
+             lk.lu_panel_batched_plain)):
+        for k in (0, 16):
+            tiles = torch.tensor(SERVE_TILES[k], dtype=torch.int32,
+                                 device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                col, left, lead = serve_panel_inputs(gen, chol, k, dtype)
+                got = kern(col, left, lead, tiles, k, 8)
+                want = plain(col, left, lead, tiles, k, 8)
+                live = ck.live_rows(tiles, k, SERVE_M, nb)
+                dead_equal = all(torch.equal(bits(torch.where(live, col, g)),
+                                             bits(col)) for g in got)
+                f32 = dtype == torch.float32
+
+                def library():
+                    upd = col - left @ lead
+                    if not chol:
+                        return torch.linalg.lu_factor_ex(upd, pivot=False)[0]
+                    l00 = torch.linalg.cholesky(upd[:, :nb])
+                    return torch.linalg.solve_triangular(
+                        l00.mT, upd[:, nb:], upper=True, left=False)
+                # live work only: per problem with tile 0 live, its live
+                # rows' update, the tile factor and the solve below it
+                kk, esz = k * nb, col.element_size()
+                live_m = [max(0, min(SERVE_M, (t - k) * nb))
+                          for t in SERVE_TILES[k]]
+                flops = sum(2 * mb * kk * nb + (nb ** 3 / 3 if chol
+                                                else 2 * nb ** 3 / 3)
+                            + (mb - nb) * nb * nb for mb in live_m if mb)
+                nbytes = esz * (3 * SERVE_B * SERVE_M * nb + sum(live_m) * kk
+                                + sum(1 for mb in live_m if mb) * kk * nb)
+                row = check(
+                    name, {"B": SERVE_B, "M": SERVE_M, "nb": nb, "K": kk,
+                           "bw": 8, "dtype": str(dtype)[6:],
+                           "tiles": list(SERVE_TILES[k])},
+                    list(got), list(want),
+                    "f32: K-long f32 sums with O(1) partial sums in another "
+                    "order, tile factors on blocks with cond <= ~5; bf16: "
+                    "the same f32 values, then each store rounds to bf16, "
+                    "so one bf16 ulp (2^-7 relative) apart at most",
+                    time_ms(lambda: kern(col, left, lead, tiles, k, 8), 10),
+                    time_ms(lambda: plain(col, left, lead, tiles, k, 8), 1,
+                            warmup=1),
+                    time_ms(library, 10) if f32 else None, flops, nbytes,
+                    control=(list(tf32(lambda: plain(col, left, lead,
+                                                     tiles, k, 8)))
+                             if f32 and k else None),
+                    rtol=RTOL if f32 else BF16_RTOL)
+                row["dead_tiles_bit_equal"] = dead_equal
+                emit({"phase": "dead_tiles", "check": name, "k": k,
+                      "dtype": str(dtype)[6:], "bit_equal": dead_equal})
+                if not dead_equal:
+                    raise AssertionError(f"{name} k={k} {dtype}: a dead "
+                                         f"tile is not col's bits")
+                if f32 and k:
+                    rows[name] = row
+    for mm in (4096, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            w = 128
+            a = torch.randn(SERVE_B, mm, w, generator=gen,
+                            device="cuda").to(dtype)
+            rws = torch.tensor([mm, mm - 100, 0, mm, mm, mm - 7, mm, mm],
+                               dtype=torch.int32, device="cuda")
+            got = qk.qr_panel_batched(a, rws)
+            want = qk.qr_panel_batched_plain(a, rws)
+            filler_equal = (torch.equal(bits(got[0][2]), bits(a[2]))
+                            and not bool(got[1][2].any()))
+            f32 = dtype == torch.float32
+            live = sum(1 for r in rws.tolist() if r)
+            row = check(
+                "qr_panel_batched", {"B": SERVE_B, "mm": mm, "w": w, "bw": 8,
+                                     "dtype": str(dtype)[6:],
+                                     "rows": rws.tolist()},
+                list(got), list(want),
+                "K5's slab loop in both, sums over mm rows in another "
+                "order; Gaussian panels, |R| <= ~sqrt(mm), |V| <= 1; bf16: "
+                "each store rounds, one bf16 ulp apart at most",
+                time_ms(lambda: qk.qr_panel_batched(a, rws), 5),
+                time_ms(lambda: qk.qr_panel_batched_plain(a, rws), 1,
+                        warmup=1),
+                time_ms(lambda: torch.geqrf(a), 5) if f32 else None,
+                live * qr_flops(mm, w),
+                a.element_size() * SERVE_B * (2 * mm * w + w * w),
+                rtol=RTOL if f32 else BF16_RTOL)
+            row["filler_slot_bit_equal"] = filler_equal
+            emit({"phase": "filler_slot", "check": "qr_panel_batched",
+                  "mm": mm, "dtype": str(dtype)[6:],
+                  "bit_equal_and_T_zero": filler_equal})
+            if not filler_equal:
+                raise AssertionError("qr_panel_batched: the rows = 0 slot "
+                                     "is not a's bits with T = 0")
+            if f32 and mm == 4096:
+                rows["qr_panel_batched"] = row
+    return rows
+
+
+def serve_requests(gen, nrhs: int = SERVE_NRHS):
+    """The mixed stream: 40 requests per op in a seeded order, solve and
+    chol_solve at n in SERVE_SOLVE_NS, least squares at m = 2n with n in
+    SERVE_LSQ_NS, 16 right-hand sides, all on the card.  solve takes
+    A = G / sqrt(n) + 4 I, chol_solve ex07's A = G G^T / n + I, least
+    squares a Gaussian.  Planted: two solves with a zero leading pivot
+    (NoPiv fails, PartialPiv serves them), two chol_solves on symmetric
+    indefinite matrices (they escalate to LU), one least-squares request
+    with an exactly zero column (it exhausts the ladder).  Returns (the
+    requests, {index: what was planted})."""
+    reqs, planted = [], []
+    for op, ns in (("solve", SERVE_SOLVE_NS), ("chol_solve", SERVE_SOLVE_NS),
+                   ("least_squares_solve", SERVE_LSQ_NS)):
+        for i in range(SERVE_PER_OP):
+            n = ns[i % len(ns)]
+            m = 2 * n if op == "least_squares_solve" else n
+            g = torch.randn(m, n, generator=gen, device="cuda")
+            b = torch.randn(m, nrhs, generator=gen, device="cuda")
+            if op == "solve":
+                a = g / n ** 0.5 + 4 * torch.eye(n, device="cuda")
+                if i < 2:
+                    a[0, 0] = 0.0
+                    planted.append("zero_leading_pivot")
+                else:
+                    planted.append(None)
+            elif op == "chol_solve":
+                a = g @ g.T / n + torch.eye(n, device="cuda")
+                if i in (2, 3):
+                    a -= 3 * torch.eye(n, device="cuda")
+                    planted.append("indefinite")
+                else:
+                    planted.append(None)
+            else:
+                a = g
+                if i == 4:
+                    a[:, 1] = 0.0
+                    planted.append("zero_column")
+                else:
+                    planted.append(None)
+            reqs.append((op, a.contiguous(), b))
+    order = torch.randperm(len(reqs), generator=gen, device="cuda").tolist()
+    return [reqs[i] for i in order], {j: planted[i] for j, i in
+                                      enumerate(order) if planted[i]}
+
+
+def serve_residual(op, a, x, b) -> float:
+    """solve and chol_solve: ||A x - b||_F / (||A||_F ||x||_F n eps_f32);
+    least squares: ||A^T (b - A x)||_F / (||A||_F (||A||_F ||x||_F +
+    ||b||_F) n eps_f32); formed in f64."""
+    a64, x64 = a.double(), x.double()
+    if op == "least_squares_solve":
+        na = torch.linalg.norm(a64)
+        ne = a64.T @ (b.double() - a64 @ x64)
+        return float(torch.linalg.norm(ne) / (
+            na * (na * torch.linalg.norm(x64) + torch.linalg.norm(b.double()))
+            * a.shape[1] * EPS32))
+    r = a64 @ x64 - b.double()
+    return float(torch.linalg.norm(r) / (torch.linalg.norm(a64)
+                                         * torch.linalg.norm(x64)
+                                         * a.shape[0] * EPS32))
+
+
+def serve_accuracy(reqs, results) -> dict:
+    """The worst residual of the healthy results, per op."""
+    worst = {}
+    for (op, a, b), res in zip(reqs, results):
+        if res.health.ok:
+            worst[op] = max(worst.get(op, 0.0),
+                            serve_residual(op, a, res.x, b))
+    return worst
+
+
+def expected_serve_launches(records) -> dict:
+    """K6, K7 and K8 launches of the ragged route, replayed from the batches
+    the server ran: a chol_solve (solve) batch of bucket n runs one K6 (K7)
+    step a block column, 2 n / nb - 1 launches with nb = min(128, n); a
+    least-squares batch of bucket (mb, n, kb) one K8 launch a panel, n / w
+    with w = min(128, n).  Each escalated least-squares problem's safe
+    rung, Householder QR of its (mb, n) bucket in tiles of min(n, 128),
+    launches K5 once a panel; the LU safe rungs run no hand kernel."""
+    want = {"chol_panel_batched": 0, "lu_panel_batched": 0,
+            "qr_panel_batched": 0, "qr_panel": 0}
+    for r in records:
+        n = r["bucket"][1] if r["op"] == "least_squares_solve" \
+            else r["bucket"][0]
+        nb = min(128, n)
+        if r["op"] == "least_squares_solve":
+            want["qr_panel_batched"] += n // nb
+            want["qr_panel"] += r["escalated"] * (n // nb)
+        else:
+            key = ("chol_panel_batched" if r["op"] == "chol_solve"
+                   else "lu_panel_batched")
+            want[key] += 2 * (n // nb) - 1
+    return want
+
+
+def run_stream(st, reqs, opts=None, device=None):
+    """One stream through a fresh serve.Server; returns (server, results,
+    wall seconds)."""
+    srv = st.serve.Server(opts, device=device,
+                          cache=st.serve.ExecutableCache())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = srv.serve_batch(reqs)
+    torch.cuda.synchronize()
+    return srv, res, time.perf_counter() - t0
+
+
+def group_table(records) -> list:
+    return [{"op": r["op"], "bucket": r["bucket"], "batch": r["batch"],
+             "problems": r["problems"],
+             "padding_waste": round(r["padding_waste"], 4),
+             "escalated": r["escalated"], "retry": r["retry"],
+             "quarantine": r["quarantine"], "wall_s": r["wall_s"]}
+            for r in records]
+
+
+def trace_serve(st, reqs) -> None:
+    """Where one warm serving stream's time goes: pack, factor (the ragged
+    batched factorizations), solve and IR, health read, safe rung and
+    unpack, each timed on the host clock with the device synchronised
+    around it and counted exclusively (a phase inside another is taken out
+    of the outer one), then the device time by kernel under
+    torch.profiler."""
+    from slate_tpu_torch.internal import batched as ib
+    from slate_tpu_torch.robust import health as rh
+    from slate_tpu_torch.serve import batched as sbm
+    from slate_tpu_torch.serve import server as ssv
+    srv = st.serve.Server(cache=st.serve.ExecutableCache())
+    srv.serve_batch(reqs)                            # warm-up
+    spent: dict[str, float] = {}
+    stack: list[float] = []
+
+    def timed(fn, phase):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                dt = time.perf_counter() - t0
+                inner = stack.pop()
+                spent[phase] = spent.get(phase, 0.0) + dt - inner
+                if stack:
+                    stack[-1] += dt
+            return out
+        return run
+
+    patched = [(ssv.Server, "_pack", "pack"),
+               (ssv.Server, "_unpack", "unpack"),
+               (ib, "batch_potrf", "factor"), (ib, "batch_getrf", "factor"),
+               (ib, "batch_geqrf", "factor"),
+               (ib, "batch_getrs", "solve_and_ir"),
+               (ib, "batch_gels", "solve_and_ir"),
+               (sbm, "_chol_solves", "solve_and_ir"),
+               (rh.BatchHealth, "to_list", "health_read")]
+    saved = [getattr(obj, name) for obj, name, _ in patched]
+    safe = dict(sbm.SAFE_RUNGS)
+    try:
+        for (obj, name, phase), fn in zip(patched, saved):
+            setattr(obj, name, timed(fn, phase))
+        for op, fn in safe.items():
+            sbm.SAFE_RUNGS[op] = timed(fn, "safe_rung")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.serve_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for (obj, name, _), fn in zip(patched, saved):
+            setattr(obj, name, fn)
+        sbm.SAFE_RUNGS.update(safe)
+    _, _, wall_plain = run_stream(st, reqs)
+    emit({"phase": "trace_host_clock_s", "of": "serve stream warm",
+          "stream_with_phase_syncs": wall, "stream_cold_fresh_server":
+          wall_plain, "outside_phases": wall - sum(spent.values()),
+          **spent})
+    profile_device("serve stream warm", lambda: srv.serve_batch(reqs))
+
+
+def check_serving(st, gen, kernels, reset, counts) -> dict:
+    """The serving slice's paths on the card: the mixed stream through
+    serve.Server at full width on the ragged route (cold, then warm), on
+    the per-problem route, with the bf16 rung, with TF32 products (the
+    control the residual bounds must catch), and a small stream held
+    against the CPU route.  Every phase runs and prints before the checks
+    decide; any miss fails the run.  Returns the launch counts of each
+    path and the stream."""
+    from slate_tpu_torch.internal import batched as ib
+    failures = []
+    reqs, planted = serve_requests(gen)
+    per_op = {op: sum(1 for r in reqs if r[0] == op)
+              for op in ("solve", "chol_solve", "least_squares_solve")}
+    emit({"phase": "serve_stream", "requests": len(reqs), "per_op": per_op,
+          "nrhs": SERVE_NRHS, "planted": {str(k): v for k, v in
+                                          planted.items()}})
+    # ---- the ragged route (the default): cold, then warm ----
+    reset()
+    srv, res, wall_cold = run_stream(st, reqs)
+    launches = counts()
+    records = list(srv.batch_records)
+    want = {**{name: 0 for name in kernels},
+            **expected_serve_launches(records)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_warm = srv.serve_batch(reqs)                   # the same server, warm
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+    warm_records = srv.batch_records[-len(records):]
+    acc = serve_accuracy(reqs, res)
+    emit({"phase": "serve_groups", "route": "ragged",
+          "groups": group_table(records)})
+    emit({"phase": "serve_ragged", "wall_s_cold": wall_cold,
+          "wall_s_warm": wall_warm,
+          "problems_per_s_warm": len(reqs) / wall_warm,
+          "problems_per_s_cold": len(reqs) / wall_cold,
+          "warm_group_wall_s": [r["wall_s"] for r in warm_records],
+          "launches": launches, "launches_predicted": want,
+          "quarantined": srv.health_info()["quarantined"],
+          "worst_residual": acc,
+          "residual_bounds": {"solve": SERVE_RESIDUAL_BOUND,
+                              "chol_solve": SERVE_RESIDUAL_BOUND,
+                              "least_squares_solve": SERVE_LSQ_BOUND}})
+    if launches != want:
+        failures.append(f"serving launches {launches} != {want}")
+    for i, what in planted.items():
+        h, esc = res[i].health, res[i].escalated
+        good = (esc and h.ok) if what != "zero_column" else \
+            (esc and not h.ok)
+        emit({"phase": "serve_planted", "request": i, "planted": what,
+              "escalated": esc, "health_ok": h.ok, "info": h.info,
+              "as_expected": good})
+        if not good:
+            failures.append(f"planted request {i} ({what}): escalated "
+                            f"{esc}, health ok {h.ok}")
+    if srv.health_info()["quarantined"] != 2:          # cold and warm runs
+        failures.append("the zero-column request was not quarantined "
+                        "once per stream")
+    unhealthy = [i for i, r in enumerate(res) if not r.health.ok]
+    if unhealthy != [i for i, w in planted.items() if w == "zero_column"]:
+        failures.append(f"unhealthy results {unhealthy}")
+    same = all(torch.equal(bits(a.x), bits(b.x))
+               for a, b in zip(res, res_warm))
+    emit({"phase": "serve_cold_vs_warm", "bit_equal": same})
+    if not same:
+        failures.append("the warm stream's results differ from the "
+                        "cold stream's")
+    # ---- the TF32 control: the same stream with TF32 products ----
+    _, res_tf, _ = tf32(lambda: run_stream(st, reqs))
+    acc_tf = serve_accuracy(reqs, res_tf)
+    emit({"phase": "serve_tf32_control", "worst_residual": acc_tf})
+    bounds = {"solve": SERVE_RESIDUAL_BOUND,
+              "chol_solve": SERVE_RESIDUAL_BOUND,
+              "least_squares_solve": SERVE_LSQ_BOUND}
+    for op, bnd in bounds.items():
+        if not acc[op] < bnd:
+            failures.append(f"serve {op}: worst healthy residual "
+                            f"{acc[op]} (bound {bnd})")
+        if not acc_tf[op] > bnd:
+            failures.append(f"serve {op}: the bound {bnd} does not catch "
+                            f"TF32 products ({acc_tf[op]})")
+    # ---- the per-problem route: the single-problem drivers ----
+    reset()
+    with contextlib.ExitStack() as stack:
+        for op in ("batch_potrf", "batch_getrf", "batch_geqrf"):
+            stack.enter_context(st.plan_override(op, st.LIBRARY_PLAN))
+        _, res_pp, wall_pp = run_stream(st, reqs)
+    pp_launches = counts()
+    worst_diff = 0.0
+    for (op, _, _), a, b in zip(reqs, res, res_pp):
+        if a.health.ok:
+            worst_diff = max(worst_diff, float(
+                (a.x - b.x).abs().max() / a.x.abs().max()))
+    emit({"phase": "serve_per_problem_route", "wall_s": wall_pp,
+          "problems_per_s": len(reqs) / wall_pp,
+          "ragged_problems_per_s_warm": len(reqs) / wall_warm,
+          "launches": pp_launches, "worst_healthy_acc": serve_accuracy(
+              reqs, res_pp),
+          "max_rel_diff_vs_ragged": worst_diff, "tol": SERVE_ROUTE_TOL})
+    if any(pp_launches[k] for k in ("chol_panel_batched", "lu_panel_batched",
+                                    "qr_panel_batched")):
+        failures.append("the per-problem route launched a batched "
+                        "kernel")
+    if not worst_diff <= SERVE_ROUTE_TOL:
+        failures.append(f"per-problem vs ragged route: {worst_diff}")
+    # ---- the bf16 rung: K6-K8 on bf16 storage ----
+    seen = {}
+
+    def spy(fn, name):
+        def run(a, *rest, **kw):
+            seen[(name, str(a.dtype))] = seen.get((name, str(a.dtype)),
+                                                  0) + 1
+            return fn(a, *rest, **kw)
+        return run
+    names = ("chol_panel_batched", "lu_panel_batched", "qr_panel_batched")
+    saved = [getattr(ib, n) for n in names]
+    reset()
+    try:
+        for n, fn in zip(names, saved):
+            setattr(ib, n, spy(fn, n))
+        srv16, res16, wall16 = run_stream(
+            st, reqs, {st.Option.Precision: st.Precision.Bf16})
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(ib, n, fn)
+    bf16_launches = counts()
+    esc16 = [r.escalated for r in res16]
+    mismatch = [i for i, (r, e) in enumerate(zip(res16, esc16))
+                if e and not (torch.equal(bits(r.x), bits(res[i].x))
+                              and r.health == res[i].health)]
+    emit({"phase": "serve_bf16_rung", "wall_s": wall16,
+          "problems_per_s": len(reqs) / wall16,
+          "accept_rate": 1 - sum(esc16) / len(esc16),
+          "escalated": sum(esc16), "launches": bf16_launches,
+          "panel_calls_by_storage": {f"{k[0]}:{k[1]}": v
+                                     for k, v in seen.items()},
+          "escalated_not_bit_equal_to_f32": mismatch,
+          "worst_healthy_residual": serve_accuracy(reqs, res16)})
+    if mismatch:
+        failures.append(f"bf16 rung: escalated problems {mismatch} "
+                        f"differ from the f32 stream")
+    if not all(seen.get((n, "torch.bfloat16")) for n in names):
+        failures.append(f"bf16 rung: a batched kernel never ran on "
+                        f"bf16 storage ({seen})")
+    # ---- a small stream held against the CPU route ----
+    small = serve_requests_small(gen)
+    _, got, _ = run_stream(st, small)
+    _, want_cpu, _ = run_stream(st, [(op, a.cpu(), b.cpu())
+                                     for op, a, b in small], device="cpu")
+    diff = max(float((g.x.cpu() - w.x).abs().max() / w.x.abs().max())
+               for g, w in zip(got, want_cpu))
+    emit({"phase": "serve_vs_cpu", "requests": len(small),
+          "rel_max_diff": diff, "tol": 1e-4})
+    if not (diff <= 1e-4 and all(g.health.ok for g in got)):
+        failures.append(f"serving on the card vs the CPU: {diff}")
+    if failures:
+        raise AssertionError("serving: " + "; ".join(failures))
+    return {"serve_ragged": launches, "serve_per_problem": pp_launches,
+            "serve_bf16": bf16_launches}, reqs
+
+
+def serve_requests_small(gen):
+    """Nine small requests (n = 40, 100, 128 per op) for the CPU check."""
+    reqs = []
+    for n in (40, 100, 128):
+        g = torch.randn(n, n, generator=gen, device="cuda")
+        b = torch.randn(n, 3, generator=gen, device="cuda")
+        reqs.append(("solve", g / n ** 0.5 + 4 * torch.eye(n, device="cuda"),
+                     b))
+        reqs.append(("chol_solve", g @ g.T / n + torch.eye(n, device="cuda"),
+                     b))
+        reqs.append(("least_squares_solve",
+                     torch.randn(2 * n, n, generator=gen, device="cuda"),
+                     torch.randn(2 * n, 3, generator=gen, device="cuda")))
+    return reqs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -744,23 +1293,31 @@ def main(argv=None) -> int:
     ap.add_argument("--nb", type=int, default=128)
     ap.add_argument("--nrhs", type=int, default=128)
     ap.add_argument("--trace", action="store_true",
-                    help="also break one warm posv, one warm CALU gesv and "
-                         "one warm QR gels down by phase and kernel")
+                    help="also break one warm posv, one warm CALU gesv, "
+                         "one warm QR gels and one warm serving stream down "
+                         "by phase and kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     import slate_tpu_torch as st
-    from slate_tpu_torch.internal.chol_kernels import CHOL_PANEL, CHOL_TILE
+    from slate_tpu_torch.internal.chol_kernels import (CHOL_PANEL,
+                                                       CHOL_PANEL_BATCHED,
+                                                       CHOL_TILE)
     from slate_tpu_torch.internal.getrf import _lu_select_ok
     from slate_tpu_torch.internal.kernels import build_all
-    from slate_tpu_torch.internal.lu_kernels import LU_PANEL, LU_SELECT
-    from slate_tpu_torch.internal.qr_kernels import QR_PANEL
+    from slate_tpu_torch.internal.lu_kernels import (LU_PANEL,
+                                                     LU_PANEL_BATCHED,
+                                                     LU_SELECT)
+    from slate_tpu_torch.internal.qr_kernels import QR_PANEL, QR_PANEL_BATCHED
     from slate_tpu_torch.internal.tri_inv import TRI_INV
     kernels = {"upper_tri_inv": TRI_INV, "chol_tile": CHOL_TILE,
                "chol_panel_fused": CHOL_PANEL, "lu_panel_fused": LU_PANEL,
-               "lu_select": LU_SELECT, "qr_panel": QR_PANEL}
+               "lu_select": LU_SELECT, "qr_panel": QR_PANEL,
+               "chol_panel_batched": CHOL_PANEL_BATCHED,
+               "lu_panel_batched": LU_PANEL_BATCHED,
+               "qr_panel_batched": QR_PANEL_BATCHED}
 
     def reset():
         for k in kernels.values():
@@ -771,7 +1328,7 @@ def main(argv=None) -> int:
 
     card = card_line()
     print(card, flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build_all(kernels.values())
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     for name, k in kernels.items():
@@ -786,9 +1343,11 @@ def main(argv=None) -> int:
     # earlier phase's matrices, nor an earlier phase's draw a QR one's
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     qr_gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    serve_gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
     rows = check_kernels(gen)
     rows.update(check_lu_kernels(gen))
     rows.update(check_qr_kernels(qr_gen))
+    rows.update(check_serve_kernels(serve_gen))
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -1063,6 +1622,13 @@ def main(argv=None) -> int:
     # ---- small QR checks held against the CPU ----
     check_qr_small(st, qr_gen, nb)
 
+    # ---- the serving path: serve.Server over K6, K7 and K8 ----
+    serve_launches, serve_reqs = check_serving(st, serve_gen, kernels,
+                                               reset, counts)
+    if args.trace:
+        trace_serve(st, serve_reqs)
+    del serve_reqs
+
     # ---- the record ----
     emit({"launch_counts": {"posv": main_launches,
                             "posv_tile_route": tile_launches,
@@ -1072,7 +1638,8 @@ def main(argv=None) -> int:
                             "gels_qr": qr_launches,
                             "gels_config4_cholqr_default":
                                 cfg4["cholqr_default"],
-                            "gels_config4_qr_forced": cfg4["qr_forced"]}})
+                            "gels_config4_qr_forced": cfg4["qr_forced"],
+                            **serve_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
@@ -1092,6 +1659,15 @@ def main(argv=None) -> int:
         "qr_panel": ("slate_tpu_torch/csrc/qr_panel.cu",
                      "slate_tpu/internal/pallas_qr.py:129", "gels_qr",
                      qr_launches),
+        "chol_panel_batched": ("slate_tpu_torch/csrc/chol_panel_batched.cu",
+                               "slate_tpu/internal/pallas_chol.py:286",
+                               "serve_ragged", serve_launches["serve_ragged"]),
+        "lu_panel_batched": ("slate_tpu_torch/csrc/lu_panel_batched.cu",
+                             "slate_tpu/internal/pallas_lu.py:308",
+                             "serve_ragged", serve_launches["serve_ragged"]),
+        "qr_panel_batched": ("slate_tpu_torch/csrc/qr_panel_batched.cu",
+                             "slate_tpu/internal/pallas_qr.py:154",
+                             "serve_ragged", serve_launches["serve_ragged"]),
     }
     line = []
     for name, (source, ref, path, launches) in replaces.items():
@@ -1103,6 +1679,7 @@ def main(argv=None) -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

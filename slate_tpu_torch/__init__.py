@@ -19,7 +19,14 @@ first use).  The ported slices carry the single-device solvers on tiled
   through K5, the Householder panel with its compact-WY T);
 - the rest of BLAS-3 on the single device: ``gemm`` (``gemmA``,
   ``gemmC``), ``trmm``, ``herk``/``syrk``/``her2k``/``syr2k`` and
-  ``hemm``/``symm``, besides ``trsm``.
+  ``hemm``/``symm``, besides ``trsm``;
+- serving, ``serve.Server``: mixed-size ``solve``/``chol_solve``/
+  ``least_squares_solve`` requests packed into identity-augmented bucket
+  batches whose fast rung is one ragged batched factorization through K6
+  (batched Cholesky panel), K7 (batched no-pivot LU panel) or K8 (batched
+  Householder panel), with per-problem escalation to the single-problem
+  drivers, admission control, poison quarantine and the certified bf16
+  rung (``robust/certify.py``, ``robust/precision.py``).
 
 Matrices are placed on CUDA unless the caller passes ``device="cpu"``;
 with no GPU, ``device=None`` raises.  On CPU tensors every kernel wrapper
@@ -65,3 +72,4 @@ from .drivers.qr import (  # noqa: E402,F401
     LQFactors, QRFactors, cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf,
     qr_multiply, unmlq, unmqr,
 )
+from . import serve  # noqa: E402,F401

@@ -5,9 +5,10 @@ so a reference ``TileStorage.data`` (as a numpy array) becomes the port's
 ``TileStorage.data`` unchanged, and a reference matrix becomes the port's
 matrix of the same class over the same view.  LU factors carry their
 packed matrix and ``perm``, RBT factors their butterflies besides, QR and
-LQ factors their packed matrix and the stack of T triangles.
-Nothing here imports the reference: objects are read through the
-attributes both packages share.
+LQ factors their packed matrix and the stack of T triangles.  A batched
+health record (the reference's leading-axis ``HealthInfo`` pytree) becomes
+one port ``HealthInfo`` per problem.  Nothing here imports the reference:
+objects are read through the attributes both packages share.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .core.storage import TileStorage, as_tensor
 from .drivers.lu import LUFactors, RBTFactors
 from .drivers.qr import LQFactors, QRFactors
 from .exceptions import slate_error
+from .robust.health import HealthInfo
 from .types import Diag, Op, TileKind, Uplo
 
 _CLASSES = {cls.__name__: cls for cls in (Matrix, TriangularMatrix,
@@ -84,3 +86,16 @@ def lq_factors_from_jax(F, device=None) -> LQFactors:
     """The port's LQFactors of a reference ``LQFactors`` (the QR factors of
     A^H)."""
     return LQFactors(qr_factors_from_jax(F.F, device))
+
+
+def health_from_jax(h) -> list[HealthInfo]:
+    """The port's HealthInfo of each problem of a reference ``HealthInfo``
+    whose fields have a leading axis (a batched or vmapped health), as
+    Python values."""
+    f = [np.atleast_1d(np.asarray(x)) for x in h]
+    return [HealthInfo(
+        nonfinite=bool(f[0][i]), info=int(f[1][i]),
+        min_pivot=float(f[2][i]), min_pivot_index=int(f[3][i]),
+        growth=float(f[4][i]), iters=int(f[5][i]), converged=bool(f[6][i]),
+        abft_detected=int(f[7][i]), abft_corrected=int(f[8][i]),
+        abft_site=int(f[9][i])) for i in range(len(f[0]))]

@@ -39,65 +39,9 @@
 // factor run on one SM while the rest of the card waits, which is the first
 // thing to remove in a faster version (split the diagonal update over
 // blocks, then wgmma/TMA for the products).
-#include "common.cuh"
 #include "chol_factor.cuh"
-
-constexpr int KC = 32;  // depth of the K slice staged in shared memory
-
-// acc[i][j] += sum_{k < K} A(ty + i*TY, k) * B(k, tx + 16*j), with
-// A(r, k) = A[r*as0 + k*as1] and B(k, c) = B[k*bs0 + c*bs1] in global
-// memory. The block has 16*TY threads (tx = tid % 16, ty = tid / 16) and
-// covers a BM x NB tile, BM = RM*TY, NB = 16*CN. As holds BM x (KC+1)
-// floats, Bs KC x (NB+1).
-template <int RM, int CN, int TY>
-__device__ inline void gemm_acc(float (&acc)[RM][CN],
-                                const float* __restrict__ A, long long as0,
-                                long long as1, const float* __restrict__ B,
-                                long long bs0, long long bs1, int K, float* As,
-                                float* Bs) {
-  constexpr int BM = RM * TY, NB = CN * 16, NT = 16 * TY;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    if (as1 == 1) {
-      for (int idx = tid; idx < BM * KC; idx += NT) {
-        const int r = idx / KC, k = idx % KC;
-        As[r * (KC + 1) + k] = (k0 + k < K) ? A[r * as0 + (k0 + k)] : 0.f;
-      }
-    } else {
-      for (int idx = tid; idx < BM * KC; idx += NT) {
-        const int r = idx % BM, k = idx / BM;
-        As[r * (KC + 1) + k] =
-            (k0 + k < K) ? A[r * as0 + (k0 + k) * as1] : 0.f;
-      }
-    }
-    if (bs1 == 1) {
-      for (int idx = tid; idx < KC * NB; idx += NT) {
-        const int k = idx / NB, c = idx % NB;
-        Bs[k * (NB + 1) + c] = (k0 + k < K) ? B[(k0 + k) * bs0 + c] : 0.f;
-      }
-    } else {
-      for (int idx = tid; idx < KC * NB; idx += NT) {
-        const int k = idx % KC, c = idx / KC;
-        Bs[k * (NB + 1) + c] =
-            (k0 + k < K) ? B[(k0 + k) * bs0 + c * bs1] : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float a[RM], b[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = As[(ty + i * TY) * (KC + 1) + k];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) b[j] = Bs[k * (NB + 1) + tx + j * 16];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
+#include "common.cuh"
+#include "gemm_acc.cuh"
 
 template <int NB>
 constexpr size_t diag_smem_bytes() {
@@ -120,7 +64,8 @@ chol_panel_diag_kernel(const float* __restrict__ col, long long cs0,
   float* Bs = As + NB * (KC + 1);  // KC x (NB+1)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[RM][CN] = {};
-  gemm_acc<RM, CN, TY>(acc, left, ls0, ls1, lead, ds0, ds1, K, As, Bs);
+  gemm_acc<float, RM, CN, TY>(acc, left, ls0, ls1, lead, ds0, ds1, K, As,
+                              Bs);
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
 #pragma unroll
@@ -162,8 +107,8 @@ chol_panel_below_kernel(const float* __restrict__ col, long long cs0,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const long long row0 = NB + (long long)STRIP * blockIdx.x;
   float acc[RM][CN] = {};
-  gemm_acc<RM, CN, TY>(acc, left + row0 * ls0, ls0, ls1, lead, ds0, ds1, K,
-                       As, Bs);
+  gemm_acc<float, RM, CN, TY>(acc, left + row0 * ls0, ls0, ls1, lead, ds0,
+                              ds1, K, As, Bs);
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
 #pragma unroll

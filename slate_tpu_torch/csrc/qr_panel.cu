@@ -25,10 +25,6 @@ qr_panel_kernel(const float* __restrict__ A, long long as0, long long as1,
   qr_panel_block(A, as0, as1, mm, w, bw, P, T, smem);
 }
 
-static bool qr_panel_shape_ok(int mm, int w, int bw) {
-  return w >= 1 && w <= QR_MAX_W && mm >= w && bw >= 1 && bw <= QR_MAX_BW;
-}
-
 // *fits = 1 when this kernel takes a [mm, w] panel at slab width bw on this
 // device: 1 <= w <= 128 (four columns a lane), mm >= w, 1 <= bw <= 8, and
 // T with its scratch (qr_panel_smem_floats) within one block's opt-in

@@ -4,12 +4,14 @@
 // (slate_tpu/internal/pallas_qr.py _qr_panel_steps, used by qr_panel_pallas
 // and qr_panel_batched), as chol_factor.cuh serves K1 and K2.
 //
-//   A  [mm, w] f32, any strides, mm >= w, 1 <= w <= QR_MAX_W
+//   A  [mm, w] f32 or bf16 (widened to f32 as it is read), any strides,
+//      mm >= w, 1 <= w <= QR_MAX_W
 //   P  [mm, w] f32 row-major (ld = w): on return the packed panel, R on and
 //      above the diagonal (beta_j on it), the Householder vectors strictly
 //      below (unit diagonal implied); the working copy of the panel throughout
-//   T  [w, w] f32 row-major: the larft Forward/Columnwise triangle, tau_j on
-//      the diagonal, T[:j, j] = -tau_j T (V^T v_j); Q = I - V T V^T
+//   T  [w, w] f32 or bf16 row-major (rounded as it is stored): the larft
+//      Forward/Columnwise triangle, tau_j on the diagonal, T[:j, j] = -tau_j
+//      T (V^T v_j); Q = I - V T V^T
 //
 // The larfg scalars are those of slate_tpu/internal/qr.py _larfg:
 // mu = sqrt(alpha^2 + sum x^2) with no scaling, beta = -mu if alpha >= 0 else
@@ -42,6 +44,8 @@
 
 #include <cuda_runtime.h>
 
+#include "storage.cuh"
+
 constexpr int QR_THREADS = 512;
 constexpr int QR_WARPS = QR_THREADS / 32;
 constexpr int QR_MAX_W = 128;   // four columns a lane in the wide passes
@@ -53,6 +57,13 @@ constexpr int QR_ROWS = 4;      // rows a thread (or a warp) keeps in flight
 __host__ __device__ inline size_t qr_panel_smem_floats(int w, int bw) {
   return (size_t)w * w + 2 * (size_t)bw * w + (size_t)QR_WARPS * bw * 32 +
          (QR_MAX_BW + 8);
+}
+
+// The panels qr_panel_block takes: 1 <= w <= 128 (four columns a lane),
+// mm >= w, 1 <= bw <= 8. The panel lives in global memory, so mm has no
+// limit here.
+inline bool qr_panel_shape_ok(int mm, int w, int bw) {
+  return w >= 1 && w <= QR_MAX_W && mm >= w && bw >= 1 && bw <= QR_MAX_BW;
 }
 
 // Column step scalars, in the block's sc[] slots.
@@ -70,9 +81,11 @@ __device__ inline float qr_warp_sum(float v) {
   return v;
 }
 
-__device__ inline void qr_panel_block(const float* __restrict__ A, long long as0,
-                               long long as1, int mm, int w, int bw, float* P,
-                               float* __restrict__ Tout, float* smem) {
+template <class TA, class TT>
+__device__ inline void qr_panel_block(const TA* __restrict__ A, long long as0,
+                                      long long as1, int mm, int w, int bw,
+                                      float* P, TT* __restrict__ Tout,
+                                      float* smem) {
   float* T = smem;                         // w x w
   float* Z = T + (size_t)w * w;            // bw x w: Vs^T P[j0:, :]
   float* Y = Z + (size_t)bw * w;           // bw x w: M^T (left), Ts^T Z (right)
@@ -87,7 +100,8 @@ __device__ inline void qr_panel_block(const float* __restrict__ A, long long as0
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const size_t i = i0 + (size_t)k * QR_THREADS;
-      if (i < total) v[k] = A[(long long)(i / w) * as0 + (long long)(i % w) * as1];
+      if (i < total)
+        v[k] = to_f32(A[(long long)(i / w) * as0 + (long long)(i % w) * as1]);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -306,5 +320,5 @@ __device__ inline void qr_panel_block(const float* __restrict__ A, long long as0
     }
     __syncthreads();
   }
-  for (int i = tid; i < w * w; i += QR_THREADS) Tout[i] = T[i];
+  for (int i = tid; i < w * w; i += QR_THREADS) Tout[i] = from_f32<TT>(T[i]);
 }

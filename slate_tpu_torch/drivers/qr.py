@@ -203,12 +203,9 @@ def _gels_cholqr_attempt(A: Matrix, B, opts: Options | None, *,
     """One semi-normal-equations solve R^H R x = A^H b under
     ErrorPolicy.Info; the health merges the Gram factor's with the
     solution's finiteness.  ``refine`` adds that many corrected sweeps
-    (dx from A^H r through the same factor).  ``certify`` (the
-    normal-equations certificate of the speculative rung) is not ported."""
-    if certify:
-        raise not_ported("the gels normal-equations certificate "
-                         "(robust/certify.certify_lstsq)",
-                         "queue 1, item 6 (robustness)")
+    (dx from A^H r through the same factor).  ``certify`` merges the
+    normal-equations certificate (robust/certify.certify_lstsq) of the
+    final X, with ``refine`` recorded as its iterations."""
     L, fh = potrf(_gram(A, opts), _info_opts(opts))
 
     def sne(Rhs):
@@ -221,6 +218,16 @@ def _gels_cholqr_attempt(A: Matrix, B, opts: Options | None, *,
     for _ in range(refine):
         R = gemm(-1.0, A, X, 1.0, B, opts)            # r = B - A X
         X = X.with_dense(sne(R).to_dense() + X.to_dense())
+    if certify:
+        from ..robust import certify as _certify
+        R = gemm(-1.0, A, X, 1.0, B, opts)
+        Rn = gemm(1.0, A.conj_transpose(), R, 0.0, None, opts)
+        ad = A.to_dense()
+        cert = _certify.certify_lstsq(
+            torch.linalg.norm(ad)[None], X.to_dense()[None],
+            B.to_dense()[None], Rn.to_dense()[None],
+            tol=_certify.tolerance(A.dtype, max(A.m, A.n))).to_list()[0]
+        h = _health.merge(h, cert._replace(iters=refine))
     return X, h
 
 

@@ -1,20 +1,22 @@
-"""K1 and K2: the Cholesky tile and the fused Cholesky panel step (port of
-slate_tpu/internal/pallas_chol.py ``chol_tile_pallas`` and
-``chol_panel_fused``).
+"""K1, K2 and K6: the Cholesky tile, the fused Cholesky panel step and its
+ragged batched form (port of slate_tpu/internal/pallas_chol.py
+``chol_tile_pallas``, ``chol_panel_fused`` and ``chol_panel_batched``).
 
 Each kernel has a plain version here that repeats its arithmetic in torch
 ops: the CPU tests run it, and on the card it is only the comparison.
 A wrapper takes the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel (``csrc/chol_tile.cu``, ``csrc/chol_panel.cu``) or
-raises.
+it launches the kernel (``csrc/chol_tile.cu``, ``csrc/chol_panel.cu``,
+``csrc/chol_panel_batched.cu``) or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
-    device_and_stream
+from .kernels import (BATCHED_PANEL_ARGS, I32, I64, P, CudaKernel,
+                      batched_panel_step, check_cuda_f32, device_and_stream)
 from .tri_inv import upper_tri_inv, upper_tri_inv_plain
 
 CHOL_TILE = CudaKernel("chol_tile", "chol_tile.cu", {
@@ -24,6 +26,10 @@ CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
                               I32, I32, I32, P, P],
     "slate_chol_panel_below": [I32, P, P, I64, I64, P, I64, I64, P, I64, I64,
                                I32, I32, I32, P, P, P]})
+
+CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
+    "slate_chol_panel_batched": BATCHED_PANEL_ARGS,
+    "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)]})
 
 TILE_MAX_N = 128          # one n x (n+1) f32 tile in shared memory
 PANEL_NB = (32, 64, 96, 128)   # the instantiated widths (an 8 x 8 register
@@ -122,3 +128,59 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
         CHOL_PANEL.launch("slate_chol_panel_below", dev, stream, *operands,
                           m, uinv.data_ptr(), upd.data_ptr(), fac.data_ptr())
     return upd, fac
+
+
+def live_rows(tiles: torch.Tensor, k: int, m: int, nb: int) -> torch.Tensor:
+    """[B, M, 1] bool: row r of panel k of problem b lies in a live tile,
+    k + r // nb < tiles[b] (the ragged contract of K6 and K7)."""
+    tile = k + torch.arange(m, device=tiles.device) // nb
+    return (tile[None, :] < tiles[:, None])[..., None]
+
+
+def chol_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
+    """K6's arithmetic in torch ops: per problem, K2's plain step on the
+    operands widened to f32 (upd = col - left @ lead, L00 by the K1 column
+    loop, L21 = upd_below @ (L00^T)^-1 by K0's back substitution), rounded
+    to the storage dtype; dead tiles are ``col`` itself, bit for bit."""
+    nb = col.shape[2]
+    upd = col.float() - left.float() @ lead.float()
+    l00 = torch.stack([chol_tile_plain(t, bw) for t in upd[:, :nb]])
+    uinv = torch.stack([upper_tri_inv_plain(t.T) for t in l00])
+    fac = torch.cat([l00, upd[:, nb:] @ uinv], dim=1)
+    live = live_rows(tiles, k, col.shape[1], nb)
+    return (torch.where(live, upd.to(col.dtype), col),
+            torch.where(live, fac.to(col.dtype), col))
+
+
+def chol_panel_batched(col: torch.Tensor, left: torch.Tensor,
+                       lead: torch.Tensor, tiles: torch.Tensor, k: int,
+                       bw: int = 8):
+    """Ragged batched fused Cholesky panel step (K2 over a batch).
+
+    col:   [B, M, nb] trailing block columns A[:, k0:, k0:k0+nb]
+    left:  [B, M, K]  factored block rows A[:, k0:, :k0]
+    lead:  [B, K, nb] A[:, k0:k0+nb, :k0]^T per problem
+    tiles: [B] int32  live tile counts ceil(size / nb)
+    k:     the panel index (block columns already factored)
+
+    Returns (upd, fac) [B, M, nb] in the storage dtype (f32 or bf16; sums
+    in f32): row tile i of problem b is live iff k + i < tiles[b], and a
+    dead tile is ``col``'s bits in both outputs.  Any strides; M % nb ==
+    0.  A CPU tensor takes the plain version; CUDA tensors launch K6 (nb
+    and bw within ``slate_chol_panel_batched_fits``) or raise.  On CUDA a
+    step is one launch when M == nb and two otherwise, counted by
+    CHOL_PANEL_BATCHED; ``tiles`` is read on the device only."""
+    bsz, m, nb = col.shape
+    kk = left.shape[2]
+    if (left.shape != (bsz, m, kk) or lead.shape != (bsz, kk, nb)
+            or tiles.shape != (bsz,) or m < nb or m % nb or bw < 1
+            or nb % bw):
+        raise ValueError(f"chol_panel_batched: bad shapes col "
+                         f"{tuple(col.shape)}, left {tuple(left.shape)}, "
+                         f"lead {tuple(lead.shape)}, tiles "
+                         f"{tuple(tiles.shape)}, bw={bw}")
+    if col.device.type == "cpu":
+        return chol_panel_batched_plain(col, left, lead, tiles, k, bw)
+    return batched_panel_step(CHOL_PANEL_BATCHED, "slate_chol_panel_batched",
+                              "chol_panel_batched", col, left, lead, tiles,
+                              k, bw)

@@ -155,11 +155,71 @@ def device_and_stream(t: torch.Tensor) -> tuple[int, int]:
 
 def check_cuda_f32(name: str, *tensors) -> None:
     """Raise unless every tensor is float32 on one CUDA device."""
-    dev = tensors[0].device
+    check_cuda_storage(name, *tensors, dtypes=(torch.float32,))
+
+
+def check_cuda_storage(name: str, *tensors,
+                       dtypes=(torch.float32, torch.bfloat16)) -> None:
+    """Raise unless every tensor lies on one CUDA device in one storage
+    dtype out of ``dtypes`` (the batched kernels take f32 or bf16)."""
+    dev, dt = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all operands must be on one CUDA "
                              f"device (got {t.device} and {dev})")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32 only "
-                             f"(got {t.dtype})")
+        if t.dtype not in dtypes or t.dtype != dt:
+            names = " or ".join(str(d).removeprefix("torch.")
+                                for d in dtypes)
+            raise ValueError(f"{name}: the kernel takes {names} storage, "
+                             f"one dtype for all operands (got {t.dtype})")
+
+
+def fits(kernel: CudaKernel, symbol: str, device: torch.device,
+         *shape: int) -> bool:
+    """Ask a kernel's library whether it takes ``shape`` on this device
+    (its ``slate_*_fits`` entry point counts its own shared memory)."""
+    out = ctypes.c_int(0)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    kernel.call(symbol, index, *shape, ctypes.byref(out))
+    return bool(out.value)
+
+
+# the C signature of K6's and K7's launch: device, stream, bf16, below,
+# then col, left and lead with their batch, row and column strides, tiles,
+# B, k, K, M, nb, bw, upd, fac, uinv
+BATCHED_PANEL_ARGS = [I32, P, I32, I32, P, I64, I64, I64, P, I64, I64, I64,
+                      P, I64, I64, I64, P, I32, I32, I32, I32, I32, I32, P, P,
+                      P]
+
+
+def batched_panel_step(kernel: CudaKernel, symbol: str, name: str, col,
+                       left, lead, tiles, k: int, bw: int):
+    """Launch K6 or K7 (csrc/batched_panel.cuh) for one ragged batched
+    panel step on CUDA tensors: col [B, M, nb], left [B, M, K], lead
+    [B, K, nb] in f32 or bf16 storage (any strides), tiles [B] int32.
+    Returns (upd, fac) [B, M, nb] in the storage dtype.  Launch (a) always,
+    launch (b) when M > nb: the kernel counts one or two launches."""
+    bsz, m, nb = col.shape
+    kk = left.shape[2]
+    check_cuda_storage(name, col, left, lead)
+    if tiles.device != col.device or tiles.dtype != torch.int32:
+        raise ValueError(f"{name}: tiles must be int32 on {col.device}")
+    if not fits(kernel, f"{symbol}_fits", col.device, nb, bw):
+        raise ValueError(f"{name}: nb = {nb}, bw = {bw} is past the "
+                         f"kernel's limits (slate_{name}_fits)")
+    tiles = tiles.contiguous()
+    upd = torch.empty((bsz, m, nb), dtype=col.dtype, device=col.device)
+    fac = torch.empty_like(upd)
+    uinv = torch.empty((bsz, nb, nb), dtype=torch.float32,
+                       device=col.device)
+    dev, stream = device_and_stream(col)
+    bf16 = int(col.dtype == torch.bfloat16)
+    operands = (col.data_ptr(), *col.stride(), left.data_ptr(),
+                *left.stride(), lead.data_ptr(), *lead.stride(),
+                tiles.data_ptr(), bsz, k, kk, m, nb, bw, upd.data_ptr(),
+                fac.data_ptr(), uinv.data_ptr())
+    kernel.launch(symbol, dev, stream, bf16, 0, *operands)
+    if m > nb:
+        kernel.launch(symbol, dev, stream, bf16, 1, *operands)
+    return upd, fac

@@ -1,12 +1,13 @@
-"""K3 and K4: the fused no-pivot LU panel and the CALU pivot selection (port
-of slate_tpu/internal/pallas_lu.py ``lu_panel_fused`` and
-``lu_select_pallas``).
+"""K3, K4 and K7: the fused no-pivot LU panel, the CALU pivot selection and
+the ragged batched no-pivot panel step (port of
+slate_tpu/internal/pallas_lu.py ``lu_panel_fused``, ``lu_select_pallas``
+and ``lu_panel_batched``).
 
 Each kernel has a plain version here that repeats its arithmetic in torch
 ops: the CPU tests run it, and on the card it is only the comparison.  A
 wrapper takes the plain version for CPU tensors only; for CUDA tensors it
-launches the kernel (``csrc/lu_panel.cu``, ``csrc/lu_select.cu``) or
-raises.
+launches the kernel (``csrc/lu_panel.cu``, ``csrc/lu_select.cu``,
+``csrc/lu_panel_batched.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import ctypes
 
 import torch
 
-from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
-    device_and_stream
+from .chol_kernels import live_rows
+from .kernels import (BATCHED_PANEL_ARGS, I32, I64, P, CudaKernel,
+                      batched_panel_step, check_cuda_f32, device_and_stream,
+                      fits)
 from .tri_inv import upper_tri_inv, upper_tri_inv_plain
 
 LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
@@ -26,6 +29,9 @@ LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
     "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P,
                         P],
     "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+LU_PANEL_BATCHED = CudaKernel("lu_panel_batched", "lu_panel_batched.cu", {
+    "slate_lu_panel_batched": BATCHED_PANEL_ARGS,
+    "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)]})
 
 PANEL_NB = (32, 64, 96, 128)   # K3's instantiated widths, as K2's
 SELECT_MAX_NB = 128            # K4: four columns a lane
@@ -35,10 +41,7 @@ def select_fits(device: torch.device, w: int, nb: int, bw: int) -> bool:
     """True when K4 can take a round of w-row chunks on this CUDA device:
     the kernel's own count of its shared memory (the w x bw slab and its
     scratch) against the device's per-block limit."""
-    fits = ctypes.c_int(0)
-    LU_SELECT.call("slate_lu_select_fits", device.index, w, nb, bw,
-                   ctypes.byref(fits))
-    return bool(fits.value)
+    return fits(LU_SELECT, "slate_lu_select_fits", device, w, nb, bw)
 
 
 def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
@@ -176,3 +179,55 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
                      chunks.stride(2), live.data_ptr(), g, w, nb, bw,
                      ws.data_ptr(), piv.data_ptr())
     return piv
+
+
+def lu_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
+    """K7's arithmetic in torch ops: per problem, on the operands widened
+    to f32, upd = col - left @ lead, row tile 0 by :func:`lu_tile_plain`
+    and the rows below times U^-1 (K0's back substitution on triu(tile
+    0)), rounded to the storage dtype; dead tiles are ``col`` itself, bit
+    for bit."""
+    nb = col.shape[2]
+    upd = col.float() - left.float() @ lead.float()
+    top = torch.stack([lu_tile_plain(t, bw) for t in upd[:, :nb]])
+    uinv = torch.stack([upper_tri_inv_plain(t) for t in top])
+    fac = torch.cat([top, upd[:, nb:] @ uinv], dim=1)
+    live = live_rows(tiles, k, col.shape[1], nb)
+    return (torch.where(live, upd.to(col.dtype), col),
+            torch.where(live, fac.to(col.dtype), col))
+
+
+def lu_panel_batched(col: torch.Tensor, left: torch.Tensor,
+                     lead: torch.Tensor, tiles: torch.Tensor, k: int,
+                     bw: int = 8):
+    """Ragged batched fused no-pivot LU panel step (K3 with K2's update,
+    over a batch).
+
+    col:   [B, M, nb] trailing block columns A[:, k0:, k0:k0+nb]
+    left:  [B, M, K]  packed L block rows A[:, k0:, :k0]
+    lead:  [B, K, nb] packed U block column A[:, :k0, k0:k0+nb]
+    tiles: [B] int32  live tile counts ceil(size / nb)
+    k:     the panel index
+
+    Returns (upd, fac) [B, M, nb] in the storage dtype (f32 or bf16; sums
+    in f32), fac packed L\\U with the unit lower diagonal implied; dead
+    tiles (k + i >= tiles[b]) are ``col``'s bits in both outputs.  Any
+    strides; M % nb == 0.  A CPU tensor takes the plain version; CUDA
+    tensors launch K7 (nb and bw within ``slate_lu_panel_batched_fits``)
+    or raise.  On CUDA a step is one launch when M == nb and two
+    otherwise, counted by LU_PANEL_BATCHED; ``tiles`` is read on the
+    device only."""
+    bsz, m, nb = col.shape
+    kk = left.shape[2]
+    if (left.shape != (bsz, m, kk) or lead.shape != (bsz, kk, nb)
+            or tiles.shape != (bsz,) or m < nb or m % nb or bw < 1
+            or nb % bw):
+        raise ValueError(f"lu_panel_batched: bad shapes col "
+                         f"{tuple(col.shape)}, left {tuple(left.shape)}, "
+                         f"lead {tuple(lead.shape)}, tiles "
+                         f"{tuple(tiles.shape)}, bw={bw}")
+    if col.device.type == "cpu":
+        return lu_panel_batched_plain(col, left, lead, tiles, k, bw)
+    return batched_panel_step(LU_PANEL_BATCHED, "slate_lu_panel_batched",
+                              "lu_panel_batched", col, left, lead, tiles, k,
+                              bw)

@@ -1,11 +1,14 @@
-"""K5: the Householder QR panel with its compact-WY T (port of
-slate_tpu/internal/pallas_qr.py ``qr_panel_pallas``).
+"""K5 and K8: the Householder QR panel with its compact-WY T, and its ragged
+batched form (port of slate_tpu/internal/pallas_qr.py ``qr_panel_pallas``
+and ``qr_panel_batched``).
 
 ``qr_panel_plain`` repeats the kernel's arithmetic in torch ops, with the
 kernel's slab blocking: the CPU tests run it, and on the card it is only
 the comparison.  ``qr_panel`` takes it for CPU tensors only; for CUDA
 tensors it launches the kernel (``csrc/qr_panel.cu``, whose per-panel
-routine is ``csrc/qr_panel.cuh``) or raises.
+routine is ``csrc/qr_panel.cuh``) or raises.  ``qr_panel_batched`` does
+the same with ``qr_panel_batched_plain`` and ``csrc/qr_panel_batched.cu``,
+which runs the same per-panel routine, one block a problem.
 """
 
 from __future__ import annotations
@@ -14,24 +17,25 @@ import ctypes
 
 import torch
 
-from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
-    device_and_stream
+from .kernels import (I32, I64, P, CudaKernel, check_cuda_f32,
+                      check_cuda_storage, device_and_stream, fits)
 
 QR_PANEL = CudaKernel("qr_panel", "qr_panel.cu", {
     "slate_qr_panel": [I32, P, P, I64, I64, I32, I32, I32, P, P],
     "slate_qr_panel_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+
+QR_PANEL_BATCHED = CudaKernel("qr_panel_batched", "qr_panel_batched.cu", {
+    "slate_qr_panel_batched": [I32, P, I32, P, I64, I64, I64, P, I32, I32,
+                               I32, I32, P, P, P],
+    "slate_qr_panel_batched_fits": [I32, I32, I32, I32,
+                                    ctypes.POINTER(I32)]})
 
 
 def panel_fits(device: torch.device, mm: int, w: int, bw: int) -> bool:
     """True when K5 takes a [mm, w] panel at slab width bw on this CUDA
     device: the kernel's own limits and its count of its shared memory
     (T and scratch) against the device's per-block limit."""
-    fits = ctypes.c_int(0)
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    QR_PANEL.call("slate_qr_panel_fits", index, mm, w, bw,
-                  ctypes.byref(fits))
-    return bool(fits.value)
+    return fits(QR_PANEL, "slate_qr_panel_fits", device, mm, w, bw)
 
 
 def qr_panel_plain(a: torch.Tensor, bw: int = 8):
@@ -107,3 +111,58 @@ def qr_panel(a: torch.Tensor, bw: int = 8):
                     a.stride(0), a.stride(1), mm, w, bw, packed.data_ptr(),
                     T.data_ptr())
     return packed, T
+
+
+def batched_panel_fits(device: torch.device, mm: int, w: int,
+                       bw: int) -> bool:
+    """True when K8 takes [*, mm, w] panels at slab width bw on this CUDA
+    device, as the kernel itself counts (``slate_qr_panel_batched_fits``:
+    K5's limits, w <= 128 and bw <= 8, and its shared memory)."""
+    return fits(QR_PANEL_BATCHED, "slate_qr_panel_batched_fits", device, mm,
+                w, bw)
+
+
+def qr_panel_batched_plain(a: torch.Tensor, rows: torch.Tensor,
+                           bw: int = 8):
+    """K8's arithmetic in torch ops: per problem, :func:`qr_panel_plain` on
+    the panel widened to f32, rounded to the storage dtype; a problem with
+    rows[b] == 0 keeps ``a``'s bits and gets T = 0."""
+    outs = [qr_panel_plain(p.float(), bw) for p in a]
+    packed = torch.stack([p for p, _ in outs]).to(a.dtype)
+    t = torch.stack([t for _, t in outs]).to(a.dtype)
+    live = (rows > 0)[:, None, None]
+    return torch.where(live, packed, a), torch.where(live, t, 0)
+
+
+def qr_panel_batched(a: torch.Tensor, rows: torch.Tensor, bw: int = 8):
+    """Ragged batched Householder panel: (packed [B, mm, w], T [B, w, w])
+    of ``a`` [B, mm, w], mm >= w, in a's storage dtype (f32 or bf16; the
+    column loop runs in f32), with :func:`qr_panel`'s packing and T per
+    problem.  Raggedness is by whole problem: rows[b] == 0 (a filler slot)
+    passes ``a`` through bit for bit with T = 0; every live problem factors
+    its whole panel.  Any strides.  A CPU tensor takes the plain version;
+    CUDA tensors launch K8 once (within :func:`batched_panel_fits`) or
+    raise; ``rows`` is read on the device only.  For bf16 storage the
+    wrapper allocates the f32 working panels, 4 B mm w bytes."""
+    bsz, mm, w = a.shape
+    if mm < w or w < 1 or bw < 1 or rows.shape != (bsz,):
+        raise ValueError(f"qr_panel_batched: needs mm >= w >= 1, bw >= 1 "
+                         f"and rows [B], got {tuple(a.shape)}, rows "
+                         f"{tuple(rows.shape)} and bw={bw}")
+    if a.device.type == "cpu":
+        return qr_panel_batched_plain(a, rows, bw)
+    check_cuda_storage("qr_panel_batched", a)
+    if rows.device != a.device or rows.dtype != torch.int32:
+        raise ValueError(f"qr_panel_batched: rows must be int32 on "
+                         f"{a.device}")
+    rows = rows.contiguous()
+    packed = torch.empty((bsz, mm, w), dtype=a.dtype, device=a.device)
+    t = torch.empty((bsz, w, w), dtype=a.dtype, device=a.device)
+    bf16 = a.dtype == torch.bfloat16
+    work = torch.empty((bsz, mm, w), dtype=torch.float32,
+                       device=a.device) if bf16 else packed
+    QR_PANEL_BATCHED.launch("slate_qr_panel_batched", *device_and_stream(a),
+                            int(bf16), a.data_ptr(), *a.stride(),
+                            rows.data_ptr(), bsz, mm, w, bw, work.data_ptr(),
+                            packed.data_ptr(), t.data_ptr())
+    return packed, t

@@ -1,0 +1,1 @@
+"""obs layer of slate_tpu_torch (see the package docstring)."""

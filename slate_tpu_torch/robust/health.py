@@ -3,7 +3,9 @@
 The reference carries health as traced scalars so that it survives jit;
 the port runs eagerly, so each field is a plain Python value, read from
 the device once per driver call.  The fields, ``ok``, ``merge`` and
-``finalize`` keep the reference's contract (health.py:26-60).
+``finalize`` keep the reference's contract (health.py:26-60).  A batch of
+problems (the serving path) carries a :class:`BatchHealth` of [B] device
+tensors instead, read into one HealthInfo per problem in one copy.
 """
 
 from __future__ import annotations
@@ -109,6 +111,88 @@ def merge(*hs: HealthInfo) -> HealthInfo:
             abft_corrected=out.abft_corrected + h.abft_corrected,
             abft_site=out.abft_site if out.abft_site >= 0 else h.abft_site,
         )
+    return out
+
+
+class BatchHealth(NamedTuple):
+    """The health of a batch of problems while it is still on the device:
+    each field a [B] tensor (the reference's leading-axis HealthInfo
+    pytree).  The batched readers, certificates and the serving cores
+    build and merge these with the reference's arithmetic, and
+    :meth:`to_list` reads them all in one copy."""
+
+    nonfinite: torch.Tensor
+    info: torch.Tensor
+    min_pivot: torch.Tensor
+    min_pivot_index: torch.Tensor
+    growth: torch.Tensor
+    iters: torch.Tensor
+    converged: torch.Tensor
+    abft_detected: torch.Tensor
+    abft_corrected: torch.Tensor
+    abft_site: torch.Tensor
+
+    def to_list(self) -> list[HealthInfo]:
+        """One HealthInfo per problem, from one device-to-host copy."""
+        rows = torch.stack([f.double() for f in self], dim=1).tolist()
+        return [HealthInfo(
+            nonfinite=bool(r[0]), info=int(r[1]), min_pivot=r[2],
+            min_pivot_index=int(r[3]), growth=r[4], iters=int(r[5]),
+            converged=bool(r[6]), abft_detected=int(r[7]),
+            abft_corrected=int(r[8]), abft_site=int(r[9])) for r in rows]
+
+
+def batch_healthy(bsz: int, device) -> BatchHealth:
+    """A healthy record for each of ``bsz`` problems."""
+    def full(v, dtype):
+        return torch.full((bsz,), v, dtype=dtype, device=device)
+    return BatchHealth(
+        nonfinite=full(False, torch.bool), info=full(0, torch.int64),
+        min_pivot=full(math.inf, torch.float64),
+        min_pivot_index=full(-1, torch.int64),
+        growth=full(1.0, torch.float64), iters=full(0, torch.int64),
+        converged=full(True, torch.bool), abft_detected=full(0, torch.int64),
+        abft_corrected=full(0, torch.int64), abft_site=full(-1, torch.int64))
+
+
+def batch_from_pivots(diag: torch.Tensor) -> BatchHealth:
+    """:func:`from_pivots` of each row of ``diag`` [B, n]."""
+    mag = diag.abs()
+    bad = (mag == 0) | ~torch.isfinite(mag)
+    mpi = torch.argmin(mag, dim=1)
+    return batch_healthy(mag.shape[0], mag.device)._replace(
+        nonfinite=(~torch.isfinite(mag)).any(dim=1),
+        info=torch.where(bad.any(dim=1), torch.argmax(bad.int(), dim=1) + 1,
+                         0),
+        min_pivot=mag.gather(1, mpi[:, None])[:, 0].double(),
+        min_pivot_index=mpi)
+
+
+def batch_from_result(x: torch.Tensor) -> BatchHealth:
+    """:func:`from_result` of each problem of ``x`` [B, ...]."""
+    finite = torch.isfinite(x).flatten(1).all(dim=1)
+    return batch_healthy(x.shape[0], x.device)._replace(nonfinite=~finite)
+
+
+def batch_merge(*hs: BatchHealth) -> BatchHealth:
+    """:func:`merge` problem by problem, on the device (NaN pivots win the
+    minimum, as the reference's ``jnp.minimum`` lets them)."""
+    out = hs[0]
+    for h in hs[1:]:
+        out = BatchHealth(
+            nonfinite=out.nonfinite | h.nonfinite,
+            info=torch.where(out.info != 0, out.info, h.info),
+            min_pivot=torch.minimum(out.min_pivot, h.min_pivot),
+            min_pivot_index=torch.where(out.min_pivot <= h.min_pivot,
+                                        out.min_pivot_index,
+                                        h.min_pivot_index),
+            growth=torch.maximum(out.growth, h.growth),
+            iters=out.iters + h.iters,
+            converged=out.converged & h.converged,
+            abft_detected=out.abft_detected + h.abft_detected,
+            abft_corrected=out.abft_corrected + h.abft_corrected,
+            abft_site=torch.where(out.abft_site >= 0, out.abft_site,
+                                  h.abft_site))
     return out
 
 

@@ -224,3 +224,128 @@ def test_gels_qr_route_on_the_card_matches_the_cpu_route(cuda):
     want = Xc.to_numpy()
     np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
                                atol=RTOL * np.abs(want).max())
+
+
+# ---- the serving slice: K6, K7 and K8 -----------------------------------
+
+# bf16 storage: kernel and plain version sum in f32 in another order, then
+# each store rounds to bf16's 8 significant bits, so the two may land one
+# bf16 ulp apart: |kernel - plain| <= ATOL + 2^-7 |plain|
+BF16_RTOL = 2.0 ** -7
+
+
+def _bits(t):
+    """The raw storage bits of a tensor, for bit-equality checks."""
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+def _close_storage(got, want):
+    rtol = BF16_RTOL if got.dtype == torch.bfloat16 else RTOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=ATOL)
+
+
+def _batched_panel(rng, bsz, m, nb, k, chol, dtype, cuda):
+    """Per problem: K = k nb columns of history with O(1) products and a
+    top block of col - left @ lead that is SPD (Cholesky) or diagonally
+    dominant (LU); strided views as batch_potrf/batch_getrf pass them."""
+    kk = k * nb
+    left = (rng.standard_normal((bsz, m, kk)) / max(kk, 1) ** 0.25)
+    lead = (rng.standard_normal((bsz, kk, nb)) / max(kk, 1) ** 0.25)
+    base = rng.standard_normal((bsz, m, nb))
+    top = base[:, :nb]
+    base[:, :nb] = (top @ top.transpose(0, 2, 1) / nb + np.eye(nb) if chol
+                    else top + 2 * nb ** 0.5 * np.eye(nb))
+    col = base + left @ lead
+    t = [torch.from_numpy(x.astype(np.float32)).to(cuda).to(dtype)
+         for x in (col, left, lead)]
+    return t[0], t[1], t[2].mT.contiguous().mT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_panels_match_plain_versions(cuda, dtype):
+    """K6 and K7 against their plain versions at k = 0 and k = 2, with a
+    live, a partly dead and a wholly dead problem: live tiles within the
+    tolerance, dead tiles bit-equal to col; one launch when M == nb, two
+    otherwise."""
+    rng = np.random.default_rng(15)
+    for kern, plain, chol in ((ck.chol_panel_batched,
+                               ck.chol_panel_batched_plain, True),
+                              (lk.lu_panel_batched,
+                               lk.lu_panel_batched_plain, False)):
+        counter = ck.CHOL_PANEL_BATCHED if chol else lk.LU_PANEL_BATCHED
+        for nb, k, m in ((128, 0, 512), (64, 2, 256), (32, 0, 32)):
+            col, left, lead = _batched_panel(rng, 3, m, nb, k, chol, dtype,
+                                             cuda)
+            tiles = torch.tensor([k + m // nb, k + 1, k], dtype=torch.int32,
+                                 device=cuda)
+            before = counter.launches
+            got = kern(col, left, lead, tiles, k, 8)
+            assert counter.launches == before + (1 if m == nb else 2)
+            want = plain(col, left, lead, tiles, k, 8)
+            live = ck.live_rows(tiles, k, m, nb)
+            for g, w in zip(got, want):
+                assert g.dtype == dtype
+                _close_storage(g, w)
+                # dead tiles: col's bits
+                assert torch.equal(_bits(torch.where(live, col, g)),
+                                   _bits(col))
+    with pytest.raises(ValueError, match="past the kernel's limits"):
+        col, left, lead = _batched_panel(rng, 1, 48, 48, 0, True, dtype,
+                                         cuda)
+        ck.chol_panel_batched(col, left, lead,
+                              torch.ones(1, dtype=torch.int32, device=cuda),
+                              0, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qr_panel_batched_matches_its_plain_version(cuda, dtype):
+    """K8 against its plain version, one launch a call; a rows = 0 slot
+    keeps its bits and gets T = 0; the gate asks the kernel."""
+    rng = np.random.default_rng(16)
+    for mm, w in ((1024, 128), (300, 64)):
+        a = torch.from_numpy(rng.standard_normal((3, mm, w)).astype(
+            np.float32)).to(cuda).to(dtype)
+        rows = torch.tensor([mm, 0, mm - 7], dtype=torch.int32, device=cuda)
+        before = qk.QR_PANEL_BATCHED.launches
+        got = qk.qr_panel_batched(a, rows)
+        assert qk.QR_PANEL_BATCHED.launches == before + 1
+        for g, p in zip(got, qk.qr_panel_batched_plain(a, rows)):
+            _close_storage(g, p)
+        assert torch.equal(_bits(got[0][1]), _bits(a[1]))
+        assert not got[1][1].any()
+    assert qk.batched_panel_fits(cuda, 4096, 128, 8)
+    assert not qk.batched_panel_fits(cuda, 4096, 129, 8)
+    assert not qk.batched_panel_fits(cuda, 4096, 128, 9)
+
+
+def test_served_stream_on_the_card_matches_the_cpu_route(cuda):
+    """A small mixed stream through serve.Server on the card (the ragged
+    route: K6, K7 and K8) and on the CPU (their plain versions)."""
+    from slate_tpu_torch import serve
+    rng = np.random.default_rng(17)
+    reqs = []
+    for n in (40, 100, 128):
+        g = rng.standard_normal((n, n)).astype(np.float32)
+        b = rng.standard_normal((n, 3)).astype(np.float32)
+        reqs.append(("solve", g / np.float32(np.sqrt(n))
+                     + 4 * np.eye(n, dtype=np.float32),
+                     b))
+        reqs.append(("chol_solve", g @ g.T / n + np.eye(n, dtype=np.float32),
+                     b))
+        reqs.append(("least_squares_solve",
+                     rng.standard_normal((2 * n, n)).astype(np.float32),
+                     rng.standard_normal((2 * n, 3)).astype(np.float32)))
+    counters = (ck.CHOL_PANEL_BATCHED, lk.LU_PANEL_BATCHED,
+                qk.QR_PANEL_BATCHED)
+    before = [c.launches for c in counters]
+    got = serve.Server(device=cuda, cache=serve.ExecutableCache()) \
+        .serve_batch(reqs)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    want = serve.Server(device="cpu", cache=serve.ExecutableCache()) \
+        .serve_batch(reqs)
+    for g, w in zip(got, want):
+        assert g.health.ok and w.health.ok and not g.escalated
+        np.testing.assert_allclose(g.x.cpu().numpy(), w.x.numpy(), rtol=0,
+                                   atol=RTOL * np.abs(w.x.numpy()).max())

@@ -239,9 +239,11 @@ def test_info_return_shapes_and_unported_rungs():
         st.gels(_cpu(a, 32), _cpu(b, 32),
                 _opts(st, Speculate=st.Speculate.On,
                       Precision=st.Precision.Bf16))
-    with pytest.raises(NotImplementedError, match="certify_lstsq"):
-        dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None, refine=1,
-                                certify=True)
+    # the certified attempt (robust/certify.certify_lstsq) is ported: a
+    # well-conditioned A passes, with the refinement recorded as iters
+    X, h = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None, refine=1,
+                                   certify=True)
+    assert h.ok and h.iters == 1
     with pytest.raises(NotImplementedError, match="Target.mesh"):
         st.geqrf(_cpu(a, 32), _opts(st, Target=st.Target.mesh))
     with pytest.raises(ValueError, match="MethodGels"):
