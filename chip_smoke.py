@@ -11,10 +11,15 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      main paths' shapes, with the tolerance stated beside each check (K4:
      equal indices), and time kernel, plain version and library call; K5
      (qr_panel) at [8192, 128] and [4224, 128] (the first and last panels
-     of the gels below), [1000, 128], [512, 40] and a [512, 48] panel with
-     a zero column and alpha = -0.0, also against torch.geqrf's panel and
-     build_t of its taus, and each shape timed on householder_panel_blocked
-     (the CholQR2 route of panels past K5's 2^20-element cap);
+     of the gels below), [1000, 128], [512, 40], a [512, 48] panel with
+     a zero column and alpha = -0.0, and the thread-block cluster's edges
+     [128, 128], [129, 128] and [8191, 128], also against torch.geqrf's
+     panel and build_t of its taus, and each shape timed on
+     householder_panel_blocked (the CholQR2 route of panels past K5's
+     2^20-element cap); every K5 and K8 row also names the cluster size
+     its launch took and repeats the launch, bit for bit; each K8 row
+     names the waves its clusters ran in and runs one problem alone,
+     bit-equal to its place in the batch;
   3. the Cholesky path at full width: ``slate_tpu_torch.posv`` on an SPD
      matrix built as in examples/ex07 (A = G G^T + n I, G Gaussian from
      --seed), n = 20480, nb = 128, 128 right-hand sides, f32: the scaled
@@ -48,9 +53,11 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      unmqr in all four (side, op) pairs, qr_multiply's ||Q^T Q - I||);
   8. the serving path: K6 (chol_panel_batched) and K7 (lu_panel_batched)
      at B = 8, M = 4096, nb = 128, k = 0 and 16, and K8 (qr_panel_batched)
-     at [8, 4096, 128] and [8, 1024, 128], each in f32 and bf16 storage,
-     against their plain versions (bf16: ATOL + 2^-7 |plain|) with dead
-     tiles and filler slots bit-equal to the input; then a seeded
+     at [8, 4096, 128] and [8, 1024, 128] and, with filler slots first
+     and last, [8, 128, 128] and [12, 4096, 128] (more clusters than the
+     card holds at once), each in f32 and bf16 storage, against their
+     plain versions (bf16: ATOL + 2^-7 |plain|) with dead tiles and
+     filler slots bit-equal to the input; then a seeded
      120-request mixed stream through ``slate_tpu_torch.serve.Server``
      (solve and chol_solve at n = 96 .. 4000, least squares at m = 2n,
      16 right-hand sides, five planted failures) on the ragged route cold
@@ -69,8 +76,9 @@ kernel (torch.profiler), with the device's idle share.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
-with --seed + 1, and the serving phases from a third, --seed + 2, so that
-adding to one slice moves no other's matrices.
+with --seed + 1, the serving phases from a third, --seed + 2, and the
+K5/K8 cluster edge shapes from a fourth, --seed + 3, so that adding to one
+slice moves no other's matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -146,6 +154,15 @@ SERVE_LSQ_BOUND = 1e-2
 # max |x_ragged| per healthy request: both are backward-stable f32 solves
 # of problems with cond <= ~10 (CholQR's semi-normal equations square it)
 SERVE_ROUTE_TOL = 1e-3
+# K5's and K8's times with one block a panel, before a panel's rows were
+# split over a thread-block cluster, at the shapes they were measured at on
+# an H100 80GB HBM3 at 700 W (PERF.md, the K5 and K8 rows), so that each
+# cluster line shows the old time beside the new (key pr5_ms); the kernels
+# line carries only what the run measured
+ONE_BLOCK_MS = {("qr_panel", 8192, 128, "float32"): 21.59,
+                ("qr_panel_batched", 8, 4096, "float32"): 11.03,
+                ("qr_panel_batched", 8, 4096, "bfloat16"): 11.40,
+                ("qr_panel_batched", 8, 1024, "float32"): 3.036}
 
 
 def emit(obj) -> None:
@@ -399,37 +416,47 @@ def qr_flops(mm: int, w: int) -> float:
     return 3 * mm * w * w - w ** 3
 
 
-def check_qr_kernels(gen) -> dict:
+def check_qr_kernels(gen, edge_gen) -> dict:
     """K5 against its plain version on the first and last panels of the
     main gels (8192 and 4224 rows), an mm that is no multiple of 8, a
-    narrow panel, and a panel with an exactly-zero column and alpha = -0.0
-    in column 0; torch.geqrf's packed panel and build_t of its taus held
-    against K5's on the Gaussian panels; each shape also timed on
+    narrow panel, a panel with an exactly-zero column and alpha = -0.0
+    in column 0, and the cluster's edges (mm = w, one row past it, an mm
+    that no cluster size divides); torch.geqrf's packed panel and build_t
+    of its taus held against K5's on the Gaussian panels; two launches
+    compared bit for bit; each shape also timed on
     householder_panel_blocked, the CholQR2 route that panels past K5's
-    cap take."""
+    cap take.  The edge shapes draw from ``edge_gen``, so that the later
+    draws from ``gen`` stay as they were."""
     from slate_tpu_torch.internal.qr import build_t, householder_panel_blocked
-    from slate_tpu_torch.internal.qr_kernels import qr_panel, qr_panel_plain
+    from slate_tpu_torch.internal.qr_kernels import (panel_cluster, qr_panel,
+                                                     qr_panel_plain)
     rows = {}
     for mm, w, special in ((8192, 128, False), (4224, 128, False),
                            (1000, 128, False), (512, 40, False),
-                           (512, 48, True)):
-        x = torch.randn(mm, w, generator=gen, device="cuda")
+                           (512, 48, True), (128, 128, None),
+                           (129, 128, None), (8191, 128, None)):
+        x = torch.randn(mm, w, generator=gen if special is not None
+                        else edge_gen, device="cuda")
         if special:
             x[:, 5] = 0.0
             x[0, 0] = -0.0
         got = qr_panel(x)
+        repeatable = all(torch.equal(g, h) for g, h in zip(got, qr_panel(x)))
 
         def library():
             return torch.geqrf(x)
         witness = None
-        if not special:
+        if not special and mm > w:
             # LAPACK's sign of beta is the reference's on these inputs;
-            # at alpha = -0.0 a library may take copysign's
+            # at alpha = -0.0 a library may take copysign's. At mm = w the
+            # last column has no tail: LAPACK's larfg leaves it with tau =
+            # 0, the reference's reflects it (beta = -alpha, tau = 2), so
+            # there the library is no witness
             packed_l, tau_l = library()
             witness = [packed_l, build_t(packed_l, tau_l)]
         row = check(
             "qr_panel", {"mm": mm, "w": w, "bw": 8,
-                         "zero_column_and_alpha_-0": special},
+                         "zero_column_and_alpha_-0": bool(special)},
             list(got), list(qr_panel_plain(x)),
             "the same slab loop in both, sums over mm rows in another "
             "order; Gaussian panel, |R| <= ~sqrt(mm), |V| <= 1, T ~ 1",
@@ -439,6 +466,15 @@ def check_qr_kernels(gen) -> dict:
             qr_flops(mm, w), 4 * (2 * mm * w + w * w),
             control=tf32(lambda: list(qr_panel_plain(x))),
             witness=witness)
+        row.update(cluster=panel_cluster(x.device, mm, w, 8),
+                   bitwise_repeatable=repeatable,
+                   pr5_ms=ONE_BLOCK_MS.get(("qr_panel", mm, w, "float32")))
+        emit({"phase": "cluster", "check": "qr_panel", "mm": mm, "w": w,
+              "cluster": row["cluster"], "bitwise_repeatable": repeatable,
+              "kernel_ms": row["kernel_ms"], "pr5_ms": row["pr5_ms"]})
+        if not repeatable:
+            raise AssertionError(f"qr_panel [{mm}, {w}]: two launches on "
+                                 f"the same input differ")
         row["cholqr2_route_ms"] = time_ms(
             lambda: householder_panel_blocked(x), 5)
         emit({"phase": "qr_panel_routes", "mm": mm, "w": w,
@@ -817,7 +853,7 @@ def bits(t: torch.Tensor) -> torch.Tensor:
                                else torch.int32)
 
 
-def check_serve_kernels(gen) -> dict:
+def check_serve_kernels(gen, edge_gen) -> dict:
     """K6 and K7 at B = 8, M = 4096, nb = 128, k = 0 and k = 16, K8 at
     [8, 4096, 128] and [8, 1024, 128] with a rows = 0 slot, each in f32
     and bf16: kernel vs plain version (f32: ATOL + RTOL |plain|; bf16:
@@ -887,23 +923,43 @@ def check_serve_kernels(gen) -> dict:
                                          f"tile is not col's bits")
                 if f32 and k:
                     rows[name] = row
-    for mm in (4096, 1024):
+    # (B, mm, rows): the main path's largest panel and a smaller one with a
+    # filler slot inside; mm = w, and 12 clusters of 16 CTAs, more than the
+    # card holds at once, with filler slots first and last
+    k8_cases = ((SERVE_B, 4096, (4096, 3996, 0, 4096, 4096, 4089, 4096,
+                                 4096)),
+                (SERVE_B, 1024, (1024, 924, 0, 1024, 1024, 1017, 1024,
+                                 1024)),
+                (SERVE_B, 128, (0, 128, 128, 121, 128, 128, 128, 0)),
+                (12, 4096, (0,) + (4096,) * 10 + (0,)))
+    for case, (bsz, mm, rows_b) in enumerate(k8_cases):
         for dtype in (torch.float32, torch.bfloat16):
             w = 128
-            a = torch.randn(SERVE_B, mm, w, generator=gen,
-                            device="cuda").to(dtype)
-            rws = torch.tensor([mm, mm - 100, 0, mm, mm, mm - 7, mm, mm],
-                               dtype=torch.int32, device="cuda")
+            a = torch.randn(bsz, mm, w, generator=gen if case < 2
+                            else edge_gen, device="cuda").to(dtype)
+            rws = torch.tensor(rows_b, dtype=torch.int32, device="cuda")
             got = qk.qr_panel_batched(a, rws)
+            repeatable = all(torch.equal(bits(g), bits(h)) for g, h in
+                             zip(got, qk.qr_panel_batched(a, rws)))
             want = qk.qr_panel_batched_plain(a, rws)
-            filler_equal = (torch.equal(bits(got[0][2]), bits(a[2]))
-                            and not bool(got[1][2].any()))
+            fillers = [b for b, r in enumerate(rows_b) if r == 0]
+            filler_equal = all(torch.equal(bits(got[0][b]), bits(a[b]))
+                               and not bool(got[1][b].any())
+                               for b in fillers)
+            # the first live problem alone, as the serving path retries it:
+            # the cluster size depends on mm only, so its bits do not change
+            one = rows_b.index(max(rows_b))
+            alone = qk.qr_panel_batched(a[one:one + 1], rws[one:one + 1])
+            batch_invariant = all(torch.equal(bits(g[one]), bits(h[0]))
+                                  for g, h in zip(got, alone))
+            cluster, resident = qk.batched_panel_cluster(a.device, dtype, mm,
+                                                         w, 8)
             f32 = dtype == torch.float32
-            live = sum(1 for r in rws.tolist() if r)
+            live = sum(1 for r in rows_b if r)
             row = check(
-                "qr_panel_batched", {"B": SERVE_B, "mm": mm, "w": w, "bw": 8,
+                "qr_panel_batched", {"B": bsz, "mm": mm, "w": w, "bw": 8,
                                      "dtype": str(dtype)[6:],
-                                     "rows": rws.tolist()},
+                                     "rows": list(rows_b)},
                 list(got), list(want),
                 "K5's slab loop in both, sums over mm rows in another "
                 "order; Gaussian panels, |R| <= ~sqrt(mm), |V| <= 1; bf16: "
@@ -913,16 +969,37 @@ def check_serve_kernels(gen) -> dict:
                         warmup=1),
                 time_ms(lambda: torch.geqrf(a), 5) if f32 else None,
                 live * qr_flops(mm, w),
-                a.element_size() * SERVE_B * (2 * mm * w + w * w),
+                a.element_size() * bsz * (2 * mm * w + w * w),
                 rtol=RTOL if f32 else BF16_RTOL)
-            row["filler_slot_bit_equal"] = filler_equal
+            row.update(filler_slot_bit_equal=filler_equal,
+                       cluster=cluster,
+                       waves=-(-bsz // resident),
+                       bitwise_repeatable=repeatable,
+                       batch_invariant=batch_invariant,
+                       pr5_ms=ONE_BLOCK_MS.get(("qr_panel_batched", bsz, mm,
+                                          str(dtype)[6:])))
             emit({"phase": "filler_slot", "check": "qr_panel_batched",
+                  "B": bsz, "mm": mm, "dtype": str(dtype)[6:],
+                  "fillers": fillers, "bit_equal_and_T_zero": filler_equal})
+            emit({"phase": "cluster", "check": "qr_panel_batched", "B": bsz,
                   "mm": mm, "dtype": str(dtype)[6:],
-                  "bit_equal_and_T_zero": filler_equal})
+                  "cluster": row["cluster"], "waves": row["waves"],
+                  "clusters_resident": resident,
+                  "bitwise_repeatable": repeatable,
+                  "batch_invariant": batch_invariant,
+                  "kernel_ms": row["kernel_ms"], "pr5_ms": row["pr5_ms"]})
             if not filler_equal:
-                raise AssertionError("qr_panel_batched: the rows = 0 slot "
-                                     "is not a's bits with T = 0")
-            if f32 and mm == 4096:
+                raise AssertionError("qr_panel_batched: a rows = 0 slot is "
+                                     "not a's bits with T = 0")
+            if not repeatable:
+                raise AssertionError(f"qr_panel_batched [{bsz}, {mm}, {w}] "
+                                     f"{dtype}: two launches on the same "
+                                     f"input differ")
+            if not batch_invariant:
+                raise AssertionError(f"qr_panel_batched [{bsz}, {mm}, {w}] "
+                                     f"{dtype}: problem {one} alone differs "
+                                     f"from its bits in the batch")
+            if f32 and (bsz, mm) == (SERVE_B, 4096):
                 rows["qr_panel_batched"] = row
     return rows
 
@@ -1346,8 +1423,10 @@ def main(argv=None) -> int:
     serve_gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
     rows = check_kernels(gen)
     rows.update(check_lu_kernels(gen))
-    rows.update(check_qr_kernels(qr_gen))
-    rows.update(check_serve_kernels(serve_gen))
+    # the cluster edges of K5 and K8 draw from a generator of their own, so that the QR and serving phases keep their matrices
+    edge_gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    rows.update(check_qr_kernels(qr_gen, edge_gen))
+    rows.update(check_serve_kernels(serve_gen, edge_gen))
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -1678,7 +1757,9 @@ def main(argv=None) -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "shape": r["shape"]})
+                     "library_ms": r["library_ms"], "shape": r["shape"],
+                     **{k: r[k] for k in ("cluster", "bitwise_repeatable")
+                        if k in r}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": line})

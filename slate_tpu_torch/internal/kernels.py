@@ -174,15 +174,23 @@ def check_cuda_storage(name: str, *tensors,
                              f"one dtype for all operands (got {t.dtype})")
 
 
+def query(kernel: CudaKernel, symbol: str, device: torch.device,
+          *args: int, outs: int = 1):
+    """Ask a kernel's library for integers about ``args`` on this device:
+    its C entry point takes the device index, the arguments and ``outs``
+    int* it fills in.  Returns the one integer, or a tuple of ``outs``."""
+    vals = [ctypes.c_int(0) for _ in range(outs)]
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    kernel.call(symbol, index, *args, *(ctypes.byref(v) for v in vals))
+    return vals[0].value if outs == 1 else tuple(v.value for v in vals)
+
+
 def fits(kernel: CudaKernel, symbol: str, device: torch.device,
          *shape: int) -> bool:
     """Ask a kernel's library whether it takes ``shape`` on this device
     (its ``slate_*_fits`` entry point counts its own shared memory)."""
-    out = ctypes.c_int(0)
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    kernel.call(symbol, index, *shape, ctypes.byref(out))
-    return bool(out.value)
+    return bool(query(kernel, symbol, device, *shape))
 
 
 # the C signature of K6's and K7's launch: device, stream, bf16, below,

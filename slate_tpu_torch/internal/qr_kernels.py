@@ -6,9 +6,12 @@ and ``qr_panel_batched``).
 kernel's slab blocking: the CPU tests run it, and on the card it is only
 the comparison.  ``qr_panel`` takes it for CPU tensors only; for CUDA
 tensors it launches the kernel (``csrc/qr_panel.cu``, whose per-panel
-routine is ``csrc/qr_panel.cuh``) or raises.  ``qr_panel_batched`` does
+routine is ``csrc/qr_panel.cuh``: one thread-block cluster a panel, its
+rows split over the cluster's CTAs) or raises.  ``qr_panel_batched`` does
 the same with ``qr_panel_batched_plain`` and ``csrc/qr_panel_batched.cu``,
-which runs the same per-panel routine, one block a problem.
+which runs the same per-panel routine, one cluster a problem.  The kernels
+choose their cluster size themselves; :func:`panel_cluster` and
+:func:`batched_panel_cluster` report it.
 """
 
 from __future__ import annotations
@@ -18,17 +21,21 @@ import ctypes
 import torch
 
 from .kernels import (I32, I64, P, CudaKernel, check_cuda_f32,
-                      check_cuda_storage, device_and_stream, fits)
+                      check_cuda_storage, device_and_stream, fits, query)
 
 QR_PANEL = CudaKernel("qr_panel", "qr_panel.cu", {
     "slate_qr_panel": [I32, P, P, I64, I64, I32, I32, I32, P, P],
-    "slate_qr_panel_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+    "slate_qr_panel_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_qr_panel_cluster": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
 
 QR_PANEL_BATCHED = CudaKernel("qr_panel_batched", "qr_panel_batched.cu", {
     "slate_qr_panel_batched": [I32, P, I32, P, I64, I64, I64, P, I32, I32,
                                I32, I32, P, P, P],
     "slate_qr_panel_batched_fits": [I32, I32, I32, I32,
-                                    ctypes.POINTER(I32)]})
+                                    ctypes.POINTER(I32)],
+    "slate_qr_panel_batched_cluster": [I32, I32, I32, I32, I32,
+                                       ctypes.POINTER(I32),
+                                       ctypes.POINTER(I32)]})
 
 
 def panel_fits(device: torch.device, mm: int, w: int, bw: int) -> bool:
@@ -36,6 +43,13 @@ def panel_fits(device: torch.device, mm: int, w: int, bw: int) -> bool:
     device: the kernel's own limits and its count of its shared memory
     (T and scratch) against the device's per-block limit."""
     return fits(QR_PANEL, "slate_qr_panel_fits", device, mm, w, bw)
+
+
+def panel_cluster(device: torch.device, mm: int, w: int, bw: int) -> int:
+    """The cluster size (CTAs a panel) K5's launcher takes for a [mm, w]
+    panel on this CUDA device: chosen from mm, and smaller only where the
+    card holds no cluster of that size (``slate_qr_panel_cluster``)."""
+    return query(QR_PANEL, "slate_qr_panel_cluster", device, mm, w, bw)
 
 
 def qr_panel_plain(a: torch.Tensor, bw: int = 8):
@@ -120,6 +134,16 @@ def batched_panel_fits(device: torch.device, mm: int, w: int,
     K5's limits, w <= 128 and bw <= 8, and its shared memory)."""
     return fits(QR_PANEL_BATCHED, "slate_qr_panel_batched_fits", device, mm,
                 w, bw)
+
+
+def batched_panel_cluster(device: torch.device, dtype: torch.dtype,
+                          mm: int, w: int, bw: int) -> tuple[int, int]:
+    """The cluster size (CTAs a problem) K8's launcher takes for panels
+    [mm, w] in ``dtype`` storage on this CUDA device, whatever the batch,
+    and how many such clusters the card holds at once; a larger batch runs
+    in waves (``slate_qr_panel_batched_cluster``)."""
+    return query(QR_PANEL_BATCHED, "slate_qr_panel_batched_cluster",
+                 device, int(dtype == torch.bfloat16), mm, w, bw, outs=2)
 
 
 def qr_panel_batched_plain(a: torch.Tensor, rows: torch.Tensor,

@@ -162,6 +162,27 @@ def test_qr_panel_batched_plain_matches_the_pallas_kernel(kind):
     assert not got[1][1].any()
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_qr_panel_batched_plain_keeps_filler_slots_at_both_ends(kind):
+    """Filler slots first and last, as the card's check of K8 places them,
+    around a live problem whose rows below w are zero (a square panel in
+    effect) and a Gaussian one: the live ones match qr_panel_batched in
+    interpret mode, the fillers keep their bits with T = 0."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((4, 40, 16)).astype(np.float32)
+    a[1, 16:] = 0.0
+    rows = [0, 16, 33, 0]
+    at, aj = _pair(a, kind)
+    got = qk.qr_panel_batched(at, torch.tensor(rows, dtype=torch.int32))
+    want = ref_qr(aj, jnp.asarray(rows, jnp.int32), interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == at.dtype
+        _close(g, w, kind)
+    for b in (0, 3):
+        np.testing.assert_array_equal(_bits(got[0][b]), _bits(at[b]))
+        assert not got[1][b].any()
+
+
 # ------------------------------------------- internal/batched.py drivers
 
 

@@ -165,11 +165,14 @@ def test_calu_gesv_on_the_card_matches_the_cpu_route(cuda):
 
 def test_qr_panel_matches_its_plain_version(cuda):
     """K5 on the first and last panels of the smoke's gels (8192 and 4224
-    rows), a ragged mm, a narrow panel, and a zero column with alpha =
-    -0.0 (that column stays as it was; beta = -mu at alpha = -0.0)."""
+    rows), a ragged mm, a narrow panel, a zero column with alpha = -0.0
+    (that column stays as it was; beta = -mu at alpha = -0.0), and the
+    cluster's edges: mm = w, one row past it, an mm no cluster size
+    divides, one slab; two launches give the same bits."""
     rng = np.random.default_rng(12)
     for m, w, bw in ((8192, 128, 8), (4224, 128, 8), (1000, 128, 5),
-                     (512, 40, 8), (300, 48, 1)):
+                     (512, 40, 8), (300, 48, 1), (128, 128, 8),
+                     (129, 128, 8), (8191, 128, 8), (136, 8, 8)):
         a = rng.standard_normal((m, w)).astype(np.float32)
         if w == 48:
             a[:, 5] = 0.0
@@ -180,6 +183,8 @@ def test_qr_panel_matches_its_plain_version(cuda):
         assert qk.QR_PANEL.launches == before + 1       # one launch a panel
         for g, p in zip(got, qk.qr_panel_plain(x, bw)):
             torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+        assert all(torch.equal(g, h) for g, h in zip(got, qk.qr_panel(x, bw)))
+        assert 1 <= qk.panel_cluster(cuda, m, w, bw) <= 16
         if w == 48:
             assert torch.equal(got[0][:, 5], x[:, 5])
             assert got[1][5, 5] == 0.0 and got[0][0, 0] < 0
@@ -301,20 +306,41 @@ def test_batched_panels_match_plain_versions(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_qr_panel_batched_matches_its_plain_version(cuda, dtype):
-    """K8 against its plain version, one launch a call; a rows = 0 slot
-    keeps its bits and gets T = 0; the gate asks the kernel."""
+    """K8 against its plain version, one launch a call; rows = 0 slots
+    (in the middle, first and last) keep their bits and get T = 0; mm = w
+    and more clusters than the card holds at once (12 of 4096 rows); two
+    launches give the same bits, and so does a problem run alone; the gate
+    asks the kernel."""
     rng = np.random.default_rng(16)
-    for mm, w in ((1024, 128), (300, 64)):
-        a = torch.from_numpy(rng.standard_normal((3, mm, w)).astype(
+    for bsz, mm, w, fillers in ((3, 1024, 128, (1,)), (3, 300, 64, (1,)),
+                                (8, 128, 128, (0, 7)),
+                                (12, 4096, 128, (0, 11))):
+        a = torch.from_numpy(rng.standard_normal((bsz, mm, w)).astype(
             np.float32)).to(cuda).to(dtype)
-        rows = torch.tensor([mm, 0, mm - 7], dtype=torch.int32, device=cuda)
+        rows = torch.tensor([0 if b in fillers else mm - 7 * (b % 2)
+                             for b in range(bsz)], dtype=torch.int32,
+                            device=cuda)
         before = qk.QR_PANEL_BATCHED.launches
         got = qk.qr_panel_batched(a, rows)
         assert qk.QR_PANEL_BATCHED.launches == before + 1
         for g, p in zip(got, qk.qr_panel_batched_plain(a, rows)):
             _close_storage(g, p)
-        assert torch.equal(_bits(got[0][1]), _bits(a[1]))
-        assert not got[1][1].any()
+        again = qk.qr_panel_batched(a, rows)
+        assert all(torch.equal(_bits(g), _bits(h))
+                   for g, h in zip(got, again))
+        for b in fillers:
+            assert torch.equal(_bits(got[0][b]), _bits(a[b]))
+            assert not got[1][b].any()
+        # the cluster size depends on mm alone: a problem run alone, as a
+        # served request's retry runs, gets the bits it got in the batch
+        one = min(set(range(bsz)) - set(fillers))
+        alone = qk.qr_panel_batched(a[one:one + 1], rows[one:one + 1])
+        assert all(torch.equal(_bits(g[one]), _bits(h[0]))
+                   for g, h in zip(got, alone))
+        c, resident = qk.batched_panel_cluster(cuda, dtype, mm, w, 8)
+        assert 1 <= c <= 16 and resident >= 1
+        if (bsz, mm) == (12, 4096):
+            assert bsz > resident                 # the clusters run in waves
     assert qk.batched_panel_fits(cuda, 4096, 128, 8)
     assert not qk.batched_panel_fits(cuda, 4096, 129, 8)
     assert not qk.batched_panel_fits(cuda, 4096, 128, 9)

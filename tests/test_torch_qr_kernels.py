@@ -54,11 +54,13 @@ def _check_panel(a, packed, T):
 
 @pytest.mark.parametrize("m,w,make", [
     (256, 128, _gauss), (512, 128, _gauss), (300, 40, _gauss),
-    (1000, 128, _gauss), (200, 48, _special)])
+    (1000, 128, _gauss), (200, 48, _special), (128, 128, _gauss),
+    (129, 128, _gauss), (136, 8, _gauss)])
 def test_k5_plain_matches_the_pallas_kernel_and_the_xla_panel(m, w, make):
     """(256, 128) and (512, 128) as test_pallas.py; a narrow panel, a
-    ragged mm (1000 is no multiple of the slab or of 8 rows per warp) and
-    a panel with a zero column and alpha = -0.0."""
+    ragged mm (1000 is no multiple of the slab or of 8 rows per warp), a
+    panel with a zero column and alpha = -0.0, and the cluster kernel's
+    edges the card checks: mm = w, one row past it, and one slab."""
     a = make(m + w, m, w)
     packed, T = qk.qr_panel(torch.from_numpy(a))
     packed, T = packed.numpy(), T.numpy()
