@@ -19,14 +19,23 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      2^20-element cap); every K5 and K8 row also names the cluster size
      its launch took and repeats the launch, bit for bit; each K8 row
      names the waves its clusters ran in and runs one problem alone,
-     bit-equal to its place in the batch;
+     bit-equal to its place in the batch; K2 (chol_panel_fused) also at
+     the posv path's late panels [M, K] = [1024, 19456] (few row tiles,
+     deep K: the K loop split over a thread-block cluster) and [128,
+     20352] (the last panel), every K2 shape launched twice and compared
+     bit for bit, with the split and staging its update launch took
+     (cp.async on the main path's strides, plain loads on a transposed
+     left) and its own launches' device time (update, factor, solve;
+     torch.profiler) apart from K0's; K0 also on U = triu of a partially
+     pivoted LU of a Gaussian panel, within 1e-5 of the f64 inverse;
   3. the Cholesky path at full width: ``slate_tpu_torch.posv`` on an SPD
      matrix built as in examples/ex07 (A = G G^T + n I, G Gaussian from
      --seed), n = 20480, nb = 128, 128 right-hand sides, f32: the scaled
      residual and the error against an f64 solve, each under a bound that
      the same solve with its products in TF32 is shown to exceed; K2
-     launched 2 n/nb - 1 times and K0 n/nb - 1 times; wall time and
-     GFLOP/s; then a small posv held against the same solve on the CPU;
+     launched 3 n/nb - 1 times (update, factor and solve a panel, the
+     last panel no solve) and K0 n/nb - 1 times; wall time and GFLOP/s;
+     then a small posv held against the same solve on the CPU;
   4. the tile route: posv at n = 2048 with the fused panel's plan set to
      the library, so that potrf_tile runs K1 (n/nb launches);
   5. the LU path at full width: ``slate_tpu_torch.gesv`` with MethodLU.CALU
@@ -47,7 +56,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      never; wall time and GFLOP/s (LAPACK's geqrf + ormqr + trsm counts);
   7. BASELINE.md config 4 cut to f32 and one card, gels at 200000 x 1024
      (a ragged last tile row): the default route, CholQR, launches K2 and
-     K0 as potrf at n = 1024 does (15 and 7); MethodGels.QR forced takes
+     K0 as potrf at n = 1024 does (23 and 7); MethodGels.QR forced takes
      no hand kernel (every panel is past K5's cap); accuracy (bounds that
      a TF32 solve exceeds) and walls of both; then small QR checks against the CPU (gels with m < n, cholqr,
      unmqr in all four (side, op) pairs, qr_multiply's ||Q^T Q - I||);
@@ -77,8 +86,9 @@ kernel (torch.profiler), with the device's idle share.
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
 with --seed + 1, the serving phases from a third, --seed + 2, and the
-K5/K8 cluster edge shapes from a fourth, --seed + 3, so that adding to one
-slice moves no other's matrices.
+K5/K8 cluster edge shapes from a fourth, --seed + 3, and K2's late panels
+and K0's pivoted U from a fifth, --seed + 4, so that adding to one slice
+moves no other's matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -191,6 +201,38 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 5) -> dict:
+    """Mean device time per call of ``fn()`` of each kernel it launches,
+    by name, under torch.profiler (after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = (out.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() * 1e-3 / reps)
+    return out
+
+
+def k2_launch_times(fn, reps: int = 5) -> dict:
+    """K2's own launches (update, factor, solve) and K0's, per call of a
+    chol_panel_fused ``fn``: device ms by launch, from torch.profiler."""
+    by_name = device_ms(fn, reps)
+
+    def pick(tag):
+        return sum(v for k, v in by_name.items() if tag in k)
+    parts = {"update": pick("chol_panel_update_kernel"),
+             "factor": pick("chol_panel_factor_kernel"),
+             "solve": pick("chol_panel_solve_kernel")}
+    return {"k2_own_ms": sum(parts.values()), "k2_launch_ms": parts,
+            "k0_ms": pick("upper_tri_inv_kernel")}
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time for the work on the card: the larger of flops over the
     f32 peak and bytes over the memory rate, in ms, and which one it is."""
@@ -259,8 +301,8 @@ def check(name, shape, got, want, reason, kernel_ms, plain_ms, library_ms,
 
 
 def check_kernels(gen) -> dict:
-    from slate_tpu_torch.internal.chol_kernels import (
-        chol_panel_fused, chol_panel_plain, chol_tile, chol_tile_plain)
+    from slate_tpu_torch.internal.chol_kernels import (chol_tile,
+                                                       chol_tile_plain)
     from slate_tpu_torch.internal.tri_inv import (upper_tri_inv,
                                                   upper_tri_inv_plain)
     rows = {}
@@ -270,7 +312,7 @@ def check_kernels(gen) -> dict:
         rows["upper_tri_inv"] = check(
             "upper_tri_inv", {"n": n}, [upper_tri_inv(u)],
             [upper_tri_inv_plain(u)],
-            "back substitution in both, sums in another order, on U with "
+            "blocked doubling in both, sums in another order, on U with "
             "cond <= ~3",
             time_ms(lambda: upper_tri_inv(u), 50),
             time_ms(lambda: upper_tri_inv_plain(u), 20),
@@ -288,58 +330,124 @@ def check_kernels(gen) -> dict:
             time_ms(lambda: chol_tile_plain(a, 8), 5),
             time_ms(lambda: torch.linalg.cholesky(a), 50),
             n ** 3 / 3, 4 * (n * (n + 1) // 2 + n * n))
-    nb = 128
     # (M, K, transposed-left): the first and the middle panel of the main
     # path, with its strides (left a row-major view with a leading
     # dimension, lead a transposed one), then a ragged K with the other
-    # stride pattern.  left and lead ~ N(0,1) / K^(1/4) make every entry of
-    # left @ lead and its partial sums O(1), so a skipped K slice or TF32
-    # products (checked: the control) land far above the tolerance.  lead
-    # is drawn apart from left: on the main path it is a view of left's
-    # first rows, and a diagonal entry there sums K squares up to
-    # ~sqrt(K); one sequential f32 chain over that sum may be off by
-    # ~sqrt(K) eps 100 ~ 6e-4 at K = 10240, beyond the tolerance though no
-    # less exact than f32 allows.  The posv phase covers that aliasing.
+    # stride pattern.
     for m, k, left_t in ((20480, 0, False), (10240, 10240, False),
                          (1024, 1000, True)):
-        base = torch.randn(m, nb, generator=gen, device="cuda")
-        top = base[:nb] @ base[:nb].T / nb + torch.eye(nb, device="cuda")
-        target = torch.cat([top, base[nb:]])
-        scale = max(k, 1) ** -0.25
-        left = (torch.randn(m, k + 8, generator=gen, device="cuda")
-                * scale)[:, 8:]
-        lead = (torch.randn(nb, k + 8, generator=gen, device="cuda")
-                * scale)[:, 8:].T
-        if left_t:
-            left = left.T.contiguous().T
-            lead = lead.contiguous()
-        col = target + left @ lead
-        got = chol_panel_fused(col, left, lead, 8)
-        want = chol_panel_plain(col, left, lead, 8)
-
-        def library():
-            upd = col - left @ lead
-            l00 = torch.linalg.cholesky(upd[:nb])
-            return torch.linalg.solve_triangular(l00.mT, upd[nb:],
-                                                 upper=True, left=False)
-
-        row = check(
-            "chol_panel_fused", {"M": m, "nb": nb, "K": k, "bw": 8,
-                                 "left_transposed": left_t},
-            list(got), list(want),
-            "upd: K-long f32 sums with O(1) partial sums in another order; "
-            "fac: as upper_tri_inv and chol_tile on a top block with "
-            "cond <= ~5",
-            time_ms(lambda: chol_panel_fused(col, left, lead, 8), 10),
-            time_ms(lambda: chol_panel_plain(col, left, lead, 8), 3),
-            time_ms(library, 10),
-            2 * m * k * nb + nb ** 3 / 3 + (m - nb) * nb * nb,
-            4 * (m * nb + m * k + k * nb + 2 * m * nb),
-            control=(tf32(lambda: chol_panel_plain(col, left, lead, 8))
-                     if k else None))
+        row = check_chol_panel(gen, m, k, left_t)
         if (m, k) == (10240, 10240):
             rows["chol_panel_fused"] = row
     return rows
+
+
+def chol_panel_operands(gen, m: int, k: int, left_t: bool, nb: int = 128):
+    """(col, left, lead) of one K2 panel.  left and lead ~ N(0,1) / K^(1/4)
+    make every entry of left @ lead and its partial sums O(1), so a skipped
+    K slice or TF32 products (checked: the control) land far above the
+    tolerance.  lead is drawn apart from left: on the main path it is a
+    view of left's first rows, and a diagonal entry there sums K squares up
+    to ~sqrt(K); one sequential f32 chain over that sum may be off by
+    ~sqrt(K) eps 100 ~ 6e-4 at K = 10240, beyond the tolerance though no
+    less exact than f32 allows.  The posv phase covers that aliasing."""
+    base = torch.randn(m, nb, generator=gen, device="cuda")
+    top = base[:nb] @ base[:nb].T / nb + torch.eye(nb, device="cuda")
+    target = torch.cat([top, base[nb:]])
+    scale = max(k, 1) ** -0.25
+    left = (torch.randn(m, k + 8, generator=gen, device="cuda")
+            * scale)[:, 8:]
+    lead = (torch.randn(nb, k + 8, generator=gen, device="cuda")
+            * scale)[:, 8:].T
+    if left_t:
+        left = left.T.contiguous().T
+        lead = lead.contiguous()
+    return target + left @ lead, left, lead
+
+
+def check_chol_panel(gen, m: int, k: int, left_t: bool,
+                     nb: int = 128) -> dict:
+    """K2 at [M, K] against its plain version (and its TF32 control when
+    K > 0), launched twice and compared bit for bit; the row's kernel_ms is
+    K2's own launches' device time, K0's apart."""
+    from slate_tpu_torch.internal.chol_kernels import (
+        chol_panel_fused, chol_panel_plain, panel_plan)
+    col, left, lead = chol_panel_operands(gen, m, k, left_t, nb)
+    got = chol_panel_fused(col, left, lead, 8)
+    repeatable = all(torch.equal(g, h) for g, h in
+                     zip(got, chol_panel_fused(col, left, lead, 8)))
+    want = chol_panel_plain(col, left, lead, 8)
+
+    def library():
+        upd = col - left @ lead
+        l00 = torch.linalg.cholesky(upd[:nb])
+        return torch.linalg.solve_triangular(l00.mT, upd[nb:],
+                                             upper=True, left=False)
+
+    times = k2_launch_times(lambda: chol_panel_fused(col, left, lead, 8))
+    plan = panel_plan(col, left, lead)
+    fast = "loads" if left_t else "cp.async"
+    if k and not plan["left"] == plan["lead"] == fast:
+        raise AssertionError(f"chol_panel_fused [{m}, {k}]: staging {plan} "
+                             f"on left_transposed = {left_t}")
+    row = check(
+        "chol_panel_fused", {"M": m, "nb": nb, "K": k, "bw": 8,
+                             "left_transposed": left_t},
+        list(got), list(want),
+        "upd: K-long f32 sums with O(1) partial sums in another order; "
+        "fac: as upper_tri_inv and chol_tile on a top block with "
+        "cond <= ~5",
+        times["k2_own_ms"],
+        time_ms(lambda: chol_panel_plain(col, left, lead, 8), 3),
+        time_ms(library, 10),
+        2 * m * k * nb + nb ** 3 / 3 + (m - nb) * nb * nb,
+        4 * (m * nb + m * k + k * nb + 2 * m * nb),
+        control=(tf32(lambda: chol_panel_plain(col, left, lead, 8))
+                 if k else None))
+    row.update(times, plan=plan, bitwise_repeatable=repeatable,
+               wrapper_ms=time_ms(lambda: chol_panel_fused(col, left, lead,
+                                                           8), 10),
+               library_device_ms=sum(device_ms(library).values()))
+    emit({"phase": "chol_panel_plan", "M": m, "K": k, **plan,
+          "bitwise_repeatable": repeatable, **times,
+          "wrapper_ms": row["wrapper_ms"], "library_ms": row["library_ms"],
+          "library_device_ms": row["library_device_ms"]})
+    if not repeatable:
+        raise AssertionError(f"chol_panel_fused [{m}, {k}]: two launches on "
+                             f"the same input differ")
+    return row
+
+
+def check_k2_k0_edges(gen) -> None:
+    """K2 at the posv path's late panels: few row tiles and a deep K (the
+    K loop split over a cluster), and the last panel (M = nb); K0 on the U
+    of a partially pivoted LU of a Gaussian panel (cond ~100), within 1e-5
+    of the f64 inverse relative to its largest entry, and against its
+    plain version.  Draws from ``gen`` alone (--seed + 4)."""
+    from slate_tpu_torch.internal.tri_inv import (upper_tri_inv,
+                                                  upper_tri_inv_plain)
+    for m, k in ((1024, 19456), (128, 20352)):
+        check_chol_panel(gen, m, k, False)
+    g = torch.randn(4096, 128, generator=gen, device="cuda")
+    u = torch.triu(torch.linalg.lu_factor(g)[0][:128]).contiguous()
+    x64 = torch.linalg.inv(u.double())
+    got = upper_tri_inv(u)
+    rel = float((got.double() - x64).abs().max() / x64.abs().max())
+    emit({"phase": "upper_tri_inv_pivoted_u", "n": 128,
+          "rel_err_vs_f64": rel, "tol": 1e-5,
+          "cond": float(torch.linalg.cond(u.double()))})
+    if not rel < 1e-5:
+        raise AssertionError(f"upper_tri_inv on a pivoted U: {rel} from the "
+                             f"f64 inverse (tolerance 1e-5)")
+    check("upper_tri_inv", {"n": 128, "pivoted_u": True}, [got],
+          [upper_tri_inv_plain(u)],
+          "blocked doubling in both, sums in another order; pivoted U "
+          "(cond ~100), so RTOL is taken relative to |U^-1|",
+          time_ms(lambda: upper_tri_inv(u), 50),
+          time_ms(lambda: upper_tri_inv_plain(u), 20),
+          time_ms(lambda: torch.linalg.solve_triangular(
+              u, torch.eye(128, device="cuda"), upper=True), 50),
+          128 ** 3 / 3, 4 * (128 * 129 // 2 + 128 * 128))
 
 
 def check_lu_kernels(gen) -> dict:
@@ -1427,6 +1535,9 @@ def main(argv=None) -> int:
     edge_gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
     rows.update(check_qr_kernels(qr_gen, edge_gen))
     rows.update(check_serve_kernels(serve_gen, edge_gen))
+    # K2's late panels and K0's pivoted U: a fifth generator
+    check_k2_k0_edges(torch.Generator(device="cuda").manual_seed(
+        args.seed + 4))
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -1465,8 +1576,9 @@ def main(argv=None) -> int:
     if not (res_tf > RESIDUAL_BOUND and fwd_tf > FORWARD_BOUND):
         raise AssertionError("the accuracy bounds do not catch TF32 "
                              f"products: residual {res_tf}, forward {fwd_tf}")
+    # K2: update, factor and solve a panel, no solve on the last
     want = {**{name: 0 for name in kernels},
-            "chol_panel_fused": 2 * (n // nb) - 1,
+            "chol_panel_fused": 3 * (n // nb) - 1,
             "upper_tri_inv": n // nb - 1}
     if main_launches != want:
         raise AssertionError(f"posv launches {main_launches} != {want}")
@@ -1667,7 +1779,7 @@ def main(argv=None) -> int:
     cfg4 = {}
     for route, opts, want4 in (
             ("cholqr_default", None,
-             {"chol_panel_fused": 2 * (n4 // nb) - 1,
+             {"chol_panel_fused": 3 * (n4 // nb) - 1,
               "upper_tri_inv": n4 // nb - 1}),
             ("qr_forced", {st.Option.MethodGels: st.MethodGels.QR}, {})):
         reset()
@@ -1758,7 +1870,9 @@ def main(argv=None) -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"],
-                     **{k: r[k] for k in ("cluster", "bitwise_repeatable")
+                     **{k: r[k] for k in ("cluster", "bitwise_repeatable",
+                                          "plan", "k2_launch_ms", "k0_ms",
+                                          "wrapper_ms", "library_device_ms")
                         if k in r}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

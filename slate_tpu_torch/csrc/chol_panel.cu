@@ -9,210 +9,340 @@
 //
 // The hazard: the Pallas grid runs in order, carrying the K-sum in one VMEM
 // scratch and U^-1 from row tile 0 to the later row tiles in another. CUDA
-// blocks run in no order, so the K loop runs inside each block and the U^-1
-// hand-off goes through global memory between launches on one stream:
-//   (a) chol_panel_diag:  one block of 256 threads forms upd_0 and writes it,
-//       factors it in shared memory (the column loop of K1, chol_factor.cuh)
-//       and writes L00;
+// blocks run in no order, so upd_0 and U^-1 are handed on through global
+// memory between launches on one stream:
+//   (a) chol_panel_update: grid (S, ceil(M / 128)), one thread-block
+//       cluster of S CTAs per 128-row tile, tile 0 included. CTA s of a
+//       cluster sums its share of the K loop (panel_gemm.cuh); the S
+//       partial tiles are added through distributed shared memory in rank
+//       order, each CTA adding 1/S of the tile, and upd = col - sum is
+//       written;
+//   (b) chol_panel_factor: one block of 512 threads factors upd_0 (the
+//       column loop of K1, chol_factor.cuh) and writes L00. It is the only
+//       single-block launch of K2 and runs no part of the K loop;
 //   then, when there are rows below, the wrapper launches K0 (tri_inv.cu) on
 //   U = L00^T, which writes U^-1 to a tile of its own;
-//   (b) chol_panel_below: one block of 128 threads per 32-row strip of the
-//       rows below forms its upd strip over the whole K loop, writes it, and
-//       writes fac = upd_strip @ U^-1.
-// K0 runs as its own launch, not inside (a), so that each kernel's launch
-// count is the launches its own wrapper made.
+//   (c) chol_panel_solve: one CTA per 128 rows below tile 0 forms fac =
+//       upd_below @ U^-1, the same tiled product with K = nb.
+// K0 runs as its own launch, so that each kernel's launch count is the
+// launches its own wrapper made: a panel with rows below is three K2
+// launches and one K0, the last panel (M = nb) two K2 launches.
+//
+// The split S is a function of the shape (M, K, nb) and the device alone:
+// the S in 1..16 that minimises waves x K slices per CTA, where a wave is
+// the clusters of S CTAs that the card holds at once
+// (cudaOccupancyMaxActiveClusters), with no CTA given fewer than 4 slices
+// of 32 (ties to the smaller S). It never depends on load or timing, and
+// the partials are added in rank order without atomics, so two launches on
+// the same inputs give the same bits.
 // The Pallas version pads K with zeros to a multiple of nb; here the staging
-// loads mask the ragged end of K instead, and K = 0 skips the loop. left and
-// lead are strided views of the factor being built (lead is a transpose), so
-// each load walks whichever index is unit-stride.
+// masks the ragged end of K instead, and K = 0 skips the loop. On the posv
+// path left and lead are views of the factor being built, both unit-stride
+// along K (lead is a transpose), so both stage by cp.async; any other
+// strides take the kernel's plain-load staging (slate_chol_panel_plan
+// reports which).
 //
 // Bound on this card: 2 M K nb flops of the update plus nb^3/3 + (M - nb)
 // nb^2 of the factor and the triangular solve, against the bytes of col,
 // left, lead, upd and fac read or written once. With K >= nb it is bound by
-// f32 operations: the products run as FFMA on the CUDA cores (the reference
-// asks for Precision.HIGHEST, so never TF32), at most 67 TFLOP/s.
-//
-// Design: each block stages KC = 32 deep slices of its left rows and of lead
-// in shared memory (padded so that every load and read is free of bank
-// conflicts) and keeps its output tile in registers: 8 x 8 values a thread
-// in (a), 4 x nb/16 in (b). Launch (a) is a single block: its update and
-// factor run on one SM while the rest of the card waits, which is the first
-// thing to remove in a faster version (split the diagonal update over
-// blocks, then wgmma/TMA for the products).
+// f32 operations: the reference asks for Precision.HIGHEST, so never TF32,
+// and wgmma takes no f32 operands, so every product is an FFMA on the CUDA
+// cores, at most 67 TFLOP/s. The design aims the update at that ceiling:
+// 128 x nb tiles a CTA, a 16 x 8 register tile a thread, a three-deep
+// cp.async ring, and the split filling the card when row tiles are few.
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "chol_factor.cuh"
 #include "common.cuh"
-#include "gemm_acc.cuh"
+#include "panel_gemm.cuh"
+
+namespace cg = cooperative_groups;
+
+constexpr int PANEL_MAX_SPLIT = 16;    // the largest (non-portable) cluster
+constexpr int PANEL_MIN_SLICES = 4;    // K slices a CTA takes at least
 
 template <int NB>
-constexpr size_t diag_smem_bytes() {
-  return sizeof(float) * (NB * (NB + 1) + NB * (KC + 1) + KC * (NB + 1));
+__host__ __device__ constexpr int partial_ld() {
+  return NB + 8;  // the partial tile's row stride: 8-bank shifts per row
 }
 
-// (a): upd_0 and L00 from row tile 0 (rows 0 .. NB-1 of col/left).
 template <int NB>
-__global__ void __launch_bounds__(256)
-chol_panel_diag_kernel(const float* __restrict__ col, long long cs0,
-                       long long cs1, const float* __restrict__ left,
-                       long long ls0, long long ls1,
-                       const float* __restrict__ lead, long long ds0,
-                       long long ds1, int K, int bw, float* __restrict__ upd,
-                       float* __restrict__ fac) {
-  constexpr int TY = 16, RM = NB / TY, CN = NB / 16, LDS = NB + 1;
-  extern __shared__ float smem[];
-  float* S = smem;                 // NB x LDS: upd_0, then L00
-  float* As = S + NB * LDS;        // NB x (KC+1)
-  float* Bs = As + NB * (KC + 1);  // KC x (NB+1)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[RM][CN] = {};
-  gemm_acc<float, RM, CN, TY>(acc, left, ls0, ls1, lead, ds0, ds1, K, As,
-                              Bs);
+constexpr size_t update_smem_bytes() {
+  constexpr size_t ring = PanelGemm<NB>::SMEM_FLOATS;
+  constexpr size_t partial = (size_t)PG_BM * partial_ld<NB>();
+  return sizeof(float) * (ring > partial ? ring : partial);
+}
+
+// (a): upd for the 128-row tile blockIdx.y, K split over the cluster.
+template <int NB>
+__global__ void __launch_bounds__(PanelGemm<NB>::THREADS, 2)
+chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
+                         long long cs1, const float* __restrict__ left,
+                         long long ls0, long long ls1, int fast_left,
+                         const float* __restrict__ lead, long long ds0,
+                         long long ds1, int fast_lead, int M, int K,
+                         int slices, float* __restrict__ upd) {
+  using G = PanelGemm<NB>;
+  constexpr int LDP = partial_ld<NB>(), Q = NB / 4;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.y * PG_BM;
+  const int rows = (int)min((long long)PG_BM, M - row0);
+  int tx, ty;
+  pg_thread<NB>(tx, ty);
+  float acc[PG_RM][8] = {};
+  const long long kspan = (long long)slices * PG_KC;
+  const int kb = (int)min((long long)K, rank * kspan);
+  const int ke = (int)min((long long)K, kb + kspan);
+  pg_product<NB>(acc, left + row0 * ls0, ls0, ls1, rows, fast_left, lead,
+                 ds0, ds1, fast_lead, kb, ke, smem, tx, ty);
+  if (S == 1) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+    for (int i = 0; i < PG_RM; ++i) {
+      const int r = ty + G::TY * i;
+      if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int r = ty + i * TY, c = tx + j * 16;
-      const float v = col[r * cs0 + c * cs1] - acc[i][j];
-      upd[r * NB + c] = v;
-      S[r * LDS + c] = v;
+      for (int j = 0; j < 8; ++j) {
+        const int c = tx + G::TX * j;
+        upd[(row0 + r) * NB + c] =
+            col[(row0 + r) * cs0 + c * cs1] - acc[i][j];
+      }
     }
+  } else {
+    // publish the partial tile, then add the S partials of this CTA's
+    // share of the tile in rank order
+    float* P = smem;
+#pragma unroll
+    for (int i = 0; i < PG_RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        P[(ty + G::TY * i) * LDP + tx + G::TX * j] = acc[i][j];
+    cluster.sync();
+    const int lo = rank * (PG_BM * Q) / S, hi = (rank + 1) * (PG_BM * Q) / S;
+    for (int idx = lo + tid; idx < hi; idx += G::THREADS) {
+      const int r = idx / Q, c = 4 * (idx % Q);
+      if (r >= rows) continue;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < S; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(P, q) + r * LDP + c);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      const float* crow = col + (row0 + r) * cs0;
+      float4 out;
+      out.x = crow[c * cs1] - s.x;
+      out.y = crow[(c + 1) * cs1] - s.y;
+      out.z = crow[(c + 2) * cs1] - s.z;
+      out.w = crow[(c + 3) * cs1] - s.w;
+      *reinterpret_cast<float4*>(upd + (row0 + r) * NB + c) = out;
+    }
+    cluster.sync();  // every CTA's upd rows written; no partial read again
+  }
+}
+
+constexpr int FACTOR_THREADS = 512;
+
+// (b): L00 = chol(upd_0) on one block, the column loop of K1: rows 0 ..
+// NB-1 of fac from rows 0 .. NB-1 of upd.
+template <int NB>
+__global__ void __launch_bounds__(FACTOR_THREADS)
+chol_panel_factor_kernel(const float* __restrict__ upd, int bw,
+                         float* __restrict__ fac) {
+  constexpr int LDS = NB + 1;
+  extern __shared__ __align__(16) float smem[];
+  for (int idx = threadIdx.x; idx < NB * NB; idx += FACTOR_THREADS) {
+    smem[(idx / NB) * LDS + idx % NB] = upd[idx];
   }
   __syncthreads();
-  chol_factor_smem(S, LDS, NB, bw);
-  for (int idx = threadIdx.x; idx < NB * NB; idx += blockDim.x) {
-    fac[idx] = S[(idx / NB) * LDS + idx % NB];
+  chol_factor_smem(smem, LDS, NB, bw);
+  for (int idx = threadIdx.x; idx < NB * NB; idx += FACTOR_THREADS) {
+    fac[idx] = smem[(idx / NB) * LDS + idx % NB];
   }
 }
 
-constexpr int STRIP = 32;  // rows of the below-diagonal panel per block
-
+// (c): fac rows NB + 128*blockIdx.x .. +128 = upd rows @ U^-1.
 template <int NB>
-constexpr size_t below_smem_bytes() {
-  return sizeof(float) * (STRIP * (KC + 1) + KC * (NB + 1) + STRIP * (NB + 1));
-}
-
-// (b): rows NB + STRIP*blockIdx.x .. +STRIP of upd and fac.
-template <int NB>
-__global__ void __launch_bounds__(128)
-chol_panel_below_kernel(const float* __restrict__ col, long long cs0,
-                        long long cs1, const float* __restrict__ left,
-                        long long ls0, long long ls1,
-                        const float* __restrict__ lead, long long ds0,
-                        long long ds1, int K, const float* __restrict__ uinv,
-                        float* __restrict__ upd, float* __restrict__ fac) {
-  constexpr int TY = 8, RM = STRIP / TY, CN = NB / 16, LDP = NB + 1;
-  extern __shared__ float smem[];
-  float* As = smem;                   // STRIP x (KC+1)
-  float* Bs = As + STRIP * (KC + 1);  // KC x (NB+1)
-  float* Ps = Bs + KC * (NB + 1);     // STRIP x LDP: this strip of upd
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long row0 = NB + (long long)STRIP * blockIdx.x;
-  float acc[RM][CN] = {};
-  gemm_acc<float, RM, CN, TY>(acc, left + row0 * ls0, ls0, ls1, lead, ds0,
-                              ds1, K, As, Bs);
+__global__ void __launch_bounds__(PanelGemm<NB>::THREADS)
+chol_panel_solve_kernel(const float* __restrict__ upd,
+                        const float* __restrict__ uinv, int M,
+                        float* __restrict__ fac) {
+  using G = PanelGemm<NB>;
+  extern __shared__ __align__(16) float smem[];
+  const long long row0 = NB + (long long)blockIdx.x * PG_BM;
+  const int rows = (int)min((long long)PG_BM, M - row0);
+  int tx, ty;
+  pg_thread<NB>(tx, ty);
+  float acc[PG_RM][8] = {};
+  // A = upd rows (unit-stride along K, 16-byte aligned rows); B(k, c) =
+  // uinv[k * NB + c] is unit-stride along c, so it takes the plain loads
+  pg_product<NB>(acc, upd + row0 * NB, NB, 1, rows, true, uinv, NB, 1, false,
+                 0, NB, smem, tx, ty);
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+  for (int i = 0; i < PG_RM; ++i) {
+    const int r = ty + G::TY * i;
+    if (r >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int r = ty + i * TY, c = tx + j * 16;
-      const float v = col[(row0 + r) * cs0 + c * cs1] - acc[i][j];
-      upd[(row0 + r) * NB + c] = v;
-      Ps[r * LDP + c] = v;
-      acc[i][j] = 0.f;
-    }
-  }
-  // fac strip = Ps @ U^-1, U^-1 staged KC rows at a time
-  for (int k0 = 0; k0 < NB; k0 += KC) {
-    for (int idx = tid; idx < KC * NB; idx += 128) {
-      const int k = idx / NB, c = idx % NB;
-      Bs[k * (NB + 1) + c] = uinv[(k0 + k) * NB + c];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float a[RM], b[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = Ps[(ty + i * TY) * LDP + k0 + k];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) b[j] = Bs[k * (NB + 1) + tx + j * 16];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      fac[(row0 + ty + i * TY) * NB + tx + j * 16] = acc[i][j];
+    for (int j = 0; j < 8; ++j) {
+      fac[(row0 + r) * NB + tx + G::TX * j] = acc[i][j];
     }
   }
 }
 
+// 1 when an operand with these strides stages by cp.async: unit-stride
+// along K (stride_k == 1), the other stride a multiple of 4 floats, and
+// the base 16-byte aligned.
+static int staged_by_copy(const float* p, long long stride_k,
+                          long long stride_other) {
+  return stride_k == 1 && stride_other % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Opt the update kernel into its shared memory and into clusters of more
+// than 8, and choose the split *split for an [M, nb] panel K deep: the S
+// in 1..16 that minimises ceil(R / placed(S)) * ceil(slices / S), R the
+// row tiles, placed(S) the clusters of S CTAs the card holds at once, every
+// CTA at least PANEL_MIN_SLICES slices (ties to the smaller S). *slices =
+// K slices per CTA.
 template <int NB>
-int launch_diag(cudaStream_t stream, const float* col, long long cs0,
-                long long cs1, const float* left, long long ls0, long long ls1,
-                const float* lead, long long ds0, long long ds1, int K, int bw,
-                float* upd, float* fac) {
-  constexpr size_t smem = diag_smem_bytes<NB>();
-  SLATE_SET_SMEM(chol_panel_diag_kernel<NB>, smem);
-  chol_panel_diag_kernel<NB><<<1, 256, smem, stream>>>(
-      col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, bw, upd, fac);
+int prepare_update(int device, int M, int K, int* split, int* slices) {
+  auto kernel = chol_panel_update_kernel<NB>;
+  constexpr size_t smem = update_smem_bytes<NB>();
+  constexpr int threads = PanelGemm<NB>::THREADS;
+  SLATE_SET_SMEM(kernel, smem);
+  SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  const long long tiles = (M + PG_BM - 1) / PG_BM;
+  const int total = (K + PG_KC - 1) / PG_KC;
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= PANEL_MAX_SPLIT; ++s) {
+    if (s > 1 && total / s < PANEL_MIN_SLICES) break;
+    int placed = 0;
+    SLATE_RETURN_IF_ERROR(
+        active_clusters(kernel, device, s, threads, (int)smem, &placed));
+    if (placed == 0) continue;
+    const long long cost =
+        ((tiles + placed - 1) / placed) * ((total + s - 1) / s);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  *split = best;
+  *slices = (total + best - 1) / best;
+  return 0;
+}
+
+template <int NB>
+int launch_update(cudaStream_t stream, int device, const float* col,
+                  long long cs0, long long cs1, const float* left,
+                  long long ls0, long long ls1, const float* lead,
+                  long long ds0, long long ds1, int K, int M, float* upd) {
+  int split = 1, slices = 0;
+  const int e = prepare_update<NB>(device, M, K, &split, &slices);
+  if (e != 0) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(split, (M + PG_BM - 1) / PG_BM, 1);
+  cfg.blockDim = dim3(PanelGemm<NB>::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = update_smem_bytes<NB>();
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, chol_panel_update_kernel<NB>, col, cs0, cs1, left, ls0, ls1,
+      staged_by_copy(left, ls1, ls0), lead, ds0, ds1,
+      staged_by_copy(lead, ds0, ds1), M, K, slices, upd);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <int NB>
+int launch_factor(cudaStream_t stream, const float* upd, int bw, float* fac) {
+  constexpr size_t smem = sizeof(float) * NB * (NB + 1);
+  SLATE_SET_SMEM(chol_panel_factor_kernel<NB>, smem);
+  chol_panel_factor_kernel<NB><<<1, FACTOR_THREADS, smem, stream>>>(upd, bw,
+                                                                    fac);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NB>
-int launch_below(cudaStream_t stream, const float* col, long long cs0,
-                 long long cs1, const float* left, long long ls0,
-                 long long ls1, const float* lead, long long ds0,
-                 long long ds1, int K, int M, const float* uinv, float* upd,
-                 float* fac) {
-  constexpr size_t smem = below_smem_bytes<NB>();
-  SLATE_SET_SMEM(chol_panel_below_kernel<NB>, smem);
-  const int blocks = (M - NB) / STRIP;
-  chol_panel_below_kernel<NB><<<blocks, 128, smem, stream>>>(
-      col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, uinv, upd, fac);
+int launch_solve(cudaStream_t stream, const float* upd, const float* uinv,
+                 int M, float* fac) {
+  constexpr size_t smem = sizeof(float) * PanelGemm<NB>::SMEM_FLOATS;
+  SLATE_SET_SMEM(chol_panel_solve_kernel<NB>, smem);
+  const int blocks = (M - NB + PG_BM - 1) / PG_BM;
+  chol_panel_solve_kernel<NB><<<blocks, PanelGemm<NB>::THREADS, smem,
+                                stream>>>(upd, uinv, M, fac);
   return static_cast<int>(cudaGetLastError());
 }
 
-// nb in {32, 64, 96, 128}; upd and fac are [M, nb] row-major. Launch (a)
-// writes rows 0 .. nb-1 of both.
-extern "C" int slate_chol_panel_diag(int device, void* stream,
-                                     const float* col, long long cs0,
-                                     long long cs1, const float* left,
-                                     long long ls0, long long ls1,
-                                     const float* lead, long long ds0,
-                                     long long ds1, int K, int nb, int bw,
-                                     float* upd, float* fac) {
+// return fn<nb>(args...) for the instantiated widths
+#define SLATE_PANEL_NB(fn, ...)                              \
+  switch (nb) {                                              \
+    case 32: return fn<32>(__VA_ARGS__);                     \
+    case 64: return fn<64>(__VA_ARGS__);                     \
+    case 96: return fn<96>(__VA_ARGS__);                     \
+    case 128: return fn<128>(__VA_ARGS__);                   \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// Launch (a): upd [M, nb] row-major; nb in {32, 64, 96, 128}, M a
+// multiple of nb.
+extern "C" int slate_chol_panel_update(int device, void* stream,
+                                       const float* col, long long cs0,
+                                       long long cs1, const float* left,
+                                       long long ls0, long long ls1,
+                                       const float* lead, long long ds0,
+                                       long long ds1, int K, int nb, int M,
+                                       float* upd) {
   SLATE_SET_DEVICE(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nb) {
-    case 32: return launch_diag<32>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, bw, upd, fac);
-    case 64: return launch_diag<64>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, bw, upd, fac);
-    case 96: return launch_diag<96>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, bw, upd, fac);
-    case 128: return launch_diag<128>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, bw, upd, fac);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  SLATE_PANEL_NB(launch_update, s, device, col, cs0, cs1, left, ls0, ls1,
+                 lead, ds0, ds1, K, M, upd)
 }
 
-// Launch (b) over rows nb .. M-1; M is a multiple of nb and M > nb; uinv is
-// U^-1 as K0 writes it, [nb, nb] row-major.
-extern "C" int slate_chol_panel_below(int device, void* stream,
-                                      const float* col, long long cs0,
-                                      long long cs1, const float* left,
-                                      long long ls0, long long ls1,
-                                      const float* lead, long long ds0,
-                                      long long ds1, int K, int nb, int M,
-                                      const float* uinv, float* upd,
-                                      float* fac) {
+// Launch (b): rows 0 .. nb-1 of fac [M, nb] = chol of rows 0 .. nb-1 of upd.
+extern "C" int slate_chol_panel_factor(int device, void* stream,
+                                       const float* upd, int nb, int bw,
+                                       float* fac) {
   SLATE_SET_DEVICE(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nb) {
-    case 32: return launch_below<32>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, M, uinv, upd, fac);
-    case 64: return launch_below<64>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, M, uinv, upd, fac);
-    case 96: return launch_below<96>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, M, uinv, upd, fac);
-    case 128: return launch_below<128>(s, col, cs0, cs1, left, ls0, ls1, lead, ds0, ds1, K, M, uinv, upd, fac);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  SLATE_PANEL_NB(launch_factor, s, upd, bw, fac)
+}
+
+// Launch (c): fac rows nb .. M-1 = upd rows nb .. M-1 @ uinv, M > nb; uinv
+// is U^-1 as K0 writes it, [nb, nb] row-major.
+extern "C" int slate_chol_panel_solve(int device, void* stream,
+                                      const float* upd, const float* uinv,
+                                      int nb, int M, float* fac) {
+  SLATE_SET_DEVICE(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SLATE_PANEL_NB(launch_solve, s, upd, uinv, M, fac)
+}
+
+// What launch (a) takes for this panel on this device: *split = the CTAs
+// of a row tile's cluster (the K split), *staging = 1 when left stages by
+// cp.async, plus 2 when lead does (else each takes the plain loads).
+extern "C" int slate_chol_panel_plan(int device, int M, int K, int nb,
+                                     const float* left, long long ls0,
+                                     long long ls1, const float* lead,
+                                     long long ds0, long long ds1,
+                                     int* split, int* staging) {
+  SLATE_SET_DEVICE(device);
+  int slices = 0;
+  *staging = staged_by_copy(left, ls1, ls0) + 2 * staged_by_copy(lead, ds0,
+                                                                 ds1);
+  SLATE_PANEL_NB(prepare_update, device, M, K, split, &slices)
 }

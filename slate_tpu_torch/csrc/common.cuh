@@ -1,5 +1,6 @@
 // Shared by every kernel source of slate_tpu_torch: the C entry point that
-// turns an error code into text, and the launch prologue.
+// turns an error code into text, the launch prologue, and the count of
+// thread-block clusters a kernel can hold resident (K2, K5 and K8).
 //
 // Each source is built alone into a shared library with a plain C interface
 // (slate_tpu_torch/internal/kernels.py). Every entry point takes the device
@@ -8,6 +9,10 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 extern "C" const char* slate_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
@@ -32,3 +37,47 @@ extern "C" const char* slate_cuda_error_string(int e) {
 #define SLATE_SET_SMEM(kernel, bytes)                \
   SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(        \
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(bytes)))
+
+// *n = how many clusters of c CTAs of the kernel (threads a CTA, smem bytes
+// of dynamic shared memory) the card holds at once, as
+// cudaOccupancyMaxActiveClusters counts, cached per (kernel, device, c): a
+// kernel's callers launch it with one block size and shared memory, so
+// those are no part of the key. A size the card does not support at all
+// counts as 0 clusters; any other error is returned.
+template <class Kernel>
+cudaError_t active_clusters(Kernel kernel, int device, int c, int threads,
+                            int smem, int* n) {
+  static std::mutex lock;
+  static std::map<std::tuple<const void*, int, int>, int> cache;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel),
+                                   device, c);
+  {
+    std::lock_guard<std::mutex> g(lock);
+    const auto it = cache.find(key);
+    if (it != cache.end()) {
+      *n = it->second;
+      return cudaSuccess;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(c, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  if (e == cudaErrorInvalidClusterSize) {
+    cudaGetLastError();  // this call's own error, reported as *n = 0
+    *n = 0;
+  } else if (e != cudaSuccess) {
+    return e;
+  }
+  std::lock_guard<std::mutex> g(lock);
+  cache[key] = *n;
+  return cudaSuccess;
+}

@@ -1,0 +1,180 @@
+// The tiled f32 product of K2 (chol_panel.cu): one block's PG_BM x NB tile
+// of A @ B over a range [kb, ke) of K, with the sum in registers.
+//
+// A(r, k) = A[r*as0 + k*as1] and B(k, c) = B[k*bs0 + c*bs1] in global
+// memory, any strides. Each KC-deep slice of both operands is staged in
+// shared memory K-innermost (As[r][k], Bs[c][k], rows PG_LDK floats apart),
+// PG_STAGES slices in flight:
+//   - an operand that is unit-stride along K, with 16-byte aligned rows,
+//     is staged by cp.async 16-byte copies started PG_STAGES - 1 slices
+//     ahead, so that the copies overlap the FMAs (the copy's source size
+//     masks the ragged end of K and the rows past the tile with zeros);
+//   - any other operand (a transposed view, an odd stride) is staged by
+//     plain loads that walk whichever index is unit-stride, into the same
+//     ring at the same point, so its loads stall the thread before the
+//     FMAs of the current slice.
+// Each thread holds a 16 x 8 tile of the output: rows ty + TY*i, columns
+// tx + TX*j (128 threads at nb = 128, 255 registers, two CTAs an SM). A
+// warp is WY x WX threads, and the WX (or WY) staged rows one 16-byte read
+// touches fall in distinct bank groups (PG_LDK = 36 floats shifts each
+// staged row by one 16-byte group): 24 reads of 16 bytes feed 512 FMAs,
+// where an 8 x 8 tile feeds 256 with 16 and needs twice the warps to keep
+// the FMA pipes busy. PERF.md has the rate this reaches. Every sum runs
+// over k in ascending order, so a tile's bits depend only on the operands
+// and [kb, ke).
+// No TF32: every product is an f32 FMA on the CUDA cores.
+#pragma once
+
+#include <cuda_runtime.h>
+
+constexpr int PG_BM = 128;          // rows of a block's output tile
+constexpr int PG_RM = 16;           // output rows a thread holds
+constexpr int PG_KC = 32;           // depth of a staged K slice
+constexpr int PG_LDK = PG_KC + 4;   // floats between two staged rows
+constexpr int PG_STAGES = 3;        // staged slices in the ring
+// (pg_slice unrolls two k-quads at a time: a whole slice unrolled is tens
+// of KB of code, past what the instruction caches keep near the warps)
+
+template <int NB>
+struct PanelGemm {
+  static constexpr int TX = NB / 8, TY = PG_BM / PG_RM, THREADS = TX * TY;
+  static constexpr int WX = TX % 8 == 0 ? 8 : 4, WY = 32 / WX;
+  static constexpr int STAGE_FLOATS = (PG_BM + NB) * PG_LDK;
+  static constexpr int SMEM_FLOATS = PG_STAGES * STAGE_FLOATS;
+  static_assert(NB % 32 == 0 && TY % WY == 0 && TX % WX == 0,
+                "the warp layout must tile the thread grid");
+};
+
+__device__ inline void pg_cp_async16(float* dst, const float* src,
+                                     int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ inline void pg_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ inline void pg_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// This thread's place (tx, ty) in the TX x TY grid.
+template <int NB>
+__device__ inline void pg_thread(int& tx, int& ty) {
+  using G = PanelGemm<NB>;
+  constexpr int WCOLS = G::TX / G::WX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  tx = (warp % WCOLS) * G::WX + lane % G::WX;
+  ty = (warp / WCOLS) * G::WY + lane / G::WX;
+}
+
+// dst[r][k] = src(r, k0 + k) for r < R, k < PG_KC, with src(r, k) =
+// src[r*s0 + k*s1]; rows at or past `rows` and k at or past ke read as 0.
+// `fast`: s1 == 1, s0 % 4 == 0 and src 16-byte aligned (cp.async copies).
+template <int R, int NT>
+__device__ inline void pg_stage_operand(float* dst, const float* src,
+                                        long long s0, long long s1, int rows,
+                                        bool fast, int k0, int ke) {
+  const int tid = threadIdx.x;
+  if (fast) {
+    // thread tid copies 16 bytes at k = k0 + 4 (tid % Q) of rows tid / Q,
+    // + STEP, + 2 STEP, ...
+    constexpr int Q = PG_KC / 4, STEP = NT / Q;
+    const int r0 = tid / Q, k = k0 + 4 * (tid % Q);
+    int kbytes = 4 * (ke - k);
+    kbytes = kbytes < 0 ? 0 : (kbytes > 16 ? 16 : kbytes);
+    const float* p = src + r0 * s0 + k;
+    float* d = dst + r0 * PG_LDK + 4 * (tid % Q);
+#pragma unroll
+    for (int e = 0; e < (R + STEP - 1) / STEP; ++e) {
+      const int r = r0 + e * STEP;
+      if (r >= R) break;
+      const int bytes = r < rows ? kbytes : 0;
+      pg_cp_async16(d + e * STEP * PG_LDK, bytes ? p + e * STEP * s0 : src,
+                    bytes);
+    }
+  } else if (s1 == 1) {
+    for (int idx = tid; idx < R * PG_KC; idx += NT) {
+      const int r = idx / PG_KC, k = idx % PG_KC;
+      dst[r * PG_LDK + k] =
+          (r < rows && k0 + k < ke) ? src[r * s0 + k0 + k] : 0.f;
+    }
+  } else {
+    for (int idx = tid; idx < R * PG_KC; idx += NT) {
+      const int r = idx % R, k = idx / R;
+      dst[r * PG_LDK + k] =
+          (r < rows && k0 + k < ke) ? src[r * s0 + (long long)(k0 + k) * s1]
+                                    : 0.f;
+    }
+  }
+}
+
+// acc[i][j] += sum over the PG_KC staged k of As[ty+TY*i][k] * Bs[tx+TX*j][k]
+template <int NB>
+__device__ inline void pg_slice(float (&acc)[PG_RM][8], const float* As,
+                                const float* Bs, int tx, int ty) {
+  using G = PanelGemm<NB>;
+#pragma unroll 2
+  for (int k = 0; k < PG_KC; k += 4) {
+    float4 b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Bs + (tx + G::TX * j) * PG_LDK +
+                                              k);
+#pragma unroll
+    for (int i = 0; i < PG_RM; ++i) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(As + (ty + G::TY * i) * PG_LDK + k);
+      // k by k across the row's 8 sums: no two FMAs in a row on one sum
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+    }
+  }
+}
+
+// acc += A[0:rows, kb:ke] @ B[kb:ke, 0:NB] for this block's tile, through
+// the ring in smem (PanelGemm<NB>::SMEM_FLOATS floats, 16-byte aligned).
+// Every thread of the block calls it; it ends with a barrier, after which
+// smem is free.
+template <int NB>
+__device__ inline void pg_product(float (&acc)[PG_RM][8], const float* A,
+                                  long long as0, long long as1, int rows,
+                                  bool fast_a, const float* B, long long bs0,
+                                  long long bs1, bool fast_b, int kb, int ke,
+                                  float* smem, int tx, int ty) {
+  using G = PanelGemm<NB>;
+  const int nk = ke > kb ? (ke - kb + PG_KC - 1) / PG_KC : 0;
+  auto stage = [&](int s) {
+    float* As = smem + (s % PG_STAGES) * G::STAGE_FLOATS;
+    const int k0 = kb + s * PG_KC;
+    pg_stage_operand<PG_BM, G::THREADS>(As, A, as0, as1, rows, fast_a, k0,
+                                        ke);
+    // B(k, c) as rows c of Bs: the row stride of that view is bs1
+    pg_stage_operand<NB, G::THREADS>(As + PG_BM * PG_LDK, B, bs1, bs0, NB,
+                                     fast_b, k0, ke);
+  };
+#pragma unroll
+  for (int s = 0; s < PG_STAGES - 1; ++s) {
+    if (s < nk) stage(s);
+    pg_cp_async_commit();
+  }
+  for (int s = 0; s < nk; ++s) {
+    pg_cp_async_wait<PG_STAGES - 2>();  // slice s has landed
+    __syncthreads();  // ... for every thread, and slice s - 1 is consumed
+    if (s + PG_STAGES - 1 < nk) stage(s + PG_STAGES - 1);
+    pg_cp_async_commit();
+    const float* As = smem + (s % PG_STAGES) * G::STAGE_FLOATS;
+    pg_slice<NB>(acc, As, As + PG_BM * PG_LDK, tx, ty);
+  }
+  pg_cp_async_wait<0>();
+  __syncthreads();
+}

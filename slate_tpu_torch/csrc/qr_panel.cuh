@@ -66,9 +66,6 @@
 
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "common.cuh"
 #include "storage.cuh"
@@ -541,49 +538,6 @@ __device__ inline void qr_panel_cluster(const TA* __restrict__ A,
 
 // ---- host side: the cluster size and the launch, shared by K5 and K8
 
-// *n = how many clusters of c CTAs of the kernel the card holds at once, as
-// cudaOccupancyMaxActiveClusters counts, cached per (kernel, device, c); the
-// shared memory is always the device's whole opt-in, so it is no part of
-// the key. A size the card does not support at all counts as 0 clusters;
-// any other error is returned.
-template <class Kernel>
-cudaError_t qr_active_clusters(Kernel kernel, int device, int c, int smem,
-                               int* n) {
-  static std::mutex lock;
-  static std::map<std::tuple<const void*, int, int>, int> cache;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel),
-                                   device, c);
-  {
-    std::lock_guard<std::mutex> g(lock);
-    const auto it = cache.find(key);
-    if (it != cache.end()) {
-      *n = it->second;
-      return cudaSuccess;
-    }
-  }
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(c, 1, 1);
-  cfg.blockDim = dim3(QR_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
-  if (e == cudaErrorInvalidClusterSize) {
-    cudaGetLastError();  // this call's own error, reported as *n = 0
-    *n = 0;
-  } else if (e != cudaSuccess) {
-    return e;
-  }
-  std::lock_guard<std::mutex> g(lock);
-  cache[key] = *n;
-  return cudaSuccess;
-}
-
 // Opt the kernel into the device's whole shared memory and into clusters of
 // more than 8, and choose the cluster size C for panels of mm rows: the
 // smallest power of two that gives a CTA at most QR_CTA_ROWS rows (at most
@@ -612,11 +566,11 @@ int qr_prepare_cluster(Kernel kernel, int device, int mm, int w, int bw,
     size *= 2;
   }
   SLATE_RETURN_IF_ERROR(
-      qr_active_clusters(kernel, device, size, *smem, resident));
+      active_clusters(kernel, device, size, QR_THREADS, *smem, resident));
   while (*resident == 0 && size > 1) {
     size /= 2;
     SLATE_RETURN_IF_ERROR(
-        qr_active_clusters(kernel, device, size, *smem, resident));
+        active_clusters(kernel, device, size, QR_THREADS, *smem, resident));
   }
   *c = size;
   return 0;

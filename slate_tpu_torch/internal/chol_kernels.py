@@ -16,24 +16,28 @@ import ctypes
 import torch
 
 from .kernels import (BATCHED_PANEL_ARGS, I32, I64, P, CudaKernel,
-                      batched_panel_step, check_cuda_f32, device_and_stream)
-from .tri_inv import upper_tri_inv, upper_tri_inv_plain
+                      batched_panel_step, check_cuda_f32, device_and_stream,
+                      query)
+from .tri_inv import (back_substitution_plain, upper_tri_inv,
+                      upper_tri_inv_plain)
 
 CHOL_TILE = CudaKernel("chol_tile", "chol_tile.cu", {
     "slate_chol_tile": [I32, P, P, I64, I64, P, I32, I32]})
 CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
-    "slate_chol_panel_diag": [I32, P, P, I64, I64, P, I64, I64, P, I64, I64,
-                              I32, I32, I32, P, P],
-    "slate_chol_panel_below": [I32, P, P, I64, I64, P, I64, I64, P, I64, I64,
-                               I32, I32, I32, P, P, P]})
+    "slate_chol_panel_update": [I32, P, P, I64, I64, P, I64, I64, P, I64,
+                                I64, I32, I32, I32, P],
+    "slate_chol_panel_factor": [I32, P, P, I32, I32, P],
+    "slate_chol_panel_solve": [I32, P, P, P, I32, I32, P],
+    "slate_chol_panel_plan": [I32, I32, I32, I32, P, I64, I64, P, I64, I64,
+                              ctypes.POINTER(I32), ctypes.POINTER(I32)]})
 
 CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
     "slate_chol_panel_batched": BATCHED_PANEL_ARGS,
     "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)]})
 
 TILE_MAX_N = 128          # one n x (n+1) f32 tile in shared memory
-PANEL_NB = (32, 64, 96, 128)   # the instantiated widths (an 8 x 8 register
-                               # tile per thread at 128)
+PANEL_NB = (32, 64, 96, 128)   # the instantiated widths (128-row tiles,
+                               # a 16 x 8 register tile per thread)
 
 
 def chol_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
@@ -79,7 +83,7 @@ def chol_tile(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
 def chol_panel_plain(col, left, lead, bw: int = 8):
     """The fused panel step in torch ops: upd = col - left @ lead; row
     tile 0 factored by the K1 column loop; fac rows below = upd @ U^-1
-    with U = L00^T inverted by the K0 series."""
+    with U = L00^T inverted as K0 inverts it."""
     nb = col.shape[1]
     upd = col - left @ lead
     l00 = chol_tile_plain(upd[:nb], bw)
@@ -99,9 +103,12 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
     ``fac`` = [L00; L21], the factored panel.  Any strides; M % nb == 0.
     A CPU tensor takes the plain version; CUDA tensors launch K2 (f32,
     nb in {32, 64, 96, 128}) or raise.  On CUDA, on the current stream:
-    K2's diagonal launch (upd and fac of row tile 0); when M > nb, K0 on
-    U = L00^T (counted by K0's wrapper) and K2's launch for the rows
-    below.  CHOL_PANEL counts K2's one or two launches.
+    K2's update launch (upd over every 128-row tile, the K loop split
+    over a thread-block cluster when row tiles are few) and its factor
+    launch (L00 from tile 0 on one block); when M > nb, K0 on U = L00^T
+    (counted by K0's wrapper) and K2's solve launch, fac rows below = upd
+    rows @ U^-1.  CHOL_PANEL counts K2's two or three launches;
+    :func:`panel_plan` says how the update launch splits and stages.
     """
     m, nb = col.shape
     k = left.shape[1]
@@ -118,16 +125,38 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
     upd = torch.empty((m, nb), dtype=col.dtype, device=col.device)
     fac = torch.empty_like(upd)
     dev, stream = device_and_stream(col)
-    operands = (col.data_ptr(), col.stride(0), col.stride(1),
-                left.data_ptr(), left.stride(0), left.stride(1),
-                lead.data_ptr(), lead.stride(0), lead.stride(1), k, nb)
-    CHOL_PANEL.launch("slate_chol_panel_diag", dev, stream, *operands, bw,
-                      upd.data_ptr(), fac.data_ptr())
+    CHOL_PANEL.launch("slate_chol_panel_update", dev, stream, col.data_ptr(),
+                      col.stride(0), col.stride(1), left.data_ptr(),
+                      left.stride(0), left.stride(1), lead.data_ptr(),
+                      lead.stride(0), lead.stride(1), k, nb, m,
+                      upd.data_ptr())
+    CHOL_PANEL.launch("slate_chol_panel_factor", dev, stream, upd.data_ptr(),
+                      nb, bw, fac.data_ptr())
     if m > nb:
         uinv = upper_tri_inv(fac[:nb].mT)        # K0 on U = L00^T
-        CHOL_PANEL.launch("slate_chol_panel_below", dev, stream, *operands,
-                          m, uinv.data_ptr(), upd.data_ptr(), fac.data_ptr())
+        CHOL_PANEL.launch("slate_chol_panel_solve", dev, stream,
+                          upd.data_ptr(), uinv.data_ptr(), nb, m,
+                          fac.data_ptr())
     return upd, fac
+
+
+def panel_plan(col: torch.Tensor, left: torch.Tensor,
+               lead: torch.Tensor) -> dict:
+    """How K2's update launch takes these CUDA operands, as the kernel's
+    library reports it (``slate_chol_panel_plan``): ``split``, the CTAs
+    of one row tile's cluster that share its K loop (a function of M, K,
+    nb and the device alone), and ``left``/``lead``, each "cp.async" (unit
+    stride along K, 16-byte aligned rows, as on the posv path) or "loads"
+    (any other strides)."""
+    m, nb = col.shape
+    k = left.shape[1]
+    split, staging = query(CHOL_PANEL, "slate_chol_panel_plan", col.device,
+                           m, k, nb, left.data_ptr(), left.stride(0),
+                           left.stride(1), lead.data_ptr(), lead.stride(0),
+                           lead.stride(1), outs=2)
+    return {"split": split,
+            "left": "cp.async" if staging & 1 else "loads",
+            "lead": "cp.async" if staging & 2 else "loads"}
 
 
 def live_rows(tiles: torch.Tensor, k: int, m: int, nb: int) -> torch.Tensor:
@@ -140,12 +169,12 @@ def live_rows(tiles: torch.Tensor, k: int, m: int, nb: int) -> torch.Tensor:
 def chol_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
     """K6's arithmetic in torch ops: per problem, K2's plain step on the
     operands widened to f32 (upd = col - left @ lead, L00 by the K1 column
-    loop, L21 = upd_below @ (L00^T)^-1 by K0's back substitution), rounded
+    loop, L21 = upd_below @ (L00^T)^-1 by back substitution), rounded
     to the storage dtype; dead tiles are ``col`` itself, bit for bit."""
     nb = col.shape[2]
     upd = col.float() - left.float() @ lead.float()
     l00 = torch.stack([chol_tile_plain(t, bw) for t in upd[:, :nb]])
-    uinv = torch.stack([upper_tri_inv_plain(t.T) for t in l00])
+    uinv = torch.stack([back_substitution_plain(t.T) for t in l00])
     fac = torch.cat([l00, upd[:, nb:] @ uinv], dim=1)
     live = live_rows(tiles, k, col.shape[1], nb)
     return (torch.where(live, upd.to(col.dtype), col),

@@ -20,7 +20,8 @@ from .chol_kernels import live_rows
 from .kernels import (BATCHED_PANEL_ARGS, I32, I64, P, CudaKernel,
                       batched_panel_step, check_cuda_f32, device_and_stream,
                       fits)
-from .tri_inv import upper_tri_inv, upper_tri_inv_plain
+from .tri_inv import (back_substitution_plain, upper_tri_inv,
+                      upper_tri_inv_plain)
 
 LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
     "slate_lu_panel_diag": [I32, P, P, I64, I64, I32, I32, P],
@@ -49,8 +50,9 @@ def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     ``_lu_factor_in_place`` (pallas_lu.py:137), in bw-row slabs: the slab's
     rows eliminate against themselves column by column (a zero pivot
     divides by 1, as the reference does), then the tile's rows below the
-    slab get l21 = A21 D^-1 (D the slab's upper block, inverted by K0's
-    back substitution) and the rank-bw trailing update."""
+    slab get l21 = A21 D^-1 (D the slab's upper block, inverted by the
+    back substitution of csrc/tri_inv.cuh) and the rank-bw trailing
+    update."""
     s = a.clone()
     n = s.shape[0]
     for j0 in range(0, n, bw):
@@ -61,7 +63,7 @@ def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
             s[j + 1:j1, j + 1:] -= l[:, None] * s[j, j + 1:]
             s[j + 1:j1, j] = l
         if j1 < n:
-            l21 = s[j1:, j0:j1] @ upper_tri_inv_plain(s[j0:j1, j0:j1])
+            l21 = s[j1:, j0:j1] @ back_substitution_plain(s[j0:j1, j0:j1])
             s[j1:, j1:] -= l21 @ s[j0:j1, j1:]
             s[j1:, j0:j1] = l21
     return s
@@ -69,7 +71,7 @@ def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
 
 def lu_panel_plain(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     """The fused panel in torch ops: row tile 0 by :func:`lu_tile_plain`,
-    the rows below times U^-1 (K0's back substitution on triu(tile 0))."""
+    the rows below times U^-1 (K0's blocked doubling on triu(tile 0))."""
     nb = panel.shape[1]
     top = lu_tile_plain(panel[:nb], bw)
     if panel.shape[0] == nb:
@@ -184,13 +186,13 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
 def lu_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
     """K7's arithmetic in torch ops: per problem, on the operands widened
     to f32, upd = col - left @ lead, row tile 0 by :func:`lu_tile_plain`
-    and the rows below times U^-1 (K0's back substitution on triu(tile
-    0)), rounded to the storage dtype; dead tiles are ``col`` itself, bit
-    for bit."""
+    and the rows below times U^-1 (back substitution on triu(tile 0), as
+    the kernel runs it in its own block), rounded to the storage dtype;
+    dead tiles are ``col`` itself, bit for bit."""
     nb = col.shape[2]
     upd = col.float() - left.float() @ lead.float()
     top = torch.stack([lu_tile_plain(t, bw) for t in upd[:, :nb]])
-    uinv = torch.stack([upper_tri_inv_plain(t) for t in top])
+    uinv = torch.stack([back_substitution_plain(t) for t in top])
     fac = torch.cat([top, upd[:, nb:] @ uinv], dim=1)
     live = live_rows(tiles, k, col.shape[1], nb)
     return (torch.where(live, upd.to(col.dtype), col),

@@ -72,9 +72,9 @@ def test_kernels_match_plain_versions(cuda):
         for got, want in zip(ck.chol_panel_fused(col, left, lead, 8),
                              ck.chol_panel_plain(col, left, lead, 8)):
             torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        # K2's diagonal and below-diagonal launches, K0 between them
+        # K2's update, factor and solve launches, K0 between the last two
         assert (ck.CHOL_PANEL.launches, TRI_INV.launches) == \
-            (launches[0] + 2, launches[1] + 1)
+            (launches[0] + 3, launches[1] + 1)
     with pytest.raises(ValueError, match="float32"):
         ck.chol_tile(a.double(), 8)
     with pytest.raises(ValueError, match="nb = 256"):
@@ -90,13 +90,66 @@ def test_posv_on_the_card_matches_the_cpu_route(cuda):
     before = ck.CHOL_PANEL.launches, TRI_INV.launches
     _, Xg = st.posv(st.SymmetricMatrix.from_numpy(a, nb),
                     st.Matrix.from_numpy(b, nb))
-    assert ck.CHOL_PANEL.launches - before[0] == 2 * n // nb - 1
+    assert ck.CHOL_PANEL.launches - before[0] == 3 * n // nb - 1
     assert TRI_INV.launches - before[1] == n // nb - 1
     _, Xc = st.posv(st.SymmetricMatrix.from_numpy(a, nb, device="cpu"),
                     st.Matrix.from_numpy(b, nb, device="cpu"))
     want = Xc.to_numpy()
     np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
                                atol=RTOL * np.abs(want).max())
+
+
+def _panel_apart(rng, m, nb, k, cuda):
+    """As _panel, but lead drawn apart from left (a K-deep diagonal sum of
+    squares would otherwise grow to ~sqrt(K), and one f32 order of it past
+    the tolerance); lead is a transposed view, unit-stride along K, as on
+    the posv path."""
+    base = rng.standard_normal((m, nb)).astype(np.float32)
+    base[:nb] = base[:nb] @ base[:nb].T / nb + np.eye(nb)
+    scale = max(k, 1) ** -0.25
+    left = (rng.standard_normal((m, k + 8)) * scale).astype(np.float32)
+    lead = (rng.standard_normal((nb, k + 8)) * scale).astype(np.float32)
+    left, lead = left[:, 8:], lead[:, 8:].T
+    col = base + left @ lead
+    return (torch.from_numpy(col).to(cuda), torch.from_numpy(left).to(cuda),
+            torch.from_numpy(lead.T.copy()).to(cuda).T)
+
+
+@pytest.mark.parametrize("m,k", [(1024, 19456), (128, 20352), (2048, 1000)])
+def test_chol_panel_late_shapes_match_plain_and_repeat_bitwise(cuda, m, k):
+    """K2 where row tiles are few and K is deep (the K loop split over a
+    thread-block cluster), and at M = nb (the last panel: tile 0 alone):
+    against the plain version, and two launches bit for bit."""
+    rng = np.random.default_rng(m + k)
+    col, left, lead = _panel_apart(rng, m, 128, k, cuda)
+    plan = ck.panel_plan(col, left, lead)
+    assert plan["left"] == plan["lead"] == "cp.async"
+    if k > 10000:
+        assert plan["split"] > 1
+    launches = ck.CHOL_PANEL.launches, TRI_INV.launches
+    got = ck.chol_panel_fused(col, left, lead, 8)
+    below = int(m > 128)
+    assert (ck.CHOL_PANEL.launches, TRI_INV.launches) == \
+        (launches[0] + 2 + below, launches[1] + below)
+    for g, w in zip(got, ck.chol_panel_plain(col, left, lead, 8)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    for g, h in zip(got, ck.chol_panel_fused(col, left, lead, 8)):
+        assert torch.equal(g, h)
+
+
+def test_upper_tri_inv_on_a_pivoted_u_to_f64_accuracy(cuda):
+    """K0 on U = triu of a partially pivoted LU of a Gaussian: within 1e-5
+    of the f64 inverse, relative to its largest entry."""
+    rng = np.random.default_rng(11)
+    g = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32))
+    u = torch.triu(torch.linalg.lu_factor(g)[0][:128]).to(cuda)
+    want = torch.linalg.inv(u.double())
+    got = upper_tri_inv(u).double()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    for n in (8, 40, 100):
+        torch.testing.assert_close(upper_tri_inv(u[:n, :n]),
+                                   upper_tri_inv_plain(u[:n, :n]),
+                                   rtol=RTOL, atol=ATOL)
 
 
 def _pivoted_panel(rng, m, nb, cuda):

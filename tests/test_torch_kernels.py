@@ -19,7 +19,9 @@ from slate_tpu.internal.pallas_tri import upper_tri_inv as ref_tri_inv
 from slate_tpu_torch.internal import chol_kernels as ck
 from slate_tpu_torch.internal import potrf as ip
 from slate_tpu_torch.internal import trsm as it
-from slate_tpu_torch.internal.tri_inv import TRI_INV, upper_tri_inv
+from slate_tpu_torch.internal.tri_inv import (TRI_INV,
+                                              back_substitution_plain,
+                                              upper_tri_inv)
 from slate_tpu_torch.tune.plans import (LIBRARY_PLAN, TilePlan,
                                         plan_override, resolve_plan)
 
@@ -55,6 +57,22 @@ def test_upper_tri_inv_plain_matches_pallas_helper(n):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got.numpy() @ np.triu(u), np.eye(n),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [5, 24, 96, 100])
+def test_upper_tri_inv_doubling_at_ragged_sizes(n):
+    """K0's blocked doubling where n is no power of two (a short last
+    pair) or no multiple of its 8 x 8 diagonal blocks: against the
+    reference's helper and against back substitution."""
+    u = np.linalg.cholesky(_spd(np.random.default_rng(n), n)).T.copy()
+    got = upper_tri_inv(torch.from_numpy(u))
+    want = np.asarray(ref_tri_inv(jnp.asarray(u)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        got.numpy(), back_substitution_plain(torch.from_numpy(u)).numpy(),
+        rtol=RTOL, atol=ATOL)
+    assert np.all(np.tril(got.numpy(), -1) == 0)
+    assert TRI_INV.launches == 0
 
 
 @pytest.mark.parametrize("n,bw", [(128, 8), (64, 16)])

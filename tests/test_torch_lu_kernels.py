@@ -23,7 +23,9 @@ from slate_tpu.tune import plan_override as ref_override
 
 from slate_tpu_torch.internal import getrf as ig
 from slate_tpu_torch.internal import lu_kernels as lk
-from slate_tpu_torch.internal.tri_inv import TRI_INV, upper_tri_inv
+from slate_tpu_torch.internal.tri_inv import (TRI_INV,
+                                              back_substitution_plain,
+                                              upper_tri_inv)
 from slate_tpu_torch.tune.plans import LIBRARY_PLAN, TilePlan, plan_override
 
 NB = 128
@@ -111,13 +113,29 @@ def _inv_err(inv, u):
 
 @pytest.mark.parametrize("m", [512, 4096])
 def test_k0_plain_inverts_a_pivoted_u_to_f64_accuracy(m):
-    """K0's plain version (back substitution) on U = triu(LU) of a pivoted
+    """K0's plain version (blocked doubling) on U = triu(LU) of a pivoted
     Gaussian panel: within 1e-5 of the f64 inverse, where the reference's
     series is off by more than ten times that."""
     lu, _, _ = jax.lax.linalg.lu(jnp.asarray(_gauss(m, m)))
     u = np.triu(np.asarray(lu)[:NB])
     assert _inv_err(upper_tri_inv(torch.from_numpy(u)).numpy(), u) < 1e-5
     assert _inv_err(np.asarray(ref_tri_inv(jnp.asarray(u))), u) > 1e-4
+    assert TRI_INV.launches == 0
+
+
+@pytest.mark.parametrize("n", [8, 40, 100, 128])
+def test_back_substitution_plain_inverts_a_pivoted_u_to_f64_accuracy(n):
+    """The back substitution that K3's slabs and K6/K7 run in their own
+    blocks, and K0's blocked doubling, on the leading n x n of a pivoted
+    Gaussian panel's U: both within 1e-5 of the f64 inverse, and within
+    ~n eps of each other."""
+    lu, _, _ = jax.lax.linalg.lu(jnp.asarray(_gauss(3, 1024)))
+    u = np.triu(np.asarray(lu)[:n, :n])
+    back = back_substitution_plain(torch.from_numpy(u)).numpy()
+    doubling = upper_tri_inv(torch.from_numpy(u)).numpy()
+    assert _inv_err(back, u) < 1e-5
+    assert _inv_err(doubling, u) < 1e-5
+    assert np.abs(back - doubling).max() <= 1e-5 * np.abs(back).max()
     assert TRI_INV.launches == 0
 
 
