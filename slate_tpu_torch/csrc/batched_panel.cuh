@@ -1,18 +1,16 @@
-// The ragged batched panel step shared by K6 (chol_panel_batched.cu) and K7
-// (lu_panel_batched.cu): K2's and K3's left-looking step over a batch of
-// problems, each computing only its own live row tiles (the reference's
-// _chol_panel_batched_kernel, slate_tpu/internal/pallas_chol.py:197, and
-// _lu_panel_batched_kernel, pallas_lu.py:228).
+// The ragged batched panel step of K7 (lu_panel_batched.cu): K3's
+// left-looking step over a batch of problems, each computing only its own
+// live row tiles (the reference's _lu_panel_batched_kernel,
+// slate_tpu/internal/pallas_lu.py:228).
 //
 //   col  [B, M, NB]  A[:, k0:, k0:k0+nb]     left [B, M, K]  A[:, k0:, :k0]
-//   lead [B, K, NB]  Cholesky: A[:, k0:k0+nb, :k0]^T; LU: the packed U block
-//                    column A[:, :k0, k0:k0+nb]   (storage T, any strides)
+//   lead [B, K, NB]  the packed U block column A[:, :k0, k0:k0+nb]
+//                    (storage T, any strides)
 //   tiles [B] int32  live tile counts: row tile i of problem b is live iff
 //                    k + i < tiles[b]
 //   upd  [B, M, NB]  col - left @ lead, the pre-factor panel (storage T)
-//   fac  [B, M, NB]  row tile 0 factored (Cholesky: L00, zero above its
-//                    diagonal; LU: packed L\U), the live tiles below it
-//                    upd @ U^-1 (U = L00^T, or triu of the LU tile)
+//   fac  [B, M, NB]  row tile 0 factored (packed L\U), the live tiles below
+//                    it upd @ U^-1 (U = triu of the LU tile)
 //   uinv [B, NB, NB] f32 scratch: U^-1 of each live problem
 //
 // A dead tile is copied from col into upd and fac bit for bit and reads no
@@ -26,15 +24,14 @@
 // CUDA blocks run in no order, so per problem the step is two launches on
 // one stream, with U^-1 handed over in global memory:
 //   (a) panel_batched_diag: one block of 256 threads a problem: the update
-//       of row tile 0 over the whole K loop, the factor in shared memory,
-//       then U^-1 with K0's back substitution (tri_inv.cuh);
+//       of row tile 0 over the whole K loop, the LU in shared memory, then
+//       U^-1 with K0's back substitution (tri_inv.cuh);
 //   (b) panel_batched_below: one block of 128 threads per (32-row strip,
 //       problem): its update over the whole K loop, then upd @ U^-1.
 // Launch (b) only exists when M > NB. Liveness is read on the device from
 // tiles; the host never reads it back.
 #pragma once
 
-#include "chol_factor.cuh"
 #include "common.cuh"
 #include "gemm_acc.cuh"
 #include "lu_factor.cuh"
@@ -44,7 +41,6 @@
 namespace batched_panel {
 
 constexpr int STRIP = 32;  // rows of a below-diagonal block
-enum Kind { CHOL = 0, LU = 1 };
 
 // One operand of a problem: element (r, c) of problem b at
 // p[b * sb + r * s0 + c * s1].
@@ -79,12 +75,11 @@ __device__ inline void copy_dead(const Args<T>& a, int b, long long row0,
 }
 
 // Shared memory of launch (a), in floats: the tile, the staging slices, U^-1
-// and, for LU, lu_factor_smem's scratch.
-__host__ __device__ inline size_t diag_smem_floats(int kind, int nb, int bw) {
-  size_t f = (size_t)nb * (nb + 1) * 2 + (size_t)nb * (KC + 1) +
-             (size_t)KC * (nb + 1);
-  if (kind == LU) f += (size_t)bw * (bw + 1) + (size_t)(nb - bw) * bw;
-  return f;
+// and lu_factor_smem's scratch.
+__host__ __device__ inline size_t diag_smem_floats(int nb, int bw) {
+  return (size_t)nb * (nb + 1) * 2 + (size_t)nb * (KC + 1) +
+         (size_t)KC * (nb + 1) + (size_t)bw * (bw + 1) +
+         (size_t)(nb - bw) * bw;
 }
 
 template <int NB>
@@ -93,7 +88,7 @@ constexpr size_t below_smem_bytes() {
 }
 
 // (a): row tile 0 of problem blockIdx.x.
-template <class T, int NB, int KIND>
+template <class T, int NB>
 __global__ void __launch_bounds__(256) panel_batched_diag(Args<T> a) {
   constexpr int TY = 16, RM = NB / TY, CN = NB / 16, LDS = NB + 1;
   const int b = blockIdx.x;
@@ -106,8 +101,8 @@ __global__ void __launch_bounds__(256) panel_batched_diag(Args<T> a) {
   float* X = S + NB * LDS;         // NB x LDS: U^-1
   float* As = X + NB * LDS;        // NB x (KC+1)
   float* Bs = As + NB * (KC + 1);  // KC x (NB+1)
-  float* Dinv = Bs + KC * (NB + 1);            // LU: bw x (bw+1)
-  float* Tt = Dinv + a.bw * (a.bw + 1);        // LU: (NB-bw) x bw
+  float* Dinv = Bs + KC * (NB + 1);            // bw x (bw+1)
+  float* Tt = Dinv + a.bw * (a.bw + 1);        // (NB-bw) x bw
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const T* col = a.col.p + b * a.col.sb;
   const long long out0 = (long long)b * a.M * NB;
@@ -126,13 +121,8 @@ __global__ void __launch_bounds__(256) panel_batched_diag(Args<T> a) {
     }
   }
   __syncthreads();
-  if (KIND == CHOL) {
-    chol_factor_smem(S, LDS, NB, a.bw);
-    upper_tri_inv_smem(S, 1, LDS, X, LDS, NB);  // U = L^T: U(i,k) = S[k][i]
-  } else {
-    lu_factor_smem(S, LDS, NB, a.bw, Dinv, Tt);
-    upper_tri_inv_smem(S, LDS, 1, X, LDS, NB);  // U = triu of the packed tile
-  }
+  lu_factor_smem(S, LDS, NB, a.bw, Dinv, Tt);
+  upper_tri_inv_smem(S, LDS, 1, X, LDS, NB);  // U = triu of the packed tile
   __syncthreads();
   float* uinv = a.uinv + (long long)b * NB * NB;
   for (int idx = threadIdx.x; idx < NB * NB; idx += blockDim.x) {
@@ -215,21 +205,21 @@ inline bool shape_ok(int nb, int bw) {
 // *fits = 1 when a panel of width nb at slab width bw fits: nb in {32, 64,
 // 96, 128} (an 8 x 8 register tile a thread at 128), bw divides nb, and
 // launch (a)'s shared memory within one block's opt-in limit; else 0.
-inline int fits(int kind, int device, int nb, int bw, int* out) {
+inline int fits(int device, int nb, int bw, int* out) {
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
   *out = shape_ok(nb, bw) &&
-         sizeof(float) * diag_smem_floats(kind, nb, bw) <= (size_t)limit;
+         sizeof(float) * diag_smem_floats(nb, bw) <= (size_t)limit;
   return 0;
 }
 
-template <class T, int NB, int KIND>
+template <class T, int NB>
 int launch_nb(bool below, int B, const Args<T>& a, cudaStream_t s) {
   if (!below) {
-    const size_t smem = sizeof(float) * diag_smem_floats(KIND, NB, a.bw);
-    SLATE_SET_SMEM((panel_batched_diag<T, NB, KIND>), smem);
-    panel_batched_diag<T, NB, KIND><<<B, 256, smem, s>>>(a);
+    const size_t smem = sizeof(float) * diag_smem_floats(NB, a.bw);
+    SLATE_SET_SMEM((panel_batched_diag<T, NB>), smem);
+    panel_batched_diag<T, NB><<<B, 256, smem, s>>>(a);
   } else {
     constexpr size_t smem = below_smem_bytes<NB>();
     SLATE_SET_SMEM((panel_batched_below<T, NB>), smem);
@@ -239,13 +229,13 @@ int launch_nb(bool below, int B, const Args<T>& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T, int KIND>
+template <class T>
 int launch_t(bool below, int B, int nb, const Args<T>& a, cudaStream_t s) {
   switch (nb) {
-    case 32: return launch_nb<T, 32, KIND>(below, B, a, s);
-    case 64: return launch_nb<T, 64, KIND>(below, B, a, s);
-    case 96: return launch_nb<T, 96, KIND>(below, B, a, s);
-    case 128: return launch_nb<T, 128, KIND>(below, B, a, s);
+    case 32: return launch_nb<T, 32>(below, B, a, s);
+    case 64: return launch_nb<T, 64>(below, B, a, s);
+    case 96: return launch_nb<T, 96>(below, B, a, s);
+    case 128: return launch_nb<T, 128>(below, B, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -253,13 +243,13 @@ int launch_t(bool below, int B, int nb, const Args<T>& a, cudaStream_t s) {
 // One launch of the step: (a) when below is 0, (b) otherwise (M > nb, a
 // multiple of nb). bf16 is 0 for f32 storage, 1 for bf16; strides in
 // elements. Past the shape limits the launch is refused with an error code.
-template <int KIND>
-int launch(int device, void* stream, int bf16, int below, const void* col,
-           long long cb, long long cs0, long long cs1, const void* left,
-           long long lb, long long ls0, long long ls1, const void* lead,
-           long long db, long long ds0, long long ds1, const int* tiles, int B,
-           int k, int K, int M, int nb, int bw, void* upd, void* fac,
-           float* uinv) {
+inline int launch(int device, void* stream, int bf16, int below,
+                  const void* col, long long cb, long long cs0, long long cs1,
+                  const void* left, long long lb, long long ls0,
+                  long long ls1, const void* lead, long long db,
+                  long long ds0, long long ds1, const int* tiles, int B,
+                  int k, int K, int M, int nb, int bw, void* upd, void* fac,
+                  float* uinv) {
   SLATE_SET_DEVICE(device);
   if (!shape_ok(nb, bw) || B < 1 || M < nb || M % nb ||
       (below && M == nb)) {
@@ -273,7 +263,7 @@ int launch(int device, void* stream, int bf16, int below, const void* col,
                     {static_cast<const T*>(lead), db, ds0, ds1},
                     tiles, k, K, M, bw, static_cast<T*>(upd),
                     static_cast<T*>(fac), uinv};
-    return launch_t<T, KIND>(below, B, nb, a, s);
+    return launch_t<T>(below, B, nb, a, s);
   }
   using T = float;
   const Args<T> a{{static_cast<const T*>(col), cb, cs0, cs1},
@@ -281,7 +271,7 @@ int launch(int device, void* stream, int bf16, int below, const void* col,
                   {static_cast<const T*>(lead), db, ds0, ds1},
                   tiles, k, K, M, bw, static_cast<T*>(upd),
                   static_cast<T*>(fac), uinv};
-  return launch_t<T, KIND>(below, B, nb, a, s);
+  return launch_t<T>(below, B, nb, a, s);
 }
 
 }  // namespace batched_panel

@@ -17,8 +17,8 @@
 //       partial tiles are added through distributed shared memory in rank
 //       order, each CTA adding 1/S of the tile, and upd = col - sum is
 //       written;
-//   (b) chol_panel_factor: one block of 512 threads factors upd_0 (the
-//       column loop of K1, chol_factor.cuh) and writes L00. It is the only
+//   (b) chol_panel_factor: one block of 512 threads factors upd_0 (K1's
+//       blocked factor, chol_factor.cuh) and writes L00. It is the only
 //       single-block launch of K2 and runs no part of the K loop;
 //   then, when there are rows below, the wrapper launches K0 (tri_inv.cu) on
 //   U = L00^T, which writes U^-1 to a tile of its own;
@@ -64,14 +64,9 @@ constexpr int PANEL_MAX_SPLIT = 16;    // the largest (non-portable) cluster
 constexpr int PANEL_MIN_SLICES = 4;    // K slices a CTA takes at least
 
 template <int NB>
-__host__ __device__ constexpr int partial_ld() {
-  return NB + 8;  // the partial tile's row stride: 8-bank shifts per row
-}
-
-template <int NB>
 constexpr size_t update_smem_bytes() {
   constexpr size_t ring = PanelGemm<NB>::SMEM_FLOATS;
-  constexpr size_t partial = (size_t)PG_BM * partial_ld<NB>();
+  constexpr size_t partial = (size_t)PG_BM * pg_partial_ld<NB>();
   return sizeof(float) * (ring > partial ? ring : partial);
 }
 
@@ -85,11 +80,9 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
                          long long ds1, int fast_lead, int M, int K,
                          int slices, float* __restrict__ upd) {
   using G = PanelGemm<NB>;
-  constexpr int LDP = partial_ld<NB>(), Q = NB / 4;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.y * PG_BM;
   const int rows = (int)min((long long)PG_BM, M - row0);
   int tx, ty;
@@ -113,28 +106,7 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
       }
     }
   } else {
-    // publish the partial tile, then add the S partials of this CTA's
-    // share of the tile in rank order
-    float* P = smem;
-#pragma unroll
-    for (int i = 0; i < PG_RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        P[(ty + G::TY * i) * LDP + tx + G::TX * j] = acc[i][j];
-    cluster.sync();
-    const int lo = rank * (PG_BM * Q) / S, hi = (rank + 1) * (PG_BM * Q) / S;
-    for (int idx = lo + tid; idx < hi; idx += G::THREADS) {
-      const int r = idx / Q, c = 4 * (idx % Q);
-      if (r >= rows) continue;
-      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int q = 0; q < S; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(P, q) + r * LDP + c);
-        s.x += v.x;
-        s.y += v.y;
-        s.z += v.z;
-        s.w += v.w;
-      }
+    pg_cluster_sum<NB>(acc, smem, rows, tx, ty, [&](int r, int c, float4 s) {
       const float* crow = col + (row0 + r) * cs0;
       float4 out;
       out.x = crow[c * cs1] - s.x;
@@ -142,28 +114,32 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
       out.z = crow[(c + 2) * cs1] - s.z;
       out.w = crow[(c + 3) * cs1] - s.w;
       *reinterpret_cast<float4*>(upd + (row0 + r) * NB + c) = out;
-    }
-    cluster.sync();  // every CTA's upd rows written; no partial read again
+    });
   }
 }
 
 constexpr int FACTOR_THREADS = 512;
 
-// (b): L00 = chol(upd_0) on one block, the column loop of K1: rows 0 ..
-// NB-1 of fac from rows 0 .. NB-1 of upd.
-template <int NB>
+// (b): L00 = chol(upd_0) on one block by K1's blocked factor
+// (chol_factor.cuh): rows 0 .. nb-1 of fac from rows 0 .. nb-1 of upd. One
+// kernel for every width: the routine takes nb at run time.
 __global__ void __launch_bounds__(FACTOR_THREADS)
-chol_panel_factor_kernel(const float* __restrict__ upd, int bw,
+chol_panel_factor_kernel(const float* __restrict__ upd, int nb,
                          float* __restrict__ fac) {
-  constexpr int LDS = NB + 1;
+  const int lds = nb + 4, q = nb / 4;
   extern __shared__ __align__(16) float smem[];
-  for (int idx = threadIdx.x; idx < NB * NB; idx += FACTOR_THREADS) {
-    smem[(idx / NB) * LDS + idx % NB] = upd[idx];
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < nb * q; idx += FACTOR_THREADS) {
+    const int r = idx / q, c = 4 * (idx % q);
+    *reinterpret_cast<float4*>(smem + r * lds + c) =
+        *reinterpret_cast<const float4*>(upd + r * nb + c);
   }
   __syncthreads();
-  chol_factor_smem(smem, LDS, NB, bw);
-  for (int idx = threadIdx.x; idx < NB * NB; idx += FACTOR_THREADS) {
-    fac[idx] = smem[(idx / NB) * LDS + idx % NB];
+  chol_factor_smem(smem, lds, nb, smem + nb * lds);
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < nb * nb; idx += FACTOR_THREADS) {
+    const int r = idx / nb, c = idx % nb;
+    fac[idx] = c > r ? 0.f : smem[r * lds + c];
   }
 }
 
@@ -269,15 +245,6 @@ int launch_update(cudaStream_t stream, int device, const float* col,
 }
 
 template <int NB>
-int launch_factor(cudaStream_t stream, const float* upd, int bw, float* fac) {
-  constexpr size_t smem = sizeof(float) * NB * (NB + 1);
-  SLATE_SET_SMEM(chol_panel_factor_kernel<NB>, smem);
-  chol_panel_factor_kernel<NB><<<1, FACTOR_THREADS, smem, stream>>>(upd, bw,
-                                                                    fac);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NB>
 int launch_solve(cudaStream_t stream, const float* upd, const float* uinv,
                  int M, float* fac) {
   constexpr size_t smem = sizeof(float) * PanelGemm<NB>::SMEM_FLOATS;
@@ -315,11 +282,18 @@ extern "C" int slate_chol_panel_update(int device, void* stream,
 
 // Launch (b): rows 0 .. nb-1 of fac [M, nb] = chol of rows 0 .. nb-1 of upd.
 extern "C" int slate_chol_panel_factor(int device, void* stream,
-                                       const float* upd, int nb, int bw,
-                                       float* fac) {
+                                       const float* upd, int nb, float* fac) {
   SLATE_SET_DEVICE(device);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SLATE_PANEL_NB(launch_factor, s, upd, bw, fac)
+  if (nb != 32 && nb != 64 && nb != 96 && nb != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      sizeof(float) * (nb * (nb + 4) + chol_factor_scratch(FACTOR_THREADS));
+  SLATE_SET_SMEM(chol_panel_factor_kernel, smem);
+  chol_panel_factor_kernel<<<1, FACTOR_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(upd, nb,
+                                                                  fac);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch (c): fac rows nb .. M-1 = upd rows nb .. M-1 @ uinv, M > nb; uinv

@@ -4,44 +4,87 @@
 // of the blocked Cholesky when the fused panel (K2) is not taken.
 //
 // Bound on this card: n^3/3 flops and 2 n^2 * 4 bytes for one n <= 128 tile
-// (0.7 MFLOP, 128 KB at n = 128): a few hundred nanoseconds at peak rates.
-// What really bounds it is the column loop's sequence of 2n + n/bw
-// block-wide barriers on a single SM; a tile this size cannot be spread
-// over the card.
+// (0.7 MFLOP, 128 KB at n = 128): well under a microsecond at peak rates.
+// What really bounds it is the chain of dependent steps and the block
+// barriers of one SM; a tile this size cannot be spread over the card.
 //
-// Design: one block holds the whole tile in shared memory for the whole
-// factorization (n x (n+1) floats, odd stride so that row and column walks
-// are free of bank conflicts; 64.5 KB at n = 128, hence the dynamic
-// shared-memory opt-in) and runs the shared column loop (chol_factor.cuh)
-// with 512 threads: each barrier-separated step is spread over the block,
-// and only the loop itself stays sequential. Returns L with exact zeros
-// above the diagonal.
+// Design: one block of 512 threads holds the tile in shared memory, padded
+// to np, the next multiple of 32, with the identity (np x (np + 4) floats,
+// 66 KB at n = 128, hence the dynamic shared-memory opt-in, and 4 KB of
+// column slots), and factors
+// it in 32-column blocks (chol_factor.cuh): a warp factors a diagonal block
+// in registers, every warp solves its 32-row chunk below it at the same
+// time, and all threads update the trailing lower triangle, two barriers a
+// block. The kernel's blocking is its own: the reference's slab width bw
+// is the plain version's business, not the kernel's. Returns L with exact
+// zeros above the diagonal.
+#include <cstdint>
+
 #include "common.cuh"
 #include "chol_factor.cuh"
 
-__global__ void __launch_bounds__(512)
+constexpr int TILE_THREADS = 512;
+
+// vec: n == np, a row-major with as0 % 4 == 0 and 16-byte aligned, so the
+// tile moves in and l out by 16-byte accesses; else element by element.
+__global__ void __launch_bounds__(TILE_THREADS)
 chol_tile_kernel(const float* __restrict__ a, long long as0, long long as1,
-                 float* __restrict__ l, int n, int bw) {
-  extern __shared__ float s[];
-  const int lds = n + 1;
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    const int r = idx / n, c = idx % n;
-    s[r * lds + c] = a[r * as0 + c * as1];
+                 float* __restrict__ l, int n, int np, int vec) {
+  extern __shared__ __align__(16) float s[];
+  const int lds = np + 4, q = np / 4;
+  if (vec) {
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < np * q; idx += TILE_THREADS) {
+      const int r = idx / q, c = 4 * (idx % q);
+      *reinterpret_cast<float4*>(s + r * lds + c) =
+          *reinterpret_cast<const float4*>(a + r * as0 + c);
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < np * np; idx += TILE_THREADS) {
+      const int r = idx / np, c = idx % np;
+      float v = r == c ? 1.f : 0.f;
+      if (r < n && c <= r) v = a[r * as0 + c * as1];
+      s[r * lds + c] = v;
+    }
   }
   __syncthreads();
-  chol_factor_smem(s, lds, n, bw);
-  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
-    l[idx] = s[(idx / n) * lds + idx % n];
+  chol_factor_smem(s, lds, np, s + np * lds);
+  if (vec) {
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < np * q; idx += TILE_THREADS) {
+      const int r = idx / q, c = 4 * (idx % q);
+      float4 v = *reinterpret_cast<const float4*>(s + r * lds + c);
+      if (c + 3 > r) {
+        v.w = 0.f;
+        if (c + 2 > r) v.z = 0.f;
+        if (c + 1 > r) v.y = 0.f;
+        if (c > r) v.x = 0.f;
+      }
+      *reinterpret_cast<float4*>(l + r * np + c) = v;
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < n * n; idx += TILE_THREADS) {
+      const int r = idx / n, c = idx % n;
+      l[idx] = c > r ? 0.f : s[r * lds + c];
+    }
   }
 }
 
 extern "C" int slate_chol_tile(int device, void* stream, const float* a,
-                               long long as0, long long as1, float* l, int n,
-                               int bw) {
+                               long long as0, long long as1, float* l,
+                               int n) {
   SLATE_SET_DEVICE(device);
-  const size_t smem = (size_t)n * (n + 1) * sizeof(float);
+  const int np = (n + CF_BLOCK - 1) / CF_BLOCK * CF_BLOCK;
+  const size_t smem = sizeof(float) * ((size_t)np * (np + 4) +
+                                       chol_factor_scratch(TILE_THREADS));
+  const int vec = n == np && as1 == 1 && as0 % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(l) % 16 == 0;
   SLATE_SET_SMEM(chol_tile_kernel, smem);
-  chol_tile_kernel<<<1, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, as0, as1, l, n, bw);
+  chol_tile_kernel<<<1, TILE_THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(a, as0, as1, l, n,
+                                                          np, vec);
   return static_cast<int>(cudaGetLastError());
 }

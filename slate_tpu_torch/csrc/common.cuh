@@ -1,6 +1,6 @@
 // Shared by every kernel source of slate_tpu_torch: the C entry point that
 // turns an error code into text, the launch prologue, and the count of
-// thread-block clusters a kernel can hold resident (K2, K5 and K8).
+// thread-block clusters a kernel can hold resident (K2, K5, K6 and K8).
 //
 // Each source is built alone into a shared library with a plain C interface
 // (slate_tpu_torch/internal/kernels.py). Every entry point takes the device

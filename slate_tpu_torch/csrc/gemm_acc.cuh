@@ -1,7 +1,7 @@
-// The staged product of K2's and K6/K7's update (chol_panel.cu,
-// batched_panel.cuh): a block's output tile of A @ B over a K loop, with
-// KC-deep slices of A and B staged in shared memory and the sum in f32
-// registers. A and B are f32 or bf16 in memory (storage.cuh), any strides.
+// The staged product of K7's update (batched_panel.cuh): a block's output
+// tile of A @ B over a K loop, with KC-deep slices of A and B staged in
+// shared memory and the sum in f32 registers. A and B are f32 or bf16 in
+// memory (storage.cuh), any strides.
 #pragma once
 
 #include "storage.cuh"

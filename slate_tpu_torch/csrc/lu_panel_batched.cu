@@ -12,12 +12,14 @@
 // L21 = A21 U^-1, against the live tiles' bytes read and written once. With
 // K >= nb it is bound by f32 operations (FFMA, never TF32): 67 TFLOP/s.
 //
-// Design: K3's, with K2's update in front and a batch axis; as K6.
+// Design: K3's, with a staged update in front (gemm_acc.cuh) and a batch
+// axis: launch (a) puts one problem on each of B blocks, launch (b) one
+// block per (32-row strip, problem).
 #include "batched_panel.cuh"
 
 extern "C" int slate_lu_panel_batched_fits(int device, int nb, int bw,
                                            int* fits) {
-  return batched_panel::fits(batched_panel::LU, device, nb, bw, fits);
+  return batched_panel::fits(device, nb, bw, fits);
 }
 
 // below = 0: launch (a), rows 0 .. nb-1 of each problem's upd and fac, and
@@ -28,7 +30,7 @@ extern "C" int slate_lu_panel_batched(
     long long ls0, long long ls1, const void* lead, long long db,
     long long ds0, long long ds1, const int* tiles, int B, int k, int K, int M,
     int nb, int bw, void* upd, void* fac, float* uinv) {
-  return batched_panel::launch<batched_panel::LU>(
+  return batched_panel::launch(
       device, stream, bf16, below, col, cb, cs0, cs1, left, lb, ls0, ls1,
       lead, db, ds0, ds1, tiles, B, k, K, M, nb, bw, upd, fac, uinv);
 }

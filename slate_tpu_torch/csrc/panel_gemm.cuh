@@ -1,18 +1,21 @@
-// The tiled f32 product of K2 (chol_panel.cu): one block's PG_BM x NB tile
-// of A @ B over a range [kb, ke) of K, with the sum in registers.
+// The tiled f32 product of K2 (chol_panel.cu) and K6
+// (chol_panel_batched.cu): one block's PG_BM x NB tile of A @ B over a
+// range [kb, ke) of K, with the sum in registers, and the rank-order sum of
+// a split K loop's partial tiles over a thread-block cluster.
 //
 // A(r, k) = A[r*as0 + k*as1] and B(k, c) = B[k*bs0 + c*bs1] in global
-// memory, any strides. Each KC-deep slice of both operands is staged in
+// memory, any strides, f32 or bf16 storage (storage.cuh: widened to f32 in
+// shared memory). Each KC-deep slice of both operands is staged in
 // shared memory K-innermost (As[r][k], Bs[c][k], rows PG_LDK floats apart),
 // PG_STAGES slices in flight:
-//   - an operand that is unit-stride along K, with 16-byte aligned rows,
-//     is staged by cp.async 16-byte copies started PG_STAGES - 1 slices
-//     ahead, so that the copies overlap the FMAs (the copy's source size
-//     masks the ragged end of K and the rows past the tile with zeros);
-//   - any other operand (a transposed view, an odd stride) is staged by
-//     plain loads that walk whichever index is unit-stride, into the same
-//     ring at the same point, so its loads stall the thread before the
-//     FMAs of the current slice.
+//   - an f32 operand that is unit-stride along K, with 16-byte aligned
+//     rows, is staged by cp.async 16-byte copies started PG_STAGES - 1
+//     slices ahead, so that the copies overlap the FMAs (the copy's source
+//     size masks the ragged end of K and the rows past the tile with zeros);
+//   - any other operand (a transposed view, an odd stride, bf16 storage)
+//     is staged by plain loads that walk whichever index is unit-stride and
+//     widen to f32, into the same ring at the same point, so its loads
+//     stall the thread before the FMAs of the current slice.
 // Each thread holds a 16 x 8 tile of the output: rows ty + TY*i, columns
 // tx + TX*j (128 threads at nb = 128, 255 registers, two CTAs an SM). A
 // warp is WY x WX threads, and the WX (or WY) staged rows one 16-byte read
@@ -25,7 +28,12 @@
 // No TF32: every product is an f32 FMA on the CUDA cores.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "storage.cuh"
 
 constexpr int PG_BM = 128;          // rows of a block's output tile
 constexpr int PG_RM = 16;           // output rows a thread holds
@@ -73,41 +81,47 @@ __device__ inline void pg_thread(int& tx, int& ty) {
 
 // dst[r][k] = src(r, k0 + k) for r < R, k < PG_KC, with src(r, k) =
 // src[r*s0 + k*s1]; rows at or past `rows` and k at or past ke read as 0.
-// `fast`: s1 == 1, s0 % 4 == 0 and src 16-byte aligned (cp.async copies).
-template <int R, int NT>
-__device__ inline void pg_stage_operand(float* dst, const float* src,
+// `fast` (f32 only): s1 == 1, s0 % 4 == 0 and src 16-byte aligned (cp.async
+// copies).
+template <int R, int NT, class T>
+__device__ inline void pg_stage_operand(float* dst, const T* src,
                                         long long s0, long long s1, int rows,
                                         bool fast, int k0, int ke) {
   const int tid = threadIdx.x;
-  if (fast) {
-    // thread tid copies 16 bytes at k = k0 + 4 (tid % Q) of rows tid / Q,
-    // + STEP, + 2 STEP, ...
-    constexpr int Q = PG_KC / 4, STEP = NT / Q;
-    const int r0 = tid / Q, k = k0 + 4 * (tid % Q);
-    int kbytes = 4 * (ke - k);
-    kbytes = kbytes < 0 ? 0 : (kbytes > 16 ? 16 : kbytes);
-    const float* p = src + r0 * s0 + k;
-    float* d = dst + r0 * PG_LDK + 4 * (tid % Q);
+  if constexpr (std::is_same<T, float>::value) {
+    if (fast) {
+      // thread tid copies 16 bytes at k = k0 + 4 (tid % Q) of rows tid / Q,
+      // + STEP, + 2 STEP, ...
+      constexpr int Q = PG_KC / 4, STEP = NT / Q;
+      const int r0 = tid / Q, k = k0 + 4 * (tid % Q);
+      int kbytes = 4 * (ke - k);
+      kbytes = kbytes < 0 ? 0 : (kbytes > 16 ? 16 : kbytes);
+      const float* p = src + r0 * s0 + k;
+      float* d = dst + r0 * PG_LDK + 4 * (tid % Q);
 #pragma unroll
-    for (int e = 0; e < (R + STEP - 1) / STEP; ++e) {
-      const int r = r0 + e * STEP;
-      if (r >= R) break;
-      const int bytes = r < rows ? kbytes : 0;
-      pg_cp_async16(d + e * STEP * PG_LDK, bytes ? p + e * STEP * s0 : src,
-                    bytes);
+      for (int e = 0; e < (R + STEP - 1) / STEP; ++e) {
+        const int r = r0 + e * STEP;
+        if (r >= R) break;
+        const int bytes = r < rows ? kbytes : 0;
+        pg_cp_async16(d + e * STEP * PG_LDK,
+                      bytes ? p + e * STEP * s0 : src, bytes);
+      }
+      return;
     }
-  } else if (s1 == 1) {
+  }
+  if (s1 == 1) {
     for (int idx = tid; idx < R * PG_KC; idx += NT) {
       const int r = idx / PG_KC, k = idx % PG_KC;
       dst[r * PG_LDK + k] =
-          (r < rows && k0 + k < ke) ? src[r * s0 + k0 + k] : 0.f;
+          (r < rows && k0 + k < ke) ? to_f32(src[r * s0 + k0 + k]) : 0.f;
     }
   } else {
     for (int idx = tid; idx < R * PG_KC; idx += NT) {
       const int r = idx % R, k = idx / R;
       dst[r * PG_LDK + k] =
-          (r < rows && k0 + k < ke) ? src[r * s0 + (long long)(k0 + k) * s1]
-                                    : 0.f;
+          (r < rows && k0 + k < ke)
+              ? to_f32(src[r * s0 + (long long)(k0 + k) * s1])
+              : 0.f;
     }
   }
 }
@@ -141,40 +155,115 @@ __device__ inline void pg_slice(float (&acc)[PG_RM][8], const float* As,
   }
 }
 
-// acc += A[0:rows, kb:ke] @ B[kb:ke, 0:NB] for this block's tile, through
-// the ring in smem (PanelGemm<NB>::SMEM_FLOATS floats, 16-byte aligned).
-// Every thread of the block calls it; it ends with a barrier, after which
-// smem is free.
-template <int NB>
-__device__ inline void pg_product(float (&acc)[PG_RM][8], const float* A,
-                                  long long as0, long long as1, int rows,
-                                  bool fast_a, const float* B, long long bs0,
-                                  long long bs1, bool fast_b, int kb, int ke,
-                                  float* smem, int tx, int ty) {
+// acc += the product of nk staged slices, through the ring in smem
+// (PanelGemm<NB>::SMEM_FLOATS floats, 16-byte aligned): stage(s, As)
+// stages slice s into the ring slot As (A's PG_BM rows, then B's NB rows
+// at As + PG_BM * PG_LDK), PG_STAGES - 1 slices ahead of the FMAs. Every
+// thread of the block calls it; it ends with a barrier, after which smem
+// is free.
+template <int NB, class Stage>
+__device__ inline void pg_pipeline(float (&acc)[PG_RM][8], int nk,
+                                   Stage stage, float* smem, int tx, int ty) {
   using G = PanelGemm<NB>;
-  const int nk = ke > kb ? (ke - kb + PG_KC - 1) / PG_KC : 0;
-  auto stage = [&](int s) {
-    float* As = smem + (s % PG_STAGES) * G::STAGE_FLOATS;
-    const int k0 = kb + s * PG_KC;
-    pg_stage_operand<PG_BM, G::THREADS>(As, A, as0, as1, rows, fast_a, k0,
-                                        ke);
-    // B(k, c) as rows c of Bs: the row stride of that view is bs1
-    pg_stage_operand<NB, G::THREADS>(As + PG_BM * PG_LDK, B, bs1, bs0, NB,
-                                     fast_b, k0, ke);
-  };
 #pragma unroll
   for (int s = 0; s < PG_STAGES - 1; ++s) {
-    if (s < nk) stage(s);
+    if (s < nk) stage(s, smem + s * G::STAGE_FLOATS);
     pg_cp_async_commit();
   }
   for (int s = 0; s < nk; ++s) {
     pg_cp_async_wait<PG_STAGES - 2>();  // slice s has landed
     __syncthreads();  // ... for every thread, and slice s - 1 is consumed
-    if (s + PG_STAGES - 1 < nk) stage(s + PG_STAGES - 1);
+    const int next = s + PG_STAGES - 1;
+    if (next < nk) stage(next, smem + (next % PG_STAGES) * G::STAGE_FLOATS);
     pg_cp_async_commit();
     const float* As = smem + (s % PG_STAGES) * G::STAGE_FLOATS;
     pg_slice<NB>(acc, As, As + PG_BM * PG_LDK, tx, ty);
   }
   pg_cp_async_wait<0>();
   __syncthreads();
+}
+
+// The slices of [kb, ke): PG_KC deep, the last one ragged.
+__device__ inline int pg_slices(int kb, int ke) {
+  return ke > kb ? (ke - kb + PG_KC - 1) / PG_KC : 0;
+}
+
+// Stage slice s of A[0:rows, kb:ke] and B[kb:ke, 0:cols] into the ring
+// slot As (pg_stage_operand for each operand; B's columns at or past cols
+// read as 0).
+template <int NB, class T>
+__device__ inline void pg_stage_slice(float* As, int s, const T* A,
+                                      long long as0, long long as1, int rows,
+                                      bool fast_a, const T* B, long long bs0,
+                                      long long bs1, int cols, bool fast_b,
+                                      int kb, int ke) {
+  using G = PanelGemm<NB>;
+  const int k0 = kb + s * PG_KC;
+  pg_stage_operand<PG_BM, G::THREADS>(As, A, as0, as1, rows, fast_a, k0, ke);
+  // B(k, c) as rows c of Bs: the row stride of that view is bs1
+  pg_stage_operand<NB, G::THREADS>(As + PG_BM * PG_LDK, B, bs1, bs0, cols,
+                                   fast_b, k0, ke);
+}
+
+// acc += A[0:rows, kb:ke] @ B[kb:ke, 0:NB] for this block's tile, through
+// the ring in smem (pg_pipeline).
+template <int NB, class T>
+__device__ inline void pg_product(float (&acc)[PG_RM][8], const T* A,
+                                  long long as0, long long as1, int rows,
+                                  bool fast_a, const T* B, long long bs0,
+                                  long long bs1, bool fast_b, int kb, int ke,
+                                  float* smem, int tx, int ty) {
+  pg_pipeline<NB>(
+      acc, pg_slices(kb, ke),
+      [&](int s, float* As) {
+        pg_stage_slice<NB>(As, s, A, as0, as1, rows, fast_a, B, bs0, bs1,
+                           NB, fast_b, kb, ke);
+      },
+      smem, tx, ty);
+}
+
+// The row stride of a partial tile in shared memory: 8-bank shifts a row.
+template <int NB>
+__host__ __device__ constexpr int pg_partial_ld() {
+  return NB + 8;
+}
+
+// The rank-order sum of a split K loop over this thread-block cluster: every
+// CTA publishes its partial tile acc to P (PG_BM x pg_partial_ld<NB>()
+// floats of its shared memory, free after pg_product), then adds the S
+// partials of its 1/S share of the tile, four columns at a time over rows
+// r < rows, and hands each sum to put(r, c, sum) (columns c .. c+3). Each
+// quad is summed by one CTA over ranks 0 .. S-1 in order, with no atomics,
+// so the bits depend on S and the operands alone. Every CTA of the cluster
+// calls it; it ends with a cluster barrier, after which no partial is read.
+template <int NB, class Put>
+__device__ inline void pg_cluster_sum(const float (&acc)[PG_RM][8], float* P,
+                                      int rows, int tx, int ty, Put put) {
+  using G = PanelGemm<NB>;
+  constexpr int LDP = pg_partial_ld<NB>(), Q = NB / 4;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+#pragma unroll
+  for (int i = 0; i < PG_RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      P[(ty + G::TY * i) * LDP + tx + G::TX * j] = acc[i][j];
+  cluster.sync();
+  const int lo = rank * (PG_BM * Q) / S, hi = (rank + 1) * (PG_BM * Q) / S;
+  for (int idx = lo + (int)threadIdx.x; idx < hi; idx += G::THREADS) {
+    const int r = idx / Q, c = 4 * (idx % Q);
+    if (r >= rows) continue;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < S; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(P, q) + r * LDP + c);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    put(r, c, s);
+  }
+  cluster.sync();  // every CTA's share stored; no partial is read again
 }

@@ -1,7 +1,8 @@
 // K0: inverse of an upper-triangular tile, the port of upper_tri_inv
 // (slate_tpu/internal/pallas_tri.py:28), and the back substitution that
-// K3's slabs (lu_factor.cuh) and K6/K7's launch (a) (batched_panel.cuh)
-// run inside their own blocks.
+// K3's slabs (lu_factor.cuh) and K7's launch (a) (batched_panel.cuh) run
+// inside their own blocks. K6's factor launch (chol_panel_batched.cu) runs
+// K0's blocked doubling inside its block.
 //
 // Replaces: the helper the reference traces inside its fused Pallas panels
 // (chol_panel_fused, and later lu_panel_fused and the batched panels). Mosaic

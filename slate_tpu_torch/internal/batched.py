@@ -57,8 +57,9 @@ def batch_potrf(a: torch.Tensor, sizes: torch.Tensor, *, nb: int,
     in the lower triangle; the strict upper triangle of the diagonal tiles
     is 0 and the rest of it keeps the input, as in the single-problem
     driver.  (The reference also returns the ABFT counters, which are zero
-    without ``abft``.)  One K6 step a block column: 2 n / nb - 1 launches
-    on the card."""
+    without ``abft``.)  One K6 step a block column: 3 n / nb - 1 launches
+    on the card (update, factor and solve a step, the last step no
+    solve)."""
     if abft:
         raise not_ported("batch_potrf's in-batch ABFT checksum rungs "
                          "(robust/abft.py)", "queue 1, item 6 (robustness)")

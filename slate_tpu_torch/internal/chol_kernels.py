@@ -15,27 +15,35 @@ import ctypes
 
 import torch
 
-from .kernels import (BATCHED_PANEL_ARGS, I32, I64, P, CudaKernel,
-                      batched_panel_step, check_cuda_f32, device_and_stream,
-                      query)
-from .tri_inv import (back_substitution_plain, upper_tri_inv,
-                      upper_tri_inv_plain)
+from .kernels import (I32, I64, P, CudaKernel, check_batched_panel,
+                      check_cuda_f32, device_and_stream, query)
+from .tri_inv import upper_tri_inv, upper_tri_inv_plain
 
 CHOL_TILE = CudaKernel("chol_tile", "chol_tile.cu", {
-    "slate_chol_tile": [I32, P, P, I64, I64, P, I32, I32]})
+    "slate_chol_tile": [I32, P, P, I64, I64, P, I32]})
 CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
     "slate_chol_panel_update": [I32, P, P, I64, I64, P, I64, I64, P, I64,
                                 I64, I32, I32, I32, P],
-    "slate_chol_panel_factor": [I32, P, P, I32, I32, P],
+    "slate_chol_panel_factor": [I32, P, P, I32, P],
     "slate_chol_panel_solve": [I32, P, P, P, I32, I32, P],
     "slate_chol_panel_plan": [I32, I32, I32, I32, P, I64, I64, P, I64, I64,
                               ctypes.POINTER(I32), ctypes.POINTER(I32)]})
 
+# K6's launch: device, stream, which (0 update, 1 factor, 2 solve), bf16,
+# then col, left and lead with their batch, row and column strides, tiles,
+# B, k, K, M, nb, upd, fac, work, uinv
 CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
-    "slate_chol_panel_batched": BATCHED_PANEL_ARGS,
-    "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)]})
+    "slate_chol_panel_batched": [I32, P, I32, I32, P, I64, I64, I64, P, I64,
+                                 I64, I64, P, I64, I64, I64, P, I32, I32, I32,
+                                 I32, I32, P, P, P, P],
+    "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_chol_panel_batched_plan": [I32, I32, I32, I32, P, I64, I64, I64,
+                                      P, I64, I64, I64, ctypes.POINTER(I32),
+                                      ctypes.POINTER(I32),
+                                      ctypes.POINTER(I32)]})
+UPDATE, FACTOR, SOLVE = 0, 1, 2    # K6's three launches
 
-TILE_MAX_N = 128          # one n x (n+1) f32 tile in shared memory
+TILE_MAX_N = 128          # one n x (n+4) f32 tile in shared memory
 PANEL_NB = (32, 64, 96, 128)   # the instantiated widths (128-row tiles,
                                # a 16 x 8 register tile per thread)
 
@@ -46,7 +54,10 @@ def chol_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     bw-column panel, column by column, pivot = sqrt, the column below it
     times 1/pivot, rank-1 update of the panel's later columns; after the
     panel, rank-bw update of the trailing columns.  Upper part exactly 0;
-    a non-positive pivot poisons every later column with NaN/Inf."""
+    a non-positive pivot poisons every later column with NaN/Inf.  The
+    kernel (csrc/chol_factor.cuh) factors in 32-column blocks of its own;
+    the two agree up to the order of their f32 sums, and on the first bad
+    pivot."""
     s = a.clone()
     n = s.shape[0]
     for p0 in range(0, n, bw):
@@ -62,8 +73,9 @@ def chol_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
 
 def chol_tile(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     """Lower Cholesky factor of one SPD [n, n] tile, n % bw == 0.  A CPU
-    tensor takes the plain version; a CUDA tensor launches K1 (f32,
-    n <= 128) or raises."""
+    tensor takes the plain version (bw-column slabs, as the reference); a
+    CUDA tensor launches K1 (f32, n <= 128; its own 32-column blocking) or
+    raises."""
     n = a.shape[-1]
     if a.dim() != 2 or a.shape[0] != n or bw < 1 or n % bw:
         raise ValueError(f"chol_tile: needs one square tile with n % bw == "
@@ -76,14 +88,14 @@ def chol_tile(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
                          f"one block's shared memory")
     out = torch.empty((n, n), dtype=a.dtype, device=a.device)
     CHOL_TILE.launch("slate_chol_tile", *device_and_stream(a), a.data_ptr(),
-                     a.stride(0), a.stride(1), out.data_ptr(), n, bw)
+                     a.stride(0), a.stride(1), out.data_ptr(), n)
     return out
 
 
 def chol_panel_plain(col, left, lead, bw: int = 8):
     """The fused panel step in torch ops: upd = col - left @ lead; row
-    tile 0 factored by the K1 column loop; fac rows below = upd @ U^-1
-    with U = L00^T inverted as K0 inverts it."""
+    tile 0 factored by :func:`chol_tile_plain`; fac rows below = upd @
+    U^-1 with U = L00^T inverted as K0 inverts it."""
     nb = col.shape[1]
     upd = col - left @ lead
     l00 = chol_tile_plain(upd[:nb], bw)
@@ -105,10 +117,11 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
     nb in {32, 64, 96, 128}) or raise.  On CUDA, on the current stream:
     K2's update launch (upd over every 128-row tile, the K loop split
     over a thread-block cluster when row tiles are few) and its factor
-    launch (L00 from tile 0 on one block); when M > nb, K0 on U = L00^T
-    (counted by K0's wrapper) and K2's solve launch, fac rows below = upd
-    rows @ U^-1.  CHOL_PANEL counts K2's two or three launches;
-    :func:`panel_plan` says how the update launch splits and stages.
+    launch (L00 from tile 0 on one block, K1's blocked factor); when M >
+    nb, K0 on U = L00^T (counted by K0's wrapper) and K2's solve launch,
+    fac rows below = upd rows @ U^-1.  CHOL_PANEL counts K2's two or
+    three launches; :func:`panel_plan` says how the update launch splits
+    and stages.
     """
     m, nb = col.shape
     k = left.shape[1]
@@ -131,7 +144,7 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
                       lead.stride(0), lead.stride(1), k, nb, m,
                       upd.data_ptr())
     CHOL_PANEL.launch("slate_chol_panel_factor", dev, stream, upd.data_ptr(),
-                      nb, bw, fac.data_ptr())
+                      nb, fac.data_ptr())
     if m > nb:
         uinv = upper_tri_inv(fac[:nb].mT)        # K0 on U = L00^T
         CHOL_PANEL.launch("slate_chol_panel_solve", dev, stream,
@@ -168,13 +181,15 @@ def live_rows(tiles: torch.Tensor, k: int, m: int, nb: int) -> torch.Tensor:
 
 def chol_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
     """K6's arithmetic in torch ops: per problem, K2's plain step on the
-    operands widened to f32 (upd = col - left @ lead, L00 by the K1 column
-    loop, L21 = upd_below @ (L00^T)^-1 by back substitution), rounded
-    to the storage dtype; dead tiles are ``col`` itself, bit for bit."""
+    operands widened to f32 (upd = col - left @ lead, L00 by
+    :func:`chol_tile_plain`, L21 = upd_below @ (L00^T)^-1 with the inverse
+    by K0's blocked doubling, as the kernel's factor launch forms it),
+    rounded to the storage dtype; dead tiles are ``col`` itself, bit for
+    bit."""
     nb = col.shape[2]
     upd = col.float() - left.float() @ lead.float()
     l00 = torch.stack([chol_tile_plain(t, bw) for t in upd[:, :nb]])
-    uinv = torch.stack([back_substitution_plain(t.T) for t in l00])
+    uinv = torch.stack([upper_tri_inv_plain(t.T) for t in l00])
     fac = torch.cat([l00, upd[:, nb:] @ uinv], dim=1)
     live = live_rows(tiles, k, col.shape[1], nb)
     return (torch.where(live, upd.to(col.dtype), col),
@@ -196,9 +211,14 @@ def chol_panel_batched(col: torch.Tensor, left: torch.Tensor,
     in f32): row tile i of problem b is live iff k + i < tiles[b], and a
     dead tile is ``col``'s bits in both outputs.  Any strides; M % nb ==
     0.  A CPU tensor takes the plain version; CUDA tensors launch K6 (nb
-    and bw within ``slate_chol_panel_batched_fits``) or raise.  On CUDA a
-    step is one launch when M == nb and two otherwise, counted by
-    CHOL_PANEL_BATCHED; ``tiles`` is read on the device only."""
+    and bw within ``slate_chol_panel_batched_fits``) or raise.  On CUDA,
+    on the current stream: K6's update launch (every 128-row tile of every
+    problem, the K loop split over a thread-block cluster), its factor
+    launch (L00 and, when M > nb, U^-1, one block a problem) and, when M >
+    nb, its solve launch (the live rows below tile 0): three launches a
+    step, two when M == nb, counted by CHOL_PANEL_BATCHED.  ``tiles`` is
+    read on the device only; the f32 scratch the launches hand on (upd
+    before rounding on bf16 storage, U^-1) is allocated here."""
     bsz, m, nb = col.shape
     kk = left.shape[2]
     if (left.shape != (bsz, m, kk) or lead.shape != (bsz, kk, nb)
@@ -210,6 +230,45 @@ def chol_panel_batched(col: torch.Tensor, left: torch.Tensor,
                          f"{tuple(tiles.shape)}, bw={bw}")
     if col.device.type == "cpu":
         return chol_panel_batched_plain(col, left, lead, tiles, k, bw)
-    return batched_panel_step(CHOL_PANEL_BATCHED, "slate_chol_panel_batched",
-                              "chol_panel_batched", col, left, lead, tiles,
-                              k, bw)
+    check_batched_panel(CHOL_PANEL_BATCHED, "chol_panel_batched", col, left,
+                        lead, tiles, bw)
+    tiles = tiles.contiguous()
+    upd = torch.empty((bsz, m, nb), dtype=col.dtype, device=col.device)
+    fac = torch.empty_like(upd)
+    work = (upd if col.dtype == torch.float32 else
+            torch.empty((bsz, m, nb), dtype=torch.float32, device=col.device))
+    uinv = (torch.empty((bsz, nb, nb), dtype=torch.float32, device=col.device)
+            if m > nb else None)
+    dev, stream = device_and_stream(col)
+    operands = (int(col.dtype == torch.bfloat16), col.data_ptr(),
+                *col.stride(), left.data_ptr(), *left.stride(),
+                lead.data_ptr(), *lead.stride(), tiles.data_ptr(), bsz, k, kk,
+                m, nb, upd.data_ptr(), fac.data_ptr(), work.data_ptr(),
+                None if uinv is None else uinv.data_ptr())
+    for which in (UPDATE, FACTOR, SOLVE)[:3 if m > nb else 2]:
+        CHOL_PANEL_BATCHED.launch("slate_chol_panel_batched", dev, stream,
+                                  which, *operands)
+    return upd, fac
+
+
+def batched_panel_plan(col: torch.Tensor, left: torch.Tensor,
+                       lead: torch.Tensor) -> dict:
+    """How K6's update launch takes these CUDA operands, as the kernel's
+    library reports it (``slate_chol_panel_batched_plan``): ``split``, the
+    CTAs of one (row tile, problem)'s cluster that share its K loop (a
+    function of K, nb and the device alone, never of the batch);
+    ``resident``, the clusters of that size the card holds at once;
+    ``waves``, the grid's clusters (every row tile of every problem, dead
+    ones included) over ``resident``; ``left``/``lead``, each "cp.async"
+    (f32, unit stride along K, aligned rows and batches) or "loads"."""
+    bsz, m, nb = col.shape
+    kk = left.shape[2]
+    split, resident, staging = query(
+        CHOL_PANEL_BATCHED, "slate_chol_panel_batched_plan", col.device,
+        int(col.dtype == torch.bfloat16), kk, nb, left.data_ptr(),
+        *left.stride(), lead.data_ptr(), *lead.stride(), outs=3)
+    clusters = bsz * -(-m // 128)
+    return {"split": split, "resident": resident,
+            "waves": -(-clusters // max(resident, 1)),
+            "left": "cp.async" if staging & 1 else "loads",
+            "lead": "cp.async" if staging & 2 else "loads"}

@@ -193,29 +193,37 @@ def fits(kernel: CudaKernel, symbol: str, device: torch.device,
     return bool(query(kernel, symbol, device, *shape))
 
 
-# the C signature of K6's and K7's launch: device, stream, bf16, below,
-# then col, left and lead with their batch, row and column strides, tiles,
-# B, k, K, M, nb, bw, upd, fac, uinv
+# the C signature of K7's launch: device, stream, bf16, below, then col,
+# left and lead with their batch, row and column strides, tiles, B, k, K, M,
+# nb, bw, upd, fac, uinv
 BATCHED_PANEL_ARGS = [I32, P, I32, I32, P, I64, I64, I64, P, I64, I64, I64,
                       P, I64, I64, I64, P, I32, I32, I32, I32, I32, I32, P, P,
                       P]
 
 
-def batched_panel_step(kernel: CudaKernel, symbol: str, name: str, col,
-                       left, lead, tiles, k: int, bw: int):
-    """Launch K6 or K7 (csrc/batched_panel.cuh) for one ragged batched
-    panel step on CUDA tensors: col [B, M, nb], left [B, M, K], lead
-    [B, K, nb] in f32 or bf16 storage (any strides), tiles [B] int32.
-    Returns (upd, fac) [B, M, nb] in the storage dtype.  Launch (a) always,
-    launch (b) when M > nb: the kernel counts one or two launches."""
-    bsz, m, nb = col.shape
-    kk = left.shape[2]
+def check_batched_panel(kernel: CudaKernel, name: str, col, left, lead,
+                        tiles, bw: int) -> None:
+    """Raise unless K6's or K7's CUDA operands are launchable: col, left and
+    lead in one storage dtype (f32 or bf16) on one device, tiles int32
+    there, and (nb, bw) within the kernel's ``slate_{name}_fits``."""
     check_cuda_storage(name, col, left, lead)
     if tiles.device != col.device or tiles.dtype != torch.int32:
         raise ValueError(f"{name}: tiles must be int32 on {col.device}")
-    if not fits(kernel, f"{symbol}_fits", col.device, nb, bw):
-        raise ValueError(f"{name}: nb = {nb}, bw = {bw} is past the "
-                         f"kernel's limits (slate_{name}_fits)")
+    if not fits(kernel, f"slate_{name}_fits", col.device, col.shape[2], bw):
+        raise ValueError(f"{name}: nb = {col.shape[2]}, bw = {bw} is past "
+                         f"the kernel's limits (slate_{name}_fits)")
+
+
+def batched_panel_step(kernel: CudaKernel, symbol: str, name: str, col,
+                       left, lead, tiles, k: int, bw: int):
+    """Launch K7 (csrc/batched_panel.cuh) for one ragged batched panel step
+    on CUDA tensors: col [B, M, nb], left [B, M, K], lead [B, K, nb] in f32
+    or bf16 storage (any strides), tiles [B] int32.  Returns (upd, fac)
+    [B, M, nb] in the storage dtype.  Launch (a) always, launch (b) when
+    M > nb: the kernel counts one or two launches."""
+    bsz, m, nb = col.shape
+    kk = left.shape[2]
+    check_batched_panel(kernel, name, col, left, lead, tiles, bw)
     tiles = tiles.contiguous()
     upd = torch.empty((bsz, m, nb), dtype=col.dtype, device=col.device)
     fac = torch.empty_like(upd)

@@ -2,7 +2,7 @@
 of slate_tpu/internal/potrf.py).
 
 Both seams consult the tile plan (tune/plans.py).  The gates carry this
-card's limits, not the TPU's VMEM ones: K1 holds one n x (n+1) f32 tile
+card's limits, not the TPU's VMEM ones: K1 holds one n x (n+4) f32 tile
 in a block's shared memory, and so does K2's factor launch, while its
 update and solve launches keep a 16 x 8 register tile a thread over nb /
 8 thread columns (instantiated at nb = 32, 64, 96, 128), which caps both

@@ -143,6 +143,45 @@ def test_batched_panel_plain_matches_the_pallas_kernel(kind, chol):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_chol_panel_batched_plain_matches_the_pallas_kernel_deep(kind):
+    """K6's plain version at k = 16 (K = 512 columns of history, nb = 32,
+    M = 64) on a live problem, one whose second row tile is dead and a
+    filler slot (tiles = 0), against the reference's batched Pallas kernel
+    in interpret mode: live tiles within the tolerances above (the plain
+    version forms U^-1 by K0's blocked doubling, the reference by its
+    series; the top blocks have cond <= ~5), dead tiles and the filler
+    slot bit-equal to col in both outputs.  lead is left's top rows, as
+    batch_potrf passes it, so the top block of col - left @ lead stays
+    symmetric in bf16 storage too: the plain version reads its lower
+    triangle, the reference its upper."""
+    rng = np.random.default_rng(5)
+    bsz, m, nb, k = 3, 64, 32, 16
+    kk = k * nb
+    left = (0.05 * rng.standard_normal((bsz, m, kk))).astype(np.float32)
+    base = rng.standard_normal((bsz, m, nb))
+    top = base[:, :nb]
+    base[:, :nb] = top @ top.transpose(0, 2, 1) / nb + np.eye(nb)
+    col = base + left.astype(np.float64) @ left[:, :nb].transpose(0, 2, 1)
+    (col_t, col_j), (left_t, left_j) = (_pair(x.astype(np.float32), kind)
+                                        for x in (col, left))
+    tiles = [k + 2, k + 1, 0]
+    tiles_t = torch.tensor(tiles, dtype=torch.int32)
+    got = ck.chol_panel_batched(col_t, left_t, left_t[:, :nb].mT, tiles_t, k,
+                                8)
+    want = ref_chol(col_j, left_j, jnp.swapaxes(left_j[:, :nb], 1, 2),
+                    jnp.asarray(tiles, jnp.int32), k=k, bw=8,
+                    interpret=True)
+    live = ck.live_rows(tiles_t, k, m, nb).expand(bsz, m, nb)
+    assert live[0].all() and live[1, :nb].all() and not live[1, nb:].any()
+    for g, w in zip(got, want):
+        assert g.dtype == col_t.dtype and g.shape == w.shape
+        _close(g, w, kind)
+        dead = (~live).numpy()
+        np.testing.assert_array_equal(_bits(g)[dead], _bits(col_t)[dead])
+        np.testing.assert_array_equal(_bits(w)[dead], _bits(col_t)[dead])
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
 def test_qr_panel_batched_plain_matches_the_pallas_kernel(kind):
     """K8's plain version against qr_panel_batched in interpret mode: live
     problems factor the whole panel (T within the tolerance), a rows = 0

@@ -325,8 +325,8 @@ def _batched_panel(rng, bsz, m, nb, k, chol, dtype, cuda):
 def test_batched_panels_match_plain_versions(cuda, dtype):
     """K6 and K7 against their plain versions at k = 0 and k = 2, with a
     live, a partly dead and a wholly dead problem: live tiles within the
-    tolerance, dead tiles bit-equal to col; one launch when M == nb, two
-    otherwise."""
+    tolerance, dead tiles bit-equal to col; K6 two launches when M == nb
+    and three otherwise, K7 one and two."""
     rng = np.random.default_rng(15)
     for kern, plain, chol in ((ck.chol_panel_batched,
                                ck.chol_panel_batched_plain, True),
@@ -340,7 +340,7 @@ def test_batched_panels_match_plain_versions(cuda, dtype):
                                  device=cuda)
             before = counter.launches
             got = kern(col, left, lead, tiles, k, 8)
-            assert counter.launches == before + (1 if m == nb else 2)
+            assert counter.launches == before + (1 if m == nb else 2) + chol
             want = plain(col, left, lead, tiles, k, 8)
             live = ck.live_rows(tiles, k, m, nb)
             for g, w in zip(got, want):
@@ -397,6 +397,64 @@ def test_qr_panel_batched_matches_its_plain_version(cuda, dtype):
     assert qk.batched_panel_fits(cuda, 4096, 128, 8)
     assert not qk.batched_panel_fits(cuda, 4096, 129, 8)
     assert not qk.batched_panel_fits(cuda, 4096, 128, 9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chol_panel_batched_splits_repeat_and_ignore_the_batch(cuda, dtype):
+    """K6 where the K loop is split over a cluster (K = 2048, nb = 128)
+    and at nb = 96 (128-row tiles straddling nb-row tiles): against the
+    plain version, dead tiles bit-equal, two launches bit for bit, and
+    each problem alone bit-equal to its slot in the batch (the split is a
+    function of K, nb and the card, never of the batch)."""
+    rng = np.random.default_rng(18)
+    for nb, k, m, tiles_b in ((128, 16, 512, (20, 18, 17, 16, 0)),
+                              (96, 3, 480, (8, 5, 3, 6, 7))):
+        bsz = len(tiles_b)
+        col, left, lead = _batched_panel(rng, bsz, m, nb, k, True, dtype,
+                                         cuda)
+        tiles = torch.tensor(tiles_b, dtype=torch.int32, device=cuda)
+        plan = ck.batched_panel_plan(col, left, lead)
+        if k == 16:
+            assert plan["split"] > 1
+        got = ck.chol_panel_batched(col, left, lead, tiles, k, 8)
+        want = ck.chol_panel_batched_plain(col, left, lead, tiles, k, 8)
+        live = ck.live_rows(tiles, k, m, nb)
+        for g, w, h in zip(got, want, ck.chol_panel_batched(
+                col, left, lead, tiles, k, 8)):
+            _close_storage(g, w)
+            assert torch.equal(_bits(torch.where(live, col, g)), _bits(col))
+            assert torch.equal(_bits(g), _bits(h))
+        for b in range(bsz):
+            one = ck.chol_panel_batched(col[b:b + 1], left[b:b + 1],
+                                        lead[b:b + 1], tiles[b:b + 1], k, 8)
+            for g, h in zip(got, one):
+                assert torch.equal(_bits(g[b]), _bits(h[0]))
+
+
+@pytest.mark.parametrize("n", [32, 64, 96, 128])
+def test_chol_tile_matches_plain_and_its_first_bad_pivot(cuda, n):
+    """K1 (its own 32-column blocking) against the plain version (the
+    reference's bw slabs) at each bw, exact zeros above the diagonal; on an
+    indefinite tile the first non-finite or non-positive diagonal entry is
+    the plain version's, and every later one is non-finite."""
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(_spd(rng, n)).to(cuda)
+    before = ck.CHOL_TILE.launches
+    for bw in (8, 16, 32):
+        got = ck.chol_tile(a, bw)
+        torch.testing.assert_close(got, ck.chol_tile_plain(a, bw), rtol=RTOL,
+                                   atol=ATOL)
+        assert not bool(torch.triu(got, 1).any())
+    assert ck.CHOL_TILE.launches == before + 3
+    bad = n // 2 + 3
+    a[bad, bad] -= 8.0      # the Schur complement's pivot at bad is ~ -7
+    firsts = []
+    for l in (ck.chol_tile(a, 8), ck.chol_tile_plain(a, 8)):
+        d = torch.diagonal(l)
+        poor = ~(torch.isfinite(d) & (d > 0))
+        firsts.append(int(poor.nonzero()[0]))
+        assert not bool(torch.isfinite(d[bad + 1:]).any())
+    assert firsts == [bad, bad]
 
 
 def test_served_stream_on_the_card_matches_the_cpu_route(cuda):

@@ -75,14 +75,42 @@ def test_upper_tri_inv_doubling_at_ragged_sizes(n):
     assert TRI_INV.launches == 0
 
 
-@pytest.mark.parametrize("n,bw", [(128, 8), (64, 16)])
+@pytest.mark.parametrize("bw", [8, 16, 32])
+@pytest.mark.parametrize("n", [32, 64, 96, 128])
 def test_chol_tile_plain_matches_pallas(n, bw):
+    """K1's plain version (the reference's bw slabs; the CUDA kernel's own
+    32-column blocks are held against it on the card) at every tile size
+    and slab width the kernel takes, RTOL/ATOL 2e-5 (f32 sums in another
+    order, cond <= ~5)."""
     a = _spd(np.random.default_rng(5), n)
     got = ck.chol_tile(torch.from_numpy(a), bw=bw).numpy()
     want = np.asarray(chol_tile_pallas(jnp.asarray(a), bw=bw,
                                        interpret=True))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert np.all(np.triu(got, 1) == 0)          # exact-zero upper contract
+
+
+@pytest.mark.parametrize("n,bw,bad", [(64, 8, 37), (128, 32, 90)])
+def test_chol_tile_plain_first_bad_pivot_matches_pallas(n, bw, bad):
+    """An indefinite tile whose pivot at column ``bad`` is ~ -6: the plain
+    version's first non-finite or non-positive diagonal entry (the health
+    read's info) is ``bad``, as the reference's is, every later one is
+    non-finite in both, and the columns before it agree within RTOL/ATOL
+    2e-5."""
+    a = _spd(np.random.default_rng(bad), n)
+    a[bad, bad] -= 8.0              # diagonal ~2, pivot^2 <= a[bad, bad]
+    got = ck.chol_tile(torch.from_numpy(a), bw=bw).numpy()
+    want = np.asarray(chol_tile_pallas(jnp.asarray(a), bw=bw,
+                                       interpret=True))
+
+    def first_bad(l):
+        d = np.diag(l)
+        return int(np.flatnonzero(~(np.isfinite(d) & (d > 0)))[0])
+    assert first_bad(got) == first_bad(want) == bad
+    assert not np.isfinite(np.diag(got)[bad + 1:]).any()
+    assert not np.isfinite(np.diag(want)[bad + 1:]).any()
+    np.testing.assert_allclose(got[:bad, :bad], want[:bad, :bad], rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("k", [0, 128, 100])
