@@ -11,7 +11,13 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      main paths' shapes, with the tolerance stated beside each check (K4:
      equal indices), and time kernel, plain version and library call (the
      Cholesky factor of K1, K2 and K6's compositions by cholesky_ex, which
-     does not sync the host, cholesky's time beside it); K1 (chol_tile) at
+     does not sync the host, cholesky's time beside it); K4 (lu_select) at
+     round-1 chunks of 4096 and 5120 rows, a 256-row reduction round, a
+     chunk with dead rows and a 512-row chunk whose largest |v| in column 0
+     lies in rows 3 and 300 (the two CTAs of its cluster; row 3 wins), each
+     with a lu_select_plan line (the thread-block cluster a chunk takes, a
+     CTA's rows and shared memory, the clusters resident, and the
+     one-block kernel's time beside the new one); K1 (chol_tile) at
      n = 32, 64, 96 and 128, and on an indefinite tile (the first bad
      pivot the plain version's, every later one non-finite); K5
      (qr_panel) at [8192, 128] and [4224, 128] (the first and last panels
@@ -65,10 +71,10 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      a TF32 solve exceeds) and walls of both; then small QR checks against the CPU (gels with m < n, cholqr,
      unmqr in all four (side, op) pairs, qr_multiply's ||Q^T Q - I||);
   8. the serving path: K6 (chol_panel_batched) and K7 (lu_panel_batched)
-     at B = 8, M = 4096, nb = 128, k = 0 and 16 (K6 also launched twice
-     bit for bit, each problem alone bit-equal to its slot in the batch,
-     and a chol_panel_batched_plan line: split, waves and each of its three
-     launches' device time), and K8 (qr_panel_batched)
+     at B = 8, M = 4096, nb = 128, k = 0 and 16 (each launched twice bit
+     for bit, each problem alone bit-equal to its slot in the batch, and a
+     chol_panel_batched_plan or lu_panel_batched_plan line: split, waves
+     and each of its three launches' device time), and K8 (qr_panel_batched)
      at [8, 4096, 128] and [8, 1024, 128] and, with filler slots first
      and last, [8, 128, 128] and [12, 4096, 128] (more clusters than the
      card holds at once), each in f32 and bf16 storage, against their
@@ -88,15 +94,17 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      the result line.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
 QR gels and one warm serving stream down by phase (host clock) and by
-kernel (torch.profiler), with the device's idle share.
+kernel (torch.profiler), with the device's idle share, and the gesv's K4
+device time into its round-1 launches and its reduction rounds'.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
 with --seed + 1, the serving phases from a third, --seed + 2, and the
 K5/K8 cluster edge shapes from a fourth, --seed + 3, K2's late panels
 and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
-96 and its indefinite tile from a sixth, --seed + 5, so that adding to one
-slice moves no other's matrices.
+96 and its indefinite tile from a sixth, --seed + 5, and K4's tie chunk
+from a seventh, --seed + 6, so that adding to one slice moves no other's
+matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -181,6 +189,15 @@ ONE_BLOCK_MS = {("qr_panel", 8192, 128, "float32"): 21.59,
                 ("qr_panel_batched", 8, 4096, "float32"): 11.03,
                 ("qr_panel_batched", 8, 4096, "bfloat16"): 11.40,
                 ("qr_panel_batched", 8, 1024, "float32"): 3.036}
+# K4's times with one block a chunk (its design before the cluster split),
+# keyed (G, W, nrows, tie chunk), as this script measured that kernel on an
+# H100 80GB HBM3 at 700 W (PERF.md, the K4 row), so that each
+# lu_select_plan line shows the old time beside the new (key pr8_ms); the
+# kernels line carries only what the run measured
+ONE_BLOCK_SELECT_MS = {(4, 4096, None, False): 2.568,
+                       (4, 5120, None, False): 3.187,
+                       (2, 256, None, False): 0.2931,
+                       (2, 512, 300, False): 0.3475}
 
 
 def emit(obj) -> None:
@@ -232,14 +249,16 @@ def device_ms(fn, reps: int = 5, per_launch: bool = False) -> dict:
             for name, t in total.items()}
 
 
-def k6_launch_times(fn, reps: int = 5) -> dict:
-    """K6's launches (update, factor, solve) per call of a
-    chol_panel_batched ``fn``: device ms by launch, from torch.profiler."""
+def step_launch_times(name: str, tag: str, fn, reps: int = 5) -> dict:
+    """K6's or K7's launches (update, factor, solve; the kernels named
+    ``{name}_{launch}``) per call of its wrapper ``fn``: device ms by
+    launch, from torch.profiler, under the keys ``{tag}_own_ms`` and
+    ``{tag}_launch_ms``."""
     by_name = device_ms(fn, reps, per_launch=True)
     parts = {part: sum(v for k, v in by_name.items()
-                       if f"chol_panel_batched_{part}" in k)
+                       if f"{name}_{part}" in k)
              for part in ("update", "factor", "solve")}
-    return {"k6_own_ms": sum(parts.values()), "k6_launch_ms": parts}
+    return {f"{tag}_own_ms": sum(parts.values()), f"{tag}_launch_ms": parts}
 
 
 def k2_launch_times(fn, reps: int = 5) -> dict:
@@ -518,14 +537,19 @@ def check_k2_k0_edges(gen) -> None:
           128 ** 3 / 3, 4 * (128 * 129 // 2 + 128 * 128))
 
 
-def check_lu_kernels(gen) -> dict:
+def check_lu_kernels(gen, tie_gen) -> dict:
     """K3 on CALU-permuted Gaussian panels, the main path's first panel
     and a small one, also held against the library's unpivoted LU; K4 on
-    main-path round-1 batches (4096 and 5120 rows), a tree round, and a
-    chunk with dead rows."""
+    main-path round-1 batches (4096 and 5120 rows), a tree round, a chunk
+    with dead rows, and (from ``tie_gen``) a 512-row chunk whose column 0
+    has its largest |v| in rows 3 and 300, in the two CTAs of its cluster;
+    each K4 shape also prints a ``lu_select_plan`` line (the cluster, a
+    CTA's rows and shared memory, the clusters resident, the time beside
+    the one-block kernel's)."""
     from slate_tpu_torch.internal.getrf import panel_lu, tournament_perm
     from slate_tpu_torch.internal.lu_kernels import (
-        lu_panel_fused, lu_panel_plain, lu_select, lu_select_plain)
+        lu_panel_fused, lu_panel_plain, lu_select, lu_select_plain,
+        select_plan)
     rows = {}
     nb = 128
     for w in (20480, 1024):
@@ -552,21 +576,28 @@ def check_lu_kernels(gen) -> dict:
             witness=[library()])
         if w == 20480:
             rows["lu_panel_fused"] = row
-    for g, w, nrows in ((4, 4096, None), (4, 5120, None), (2, 256, None),
-                        (2, 512, 300)):
-        x = torch.randn(g, w, nb, generator=gen, device="cuda")
+    tie = torch.randn(2, 512, nb, generator=tie_gen, device="cuda")
+    tie[:, 3, 0], tie[:, 300, 0] = 10.0, -10.0
+    for g, w, nrows, x in ((4, 4096, None, None), (4, 5120, None, None),
+                           (2, 256, None, None), (2, 512, 300, None),
+                           (2, 512, None, tie)):
+        if x is None:
+            x = torch.randn(g, w, nb, generator=gen, device="cuda")
         got = lu_select(x, nrows=nrows)
         plain = lu_select_plain(x, nrows)
         library = (None if nrows is not None else
                    panel_lu(x)[1][:, :nb])
         equal = bool(torch.equal(got, plain)) and (
-            library is None or bool(torch.equal(got, library)))
+            library is None or bool(torch.equal(got, library))) and (
+            x is not tie or bool((got[:, 0] == 3).all()))
         # per chunk: the partial-pivot LU's W nb^2 - nb^3/3 flops; the
         # chunk and its live-row count read, nb indices written
         b_ms, b_by = bound(g * (w * nb * nb - nb ** 3 / 3),
                            g * (4 * w * nb + 4 + 8 * nb))
-        row = {"check": "lu_select", "shape": {"G": g, "W": w, "nb": nb,
-                                                "bw": 8, "nrows": nrows},
+        shape = {"G": g, "W": w, "nb": nb, "bw": 8, "nrows": nrows,
+                 "tie_rows": [3, 300] if x is tie else None}
+        plan = select_plan(x.device, w, nb, 8)
+        row = {"check": "lu_select", "shape": shape,
                "max_abs_err": float((got - plain).abs().max()),
                "indices_equal_plain_and_lu_factor": equal,
                "tol_reason": "pivot rows: equal indices, to the plain "
@@ -575,12 +606,16 @@ def check_lu_kernels(gen) -> dict:
                "plain_ms": time_ms(lambda: lu_select_plain(x, nrows), 2),
                "library_ms": (time_ms(lambda: torch.linalg.lu_factor_ex(x),
                                       5) if nrows is None else None),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "cluster": plan["cluster"]}
         emit(row)
+        emit({"phase": "lu_select_plan", "shape": shape, **plan,
+              "kernel_ms": row["kernel_ms"],
+              "pr8_ms": ONE_BLOCK_SELECT_MS.get((g, w, nrows, x is tie))})
         if not equal:
             raise AssertionError(f"lu_select {row['shape']}: pivot rows "
                                  f"differ from the plain version's or "
-                                 f"lu_factor's")
+                                 f"lu_factor's, or the tie went to a row "
+                                 f"other than 3")
         if w == 4096:
             rows["lu_select"] = row
     return rows
@@ -931,9 +966,9 @@ def trace_posv(st, a, b, nb) -> None:
     profile_device("posv", lambda: st.posv(A, B))
 
 
-def profile_device(label, fn) -> None:
+def profile_device(label, fn) -> list:
     """Device time by kernel and the device's idle share of one ``fn()``
-    under torch.profiler."""
+    under torch.profiler; returns the kernels' device events."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -949,13 +984,16 @@ def profile_device(label, fn) -> None:
           "device_busy_s": busy if busy is not None else "not measured",
           "device_idle_share": (1 - busy / wall) if busy else "not measured",
           "kernel_ms": {k: v * 1e-3 for k, v in top}})
+    return kernels
 
 
 def trace_gesv(st, a, b, nb, opts) -> None:
     """Where one warm CALU gesv's time goes: each phase of the blocked
     factor timed on the host clock with the device synchronised around it
     (tournament, K3 panel, U12 solve, trailing matmul, row moves), then
-    the device time by kernel under torch.profiler."""
+    the device time by kernel under torch.profiler, K4's split into its
+    round-1 launches and its reduction rounds' (each launch classed as the
+    tournament makes it, matched in order to K4's device events)."""
     from slate_tpu_torch.drivers import lu as dl
     from slate_tpu_torch.internal import getrf as ig
     run_gesv(st, a, b, nb, opts)                     # warm-up
@@ -987,7 +1025,43 @@ def trace_gesv(st, a, b, nb, opts) -> None:
           "outside_phases": wall - sum(spent.values()), **spent})
     A = st.Matrix.from_numpy(a, nb)
     B = st.Matrix.from_numpy(b, nb)
-    profile_device("gesv CALU", lambda: st.gesv(A, B, opts))
+    rounds: list[str] = []
+    state = {"round1": False}
+    tournament, keep_best, select = (ig.tournament_perm, ig._keep_best,
+                                     ig.lu_select)
+
+    def tournament_spy(panel, block_rows, *args, **kw):
+        state["round1"] = block_rows > panel.shape[1]
+        return tournament(panel, block_rows, *args, **kw)
+
+    def keep_best_spy(*args, **kw):
+        try:
+            return keep_best(*args, **kw)
+        finally:
+            state["round1"] = False          # every later round reduces
+
+    def select_spy(*args, **kw):
+        rounds.append("round1" if state["round1"] else "reduction")
+        return select(*args, **kw)
+    try:
+        ig.tournament_perm, ig._keep_best, ig.lu_select = (
+            tournament_spy, keep_best_spy, select_spy)
+        kernels = profile_device("gesv CALU", lambda: st.gesv(A, B, opts))
+    finally:
+        ig.tournament_perm, ig._keep_best, ig.lu_select = (
+            tournament, keep_best, select)
+    k4 = sorted((e for e in kernels if "lu_select" in e.name),
+                key=lambda e: e.time_range.start)
+    split = {"launches": len(rounds), "device_events": len(k4)}
+    if len(k4) == len(rounds):
+        for kind in ("round1", "reduction"):
+            split[f"{kind}_launches"] = rounds.count(kind)
+            split[f"{kind}_ms"] = 1e-3 * sum(
+                e.time_range.elapsed_us()
+                for e, r in zip(k4, rounds) if r == kind)
+    else:
+        split["split"] = "not measured: the profile lost K4 events"
+    emit({"phase": "trace_k4_rounds", "of": "gesv CALU", **split})
 
 
 # ---- the serving slice: K6, K7, K8 and serve.Server -----------------------
@@ -1035,20 +1109,22 @@ def check_serve_kernels(gen, edge_gen) -> dict:
     and bf16: kernel vs plain version (f32: ATOL + RTOL |plain|; bf16:
     ATOL + 2^-7 |plain|, one bf16 ulp at the store), dead tiles and filler
     slots bit-equal to the input, and the bound counted on live tiles.
-    Every K6 check also repeats the launch bit for bit, runs each problem
-    alone against its bits in the batch, and prints its plan (split,
-    waves, each launch's device time); its library composition factors
-    with ``cholesky_ex`` (no host sync), ``cholesky``'s time beside it."""
+    Every K6 and K7 check also repeats the launch bit for bit, runs each
+    problem alone against its bits in the batch, and prints its plan
+    (split, waves, each of its three launches' device time); K6's library
+    composition factors with ``cholesky_ex`` (no host sync),
+    ``cholesky``'s time beside it."""
     from slate_tpu_torch.internal import chol_kernels as ck
     from slate_tpu_torch.internal import lu_kernels as lk
     from slate_tpu_torch.internal import qr_kernels as qk
     rows = {}
     nb = SERVE_NB
-    for name, chol, kern, plain in (
+    for name, chol, kern, plain, plan_of in (
             ("chol_panel_batched", True, ck.chol_panel_batched,
-             ck.chol_panel_batched_plain),
+             ck.chol_panel_batched_plain, ck.batched_panel_plan),
             ("lu_panel_batched", False, lk.lu_panel_batched,
-             lk.lu_panel_batched_plain)):
+             lk.lu_panel_batched_plain, lk.batched_panel_plan)):
+        tag = "k6" if chol else "k7"
         for k in (0, 16):
             tiles = torch.tensor(SERVE_TILES[k], dtype=torch.int32,
                                  device="cuda")
@@ -1081,11 +1157,9 @@ def check_serve_kernels(gen, edge_gen) -> dict:
                                 + sum(1 for mb in live_m if mb) * kk * nb)
                 wrapper_ms = time_ms(lambda: kern(col, left, lead, tiles, k,
                                                   8), 10)
-                # K6's row: its own launches' device time (K7's: the
-                # wrapper's time by events, as before)
-                times = (k6_launch_times(lambda: kern(col, left, lead, tiles,
-                                                      k, 8))
-                         if chol else {})
+                # the row's time: its own launches' device time
+                times = step_launch_times(
+                    name, tag, lambda: kern(col, left, lead, tiles, k, 8))
                 row = check(
                     name, {"B": SERVE_B, "M": SERVE_M, "nb": nb, "K": kk,
                            "bw": 8, "dtype": str(dtype)[6:],
@@ -1095,7 +1169,7 @@ def check_serve_kernels(gen, edge_gen) -> dict:
                     "order, tile factors on blocks with cond <= ~5; bf16: "
                     "the same f32 values, then each store rounds to bf16, "
                     "so one bf16 ulp (2^-7 relative) apart at most",
-                    times["k6_own_ms"] if chol else wrapper_ms,
+                    times[f"{tag}_own_ms"],
                     time_ms(lambda: plain(col, left, lead, tiles, k, 8), 1,
                             warmup=1),
                     time_ms(library, 10) if f32 else None, flops, nbytes,
@@ -1109,9 +1183,9 @@ def check_serve_kernels(gen, edge_gen) -> dict:
                 if not dead_equal:
                     raise AssertionError(f"{name} k={k} {dtype}: a dead "
                                          f"tile is not col's bits")
-                if chol:
-                    check_k6_plan(row, times, wrapper_ms, got, col, left,
-                                  lead, tiles, k, library if f32 else None)
+                check_step_plan(name, kern, plan_of, row, times, wrapper_ms,
+                                got, col, left, lead, tiles, k,
+                                library if f32 else None, chol)
                 if f32 and k:
                     rows[name] = row
     # (B, mm, rows): the main path's largest panel and a smaller one with a
@@ -1195,45 +1269,44 @@ def check_serve_kernels(gen, edge_gen) -> dict:
     return rows
 
 
-def check_k6_plan(row, times, wrapper_ms, got, col, left, lead, tiles, k,
-                  library) -> None:
-    """K6's ``chol_panel_batched_plan`` line: the split and the waves its
-    update launch took, the device time of each of its launches, two
-    launches bit for bit, and each problem alone bit-equal to its slot in
-    the batch (the split is a function of K, nb and the card, never of the
-    batch); the library composition with ``cholesky`` beside the one with
-    ``cholesky_ex`` (``library`` None on bf16)."""
-    from slate_tpu_torch.internal import chol_kernels as ck
-    plan = ck.batched_panel_plan(col, left, lead)
-    again = ck.chol_panel_batched(col, left, lead, tiles, k, 8)
+def check_step_plan(name, kern, plan_of, row, times, wrapper_ms, got, col,
+                    left, lead, tiles, k, library, chol) -> None:
+    """K6's or K7's ``{name}_plan`` line: the split and the waves its update
+    launch took, the device time of each of its launches, two launches
+    bit for bit, and each problem alone bit-equal to its slot in the batch
+    (the split is a function of K, nb and the card, never of the batch);
+    the library composition's device time and, for K6, its time with
+    ``cholesky`` beside the one with ``cholesky_ex`` (``library`` None on
+    bf16)."""
+    plan = plan_of(col, left, lead)
+    again = kern(col, left, lead, tiles, k, 8)
     repeatable = all(torch.equal(bits(g), bits(h))
                      for g, h in zip(got, again))
-    alone = [ck.chol_panel_batched(col[b:b + 1], left[b:b + 1],
-                                   lead[b:b + 1], tiles[b:b + 1], k, 8)
-             for b in range(col.shape[0])]
+    alone = [kern(col[b:b + 1], left[b:b + 1], lead[b:b + 1],
+                  tiles[b:b + 1], k, 8) for b in range(col.shape[0])]
     invariant = all(torch.equal(bits(g[b]), bits(one[i][0]))
                     for b, one in enumerate(alone)
                     for i, g in enumerate(got))
     extra = {}
     if library is not None:
-        extra = {"library_cholesky_ms": time_ms(
-                     lambda: library(torch.linalg.cholesky), 10),
-                 "library_device_ms": sum(device_ms(library).values())}
+        if chol:
+            extra["library_cholesky_ms"] = time_ms(
+                lambda: library(torch.linalg.cholesky), 10)
+        extra["library_device_ms"] = sum(device_ms(library).values())
     row.update(times, plan=plan, wrapper_ms=wrapper_ms,
                bitwise_repeatable=repeatable, batch_invariant=invariant,
                **extra)
-    emit({"phase": "chol_panel_batched_plan", "B": col.shape[0],
+    emit({"phase": f"{name}_plan", "B": col.shape[0],
           "M": col.shape[1], "K": left.shape[2], "dtype": str(col.dtype)[6:],
           **plan, **times, "wrapper_ms": wrapper_ms,
           "library_ms": row["library_ms"], **extra,
           "bitwise_repeatable": repeatable, "batch_invariant": invariant})
     if not repeatable:
-        raise AssertionError(f"chol_panel_batched k={k} {col.dtype}: two "
-                             f"launches on the same input differ")
+        raise AssertionError(f"{name} k={k} {col.dtype}: two launches on "
+                             f"the same input differ")
     if not invariant:
-        raise AssertionError(f"chol_panel_batched k={k} {col.dtype}: a "
-                             f"problem alone differs from its bits in the "
-                             f"batch")
+        raise AssertionError(f"{name} k={k} {col.dtype}: a problem alone "
+                             f"differs from its bits in the batch")
 
 
 def serve_requests(gen, nrhs: int = SERVE_NRHS):
@@ -1311,8 +1384,8 @@ def serve_accuracy(reqs, results) -> dict:
 def expected_serve_launches(records) -> dict:
     """K6, K7 and K8 launches of the ragged route, replayed from the batches
     the server ran: a chol_solve (solve) batch of bucket n runs one K6 (K7)
-    step a block column, with nb = min(128, n): K6 3 n / nb - 1 launches
-    (update, factor, solve; the last step no solve), K7 2 n / nb - 1; a
+    step a block column, with nb = min(128, n): 3 n / nb - 1 launches
+    (update, factor, solve; the last step no solve) each; a
     least-squares batch of bucket (mb, n, kb) one K8 launch a panel, n / w
     with w = min(128, n).  Each escalated least-squares problem's safe
     rung, Householder QR of its (mb, n) bucket in tiles of min(n, 128),
@@ -1329,7 +1402,7 @@ def expected_serve_launches(records) -> dict:
         elif r["op"] == "chol_solve":
             want["chol_panel_batched"] += 3 * (n // nb) - 1
         else:
-            want["lu_panel_batched"] += 2 * (n // nb) - 1
+            want["lu_panel_batched"] += 3 * (n // nb) - 1
     return want
 
 
@@ -1657,7 +1730,9 @@ def main(argv=None) -> int:
     # K1's tiles at n = 32 and 96 and its indefinite tile: a sixth
     rows = check_kernels(gen, torch.Generator(device="cuda").manual_seed(
         args.seed + 5))
-    rows.update(check_lu_kernels(gen))
+    # K4's tie chunk: a seventh generator
+    rows.update(check_lu_kernels(gen, torch.Generator(
+        device="cuda").manual_seed(args.seed + 6)))
     # the cluster edges of K5 and K8 draw from a generator of their own, so that the QR and serving phases keep their matrices
     edge_gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
     rows.update(check_qr_kernels(qr_gen, edge_gen))
@@ -2000,6 +2075,7 @@ def main(argv=None) -> int:
                      **{k: r[k] for k in ("cluster", "bitwise_repeatable",
                                           "batch_invariant", "plan",
                                           "k2_launch_ms", "k6_launch_ms",
+                                          "k7_launch_ms",
                                           "k0_ms", "wrapper_ms",
                                           "library_cholesky_ms",
                                           "library_device_ms")

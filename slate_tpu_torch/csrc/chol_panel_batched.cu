@@ -3,55 +3,13 @@
 // :286, kernel _chol_panel_batched_kernel at :197): K2's step (chol_panel.cu)
 // over a batch of problems, each computing only its own live row tiles.
 //
-//   col  [B, M, nb]  A[:, k0:, k0:k0+nb]     left [B, M, K]  A[:, k0:, :k0]
-//   lead [B, K, nb]  A[:, k0:k0+nb, :k0]^T   (f32 or bf16, any strides)
-//   tiles [B] int32  live tile counts: row tile i (nb rows) of problem b is
-//                    live iff k + i < tiles[b], so rows r < live_m(b) =
-//                    clamp((tiles[b] - k) nb, 0, M) are live
-//   upd  [B, M, nb]  col - left @ lead, the pre-factor panel (storage)
-//   fac  [B, M, nb]  row tile 0 factored (L00, zero above its diagonal), the
-//                    live rows below it upd @ U^-1, U = L00^T
-//   work [B, M, nb]  f32 scratch: upd before its rounding (upd itself on f32
-//                    storage), which the factor and the solve read
-//   uinv [B, nb, nb] f32 scratch: U^-1 of each live problem
-//
-// A dead row is copied from col into upd and fac bit for bit and reads no
-// left: identity-augmented packing makes the input its own factor there.
-// Storage is f32 or bf16, a launch argument; loads widen to f32, every sum,
-// the factor and the solve run in f32 (on work, never on the rounded upd),
-// and only the stores to upd and fac round (storage.cuh), as the plain
-// version does.
-//
-// The hazard: the Pallas grid runs (b, i, j) in order, carrying the K-sum in
-// one VMEM scratch and U^-1 from row tile 0 to the later tiles in another.
-// CUDA blocks run in no order, so the step is three launches on one stream,
-// work and U^-1 handed over in global memory:
-//   (a) chol_panel_batched_update: grid (S, ceil(M / 128), B), a cluster of
-//       S CTAs per (128-row tile, problem), tile 0 included: K2's tiled
-//       product (panel_gemm.cuh: 128 x 128 tiles, a 16 x 8 register tile a
-//       thread, a 3-deep cp.async ring on f32 storage, plain widening loads
-//       on bf16; a width nb < 128 masks the columns past it), the K loop
-//       split over the cluster and the partial tiles added in rank order;
-//       writes upd, work, and the dead rows of upd and fac;
-//   (b) chol_panel_batched_factor: one block of 512 threads per problem
-//       whose tile 0 is live: L00 by K1's blocked factor (chol_factor.cuh)
-//       into fac, then, when M > nb, U^-1 by K0's blocked doubling
-//       (tri_inv.cuh) into uinv;
-//   (c) chol_panel_batched_solve (M > nb): grid (ceil((M - nb) / 128), B),
-//       fac = work rows @ U^-1 over every live 128-row tile below tile 0,
-//       the same tiled product at K = nb.
-// A step is three launches when M > nb and two (update, factor) when
-// M == nb. Liveness is read on the device from tiles; the host never reads
-// it back.
-//
-// The split S is a function of K and the device alone, never of B, of
-// tiles or of timing: S = ceil(slices / BP_SLICES), at most 16, slices the
-// 32-deep K slices, so that no CTA sums more than BP_SLICES slices (smaller
-// where the card holds no cluster of S). K2's model counts the waves of one
-// problem's row tiles and would split a batch of B problems B times too
-// finely; here the grid holds live tiles x S CTAs of at most 8 slices each,
-// which the block scheduler spreads over the card whatever the batch and
-// its liveness, and a problem's bits do not depend on its batch.
+// The step's contract, its update launch (a) and solve launch (c) are
+// batched_step.cuh's, shared with K7 (lu_panel_batched.cu); lead is
+// A[:, k0:k0+nb, :k0]^T and fac's tile 0 is L00, zero above its diagonal.
+// This file holds K6's factor launch (b): one block of 512 threads per
+// problem whose tile 0 is live, L00 by K1's blocked factor (chol_factor.cuh)
+// into fac, then, when M > nb, U^-1 = (L00^T)^-1 by K0's blocked doubling
+// (tri_inv.cuh) into uinv.
 //
 // Bound on this card: per live problem, 2 live_m K nb flops of the update,
 // nb^3/3 of the factor, nb^3/3 of U^-1 and 2 (live_m - nb) nb^2 of the
@@ -59,173 +17,15 @@
 // and of upd and fac written once (dead rows: a copy). With K >= nb it is
 // bound by f32 operations, FFMA on the CUDA cores (the reference asks for
 // Precision.HIGHEST, so never TF32): at most 67 TFLOP/s.
-#include <cooperative_groups.h>
-
-#include <cstdint>
-
+#include "batched_step.cuh"
 #include "chol_factor.cuh"
 #include "common.cuh"
-#include "panel_gemm.cuh"
-#include "storage.cuh"
 #include "tri_inv.cuh"
 
-namespace cg = cooperative_groups;
-
-using bf16_t = __nv_bfloat16;
-
-constexpr int BP_MAX_SPLIT = 16;     // the largest (non-portable) cluster
-constexpr int BP_SLICES = 8;         // K slices a CTA sums at most
-constexpr int BP_FACTOR_THREADS = 512;
-
-// One operand of a problem: element (r, c) of problem b at
-// p[b * sb + r * s0 + c * s1], f32 or bf16 as the step's storage.
-struct Operand {
-  const void* p;
-  long long sb, s0, s1;
-};
-
-// The storage type and the width are launch arguments, not template
-// parameters: the library holds one kernel of each launch for every
-// storage and width.
-struct Step {
-  Operand col, left, lead;
-  int bf16;                  // storage: 0 f32, 1 bf16
-  int fast_left, fast_lead;  // f32 operands staged by cp.async
-  const int* tiles;
-  int k, K, M, nb, slices;
-  void* upd;    // [B, M, nb] row-major, storage
-  void* fac;    // [B, M, nb] row-major, storage
-  float* work;  // [B, M, nb] row-major; == upd on f32 storage
-  float* uinv;  // [B, nb, nb] row-major; null when M == nb
-};
-
-// Element i of storage p, widened to f32.
-__device__ inline float load_f32(const void* p, long long i, int bf16) {
-  return bf16 ? to_f32(static_cast<const bf16_t*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-// Element i of storage p = v, rounded to bf16 on bf16 storage.
-__device__ inline void store_f32(void* p, long long i, float v, int bf16) {
-  if (bf16) {
-    static_cast<bf16_t*>(p)[i] = from_f32<bf16_t>(v);
-  } else {
-    static_cast<float*>(p)[i] = v;
-  }
-}
-
-// dst[di] = src[si], bit for bit.
-__device__ inline void copy_element(void* dst, long long di, const void* src,
-                                    long long si, int bf16) {
-  if (bf16) {
-    copy_bits(static_cast<bf16_t*>(dst) + di,
-              static_cast<const bf16_t*>(src) + si);
-  } else {
-    copy_bits(static_cast<float*>(dst) + di,
-              static_cast<const float*>(src) + si);
-  }
-}
-
-// Rows of problem b that are live: clamp((tiles[b] - k) nb, 0, M).
-__device__ inline long long live_rows(const Step& a, int b) {
-  const long long m = (long long)(a.tiles[b] - a.k) * a.nb;
-  return m < 0 ? 0 : (m > a.M ? a.M : m);
-}
-
-// The CTA tile of the update and the solve: 128 rows x 128 columns, a
-// 16 x 8 register tile a thread (panel_gemm.cuh). A panel of width nb < 128
-// takes the same kernels with the columns past nb read as 0 and never
-// stored.
-constexpr int BP_NB = 128;
-using BPG = PanelGemm<BP_NB>;
-
-// (a): upd and work for the live rows of the 128-row tile blockIdx.y of
-// problem blockIdx.z, K split over the cluster; col's bits into upd and
-// fac for its dead rows.
 __global__ void __launch_bounds__(BPG::THREADS, 2)
 chol_panel_batched_update(Step a) {
   extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int b = blockIdx.z, nb = a.nb;
-  const long long row0 = (long long)blockIdx.y * PG_BM;
-  const int span = (int)min((long long)PG_BM, a.M - row0);
-  const long long live = live_rows(a, b) - row0;
-  const int rows = (int)(live < 0 ? 0 : (live > span ? span : live));
-  const long long col0 = b * a.col.sb + row0 * a.col.s0;
-  const long long out0 = ((long long)b * a.M + row0) * nb;
-  // the dead rows rows .. span-1, shared out over the cluster
-  for (int idx = rows * nb + rank * BPG::THREADS + (int)threadIdx.x;
-       idx < span * nb; idx += S * BPG::THREADS) {
-    const long long src = col0 + (idx / nb) * a.col.s0 + (idx % nb) * a.col.s1;
-    copy_element(a.upd, out0 + idx, a.col.p, src, a.bf16);
-    copy_element(a.fac, out0 + idx, a.col.p, src, a.bf16);
-  }
-  if (rows == 0) return;  // the whole cluster: no cluster barrier follows
-  int tx, ty;
-  pg_thread<BP_NB>(tx, ty);
-  float acc[PG_RM][8] = {};
-  const long long kspan = (long long)a.slices * PG_KC;
-  const int kb = (int)min((long long)a.K, rank * kspan);
-  const int ke = (int)min((long long)a.K, kb + kspan);
-  const long long left0 = b * a.left.sb + row0 * a.left.s0;
-  const long long lead0 = b * a.lead.sb;
-  pg_pipeline<BP_NB>(
-      acc, pg_slices(kb, ke),
-      [&](int s, float* As) {
-        if (a.bf16) {
-          pg_stage_slice<BP_NB>(
-              As, s, static_cast<const bf16_t*>(a.left.p) + left0, a.left.s0,
-              a.left.s1, rows, false,
-              static_cast<const bf16_t*>(a.lead.p) + lead0, a.lead.s0,
-              a.lead.s1, nb, false, kb, ke);
-        } else {
-          pg_stage_slice<BP_NB>(
-              As, s, static_cast<const float*>(a.left.p) + left0, a.left.s0,
-              a.left.s1, rows, a.fast_left,
-              static_cast<const float*>(a.lead.p) + lead0, a.lead.s0,
-              a.lead.s1, nb, a.fast_lead, kb, ke);
-        }
-      },
-      smem, tx, ty);
-  if (S == 1) {
-#pragma unroll
-    for (int i = 0; i < PG_RM; ++i) {
-      const int r = ty + BPG::TY * i;
-      if (r >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tx + BPG::TX * j;
-        if (c >= nb) continue;
-        const float v =
-            load_f32(a.col.p, col0 + r * a.col.s0 + c * a.col.s1, a.bf16) -
-            acc[i][j];
-        store_f32(a.upd, out0 + r * nb + c, v, a.bf16);
-        if (a.bf16) a.work[out0 + r * nb + c] = v;
-      }
-    }
-  } else {
-    pg_cluster_sum<BP_NB>(acc, smem, rows, tx, ty,
-                          [&](int r, int c, float4 s) {
-      if (c >= nb) return;
-      const long long x = col0 + r * a.col.s0 + c * a.col.s1;
-      float4 v;
-      v.x = load_f32(a.col.p, x, a.bf16) - s.x;
-      v.y = load_f32(a.col.p, x + a.col.s1, a.bf16) - s.y;
-      v.z = load_f32(a.col.p, x + 2 * a.col.s1, a.bf16) - s.z;
-      v.w = load_f32(a.col.p, x + 3 * a.col.s1, a.bf16) - s.w;
-      const long long o = out0 + r * nb + c;
-      if (a.bf16) {
-        store_f32(a.upd, o, v.x, 1);
-        store_f32(a.upd, o + 1, v.y, 1);
-        store_f32(a.upd, o + 2, v.z, 1);
-        store_f32(a.upd, o + 3, v.w, 1);
-        *reinterpret_cast<float4*>(a.work + o) = v;
-      } else {
-        *reinterpret_cast<float4*>(static_cast<float*>(a.upd) + o) = v;
-      }
-    });
-  }
+  batched_update(a, smem);
 }
 
 // Shared memory of the factor launch: L (and U above its diagonal), U^-1
@@ -276,103 +76,10 @@ chol_panel_batched_factor(Step a) {
   }
 }
 
-// (c): fac rows nb + 128 blockIdx.x .. of problem blockIdx.y = work rows @
-// U^-1, live rows only (launch (a) wrote the dead ones).
 __global__ void __launch_bounds__(BPG::THREADS)
 chol_panel_batched_solve(Step a) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y, nb = a.nb;
-  const long long row0 = nb + (long long)blockIdx.x * PG_BM;
-  const long long live = live_rows(a, b) - row0;
-  if (live <= 0) return;
-  const int rows = (int)(live < PG_BM ? live : PG_BM);
-  const long long out0 = ((long long)b * a.M + row0) * nb;
-  int tx, ty;
-  pg_thread<BP_NB>(tx, ty);
-  float acc[PG_RM][8] = {};
-  // A = work rows (unit-stride along K, 16-byte aligned rows); B(k, c) =
-  // uinv[k * nb + c] is unit-stride along c, so it takes the plain loads
-  const float* w = a.work + out0;
-  const float* uinv = a.uinv + (long long)b * nb * nb;
-  pg_pipeline<BP_NB>(
-      acc, pg_slices(0, nb),
-      [&](int s, float* As) {
-        pg_stage_slice<BP_NB>(As, s, w, nb, 1, rows, true, uinv, nb, 1, nb,
-                              false, 0, nb);
-      },
-      smem, tx, ty);
-#pragma unroll
-  for (int i = 0; i < PG_RM; ++i) {
-    const int r = ty + BPG::TY * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tx + BPG::TX * j;
-      if (c < nb) store_f32(a.fac, out0 + r * nb + c, acc[i][j], a.bf16);
-    }
-  }
-}
-
-constexpr size_t update_smem_bytes() {
-  constexpr size_t ring = BPG::SMEM_FLOATS;
-  constexpr size_t partial = (size_t)PG_BM * pg_partial_ld<BP_NB>();
-  return sizeof(float) * (ring > partial ? ring : partial);
-}
-
-// 1 when an f32 operand with these strides stages by cp.async: unit-stride
-// along K, the row and batch strides multiples of 4 floats, the base
-// 16-byte aligned.
-static int staged_by_copy(int bf16, const void* p, long long stride_b,
-                          long long stride_k, long long stride_other) {
-  return !bf16 && stride_k == 1 && stride_other % 4 == 0 &&
-         stride_b % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// Opt the update kernel into its shared memory and into clusters of more
-// than 8, and choose the split *split for K: S = ceil(slices / BP_SLICES)
-// in 1 .. 16, lowered while the card holds no cluster of S; *slices = K
-// slices a CTA, *resident = clusters of S the card holds at once.
-static int prepare_update(int device, int K, int* split, int* slices,
-                          int* resident) {
-  constexpr size_t smem = update_smem_bytes();
-  SLATE_SET_SMEM(chol_panel_batched_update, smem);
-  SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(
-      chol_panel_batched_update,
-      cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-  const int total = (K + PG_KC - 1) / PG_KC;
-  int s = (total + BP_SLICES - 1) / BP_SLICES;
-  s = s < 1 ? 1 : (s > BP_MAX_SPLIT ? BP_MAX_SPLIT : s);
-  for (;; --s) {
-    SLATE_RETURN_IF_ERROR(active_clusters(chol_panel_batched_update, device,
-                                          s, BPG::THREADS, (int)smem,
-                                          resident));
-    if (*resident > 0 || s == 1) break;
-  }
-  *split = s;
-  *slices = (total + s - 1) / s;
-  return 0;
-}
-
-static int launch_update(int device, cudaStream_t stream, int B, Step a) {
-  int split = 1, resident = 0;
-  const int e = prepare_update(device, a.K, &split, &a.slices, &resident);
-  if (e != 0) return e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(split, (a.M + PG_BM - 1) / PG_BM, B);
-  cfg.blockDim = dim3(BPG::THREADS, 1, 1);
-  cfg.dynamicSmemBytes = update_smem_bytes();
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, chol_panel_batched_update, a);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  batched_solve(a, smem);
 }
 
 static int launch_factor(cudaStream_t stream, int B, const Step& a) {
@@ -381,20 +88,6 @@ static int launch_factor(cudaStream_t stream, int B, const Step& a) {
   chol_panel_batched_factor<<<B, BP_FACTOR_THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
-
-static int launch_solve(cudaStream_t stream, int B, const Step& a) {
-  constexpr size_t smem = sizeof(float) * BPG::SMEM_FLOATS;
-  SLATE_SET_SMEM(chol_panel_batched_solve, smem);
-  const dim3 grid((a.M - a.nb + PG_BM - 1) / PG_BM, B);
-  chol_panel_batched_solve<<<grid, BPG::THREADS, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-static bool shape_ok(int nb) {
-  return nb == 32 || nb == 64 || nb == 96 || nb == 128;
-}
-
-enum Launch { UPDATE = 0, FACTOR = 1, SOLVE = 2 };
 
 // *fits = 1 when a panel of width nb at slab width bw fits: nb in {32, 64,
 // 96, 128} (at most the 128 columns of a CTA's tile, whole 32-column blocks
@@ -405,55 +98,44 @@ extern "C" int slate_chol_panel_batched_fits(int device, int nb, int bw,
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  *fits = shape_ok(nb) && bw >= 1 && nb % bw == 0 &&
+  *fits = step_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
           factor_smem_bytes(nb) <= (size_t)limit;
   return 0;
 }
 
 // One launch of the step: which = 0 the update (a), 1 the factor (b), 2 the
 // solve (c, M > nb). bf16 is 0 for f32 storage, 1 for bf16; strides in
-// elements; work is upd on f32 storage; uinv is null when M == nb. Past
-// the shape limits the launch is refused with an error code.
+// elements; bw is K7's and unused here; work is upd on f32 storage; uinv is
+// null when M == nb. Past the shape limits the launch is refused with an
+// error code.
 extern "C" int slate_chol_panel_batched(
     int device, void* stream, int which, int bf16, const void* col,
     long long cb, long long cs0, long long cs1, const void* left, long long lb,
     long long ls0, long long ls1, const void* lead, long long db,
     long long ds0, long long ds1, const int* tiles, int B, int k, int K, int M,
-    int nb, void* upd, void* fac, float* work, float* uinv) {
+    int nb, int bw, void* upd, void* fac, float* work, float* uinv) {
   SLATE_SET_DEVICE(device);
-  if (!shape_ok(nb) || B < 1 || M < nb || M % nb || which < UPDATE ||
-      which > SOLVE || (which == SOLVE && M == nb) ||
-      (uinv == nullptr) != (M == nb)) {
+  if (!step_args_ok(which, B, M, nb, uinv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Step a{{col, cb, cs0, cs1},
-               {left, lb, ls0, ls1},
-               {lead, db, ds0, ds1},
-               bf16,
-               staged_by_copy(bf16, left, lb, ls1, ls0),
-               staged_by_copy(bf16, lead, db, ds0, ds1),
-               tiles, k, K, M, nb, 0, upd, fac, work, uinv};
+  const Step a = make_step(bf16, col, cb, cs0, cs1, left, lb, ls0, ls1, lead,
+                           db, ds0, ds1, tiles, k, K, M, nb, bw, upd, fac,
+                           work, uinv);
   switch (which) {
-    case UPDATE: return launch_update(device, s, B, a);
+    case UPDATE: return launch_update(chol_panel_batched_update, device, s, B,
+                                      a);
     case FACTOR: return launch_factor(s, B, a);
-    default: return launch_solve(s, B, a);
+    default: return launch_solve(chol_panel_batched_solve, s, B, a);
   }
 }
 
-// What the update launch takes for this step on this device: *split = the
-// CTAs of a (row tile, problem)'s cluster (the K split, from K and the
-// device alone), *resident = clusters of that size the card holds at once,
-// *staging = 1 when left stages by cp.async, plus 2 when lead does (else
-// each takes the plain widening loads).
+// What the update launch takes for this step on this device
+// (batched_step.cuh step_plan).
 extern "C" int slate_chol_panel_batched_plan(
     int device, int bf16, int K, int nb, const void* left, long long lb,
     long long ls0, long long ls1, const void* lead, long long db,
     long long ds0, long long ds1, int* split, int* resident, int* staging) {
-  SLATE_SET_DEVICE(device);
-  if (!shape_ok(nb)) return static_cast<int>(cudaErrorInvalidValue);
-  *staging = staged_by_copy(bf16, left, lb, ls1, ls0) +
-             2 * staged_by_copy(bf16, lead, db, ds0, ds1);
-  int slices = 0;
-  return prepare_update(device, K, split, &slices, resident);
+  return step_plan(chol_panel_batched_update, device, bf16, K, nb, left, lb,
+                   ls0, ls1, lead, db, ds0, ds1, split, resident, staging);
 }

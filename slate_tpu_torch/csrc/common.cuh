@@ -1,6 +1,7 @@
 // Shared by every kernel source of slate_tpu_torch: the C entry point that
 // turns an error code into text, the launch prologue, and the count of
-// thread-block clusters a kernel can hold resident (K2, K5, K6 and K8).
+// thread-block clusters a kernel can hold resident (K2, K4, K5, K6, K7 and
+// K8).
 //
 // Each source is built alone into a shared library with a plain C interface
 // (slate_tpu_torch/internal/kernels.py). Every entry point takes the device
@@ -40,17 +41,16 @@ extern "C" const char* slate_cuda_error_string(int e) {
 
 // *n = how many clusters of c CTAs of the kernel (threads a CTA, smem bytes
 // of dynamic shared memory) the card holds at once, as
-// cudaOccupancyMaxActiveClusters counts, cached per (kernel, device, c): a
-// kernel's callers launch it with one block size and shared memory, so
-// those are no part of the key. A size the card does not support at all
-// counts as 0 clusters; any other error is returned.
+// cudaOccupancyMaxActiveClusters counts, cached per (kernel, device, c,
+// threads, smem). A size the card does not support at all counts as 0
+// clusters; any other error is returned.
 template <class Kernel>
 cudaError_t active_clusters(Kernel kernel, int device, int c, int threads,
                             int smem, int* n) {
   static std::mutex lock;
-  static std::map<std::tuple<const void*, int, int>, int> cache;
+  static std::map<std::tuple<const void*, int, int, int, int>, int> cache;
   const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel),
-                                   device, c);
+                                   device, c, threads, smem);
   {
     std::lock_guard<std::mutex> g(lock);
     const auto it = cache.find(key);

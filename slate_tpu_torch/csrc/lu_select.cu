@@ -7,223 +7,377 @@
 //          while a live row is left
 //   piv    [G, nb] int64: chunk g's nb partial-pivot rows in elimination
 //          order; on input without ties, lax.linalg.lu's perm[:nb]
-//   ws     [G, W, nb] f32 scratch: each chunk as its elimination updates it
 //
 // The reference vmaps one pallas_call over a round's row blocks; here one
-// launch takes the whole round, one block of 1024 threads per chunk.
+// launch takes the whole round, one thread-block cluster per chunk.
 //
 // What differs from the TPU: the reference holds a whole chunk (up to 4096
 // rows of 128, 2 MB) transposed in VMEM. No block's 227 KB of shared memory
-// holds that, so the chunk lives in global memory (ws; a round's chunks of
-// a gesv at n = 20480 are at most 10 MB, which stays in the 50 MB L2) and
-// only the current slab of bw columns, W x bw floats, sits in shared
-// memory; that slab is the kernel's only limit on W (about 6100 rows at
-// bw = 8). Chosen rows are masked, not swapped, as in the reference; its
-// deferred (I + N)^-1 trailing update is a Mosaic idiom, replaced here by
-// the plain right-looking update.
+// holds that, so a chunk's rows are split evenly over a cluster of C CTAs
+// (grid (C, G)), and each CTA keeps its ceil(W / C) rows at the odd stride
+// nb | 1 in its shared memory for the whole launch (165 KB at W = 5120, C =
+// 16). C depends on W, nb, bw and the device alone: the smallest power of
+// two <= 16 whose rows and scratch fit the opt-in limit (W = 256: one CTA,
+// block barriers only; W = 512: two; W = 4096 and 5120: sixteen). Chosen
+// rows are masked, not swapped, as in the reference; its deferred
+// (I + N)^-1 trailing update is a Mosaic idiom, replaced here by the plain
+// right-looking update.
 //
-// Per slab of bw columns:
-//   (1) column by column: a block-wide argmax of |v| over the live rows, ties
-//       to the lowest row as jnp.argmax breaks them (a column with no live
-//       row left gives row 0, as the reference's argmax of all -1 does); the
-//       live rows' multipliers l = v / pivot (0 for a zero pivot) are stored
-//       in place and the slab's later columns updated; the pivot row dies;
-//   (2) the U rows of the slab's pivots over the trailing columns,
-//       u_i = ws[p_i] - sum_{k<i} l_k(p_i) u_k;
-//   (3) ws[r, trailing] -= sum_i l_i(r) u_i for every row still live.
-// The plain version (slate_tpu_torch/internal/lu_kernels.py lu_select_plain)
-// repeats these steps.
+// Thread t of a CTA owns its row r0 + t (ceil(W / C) <= 512 threads), and
+// the row's bw values of the current slab stay in its registers while the
+// slab's columns are chosen. Per slab of bw columns:
+//   (1) column by column: each CTA finds its candidate, the largest |v|
+//       over its live rows (ties to the lowest row, as jnp.argmax breaks
+//       them; dead rows lose to every live row, as the reference's -1 does)
+//       by two warp reductions (__reduce_max_sync of a key ordered as |v|,
+//       then __reduce_min_sync of the row) and one block barrier, and
+//       writes (key, row, the row's bw slab values) into slot `rank` of
+//       every CTA's exchange buffer through distributed shared memory; the
+//       buffer alternates by column parity, so one cluster barrier a column
+//       keeps the next column's writes off this column's reads. After the
+//       barrier every warp of every CTA combines the C candidates by two
+//       more warp reductions and gets the same winner, the lowest row among
+//       equal values (a column with no live row left gives row 0, as the
+//       reference's argmax of all -1 does). The CTA's candidate is formed
+//       by every warp from the warps' candidates, warp q writing it into
+//       CTA q; with one CTA (C = 1) it is the winner, and the block barrier
+//       is the column's only barrier. Each thread then forms its live
+//       row's multiplier l = v / pivot (0 for a zero pivot) and updates the
+//       row's later slab columns with the winner's slab values, in
+//       registers; the pivot row dies;
+//   (2) the rows' slab values go back to shared memory, and each CTA copies
+//       the slab's bw pivot rows' trailing columns from their owners
+//       through distributed shared memory (a pivot row is never written
+//       after it is chosen; its multipliers came with its winning slot) and
+//       forms the U rows over the trailing columns, u_i = a(p_i) -
+//       sum_{k<i} l_k(p_i) u_k;
+//   (3) a(r, trailing) -= sum_i l_i(r) u_i for every live row of the CTA.
+// A row's values change only by arithmetic on that row with the pivot
+// rows' values, in the order of the first (one-block) version of this
+// kernel and of the plain version (slate_tpu_torch/internal/lu_kernels.py
+// lu_select_plain); only the argmax crosses CTAs, and it is exact.
 //
 // Bound on this card: W nb^2 - nb^3/3 flops per chunk against 4 W nb bytes
 // read, ~nb / 4 = 32 flops a byte, above the f32 ridge (20): bound by
-// operations if the card were full. It is not: a round of G chunks fills G
-// of 132 SMs, and each column's argmax is a chain of block-wide barriers.
-// The passes over ws are bound by L2 latency, so each keeps several loads a
-// thread in flight (the trailing update: one warp two rows, four columns a
-// lane). Splitting a chunk over a thread-block cluster is the way to a
-// faster version.
-#include <cfloat>
+// operations if the card were full. What bounds the kernel is the chain of
+// nb dependent column steps: per column two warp reductions, one block
+// barrier (the CTA's candidate) and, for C > 1, one cluster barrier (the
+// exchange), with the chunk in shared memory and the slab in registers.
+// The slab's trailing update is the only pass over all the columns.
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
-constexpr int SEL_THREADS = 1024;
+namespace cg = cooperative_groups;
 
-static size_t select_smem_bytes(int W, int nb, int bw) {
-  return sizeof(float) * ((size_t)W * (bw + 1) + (size_t)bw * nb + 32) +
-         sizeof(int) * (32 + bw) + (size_t)W;
+constexpr int SEL_THREADS = 512;      // one row a thread at most
+constexpr int SEL_WARPS = SEL_THREADS / 32;
+constexpr int SEL_MAX_NB = 128;       // four columns a lane in (3)
+constexpr int SEL_MAX_BW = 8;         // a row's slab values in registers
+constexpr int SEL_MAX_CLUSTER = 16;   // the largest (non-portable) cluster
+constexpr int SEL_SLOT = SEL_MAX_BW + 2;  // a candidate: key, row, slab
+static_assert(SEL_MAX_CLUSTER <= SEL_WARPS, "warp q writes into CTA q");
+
+// Shared memory of a CTA holding `rows` rows: the exchange slots [2
+// parities][SEL_MAX_CLUSTER][SEL_SLOT]; the warps' candidates (key, row,
+// slab values), [2 parities][SEL_WARPS]; the slab's pivot rows, their slab
+// values as they won (PRs) and their trailing columns (PR [bw][nb]); the
+// rows themselves at stride nb | 1; then a live flag a row.
+static size_t select_smem_bytes(int rows, int nb, int bw) {
+  return sizeof(float) * (2 * SEL_MAX_CLUSTER * SEL_SLOT +
+                          2 * SEL_WARPS * (2 + SEL_MAX_BW) + SEL_MAX_BW +
+                          SEL_MAX_BW * SEL_MAX_BW + (size_t)bw * nb +
+                          (size_t)rows * (nb | 1)) +
+         (size_t)rows;
 }
 
-// (v, r) becomes the larger value; equal values keep the lower row
-__device__ inline void argmax_combine(float& v, int& r, float v2, int r2) {
-  if (v2 > v || (v2 == v && r2 < r)) {
-    v = v2;
-    r = r2;
-  }
+// A row's pivot key: a larger |v| has a larger key; a dead row 1 (it loses
+// to every live row, as the reference's -1 does); 0 for no row and for NaN,
+// which never wins a comparison. Ties go to the lower row.
+__device__ inline unsigned sel_key(float v, bool live) {
+  if (!live) return 1u;
+  const float a = fabsf(v);
+  return a == a ? __float_as_uint(a) + 2u : 0u;
+}
+
+// A barrier of the whole cluster (one CTA: the block's barrier).
+__device__ inline void sel_sync(const cg::cluster_group& cluster, int C) {
+  if (C > 1)
+    cluster.sync();
+  else
+    __syncthreads();
 }
 
 __global__ void __launch_bounds__(SEL_THREADS)
 lu_select_kernel(const float* __restrict__ chunks, long long cs0,
                  long long cs1, long long cs2, const int* __restrict__ nrows,
-                 int W, int nb, int bw, float* __restrict__ ws,
-                 long long* __restrict__ piv) {
+                 int W, int nb, int bw, long long* __restrict__ piv) {
   extern __shared__ float smem[];
-  const int ld = bw + 1;
-  float* S = smem;                          // W x ld: the slab
-  float* U = S + (size_t)W * ld;            // bw x nb: the slab's U rows
-  float* red_v = U + bw * nb;               // one maximum per warp
-  int* red_r = reinterpret_cast<int*>(red_v + 32);  // and its row
-  int* prow = red_r + 32;                   // the slab's pivot rows
-  unsigned char* live = reinterpret_cast<unsigned char*>(prow + bw);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const float* A = chunks + blockIdx.x * cs0;
-  float* Wg = ws + (size_t)blockIdx.x * W * nb;
-  long long* P = piv + (size_t)blockIdx.x * nb;
-  const int nlive = nrows[blockIdx.x];
-  const int nwarps = nthr / 32;
-  // the chunk into ws: one warp a row, each lane's (up to) four columns
-  // loaded before any is stored
-  for (int r = warp; r < W; r += nwarps) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ld = nb | 1, g = blockIdx.y;
+  // rows [r0, r1) of the chunk: an even split, so row p lives on rank p / per
+  const int per = (W + C - 1) / C;
+  const int r0 = min(W, rank * per), r1 = min(W, r0 + per), nr = r1 - r0;
+  float* xbuf = smem;                                     // [2][16][SLOT]
+  // the warps' candidates, [2][16] (key, row) and [2][16][8] slab values
+  unsigned* red =
+      reinterpret_cast<unsigned*>(xbuf + 2 * SEL_MAX_CLUSTER * SEL_SLOT);
+  float* red_vals = reinterpret_cast<float*>(red + 4 * SEL_WARPS);
+  int* prow = reinterpret_cast<int*>(red_vals + 2 * SEL_WARPS * SEL_MAX_BW);
+  float* PRs = reinterpret_cast<float*>(prow + SEL_MAX_BW);  // [8][8]
+  float* PR = PRs + SEL_MAX_BW * SEL_MAX_BW;               // [bw][nb]
+  float* S = PR + (size_t)bw * nb;                          // per x ld
+  unsigned char* live = reinterpret_cast<unsigned char*>(S + (size_t)per * ld);
+  const float* A = chunks + g * cs0;
+  long long* P = piv + (size_t)g * nb;
+  const int nlive = nrows[g];
+  // the CTA's rows into shared memory: one warp a row, a lane's (up to)
+  // four columns loaded before any is stored
+  for (int r = warp; r < nr; r += SEL_WARPS) {
+    const float* src = A + (long long)(r0 + r) * cs1;
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int c = lane + 32 * k;
-      if (c < nb) v[k] = A[r * cs1 + c * cs2];
+      if (c < nb) v[k] = src[c * cs2];
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int c = lane + 32 * k;
-      if (c < nb) Wg[(size_t)r * nb + c] = v[k];
+      if (c < nb) S[r * ld + c] = v[k];
     }
   }
-  for (int r = tid; r < W; r += nthr) live[r] = r < nlive;
-  __syncthreads();
+  // thread tid owns row r0 + tid (at most one: ceil(W / C) <= SEL_THREADS);
+  // its slab values live in registers while the slab's columns are chosen
+  const bool mine = tid < nr;
+  const unsigned myrow = r0 + tid;
+  bool alive = mine && (int)myrow < nlive;
+  float* srow = S + (size_t)tid * ld;
+  // every CTA of the cluster has started (and loaded its rows) before any
+  // writes into another's exchange buffer
+  sel_sync(cluster, C);
   for (int j0 = 0; j0 < nb; j0 += bw) {
-    // the slab into shared memory, four loads a thread in flight
-    for (int idx0 = tid; idx0 < W * bw; idx0 += 4 * nthr) {
+    float vals[SEL_MAX_BW];
+#pragma unroll
+    for (int t = 0; t < SEL_MAX_BW; ++t)
+      vals[t] = (mine && t < bw) ? srow[j0 + t] : 0.f;
+#pragma unroll
+    for (int i = 0; i < SEL_MAX_BW; ++i) {
+      if (i >= bw) break;
+      const int j = j0 + i;
+      float* slots = xbuf + (j & 1) * SEL_MAX_CLUSTER * SEL_SLOT;
+      // ---- (1) this CTA's candidate: the largest key, then the lowest row
+      const unsigned key = mine ? sel_key(vals[i], alive) : 0u;
+      const unsigned row = key ? myrow : (unsigned)W;
+      const unsigned wkey = __reduce_max_sync(0xffffffffu, key);
+      const unsigned wrow =
+          __reduce_min_sync(0xffffffffu, key == wkey ? row : 0xffffffffu);
+      // the warps' candidates alternate by column parity too: with one CTA
+      // every warp reads them after the one barrier of the column
+      unsigned* redp = red + (j & 1) * 2 * SEL_WARPS;
+      float* redv = red_vals + (j & 1) * SEL_WARPS * SEL_MAX_BW;
+      if (lane == 0) {
+        redp[2 * warp] = wkey;
+        redp[2 * warp + 1] = wrow;
+      }
+      if (key == wkey && row == wrow) {  // the warp's candidate row's owner
+#pragma unroll
+        for (int t = 0; t < SEL_MAX_BW; ++t)
+          if (t < bw) redv[warp * SEL_MAX_BW + t] = vals[t];
+      }
+      __syncthreads();
+      // every warp forms the CTA's candidate from the warps' (with one CTA
+      // it is the winner): the largest key, then the lowest row
+      const unsigned k = lane < SEL_WARPS ? redp[2 * lane] : 0u;
+      const unsigned r = lane < SEL_WARPS ? redp[2 * lane + 1] : 0xffffffffu;
+      const unsigned ck = __reduce_max_sync(0xffffffffu, k);
+      unsigned wr = __reduce_min_sync(0xffffffffu, k == ck ? r : 0xffffffffu);
+      const int cw = __ffs(__ballot_sync(
+                         0xffffffffu, lane < SEL_WARPS && k == ck && r == wr)) -
+                     1;
+      const float* pslab = redv + cw * SEL_MAX_BW;  // the winner's slab
+      if (C > 1) {
+        // warp q writes the candidate into slot `rank` of CTA q: key, row,
+        // the row's slab values (none when this CTA has no row)
+        if (warp < C && lane < bw + 2) {
+          float val = lane == 0 ? __uint_as_float(ck) : __uint_as_float(wr);
+          if (lane >= 2) val = wr < (unsigned)W ? pslab[lane - 2] : 0.f;
+          cluster.map_shared_rank(slots, warp)[rank * SEL_SLOT + lane] = val;
+        }
+        cluster.sync();
+        // the winner, the same on every CTA: the largest key over the C
+        // candidates, then the lowest row (rank order on equal rows)
+        const unsigned sk =
+            lane < C ? __float_as_uint(slots[lane * SEL_SLOT]) : 0u;
+        const unsigned sr =
+            lane < C ? __float_as_uint(slots[lane * SEL_SLOT + 1])
+                     : 0xffffffffu;
+        const unsigned gk = __reduce_max_sync(0xffffffffu, sk);
+        wr = __reduce_min_sync(0xffffffffu, sk == gk ? sr : 0xffffffffu);
+        const int wq = __ffs(__ballot_sync(0xffffffffu,
+                                           lane < C && sk == gk && sr == wr)) -
+                       1;
+        pslab = slots + wq * SEL_SLOT + 2;
+      }
+      float pv[SEL_MAX_BW];
+#pragma unroll
+      for (int t = 0; t < SEL_MAX_BW; ++t) pv[t] = t < bw ? pslab[t] : 0.f;
+      if (tid == 0) {
+        prow[i] = (int)wr;
+        if (rank == 0) P[j] = wr;
+      }
+      // the winner's slab values as they are now (multipliers before
+      // column i), for the slab's U rows
+      if (tid < bw) PRs[i * SEL_MAX_BW + tid] = pslab[tid];
+      // the multiplier and the slab's later columns of this thread's row
+      if (myrow == wr) {
+        alive = false;
+      } else if (alive) {
+        const float l = (pv[i] != 0.f) ? vals[i] / pv[i] : 0.f;
+        vals[i] = l;
+#pragma unroll
+        for (int t = i + 1; t < SEL_MAX_BW; ++t)
+          if (t < bw) vals[t] = fmaf(-l, pv[t], vals[t]);
+      }
+    }
+    const int j1 = j0 + bw;
+    if (j1 == nb) break;
+    const int m = nb - j1;
+    // ---- (2) the rows' slab values (multipliers of the live rows) back
+    // into shared memory, and the pivot rows' trailing columns from their
+    // owners (unchanged since the last slab's trailing update)
+    if (mine) {
+#pragma unroll
+      for (int t = 0; t < SEL_MAX_BW; ++t)
+        if (t < bw) srow[j0 + t] = vals[t];
+      live[tid] = alive;
+    }
+    __syncthreads();  // prow, PRs, the slab values and live flags
+    for (int i = warp; i < bw; i += SEL_WARPS) {
+      const int p = prow[i];
+      if (p >= W) continue;  // no row at all (every value NaN): unused
+      const int q = p / per;
+      const float* src =
+          cluster.map_shared_rank(S, q) + (size_t)(p - q * per) * ld + j1;
       float v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int idx = idx0 + k * nthr;
-        if (idx < W * bw) v[k] = Wg[(size_t)(idx / bw) * nb + j0 + idx % bw];
+        const int c = lane + 32 * k;
+        if (c < m) v[k] = src[c];
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int idx = idx0 + k * nthr;
-        if (idx < W * bw) S[(idx / bw) * ld + idx % bw] = v[k];
+        const int c = lane + 32 * k;
+        if (c < m) PR[i * nb + c] = v[k];
       }
     }
     __syncthreads();
-    for (int i = 0; i < bw; ++i) {
-      // (1) the pivot: each thread scans its rows in increasing order
-      float bv = -FLT_MAX;
-      int br = W;
-      for (int r = tid; r < W; r += nthr) {
-        const float v = live[r] ? fabsf(S[r * ld + i]) : -1.f;
-        if (v > bv) {
-          bv = v;
-          br = r;
+    // U over the trailing columns in registers, u_i = a(p_i) - sum_{k<i}
+    // l_k(p_i) u_k, lane's columns j1 + lane + 32 k: every warp forms the
+    // same bits
+    float u[SEL_MAX_BW][4];
+#pragma unroll
+    for (int i = 0; i < SEL_MAX_BW; ++i) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = lane + 32 * k;
+        float v = 0.f;
+        if (i < bw && c < m) {
+          v = PR[i * nb + c];
+#pragma unroll
+          for (int t = 0; t < i; ++t)
+            v = fmaf(-PRs[i * SEL_MAX_BW + t], u[t][k], v);
         }
+        u[i][k] = v;
       }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float v2 = __shfl_down_sync(0xffffffffu, bv, off);
-        const int r2 = __shfl_down_sync(0xffffffffu, br, off);
-        argmax_combine(bv, br, v2, r2);
-      }
-      if (lane == 0) {
-        red_v[warp] = bv;
-        red_r[warp] = br;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        bv = lane < nwarps ? red_v[lane] : -FLT_MAX;
-        br = lane < nwarps ? red_r[lane] : W;
-        for (int off = 16; off > 0; off >>= 1) {
-          const float v2 = __shfl_down_sync(0xffffffffu, bv, off);
-          const int r2 = __shfl_down_sync(0xffffffffu, br, off);
-          argmax_combine(bv, br, v2, r2);
-        }
-        if (lane == 0) {
-          prow[i] = br;
-          P[j0 + i] = br;
-        }
-      }
-      __syncthreads();
-      // multipliers and the slab's later columns, live rows only
-      const int p = prow[i];
-      const float pv = S[p * ld + i];
-      for (int r = tid; r < W; r += nthr) {
-        if (r == p) {
-          live[r] = 0;
-        } else if (live[r]) {
-          const float l = (pv != 0.f) ? S[r * ld + i] / pv : 0.f;
-          S[r * ld + i] = l;
-          for (int t = i + 1; t < bw; ++t) S[r * ld + t] -= l * S[p * ld + t];
-        }
-      }
-      __syncthreads();
     }
-    const int j1 = j0 + bw;
-    if (j1 < nb) {
-      const int m = nb - j1;
-      // (2) the U rows of the slab's pivots over columns j1 .. nb-1
-      for (int c = tid; c < m; c += nthr) {
-        for (int i = 0; i < bw; ++i) {
-          const int p = prow[i];
-          float u = Wg[(size_t)p * nb + j1 + c];
-          for (int k = 0; k < i; ++k) u -= S[p * ld + k] * U[k * nb + c];
-          U[i * nb + c] = u;
+    // ---- (3) the trailing update of the CTA's live rows: one warp a row
+    // (a dead row is skipped by the whole warp), lanes over the columns
+    for (int r = warp; r < nr; r += SEL_WARPS) {
+      if (!live[r]) continue;
+      float* row = S + (size_t)r * ld;
+      float l[SEL_MAX_BW];
+#pragma unroll
+      for (int i = 0; i < SEL_MAX_BW; ++i) l[i] = i < bw ? row[j0 + i] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = j1 + lane + 32 * k;
+        if (c < nb) {
+          float acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < SEL_MAX_BW; ++i)
+            if (i < bw) acc = fmaf(l[i], u[i][k], acc);
+          row[c] = row[c] - acc;
         }
       }
-      __syncthreads();
-      // (3) the trailing update of the rows still live: one warp two rows
-      // at a time (a dead row is skipped by the whole warp), its lanes over
-      // the columns, all the loads in flight before the sums
-      for (int r0 = 2 * warp; r0 < W; r0 += 2 * nwarps) {
-        float v[2][4];
-        bool on[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int r = r0 + q;
-          on[q] = r < W && live[r];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int c = lane + 32 * k;
-            if (on[q] && c < m) v[q][k] = Wg[(size_t)r * nb + j1 + c];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          if (!on[q]) continue;
-          const float* l = S + (r0 + q) * ld;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int c = lane + 32 * k;
-            if (c < m) {
-              float acc = 0.f;
-              for (int i = 0; i < bw; ++i) acc += l[i] * U[i * nb + c];
-              Wg[(size_t)(r0 + q) * nb + j1 + c] = v[q][k] - acc;
-            }
-          }
-        }
-      }
-      __syncthreads();
     }
+    __syncthreads();
   }
+  // no CTA may leave while another can still read its shared memory
+  sel_sync(cluster, C);
 }
 
-// *fits = 1 when a round of W-row chunks can launch on this device: nb <=
-// 128 (four columns a lane), nb % bw == 0, and the slab and its scratch
-// (select_smem_bytes) within one block's opt-in shared memory; else 0.  The
-// tournament's gate asks this before it sends a round to the kernel.
-extern "C" int slate_lu_select_fits(int device, int W, int nb, int bw,
-                                    int* fits) {
+static bool select_shape_ok(int W, int nb, int bw) {
+  return W >= 1 && nb >= 1 && nb <= SEL_MAX_NB && bw >= 1 &&
+         bw <= SEL_MAX_BW && nb % bw == 0;
+}
+
+// The cluster for a round of W-row chunks on this device: *c = the smallest
+// power of two <= 16 whose ceil(W / c) rows and scratch (select_smem_bytes)
+// fit one block's opt-in shared memory, 0 when none fits, the shape is past
+// the kernel's limits or the card holds no cluster of that size; *smem = a
+// CTA's shared memory, *resident = clusters of c the card holds at once. C
+// never depends on G, so a chunk's bits do not depend on its round.
+static int select_prepare(int device, int W, int nb, int bw, int* c,
+                          int* smem, int* resident) {
+  *c = *smem = *resident = 0;
+  if (!select_shape_ok(W, nb, bw)) return 0;
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  *fits = W >= 1 && nb >= 1 && nb <= 128 && bw >= 1 && nb % bw == 0 &&
-          select_smem_bytes(W, nb, bw) <= (size_t)limit;
+  int size = 1;
+  while (size <= SEL_MAX_CLUSTER &&
+         ((W + size - 1) / size > SEL_THREADS ||
+          select_smem_bytes((W + size - 1) / size, nb, bw) > (size_t)limit)) {
+    size *= 2;
+  }
+  if (size > SEL_MAX_CLUSTER) return 0;
+  SLATE_SET_SMEM(lu_select_kernel, limit);
+  SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(
+      lu_select_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  *smem = (int)select_smem_bytes((W + size - 1) / size, nb, bw);
+  SLATE_RETURN_IF_ERROR(active_clusters(lu_select_kernel, device, size,
+                                        SEL_THREADS, *smem, resident));
+  if (*resident > 0) *c = size;
   return 0;
+}
+
+// *fits = 1 when a round of W-row chunks can launch on this device: nb <=
+// 128 (four columns a lane), bw <= 8 dividing nb, and a cluster of at most
+// 16 CTAs that holds the chunk's rows in shared memory (select_prepare);
+// else 0. The tournament's gate asks this before it sends a round to the
+// kernel.
+extern "C" int slate_lu_select_fits(int device, int W, int nb, int bw,
+                                    int* fits) {
+  SLATE_SET_DEVICE(device);
+  int c = 0, smem = 0, resident = 0;
+  const int e = select_prepare(device, W, nb, bw, &c, &smem, &resident);
+  *fits = c > 0;
+  return e;
+}
+
+// How a round of W-row chunks launches on this device: *c CTAs a chunk's
+// cluster (0: it does not fit), *rows rows a CTA, *smem bytes of shared
+// memory a CTA, *resident clusters of *c the card holds at once.
+extern "C" int slate_lu_select_plan(int device, int W, int nb, int bw,
+                                    int* c, int* rows, int* smem,
+                                    int* resident) {
+  SLATE_SET_DEVICE(device);
+  const int e = select_prepare(device, W, nb, bw, c, smem, resident);
+  *rows = *c > 0 ? (W + *c - 1) / *c : 0;
+  return e;
 }
 
 // One launch for a round of G chunks, within slate_lu_select_fits's limits
@@ -231,15 +385,29 @@ extern "C" int slate_lu_select_fits(int device, int W, int nb, int bw,
 extern "C" int slate_lu_select(int device, void* stream, const float* chunks,
                                long long cs0, long long cs1, long long cs2,
                                const int* nrows, int G, int W, int nb, int bw,
-                               float* ws, long long* piv) {
+                               long long* piv) {
   SLATE_SET_DEVICE(device);
-  if (G < 1 || W < 1 || nb < 1 || nb > 128 || bw < 1 || nb % bw) {
+  int c = 0, smem = 0, resident = 0;
+  const int e = select_prepare(device, W, nb, bw, &c, &smem, &resident);
+  if (e != 0) return e;
+  if (G < 1 || G > 65535 || c == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = select_smem_bytes(W, nb, bw);
-  SLATE_SET_SMEM(lu_select_kernel, smem);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lu_select_kernel<<<G, SEL_THREADS, smem, s>>>(
-      chunks, cs0, cs1, cs2, nrows, W, nb, bw, ws, piv);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(c, G, 1);
+  cfg.blockDim = dim3(SEL_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, lu_select_kernel, chunks,
+                                             cs0, cs1, cs2, nrows, W, nb, bw,
+                                             piv);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -1,5 +1,5 @@
-// The tiled f32 product of K2 (chol_panel.cu) and K6
-// (chol_panel_batched.cu): one block's PG_BM x NB tile of A @ B over a
+// The tiled f32 product of K2 (chol_panel.cu) and of K6 and K7's update and
+// solve (batched_step.cuh): one block's PG_BM x NB tile of A @ B over a
 // range [kb, ke) of K, with the sum in registers, and the rank-order sum of
 // a split K loop's partial tiles over a thread-block cluster.
 //
@@ -12,6 +12,8 @@
 //     rows, is staged by cp.async 16-byte copies started PG_STAGES - 1
 //     slices ahead, so that the copies overlap the FMAs (the copy's source
 //     size masks the ragged end of K and the rows past the tile with zeros);
+//     where the caller asks for it (PG_COPY4), an f32 operand unit-stride
+//     along its other index is staged the same way by 4-byte copies;
 //   - any other operand (a transposed view, an odd stride, bf16 storage)
 //     is staged by plain loads that walk whichever index is unit-stride and
 //     widen to f32, into the same ring at the same point, so its loads
@@ -60,6 +62,13 @@ __device__ inline void pg_cp_async16(float* dst, const float* src,
                "l"(src), "r"(src_bytes));
 }
 
+__device__ inline void pg_cp_async4(float* dst, const float* src,
+                                    int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
 __device__ inline void pg_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -79,17 +88,32 @@ __device__ inline void pg_thread(int& tx, int& ty) {
   ty = (warp / WCOLS) * G::WY + lane / G::WX;
 }
 
+// How an operand is staged: plain widening loads, cp.async 16-byte copies
+// (f32, s1 == 1, s0 % 4 == 0, src 16-byte aligned) or cp.async 4-byte
+// copies (f32, s0 == 1).
+enum { PG_LOADS = 0, PG_COPY16 = 1, PG_COPY4 = 2 };
+
 // dst[r][k] = src(r, k0 + k) for r < R, k < PG_KC, with src(r, k) =
-// src[r*s0 + k*s1]; rows at or past `rows` and k at or past ke read as 0.
-// `fast` (f32 only): s1 == 1, s0 % 4 == 0 and src 16-byte aligned (cp.async
-// copies).
+// src[r*s0 + k*s1]; rows at or past `rows` and k at or past ke read as 0;
+// `mode` as above.
 template <int R, int NT, class T>
 __device__ inline void pg_stage_operand(float* dst, const T* src,
                                         long long s0, long long s1, int rows,
-                                        bool fast, int k0, int ke) {
+                                        int mode, int k0, int ke) {
   const int tid = threadIdx.x;
   if constexpr (std::is_same<T, float>::value) {
-    if (fast) {
+    if (mode == PG_COPY4) {
+      // consecutive threads on consecutive r, the unit-stride index
+      for (int idx = tid; idx < R * PG_KC; idx += NT) {
+        const int r = idx % R, k = idx / R;
+        const bool in = r < rows && k0 + k < ke;
+        pg_cp_async4(dst + r * PG_LDK + k,
+                     in ? src + r + (long long)(k0 + k) * s1 : src,
+                     in ? 4 : 0);
+      }
+      return;
+    }
+    if (mode == PG_COPY16) {
       // thread tid copies 16 bytes at k = k0 + 4 (tid % Q) of rows tid / Q,
       // + STEP, + 2 STEP, ...
       constexpr int Q = PG_KC / 4, STEP = NT / Q;
@@ -194,15 +218,16 @@ __device__ inline int pg_slices(int kb, int ke) {
 template <int NB, class T>
 __device__ inline void pg_stage_slice(float* As, int s, const T* A,
                                       long long as0, long long as1, int rows,
-                                      bool fast_a, const T* B, long long bs0,
-                                      long long bs1, int cols, bool fast_b,
+                                      int mode_a, const T* B, long long bs0,
+                                      long long bs1, int cols, int mode_b,
                                       int kb, int ke) {
   using G = PanelGemm<NB>;
   const int k0 = kb + s * PG_KC;
-  pg_stage_operand<PG_BM, G::THREADS>(As, A, as0, as1, rows, fast_a, k0, ke);
+  pg_stage_operand<PG_BM, G::THREADS>(As, A, as0, as1, rows, mode_a, k0,
+                                      ke);
   // B(k, c) as rows c of Bs: the row stride of that view is bs1
   pg_stage_operand<NB, G::THREADS>(As + PG_BM * PG_LDK, B, bs1, bs0, cols,
-                                   fast_b, k0, ke);
+                                   mode_b, k0, ke);
 }
 
 // acc += A[0:rows, kb:ke] @ B[kb:ke, 0:NB] for this block's tile, through
@@ -210,14 +235,14 @@ __device__ inline void pg_stage_slice(float* As, int s, const T* A,
 template <int NB, class T>
 __device__ inline void pg_product(float (&acc)[PG_RM][8], const T* A,
                                   long long as0, long long as1, int rows,
-                                  bool fast_a, const T* B, long long bs0,
-                                  long long bs1, bool fast_b, int kb, int ke,
+                                  int mode_a, const T* B, long long bs0,
+                                  long long bs1, int mode_b, int kb, int ke,
                                   float* smem, int tx, int ty) {
   pg_pipeline<NB>(
       acc, pg_slices(kb, ke),
       [&](int s, float* As) {
-        pg_stage_slice<NB>(As, s, A, as0, as1, rows, fast_a, B, bs0, bs1,
-                           NB, fast_b, kb, ke);
+        pg_stage_slice<NB>(As, s, A, as0, as1, rows, mode_a, B, bs0, bs1,
+                           NB, mode_b, kb, ke);
       },
       smem, tx, ty);
 }

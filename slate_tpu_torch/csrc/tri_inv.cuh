@@ -1,8 +1,8 @@
 // K0: inverse of an upper-triangular tile, the port of upper_tri_inv
 // (slate_tpu/internal/pallas_tri.py:28), and the back substitution that
-// K3's slabs (lu_factor.cuh) and K7's launch (a) (batched_panel.cuh) run
-// inside their own blocks. K6's factor launch (chol_panel_batched.cu) runs
-// K0's blocked doubling inside its block.
+// K3's slabs (lu_factor.cuh) run inside their own blocks. The factor
+// launches of K6 and K7 (chol_panel_batched.cu, lu_panel_batched.cu) run
+// K0's blocked doubling inside their blocks.
 //
 // Replaces: the helper the reference traces inside its fused Pallas panels
 // (chol_panel_fused, and later lu_panel_fused and the batched panels). Mosaic
@@ -22,8 +22,8 @@
 // X and all threads walk the rows i = n-1 .. 0 together, so U(i, k) is a
 // broadcast read and X(k, j) a bank-conflict-free one. A column reads only
 // itself, so no barrier is needed inside the routine; its chain is n(n+1)/2
-// FMAs long on the last column, which suits the bw-wide slabs of K3 and
-// the batched panels, not K0's whole tile.
+// FMAs long on the last column, which suits the bw-wide slabs of K3's tile
+// factor, not a whole tile.
 //
 // X = U^-1 for an upper-triangular n x n U in shared memory. U(i, k) is read
 // at u[i * us0 + k * us1], so a caller holding L = U^T passes swapped strides;

@@ -78,7 +78,7 @@ def batch_getrf(a: torch.Tensor, sizes: torch.Tensor, *, nb: int,
                 bw: int = 8) -> torch.Tensor:
     """Ragged batched no-pivot LU: the packed L\\U (unit lower implied) of
     identity-augmented slots ``a`` [B, n, n] with live sizes ``sizes``,
-    n % nb == 0.  One K7 step a block column (2 n / nb - 1 launches on the
+    n % nb == 0.  One K7 step a block column (3 n / nb - 1 launches on the
     card), then the U12 row block by a unit-lower solve: its padding rows
     are exactly zero (zero A rows, zero L10 rows) and the solve against the
     block-diagonal L11 never mixes padding and live rows, so the padding

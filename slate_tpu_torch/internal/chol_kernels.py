@@ -15,7 +15,8 @@ import ctypes
 
 import torch
 
-from .kernels import (I32, I64, P, CudaKernel, check_batched_panel,
+from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
+                      CudaKernel, batched_panel_step, batched_panel_step_plan,
                       check_cuda_f32, device_and_stream, query)
 from .tri_inv import upper_tri_inv, upper_tri_inv_plain
 
@@ -29,19 +30,10 @@ CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
     "slate_chol_panel_plan": [I32, I32, I32, I32, P, I64, I64, P, I64, I64,
                               ctypes.POINTER(I32), ctypes.POINTER(I32)]})
 
-# K6's launch: device, stream, which (0 update, 1 factor, 2 solve), bf16,
-# then col, left and lead with their batch, row and column strides, tiles,
-# B, k, K, M, nb, upd, fac, work, uinv
 CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
-    "slate_chol_panel_batched": [I32, P, I32, I32, P, I64, I64, I64, P, I64,
-                                 I64, I64, P, I64, I64, I64, P, I32, I32, I32,
-                                 I32, I32, P, P, P, P],
+    "slate_chol_panel_batched": BATCHED_PANEL_ARGS,
     "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
-    "slate_chol_panel_batched_plan": [I32, I32, I32, I32, P, I64, I64, I64,
-                                      P, I64, I64, I64, ctypes.POINTER(I32),
-                                      ctypes.POINTER(I32),
-                                      ctypes.POINTER(I32)]})
-UPDATE, FACTOR, SOLVE = 0, 1, 2    # K6's three launches
+    "slate_chol_panel_batched_plan": BATCHED_PLAN_ARGS})
 
 TILE_MAX_N = 128          # one n x (n+4) f32 tile in shared memory
 PANEL_NB = (32, 64, 96, 128)   # the instantiated widths (128-row tiles,
@@ -230,45 +222,13 @@ def chol_panel_batched(col: torch.Tensor, left: torch.Tensor,
                          f"{tuple(tiles.shape)}, bw={bw}")
     if col.device.type == "cpu":
         return chol_panel_batched_plain(col, left, lead, tiles, k, bw)
-    check_batched_panel(CHOL_PANEL_BATCHED, "chol_panel_batched", col, left,
-                        lead, tiles, bw)
-    tiles = tiles.contiguous()
-    upd = torch.empty((bsz, m, nb), dtype=col.dtype, device=col.device)
-    fac = torch.empty_like(upd)
-    work = (upd if col.dtype == torch.float32 else
-            torch.empty((bsz, m, nb), dtype=torch.float32, device=col.device))
-    uinv = (torch.empty((bsz, nb, nb), dtype=torch.float32, device=col.device)
-            if m > nb else None)
-    dev, stream = device_and_stream(col)
-    operands = (int(col.dtype == torch.bfloat16), col.data_ptr(),
-                *col.stride(), left.data_ptr(), *left.stride(),
-                lead.data_ptr(), *lead.stride(), tiles.data_ptr(), bsz, k, kk,
-                m, nb, upd.data_ptr(), fac.data_ptr(), work.data_ptr(),
-                None if uinv is None else uinv.data_ptr())
-    for which in (UPDATE, FACTOR, SOLVE)[:3 if m > nb else 2]:
-        CHOL_PANEL_BATCHED.launch("slate_chol_panel_batched", dev, stream,
-                                  which, *operands)
-    return upd, fac
+    return batched_panel_step(CHOL_PANEL_BATCHED, col, left, lead, tiles, k,
+                              bw)
 
 
 def batched_panel_plan(col: torch.Tensor, left: torch.Tensor,
                        lead: torch.Tensor) -> dict:
     """How K6's update launch takes these CUDA operands, as the kernel's
-    library reports it (``slate_chol_panel_batched_plan``): ``split``, the
-    CTAs of one (row tile, problem)'s cluster that share its K loop (a
-    function of K, nb and the device alone, never of the batch);
-    ``resident``, the clusters of that size the card holds at once;
-    ``waves``, the grid's clusters (every row tile of every problem, dead
-    ones included) over ``resident``; ``left``/``lead``, each "cp.async"
-    (f32, unit stride along K, aligned rows and batches) or "loads"."""
-    bsz, m, nb = col.shape
-    kk = left.shape[2]
-    split, resident, staging = query(
-        CHOL_PANEL_BATCHED, "slate_chol_panel_batched_plan", col.device,
-        int(col.dtype == torch.bfloat16), kk, nb, left.data_ptr(),
-        *left.stride(), lead.data_ptr(), *lead.stride(), outs=3)
-    clusters = bsz * -(-m // 128)
-    return {"split": split, "resident": resident,
-            "waves": -(-clusters // max(resident, 1)),
-            "left": "cp.async" if staging & 1 else "loads",
-            "lead": "cp.async" if staging & 2 else "loads"}
+    library reports it (``slate_chol_panel_batched_plan``; keys as
+    :func:`~.kernels.batched_panel_step_plan` gives them)."""
+    return batched_panel_step_plan(CHOL_PANEL_BATCHED, col, left, lead)

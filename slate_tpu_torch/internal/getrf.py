@@ -156,8 +156,9 @@ def panel_lu_threshold(panel: torch.Tensor, tau: float):
 
 def _lu_select_ok(blocks: torch.Tensor, nb: int) -> bool:
     """True when the plan sends this tournament round through K4: f32,
-    nb <= 128, the plan's bw dividing nb, and on the card the bw slab of a
-    chunk in one block's shared memory (the CPU's plain version has no
+    nb <= 128, the plan's bw dividing nb, and on the card the kernel's own
+    gate (bw <= 8, and a thread-block cluster of at most 16 CTAs whose
+    shared memory holds a chunk's rows; the CPU's plain version has no
     such limit)."""
     w = blocks.shape[1]
     if not (blocks.dtype == torch.float32 and nb <= SELECT_MAX_NB):

@@ -193,19 +193,28 @@ def fits(kernel: CudaKernel, symbol: str, device: torch.device,
     return bool(query(kernel, symbol, device, *shape))
 
 
-# the C signature of K7's launch: device, stream, bf16, below, then col,
-# left and lead with their batch, row and column strides, tiles, B, k, K, M,
-# nb, bw, upd, fac, uinv
+# The ragged batched panel step of K6 and K7 (csrc/batched_step.cuh): the C
+# signature of a launch (device, stream, which, bf16, then col, left and
+# lead with their batch, row and column strides, tiles, B, k, K, M, nb, bw,
+# upd, fac, work, uinv) and of the update launch's plan (device, bf16, K,
+# nb, left and lead with their strides, then split, resident and staging
+# out); each step is the launches UPDATE, FACTOR and, when M > nb, SOLVE.
 BATCHED_PANEL_ARGS = [I32, P, I32, I32, P, I64, I64, I64, P, I64, I64, I64,
                       P, I64, I64, I64, P, I32, I32, I32, I32, I32, I32, P, P,
-                      P]
+                      P, P]
+BATCHED_PLAN_ARGS = [I32, I32, I32, I32, P, I64, I64, I64, P, I64, I64, I64,
+                     ctypes.POINTER(I32), ctypes.POINTER(I32),
+                     ctypes.POINTER(I32)]
+UPDATE, FACTOR, SOLVE = 0, 1, 2
+STAGING = ("loads", "cp.async", "cp.async4")   # panel_gemm.cuh's modes
 
 
-def check_batched_panel(kernel: CudaKernel, name: str, col, left, lead,
-                        tiles, bw: int) -> None:
+def check_batched_panel(kernel: CudaKernel, col, left, lead, tiles,
+                        bw: int) -> None:
     """Raise unless K6's or K7's CUDA operands are launchable: col, left and
     lead in one storage dtype (f32 or bf16) on one device, tiles int32
     there, and (nb, bw) within the kernel's ``slate_{name}_fits``."""
+    name = kernel.name
     check_cuda_storage(name, col, left, lead)
     if tiles.device != col.device or tiles.dtype != torch.int32:
         raise ValueError(f"{name}: tiles must be int32 on {col.device}")
@@ -214,28 +223,55 @@ def check_batched_panel(kernel: CudaKernel, name: str, col, left, lead,
                          f"the kernel's limits (slate_{name}_fits)")
 
 
-def batched_panel_step(kernel: CudaKernel, symbol: str, name: str, col,
-                       left, lead, tiles, k: int, bw: int):
-    """Launch K7 (csrc/batched_panel.cuh) for one ragged batched panel step
-    on CUDA tensors: col [B, M, nb], left [B, M, K], lead [B, K, nb] in f32
-    or bf16 storage (any strides), tiles [B] int32.  Returns (upd, fac)
-    [B, M, nb] in the storage dtype.  Launch (a) always, launch (b) when
-    M > nb: the kernel counts one or two launches."""
+def batched_panel_step(kernel: CudaKernel, col, left, lead, tiles, k: int,
+                       bw: int):
+    """One ragged batched panel step of K6 or K7 on CUDA tensors: col [B, M,
+    nb], left [B, M, K], lead [B, K, nb] in f32 or bf16 storage (any
+    strides), tiles [B] int32.  Returns (upd, fac) [B, M, nb] in the storage
+    dtype.  On the current stream: the update launch (every 128-row tile of
+    every problem, the K loop split over a thread-block cluster), the
+    kernel's factor launch (tile 0 and, when M > nb, U^-1, one block a
+    problem) and, when M > nb, the solve launch (the live rows below tile
+    0): three launches, two when M == nb, counted by ``kernel``.  ``tiles``
+    is read on the device only; the f32 scratch the launches hand on (upd
+    before rounding on bf16 storage, U^-1) is allocated here."""
     bsz, m, nb = col.shape
     kk = left.shape[2]
-    check_batched_panel(kernel, name, col, left, lead, tiles, bw)
+    check_batched_panel(kernel, col, left, lead, tiles, bw)
     tiles = tiles.contiguous()
     upd = torch.empty((bsz, m, nb), dtype=col.dtype, device=col.device)
     fac = torch.empty_like(upd)
-    uinv = torch.empty((bsz, nb, nb), dtype=torch.float32,
-                       device=col.device)
+    work = (upd if col.dtype == torch.float32 else
+            torch.empty((bsz, m, nb), dtype=torch.float32, device=col.device))
+    uinv = (torch.empty((bsz, nb, nb), dtype=torch.float32, device=col.device)
+            if m > nb else None)
     dev, stream = device_and_stream(col)
-    bf16 = int(col.dtype == torch.bfloat16)
-    operands = (col.data_ptr(), *col.stride(), left.data_ptr(),
-                *left.stride(), lead.data_ptr(), *lead.stride(),
-                tiles.data_ptr(), bsz, k, kk, m, nb, bw, upd.data_ptr(),
-                fac.data_ptr(), uinv.data_ptr())
-    kernel.launch(symbol, dev, stream, bf16, 0, *operands)
-    if m > nb:
-        kernel.launch(symbol, dev, stream, bf16, 1, *operands)
+    operands = (int(col.dtype == torch.bfloat16), col.data_ptr(),
+                *col.stride(), left.data_ptr(), *left.stride(),
+                lead.data_ptr(), *lead.stride(), tiles.data_ptr(), bsz, k, kk,
+                m, nb, bw, upd.data_ptr(), fac.data_ptr(), work.data_ptr(),
+                None if uinv is None else uinv.data_ptr())
+    for which in (UPDATE, FACTOR, SOLVE)[:3 if m > nb else 2]:
+        kernel.launch(f"slate_{kernel.name}", dev, stream, which, *operands)
     return upd, fac
+
+
+def batched_panel_step_plan(kernel: CudaKernel, col, left, lead) -> dict:
+    """How K6's or K7's update launch takes these CUDA operands, as the
+    kernel's library reports it (``slate_{name}_plan``): ``split``, the CTAs
+    of one (row tile, problem)'s cluster that share its K loop (a function
+    of K, nb and the device alone, never of the batch); ``resident``, the
+    clusters of that size the card holds at once; ``waves``, the grid's
+    clusters (every row tile of every problem, dead ones included) over
+    ``resident``; ``left``/``lead``, each "cp.async" (f32, unit stride along
+    K, aligned rows and batches: 16-byte copies), "cp.async4" (f32, unit
+    stride along the other index: 4-byte copies) or "loads"."""
+    bsz, m, nb = col.shape
+    split, resident, staging = query(
+        kernel, f"slate_{kernel.name}_plan", col.device,
+        int(col.dtype == torch.bfloat16), left.shape[2], nb, left.data_ptr(),
+        *left.stride(), lead.data_ptr(), *lead.stride(), outs=3)
+    clusters = bsz * -(-m // 128)
+    return {"split": split, "resident": resident,
+            "waves": -(-clusters // max(resident, 1)),
+            "left": STAGING[staging & 3], "lead": STAGING[staging >> 2]}

@@ -17,9 +17,9 @@ import ctypes
 import torch
 
 from .chol_kernels import live_rows
-from .kernels import (BATCHED_PANEL_ARGS, I32, I64, P, CudaKernel,
-                      batched_panel_step, check_cuda_f32, device_and_stream,
-                      fits)
+from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
+                      CudaKernel, batched_panel_step, batched_panel_step_plan,
+                      check_cuda_f32, device_and_stream, fits, query)
 from .tri_inv import (back_substitution_plain, upper_tri_inv,
                       upper_tri_inv_plain)
 
@@ -27,12 +27,13 @@ LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
     "slate_lu_panel_diag": [I32, P, P, I64, I64, I32, I32, P],
     "slate_lu_panel_below": [I32, P, P, I64, I64, I32, I32, P, P]})
 LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
-    "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P,
-                        P],
-    "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+    "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P],
+    "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_lu_select_plan": [I32, I32, I32, I32, *[ctypes.POINTER(I32)] * 4]})
 LU_PANEL_BATCHED = CudaKernel("lu_panel_batched", "lu_panel_batched.cu", {
     "slate_lu_panel_batched": BATCHED_PANEL_ARGS,
-    "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)]})
+    "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_lu_panel_batched_plan": BATCHED_PLAN_ARGS})
 
 PANEL_NB = (32, 64, 96, 128)   # K3's instantiated widths, as K2's
 SELECT_MAX_NB = 128            # K4: four columns a lane
@@ -40,9 +41,22 @@ SELECT_MAX_NB = 128            # K4: four columns a lane
 
 def select_fits(device: torch.device, w: int, nb: int, bw: int) -> bool:
     """True when K4 can take a round of w-row chunks on this CUDA device:
-    the kernel's own count of its shared memory (the w x bw slab and its
-    scratch) against the device's per-block limit."""
+    the kernel's own answer (bw <= 8, and a thread-block cluster of at most
+    16 CTAs that holds a chunk's rows in its shared memory)."""
     return fits(LU_SELECT, "slate_lu_select_fits", device, w, nb, bw)
+
+
+def select_plan(device: torch.device, w: int, nb: int, bw: int) -> dict:
+    """How K4 launches a round of w-row chunks on this CUDA device, as the
+    kernel's library reports it (``slate_lu_select_plan``): ``cluster``, the
+    CTAs a chunk is split over (from w, nb, bw and the device alone; 0 when
+    it does not fit); ``rows``, a CTA's rows; ``smem_bytes``, a CTA's shared
+    memory; ``resident``, the clusters of that size the card holds at
+    once."""
+    c, rows, smem, resident = query(LU_SELECT, "slate_lu_select_plan",
+                                    device, w, nb, bw, outs=4)
+    return {"cluster": c, "rows": rows, "smem_bytes": smem,
+            "resident": resident}
 
 
 def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
@@ -165,7 +179,7 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
     live; an int or a [G] tensor) are dead.  On input without ties this is
     lax.linalg.lu's perm[:nb] of each chunk.  A CPU tensor takes the plain
     version; CUDA tensors launch K4 once for the whole batch (f32, within
-    :func:`select_fits`) or raise."""
+    :func:`select_fits`: one thread-block cluster a chunk) or raise."""
     g, w, nb = chunks.shape
     if bw < 1 or nb % bw or w < nb:
         raise ValueError(f"lu_select: needs W >= nb and nb % bw == 0, got "
@@ -174,25 +188,24 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
         return lu_select_plain(chunks, nrows, bw)
     check_cuda_f32("lu_select", chunks)
     live = _live_rows(nrows, g, w, chunks.device)
-    ws = torch.empty((g, w, nb), dtype=chunks.dtype, device=chunks.device)
     piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
     LU_SELECT.launch("slate_lu_select", *device_and_stream(chunks),
                      chunks.data_ptr(), chunks.stride(0), chunks.stride(1),
                      chunks.stride(2), live.data_ptr(), g, w, nb, bw,
-                     ws.data_ptr(), piv.data_ptr())
+                     piv.data_ptr())
     return piv
 
 
 def lu_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
     """K7's arithmetic in torch ops: per problem, on the operands widened
     to f32, upd = col - left @ lead, row tile 0 by :func:`lu_tile_plain`
-    and the rows below times U^-1 (back substitution on triu(tile 0), as
-    the kernel runs it in its own block), rounded to the storage dtype;
+    and the rows below times U^-1 (K0's blocked doubling on triu(tile 0),
+    as the kernel's factor launch forms it), rounded to the storage dtype;
     dead tiles are ``col`` itself, bit for bit."""
     nb = col.shape[2]
     upd = col.float() - left.float() @ lead.float()
     top = torch.stack([lu_tile_plain(t, bw) for t in upd[:, :nb]])
-    uinv = torch.stack([back_substitution_plain(t) for t in top])
+    uinv = torch.stack([upper_tri_inv_plain(t) for t in top])
     fac = torch.cat([top, upd[:, nb:] @ uinv], dim=1)
     live = live_rows(tiles, k, col.shape[1], nb)
     return (torch.where(live, upd.to(col.dtype), col),
@@ -216,8 +229,12 @@ def lu_panel_batched(col: torch.Tensor, left: torch.Tensor,
     tiles (k + i >= tiles[b]) are ``col``'s bits in both outputs.  Any
     strides; M % nb == 0.  A CPU tensor takes the plain version; CUDA
     tensors launch K7 (nb and bw within ``slate_lu_panel_batched_fits``)
-    or raise.  On CUDA a step is one launch when M == nb and two
-    otherwise, counted by LU_PANEL_BATCHED; ``tiles`` is read on the
+    or raise.  On CUDA, on the current stream: K7's update launch (every
+    128-row tile of every problem, the K loop split over a thread-block
+    cluster), its factor launch (the no-pivot LU of tile 0 and, when M >
+    nb, U^-1 by K0's doubling, one block a problem) and, when M > nb, its
+    solve launch (the live rows below tile 0): three launches a step, two
+    when M == nb, counted by LU_PANEL_BATCHED.  ``tiles`` is read on the
     device only."""
     bsz, m, nb = col.shape
     kk = left.shape[2]
@@ -230,6 +247,12 @@ def lu_panel_batched(col: torch.Tensor, left: torch.Tensor,
                          f"{tuple(tiles.shape)}, bw={bw}")
     if col.device.type == "cpu":
         return lu_panel_batched_plain(col, left, lead, tiles, k, bw)
-    return batched_panel_step(LU_PANEL_BATCHED, "slate_lu_panel_batched",
-                              "lu_panel_batched", col, left, lead, tiles, k,
-                              bw)
+    return batched_panel_step(LU_PANEL_BATCHED, col, left, lead, tiles, k, bw)
+
+
+def batched_panel_plan(col: torch.Tensor, left: torch.Tensor,
+                       lead: torch.Tensor) -> dict:
+    """How K7's update launch takes these CUDA operands, as the kernel's
+    library reports it (``slate_lu_panel_batched_plan``; keys as
+    :func:`~.kernels.batched_panel_step_plan` gives them)."""
+    return batched_panel_step_plan(LU_PANEL_BATCHED, col, left, lead)

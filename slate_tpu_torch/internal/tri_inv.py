@@ -8,10 +8,10 @@ the wrappers of K2 (internal/chol_kernels.py) and K3
 ``TRI_INV.launches`` counts the launches made here and nowhere else.
 
 Two plain versions: :func:`upper_tri_inv_plain` repeats K0's blocked
-recursive doubling, which K6's factor launch also runs inside its block;
-:func:`back_substitution_plain` repeats the column back substitution
-(``upper_tri_inv_smem``) that K3's slabs and K7's launch (a) run inside
-their own blocks.
+recursive doubling, which the factor launches of K6 and K7 also run inside
+their blocks; :func:`back_substitution_plain` repeats the column back
+substitution (``upper_tri_inv_smem``) that K3's slabs run inside their own
+blocks.
 """
 
 from __future__ import annotations

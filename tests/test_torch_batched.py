@@ -182,6 +182,70 @@ def test_chol_panel_batched_plain_matches_the_pallas_kernel_deep(kind):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_lu_panel_batched_plain_matches_the_pallas_kernel_deep(kind):
+    """K7's plain version (U^-1 by K0's blocked doubling, as its factor
+    launch forms it) at k = 16 (K = 512 columns of history, nb = 32, M =
+    64) on a live problem, one whose second row tile is dead and a filler
+    slot, against the reference's batched Pallas kernel in interpret mode
+    (its U^-1 by the nilpotent series): live tiles within the tolerances
+    above (f32: 1e-4 of the largest entry; bf16: one bf16 ulp plus 1e-3 of
+    it) on top blocks G / sqrt(nb) + 2 I, dead tiles and the filler slot
+    bit-equal to col in both outputs."""
+    rng = np.random.default_rng(7)
+    bsz, m, nb, k = 3, 64, 32, 16
+    kk = k * nb
+    left = (0.05 * rng.standard_normal((bsz, m, kk))).astype(np.float32)
+    lead = (0.05 * rng.standard_normal((bsz, kk, nb))).astype(np.float32)
+    base = rng.standard_normal((bsz, m, nb))
+    base[:, :nb] = base[:, :nb] / np.sqrt(nb) + 2 * np.eye(nb)
+    col = base + left.astype(np.float64) @ lead
+    (col_t, col_j), (left_t, left_j), (lead_t, lead_j) = (
+        _pair(x.astype(np.float32), kind) for x in (col, left, lead))
+    tiles = [k + 2, k + 1, 0]
+    tiles_t = torch.tensor(tiles, dtype=torch.int32)
+    got = lk.lu_panel_batched(col_t, left_t, lead_t, tiles_t, k, 8)
+    want = ref_lu(col_j, left_j, lead_j, jnp.asarray(tiles, jnp.int32), k=k,
+                  bw=8, interpret=True)
+    live = ck.live_rows(tiles_t, k, m, nb).expand(bsz, m, nb)
+    assert live[0].all() and live[1, :nb].all() and not live[1, nb:].any()
+    for g, w in zip(got, want):
+        assert g.dtype == col_t.dtype and g.shape == w.shape
+        _close(g, w, kind)
+        dead = (~live).numpy()
+        np.testing.assert_array_equal(_bits(g)[dead], _bits(col_t)[dead])
+        np.testing.assert_array_equal(_bits(w)[dead], _bits(col_t)[dead])
+
+
+@pytest.mark.parametrize("chol", [True, False], ids=["K6", "K7"])
+def test_batched_panel_plain_gives_a_problem_alone_its_bits(chol):
+    """The plain K6/K7 step on each problem of a batch of 3 alone (as a
+    served request's retry runs it) gives bit for bit that problem's slot
+    in the batch, in both outputs: nothing of a step depends on the other
+    problems in its batch."""
+    rng = np.random.default_rng(8)
+    bsz, m, nb, k = 3, 96, 32, 2
+    kk = k * nb
+    left = (0.2 * rng.standard_normal((bsz, m, kk))).astype(np.float32)
+    col = rng.standard_normal((bsz, m, nb)).astype(np.float32)
+    col[:, :nb] += 4 * np.eye(nb, dtype=np.float32)
+    left_t, col_t = torch.from_numpy(left), torch.from_numpy(col)
+    if chol:
+        col_t[:, :nb] = col_t[:, :nb] @ col_t[:, :nb].mT / nb
+        lead_t, step = left_t[:, :nb].mT, ck.chol_panel_batched
+    else:
+        lead_t = torch.from_numpy((0.2 * rng.standard_normal(
+            (bsz, kk, nb))).astype(np.float32))
+        step = lk.lu_panel_batched
+    tiles = torch.tensor([k + 3, k + 1, k + 2], dtype=torch.int32)
+    got = step(col_t, left_t, lead_t, tiles, k, 8)
+    for b in range(bsz):
+        one = step(col_t[b:b + 1], left_t[b:b + 1], lead_t[b:b + 1],
+                   tiles[b:b + 1], k, 8)
+        for g, h in zip(got, one):
+            np.testing.assert_array_equal(_bits(g[b]), _bits(h[0]))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
 def test_qr_panel_batched_plain_matches_the_pallas_kernel(kind):
     """K8's plain version against qr_panel_batched in interpret mode: live
     problems factor the whole panel (T within the tolerance), a rows = 0

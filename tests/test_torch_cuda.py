@@ -172,15 +172,40 @@ def test_lu_kernels_match_plain_versions(cuda):
         below = int(m > nb)
         assert (lk.LU_PANEL.launches, TRI_INV.launches) == \
             (launches[0] + 1 + below, launches[1] + below)
-    for g, w, nrows in ((2, 256, None), (3, 1024, None), (2, 512, 300)):
-        x = torch.from_numpy(rng.standard_normal((g, w, 128)).astype(
-            np.float32)).to(cuda)
+    # the tie chunk: column 0's largest |v| in rows 3 and 300, which lie
+    # in the two CTAs of a 512-row chunk's cluster; the lower row wins
+    tie = rng.standard_normal((2, 512, 128)).astype(np.float32)
+    tie[:, 3, 0], tie[:, 300, 0] = 10.0, -10.0
+    for g, w, nrows, x in ((2, 256, None, None), (3, 1024, None, None),
+                           (2, 512, 300, None), (4, 4096, None, None),
+                           (2, 512, None, tie)):
+        if x is None:
+            x = rng.standard_normal((g, w, 128)).astype(np.float32)
+        x = torch.from_numpy(x).to(cuda)
         before = lk.LU_SELECT.launches
         got = lk.lu_select(x, nrows=nrows)
         assert lk.LU_SELECT.launches == before + 1     # one launch a round
         assert torch.equal(got, lk.lu_select_plain(x, nrows))
         if nrows is None:
             assert torch.equal(got, panel_lu(x)[1][:, :128])
+    assert bool((got[:, 0] == 3).all())               # the tie chunk
+    # one cluster a chunk, its size from W alone (the smallest power of two
+    # whose rows fit a CTA's shared memory): at every round-1 height of the
+    # main path (ceil(w / 512) 128 rows up to 5120) and the reduction
+    # rounds' 256, the size never shrinks as W grows, and a CTA's rows and
+    # shared memory fit the card
+    props = torch.cuda.get_device_properties(cuda)
+    limit = props.shared_memory_per_block_optin
+    sizes = []
+    for w in range(256, 5121, 128):
+        plan = lk.select_plan(cuda, w, 128, 8)
+        c = plan["cluster"]
+        assert c in (1, 2, 4, 8, 16) and plan["resident"] >= 1
+        assert plan["rows"] == -(-w // c) and plan["smem_bytes"] <= limit
+        sizes.append(c)
+    assert sizes == sorted(sizes)
+    assert [lk.select_plan(cuda, w, 128, 8)["cluster"]
+            for w in (256, 512, 4096, 5120)] == [1, 2, 16, 16]
     # the gate asks the kernel: 5120-row chunks (round 1 of the tallest
     # panels at n = 20480) fit, 8192 rows do not, and a launch past the
     # limit raises and leaves no error behind for the next launch
@@ -325,8 +350,8 @@ def _batched_panel(rng, bsz, m, nb, k, chol, dtype, cuda):
 def test_batched_panels_match_plain_versions(cuda, dtype):
     """K6 and K7 against their plain versions at k = 0 and k = 2, with a
     live, a partly dead and a wholly dead problem: live tiles within the
-    tolerance, dead tiles bit-equal to col; K6 two launches when M == nb
-    and three otherwise, K7 one and two."""
+    tolerance, dead tiles bit-equal to col; each two launches when M == nb
+    and three otherwise."""
     rng = np.random.default_rng(15)
     for kern, plain, chol in ((ck.chol_panel_batched,
                                ck.chol_panel_batched_plain, True),
@@ -340,7 +365,7 @@ def test_batched_panels_match_plain_versions(cuda, dtype):
                                  device=cuda)
             before = counter.launches
             got = kern(col, left, lead, tiles, k, 8)
-            assert counter.launches == before + (1 if m == nb else 2) + chol
+            assert counter.launches == before + (2 if m == nb else 3)
             want = plain(col, left, lead, tiles, k, 8)
             live = ck.live_rows(tiles, k, m, nb)
             for g, w in zip(got, want):
@@ -399,34 +424,41 @@ def test_qr_panel_batched_matches_its_plain_version(cuda, dtype):
     assert not qk.batched_panel_fits(cuda, 4096, 128, 9)
 
 
+@pytest.mark.parametrize("chol", [True, False], ids=["K6", "K7"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_chol_panel_batched_splits_repeat_and_ignore_the_batch(cuda, dtype):
-    """K6 where the K loop is split over a cluster (K = 2048, nb = 128)
-    and at nb = 96 (128-row tiles straddling nb-row tiles): against the
-    plain version, dead tiles bit-equal, two launches bit for bit, and
-    each problem alone bit-equal to its slot in the batch (the split is a
-    function of K, nb and the card, never of the batch)."""
+def test_chol_panel_batched_splits_repeat_and_ignore_the_batch(cuda, dtype,
+                                                               chol):
+    """K6, and K7 on the same update and solve launches, where the K loop
+    is split over a cluster (K = 2048, nb = 128) and at nb = 96 (128-row
+    tiles straddling nb-row tiles): against the plain version, dead tiles
+    bit-equal, two launches bit for bit, and each problem alone bit-equal
+    to its slot in the batch (the split is a function of K, nb and the
+    card, never of the batch)."""
     rng = np.random.default_rng(18)
+    kern, plain, plan_of = ((ck.chol_panel_batched,
+                             ck.chol_panel_batched_plain,
+                             ck.batched_panel_plan) if chol else
+                            (lk.lu_panel_batched, lk.lu_panel_batched_plain,
+                             lk.batched_panel_plan))
     for nb, k, m, tiles_b in ((128, 16, 512, (20, 18, 17, 16, 0)),
                               (96, 3, 480, (8, 5, 3, 6, 7))):
         bsz = len(tiles_b)
-        col, left, lead = _batched_panel(rng, bsz, m, nb, k, True, dtype,
+        col, left, lead = _batched_panel(rng, bsz, m, nb, k, chol, dtype,
                                          cuda)
         tiles = torch.tensor(tiles_b, dtype=torch.int32, device=cuda)
-        plan = ck.batched_panel_plan(col, left, lead)
+        plan = plan_of(col, left, lead)
         if k == 16:
             assert plan["split"] > 1
-        got = ck.chol_panel_batched(col, left, lead, tiles, k, 8)
-        want = ck.chol_panel_batched_plain(col, left, lead, tiles, k, 8)
+        got = kern(col, left, lead, tiles, k, 8)
+        want = plain(col, left, lead, tiles, k, 8)
         live = ck.live_rows(tiles, k, m, nb)
-        for g, w, h in zip(got, want, ck.chol_panel_batched(
-                col, left, lead, tiles, k, 8)):
+        for g, w, h in zip(got, want, kern(col, left, lead, tiles, k, 8)):
             _close_storage(g, w)
             assert torch.equal(_bits(torch.where(live, col, g)), _bits(col))
             assert torch.equal(_bits(g), _bits(h))
         for b in range(bsz):
-            one = ck.chol_panel_batched(col[b:b + 1], left[b:b + 1],
-                                        lead[b:b + 1], tiles[b:b + 1], k, 8)
+            one = kern(col[b:b + 1], left[b:b + 1], lead[b:b + 1],
+                       tiles[b:b + 1], k, 8)
             for g, h in zip(got, one):
                 assert torch.equal(_bits(g[b]), _bits(h[0]))
 

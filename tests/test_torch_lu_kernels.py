@@ -61,6 +61,23 @@ def test_k4_plain_selects_the_pallas_kernels_rows(w, nrows):
         assert got.max() < nrows and len(set(got.tolist())) == NB
 
 
+def test_k4_plain_breaks_a_tie_across_row_ranges_to_the_lower_row():
+    """A 512-row chunk whose column 0 has its largest |v| twice, +10 in row
+    3 and -10 in row 300: in different halves of the chunk, so on the card
+    in different CTAs of a two-CTA cluster.  The plain version picks row 3
+    first, as lu_select_pallas (interpret) and lax.linalg.lu do, and every
+    later row as they do."""
+    x = _gauss(11, 512)
+    x[3, 0], x[300, 0] = 10.0, -10.0
+    got = lk.lu_select(torch.from_numpy(x)[None])[0].numpy()
+    want = np.asarray(lu_select_pallas(jnp.asarray(x), None, bw=8,
+                                       interpret=True))
+    assert got[0] == 3
+    np.testing.assert_array_equal(got, want)
+    _, _, perm = jax.lax.linalg.lu(jnp.asarray(x))
+    np.testing.assert_array_equal(got, np.asarray(perm)[:NB])
+
+
 def test_k4_batch_is_each_chunk_alone():
     """One call takes a whole round [G, W, nb], with a live-row count per
     chunk; bw changes only the order of the updates, not the rows."""
