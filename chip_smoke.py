@@ -17,9 +17,15 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      lies in rows 3 and 300 (the two CTAs of its cluster; row 3 wins), each
      with a lu_select_plan line (the thread-block cluster a chunk takes, a
      CTA's rows and shared memory, the clusters resident, and the
-     one-block kernel's time beside the new one); K1 (chol_tile) at
-     n = 32, 64, 96 and 128, and on an indefinite tile (the first bad
-     pivot the plain version's, every later one non-finite); K5
+     one-block kernel's time beside the new one); K3 (lu_panel_fused) on
+     CALU-permuted panels at W = 20480, 10240, 1024 and 128, each launched
+     twice and compared bit for bit, with a lu_panel_plan line (its factor
+     launch's and its strips launch's device time apart, the strips'
+     staging, the slab-loop kernel's time beside the new one), and on tiles
+     with a planted exact-zero pivot at j = 0, 5 and 37, bw = 4 and 8 (the
+     health read's info and nonfinite equal to the plain version's); K1
+     (chol_tile) at n = 32, 64, 96 and 128, and on an indefinite tile (the
+     first bad pivot the plain version's, every later one non-finite); K5
      (qr_panel) at [8192, 128] and [4224, 128] (the first and last panels
      of the gels below), [1000, 128], [512, 40], a [512, 48] panel with
      a zero column and alpha = -0.0, and the thread-block cluster's edges
@@ -51,9 +57,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
   5. the LU path at full width: ``slate_tpu_torch.gesv`` with MethodLU.CALU
      on A = Q of the QR of a Gaussian (cond 1, a real pivot choice in every
      column), the same n, nb and right-hand sides: residual and forward
-     error under bounds that its TF32 control exceeds, and K4, K3 and K0
+     error under bounds that its TF32 control exceeds, and K4 and K3
      launched as often as the tournament's control flow gives for these
-     shapes; then the NoPiv route (K3 only) on a diagonally dominant
+     shapes (K3 forms U^-1 itself: no K0 launch); then the NoPiv route (K3 only) on a diagonally dominant
      matrix, the library route (gesv's default method, PartialPiv, with
      the fallback ladder off: no hand kernel), and a small CALU gesv held
      against the CPU;
@@ -95,7 +101,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
 QR gels and one warm serving stream down by phase (host clock) and by
 kernel (torch.profiler), with the device's idle share, and the gesv's K4
-device time into its round-1 launches and its reduction rounds'.
+device time into its round-1 launches and its reduction rounds', K3's
+into its factor and strips launches, and the stream's K6 and K7 device
+time into their update, factor and solve launches.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
@@ -103,8 +111,9 @@ with --seed + 1, the serving phases from a third, --seed + 2, and the
 K5/K8 cluster edge shapes from a fourth, --seed + 3, K2's late panels
 and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
 96 and its indefinite tile from a sixth, --seed + 5, and K4's tie chunk
-from a seventh, --seed + 6, so that adding to one slice moves no other's
-matrices.
+from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
+zero-pivot tiles from an eighth, --seed + 7, so that adding to one slice
+moves no other's matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -199,6 +208,15 @@ ONE_BLOCK_SELECT_MS = {(4, 4096, None, False): 2.568,
                        (2, 256, None, False): 0.2931,
                        (2, 512, 300, False): 0.3475}
 
+# K3's times before its redesign (the PR 9 tree: the slab loop on one block
+# of 256 threads, K0's launch between K3's two, the rows below in 32-row
+# strips), keyed by W at nb = 128, bw = 8, as this script measured that
+# tree on an H100 80GB HBM3 at 700 W (PERF.md, the K3 row; W = 10240 and
+# 128 were not measured), so that each lu_panel_plan line shows the old
+# time beside the new (key pr9_ms); the kernels line carries only what the
+# run measured
+SLAB_LOOP_K3_MS = {20480: 0.3021, 1024: 0.2805}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -273,6 +291,16 @@ def k2_launch_times(fn, reps: int = 5) -> dict:
              "solve": pick("chol_panel_solve_kernel")}
     return {"k2_own_ms": sum(parts.values()), "k2_launch_ms": parts,
             "k0_ms": pick("upper_tri_inv_kernel")}
+
+
+def k3_launch_times(fn, reps: int = 5) -> dict:
+    """K3's own launches (the factor with U^-1, the rows below) per call
+    of a lu_panel_fused ``fn``: device ms by launch, from torch.profiler."""
+    by_name = device_ms(fn, reps, per_launch=True)
+    parts = {part: sum(v for k, v in by_name.items()
+                       if f"lu_panel_{part}_kernel" in k)
+             for part in ("factor", "below")}
+    return {"k3_own_ms": sum(parts.values()), "k3_launch_ms": parts}
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -537,45 +565,68 @@ def check_k2_k0_edges(gen) -> None:
           128 ** 3 / 3, 4 * (128 * 129 // 2 + 128 * 128))
 
 
-def check_lu_kernels(gen, tie_gen) -> dict:
-    """K3 on CALU-permuted Gaussian panels, the main path's first panel
-    and a small one, also held against the library's unpivoted LU; K4 on
-    main-path round-1 batches (4096 and 5120 rows), a tree round, a chunk
-    with dead rows, and (from ``tie_gen``) a 512-row chunk whose column 0
-    has its largest |v| in rows 3 and 300, in the two CTAs of its cluster;
-    each K4 shape also prints a ``lu_select_plan`` line (the cluster, a
-    CTA's rows and shared memory, the clusters resident, the time beside
-    the one-block kernel's)."""
+def check_lu_kernels(gen, tie_gen, k3_gen) -> dict:
+    """K3 on CALU-permuted Gaussian panels at W = 20480 (the main path's
+    first panel), 10240, 1024 and 128, also held against the library's
+    unpivoted LU, each launched twice and compared bit for bit, with an
+    ``lu_panel_plan`` line (its factor and strips launches' device time,
+    the strips' staging, the redesign's predecessor's time), then on tiles
+    with a planted exact-zero pivot (the health read's info and nonfinite
+    equal to the plain version's); K4 on main-path round-1 batches (4096
+    and 5120 rows), a tree round, a chunk with dead rows, and (from
+    ``tie_gen``) a 512-row chunk whose column 0 has its largest |v| in rows
+    3 and 300, in the two CTAs of its cluster; each K4 shape also prints a
+    ``lu_select_plan`` line (the cluster, a CTA's rows and shared memory,
+    the clusters resident, the time beside the one-block kernel's).  K3's
+    panels at W = 20480 and 1024 draw from ``gen`` as they always did, the
+    others and the zero-pivot tiles from ``k3_gen`` (--seed + 7)."""
     from slate_tpu_torch.internal.getrf import panel_lu, tournament_perm
     from slate_tpu_torch.internal.lu_kernels import (
         lu_panel_fused, lu_panel_plain, lu_select, lu_select_plain,
-        select_plan)
+        panel_plan, select_plan)
     rows = {}
     nb = 128
-    for w in (20480, 1024):
-        g = torch.randn(w, nb, generator=gen, device="cuda")
-        # the main path's block rows for a panel of w rows (mpt = 4)
-        x = g[tournament_perm(g, max(nb, -(-w // (4 * nb)) * nb))]
+    for w in (20480, 10240, 1024, 128):
+        # the main path's block rows for a panel of w rows (mpt = 4); the
+        # single tile (W = nb) is the one the tournament puts on top of a
+        # 4096-row panel
+        h = w if w > nb else 4096
+        g = torch.randn(h, nb, generator=gen if w in (20480, 1024)
+                        else k3_gen, device="cuda")
+        x = g[tournament_perm(g, max(nb, -(-h // (4 * nb)) * nb))][:w]
 
         def library():
             return torch.linalg.lu_factor_ex(x, pivot=False)[0]
         got = lu_panel_fused(x, 8)
+        repeatable = bool(torch.equal(got, lu_panel_fused(x, 8)))
+        times = k3_launch_times(lambda: lu_panel_fused(x, 8))
         row = check(
             "lu_panel_fused", {"W": w, "nb": nb, "bw": 8},
             [got], [lu_panel_plain(x, 8)],
-            "the same slab loop and K0 back substitution in both, sums in "
-            "another order; pivoted top tile (cond ~100), |L| <= ~3; the "
-            "library's unpivoted LU solves for L where both multiply by U^-1",
+            "the kernel's 32-column blocks against the reference's bw = 8 "
+            "slabs, U^-1 by K0's doubling in both, f32 sums in another "
+            "order; pivoted top tile (cond ~100), |L| <= ~3; the library's "
+            "unpivoted LU solves for L where both multiply by U^-1",
             time_ms(lambda: lu_panel_fused(x, 8), 10),
             time_ms(lambda: lu_panel_plain(x, 8), 3),
             time_ms(library, 10),
             # W nb^2 - nb^3/3: the tile's LU, then L21 = A21 U^-1
             2 * nb ** 3 / 3 + (w - nb) * nb * nb,
             4 * 2 * w * nb,
-            control=[tf32(lambda: lu_panel_plain(x, 8))],
+            control=[tf32(lambda: lu_panel_plain(x, 8))] if w > nb else None,
             witness=[library()])
+        plan = panel_plan(x)
+        row.update(times, plan=plan, bitwise_repeatable=repeatable)
+        emit({"phase": "lu_panel_plan", "W": w, "nb": nb, **plan, **times,
+              "bitwise_repeatable": repeatable,
+              "kernel_ms": row["kernel_ms"],
+              "pr9_ms": SLAB_LOOP_K3_MS.get(w)})
+        if not repeatable:
+            raise AssertionError(f"lu_panel_fused [{w}, {nb}]: two launches "
+                                 f"on the same input differ")
         if w == 20480:
             rows["lu_panel_fused"] = row
+    check_lu_zero_pivots(k3_gen)
     tie = torch.randn(2, 512, nb, generator=tie_gen, device="cuda")
     tie[:, 3, 0], tie[:, 300, 0] = 10.0, -10.0
     for g, w, nrows, x in ((4, 4096, None, None), (4, 5120, None, None),
@@ -619,6 +670,62 @@ def check_lu_kernels(gen, tie_gen) -> dict:
         if w == 4096:
             rows["lu_select"] = row
     return rows
+
+
+def zero_pivot_tile(gen, j: int, n: int = 128) -> torch.Tensor:
+    """A tile whose pivot j is exactly 0 in f32: A = L U with small integer
+    entries (L unit lower, U's other pivots +-1, U[j, j] = 0), plus
+    integers under pivot j, so that every multiplier before column j is an
+    exact integer, pivot j is 0 and the entries under it are not."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int64).double()
+    lo = torch.tril(ints(-1, 2, (n, n)), -1) + torch.eye(
+        n, device="cuda", dtype=torch.float64)
+    up = torch.triu(ints(-2, 3, (n, n)), 1) + torch.diag(
+        2 * ints(0, 2, (n,)) - 1)
+    up[j, j] = 0
+    a = lo @ up
+    a[j + 1:, j] += ints(-2, 3, (n - j - 1,))
+    return a.float()
+
+
+def check_lu_zero_pivots(gen) -> None:
+    """K3 on panels whose top tile has an exact-zero pivot at j = 0, 5
+    (inside the first bw slab) and 37 (a later 32-column block), rows below
+    Gaussian, at bw = 4 and 8: the kernel scales by 1 inside the pivot's
+    slab and by 1 / 0 past it, as the plain version's slabs divide, so the
+    health read of the tile's diagonal (robust/health.py from_pivots) gives
+    the same info and nonfinite on both."""
+    from slate_tpu_torch.internal.lu_kernels import (lu_panel_fused,
+                                                     lu_panel_plain)
+    from slate_tpu_torch.robust.health import from_pivots
+    nb = 128
+    for j in (0, 5, 37):
+        panel = torch.cat([zero_pivot_tile(gen, j, nb),
+                           torch.randn(nb, nb, generator=gen,
+                                       device="cuda")])
+        for bw in (4, 8):
+            got, want = lu_panel_fused(panel, bw), lu_panel_plain(panel, bw)
+            hg = from_pivots(torch.diagonal(got[:nb]))
+            hw = from_pivots(torch.diagonal(want[:nb]))
+            slab_end = j - j % bw + bw
+            both = torch.isfinite(got) & torch.isfinite(want)
+            emit({"phase": "lu_panel_zero_pivot", "W": 2 * nb, "nb": nb,
+                  "bw": bw, "planted": j, "info_kernel": hg.info,
+                  "info_plain": hw.info, "nonfinite_kernel": hg.nonfinite,
+                  "nonfinite_plain": hw.nonfinite,
+                  "slab_column_finite": bool(
+                      torch.isfinite(got[j + 1:slab_end, j]).all()),
+                  "past_slab_column_non_finite": not bool(
+                      torch.isfinite(got[slab_end:nb, j]).any()),
+                  "finite_in_both_max_abs_err": float(
+                      (got[both] - want[both]).abs().max())})
+            if (hg.info, hg.nonfinite) != (hw.info, hw.nonfinite):
+                raise AssertionError(
+                    f"lu_panel_fused, zero pivot at {j}, bw = {bw}: info "
+                    f"and nonfinite {hg.info, hg.nonfinite} != the plain "
+                    f"version's {hw.info, hw.nonfinite}")
 
 
 def qr_flops(mm: int, w: int) -> float:
@@ -855,12 +962,13 @@ def orthogonal(n: int, gen: torch.Generator) -> torch.Tensor:
 
 def expected_calu_launches(n: int, nb: int, fits, mpt: int = 4,
                            depth: int = 2) -> dict:
-    """K4, K3 and K0 launches of getrf_tntpiv on an n x n matrix, replayed
-    from the tournament's control flow (internal/getrf.py) on the shapes:
-    a panel of W > nb rows splits into blocks of br rows; round 1 (when
-    br > nb) and each reduction round of ``depth`` candidate sets are one
-    K4 launch if ``fits(block height)``, else lu_factor; K3 then launches
-    twice (K0 between); a panel of nb rows takes lu_factor alone."""
+    """K4 and K3 launches of getrf_tntpiv on an n x n matrix, replayed from
+    the tournament's control flow (internal/getrf.py) on the shapes: a
+    panel of W > nb rows splits into blocks of br rows; round 1 (when br >
+    nb) and each reduction round of ``depth`` candidate sets are one K4
+    launch if ``fits(block height)``, else lu_factor; K3 then launches
+    twice (its factor, U^-1 formed inside, and the rows below); a panel of
+    nb rows takes lu_factor alone."""
     k4 = k3 = 0
     for k0 in range(0, n, nb):
         w = n - k0
@@ -874,7 +982,7 @@ def expected_calu_launches(n: int, nb: int, fits, mpt: int = 4,
             blocks = -(-blocks // depth)
         k4 += sum(fits(h) for h in rounds)
         k3 += 2
-    return {"lu_select": k4, "lu_panel_fused": k3, "upper_tri_inv": k3 // 2}
+    return {"lu_select": k4, "lu_panel_fused": k3}
 
 
 def run_gesv(st, a, b, nb, opts=None):
@@ -987,13 +1095,27 @@ def profile_device(label, fn) -> list:
     return kernels
 
 
+def kernel_split(label, kernels, names) -> None:
+    """Print the device time and the launches, under torch.profiler, of
+    each kernel whose name holds one of ``names``, from the device events
+    of one traced ``label`` run."""
+    split = {}
+    for name in names:
+        mine = [e for e in kernels if name in e.name]
+        split[name] = {"ms": 1e-3 * sum(e.time_range.elapsed_us()
+                                        for e in mine),
+                       "launches": len(mine)}
+    emit({"phase": "trace_kernel_split", "of": label, **split})
+
+
 def trace_gesv(st, a, b, nb, opts) -> None:
     """Where one warm CALU gesv's time goes: each phase of the blocked
     factor timed on the host clock with the device synchronised around it
     (tournament, K3 panel, U12 solve, trailing matmul, row moves), then
     the device time by kernel under torch.profiler, K4's split into its
     round-1 launches and its reduction rounds' (each launch classed as the
-    tournament makes it, matched in order to K4's device events)."""
+    tournament makes it, matched in order to K4's device events), and K3's
+    into its factor and its strips launches."""
     from slate_tpu_torch.drivers import lu as dl
     from slate_tpu_torch.internal import getrf as ig
     run_gesv(st, a, b, nb, opts)                     # warm-up
@@ -1062,6 +1184,9 @@ def trace_gesv(st, a, b, nb, opts) -> None:
     else:
         split["split"] = "not measured: the profile lost K4 events"
     emit({"phase": "trace_k4_rounds", "of": "gesv CALU", **split})
+    kernel_split("gesv CALU", kernels,
+                 ("lu_panel_factor_kernel", "lu_panel_below_kernel",
+                  "upper_tri_inv_kernel"))
 
 
 # ---- the serving slice: K6, K7, K8 and serve.Server -----------------------
@@ -1433,7 +1558,7 @@ def trace_serve(st, reqs) -> None:
     unpack, each timed on the host clock with the device synchronised
     around it and counted exclusively (a phase inside another is taken out
     of the outer one), then the device time by kernel under
-    torch.profiler."""
+    torch.profiler, K6's and K7's by launch (update, factor, solve)."""
     from slate_tpu_torch.internal import batched as ib
     from slate_tpu_torch.robust import health as rh
     from slate_tpu_torch.serve import batched as sbm
@@ -1489,7 +1614,11 @@ def trace_serve(st, reqs) -> None:
           "stream_with_phase_syncs": wall, "stream_cold_fresh_server":
           wall_plain, "outside_phases": wall - sum(spent.values()),
           **spent})
-    profile_device("serve stream warm", lambda: srv.serve_batch(reqs))
+    kernels = profile_device("serve stream warm",
+                             lambda: srv.serve_batch(reqs))
+    kernel_split("serve stream warm", kernels,
+                 [f"{k}_panel_batched_{part}" for k in ("lu", "chol")
+                  for part in ("update", "factor", "solve")])
 
 
 def check_serving(st, gen, kernels, reset, counts) -> dict:
@@ -1730,9 +1859,11 @@ def main(argv=None) -> int:
     # K1's tiles at n = 32 and 96 and its indefinite tile: a sixth
     rows = check_kernels(gen, torch.Generator(device="cuda").manual_seed(
         args.seed + 5))
-    # K4's tie chunk: a seventh generator
-    rows.update(check_lu_kernels(gen, torch.Generator(
-        device="cuda").manual_seed(args.seed + 6)))
+    # K4's tie chunk: a seventh generator; K3's panels at W = 10240 and
+    # 128 and its zero-pivot tiles: an eighth
+    rows.update(check_lu_kernels(
+        gen, torch.Generator(device="cuda").manual_seed(args.seed + 6),
+        torch.Generator(device="cuda").manual_seed(args.seed + 7)))
     # the cluster edges of K5 and K8 draw from a generator of their own, so that the QR and serving phases keep their matrices
     edge_gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
     rows.update(check_qr_kernels(qr_gen, edge_gen))
@@ -1911,8 +2042,7 @@ def main(argv=None) -> int:
           "scaled_residual": res_n, "forward_error_vs_f64": fwd_n,
           "launches": nopiv_launches})
     want_n = {**{name: 0 for name in kernels},
-              "lu_panel_fused": 2 * (nn // nb) - 1,
-              "upper_tri_inv": nn // nb - 1}
+              "lu_panel_fused": 2 * (nn // nb) - 1}
     if (nopiv_launches != want_n or not res_n < GESV_RESIDUAL_BOUND
             or not fwd_n < GESV_FORWARD_BOUND):
         raise AssertionError(f"NoPiv route: launches {nopiv_launches} (want "
@@ -2074,8 +2204,8 @@ def main(argv=None) -> int:
                      "library_ms": r["library_ms"], "shape": r["shape"],
                      **{k: r[k] for k in ("cluster", "bitwise_repeatable",
                                           "batch_invariant", "plan",
-                                          "k2_launch_ms", "k6_launch_ms",
-                                          "k7_launch_ms",
+                                          "k2_launch_ms", "k3_launch_ms",
+                                          "k6_launch_ms", "k7_launch_ms",
                                           "k0_ms", "wrapper_ms",
                                           "library_cholesky_ms",
                                           "library_device_ms")

@@ -42,7 +42,8 @@
 //       K0's blocked doubling (tri_inv.cuh) into uinv;
 //   (c) solve (batched_solve, M > nb): grid (ceil((M - nb) / 128), B), fac =
 //       work rows @ U^-1 over every live 128-row tile below tile 0, the same
-//       tiled product at K = nb.
+//       tiled product at K = nb, skipping U^-1's zero lower part
+//       (pg_upper_product, shared with K2's and K3's solve).
 // A step is three launches when M > nb and two (update, factor) when
 // M == nb. Liveness is read on the device from tiles; the host never reads
 // it back.
@@ -234,17 +235,10 @@ __device__ inline void batched_solve(const Step& a, float* smem) {
   int tx, ty;
   pg_thread<BP_NB>(tx, ty);
   float acc[PG_RM][8] = {};
-  // A = work rows (unit-stride along K, 16-byte aligned rows); B(k, c) =
-  // uinv[k * nb + c] is unit-stride along c, so it takes the plain loads
-  const float* w = a.work + out0;
-  const float* uinv = a.uinv + (long long)b * nb * nb;
-  pg_pipeline<BP_NB>(
-      acc, pg_slices(0, nb),
-      [&](int s, float* As) {
-        pg_stage_slice<BP_NB>(As, s, w, nb, 1, rows, PG_COPY16, uinv, nb,
-                              1, nb, PG_LOADS, 0, nb);
-      },
-      smem, tx, ty);
+  // work rows are unit-stride along K with 16-byte aligned rows; U^-1 is
+  // upper triangular (pg_upper_product, the product of K2's and K3's solve)
+  pg_upper_product<BP_NB>(acc, a.work + out0, nb, 1, rows, PG_COPY16,
+                          a.uinv + (long long)b * nb * nb, nb, smem, tx, ty);
 #pragma unroll
   for (int i = 0; i < PG_RM; ++i) {
     const int r = ty + BPG::TY * i;

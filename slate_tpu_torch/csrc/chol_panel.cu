@@ -23,7 +23,9 @@
 //   then, when there are rows below, the wrapper launches K0 (tri_inv.cu) on
 //   U = L00^T, which writes U^-1 to a tile of its own;
 //   (c) chol_panel_solve: one CTA per 128 rows below tile 0 forms fac =
-//       upd_below @ U^-1, the same tiled product with K = nb.
+//       upd_below @ U^-1, the same tiled product with K = nb, skipping
+//       U^-1's zero lower part (pg_upper_product, shared with K3's rows
+//       below, K6 and K7).
 // K0 runs as its own launch, so that each kernel's launch count is the
 // launches its own wrapper made: a panel with rows below is three K2
 // launches and one K0, the last panel (M = nb) two K2 launches.
@@ -143,41 +145,19 @@ chol_panel_factor_kernel(const float* __restrict__ upd, int nb,
   }
 }
 
-// (c): fac rows NB + 128*blockIdx.x .. +128 = upd rows @ U^-1.
+// (c): fac rows NB + 128*blockIdx.x .. +128 = upd rows @ U^-1, by the solve
+// body K3 shares (panel_gemm.cuh pg_solve_rows): upd is unit-stride along
+// K with 16-byte aligned rows.
 template <int NB>
 __global__ void __launch_bounds__(PanelGemm<NB>::THREADS)
 chol_panel_solve_kernel(const float* __restrict__ upd,
                         const float* __restrict__ uinv, int M,
                         float* __restrict__ fac) {
-  using G = PanelGemm<NB>;
   extern __shared__ __align__(16) float smem[];
   const long long row0 = NB + (long long)blockIdx.x * PG_BM;
   const int rows = (int)min((long long)PG_BM, M - row0);
-  int tx, ty;
-  pg_thread<NB>(tx, ty);
-  float acc[PG_RM][8] = {};
-  // A = upd rows (unit-stride along K, 16-byte aligned rows); B(k, c) =
-  // uinv[k * NB + c] is unit-stride along c, so it takes the plain loads
-  pg_product<NB>(acc, upd + row0 * NB, NB, 1, rows, true, uinv, NB, 1, false,
-                 0, NB, smem, tx, ty);
-#pragma unroll
-  for (int i = 0; i < PG_RM; ++i) {
-    const int r = ty + G::TY * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      fac[(row0 + r) * NB + tx + G::TX * j] = acc[i][j];
-    }
-  }
-}
-
-// 1 when an operand with these strides stages by cp.async: unit-stride
-// along K (stride_k == 1), the other stride a multiple of 4 floats, and
-// the base 16-byte aligned.
-static int staged_by_copy(const float* p, long long stride_k,
-                          long long stride_other) {
-  return stride_k == 1 && stride_other % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  pg_solve_rows<NB>(upd + row0 * NB, NB, 1, PG_COPY16, rows, uinv,
+                    fac + row0 * NB, smem);
 }
 
 // Opt the update kernel into its shared memory and into clusters of more

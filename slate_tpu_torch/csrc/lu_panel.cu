@@ -9,145 +9,134 @@
 //
 // The hazard is K2's: the Pallas grid runs in order and hands U^-1 from row
 // tile 0 to the later row tiles in VMEM scratch. CUDA blocks run in no order,
-// so the hand-off goes through global memory between launches on one stream:
-//   (a) lu_panel_diag: one block of 256 threads copies row tile 0 into shared
-//       memory, factors it there (lu_factor_smem) and writes it;
-//   then, when W > nb, the wrapper launches K0 (tri_inv.cu) on triu(tile 0),
-//   which writes U^-1 to a tile of its own;
-//   (b) lu_panel_below: one block of 128 threads per 32-row strip of the rows
-//       below stages its strip in shared memory and writes strip @ U^-1.
-// K0 runs as its own launch, so that each kernel's launch count is the
-// launches its own wrapper made.
+// so the hand-off goes through global memory between two launches on one
+// stream:
+//   (a) lu_panel_factor: one block of 256 threads copies row tile 0 into
+//       shared memory, factors it there (lu_factor.cuh: 32-column blocks, a
+//       warp a diagonal block in registers, 8 block barriers at nb = 128),
+//       writes it and, when W > nb, forms U^-1 by K0's blocked doubling in
+//       the same launch and writes it to a tile of its own. K7's factor
+//       launch runs the same body (lu_factor_launch) once a problem;
+//   (b) lu_panel_below (W > nb): one CTA of 128 threads per 128 rows below
+//       the tile forms out = panel rows @ U^-1 by the solve body of K2
+//       (panel_gemm.cuh pg_solve_rows: a 16 x 8 register tile a thread, a
+//       three-deep cp.async ring where the panel's strides allow 16-byte
+//       copies, plain loads otherwise), skipping U^-1's zero lower part.
 //
-// Bound on this card: 2 nb^3 / 3 flops for the tile, nb^3 / 3 for U^-1 and
-// 2 (W - nb) nb^2 for the rows below, against 4 * 2 W nb bytes (the panel read
-// once, the factor written once): 2 nb / 8 = 32 flops a byte at nb = 128,
-// above the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20, so bound by f32
-// operations. The products are FFMA on the CUDA cores (the reference asks for
-// Precision.HIGHEST, so never TF32).
-//
-// Design: the tile's column loop runs in bw-row slabs as the reference's does
-// (the slab's rows eliminate against themselves; the tile's rows below the
-// slab get the block solve against the slab's U^-1, then one rank-bw trailing
-// update), all in shared memory (lu_factor_smem, lu_factor.cuh). Launch (a)
-// is one block on one SM while the rest of the card waits, which is what a
-// faster version removes first; (b) is the strip shape of K2's second launch.
+// Bound on this card: 2 nb^3 / 3 flops for the tile's LU and (W - nb) nb^2
+// for L21 = A21 U^-1 as a triangular solve, against 4 * 2 W nb bytes (the
+// panel read once, the factor written once): (W - nb) nb^2 / (8 W nb) ~
+// nb / 8 = 16 flops a byte at nb = 128, below the f32 ridge of 67 TFLOP/s /
+// 3.35 TB/s = 20, so bound by bytes. The products are FFMA on the CUDA
+// cores (the reference asks for Precision.HIGHEST, so never TF32); the
+// strips' product with U^-1 takes 20/32 of a full product's FMAs.
 #include "common.cuh"
 #include "lu_factor.cuh"
-#include "tri_inv.cuh"
+#include "panel_gemm.cuh"
 
-static size_t diag_smem_bytes(int nb, int bw) {
-  return sizeof(float) * ((size_t)nb * (nb + 1) + (size_t)bw * (bw + 1) +
-                          (size_t)(nb - bw) * bw);
+// (a): row tile 0 of the panel, factored, into rows 0 .. nb-1 of out; U^-1
+// into uinv unless it is null.
+__global__ void __launch_bounds__(LF_THREADS)
+lu_panel_factor_kernel(const float* __restrict__ p, long long ps0,
+                       long long ps1, int nb, int bw, float* __restrict__ out,
+                       float* __restrict__ uinv) {
+  extern __shared__ __align__(16) float smem[];
+  // 16-byte loads where rows are unit-stride and 16-byte aligned
+  const bool quads = ps1 == 1 && ps0 % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  lu_factor_launch(
+      nb, bw,
+      [&](int r, int c) {
+        const float* e = p + r * ps0 + c * ps1;
+        return quads ? *reinterpret_cast<const float4*>(e)
+                     : make_float4(e[0], e[ps1], e[2 * ps1], e[3 * ps1]);
+      },
+      [&](int r, int c, float4 v) {
+        *reinterpret_cast<float4*>(out + r * nb + c) = v;
+      },
+      uinv, smem);
 }
 
-// (a): row tile 0 of the panel, factored, into rows 0 .. nb-1 of out.
-__global__ void __launch_bounds__(256)
-lu_panel_diag_kernel(const float* __restrict__ p, long long ps0, long long ps1,
-                     int nb, int bw, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int lds = nb + 1;
-  float* S = smem;                 // nb x lds: the tile
-  float* Dinv = S + nb * lds;      // bw x (bw + 1): the slab's D^-1
-  float* T = Dinv + bw * (bw + 1); // (nb - bw) x bw: l21 of the slab
-  for (int idx = threadIdx.x; idx < nb * nb; idx += blockDim.x) {
-    const int r = idx / nb, c = idx % nb;
-    S[r * lds + c] = p[r * ps0 + c * ps1];
-  }
-  __syncthreads();
-  lu_factor_smem(S, lds, nb, bw, Dinv, T);
-  for (int idx = threadIdx.x; idx < nb * nb; idx += blockDim.x) {
-    out[idx] = S[(idx / nb) * lds + idx % nb];
-  }
-}
-
-constexpr int STRIP = 32;  // rows below the tile per block
-constexpr int KC = 32;     // rows of U^-1 staged in shared memory at a time
-
-template <int NB>
-constexpr size_t below_smem_bytes() {
-  return sizeof(float) * (STRIP * (NB + 1) + KC * (NB + 1));
-}
-
-// (b): rows NB + STRIP * blockIdx.x .. + STRIP of out = panel rows @ U^-1.
-// Each of the 128 threads keeps a 4 x NB/16 tile of the product in registers.
-template <int NB>
-__global__ void __launch_bounds__(128)
+// (b): out rows NB + 128 blockIdx.x .. + 128 = panel rows @ U^-1, the panel
+// staged as MODE says (a template argument: a run-time mode spills the
+// cp.async path's registers at NB = 128).
+template <int NB, int MODE>
+__global__ void __launch_bounds__(PanelGemm<NB>::THREADS)
 lu_panel_below_kernel(const float* __restrict__ p, long long ps0,
-                      long long ps1, const float* __restrict__ uinv,
+                      long long ps1, int W, const float* __restrict__ uinv,
                       float* __restrict__ out) {
-  constexpr int TY = 8, RM = STRIP / TY, CN = NB / 16, LDP = NB + 1;
-  extern __shared__ float smem[];
-  float* Ps = smem;                 // STRIP x LDP: this strip of the panel
-  float* Bs = Ps + STRIP * LDP;     // KC x (NB + 1): a slice of U^-1
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long row0 = NB + (long long)STRIP * blockIdx.x;
-  for (int idx = tid; idx < STRIP * NB; idx += 128) {
-    const int r = idx / NB, c = idx % NB;
-    Ps[r * LDP + c] = p[(row0 + r) * ps0 + c * ps1];
-  }
-  float acc[RM][CN] = {};
-  for (int k0 = 0; k0 < NB; k0 += KC) {
-    for (int idx = tid; idx < KC * NB; idx += 128) {
-      const int k = idx / NB, c = idx % NB;
-      Bs[k * (NB + 1) + c] = uinv[(k0 + k) * NB + c];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float a[RM], b[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = Ps[(ty + i * TY) * LDP + k0 + k];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) b[j] = Bs[k * (NB + 1) + tx + j * 16];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      out[(row0 + ty + i * TY) * NB + tx + j * 16] = acc[i][j];
-    }
-  }
+  extern __shared__ __align__(16) float smem[];
+  const long long row0 = NB + (long long)blockIdx.x * PG_BM;
+  const int rows = (int)min((long long)PG_BM, W - row0);
+  pg_solve_rows<NB>(p + row0 * ps0, ps0, ps1, MODE, rows, uinv,
+                    out + row0 * NB, smem);
 }
 
-template <int NB>
-int launch_below(cudaStream_t stream, const float* p, long long ps0,
-                 long long ps1, int W, const float* uinv, float* out) {
-  constexpr size_t smem = below_smem_bytes<NB>();
-  SLATE_SET_SMEM(lu_panel_below_kernel<NB>, smem);
-  lu_panel_below_kernel<NB><<<(W - NB) / STRIP, 128, smem, stream>>>(
-      p, ps0, ps1, uinv, out);
+template <int NB, int MODE>
+int launch_below_as(cudaStream_t stream, const float* p, long long ps0,
+                    long long ps1, int W, const float* uinv, float* out) {
+  constexpr size_t smem = sizeof(float) * PanelGemm<NB>::SMEM_FLOATS;
+  SLATE_SET_SMEM((lu_panel_below_kernel<NB, MODE>), smem);
+  const int blocks = (W - NB + PG_BM - 1) / PG_BM;
+  lu_panel_below_kernel<NB, MODE><<<blocks, PanelGemm<NB>::THREADS, smem,
+                                    stream>>>(p, ps0, ps1, W, uinv, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch (a): nb <= 128, nb % bw == 0; out is [W, nb] row-major and (a)
-// writes its rows 0 .. nb-1.
-extern "C" int slate_lu_panel_diag(int device, void* stream, const float* p,
-                                   long long ps0, long long ps1, int nb,
-                                   int bw, float* out) {
+// (b) stages the panel by 16-byte cp.async copies where it is unit-stride
+// along its columns with aligned rows, else by plain loads.
+template <int NB>
+int launch_below(cudaStream_t stream, const float* p, long long ps0,
+                 long long ps1, int W, const float* uinv, float* out) {
+  return staged_by_copy(p, ps1, ps0)
+             ? launch_below_as<NB, PG_COPY16>(stream, p, ps0, ps1, W, uinv,
+                                              out)
+             : launch_below_as<NB, PG_LOADS>(stream, p, ps0, ps1, W, uinv,
+                                             out);
+}
+
+static bool panel_nb_ok(int nb) {
+  return nb == 32 || nb == 64 || nb == 96 || nb == 128;
+}
+
+// *fits = 1 when K3 takes a panel of width nb at slab width bw on this
+// device: nb in {32, 64, 96, 128} (whole 32-column blocks, at most the 128
+// columns of (b)'s tile), bw divides nb, and (a)'s shared memory within one
+// block's opt-in limit; else 0.
+extern "C" int slate_lu_panel_fits(int device, int nb, int bw, int* fits) {
+  int limit = 0;
+  SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  *fits = panel_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
+          lu_factor_launch_bytes(nb) <= (size_t)limit;
+  return 0;
+}
+
+// Launch (a), within slate_lu_panel_fits; out is [W, nb] row-major and (a)
+// writes its rows 0 .. nb-1; uinv is [nb, nb] row-major scratch for (b), or
+// null when W == nb.
+extern "C" int slate_lu_panel_factor(int device, void* stream, const float* p,
+                                     long long ps0, long long ps1, int nb,
+                                     int bw, float* out, float* uinv) {
   SLATE_SET_DEVICE(device);
-  if (nb < 1 || nb > 128 || bw < 1 || nb % bw) {
+  if (!panel_nb_ok(nb) || bw < 1 || nb % bw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = diag_smem_bytes(nb, bw);
-  SLATE_SET_SMEM(lu_panel_diag_kernel, smem);
-  lu_panel_diag_kernel<<<1, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, ps0, ps1, nb, bw, out);
+  const size_t smem = lu_factor_launch_bytes(nb);
+  SLATE_SET_SMEM(lu_panel_factor_kernel, smem);
+  lu_panel_factor_kernel<<<1, LF_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      p, ps0, ps1, nb, bw, out, uinv);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch (b) over rows nb .. W-1 (W a multiple of nb, W > nb); uinv is U^-1
-// as K0 writes it, [nb, nb] row-major.
+// as (a) writes it.
 extern "C" int slate_lu_panel_below(int device, void* stream, const float* p,
                                     long long ps0, long long ps1, int nb,
                                     int W, const float* uinv, float* out) {
   SLATE_SET_DEVICE(device);
+  if (W <= nb || W % nb) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nb) {
     case 32: return launch_below<32>(s, p, ps0, ps1, W, uinv, out);
@@ -156,4 +145,12 @@ extern "C" int slate_lu_panel_below(int device, void* stream, const float* p,
     case 128: return launch_below<128>(s, p, ps0, ps1, W, uinv, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// How (b) stages this panel: *staging = 1 for cp.async, 0 for plain loads.
+extern "C" int slate_lu_panel_plan(int device, const float* p, long long ps0,
+                                   long long ps1, int* staging) {
+  SLATE_SET_DEVICE(device);
+  *staging = staged_by_copy(p, ps1, ps0);
+  return 0;
 }

@@ -7,15 +7,15 @@
 // batched_step.cuh's, shared with K6 (chol_panel_batched.cu); lead is the
 // packed U block column A[:, :k0, k0:k0+nb] and fac is packed L\U with the
 // unit lower diagonal implied. This file holds K7's factor launch (b): one
-// block of 512 threads per problem whose tile 0 is live, the no-pivot LU of
-// tile 0 of work by K3's slab loop (lu_factor_smem, lu_factor.cuh) into
-// fac, then, when M > nb, U^-1 = triu(tile)^-1 by K0's blocked doubling
-// (tri_inv.cuh) into uinv. A step is three launches when M > nb and two
-// when M == nb.
+// block of 256 threads per problem whose tile 0 is live runs K3's factor
+// launch body (lu_factor.cuh lu_factor_launch), the no-pivot LU of tile 0
+// of work by 32-column blocks, a warp a diagonal block, into fac, then,
+// when M > nb, U^-1 = triu(tile)^-1 by K0's blocked doubling into uinv. A
+// step is three launches when M > nb and two when M == nb.
 //
 // Bound on this card: per live problem, 2 live_m K nb flops of the update,
-// 2 nb^3/3 of the tile's LU, nb^3/3 of U^-1 and 2 (live_m - nb) nb^2 of
-// L21 = A21 U^-1, against the live tiles' bytes read and written once. With
+// 2 nb^3/3 of the tile's LU and (live_m - nb) nb^2 of L21 = A21 U^-1 as a
+// triangular solve, against the live tiles' bytes read and written once. With
 // K >= nb it is bound by f32 operations (FFMA, never TF32): 67 TFLOP/s.
 //
 // Design: K6's, the update over every (128-row tile, problem) with the K
@@ -25,7 +25,6 @@
 #include "batched_step.cuh"
 #include "common.cuh"
 #include "lu_factor.cuh"
-#include "tri_inv.cuh"
 
 __global__ void __launch_bounds__(BPG::THREADS, 2)
 lu_panel_batched_update(Step a) {
@@ -33,48 +32,29 @@ lu_panel_batched_update(Step a) {
   batched_update(a, smem);
 }
 
-// Shared memory of the factor launch: the tile (its L\U, at the odd stride
-// nb + 1), U^-1 (whose space holds lu_factor_smem's scratch until then) and
-// the doubling's scratch.
-__host__ __device__ inline size_t factor_smem_bytes(int nb) {
-  return sizeof(float) * ((size_t)nb * (nb + 1) + (size_t)nb * (nb + 4) +
-                          (size_t)nb * (nb / 2 + 4));
-}
-
 // (b): tile 0 of problem blockIdx.x factored into fac, U^-1 = triu(tile)^-1
-// into uinv.
-__global__ void __launch_bounds__(BP_FACTOR_THREADS)
+// into uinv, by the factor launch's body K3 runs (lu_factor.cuh).
+__global__ void __launch_bounds__(LF_THREADS)
 lu_panel_batched_factor(Step a) {
-  const int b = blockIdx.x, nb = a.nb, bw = a.bw;
-  const int lds = nb + 1, ldx = nb + 4, q = nb / 4;
+  const int b = blockIdx.x;
   if (a.k >= a.tiles[b]) return;  // tile 0 dead: launch (a) copied it
   extern __shared__ __align__(16) float smem[];
-  float* S = smem;            // nb x lds: tile 0, then its packed L\U
-  float* X = S + nb * lds;    // nb x ldx: U^-1 (nb lds is a multiple of 4)
-  float* Tt = X + nb * ldx;   // nb x (nb/2 + 4): the doubling's scratch
-  const long long out0 = (long long)b * a.M * nb;
+  const long long out0 = (long long)b * a.M * a.nb;
   const float* w = a.work + out0;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < nb * nb; idx += BP_FACTOR_THREADS) {
-    S[(idx / nb) * lds + idx % nb] = w[idx];
-  }
-  __syncthreads();
-  // the slab's D^-1 and l21 in X, free until U^-1; ends with a barrier
-  lu_factor_smem(S, lds, nb, bw, X, X + bw * (bw + 1));
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < nb * nb; idx += BP_FACTOR_THREADS) {
-    store_f32(a.fac, out0 + idx, S[(idx / nb) * lds + idx % nb], a.bf16);
-  }
-  if (a.uinv == nullptr) return;
-  // U = triu(S): the doubling never reads below the diagonal
-  upper_tri_inv_doubling(S, lds, X, ldx, Tt, nb / 2 + 4, nb);
-  float* uinv = a.uinv + (long long)b * nb * nb;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < nb * q; idx += BP_FACTOR_THREADS) {
-    const int r = idx / q, c = 4 * (idx % q);
-    *reinterpret_cast<float4*>(uinv + r * nb + c) =
-        *reinterpret_cast<const float4*>(X + r * ldx + c);
-  }
+  lu_factor_launch(
+      a.nb, a.bw,
+      [&](int r, int c) {
+        return *reinterpret_cast<const float4*>(w + r * a.nb + c);
+      },
+      [&](int r, int c, float4 v) {
+        const long long o = out0 + r * a.nb + c;
+        store_f32(a.fac, o, v.x, a.bf16);
+        store_f32(a.fac, o + 1, v.y, a.bf16);
+        store_f32(a.fac, o + 2, v.z, a.bf16);
+        store_f32(a.fac, o + 3, v.w, a.bf16);
+      },
+      a.uinv == nullptr ? nullptr : a.uinv + (long long)b * a.nb * a.nb,
+      smem);
 }
 
 __global__ void __launch_bounds__(BPG::THREADS)
@@ -84,23 +64,24 @@ lu_panel_batched_solve(Step a) {
 }
 
 static int launch_factor(cudaStream_t stream, int B, const Step& a) {
-  const size_t smem = factor_smem_bytes(a.nb);
+  const size_t smem = lu_factor_launch_bytes(a.nb);
   SLATE_SET_SMEM(lu_panel_batched_factor, smem);
-  lu_panel_batched_factor<<<B, BP_FACTOR_THREADS, smem, stream>>>(a);
+  lu_panel_batched_factor<<<B, LF_THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // *fits = 1 when a panel of width nb at slab width bw fits: nb in {32, 64,
-// 96, 128} (at most the 128 columns of a CTA's tile), bw divides nb (the
-// tile factor's slabs), and the factor launch's shared memory within one
-// block's opt-in limit; else 0.
+// 96, 128} (at most the 128 columns of a CTA's tile, whole 32-column
+// blocks of the tile factor), bw divides nb (the slab rule of its zero
+// pivots), and the factor launch's shared memory within one block's opt-in
+// limit; else 0.
 extern "C" int slate_lu_panel_batched_fits(int device, int nb, int bw,
                                            int* fits) {
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
   *fits = step_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
-          factor_smem_bytes(nb) <= (size_t)limit;
+          lu_factor_launch_bytes(nb) <= (size_t)limit;
   return 0;
 }
 

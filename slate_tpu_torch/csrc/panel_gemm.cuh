@@ -1,7 +1,9 @@
-// The tiled f32 product of K2 (chol_panel.cu) and of K6 and K7's update and
-// solve (batched_step.cuh): one block's PG_BM x NB tile of A @ B over a
-// range [kb, ke) of K, with the sum in registers, and the rank-order sum of
-// a split K loop's partial tiles over a thread-block cluster.
+// The tiled f32 product of K2 (chol_panel.cu), of K3's rows below
+// (lu_panel.cu) and of K6 and K7's update and solve (batched_step.cuh): one
+// block's PG_BM x NB tile of A @ B over a range [kb, ke) of K, with the sum
+// in registers; the rank-order sum of a split K loop's partial tiles over a
+// thread-block cluster; and the solve launches' product against U^-1,
+// which skips U^-1's zero lower part (pg_upper_product).
 //
 // A(r, k) = A[r*as0 + k*as1] and B(k, c) = B[k*bs0 + c*bs1] in global
 // memory, any strides, f32 or bf16 storage (storage.cuh: widened to f32 in
@@ -33,6 +35,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "storage.cuh"
@@ -151,7 +154,8 @@ __device__ inline void pg_stage_operand(float* dst, const T* src,
 }
 
 // acc[i][j] += sum over the PG_KC staged k of As[ty+TY*i][k] * Bs[tx+TX*j][k]
-template <int NB>
+// for the column blocks j >= J0 (the others are left as they are)
+template <int NB, int J0 = 0>
 __device__ inline void pg_slice(float (&acc)[PG_RM][8], const float* As,
                                 const float* Bs, int tx, int ty) {
   using G = PanelGemm<NB>;
@@ -159,35 +163,35 @@ __device__ inline void pg_slice(float (&acc)[PG_RM][8], const float* As,
   for (int k = 0; k < PG_KC; k += 4) {
     float4 b[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = J0; j < 8; ++j)
       b[j] = *reinterpret_cast<const float4*>(Bs + (tx + G::TX * j) * PG_LDK +
                                               k);
 #pragma unroll
     for (int i = 0; i < PG_RM; ++i) {
       const float4 a =
           *reinterpret_cast<const float4*>(As + (ty + G::TY * i) * PG_LDK + k);
-      // k by k across the row's 8 sums: no two FMAs in a row on one sum
+      // k by k across the row's sums: no two FMAs in a row on one sum
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+      for (int j = J0; j < 8; ++j) acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+      for (int j = J0; j < 8; ++j) acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+      for (int j = J0; j < 8; ++j) acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+      for (int j = J0; j < 8; ++j) acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
     }
   }
 }
 
-// acc += the product of nk staged slices, through the ring in smem
-// (PanelGemm<NB>::SMEM_FLOATS floats, 16-byte aligned): stage(s, As)
-// stages slice s into the ring slot As (A's PG_BM rows, then B's NB rows
-// at As + PG_BM * PG_LDK), PG_STAGES - 1 slices ahead of the FMAs. Every
-// thread of the block calls it; it ends with a barrier, after which smem
-// is free.
-template <int NB, class Stage>
-__device__ inline void pg_pipeline(float (&acc)[PG_RM][8], int nk,
-                                   Stage stage, float* smem, int tx, int ty) {
+// The ring in smem (PanelGemm<NB>::SMEM_FLOATS floats, 16-byte aligned)
+// over nk staged slices: stage(s, As) stages slice s into the ring slot As
+// (A's PG_BM rows, then B's NB rows at As + PG_BM * PG_LDK), PG_STAGES - 1
+// slices ahead of compute(s, As), which takes slice s from its slot. Every
+// thread of the block calls it; it ends with a barrier, after which smem is
+// free.
+template <int NB, class Stage, class Compute>
+__device__ inline void pg_ring(int nk, Stage stage, Compute compute,
+                               float* smem) {
   using G = PanelGemm<NB>;
 #pragma unroll
   for (int s = 0; s < PG_STAGES - 1; ++s) {
@@ -200,11 +204,22 @@ __device__ inline void pg_pipeline(float (&acc)[PG_RM][8], int nk,
     const int next = s + PG_STAGES - 1;
     if (next < nk) stage(next, smem + (next % PG_STAGES) * G::STAGE_FLOATS);
     pg_cp_async_commit();
-    const float* As = smem + (s % PG_STAGES) * G::STAGE_FLOATS;
-    pg_slice<NB>(acc, As, As + PG_BM * PG_LDK, tx, ty);
+    compute(s, smem + (s % PG_STAGES) * G::STAGE_FLOATS);
   }
   pg_cp_async_wait<0>();
   __syncthreads();
+}
+
+// acc += the product of nk staged slices, through the ring (pg_ring).
+template <int NB, class Stage>
+__device__ inline void pg_pipeline(float (&acc)[PG_RM][8], int nk,
+                                   Stage stage, float* smem, int tx, int ty) {
+  pg_ring<NB>(
+      nk, stage,
+      [&](int, const float* As) {
+        pg_slice<NB>(acc, As, As + PG_BM * PG_LDK, tx, ty);
+      },
+      smem);
 }
 
 // The slices of [kb, ke): PG_KC deep, the last one ragged.
@@ -245,6 +260,84 @@ __device__ inline void pg_product(float (&acc)[PG_RM][8], const T* A,
                            NB, mode_b, kb, ke);
       },
       smem, tx, ty);
+}
+
+// The first column block j of slice s that meets U^-1's upper triangle:
+// block j holds columns TX j .. TX j + TX - 1, slice s rows 32 s .. 32 s +
+// 31, and U^-1(k, c) = 0 for k > c, so the blocks before this one sum only
+// zeros from slice s.
+template <int NB>
+__host__ __device__ constexpr int pg_first_block(int s) {
+  return PG_KC * s / PanelGemm<NB>::TX < 8 ? PG_KC * s / PanelGemm<NB>::TX
+                                            : 8;
+}
+
+// acc += A[0:rows, 0:nb] @ X for an upper-triangular X [nb, nb] in global
+// memory (row-major, leading dimension nb; nb <= NB, nb % 32 == 0, columns
+// at or past nb read as 0), through the ring in smem (pg_ring): each slice
+// skips the column blocks left of its diagonal, which would add exact zeros
+// (pg_first_block), so the product takes sum over s of (8 - j0(s)) / 8 of
+// the full one's FMAs (20 / 32 at nb = 128). A (f32) is staged as mode_a
+// says, X by 4-byte cp.async (unit-stride along its columns). The solve launches of
+// K2, K3, K6 and K7 (L21 = A21 U^-1) all run this one product.
+template <int NB>
+__device__ inline void pg_upper_product(float (&acc)[PG_RM][8], const float* A,
+                                        long long as0, long long as1,
+                                        int rows, int mode_a, const float* X,
+                                        int nb, float* smem, int tx, int ty) {
+  static_assert(NB <= 4 * PG_KC, "at most four slices");
+  constexpr int J1 = pg_first_block<NB>(1), J2 = pg_first_block<NB>(2),
+                J3 = pg_first_block<NB>(3);
+  pg_ring<NB>(
+      pg_slices(0, nb),
+      [&](int s, float* As) {
+        pg_stage_slice<NB>(As, s, A, as0, as1, rows, mode_a, X, nb, 1, nb,
+                           PG_COPY4, 0, nb);
+      },
+      [&](int s, const float* As) {
+        const float* Bs = As + PG_BM * PG_LDK;
+        switch (s) {
+          case 0: pg_slice<NB, 0>(acc, As, Bs, tx, ty); break;
+          case 1: pg_slice<NB, J1>(acc, As, Bs, tx, ty); break;
+          case 2: pg_slice<NB, J2>(acc, As, Bs, tx, ty); break;
+          default: pg_slice<NB, J3>(acc, As, Bs, tx, ty);
+        }
+      },
+      smem);
+}
+
+// The solve launch of K2 (chol_panel.cu) and K3 (lu_panel.cu), one block of
+// PanelGemm<NB>::THREADS threads a 128-row tile: out rows 0 .. rows-1
+// (row-major, NB wide) = A rows @ X, X = U^-1 upper triangular [NB, NB]
+// row-major, by pg_upper_product; A f32 with any strides, staged as mode_a
+// says.
+template <int NB>
+__device__ inline void pg_solve_rows(const float* A, long long as0,
+                                     long long as1, int mode_a, int rows,
+                                     const float* X, float* out,
+                                     float* smem) {
+  using G = PanelGemm<NB>;
+  int tx, ty;
+  pg_thread<NB>(tx, ty);
+  float acc[PG_RM][8] = {};
+  pg_upper_product<NB>(acc, A, as0, as1, rows, mode_a, X, NB, smem, tx, ty);
+#pragma unroll
+  for (int i = 0; i < PG_RM; ++i) {
+    const int r = ty + G::TY * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[(long long)r * NB + tx + G::TX * j] =
+        acc[i][j];
+  }
+}
+
+// 1 when an f32 operand with these strides stages by cp.async 16-byte
+// copies: unit-stride along K (stride_k == 1), the other stride a multiple
+// of 4 floats, and the base 16-byte aligned.
+inline int staged_by_copy(const float* p, long long stride_k,
+                          long long stride_other) {
+  return stride_k == 1 && stride_other % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // The row stride of a partial tile in shared memory: 8-bank shifts a row.

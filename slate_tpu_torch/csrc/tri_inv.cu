@@ -1,16 +1,17 @@
 // K0's launch: X = U^-1 of one upper-triangular f32 tile, n <= 128.
 //
 // The routine itself is in tri_inv.cuh (upper_tri_inv_doubling), with the
-// note on what it replaces and what bounds it. On the solve paths the
-// wrappers of K2 and K3 launch this between their launches, on U = L00^T (a
-// transposed view: U is read through two strides) or triu(tile 0). One
-// block of 1024 threads copies U into shared memory, padded to np, the next
-// multiple of 8, with the identity (entries below the diagonal read as 0),
-// inverts it there by blocked recursive doubling and writes the n x n X
-// row-major: ten barriers, no dependent chain longer than 2 np FMAs. The
-// copy walks U's unit-stride index and keeps TRI_LOADS loads of a thread
-// in flight, since one block's round trips to memory, not its FMAs, are
-// what a tile this small waits on.
+// note on what it replaces and what bounds it. On the Cholesky paths K2's
+// wrapper launches this between its launches, on U = L00^T (a transposed
+// view: U is read through two strides); K3 and K7 form U^-1 inside their
+// own factor launch (lu_factor.cuh). One block of 1024 threads copies U
+// into shared memory, padded to np, the next multiple of 8, with the
+// identity (entries below the diagonal read as 0), inverts it there by
+// blocked recursive doubling and writes the n x n X row-major: ten
+// barriers, no dependent chain longer than 2 np FMAs. The copy walks U's
+// unit-stride index and keeps TRI_LOADS loads of a thread in flight, since
+// one block's round trips to memory, not its FMAs, are what a tile this
+// small waits on.
 #include "common.cuh"
 #include "tri_inv.cuh"
 

@@ -1,8 +1,7 @@
 // K0: inverse of an upper-triangular tile, the port of upper_tri_inv
-// (slate_tpu/internal/pallas_tri.py:28), and the back substitution that
-// K3's slabs (lu_factor.cuh) run inside their own blocks. The factor
-// launches of K6 and K7 (chol_panel_batched.cu, lu_panel_batched.cu) run
-// K0's blocked doubling inside their blocks.
+// (slate_tpu/internal/pallas_tri.py:28). The factor launches of K3 and K7
+// (lu_factor.cuh) and of K6 (chol_panel_batched.cu) run K0's blocked
+// doubling inside their blocks.
 //
 // Replaces: the helper the reference traces inside its fused Pallas panels
 // (chol_panel_fused, and later lu_panel_fused and the batched panels). Mosaic
@@ -10,40 +9,13 @@
 // multiplies the nilpotent series (I - N)(I + N^2)(I + N^4)..., log2(n) MXU
 // products of n x n. The series is accurate only while U is close to
 // diagonal; on the U of a partially pivoted LU panel it is off by ~1e-2, so
-// both routines here solve instead.
+// the routine here solves instead.
 //
 // Bound on this card: n^3/3 flops for n <= 128 (0.7 MFLOP), on a tile that
 // already sits in one block's shared memory. No launch of that size is bound
 // by bytes or flops; what bounds it is the length of the longest chain of
 // dependent steps and the block barriers between them.
 #pragma once
-
-// Column-parallel back substitution, n^3/6 FMAs: thread j owns column j of
-// X and all threads walk the rows i = n-1 .. 0 together, so U(i, k) is a
-// broadcast read and X(k, j) a bank-conflict-free one. A column reads only
-// itself, so no barrier is needed inside the routine; its chain is n(n+1)/2
-// FMAs long on the last column, which suits the bw-wide slabs of K3's tile
-// factor, not a whole tile.
-//
-// X = U^-1 for an upper-triangular n x n U in shared memory. U(i, k) is read
-// at u[i * us0 + k * us1], so a caller holding L = U^T passes swapped strides;
-// entries below U's diagonal are never read. X is written row-major at
-// x[i * ldx + j], zero below the diagonal. The caller syncs before (U
-// complete) and after (X complete).
-__device__ inline void upper_tri_inv_smem(const float* u, int us0, int us1,
-                                          float* x, int ldx, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    for (int i = n - 1; i >= 0; --i) {
-      float v = 0.f;
-      if (i <= j) {
-        float s = (i == j) ? 1.f : 0.f;
-        for (int k = i + 1; k <= j; ++k) s -= u[i * us0 + k * us1] * x[k * ldx + j];
-        v = s / u[i * us0 + i * us1];
-      }
-      x[i * ldx + j] = v;
-    }
-  }
-}
 
 constexpr int TRI_DIAG = 8;  // the diagonal blocks inverted first
 
@@ -72,10 +44,15 @@ constexpr int TRI_DIAG = 8;  // the diagonal blocks inverted first
 __device__ inline void upper_tri_inv_doubling(const float* u, int ldu,
                                               float* x, int ldx, float* t,
                                               int ldt, int np) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int idx = tid; idx < np * np; idx += nt) {
-    const int i = idx / np, j = idx % np;
-    if (j / TRI_DIAG != i / TRI_DIAG) x[i * ldx + j] = 0.f;
+  const int tid = threadIdx.x, nt = blockDim.x, nq4 = np / 4;
+  // zeros outside the diagonal blocks, four columns (one 16-byte store,
+  // inside one block column) at a time
+  for (int idx = tid; idx < np * nq4; idx += nt) {
+    const int i = idx / nq4, j = 4 * (idx - i * nq4);
+    if (j / TRI_DIAG != i / TRI_DIAG) {
+      *reinterpret_cast<float4*>(x + i * ldx + j) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   for (int j = tid; j < np; j += nt) {
     const int d0 = j - j % TRI_DIAG;

@@ -12,10 +12,11 @@ slate_tpu/internal/getrf.py).
   otherwise; the chosen rows move to the top and the permuted panel takes
   the no-pivot route.
 
-The gates carry this card's limits, not the TPU's VMEM ones (lu_kernels.py:
-K3 for nb in {32, 64, 96, 128}; K4 for nb <= 128 with a bw slab that fits
-one block's shared memory, as the kernel counts it).  Nothing here reads a
-tensor's values on the host.
+The gates carry this card's limits, not the TPU's VMEM ones, and on the
+card ask the kernel for them (lu_kernels.py: K3's ``slate_lu_panel_fits``,
+nb in {32, 64, 96, 128}; K4 for nb <= 128 with a chunk that fits one
+thread-block cluster's shared memory, ``slate_lu_select_fits``).  Nothing
+here reads a tensor's values on the host.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..tune.plans import resolve_plan
-from .lu_kernels import (PANEL_NB, SELECT_MAX_NB, lu_panel_fused, lu_select,
-                         select_fits)
+from .lu_kernels import (SELECT_MAX_NB, lu_panel_fused, lu_select,
+                         panel_fits, select_fits)
 from .trsm import tri_inv_lower, tri_inv_upper
 
 
@@ -70,13 +71,20 @@ def panel_lu(panel: torch.Tensor):
     return lu, pivots_to_perm(piv.long() - 1, panel.shape[-2])
 
 
-def _nopiv_fused_ok(dtype: torch.dtype, w: int, nb: int) -> bool:
+def _nopiv_fused_ok(panel: torch.Tensor) -> bool:
     """True when the plan routes this no-pivot panel through K3: f32, a
-    full tile on top, nb in {32, 64, 96, 128}, the plan's bw dividing nb."""
-    if not (dtype == torch.float32 and w >= nb and nb in PANEL_NB):
+    full tile on top, the plan's bw dividing nb, and on the card the
+    kernel's own gate (``slate_lu_panel_fits``: nb in {32, 64, 96, 128} and
+    its factor launch's shared memory); the plain version that CPU tensors
+    take has no such limit."""
+    w, nb = panel.shape
+    if not (panel.dtype == torch.float32 and w >= nb):
         return False
     plan = resolve_plan("getrf_panel", w, "float32")
-    return plan.kernel == "cuda" and nb % plan.bw == 0
+    if plan.kernel != "cuda" or nb % plan.bw:
+        return False
+    return panel.device.type == "cpu" or panel_fits(panel.device, nb,
+                                                    plan.bw)
 
 
 def panel_lu_nopiv(panel: torch.Tensor):
@@ -85,7 +93,7 @@ def panel_lu_nopiv(panel: torch.Tensor):
     factor to zero L rows), else the blocked square LU of the top block
     and the rows below times the inverted U."""
     w, nb = panel.shape
-    if _nopiv_fused_ok(panel.dtype, w, nb):
+    if _nopiv_fused_ok(panel):
         bw = resolve_plan("getrf_panel", w, "float32").bw
         wp = -(-w // nb) * nb
         pp = F.pad(panel, (0, 0, 0, wp - w)) if wp != w else panel

@@ -20,12 +20,13 @@ from .chol_kernels import live_rows
 from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
                       CudaKernel, batched_panel_step, batched_panel_step_plan,
                       check_cuda_f32, device_and_stream, fits, query)
-from .tri_inv import (back_substitution_plain, upper_tri_inv,
-                      upper_tri_inv_plain)
+from .tri_inv import back_substitution_plain, upper_tri_inv_plain
 
 LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
-    "slate_lu_panel_diag": [I32, P, P, I64, I64, I32, I32, P],
-    "slate_lu_panel_below": [I32, P, P, I64, I64, I32, I32, P, P]})
+    "slate_lu_panel_factor": [I32, P, P, I64, I64, I32, I32, P, P],
+    "slate_lu_panel_below": [I32, P, P, I64, I64, I32, I32, P, P],
+    "slate_lu_panel_fits": [I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_lu_panel_plan": [I32, P, I64, I64, ctypes.POINTER(I32)]})
 LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
     "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P],
     "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)],
@@ -35,8 +36,24 @@ LU_PANEL_BATCHED = CudaKernel("lu_panel_batched", "lu_panel_batched.cu", {
     "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_batched_plan": BATCHED_PLAN_ARGS})
 
-PANEL_NB = (32, 64, 96, 128)   # K3's instantiated widths, as K2's
 SELECT_MAX_NB = 128            # K4: four columns a lane
+
+
+def panel_fits(device: torch.device, nb: int, bw: int) -> bool:
+    """True when K3 takes a panel of width nb at slab width bw on this CUDA
+    device: the kernel's own answer (``slate_lu_panel_fits``: nb in {32,
+    64, 96, 128}, bw dividing nb, its factor launch's shared memory)."""
+    return fits(LU_PANEL, "slate_lu_panel_fits", device, nb, bw)
+
+
+def panel_plan(panel: torch.Tensor) -> dict:
+    """How K3's launch for the rows below stages this CUDA panel, as the
+    kernel's library reports it (``slate_lu_panel_plan``): ``strips`` is
+    "cp.async" (16-byte copies: unit stride along the columns, aligned
+    rows) or "loads"."""
+    staging = query(LU_PANEL, "slate_lu_panel_plan", panel.device,
+                    panel.data_ptr(), panel.stride(0), panel.stride(1))
+    return {"strips": "cp.async" if staging else "loads"}
 
 
 def select_fits(device: torch.device, w: int, nb: int, bw: int) -> bool:
@@ -64,9 +81,12 @@ def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     ``_lu_factor_in_place`` (pallas_lu.py:137), in bw-row slabs: the slab's
     rows eliminate against themselves column by column (a zero pivot
     divides by 1, as the reference does), then the tile's rows below the
-    slab get l21 = A21 D^-1 (D the slab's upper block, inverted by the
-    back substitution of csrc/tri_inv.cuh) and the rank-bw trailing
-    update."""
+    slab get l21 = A21 D^-1 (D the slab's upper block, inverted by back
+    substitution, so a zero pivot makes them Inf or NaN) and the rank-bw
+    trailing update.  The kernel (csrc/lu_factor.cuh) factors in 32-column
+    blocks of its own, scaling a row by 1 at a zero pivot only inside the
+    pivot's slab; the two agree up to the order of their f32 sums, and on
+    the health read's info and nonfinite."""
     s = a.clone()
     n = s.shape[0]
     for j0 in range(0, n, bw):
@@ -85,7 +105,8 @@ def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
 
 def lu_panel_plain(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     """The fused panel in torch ops: row tile 0 by :func:`lu_tile_plain`,
-    the rows below times U^-1 (K0's blocked doubling on triu(tile 0))."""
+    the rows below times U^-1 (K0's blocked doubling on triu(tile 0), as
+    the kernel's factor launch forms it)."""
     nb = panel.shape[1]
     top = lu_tile_plain(panel[:nb], bw)
     if panel.shape[0] == nb:
@@ -97,10 +118,10 @@ def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     """Fused unpivoted LU panel: the packed L\\U of [W, nb], W % nb == 0,
     unit lower diagonal implied (getrf.panel_lu_nopiv's contract).  Any
     strides.  A CPU tensor takes the plain version; CUDA tensors launch K3
-    (f32, nb in {32, 64, 96, 128}) or raise.  On CUDA, on the current
-    stream: K3's diagonal launch (row tile 0), and when W > nb, K0 on
-    triu(tile 0) (counted by K0's wrapper) and K3's launch for the rows
-    below.  LU_PANEL counts K3's one or two launches."""
+    (f32, nb and bw within :func:`panel_fits`) or raise.  On CUDA, on the
+    current stream: K3's factor launch (row tile 0 factored and, when W >
+    nb, U^-1 formed in the same launch) and, when W > nb, its launch for
+    the rows below; LU_PANEL counts the one or two launches."""
     w, nb = panel.shape
     if w < nb or w % nb or bw < 1 or nb % bw:
         raise ValueError(f"lu_panel_fused: needs W % nb == 0 and nb % bw == "
@@ -108,15 +129,17 @@ def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     if panel.device.type == "cpu":
         return lu_panel_plain(panel, bw)
     check_cuda_f32("lu_panel_fused", panel)
-    if nb not in PANEL_NB:
-        raise ValueError(f"lu_panel_fused: nb = {nb} not in {PANEL_NB}")
+    if not panel_fits(panel.device, nb, bw):
+        raise ValueError(f"lu_panel_fused: nb = {nb}, bw = {bw} past the "
+                         f"kernel's limits (slate_lu_panel_fits)")
     out = torch.empty((w, nb), dtype=panel.dtype, device=panel.device)
+    uinv = (torch.empty((nb, nb), dtype=panel.dtype, device=panel.device)
+            if w > nb else None)
     dev, stream = device_and_stream(panel)
     strides = (panel.data_ptr(), panel.stride(0), panel.stride(1), nb)
-    LU_PANEL.launch("slate_lu_panel_diag", dev, stream, *strides, bw,
-                    out.data_ptr())
-    if w > nb:
-        uinv = upper_tri_inv(out[:nb])               # K0 on triu(tile 0)
+    LU_PANEL.launch("slate_lu_panel_factor", dev, stream, *strides, bw,
+                    out.data_ptr(), None if uinv is None else uinv.data_ptr())
+    if uinv is not None:
         LU_PANEL.launch("slate_lu_panel_below", dev, stream, *strides, w,
                         uinv.data_ptr(), out.data_ptr())
     return out

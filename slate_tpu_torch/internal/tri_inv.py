@@ -2,16 +2,16 @@
 slate_tpu/internal/pallas_tri.py:28 ``upper_tri_inv``).
 
 The kernel is the ``__device__`` routine ``upper_tri_inv_doubling`` of
-``csrc/tri_inv.cuh``, launched by ``csrc/tri_inv.cu``.  On the solve paths
-the wrappers of K2 (internal/chol_kernels.py) and K3
-(internal/lu_kernels.py) call ``upper_tri_inv`` between their launches;
-``TRI_INV.launches`` counts the launches made here and nowhere else.
+``csrc/tri_inv.cuh``, launched by ``csrc/tri_inv.cu``.  On the Cholesky
+paths the wrapper of K2 (internal/chol_kernels.py) calls
+``upper_tri_inv`` between its launches; ``TRI_INV.launches`` counts the
+launches made here and nowhere else.  The factor launches of K3, K6 and K7
+run the same routine inside their own blocks.
 
 Two plain versions: :func:`upper_tri_inv_plain` repeats K0's blocked
-recursive doubling, which the factor launches of K6 and K7 also run inside
-their blocks; :func:`back_substitution_plain` repeats the column back
-substitution (``upper_tri_inv_smem``) that K3's slabs run inside their own
-blocks.
+recursive doubling; :func:`back_substitution_plain` is the back
+substitution of the reference's slab solve, which K3's plain tile
+(``lu_kernels.lu_tile_plain``) runs on each slab.
 """
 
 from __future__ import annotations

@@ -167,11 +167,11 @@ def test_lu_kernels_match_plain_versions(cuda):
         torch.testing.assert_close(lk.lu_panel_fused(x, 8),
                                    lk.lu_panel_plain(x, 8), rtol=RTOL,
                                    atol=ATOL)
-        # K3's diagonal launch, and when there are rows below, K0 and K3's
-        # launch for them
+        # K3's factor launch (U^-1 formed in it), and when there are rows
+        # below, K3's launch for them; no K0 launch
         below = int(m > nb)
         assert (lk.LU_PANEL.launches, TRI_INV.launches) == \
-            (launches[0] + 1 + below, launches[1] + below)
+            (launches[0] + 1 + below, launches[1])
     # the tie chunk: column 0's largest |v| in rows 3 and 300, which lie
     # in the two CTAs of a 512-row chunk's cluster; the lower row wins
     tie = rng.standard_normal((2, 512, 128)).astype(np.float32)
@@ -217,6 +217,85 @@ def test_lu_kernels_match_plain_versions(cuda):
     x = torch.from_numpy(rng.standard_normal((1, 5120, 128)).astype(
         np.float32)).to(cuda)
     assert torch.equal(lk.lu_select(x), lk.lu_select_plain(x))
+
+
+def _zero_pivot_tile(j, n=128):
+    """A tile whose pivot j is exactly 0 in f32 (as in
+    tests/test_torch_lu_kernels.py): A = L U with small integer entries, U's
+    other pivots +-1 and U[j, j] = 0, plus integers under pivot j."""
+    rng = np.random.default_rng(100 + j)
+    lo = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
+    up = np.triu(rng.integers(-2, 3, (n, n)), 1) + np.diag(
+        rng.choice([-1.0, 1.0], n))
+    up[j, j] = 0
+    a = lo @ up
+    a[j + 1:, j] += rng.integers(-2, 3, n - j - 1)
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("nb", [32, 64, 96, 128])
+def test_lu_panel_matches_plain_at_every_width_and_repeats(cuda, nb):
+    """K3 (32-column blocks, U^-1 in the factor launch, the rows below on
+    panel_gemm.cuh's product) against its plain version (the reference's
+    bw slabs) at W = nb and ~1024, on a pivoted panel and on a strided view
+    of it (plain-load staging), each bw dividing nb up to 8; two launches
+    give the same bits."""
+    rng = np.random.default_rng(30 + nb)
+    for w in (nb, 1024 // nb * nb):
+        x = _pivoted_panel(rng, w, nb, cuda)
+        wide = torch.zeros((w, nb + 3), device=cuda)
+        wide[:, 1:nb + 1] = x
+        for panel in (x, wide[:, 1:nb + 1]):
+            for bw in (1, 4, 8):
+                got = lk.lu_panel_fused(panel, bw)
+                torch.testing.assert_close(got, lk.lu_panel_plain(panel, bw),
+                                           rtol=RTOL, atol=ATOL)
+                assert torch.equal(got, lk.lu_panel_fused(panel, bw))
+        assert lk.panel_plan(x)["strips"] == "cp.async"
+        assert lk.panel_plan(wide[:, 1:nb + 1])["strips"] == "loads"
+
+
+@pytest.mark.parametrize("j", [0, 5, 37])
+def test_lu_panel_zero_pivot_health_matches_plain(cuda, j):
+    """A planted exact-zero pivot: the kernel scales by 1 inside the
+    pivot's bw slab and by 1 / 0 past it, as the plain version's slabs do,
+    so the health read gives the same info and nonfinite; column j is
+    finite in the slab and non-finite past it; the finite entries that both
+    have agree."""
+    from slate_tpu_torch.robust.health import from_pivots
+    tile = _zero_pivot_tile(j)
+    panel = torch.from_numpy(np.concatenate([
+        tile, np.random.default_rng(j).standard_normal((128, 128)).astype(
+            np.float32)])).to(cuda)
+    for bw in (4, 8):
+        got = lk.lu_panel_fused(panel, bw)
+        want = lk.lu_panel_plain(panel, bw)
+        hg = from_pivots(torch.diagonal(got[:128]))
+        hw = from_pivots(torch.diagonal(want[:128]))
+        assert (hg.info, hg.nonfinite) == (hw.info, hw.nonfinite) == \
+            (j + 1, True)
+        slab_end = j - j % bw + bw
+        for lu in (got, want):
+            assert bool(torch.isfinite(lu[j + 1:slab_end, j]).all())
+            assert not bool(torch.isfinite(lu[slab_end:128, j]).any())
+        both = torch.isfinite(got) & torch.isfinite(want)
+        torch.testing.assert_close(got[both], want[both], rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_lu_panel_gate_asks_the_kernel(cuda):
+    """K3's gate is the kernel's (slate_lu_panel_fits): nb in {32, 64, 96,
+    128} with bw dividing it; past that the no-pivot route takes the
+    library, and a launch raises."""
+    for nb in (32, 64, 96, 128):
+        assert lk.panel_fits(cuda, nb, 8)
+        assert ig._nopiv_fused_ok(torch.zeros((2 * nb, nb), device=cuda))
+    assert not lk.panel_fits(cuda, 256, 8)
+    assert not lk.panel_fits(cuda, 48, 8)
+    assert not lk.panel_fits(cuda, 128, 48)
+    assert not ig._nopiv_fused_ok(torch.zeros((512, 256), device=cuda))
+    with pytest.raises(ValueError, match="slate_lu_panel_fits"):
+        lk.lu_panel_fused(torch.zeros((512, 256), device=cuda), 8)
 
 
 def test_calu_gesv_on_the_card_matches_the_cpu_route(cuda):

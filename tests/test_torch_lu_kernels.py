@@ -112,6 +112,53 @@ def test_k3_plain_matches_the_xla_route_on_a_pivoted_panel():
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
 
 
+def _zero_pivot_tile(j, n=NB):
+    """A tile whose pivot j is exactly 0 in f32: A = L U with small integer
+    entries (L unit lower, U's other pivots +-1, U[j, j] = 0), plus integers
+    in column j below the diagonal, so that every multiplier before column
+    j is an exact integer, pivot j is 0 and the entries under it are not."""
+    rng = np.random.default_rng(100 + j)
+    lo = np.tril(rng.integers(-1, 2, (n, n)), -1) + np.eye(n)
+    up = np.triu(rng.integers(-2, 3, (n, n)), 1) + np.diag(
+        rng.choice([-1.0, 1.0], n))
+    up[j, j] = 0
+    a = lo @ up
+    a[j + 1:, j] += rng.integers(-2, 3, n - j - 1)
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("j,bw", [(0, 4), (0, 8), (5, 4), (5, 8), (37, 4),
+                                  (37, 8)])
+def test_k3_plain_zero_pivot_health_matches_pallas(j, bw):
+    """A planted exact-zero pivot at j: the reference divides by 1 inside
+    its bw slab and leaves the rows below the slab Inf or NaN.  The plain
+    tile and panel (a Gaussian block below the tile) give the health read
+    the same info and nonfinite as lu_panel_fused (interpret), the finite
+    entries of both agree within 1e-4 + 1e-4 |ref| (exact integers up to
+    column j, then back substitution where the reference takes its
+    series), and column j is finite in the pivot's slab and non-finite
+    past it in both."""
+    from slate_tpu.robust.health import from_pivots as ref_from_pivots
+    from slate_tpu_torch.robust.health import from_pivots
+    tile = _zero_pivot_tile(j)
+    panel = np.concatenate([tile, _gauss(j, NB)])
+    ref = np.asarray(ref_lu_panel(jnp.asarray(panel), bw=bw,
+                                  interpret=True))
+    want = ref_from_pivots(np.diag(ref[:NB]))
+    slab_end = j - j % bw + bw
+    for got in (lk.lu_tile_plain(torch.from_numpy(tile), bw).numpy(),
+                lk.lu_panel_plain(torch.from_numpy(panel), bw).numpy()):
+        h = from_pivots(torch.from_numpy(np.diag(got[:NB]).copy()))
+        assert (h.info, h.nonfinite) == (int(want.info), bool(want.nonfinite))
+        assert h.info == j + 1 and h.nonfinite
+        both = np.isfinite(got) & np.isfinite(ref[:len(got)])
+        np.testing.assert_allclose(got[both], ref[:len(got)][both],
+                                   rtol=1e-4, atol=1e-4)
+        for lu in (got, ref):
+            assert np.isfinite(lu[j + 1:slab_end, j]).all()
+            assert not np.isfinite(lu[slab_end:NB, j]).any()
+
+
 def test_reference_fused_route_misses_on_a_pivoted_panel():
     """The reference's own K3 (interpret mode) is 1e-2 off its XLA route on
     the same panel: its nilpotent-series U^-1 is inaccurate on pivoted U.
@@ -142,8 +189,8 @@ def test_k0_plain_inverts_a_pivoted_u_to_f64_accuracy(m):
 
 @pytest.mark.parametrize("n", [8, 40, 100, 128])
 def test_back_substitution_plain_inverts_a_pivoted_u_to_f64_accuracy(n):
-    """The back substitution that K3's slabs and K6/K7 run in their own
-    blocks, and K0's blocked doubling, on the leading n x n of a pivoted
+    """The back substitution of K3's plain slabs (lu_tile_plain), and K0's
+    blocked doubling, on the leading n x n of a pivoted
     Gaussian panel's U: both within 1e-5 of the f64 inverse, and within
     ~n eps of each other."""
     lu, _, _ = jax.lax.linalg.lu(jnp.asarray(_gauss(3, 1024)))
@@ -234,14 +281,19 @@ def test_tournament_on_a_singular_panel_keeps_a_permutation():
 
 
 def test_gates_carry_hopper_limits():
-    f32, f64 = torch.float32, torch.float64
-    assert ig._nopiv_fused_ok(f32, 384, 128)
-    assert not ig._nopiv_fused_ok(f32, 512, 256)      # nb > 128
-    assert not ig._nopiv_fused_ok(f64, 384, 128)
+    panel = torch.zeros((384, NB))
+    assert ig._nopiv_fused_ok(panel)
+    # K3's limits are the kernel's own (slate_lu_panel_fits, asked on the
+    # card: nb <= 128 there, tests/test_torch_cuda.py); the plain version
+    # that a CPU panel takes has none, and at nb = 256 the reference's gate
+    # takes its fused panel too
+    assert ig._nopiv_fused_ok(torch.zeros((512, 256)))
+    assert not ig._nopiv_fused_ok(panel.double())
+    assert not ig._nopiv_fused_ok(torch.zeros((64, NB)))   # W < nb
     with plan_override("getrf_panel", LIBRARY_PLAN):
-        assert not ig._nopiv_fused_ok(f32, 384, 128)
+        assert not ig._nopiv_fused_ok(panel)
     with plan_override("getrf_panel", TilePlan("cuda", 48)):
-        assert not ig._nopiv_fused_ok(f32, 384, 128)  # 128 % 48
+        assert not ig._nopiv_fused_ok(panel)               # 128 % 48
     # K4 takes rounds past the reference's W <= 4096 and W % 128 == 0; the
     # card's shared memory limits W there (tests/test_torch_cuda.py)
     blocks = torch.zeros((2, 4096, NB))
