@@ -69,7 +69,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      orthogonal to range(A): the scaled normal-equations residual and the
      error against an f64 lstsq, each under a bound that the same solve
      with TF32 products exceeds; K5 launched once a panel (32), K0-K4
-     never; wall time and GFLOP/s (LAPACK's geqrf + ormqr + trsm counts);
+     never; wall time and GFLOP/s (every count and bound from the flop
+     model, slate_tpu_torch/obs/flops.py: gels' nominal count);
   7. BASELINE.md config 4 cut to f32 and one card, gels at 200000 x 1024
      (a ragged last tile row): the default route, CholQR, launches K2 and
      K0 as potrf at n = 1024 does (23 and 7); MethodGels.QR forced takes
@@ -96,14 +97,38 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      per-problem route (agreeing with the ragged one), with the bf16 rung
      (K6-K8 on bf16 storage; escalated results bit-equal to the f32
      stream's), and a small stream held against the CPU route;
-  9. print the launch counts, the card line, the kernels line, and last
+  9. robustness on those paths (its own generators, --seed + 8 and
+     --seed + 9): abft_posv (posv at n = 20480 with Option.Abft, clean
+     beside Abft off as warm wall and device busy, the largest checksum
+     residual over its threshold, a transient bitflip in K2's first
+     diagonal factor located at tile (0, 0) and repaired, a double strike
+     refused and then solved by the retry_same rung); abft_gesv (CALU at
+     n = 20480 the same way, K4 and K3 under lu_panel_check, the strike in
+     the first panel's row tile 120; the double strike refused, CALU
+     having no rung below it; NoPiv at n = 8192 clean, with a strike at
+     tile (40, 0), and with a double strike that retry_same saves);
+     speculate_gesv (the certified RBT rung, K3 at the padded width, on
+     the orthogonal A and on a diagonally dominant A, each beside CALU's
+     wall, and a post_rbt bitflip that escalates to CALU);
+     speculate_posv_bf16 (the bf16 rung at n = 20480 beside f32 posv's
+     wall, and a cond 1e6 SPD at n = 4096 that escalates to f32);
+     speculate_gels (the certified CholQR2 rung at config 4, the bf16 QR
+     rung, K5 on the rounded operand, at 8192 x 4096, each beside its
+     default route); abft_serving (the 120-request stream under Abft,
+     chol_solve on K6 with the in-batch rungs and the rest per problem,
+     beside the plain stream; one transient strike in a batch of the
+     stream's chol_solve requests at n = 1900, repaired, its neighbours'
+     bits untouched).  Every count, GFLOP/s and bound above comes from
+     the flop model (slate_tpu_torch/obs/flops.py);
+ 10. print the launch counts, the card line, the kernels line, and last
      the result line.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
 QR gels and one warm serving stream down by phase (host clock) and by
 kernel (torch.profiler), with the device's idle share, and the gesv's K4
 device time into its round-1 launches and its reduction rounds', K3's
 into its factor and strips launches, and the stream's K6 and K7 device
-time into their update, factor and solve launches.
+time into their update, factor and solve launches, and the kernel
+breakdown of one Abft posv and one Abft CALU gesv.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
@@ -112,8 +137,9 @@ K5/K8 cluster edge shapes from a fourth, --seed + 3, K2's late panels
 and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
 96 and its indefinite tile from a sixth, --seed + 5, and K4's tie chunk
 from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
-zero-pivot tiles from an eighth, --seed + 7, so that adding to one slice
-moves no other's matrices.
+zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
+matrices from a ninth, --seed + 8, and their least-squares problems from a
+tenth, --seed + 9, so that adding to one slice moves no other's matrices.
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -130,8 +156,6 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_F32_FLOPS = 67e12    # H100 SXM, f32 outside the tensor cores
-PEAK_BYTES = 3.35e12      # H100 SXM, HBM3
 EPS32 = torch.finfo(torch.float32).eps
 # kernel vs plain version, element by element: |kernel - plain| <= ATOL +
 # RTOL |plain|.  Both are f32 with the same steps; only the order of the
@@ -303,12 +327,42 @@ def k3_launch_times(fn, reps: int = 5) -> dict:
     return {"k3_own_ms": sum(parts.values()), "k3_launch_ms": parts}
 
 
+def card_rates() -> tuple[float, float]:
+    """(f32 peak FLOP/s, memory rate B/s) of the card, from the flop
+    model's table (slate_tpu_torch/obs/flops.py), which holds the H100
+    alone: another card is measured against the H100's rates."""
+    from slate_tpu_torch.obs import flops as fl
+    peak, bw = fl.peak("float32"), fl.chip_bandwidth()[0]
+    if peak is None or bw is None:
+        peak = dict(fl.PEAK_TABLE)["h100"]["float32"]
+        bw = dict(fl.BANDWIDTH_TABLE)["h100"]
+    return peak, bw
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time for the work on the card: the larger of flops over the
-    f32 peak and bytes over the memory rate, in ms, and which one it is."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    f32 peak and bytes over the memory rate (card_rates), in ms, and which
+    one it is."""
+    peak, bw = card_rates()
+    t_ops, t_bytes = flops / peak, nbytes / bw
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def op_flops(op: str, *shapes) -> float:
+    """The flop model's count (slate_tpu_torch.obs.flops.op_flops) for one
+    call of ``op`` on argument ``shapes``."""
+    from slate_tpu_torch.obs import flops as fl
+    return fl.op_flops(op, list(shapes))
+
+
+def panel_flops(m: int, k: int, nb: int, factor: str) -> float:
+    """A left-looking panel step of m rows after k factored columns, from
+    the flop model: the update (gemm m x k x nb), the diagonal tile's
+    factor (``factor``: "potrf" or "getrf", nb x nb) and the solve of the
+    m - nb rows below it (trsm against the nb x nb tile)."""
+    return (op_flops("gemm", (m, k), (k, nb)) + op_flops(factor, (nb, nb))
+            + op_flops("trsm", (nb, nb), (nb, m - nb)))
 
 
 def spd(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -393,7 +447,7 @@ def check_kernels(gen, k1_gen) -> dict:
             time_ms(lambda: upper_tri_inv_plain(u), 20),
             time_ms(lambda: torch.linalg.solve_triangular(u, eye, upper=True),
                     50),
-            n ** 3 / 3, 4 * (n * (n + 1) // 2 + n * n))
+            op_flops("trtri", (n, n)), 4 * (n * (n + 1) // 2 + n * n))
     for n in (32, 64, 96, 128):
         a = spd(n, gen if n in (64, 128) else k1_gen)
         rows["chol_tile"] = check(
@@ -405,7 +459,7 @@ def check_kernels(gen, k1_gen) -> dict:
             time_ms(lambda: chol_tile(a, 8), 50),
             time_ms(lambda: chol_tile_plain(a, 8), 5),
             time_ms(lambda: torch.linalg.cholesky_ex(a), 50),
-            n ** 3 / 3, 4 * (n * (n + 1) // 2 + n * n))
+            op_flops("potrf", (n, n)), 4 * (n * (n + 1) // 2 + n * n))
         # the old yardstick: cholesky syncs the host on its info check
         rows["chol_tile"]["library_cholesky_ms"] = time_ms(
             lambda: torch.linalg.cholesky(a), 50)
@@ -512,7 +566,7 @@ def check_chol_panel(gen, m: int, k: int, left_t: bool,
         times["k2_own_ms"],
         time_ms(lambda: chol_panel_plain(col, left, lead, 8), 3),
         time_ms(library, 10),
-        2 * m * k * nb + nb ** 3 / 3 + (m - nb) * nb * nb,
+        panel_flops(m, k, nb, "potrf"),
         4 * (m * nb + m * k + k * nb + 2 * m * nb),
         control=(tf32(lambda: chol_panel_plain(col, left, lead, 8))
                  if k else None))
@@ -562,7 +616,7 @@ def check_k2_k0_edges(gen) -> None:
           time_ms(lambda: upper_tri_inv_plain(u), 20),
           time_ms(lambda: torch.linalg.solve_triangular(
               u, torch.eye(128, device="cuda"), upper=True), 50),
-          128 ** 3 / 3, 4 * (128 * 129 // 2 + 128 * 128))
+          op_flops("trtri", (128, 128)), 4 * (128 * 129 // 2 + 128 * 128))
 
 
 def check_lu_kernels(gen, tie_gen, k3_gen) -> dict:
@@ -611,7 +665,7 @@ def check_lu_kernels(gen, tie_gen, k3_gen) -> dict:
             time_ms(lambda: lu_panel_plain(x, 8), 3),
             time_ms(library, 10),
             # W nb^2 - nb^3/3: the tile's LU, then L21 = A21 U^-1
-            2 * nb ** 3 / 3 + (w - nb) * nb * nb,
+            panel_flops(w, 0, nb, "getrf"),
             4 * 2 * w * nb,
             control=[tf32(lambda: lu_panel_plain(x, 8))] if w > nb else None,
             witness=[library()])
@@ -641,9 +695,10 @@ def check_lu_kernels(gen, tie_gen, k3_gen) -> dict:
         equal = bool(torch.equal(got, plain)) and (
             library is None or bool(torch.equal(got, library))) and (
             x is not tie or bool((got[:, 0] == 3).all()))
-        # per chunk: the partial-pivot LU's W nb^2 - nb^3/3 flops; the
-        # chunk and its live-row count read, nb indices written
-        b_ms, b_by = bound(g * (w * nb * nb - nb ** 3 / 3),
+        # per chunk: the partial-pivot LU's W nb^2 - nb^3/3 flops (the
+        # tile's LU and the solve below it); the chunk and its live-row
+        # count read, nb indices written
+        b_ms, b_by = bound(g * panel_flops(w, 0, nb, "getrf"),
                            g * (4 * w * nb + 4 + 8 * nb))
         shape = {"G": g, "W": w, "nb": nb, "bw": 8, "nrows": nrows,
                  "tie_rows": [3, 300] if x is tie else None}
@@ -728,12 +783,6 @@ def check_lu_zero_pivots(gen) -> None:
                     f"version's {hw.info, hw.nonfinite}")
 
 
-def qr_flops(mm: int, w: int) -> float:
-    """A Householder panel [mm, w] with its T: 2 mm w^2 - 2 w^3 / 3 for the
-    reflectors and their application, mm w^2 - w^3 / 3 for larft's T."""
-    return 3 * mm * w * w - w ** 3
-
-
 def check_qr_kernels(gen, edge_gen) -> dict:
     """K5 against its plain version on the first and last panels of the
     main gels (8192 and 4224 rows), an mm that is no multiple of 8, a
@@ -781,7 +830,7 @@ def check_qr_kernels(gen, edge_gen) -> dict:
             time_ms(lambda: qr_panel(x), 10),
             time_ms(lambda: qr_panel_plain(x), 2),
             time_ms(library, 10),
-            qr_flops(mm, w), 4 * (2 * mm * w + w * w),
+            op_flops("geqrf", (mm, w)), 4 * (2 * mm * w + w * w),
             control=tf32(lambda: list(qr_panel_plain(x))),
             witness=witness)
         row.update(cluster=panel_cluster(x.device, mm, w, 8),
@@ -849,13 +898,6 @@ def run_gels(st, a, b, nb, opts=None):
     x = X.to_dense()
     torch.cuda.synchronize()
     return x, time.perf_counter() - t0
-
-
-def gels_flops(m: int, n: int, nrhs: int) -> float:
-    """LAPACK's counts: geqrf 2mn^2 - 2n^3/3, ormqr 4mn nrhs - 2n^2 nrhs,
-    trsm n^2 nrhs."""
-    return (2 * m * n * n - 2 * n ** 3 / 3 + 4 * m * n * nrhs
-            - 2 * n * n * nrhs + n * n * nrhs)
 
 
 def trace_gels(st, a, b, nb) -> None:
@@ -1061,7 +1103,7 @@ def trace_posv(st, a, b, nb) -> None:
     B = st.Matrix.from_numpy(b, nb)
     st.posv(A, B)                                    # warm-up
     full, t_dense = _timed(A.to_dense)
-    lfac, t_factor = _timed(lambda: _potrf_dense_blocked(full, nb))
+    (lfac, _), t_factor = _timed(lambda: _potrf_dense_blocked(full, nb))
     L, t_tile = _timed(lambda: st.TriangularMatrix._from_view(
         st.Matrix(st.TileStorage.from_dense(lfac, nb, nb)), st.Uplo.Lower))
     del full, lfac
@@ -1275,9 +1317,9 @@ def check_serve_kernels(gen, edge_gen) -> dict:
                 kk, esz = k * nb, col.element_size()
                 live_m = [max(0, min(SERVE_M, (t - k) * nb))
                           for t in SERVE_TILES[k]]
-                flops = sum(2 * mb * kk * nb + (nb ** 3 / 3 if chol
-                                                else 2 * nb ** 3 / 3)
-                            + (mb - nb) * nb * nb for mb in live_m if mb)
+                flops = sum(panel_flops(mb, kk, nb,
+                                        "potrf" if chol else "getrf")
+                            for mb in live_m if mb)
                 nbytes = esz * (3 * SERVE_B * SERVE_M * nb + sum(live_m) * kk
                                 + sum(1 for mb in live_m if mb) * kk * nb)
                 wrapper_ms = time_ms(lambda: kern(col, left, lead, tiles, k,
@@ -1358,7 +1400,7 @@ def check_serve_kernels(gen, edge_gen) -> dict:
                 time_ms(lambda: qk.qr_panel_batched_plain(a, rws), 1,
                         warmup=1),
                 time_ms(lambda: torch.geqrf(a), 5) if f32 else None,
-                live * qr_flops(mm, w),
+                live * op_flops("geqrf", (mm, w)),
                 a.element_size() * bsz * (2 * mm * w + w * w),
                 rtol=RTOL if f32 else BF16_RTOL)
             row.update(filler_slot_bit_equal=filler_equal,
@@ -1798,6 +1840,570 @@ def serve_requests_small(gen):
     return reqs
 
 
+# ---------------------------------------------------- robustness phases
+
+# NoPiv under Abft, and the bf16 rung's ill-conditioned case, at these n
+ABFT_NOPIV_N = 8192
+BF16_ILL_N, BF16_ILL_COND = 4096, 1e6
+# the served chol_solve batch struck in abft_serving: the stream's
+# chol_solve requests of this n (none of them planted), one bucket
+ABFT_SERVE_N = 1900
+
+
+def timed_solve(st, op, a, b, nb, opts=None):
+    """One ``op`` ("posv", "gesv" or "gels") on device matrices under
+    ``opts`` with ErrorPolicy.Info; returns (factor or None, X dense,
+    HealthInfo, wall seconds), the matrices built before the clock."""
+    A = (st.SymmetricMatrix.from_numpy(a, nb) if op == "posv"
+         else st.Matrix.from_numpy(a, nb))
+    B = st.Matrix.from_numpy(b, nb)
+    o = {**(opts or {}), st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = getattr(st, op)(A, B, o)
+    x = out[-2].to_dense()
+    torch.cuda.synchronize()
+    return (out[0] if len(out) == 3 else None), x, out[-1], \
+        time.perf_counter() - t0
+
+
+def device_busy(fn) -> float | str:
+    """Device busy seconds of one ``fn()`` under torch.profiler: the union
+    of its kernels' device intervals."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _timed(fn)
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return _busy_seconds(ks) if ks else "not measured"
+
+
+def abft_margin(fn):
+    """``fn()`` with every checksum comparison of robust/abft.py recording
+    its largest |residual| / threshold on the device; returns (fn's
+    result, that ratio over the whole call, read once): how far a clean
+    run's rounding sits below the detection threshold."""
+    from slate_tpu_torch.robust import abft
+    real, seen = abft._bad, []
+
+    def spy(d, t):
+        seen.append((d.abs() / t[:, None]).amax())
+        return real(d, t)
+    abft._bad = spy
+    try:
+        out = fn()
+    finally:
+        abft._bad = real
+    return out, (float(torch.stack(seen).max()) if seen else None)
+
+
+def strike_seed(rows: int, cols: int, where, count: int = 1) -> int:
+    """The first seed whose strike positions, drawn as robust/faults.py
+    draws them in a [rows, cols] block, all satisfy ``where(row, col)``:
+    so that a strike lands on a live element of the part of the factor it
+    is meant for (a bitflip scales its element, and a zero stays zero)."""
+    import numpy as np
+    seed = 0
+    while True:
+        p = np.random.default_rng(seed).choice(rows * cols, size=count,
+                                               replace=False)
+        if all(where(int(x) // cols, int(x) % cols) for x in p):
+            return seed
+        seed += 1
+
+
+def below_diagonal(r: int, c: int) -> bool:
+    return r > c
+
+
+def health_row(h) -> dict:
+    return {"ok": h.ok, "info": h.info, "nonfinite": h.nonfinite,
+            "growth": h.growth, "iters": h.iters, "converged": h.converged,
+            "abft_detected": h.abft_detected,
+            "abft_corrected": h.abft_corrected,
+            "abft_site": ([h.abft_site >> 16, h.abft_site & 0xFFFF]
+                          if h.abft_site >= 0 else None)}
+
+
+def solve_ratio(a, x, b) -> float:
+    """The residual certificate's ratio ||B - AX||_F / (||A||_F ||X||_F +
+    ||B||_F), formed in f64 (robust/certify.py certify_solve)."""
+    a64, x64, b64 = a.double(), x.double(), b.double()
+    return float(torch.linalg.norm(b64 - a64 @ x64) / (
+        torch.linalg.norm(a64) * torch.linalg.norm(x64)
+        + torch.linalg.norm(b64)))
+
+
+def check_abft_posv(st, faults, a, b, x64, nb, reset, counts, failures):
+    """abft_posv: posv at full width with Option.Abft, clean beside the
+    same call with Abft off (warm wall, device busy), one transient
+    bitflip planted in the first diagonal tile's factor from K2 (located,
+    repaired), and a transient double strike (refused, then the retry_same
+    rung's clean solve).  Returns the Abft call's launches and the wall of
+    the Abft-off call."""
+    n = a.shape[0]
+    abft = {st.Option.Abft: st.Abft.On}
+    _, x_off, h_off, wall_off = timed_solve(st, "posv", a, b, nb)
+    reset()
+    _, x_on, h_on, wall_on = timed_solve(st, "posv", a, b, nb, abft)
+    launches = counts()
+    busy_off = device_busy(lambda: timed_solve(st, "posv", a, b, nb))
+    busy_on = device_busy(lambda: timed_solve(st, "posv", a, b, nb, abft))
+    (_, _, h_m, _), margin = abft_margin(
+        lambda: timed_solve(st, "posv", a, b, nb, abft))
+    res, fwd = accuracy(a, x_on, b, x64)
+    want = {"chol_panel_fused": 3 * (n // nb) - 1,
+            "upper_tri_inv": n // nb - 1}
+    emit({"phase": "abft_posv", "case": "clean", "n": n, "nb": nb,
+          "nrhs": b.shape[1], "wall_s_abft_off": wall_off,
+          "wall_s_abft_on": wall_on,
+          "wall_overhead": wall_on / wall_off - 1,
+          "device_busy_s_abft_off": busy_off,
+          "device_busy_s_abft_on": busy_on,
+          "abft_detected": h_on.abft_detected,
+          "abft_corrected": h_on.abft_corrected,
+          "max_residual_over_threshold": margin,
+          "scaled_residual": res, "residual_bound": RESIDUAL_BOUND,
+          "forward_error_vs_f64": fwd, "forward_bound": FORWARD_BOUND,
+          "health": health_row(h_on), "launches": launches})
+    if not (res < RESIDUAL_BOUND and fwd < FORWARD_BOUND
+            and torch.isfinite(x_on).all()):
+        failures.append(f"abft_posv clean: residual {res}, forward {fwd}")
+    if any(launches[k] != v for k, v in want.items()):
+        failures.append(f"abft_posv launches {launches} (want {want})")
+    seed = strike_seed(nb, nb, below_diagonal)
+    plan = faults.FaultPlan("post_panel", kind="bitflip", seed=seed,
+                            transient=True)
+    with faults.inject(plan):
+        _, x1, h1, wall1 = timed_solve(st, "posv", a, b, nb, abft)
+    res1, fwd1 = accuracy(a, x1, b, x64)
+    emit({"phase": "abft_posv", "case": "single_strike", "seed": seed,
+          "planted_tile": [0, 0], "wall_s": wall1,
+          "scaled_residual": res1, "forward_error_vs_f64": fwd1,
+          "health": health_row(h1)})
+    if not ((h1.abft_detected, h1.abft_corrected, h1.abft_site) == (1, 1, 0)
+            and h1.ok and res1 < RESIDUAL_BOUND and fwd1 < FORWARD_BOUND):
+        failures.append(f"abft_posv single strike: {health_row(h1)}, "
+                        f"residual {res1}, forward {fwd1}")
+    seed2 = strike_seed(nb, nb, below_diagonal, count=2)
+    plan2 = faults.FaultPlan("post_panel", kind="bitflip", seed=seed2,
+                             count=2, transient=True)
+    with faults.inject(plan2):
+        _, _, h0, _ = timed_solve(st, "posv", a, b, nb, {
+            **abft, st.Option.UseFallbackSolver: False})
+    with faults.inject(plan2):
+        F2, x2, h2, wall2 = timed_solve(st, "posv", a, b, nb, abft)
+    res2, fwd2 = accuracy(a, x2, b, x64)
+    emit({"phase": "abft_posv", "case": "double_strike", "seed": seed2,
+          "first_attempt": health_row(h0), "after_retry_same": health_row(h2),
+          "wall_s_with_retry": wall2, "scaled_residual": res2,
+          "forward_error_vs_f64": fwd2})
+    if not (h0.abft_detected > h0.abft_corrected and not h0.ok and h2.ok
+            and isinstance(F2, st.TriangularMatrix)
+            and res2 < RESIDUAL_BOUND and fwd2 < FORWARD_BOUND):
+        failures.append(f"abft_posv double strike: first {health_row(h0)}"
+                        f", retried {health_row(h2)}")
+    return launches, wall_off
+
+
+def check_abft_gesv(st, faults, a, b, x64, nb, reset, counts, gen, nrhs,
+                    failures):
+    """abft_gesv: CALU gesv at full width with Option.Abft (K4 and K3
+    under lu_panel_check), clean beside Abft off; a transient bitflip
+    planted in U of the first panel (tile (0, 0), above the diagonal:
+    located, repaired); a double strike there (refused: CALU has no rung
+    below it, as in the reference); a bitflip in L of the first panel's
+    row tile 120, printed as measured: on this A, whose U entries sit
+    under 50 n eps of the struck value, the panel rung's threshold (the
+    reference's, scaled by the struck factor's finite magnitude) lets it
+    through, and the check is only that the health then reads the failure;
+    then NoPiv at ABFT_NOPIV_N (K3) clean, with a single strike, and with
+    a transient double strike that the retry_same rung saves.  Returns the
+    Abft CALU call's launches and the Abft-off wall."""
+    from slate_tpu_torch.internal.getrf import _lu_select_ok
+    n = a.shape[0]
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    abft = {**calu, st.Option.Abft: st.Abft.On}
+    _, _, _, wall_off = timed_solve(st, "gesv", a, b, nb, calu)
+    reset()
+    _, x_on, h_on, wall_on = timed_solve(st, "gesv", a, b, nb, abft)
+    launches = counts()
+    busy_off = device_busy(lambda: timed_solve(st, "gesv", a, b, nb, calu))
+    busy_on = device_busy(lambda: timed_solve(st, "gesv", a, b, nb, abft))
+    (_, _, _, _), margin = abft_margin(
+        lambda: timed_solve(st, "gesv", a, b, nb, abft))
+    res, fwd = accuracy(a, x_on, b, x64)
+    want = expected_calu_launches(n, nb, lambda h: _lu_select_ok(
+        torch.empty((1, h, nb), device="cuda"), nb))
+    emit({"phase": "abft_gesv", "case": "clean", "method": "CALU", "n": n,
+          "nb": nb, "wall_s_abft_off": wall_off, "wall_s_abft_on": wall_on,
+          "wall_overhead": wall_on / wall_off - 1,
+          "device_busy_s_abft_off": busy_off,
+          "device_busy_s_abft_on": busy_on,
+          "abft_detected": h_on.abft_detected,
+          "abft_corrected": h_on.abft_corrected,
+          "max_residual_over_threshold": margin,
+          "scaled_residual": res, "residual_bound": GESV_RESIDUAL_BOUND,
+          "forward_error_vs_f64": fwd, "forward_bound": GESV_FORWARD_BOUND,
+          "health": health_row(h_on), "launches": launches})
+    if not (res < GESV_RESIDUAL_BOUND and fwd < GESV_FORWARD_BOUND
+            and torch.isfinite(x_on).all()):
+        failures.append(f"abft_gesv clean: residual {res}, forward {fwd}")
+    if any(launches[k] != v for k, v in want.items()):
+        failures.append(f"abft_gesv launches {launches} (want {want})")
+    def upper(r, c):
+        return r < c
+    for case, tile, count, where in (
+            ("single_strike_u", (0, 0), 1, upper),
+            ("double_strike_u", (0, 0), 2, upper),
+            ("single_strike_l_finding", (120, 0), 1, lambda r, c: True)):
+        seed = strike_seed(nb, nb, where, count)
+        plan = faults.FaultPlan("post_panel", kind="bitflip", seed=seed,
+                                count=count, transient=True, tile=tile,
+                                nb=nb)
+        opts = abft if count == 1 else {**abft,
+                                        st.Option.UseFallbackSolver: False}
+        with faults.inject(plan):
+            _, x1, h1, wall1 = timed_solve(st, "gesv", a, b, nb, opts)
+        res1, fwd1 = accuracy(a, x1, b, x64)
+        emit({"phase": "abft_gesv", "case": case, "method": "CALU",
+              "planted_tile": list(tile), "seed": seed, "wall_s": wall1,
+              "scaled_residual": res1, "forward_error_vs_f64": fwd1,
+              "health": health_row(h1)})
+        good = res1 < GESV_RESIDUAL_BOUND and fwd1 < GESV_FORWARD_BOUND
+        if case == "single_strike_u" and not (
+                (h1.abft_detected, h1.abft_corrected) == (1, 1)
+                and h1.abft_site == tile[0] * 65536 + tile[1] and h1.ok
+                and good):
+            failures.append(f"abft_gesv single strike: {health_row(h1)}")
+        if case == "double_strike_u" and not (
+                h1.abft_detected > h1.abft_corrected and not h1.ok):
+            failures.append(f"abft_gesv double strike: {health_row(h1)}")
+        if case == "single_strike_l_finding" and h1.ok and not good:
+            failures.append(f"abft_gesv: a struck solve reads healthy "
+                            f"({health_row(h1)}, residual {res1})")
+    # ---- NoPiv (K3 alone) at ABFT_NOPIV_N ----
+    nn = ABFT_NOPIV_N
+    a_n = torch.randn(nn, nn, generator=gen, device="cuda")
+    a_n.diagonal().add_(nn)                  # strictly diagonally dominant
+    b_n = torch.randn(nn, nrhs, generator=gen, device="cuda")
+    x64_n = torch.linalg.solve(a_n.double(), b_n.double())
+    nopiv = {st.Option.MethodLU: st.MethodLU.NoPiv, st.Option.Abft: st.Abft.On}
+    tile_n = (40, 0)
+    nopiv_launches = None
+    for case, plans in (
+            ("clean", ()),
+            ("single_strike", (faults.FaultPlan(
+                "post_panel", kind="bitflip", seed=5, transient=True,
+                tile=tile_n, nb=nb),)),
+            ("double_strike_retry_same", (faults.FaultPlan(
+                "post_panel", kind="bitflip", seed=5, count=2,
+                transient=True, tile=tile_n, nb=nb),))):
+        reset()
+        with faults.inject(*plans):
+            F, x1, h1, wall1 = timed_solve(st, "gesv", a_n, b_n, nb, nopiv)
+        got = counts()
+        nopiv_launches = nopiv_launches or got
+        res1, fwd1 = accuracy(a_n, x1, b_n, x64_n)
+        emit({"phase": "abft_gesv", "case": case, "method": "NoPiv",
+              "n": nn, "planted_tile": list(tile_n) if plans else None,
+              "wall_s": wall1, "scaled_residual": res1,
+              "forward_error_vs_f64": fwd1, "health": health_row(h1),
+              "launches": got})
+        want_counts = {"clean": (0, 0, -1),
+                       "single_strike": (1, 1, tile_n[0] * 65536),
+                       "double_strike_retry_same": (0, 0, -1)}[case]
+        if not ((h1.abft_detected, h1.abft_corrected, h1.abft_site)
+                == want_counts and h1.ok and isinstance(F, st.LUFactors)
+                and res1 < GESV_RESIDUAL_BOUND
+                and fwd1 < GESV_FORWARD_BOUND):
+            failures.append(f"abft_gesv NoPiv {case}: {health_row(h1)}, "
+                            f"residual {res1}, forward {fwd1}")
+    if nopiv_launches.get("lu_panel_fused") != 2 * (nn // nb) - 1:
+        failures.append(f"abft_gesv NoPiv launches {nopiv_launches}")
+    return launches, wall_off, nopiv_launches
+
+
+def check_speculate_gesv(st, faults, a, b, x64, nb, reset, counts,
+                         calu_wall, gen, failures):
+    """speculate_gesv: Option.Speculate at full width: the RBT rung
+    (getrf_rbt: K3 at the padded width, two refinement sweeps, the
+    residual certificate on the original system), accepted or escalated
+    to CALU, on the orthogonal A and on a diagonally dominant A (the
+    NoPiv route's kind of matrix), each beside CALU's wall on the same
+    matrix; then a persistent post_rbt bitflip on the dominant A, which
+    the certificate catches and the pivoted chain (CALU) answers."""
+    from slate_tpu_torch.internal import rbt
+    from slate_tpu_torch.robust import certify
+    n = a.shape[0]
+    nt = rbt.padded_size(n)
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    spec = {**calu, st.Option.Speculate: st.Speculate.On}
+    out = {}
+    a_d = torch.randn(n, n, generator=gen, device="cuda")
+    a_d.diagonal().add_(n)                   # strictly diagonally dominant
+    x64_d = torch.linalg.solve(a_d.double(), b.double())
+    for case, am, xm, wall_calu in (("rbt_orthogonal", a, x64, calu_wall),
+                                    ("rbt_dominant", a_d, x64_d, None)):
+        if wall_calu is None:
+            _, _, _, wall_calu = timed_solve(st, "gesv", am, b, nb, calu)
+        timed_solve(st, "gesv", am, b, nb, spec)
+        reset()
+        F, x, h, wall = timed_solve(st, "gesv", am, b, nb, spec)
+        launches = counts()
+        res, fwd = accuracy(am, x, b, xm)
+        accepted = isinstance(F, st.RBTFactors)
+        emit({"phase": "speculate_gesv", "case": case, "n": n, "padded": nt,
+              "accepted": accepted,
+              "certificate_ratio": solve_ratio(am, x, b),
+              "certificate_tolerance": certify.tolerance(torch.float32, n),
+              "wall_s": wall, "calu_wall_s": wall_calu,
+              "scaled_residual": res, "residual_bound": GESV_RESIDUAL_BOUND,
+              "forward_error_vs_f64": fwd,
+              "forward_bound": GESV_FORWARD_BOUND,
+              "health": health_row(h), "launches": launches})
+        if not (h.ok and res < GESV_RESIDUAL_BOUND
+                and fwd < GESV_FORWARD_BOUND):
+            failures.append(f"speculate_gesv {case}: {health_row(h)}, "
+                            f"residual {res}, forward {fwd}")
+        if accepted and launches.get("lu_panel_fused") != 2 * (nt // nb) - 1:
+            failures.append(f"speculate_gesv {case} launches {launches}")
+        out[case] = launches
+    # a post_rbt strike on the dominant A: a NaN fails the NoPiv factor
+    # and escalates to the pivoted chain; a bitflip is printed as
+    # measured: two refinement sweeps bring its residual under the
+    # certificate's 50 n eps (0.12 at this n) while the forward error
+    # stays large, and the reference's certificate accepts it
+    a, x64 = a_d, x64_d
+    for kind in ("nan", "bitflip"):
+        with faults.inject(faults.FaultPlan("post_rbt", kind=kind)):
+            F1, x1, h1, wall1 = timed_solve(st, "gesv", a, b, nb, spec)
+        res1, fwd1 = accuracy(a, x1, b, x64)
+        emit({"phase": "speculate_gesv",
+              "case": "post_rbt_" + ("strike" if kind == "nan"
+                                     else "bitflip_finding"),
+              "kind": kind, "escalated": isinstance(F1, st.LUFactors),
+              "wall_s": wall1, "certificate_ratio": solve_ratio(a, x1, b),
+              "scaled_residual": res1, "forward_error_vs_f64": fwd1,
+              "health": health_row(h1)})
+        if kind == "nan" and not (
+                isinstance(F1, st.LUFactors) and h1.ok
+                and res1 < GESV_RESIDUAL_BOUND and fwd1 < GESV_FORWARD_BOUND):
+            failures.append(f"speculate_gesv post_rbt: {health_row(h1)}")
+    return out
+
+
+def check_speculate_posv_bf16(st, a, b, x64, nb, gen, posv_wall, failures):
+    """speculate_posv_bf16: Speculate + Precision bf16 on posv at full
+    width (the f32 kernels on the bf16-rounded operand, two refinement
+    sweeps in the original system, the residual certificate), beside the
+    f32 posv's wall; then an SPD matrix with cond ~BF16_ILL_COND, which
+    the rung cannot certify and escalates to the f32 Cholesky attempt."""
+    from slate_tpu_torch.robust import certify
+    n = a.shape[0]
+    low = {st.Option.Speculate: st.Speculate.On,
+           st.Option.Precision: st.Precision.Bf16}
+    timed_solve(st, "posv", a, b, nb, low)
+    _, x, h, wall = timed_solve(st, "posv", a, b, nb, low)
+    res, fwd = accuracy(a, x, b, x64)
+    accepted = h.iters == 2
+    emit({"phase": "speculate_posv_bf16", "case": "spd", "n": n,
+          "accepted": accepted, "accept_rate": float(accepted),
+          "ir_sweeps": h.iters, "wall_s": wall, "f32_posv_wall_s": posv_wall,
+          "certificate_ratio": solve_ratio(a, x, b),
+          "certificate_tolerance": certify.tolerance(torch.float32, n),
+          "scaled_residual": res, "forward_error_vs_f64": fwd,
+          "health": health_row(h)})
+    if not (h.ok and torch.isfinite(x).all()) or (
+            not accepted and not (res < RESIDUAL_BOUND
+                                  and fwd < FORWARD_BOUND)):
+        failures.append(f"speculate_posv_bf16: {health_row(h)}")
+    ni = BF16_ILL_N
+    q = torch.linalg.qr(torch.randn(ni, ni, generator=gen,
+                                    device="cuda"))[0]
+    ev = torch.logspace(0, -torch.log10(torch.tensor(BF16_ILL_COND)).item(),
+                        ni, device="cuda")
+    ai = (q * ev) @ q.T
+    ai = (ai + ai.T) / 2
+    bi = torch.randn(ni, b.shape[1], generator=gen, device="cuda")
+    _, xi, hi, walli = timed_solve(st, "posv", ai, bi, nb, low)
+    xi64 = torch.linalg.solve(ai.double(), bi.double())
+    fwdi = float((xi.double() - xi64).abs().max() / xi64.abs().max())
+    emit({"phase": "speculate_posv_bf16", "case": "ill_conditioned",
+          "n": ni, "cond": BF16_ILL_COND, "escalated": hi.iters == 0,
+          "wall_s": walli, "forward_error_vs_f64": fwdi,
+          "health": health_row(hi)})
+    if not (hi.ok and hi.iters == 0 and torch.isfinite(xi).all()):
+        failures.append(f"speculate_posv_bf16 ill-conditioned: "
+                        f"{health_row(hi)}")
+
+
+def check_speculate_gels(st, qr_gen, nb, nrhs, reset, counts, failures):
+    """speculate_gels: Speculate on config 4 (200000 x 1024: the certified
+    CholQR2 rung, one refinement sweep) beside the default CholQR route,
+    and Speculate + Precision bf16 at GELS_SHAPE (the bf16 QR rung: K5 on
+    the bf16-rounded operand, two CSNE sweeps) beside the default QR
+    route; each accepted or escalated, with gels' accuracy measures."""
+    out = {}
+    for label, shape, opts, bounds in (
+            ("cholqr2_config4", CFG4_SHAPE,
+             {st.Option.Speculate: st.Speculate.On},
+             (CFG4_RESIDUAL_BOUND, CFG4_FORWARD_BOUND)),
+            ("qr_bf16", GELS_SHAPE,
+             {st.Option.Speculate: st.Speculate.On,
+              st.Option.Precision: st.Precision.Bf16},
+             (GELS_RESIDUAL_BOUND, GELS_FORWARD_BOUND))):
+        m, n = shape
+        a, b, x64 = lstsq_problem(m, n, nrhs, qr_gen)
+        _, _, _, wall_plain = timed_solve(st, "gels", a, b, nb)
+        timed_solve(st, "gels", a, b, nb, opts)
+        reset()
+        _, x, h, wall = timed_solve(st, "gels", a, b, nb, opts)
+        launches = counts()
+        res, fwd = lstsq_accuracy(a, x, b, x64)
+        first = 1 if label == "cholqr2_config4" else 2
+        accepted = h.iters == first
+        emit({"phase": "speculate_gels", "case": label, "m": m, "n": n,
+              "accepted": accepted, "refinement_sweeps": h.iters,
+              "wall_s": wall, "default_route_wall_s": wall_plain,
+              "scaled_ne_residual": res, "residual_bound": bounds[0],
+              "forward_error_vs_f64": fwd, "forward_bound": bounds[1],
+              "health": health_row(h), "launches": launches})
+        # an accepted bf16 rung answers to its certificate (robust/
+        # certify.py), not to the f32 bounds; anything else to both
+        held = label == "qr_bf16" and accepted
+        if not (h.ok and torch.isfinite(x).all()) or (
+                not held and not (res < bounds[0] and fwd < bounds[1])):
+            failures.append(f"speculate_gels {label}: {health_row(h)}, "
+                            f"residual {res}, forward {fwd}")
+        if held and launches.get("qr_panel") != -(-n // nb):
+            failures.append(f"speculate_gels qr_bf16 launches {launches}")
+        out[label] = launches
+        del a, b, x64, x
+    return out
+
+
+def check_abft_serving(st, faults, reqs, reset, counts, failures):
+    """abft_serving: the 120-request stream under Option.Abft beside the
+    plain stream (chol_solve on K6 with the in-batch rungs, the other ops
+    per problem, as the reference routes them), every problem's counts;
+    then the stream's chol_solve requests of n = ABFT_SERVE_N as one
+    batch, clean and with one transient strike in problem 0's first
+    step: that problem is repaired, its neighbours' bits untouched."""
+    abft = {st.Option.Abft: st.Abft.On}
+    srv, res, _ = run_stream(st, reqs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.serve_batch(reqs)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    reset()
+    srv_a, res_a, wall_cold = run_stream(st, reqs, abft)
+    launches = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv_a.serve_batch(reqs)
+    torch.cuda.synchronize()
+    wall_abft = time.perf_counter() - t0
+    acc = serve_accuracy(reqs, res_a)
+    detected = sum(r.health.abft_detected for r in res_a)
+    emit({"phase": "abft_serving", "case": "stream", "requests": len(reqs),
+          "wall_s_warm_plain": wall_plain, "wall_s_warm_abft": wall_abft,
+          "wall_s_cold_abft": wall_cold,
+          "problems_per_s_plain": len(reqs) / wall_plain,
+          "problems_per_s_abft": len(reqs) / wall_abft,
+          "abft_detected_total": detected,
+          "abft_detected_problems": [i for i, r in enumerate(res_a)
+                                     if r.health.abft_detected],
+          "worst_residual": acc, "launches": launches})
+    if [r.health.ok for r in res_a] != [r.health.ok for r in res]:
+        failures.append("abft_serving: the Abft stream's healthy set "
+                        "differs from the plain stream's")
+    if not (acc["solve"] < SERVE_RESIDUAL_BOUND
+            and acc["chol_solve"] < SERVE_RESIDUAL_BOUND
+            and acc["least_squares_solve"] < SERVE_LSQ_BOUND):
+        failures.append(f"abft_serving residuals {acc}")
+    if launches["chol_panel_batched"] == 0 or launches["lu_panel_batched"] \
+            or launches["qr_panel_batched"]:
+        failures.append(f"abft_serving routes: launches {launches}")
+    sub = [r for r in reqs if r[0] == "chol_solve"
+           and r[1].shape[0] == ABFT_SERVE_N]
+    srv_s = st.serve.Server(abft, cache=st.serve.ExecutableCache())
+    clean = srv_s.serve_batch(sub)
+    bucket = srv_s.batch_records[-1]["bucket"][0]
+    nb = min(128, bucket)
+    seed = strike_seed(bucket, nb,
+                       lambda r, c: c < r < ABFT_SERVE_N)
+    with faults.inject(faults.FaultPlan("post_panel", kind="bitflip",
+                                        seed=seed, transient=True,
+                                        tile=(0, 0))):
+        hit = srv_s.serve_batch(sub)
+    struck = [i for i, r in enumerate(hit) if r.health.abft_detected]
+    untouched = all(torch.equal(bits(h.x), bits(c.x))
+                    for i, (h, c) in enumerate(zip(hit, clean))
+                    if i not in struck)
+    diff = max((float((hit[i].x - clean[i].x).abs().max()
+                      / clean[i].x.abs().max()) for i in struck),
+               default=None)
+    emit({"phase": "abft_serving", "case": "chol_solve_batch_strike",
+          "n": ABFT_SERVE_N, "bucket": bucket, "problems": len(sub),
+          "seed": seed, "struck": struck,
+          "health": [health_row(r.health) for r in hit],
+          "neighbours_bit_equal": untouched,
+          "struck_rel_diff_vs_clean": diff})
+    if not (len(struck) == 1 and hit[struck[0]].health.abft_corrected == 1
+            and hit[struck[0]].health.ok and untouched
+            and diff is not None and diff <= 1e-4):
+        failures.append(f"abft_serving strike: struck {struck}, "
+                        f"neighbours bit-equal {untouched}, diff {diff}")
+    return launches
+
+
+def check_robustness(st, gen, qr_gen, serve_reqs, nb, nrhs, n, reset,
+                     counts, trace: bool) -> dict:
+    """The robustness phases (Option.Abft, the fault sites and
+    Option.Speculate) on the main paths at full width; every phase prints
+    before the checks decide, and any miss fails the run.  Returns the
+    launch counts of the paths they drive."""
+    from slate_tpu_torch.robust import faults
+    failures = []
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    a = g @ g.T
+    del g
+    a.diagonal().add_(n)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    x64 = solve_f64(a, b)
+    out = {}
+    out["abft_posv"], posv_wall = check_abft_posv(
+        st, faults, a, b, x64, nb, reset, counts, failures)
+    if trace:
+        profile_device("posv abft", lambda: timed_solve(
+            st, "posv", a, b, nb, {st.Option.Abft: st.Abft.On}))
+    check_speculate_posv_bf16(st, a, b, x64, nb, gen, posv_wall, failures)
+    del a, b, x64
+    a = orthogonal(n, gen)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    x64 = torch.linalg.solve(a.double(), b.double())
+    out["abft_gesv_calu"], calu_wall, out["abft_gesv_nopiv"] = \
+        check_abft_gesv(st, faults, a, b, x64, nb, reset, counts, gen, nrhs,
+                        failures)
+    if trace:
+        profile_device("gesv CALU abft", lambda: timed_solve(
+            st, "gesv", a, b, nb, {st.Option.MethodLU: st.MethodLU.CALU,
+                                   st.Option.Abft: st.Abft.On}))
+    out.update({f"speculate_gesv_{k}": v for k, v in check_speculate_gesv(
+        st, faults, a, b, x64, nb, reset, counts, calu_wall, gen,
+        failures).items()})
+    del a, b, x64
+    out.update({f"speculate_gels_{k}": v for k, v in check_speculate_gels(
+        st, qr_gen, nb, nrhs, reset, counts, failures).items()})
+    out["abft_serving"] = check_abft_serving(st, faults, serve_reqs, reset,
+                                             counts, failures)
+    if failures:
+        raise AssertionError("robustness: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1885,7 +2491,7 @@ def main(argv=None) -> int:
     _, wall_repeat = run_posv(st, a, b, nb)
     x64 = solve_f64(a, b)
     res, fwd = accuracy(a, x, b, x64)
-    flops = n ** 3 / 3 + 2 * n * n * nrhs
+    flops = op_flops("posv", (n, n), (n, nrhs))
     emit({"phase": "posv", "n": n, "nb": nb, "nrhs": nrhs, "dtype": "float32",
           "wall_s": wall, "wall_s_repeat": wall_repeat,
           "gflops": flops / wall / 1e9,
@@ -1967,7 +2573,7 @@ def main(argv=None) -> int:
     _, _, wall_repeat = run_gesv(st, a, b, nb, calu)
     x64 = torch.linalg.solve(a.double(), b.double())
     res, fwd = accuracy(a, x, b, x64)
-    flops = 2 * n ** 3 / 3 + 2 * n * n * nrhs
+    flops = op_flops("gesv", (n, n), (n, nrhs))
     emit({"phase": "gesv_calu", "n": n, "nb": nb, "nrhs": nrhs,
           "dtype": "float32", "wall_s": wall, "wall_s_repeat": wall_repeat,
           "gflops": flops / wall / 1e9,
@@ -2075,7 +2681,7 @@ def main(argv=None) -> int:
     qr_launches = counts()
     _, wall_repeat = run_gels(st, a, b, nb)
     res, fwd = lstsq_accuracy(a, x, b, x64)
-    flops = gels_flops(mq, nq, nrhs)
+    flops = op_flops("gels", (mq, nq), (mq, nrhs))
     emit({"phase": "gels_qr", "m": mq, "n": nq, "nb": nb, "nrhs": nrhs,
           "dtype": "float32", "wall_s": wall, "wall_s_repeat": wall_repeat,
           "gflops": flops / wall / 1e9,
@@ -2124,7 +2730,8 @@ def main(argv=None) -> int:
         cfg4[route] = launches
         emit({"phase": f"gels_config4_{route}", "m": m4, "n": n4, "nb": nb,
               "nrhs": nrhs, "wall_s": wall, "wall_s_repeat": wall_repeat,
-              "gflops_repeat": gels_flops(m4, n4, nrhs) / wall_repeat / 1e9,
+              "gflops_repeat": op_flops("gels", (m4, n4), (m4, nrhs))
+              / wall_repeat / 1e9,
               "scaled_ne_residual": res, "residual_bound": CFG4_RESIDUAL_BOUND,
               "forward_error_vs_f64": fwd, "forward_bound": CFG4_FORWARD_BOUND,
               "tf32_scaled_ne_residual": res_tf,
@@ -2150,6 +2757,12 @@ def main(argv=None) -> int:
                                                reset, counts)
     if args.trace:
         trace_serve(st, serve_reqs)
+
+    # ---- robustness: Abft, the fault sites and Speculate (--seed + 8) ----
+    robust_launches = check_robustness(
+        st, torch.Generator(device="cuda").manual_seed(args.seed + 8),
+        torch.Generator(device="cuda").manual_seed(args.seed + 9),
+        serve_reqs, nb, nrhs, n, reset, counts, args.trace)
     del serve_reqs
 
     # ---- the record ----
@@ -2162,7 +2775,7 @@ def main(argv=None) -> int:
                             "gels_config4_cholqr_default":
                                 cfg4["cholqr_default"],
                             "gels_config4_qr_forced": cfg4["qr_forced"],
-                            **serve_launches}})
+                            **serve_launches, **robust_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",

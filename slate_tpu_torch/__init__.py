@@ -10,9 +10,9 @@ first use).  The ported slices carry the single-device solvers on tiled
   (triangular inverse), K1 (tile Cholesky) and K2 (fused panel step);
 - LU, ``gesv``/``getrf``/``getrs`` with ``MethodLU`` PartialPiv (the
   library's pivoted LU), CALU (``getrf_tntpiv``: K4 selects each
-  tournament round's pivots, K3 factors the permuted panel, K0 between)
-  and NoPiv (``getrf_nopiv``, ``gesv_nopiv``: K3), plus ``getrf_rbt``,
-  ``getri`` and ``getriOOP``;
+  tournament round's pivots, K3 factors the permuted panel and forms its
+  U^-1 in the same launch) and NoPiv (``getrf_nopiv``, ``gesv_nopiv``:
+  K3), plus ``getrf_rbt``, ``getri`` and ``getriOOP``;
 - QR and least squares, ``geqrf``/``gelqf``/``unmqr``/``unmlq``/
   ``qr_multiply``, ``cholqr``, ``gels_cholqr``, ``gels_qr`` and ``gels``
   (``MethodGels``: CholQR through herk, potrf and trsm; Householder QR
@@ -26,7 +26,13 @@ first use).  The ported slices carry the single-device solvers on tiled
   (batched Cholesky panel), K7 (batched no-pivot LU panel) or K8 (batched
   Householder panel), with per-problem escalation to the single-problem
   drivers, admission control, poison quarantine and the certified bf16
-  rung (``robust/certify.py``, ``robust/precision.py``).
+  rung (``robust/certify.py``, ``robust/precision.py``);
+- robustness on those paths: ``Option.Abft`` (Huang-Abraham checksums
+  that locate and repair a single corrupted element of every panel step,
+  ``robust/abft.py``), the fault sites of ``robust/faults.py``, and
+  ``Option.Speculate`` (the certified RBT rung of gesv, the bf16 rung of
+  posv, the CholQR2 and bf16 QR rungs of gels, ``robust/recovery.py``),
+  with the analytic flop model ``obs/flops.py`` that prices them.
 
 Matrices are placed on CUDA unless the caller passes ``device="cpu"``;
 with no GPU, ``device=None`` raises.  On CPU tensors every kernel wrapper
@@ -40,11 +46,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .types import Diag, Op, Side, TileKind, Uplo  # noqa: E402,F401
+from .types import Diag, Norm, Op, Side, TileKind, Uplo  # noqa: E402,F401
 from .options import (  # noqa: E402,F401
     Abft, ErrorPolicy, GridOrder, MethodCholQR, MethodGels, MethodGemm,
-    MethodHemm, MethodLU, Option, Precision, Speculate, Target,
+    MethodHemm, MethodLU, NormScope, Option, Precision, Speculate, Target,
 )
+from .version import __version__  # noqa: E402,F401
 from .exceptions import (  # noqa: E402,F401
     SlateError, SlateNotConvergedError, SlateNotPositiveDefiniteError,
     SlateSingularError, SlateUnsupportedDtypeError, SlateValueError,
@@ -63,6 +70,7 @@ from .drivers.blas3 import (  # noqa: E402,F401
     gemm, gemmA, gemmC, hemm, hemmA, her2k, herk, symm, syr2k, syrk, trmm,
     trsm,
 )
+from .drivers.auxiliary import add, norm  # noqa: E402,F401
 from .drivers.cholesky import posv, potrf, potrs  # noqa: E402,F401
 from .drivers.lu import (  # noqa: E402,F401
     LUFactors, RBTFactors, gesv, gesv_nopiv, getrf, getrf_nopiv, getrf_ooc,

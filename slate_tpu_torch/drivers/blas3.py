@@ -21,6 +21,7 @@ from ..exceptions import slate_error
 from ..options import (MethodGemm, MethodHemm, Option, Options,
                        method_option, resolve_abft, resolve_target,
                        select_gemm_method)
+from ..robust import abft as _abft
 from ..types import Diag, Op, Side, Uplo
 
 
@@ -69,7 +70,9 @@ def gemm(alpha, A: BaseMatrix, B: BaseMatrix, beta=0.0,
     """C = alpha op(A) op(B) + beta C (ref: src/gemm.cc, gemmC.cc).  One
     matmul on the dense views; a literal alpha = 1 or beta = 0 skips its
     pass (0 * C is not folded: 0 * NaN is NaN), and without C the result
-    is a new matrix in A's row and B's column tiling."""
+    is a new matrix in A's row and B's column tiling.  ``Option.Abft``
+    verifies the product through its checksums (robust/abft.py) and
+    repairs one corrupted element in place."""
     slate_error(A.n == B.m, "gemm: inner dims differ")
     _same_device(A, B)
     if C is None:
@@ -80,9 +83,16 @@ def gemm(alpha, A: BaseMatrix, B: BaseMatrix, beta=0.0,
     _same_device(A, C)
     resolve_target(opts, C)
     select_gemm_method(opts, C.nt)         # one device: the same product
-    resolve_abft(opts)
+    abft = resolve_abft(opts)  # the one Option.Abft read (driver boundary)
     dt = C.dtype
-    Cd = A.to_dense().to(dt) @ B.to_dense().to(dt)
+    Ad, Bd = A.to_dense().to(dt), B.to_dense().to(dt)
+    Cd = Ad @ Bd
+    if abft:
+        # additive checksums of the raw product; gemm has no health
+        # channel, so this is SILENT repair of a single struck element (an
+        # uncorrectable multi-strike is left for the caller's certificate)
+        Cd, _ = _abft.sum_check(Cd, Ad @ Bd.sum(dim=1), Ad.sum(dim=0) @ Bd,
+                                n_ctx=A.n)
     if not (isinstance(alpha, (int, float)) and alpha == 1.0):
         Cd = alpha * Cd
     if not (isinstance(beta, (int, float)) and beta == 0.0):
@@ -108,7 +118,9 @@ def trsm(side, alpha, A, B, opts: Options | None = None) -> Matrix:
     """Solve op(A) X = alpha B (Left) or X op(A) = alpha B (Right), A
     triangular (ref: src/trsm.cc).  From two block rows up, block
     substitution against the batch-inverted diagonal blocks
-    (internal/trsm.py); below that one ``torch.linalg.solve_triangular``."""
+    (internal/trsm.py), whose solve ``Option.Abft`` verifies through B's
+    checksums with a silent single-element repair; below that one
+    ``torch.linalg.solve_triangular``, unchecked, as in the reference."""
     sd = _side(side)
     slate_error(isinstance(A, BaseTrapezoidMatrix), "trsm: A not triangular")
     slate_error(A._m_store() == A._n_store(), "trsm: A not square")

@@ -8,6 +8,9 @@ f32 panel runs as one fused kernel step (K2); otherwise the update is a
 matmul, the tile goes through potrf_tile (K1 for f32) and the panel is
 multiplied by the inverted diagonal block.  f64 and complex go through
 ``torch.linalg.cholesky_ex``, as the reference sends them to XLA.
+``Option.Abft`` adds the reference's three checksum rungs to every step,
+and the fault sites ``input``, ``post_panel`` and ``solve`` sit where the
+reference's do.
 """
 
 from __future__ import annotations
@@ -25,36 +28,76 @@ from ..internal.potrf import potrf_panel_fused, potrf_panel_ok, potrf_tile
 from ..internal.trsm import tri_inv_lower
 from ..options import (Option, Options, get_option, resolve_abft,
                        resolve_target)
+from ..robust import abft as _abft
+from ..robust import faults
 from ..robust import health as _health
 from ..types import Uplo
 from .blas3 import trsm
 
 
-def _potrf_dense_blocked(a: torch.Tensor, nb: int) -> torch.Tensor:
+def _potrf_dense_blocked(a: torch.Tensor, nb: int, abft: bool = False):
     """Blocked left-looking Cholesky, lower, of the dense ``a``, which it
-    factors IN PLACE and returns (the reference builds a new array per
-    step with ``.at[].set``; here each factored block column is written
-    back into ``a``).  The strictly upper part of each diagonal tile is
-    zeroed; the rest of the upper triangle keeps the input."""
+    factors IN PLACE (the reference builds a new array per step with
+    ``.at[].set``; here each factored block column is written back into
+    ``a``).  The strictly upper part of each diagonal tile is zeroed; the
+    rest of the upper triangle keeps the input.
+
+    ``abft`` verifies every step against Huang-Abraham checksums
+    (robust/abft.py), in the reference's order: the pre-factor panel
+    ``upd`` against checksums of ``a``'s block column read BEFORE the
+    write-back, the diagonal tile through its Cholesky residual, the panel
+    through the checksums of its right-hand side.  On the fused route the
+    ``upd`` checked is the one K2 returned, so a fault in K2's update is
+    caught as one in the library's product is; after ``sum_check`` repairs
+    ``upd``, the tile and panel rungs see (and repair) the stale factored
+    element, and K2 is not launched again.  Returns ``(a, AbftCounts)``,
+    the counts on ``a``'s device (zero without ``abft``)."""
     n = a.shape[0]
+    counts = _abft.zero_counts(a.device)
     for k0 in range(0, n, nb):
         k1 = min(k0 + nb, n)
         w = k1 - k0
+        kt = k0 // nb
         fused = potrf_panel_ok(a.dtype, n - k0, w, nb)
         left = a[k0:, :k0]
         lead = a[k0:k1, :k0].conj().T
+        if abft and k0:
+            col = a[k0:, k0:k1]
+            exp_r = col.sum(dim=1) - left @ lead.sum(dim=1)
+            exp_c = col.sum(dim=0) - left.sum(dim=0) @ lead
         if fused:
             upd, fac = potrf_panel_fused(a[k0:, k0:k1], left, lead)
-            lkk, panel = fac[:w], fac[w:]
         else:
             upd = a[k0:, k0:k1] - left @ lead if k0 else a[k0:, k0:k1]
-            lkk = potrf_tile(upd[:w])
-            panel = (upd[w:] @ tri_inv_lower(lkk).conj().T if k1 < n
-                     else None)
+        if abft and k0:
+            upd, ev = _abft.sum_check(upd, exp_r, exp_c, n_ctx=n, nb=nb,
+                                      row0=k0, col0=k0)
+            counts = _abft.add_counts(counts, ev)
+        lkk = faults.maybe_corrupt(
+            "post_panel", fac[:w] if fused else potrf_tile(upd[:w]))
+        if abft:
+            lkk, det, cor = _abft.chol_tile_check(upd[:w], lkk, n_ctx=n)
+            counts = _abft.add_counts(
+                counts, _abft.count_event(det, cor, kt, kt))
+        if k1 < n:
+            panel = (fac[w:] if fused          # the kernel's own solve
+                     else upd[w:] @ tri_inv_lower(lkk).conj().T)
+            if abft:
+                # panel X solves X L^H = R; conjugate-transpose it into the
+                # canonical left product L X^H = R^H, verified through R's
+                # checksums
+                xh, det, cor, _, pj = _abft.left_product_check(
+                    lkk, panel.conj().T, upd[w:].sum(dim=0).conj(),
+                    upd[w:].sum(dim=1).conj(), unit=False, n_ctx=n)
+                panel = xh.conj().T
+                counts = _abft.add_counts(
+                    counts, _abft.count_event(det, cor, (k1 + pj) // nb, kt))
+        # upd may be a view of this block column (k0 = 0, library route):
+        # the panel is formed before the write-back
         a[k0:k1, k0:k1] = lkk
         if k1 < n:
             a[k1:, k0:k1] = panel
-    return a
+    return a, counts
 
 
 def potrf(A, opts: Options | None = None):
@@ -65,36 +108,46 @@ def potrf(A, opts: Options | None = None):
     :class:`SlateNotPositiveDefiniteError` when a leading minor is not
     positive definite (a NaN/zero L diagonal); Info returns
     ``(L, HealthInfo)`` with the LAPACK-style 1-based index of the first
-    bad diagonal; Nan NaN-fills the factor."""
+    bad diagonal; Nan NaN-fills the factor.  ``Option.Abft`` checks every
+    panel step (see :func:`_potrf_dense_blocked`) and folds its counts
+    into the health, read with the rest of it in one copy."""
     slate_error(isinstance(A, (HermitianMatrix, SymmetricMatrix)),
                 "potrf: need HermitianMatrix/SymmetricMatrix")
     uplo = A._uplo_logical()
     resolve_target(opts, A)
-    resolve_abft(opts)
+    abft = resolve_abft(opts)  # the one Option.Abft read (driver boundary)
     nb = A.nb
     # to_dense expands the stored triangle into a new tensor, which the
-    # blocked loop may then factor in place
-    lfac = _potrf_dense_blocked(A.to_dense(), nb)
+    # blocked loop may then factor in place (a struck copy, when armed)
+    full = faults.maybe_corrupt("input", A.to_dense())
+    lfac, counts = _potrf_dense_blocked(full, nb, abft=abft)
     st_out = TileStorage.from_dense(lfac, nb, nb, A.grid)
     L = TriangularMatrix._from_view(Matrix(st_out), Uplo.Lower)
     d = torch.diagonal(lfac).abs()
     d = torch.where(torch.isnan(d), torch.zeros_like(d), d)
-    minidx = int(torch.argmin(d))
-    h = _chol_health(torch.tril(lfac), float(d[minidx]), minidx)
+    h = _chol_health(torch.tril(lfac), d.amin(), torch.argmin(d), counts)
     return _finalize_potrf(L, h, uplo, opts)
 
 
-def _chol_health(lower: torch.Tensor, minpiv: float,
-                 minidx: int) -> _health.HealthInfo:
-    """HealthInfo for a Cholesky factor: diagonal record + finiteness of
-    the written triangle.  Growth stays 1.0: unpivoted Cholesky of an HPD
-    matrix cannot grow."""
-    bad = minpiv == 0 or not math.isfinite(minpiv)
+def _chol_health(lower: torch.Tensor, minpiv: torch.Tensor,
+                 minidx: torch.Tensor,
+                 counts: _abft.AbftCounts) -> _health.HealthInfo:
+    """HealthInfo for a Cholesky factor: diagonal record, finiteness of the
+    written triangle and the checksum counts, read from the device in one
+    copy.  Growth stays 1.0: unpivoted Cholesky of an HPD matrix cannot
+    grow."""
+    mp, mi, finite, det, cor, site = torch.stack([
+        minpiv.double(), minidx.double(),
+        torch.isfinite(lower).all().double(), *(c.double()
+                                                 for c in counts)]).tolist()
+    bad = mp == 0 or not math.isfinite(mp)
     return _health.healthy()._replace(
-        nonfinite=not bool(torch.isfinite(lower).all()),
-        info=minidx + 1 if bad else 0,
-        min_pivot=minpiv,
-        min_pivot_index=minidx)
+        nonfinite=not finite,
+        info=int(mi) + 1 if bad else 0,
+        min_pivot=mp,
+        min_pivot_index=int(mi),
+        abft_detected=int(det), abft_corrected=int(cor),
+        abft_site=int(site))
 
 
 def _finalize_potrf(L, h, uplo, opts):
@@ -112,9 +165,15 @@ def potrs(L: TriangularMatrix, B, opts: Options | None = None) -> Matrix:
     slate_error(isinstance(L, BaseTrapezoidMatrix), "potrs: need factor")
     if L._uplo_logical() is Uplo.Lower:
         Y = trsm("l", 1.0, L, B, opts)
-        return trsm("l", 1.0, L.conj_transpose(), Y, opts)
-    Y = trsm("l", 1.0, L.conj_transpose(), B, opts)
-    return trsm("l", 1.0, L, Y, opts)
+        X = trsm("l", 1.0, L.conj_transpose(), Y, opts)
+    else:
+        Y = trsm("l", 1.0, L.conj_transpose(), B, opts)
+        X = trsm("l", 1.0, L, Y, opts)
+    if faults.active("solve") is not None:
+        sx = X.storage
+        X = Matrix(TileStorage(faults.maybe_corrupt("solve", sx.data),
+                               sx.m, sx.n, sx.mb, sx.nb, sx.grid))
+    return X
 
 
 def posv(A, B, opts: Options | None = None):

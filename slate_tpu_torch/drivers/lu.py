@@ -10,8 +10,10 @@ getrf is a blocked right-looking LU of the dense matrix: per block column
 the panel factor (internal/getrf.py: the library's pivoted LU, K3 for the
 no-pivot panel, the K4 tournament and K3 for CALU), the row exchange of
 the at most 2 nb rows the panel's permutation displaces, the U12 solve and
-the trailing matmul.  ``getrf_ooc`` (host offload) raises: it is not
-ported.
+the trailing matmul.  ``Option.Abft`` adds the reference's checksum rungs
+to every step, and the fault sites ``input``, ``post_panel`` and
+``post_rbt`` sit where the reference's do.  ``getrf_ooc`` (host offload)
+raises: it is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from ..internal.getrf import (panel_lu, panel_lu_nopiv, panel_lu_threshold,
 from ..internal.trsm import tri_inv_lower
 from ..options import (ErrorPolicy, Option, Options, get_option,
                        resolve_abft, resolve_target)
+from ..robust import abft as _abft
+from ..robust import faults
 from ..robust import health as _health
 from ..types import Diag, Uplo
 from .blas3 import trsm
@@ -87,31 +91,64 @@ def _panel(pan, method: str, nb: int, tau: float, mpt: int, depth: int):
 
 
 def _getrf_dense_blocked(a: torch.Tensor, nb: int, method: str,
-                         tau: float = 1.0, mpt: int = 4, depth: int = 2):
+                         tau: float = 1.0, mpt: int = 4, depth: int = 2,
+                         abft: bool = False):
     """Blocked right-looking LU of the dense ``a``, which it factors IN
     PLACE and returns with the global permutation (the reference builds a
     new array per step with ``.at[].set``; here each step writes into
     ``a``).  ``method``: "partial", "nopiv" or "tntpiv"; ``tau`` < 1
     switches partial pivoting to threshold pivoting (Option.PivotThreshold);
     ``mpt`` (Option.MaxPanelThreads) splits a tournament panel into ~mpt
-    row blocks and ``depth`` (Option.Depth) is the reduction fan-in."""
+    row blocks and ``depth`` (Option.Depth) is the reduction fan-in.
+
+    With ``abft`` every step carries the reference's Huang-Abraham rungs
+    (robust/abft.py): the packed panel against its pre-factor input (read
+    before the row exchange), the U12 solve against the pre-solve row's
+    checksums, and the trailing update against the expected checksum
+    deltas, each locating and repairing a single corrupted element in
+    place.  Returns ``(factor, perm, AbftCounts)``, the counts on ``a``'s
+    device (zero without ``abft``)."""
     m, n = a.shape
     kmax = min(m, n)
     perm_g = torch.arange(m, device=a.device)
+    counts = _abft.zero_counts(a.device)
     for k0 in range(0, kmax, nb):
         k1 = min(k0 + nb, kmax)
         w = k1 - k0
-        lu, perm = _panel(a[k0:, k0:k1], method, nb, tau, mpt, depth)
+        kt = k0 // nb
+        pan = a[k0:, k0:k1]
+        lu, perm = _panel(pan, method, nb, tau, mpt, depth)
+        lu = faults.maybe_corrupt("post_panel", lu)
+        if abft:
+            lu, det, cor, pi, _ = _abft.lu_panel_check(pan, lu, perm,
+                                                       n_ctx=m)
+            counts = _abft.add_counts(counts, _abft.count_event(
+                det, cor, kt + pi // nb, kt))
         if method != "nopiv":
             _apply_row_perm(a[k0:], perm, 2 * w)
             perm_g[k0:] = perm_g[k0:][perm]
         a[k0:, k0:k1] = lu
         if k1 < n:
-            u12 = _solve_u12(lu[:w, :w], a[k0:k1, k1:])
+            r12 = a[k0:k1, k1:]
+            u12 = _solve_u12(lu[:w, :w], r12)
+            if abft:
+                u12, det, cor, _, pj = _abft.left_product_check(
+                    lu[:w, :w], u12, r12.sum(dim=1), r12.sum(dim=0),
+                    unit=True, n_ctx=m)
+                counts = _abft.add_counts(counts, _abft.count_event(
+                    det, cor, kt, (k1 + pj) // nb))
             a[k0:k1, k1:] = u12
             if k1 < m:
-                _update_trailing(a[k1:, k1:], lu[w:, :w], u12)
-    return a, perm_g
+                l21, tb = lu[w:, :w], a[k1:, k1:]
+                if abft:
+                    exp_row = tb.sum(dim=1) - l21 @ u12.sum(dim=1)
+                    exp_col = tb.sum(dim=0) - l21.sum(dim=0) @ u12
+                _update_trailing(tb, l21, u12)
+                if abft:
+                    _, ev = _abft.sum_check(tb, exp_row, exp_col, n_ctx=m,
+                                            nb=nb, row0=k1, col0=k1)
+                    counts = _abft.add_counts(counts, ev)
+    return a, perm_g, counts
 
 
 def getrf(A: Matrix, opts: Options | None = None) -> LUFactors:
@@ -171,7 +208,7 @@ def getrf_rbt(A: Matrix, opts: Options | None = None):
     n, nb = A.m, A.nb
     resolve_target(opts, A)
     nt = rbt.padded_size(n)
-    ad = A.to_dense()
+    ad = faults.maybe_corrupt("input", A.to_dense())
     abar = torch.zeros((nt, nt), dtype=ad.dtype, device=ad.device)
     abar[:n, :n] = ad
     if nt > n:
@@ -180,45 +217,51 @@ def getrf_rbt(A: Matrix, opts: Options | None = None):
     u = rbt.generate(nt, seed=_RBT_SEED, dtype=ad.dtype, device=ad.device)
     v = rbt.generate(nt, seed=_RBT_SEED + 1, dtype=ad.dtype,
                      device=ad.device)
-    At = Matrix(TileStorage.from_dense(rbt.transform(abar, u, v), nb, nb,
-                                       A.grid))
+    at = faults.maybe_corrupt("post_rbt", rbt.transform(abar, u, v))
+    At = Matrix(TileStorage.from_dense(at, nb, nb, A.grid))
     Fi, fh = getrf_nopiv(At, _info(opts))
     return _health.finalize("getrf_rbt", RBTFactors(Fi, u, v, n), fh, opts,
                             _singular("getrf_rbt"))
 
 
 def _lu_health(factor: torch.Tensor, minpiv: torch.Tensor,
-               minidx: torch.Tensor, amax: torch.Tensor):
-    """The LU HealthInfo: pivot record, whole-factor finiteness and the
-    pivot growth max|factor| / max|A|, read from the device at once."""
-    fmax, mp, mi, am, finite = torch.stack([
+               minidx: torch.Tensor, amax: torch.Tensor,
+               counts: _abft.AbftCounts):
+    """The LU HealthInfo: pivot record, whole-factor finiteness, the pivot
+    growth max|factor| / max|A| and the checksum counts, read from the
+    device at once."""
+    fmax, mp, mi, am, finite, det, cor, site = torch.stack([
         factor.abs().max().double(), minpiv.double(), minidx.double(),
-        amax.double(), torch.isfinite(factor).all().double()]).tolist()
+        amax.double(), torch.isfinite(factor).all().double(),
+        *(c.double() for c in counts)]).tolist()
     bad = mp == 0 or not math.isfinite(mp)
     return _health.healthy()._replace(
         nonfinite=not finite,
         info=int(mi) + 1 if bad else 0,
         min_pivot=mp,
         min_pivot_index=int(mi),
-        growth=fmax / am if am > 0 else math.inf)
+        growth=fmax / am if am > 0 else math.inf,
+        abft_detected=int(det), abft_corrected=int(cor),
+        abft_site=int(site))
 
 
 def _getrf(A: Matrix, opts: Options | None, method: str):
     resolve_target(opts, A)
-    resolve_abft(opts)
+    abft = resolve_abft(opts)  # the one Option.Abft read (driver boundary)
     tau = float(get_option(opts, Option.PivotThreshold))
     mpt = int(get_option(opts, Option.MaxPanelThreads))
     depth = int(get_option(opts, Option.Depth))
     # to_dense may share memory with the caller's tiles; factor a copy
-    ad = A.to_dense().clone(memory_format=torch.contiguous_format)
+    # (a struck copy, when the input site is armed)
+    ad = faults.maybe_corrupt("input", A.to_dense())
+    ad = ad.clone(memory_format=torch.contiguous_format)
     amax = ad.abs().max()
-    lu, perm = _getrf_dense_blocked(ad, A.nb, method, tau=tau, mpt=mpt,
-                                    depth=depth)
+    lu, perm, counts = _getrf_dense_blocked(ad, A.nb, method, tau=tau,
+                                            mpt=mpt, depth=depth, abft=abft)
     F = LUFactors(Matrix(TileStorage.from_dense(lu, A.nb, A.nb, A.grid)),
                   perm)
     udiag = torch.diagonal(lu).abs()
-    minidx = torch.argmin(udiag)
-    h = _lu_health(lu, udiag[minidx], minidx, amax)
+    h = _lu_health(lu, udiag.amin(), torch.argmin(udiag), amax, counts)
     return _health.finalize(f"getrf[{method}]", F, h, opts,
                             _singular(f"getrf[{method}]"))
 

@@ -24,14 +24,16 @@ kernel, and the glue between panels (the U12 solves, the compact-WY
 trailing updates, the solves) widens factor blocks to f32, computes, and
 rounds only the values stored back; solves against a bf16 factor return
 ``b``'s dtype.  The glue is PyTorch (cuBLAS on the card), as the reference
-leaves it to XLA.  ``abft=True`` (the checksum rungs) is not ported.
+leaves it to XLA.  ``batch_potrf(abft=True)`` carries the single-problem
+driver's tile and panel checksum rungs in-batch (robust/abft.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..exceptions import not_ported
+from ..robust import abft as _abft
+from ..robust import faults
 from ..robust import health as _h
 from .chol_kernels import chol_panel_batched
 from .lu_kernels import lu_panel_batched
@@ -51,27 +53,51 @@ def tile_counts(sizes: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 def batch_potrf(a: torch.Tensor, sizes: torch.Tensor, *, nb: int,
-                bw: int = 8, abft: bool = False) -> torch.Tensor:
+                bw: int = 8, abft: bool = False):
     """Ragged batched Cholesky: the lower factors of identity-augmented HPD
-    slots ``a`` [B, n, n] with live sizes ``sizes`` [B], n % nb == 0.  L is
-    in the lower triangle; the strict upper triangle of the diagonal tiles
-    is 0 and the rest of it keeps the input, as in the single-problem
-    driver.  (The reference also returns the ABFT counters, which are zero
-    without ``abft``.)  One K6 step a block column: 3 n / nb - 1 launches
-    on the card (update, factor and solve a step, the last step no
-    solve)."""
-    if abft:
-        raise not_ported("batch_potrf's in-batch ABFT checksum rungs "
-                         "(robust/abft.py)", "queue 1, item 6 (robustness)")
-    n = a.shape[1]
+    slots ``a`` [B, n, n] with live sizes ``sizes`` [B], n % nb == 0.
+
+    Returns ``(fa, counts)``: ``fa`` carries L in its lower triangle (the
+    strict upper triangle of the diagonal tiles is 0 and the rest of it
+    keeps the input, as in the single-problem driver); ``counts`` is a
+    batched AbftCounts ([B] device tensors), zero unless ``abft``.  One K6
+    step a block column: 3 n / nb - 1 launches on the card (update, factor
+    and solve a step, the last step no solve).
+
+    ``abft`` runs the single-problem driver's tile and panel rungs
+    (robust/abft.py ``chol_tile_check`` and ``left_product_check``) on
+    each step's pre-factor panel and factor from K6, every problem at once
+    on the device; a ``post_panel`` strike lands on the step's factor
+    first, as in the reference.  The update's ``sum_check`` rung is not
+    replicated: a fault inside the fused rank-k update surfaces as a stale
+    factored element that the tile and panel rungs see, the reference's
+    coverage argument."""
+    bsz, n = a.shape[:2]
     tiles = tile_counts(sizes, nb)
+    counts = _abft.zero_counts(a.device, (bsz,))
     fa = a.clone(memory_format=torch.contiguous_format)
     for k in range(n // nb):
         k0, k1 = k * nb, (k + 1) * nb
-        _, fac = chol_panel_batched(fa[:, k0:, k0:k1], fa[:, k0:, :k0],
-                                    fa[:, k0:k1, :k0].mT, tiles, k, bw)
+        upd, fac = chol_panel_batched(fa[:, k0:, k0:k1], fa[:, k0:, :k0],
+                                      fa[:, k0:k1, :k0].mT, tiles, k, bw)
+        if abft:
+            fac = faults.maybe_corrupt("post_panel", fac)
+            lkk, det, cor = _abft.chol_tile_check(upd[:, :nb], fac[:, :nb],
+                                                  n_ctx=n)
+            fac = torch.cat([lkk, fac[:, nb:]], dim=1)
+            counts = _abft.add_counts(counts,
+                                      _abft.count_event(det, cor, k, k))
+            if k1 < n:
+                # panel X solves X L^T = R; transposed into the canonical
+                # left product L X^T = R^T, verified via R's checksums
+                xh, det, cor, _, pj = _abft.left_product_check(
+                    lkk, fac[:, nb:].mT, upd[:, nb:].sum(dim=1),
+                    upd[:, nb:].sum(dim=2), unit=False, n_ctx=n)
+                fac = torch.cat([lkk, xh.mT], dim=1)
+                counts = _abft.add_counts(counts, _abft.count_event(
+                    det, cor, (k1 + pj) // nb, k))
         fa[:, k0:, k0:k1] = fac
-    return fa
+    return fa, counts
 
 
 def batch_getrf(a: torch.Tensor, sizes: torch.Tensor, *, nb: int,

@@ -32,12 +32,17 @@ def potrf_tile(a: torch.Tensor) -> torch.Tensor:
 
     Under the "cuda" plan an f32 tile with 32 <= n <= 128, n % 32 == 0 goes
     to K1; anything else to ``torch.linalg.cholesky_ex``, whose failed
-    factors are NaN-filled whole, as XLA's are in the reference."""
+    factor is NaN-filled from the first failing minor's column on (its
+    ``info``), so that the first bad diagonal is the same on every route
+    and dtype, as K1 leaves it.  (The reference's XLA route NaN-fills a
+    failed tile whole and so reports the tile's first row.)"""
     n = a.shape[-1]
     if a.dim() == 2 and _tile_plan_ok(a.dtype, n):
         return chol_tile(a, bw=resolve_plan("potrf_tile", n, "float32").bw)
     L, info = torch.linalg.cholesky_ex(a)
-    return L.masked_fill((info != 0)[..., None, None], math.nan)
+    cols = torch.arange(n, device=a.device)
+    bad = (info[..., None] > 0) & (cols >= info[..., None] - 1)
+    return L.masked_fill(bad[..., None, :], math.nan)
 
 
 def potrf_panel_ok(dtype: torch.dtype, m: int, w: int, nb: int) -> bool:

@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import torch
 
-from ..exceptions import not_ported
-
 
 def _diag_tiles(ad: torch.Tensor, K: int, nb: int) -> torch.Tensor:
     """[..., K, nb, nb] diagonal blocks of [..., K nb, K nb]."""
@@ -95,14 +93,29 @@ def _op_blocks(ad, nb, *, trans, conj, lower, unit):
     return a_op, inv(d, unit_diag=unit), eff_lower
 
 
+def _checksum_repair(a_op, x, bd, *, eff_lower: bool, unit: bool):
+    """Verify the finished solve ``a_op @ x == bd`` through bd's
+    Huang-Abraham checksums and repair ONE corrupted element of x
+    (robust/abft.py, imported here: robust pulls in the driver layer).
+    The upper-triangular case is index-reversed into the canonical lower
+    left product: ``P A P`` is lower for the reversal permutation P,
+    column sums are P-invariant and row sums P-equivariant."""
+    from ..robust.abft import left_product_check
+    r_row, r_col = bd.sum(dim=1), bd.sum(dim=0)
+    if eff_lower:
+        return left_product_check(a_op, x, r_row, r_col, unit=unit)[0]
+    x2 = left_product_check(a_op.flip(0, 1), x.flip(0), r_row.flip(0),
+                            r_col, unit=unit)[0]
+    return x2.flip(0)
+
+
 def trsm_left_blocked(ad, bd, *, lower: bool, trans: bool, conj: bool,
                       unit: bool, nb: int, check: bool = False):
     """Solve op(A) X = B, A triangular [n, n], by block substitution with
     every diagonal block inverted in one batched log-depth pass: each step
-    is then two matmuls.  A ragged n is identity-augmented (_pad_tri)."""
-    if check:
-        raise not_ported("checksum-verified trsm (Option.Abft)",
-                         "queue 1, item 6 (robustness)")
+    is then two matmuls.  A ragged n is identity-augmented (_pad_tri).
+    ``check`` (the resolved Option.Abft) verifies the finished solve
+    through B's checksums and silently repairs one corrupted element."""
     ad, n0 = _pad_tri(ad, nb)
     n = ad.shape[0]
     if n > n0:
@@ -119,6 +132,8 @@ def trsm_left_blocked(ad, bd, *, lower: bool, trans: bool, conj: bool,
         elif not eff_lower and k < K - 1:
             acc = acc - a_op[k0:k1, k1:] @ x[k1:]
         x[k0:k1] = dinv[k] @ acc
+    if check:
+        x = _checksum_repair(a_op, x, bd, eff_lower=eff_lower, unit=unit)
     return x[:n0]
 
 
@@ -126,9 +141,6 @@ def trsm_right_blocked(ad, bd, *, lower: bool, trans: bool, conj: bool,
                        unit: bool, nb: int, check: bool = False):
     """Solve X op(A) = B by block substitution over block columns (right
     side twin of trsm_left_blocked; ragged n identity-augmented)."""
-    if check:
-        raise not_ported("checksum-verified trsm (Option.Abft)",
-                         "queue 1, item 6 (robustness)")
     ad, n0 = _pad_tri(ad, nb)
     n = ad.shape[0]
     if n > n0:
@@ -147,4 +159,8 @@ def trsm_right_blocked(ad, bd, *, lower: bool, trans: bool, conj: bool,
         elif not eff_lower and k > 0:
             acc = acc - x[:, :k0] @ a_op[:k0, k0:k1]
         x[:, k0:k1] = acc @ dinv[k]
+    if check:
+        # X op(A) = B  <=>  op(A)^T X^T = B^T: the left check transposed
+        x = _checksum_repair(a_op.T, x.T, bd.T, eff_lower=not eff_lower,
+                             unit=unit).T
     return x[:, :n0]

@@ -142,6 +142,14 @@ class MethodLU(enum.Enum):
     NoPiv = "NoPiv"
 
 
+class NormScope(enum.Enum):
+    """What a norm reduces over (ref: enums.hh NormScope)."""
+
+    Columns = "columns"
+    Rows = "rows"
+    Matrix = "matrix"
+
+
 class GridOrder(enum.Enum):
     """Process-grid numbering order (ref: enums.hh:127-131)."""
 
@@ -251,9 +259,8 @@ def select_lu_method(opts: Options | None) -> MethodLU:
 
 
 def resolve_abft(opts: Options | None) -> bool:
-    """Resolve Option.Abft once at a driver boundary.  The checksum rungs
-    are not ported: ``Abft.On`` raises, Auto and Off resolve to False."""
-    if get_option(opts, Option.Abft) is Abft.On:
-        raise not_ported("Option.Abft (checksum-verified factorizations)",
-                         "queue 1, item 6 (robustness)")
-    return False
+    """Resolve Option.Abft once at a driver boundary: True only for an
+    explicit ``Abft.On``; Auto and Off resolve to False, so default
+    drivers pay no checksum work.  Every consumer below the boundary
+    receives the resolved boolean, never the knob."""
+    return get_option(opts, Option.Abft) is Abft.On

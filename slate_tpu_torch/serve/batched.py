@@ -213,6 +213,10 @@ def _ragged_plan(op: str, a: torch.Tensor, opts: Options | None,
     dtype = _prec.normalize_dtype(a.dtype if dtype is None else dtype)
     if dtype not in (_prec.HIGH, _prec.LOW):
         return None
+    if resolve_abft(opts) and op != "chol_solve":
+        # only batch_potrf carries the checksum rungs in-batch; the other
+        # ops honor Abft through the per-problem drivers
+        return None
     plan = resolve_plan(RAGGED_OPS[op], n_bucket, dtype)
     nb = min(BATCH_NB, n_bucket)
     if plan.kernel != "cuda" or n_bucket % nb or nb % plan.bw:
@@ -262,11 +266,15 @@ def _chol_solves(fa: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def _ragged_chol(a, b, sizes, plan: RaggedPlan, opts: Options | None):
-    """chol_solve's fast rung through batch_potrf (K6)."""
-    fa = _bk.batch_potrf(a, sizes, nb=plan.nb, bw=plan.bw)
+    """chol_solve's fast rung through batch_potrf (K6), with its in-batch
+    checksum rungs when Option.Abft is on."""
+    fa, counts = _bk.batch_potrf(a, sizes, nb=plan.nb, bw=plan.bw,
+                                 abft=resolve_abft(opts))
     x = _chol_solves(fa, b)
-    h1 = _demote_batch(_h.batch_merge(_bk.chol_health(fa),
-                                      _h.batch_from_result(x)), a.dtype)
+    h1 = _bk.chol_health(fa)._replace(
+        abft_detected=counts.detected, abft_corrected=counts.corrected,
+        abft_site=counts.site)
+    h1 = _demote_batch(_h.batch_merge(h1, _h.batch_from_result(x)), a.dtype)
     return _escalate("chol_solve", h1.to_list(), x, a, b, opts)
 
 
@@ -313,7 +321,7 @@ def _bf16_chol_attempt(a, b, sizes, plan, opts: Options | None):
     al = _prec.demote(a)
     if plan is not None:
         fa = _prec.promote(_bk.batch_potrf(al, sizes, nb=plan.nb,
-                                           bw=plan.bw))
+                                           bw=plan.bw)[0])
     else:
         L, info = torch.linalg.cholesky_ex(_prec.promote(al))
         L = L.masked_fill((info != 0)[:, None, None], float("nan"))
@@ -429,12 +437,14 @@ def make_batched(op: str, opts: Options | None = None):
     ladder for f32 buckets; bf16 operands take the same rung always
     (promoted working copies, results demoted back).  f64 serves on the
     per-problem route; any other dtype raises SlateUnsupportedDtypeError.
-    ``Option.Abft = On`` raises: the checksum rungs are not ported."""
+    Under ``Option.Abft = On`` only ``chol_solve`` stays on the ragged
+    route (batch_potrf's in-batch rungs); the other ops take the
+    per-problem drivers, which carry the rungs, as the reference routes
+    them."""
     if op not in CORES:
         raise ValueError(f"make_batched: unknown op {op!r} (known: "
                          f"{tuple(CORES)})")
     bf16_rung = _prec.resolve_precision(opts)
-    resolve_abft(opts)
 
     def fn(a, b, sizes):
         dtype = _prec.normalize_dtype(a.dtype, supported=SERVE_DTYPES)

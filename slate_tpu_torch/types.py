@@ -34,6 +34,13 @@ class Side(enum.Enum):
     Right = "r"
 
 
+class Norm(enum.Enum):
+    One = "1"
+    Inf = "i"
+    Max = "m"
+    Fro = "f"
+
+
 class TileKind(enum.Enum):
     """Provenance of a tile buffer: user-imported, framework-allocated or
     transient workspace (ref: Tile.hh TileKind)."""

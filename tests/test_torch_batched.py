@@ -302,7 +302,8 @@ def test_batch_potrf_and_health_match_the_reference(kind):
     a[1, 3, 3] = -50.0                              # indefinite: NaN in L
     at, aj = _pair(a, kind)
     sz = torch.tensor(sizes, dtype=torch.int32)
-    fa = bk.batch_potrf(at, sz, nb=nb, bw=8)
+    fa, counts = bk.batch_potrf(at, sz, nb=nb, bw=8)
+    assert counts.detected.tolist() == [0] * len(sizes)
     ref, _ = ref_batched.batch_potrf(aj, jnp.asarray(sizes, jnp.int32),
                                      nb=nb, bw=8, interpret=True)
     for b, s in enumerate(sizes):
@@ -400,9 +401,12 @@ def test_tile_counts_and_unported_abft():
     assert got.dtype == torch.int32 and got.tolist() == [0, 1, 1, 2, 2]
     np.testing.assert_array_equal(got.numpy(), np.asarray(
         ref_batched.tile_counts(jnp.asarray(sz.numpy()), 32)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        bk.batch_potrf(torch.eye(32)[None], torch.tensor([32]), nb=32,
-                       abft=True)
+    # the in-batch checksum rungs are ported: an identity slot factors to
+    # itself with zero counts (tests/test_torch_abft.py holds the strikes)
+    fa, counts = bk.batch_potrf(torch.eye(32)[None], torch.tensor([32]),
+                                nb=32, abft=True)
+    assert torch.equal(fa[0], torch.eye(32))
+    assert [c.tolist() for c in counts] == [[0], [0], [-1]]
 
 
 # ------------------------------------------ certificates and precision

@@ -176,14 +176,75 @@ def test_error_policy_nan_poisons_and_potrf_potrs_split():
     ({"Target": "mesh"}, "mesh"),
 ])
 def test_unported_options_raise_not_implemented(opts, what):
+    """The options the port does not carry yet raise NotImplementedError
+    naming them; Abft and the bf16 rung, ported since, solve instead."""
     a, b = _problem(17, n=128)
     A = st.SymmetricMatrix.from_numpy(a, 64, device="cpu")
     B = st.Matrix.from_numpy(b, 64, device="cpu")
+    if what in ("Abft", "bf16"):
+        _, X = st.posv(A, B, _opts(st, **opts))
+        _close(X.to_numpy(), np.linalg.solve(a.astype(np.float64), b),
+               F32_RTOL)
+        return
     with pytest.raises(NotImplementedError, match=what):
         st.posv(A, B, _opts(st, **opts))
 
 
 def test_fault_sites_raise_not_implemented():
+    """Fault injection is ported: a plan arms its site for the block (an
+    unknown site still raises, ValueError as in the reference), and a
+    persistent input strike fails the factor, read as its health."""
     from slate_tpu_torch.robust import faults
-    with pytest.raises(NotImplementedError, match="item 6"):
-        faults.inject(object())
+    with pytest.raises(ValueError, match="unknown fault site"):
+        faults.FaultPlan("nowhere")
+    a, b = _problem(18, n=128)
+    A = st.SymmetricMatrix.from_numpy(a, 64, device="cpu")
+    # tile (1, 0) of 64: below the diagonal, where potrf reads A
+    with faults.inject(faults.FaultPlan("input", kind="nan", tile=(1, 0),
+                                        nb=64)):
+        _, h = st.potrf(A, _opts(st, ErrorPolicy=st.ErrorPolicy.Info))
+    assert h.nonfinite and not h.ok
+    _, h = st.potrf(A, _opts(st, ErrorPolicy=st.ErrorPolicy.Info))
+    assert h.ok
+
+
+def _queue3(dtype):
+    """The probe matrix: n = 256, A = G G^T + n I with A[200, 200] = -1e4,
+    so the leading minor of order 201 is the first that fails."""
+    g = np.random.default_rng(0).standard_normal((256, 256))
+    a = g @ g.T + 256 * np.eye(256)
+    a[200, 200] = -1e4
+    return a.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64])
+def test_potrf_info_is_the_first_failing_minor_in_every_dtype(dtype,
+                                                             monkeypatch):
+    """f32 (K1's plain version), f64 and complex64 (cholesky_ex on each
+    tile) report the same info, 201: the LAPACK-style index of the first
+    bad diagonal that both docstrings promise.  The reference's XLA route
+    NaN-fills a failed tile whole and so reports the tile's first row, 129
+    at nb = 128; the frozen reference keeps that.  The serving layer's
+    per-problem route runs the same potrf_tile: its Cholesky attempt reads
+    201 too before the problem escalates to LU."""
+    from slate_tpu_torch.serve import batched as sb
+    a = _queue3(dtype)
+    A = st.HermitianMatrix.from_numpy(a, 128, device="cpu")
+    _, h = st.potrf(A, _opts(st, ErrorPolicy=st.ErrorPolicy.Info))
+    assert h.info == 201 and not h.ok
+    if dtype is np.complex64:        # the serving boundary takes real dtypes
+        return
+    seen = []
+    real = sb._chol.potrf
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[1].info)
+        return out
+    monkeypatch.setattr(sb._chol, "potrf", spy)
+    b = np.ones((256, 2), dtype)
+    with st.plan_override("batch_potrf", st.LIBRARY_PLAN):
+        _, hs, esc = sb.make_batched("chol_solve")(
+            torch.from_numpy(a)[None], torch.from_numpy(b)[None],
+            torch.tensor([256], dtype=torch.int32))
+    assert seen == [201] and esc == [True]

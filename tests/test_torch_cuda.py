@@ -597,3 +597,90 @@ def test_served_stream_on_the_card_matches_the_cpu_route(cuda):
         assert g.health.ok and w.health.ok and not g.escalated
         np.testing.assert_allclose(g.x.cpu().numpy(), w.x.numpy(), rtol=0,
                                    atol=RTOL * np.abs(w.x.numpy()).max())
+
+
+# ---------------------------------------- Option.Abft on the card routes
+
+def _abft_info():
+    return {st.Option.ErrorPolicy: st.ErrorPolicy.Info,
+            st.Option.Abft: st.Abft.On}
+
+
+def _strike(**kw):
+    from slate_tpu_torch.robust import faults
+    return faults.inject(faults.FaultPlan("post_panel", kind="bitflip",
+                                          transient=True, **kw))
+
+
+def test_abft_strike_corrected_on_the_k2_route(cuda):
+    """posv on the card: a transient bitflip below the diagonal of the
+    first diagonal factor that K2's factor launch returns is located at
+    tile (0, 0) and repaired; the solve matches the clean one, and K2
+    launched as often as without Abft."""
+    rng = np.random.default_rng(30)
+    n, nb = 512, 128
+    a, b = _spd(rng, n), rng.standard_normal((n, 4)).astype(np.float32)
+    A = st.SymmetricMatrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    before = ck.CHOL_PANEL.launches
+    _, X0, h0 = st.posv(A, B, _abft_info())
+    assert ck.CHOL_PANEL.launches - before == 3 * (n // nb) - 1
+    assert (h0.abft_detected, h0.abft_corrected) == (0, 0)
+    seed = next(s for s in range(64) if (lambda p: p // nb > p % nb)(
+        int(np.random.default_rng(s).choice(nb * nb, 1)[0])))
+    with _strike(seed=seed):
+        _, X, h = st.posv(A, B, _abft_info())
+    assert (h.abft_detected, h.abft_corrected, h.abft_site) == (1, 1, 0)
+    assert h.ok
+    torch.testing.assert_close(X.to_dense(), X0.to_dense(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_abft_strike_corrected_on_the_k3_route(cuda):
+    """gesv NoPiv on the card (K3 on every panel): a transient bitflip in
+    the first panel's row tile 2 is located at tile (2, 0) and repaired."""
+    rng = np.random.default_rng(31)
+    n, nb = 512, 128
+    a = (rng.standard_normal((n, n)) + n * np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((n, 4)).astype(np.float32)
+    A, B = st.Matrix.from_numpy(a, nb), st.Matrix.from_numpy(b, nb)
+    opts = {**_abft_info(), st.Option.MethodLU: st.MethodLU.NoPiv}
+    before = lk.LU_PANEL.launches
+    _, X0, _ = st.gesv(A, B, opts)
+    assert lk.LU_PANEL.launches - before == 2 * (n // nb) - 1
+    with _strike(seed=5, tile=(2, 0), nb=nb):
+        _, X, h = st.gesv(A, B, opts)
+    assert (h.abft_detected, h.abft_corrected, h.abft_site) == (
+        1, 1, 2 * 65536)
+    assert h.ok
+    torch.testing.assert_close(X.to_dense(), X0.to_dense(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_abft_strike_corrected_in_a_k6_batch(cuda):
+    """batch_potrf(abft=True) on the card: a transient bitflip in problem
+    1's first step (below its diagonal tile) is repaired; the other
+    problems' factors are bit-equal to the clean run's and K6 ran three
+    launches a step, the last step two."""
+    from slate_tpu_torch.internal import batched as ib
+    rng = np.random.default_rng(32)
+    n, nb, sizes = 256, 128, [256, 200, 256]
+    a = np.zeros((3, n, n), np.float32)
+    for i, s in enumerate(sizes):
+        a[i] = np.eye(n)
+        a[i, :s, :s] = _spd(rng, s)
+    at = torch.from_numpy(a).to(cuda)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    before = ck.CHOL_PANEL_BATCHED.launches
+    clean, c0 = ib.batch_potrf(at, sz, nb=nb, abft=True)
+    assert ck.CHOL_PANEL_BATCHED.launches - before == 3 * (n // nb) - 1
+    assert c0.detected.tolist() == [0, 0, 0]
+    seed = next(s for s in range(64) if (lambda p: nb <= p // nb < 200)(
+        int(np.random.default_rng(s).choice(n * nb, 1)[0])))
+    with _strike(seed=seed, tile=(1, 0)):
+        fa, counts = ib.batch_potrf(at, sz, nb=nb, abft=True)
+    assert counts.detected.tolist() == counts.corrected.tolist() == [0, 1, 0]
+    for p in (0, 2):
+        assert torch.equal(fa[p], clean[p])
+    torch.testing.assert_close(torch.tril(fa[1]), torch.tril(clean[1]),
+                               rtol=1e-4, atol=1e-4)

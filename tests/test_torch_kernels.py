@@ -167,14 +167,23 @@ def test_potrf_gates_carry_hopper_limits():
 
 
 def test_potrf_tile_library_route_nan_fills_a_failed_factor():
-    """f64 goes to torch.linalg.cholesky_ex; a failed factor is NaN
-    throughout, as XLA's is in the reference."""
+    """f64 goes to torch.linalg.cholesky_ex; a failed factor is NaN from
+    the first failing minor's column on (its columns before are the
+    leading minor's factor), so the first bad diagonal is the one K1's
+    loop finds.  (The reference's XLA route NaN-fills the tile whole.)"""
     a = _spd(np.random.default_rng(7), 64, np.float64)
     L = ip.potrf_tile(torch.from_numpy(a)).numpy()
     np.testing.assert_allclose(L, np.linalg.cholesky(a), rtol=1e-12,
                                atol=1e-12)
     a[10, 10] = -5.0
-    assert np.isnan(ip.potrf_tile(torch.from_numpy(a)).numpy()).all()
+    L = ip.potrf_tile(torch.from_numpy(a)).numpy()
+    assert np.isnan(L[:, 10:]).all() and not np.isnan(L[:, :10]).any()
+    np.testing.assert_allclose(L[:10, :10], np.linalg.cholesky(a[:10, :10]),
+                               rtol=1e-12, atol=1e-12)
+    batch = torch.from_numpy(np.stack([a, _spd(np.random.default_rng(8), 64,
+                                                np.float64)]))
+    Lb = ip.potrf_tile(batch).numpy()
+    assert np.isnan(Lb[0, :, 10:]).all() and not np.isnan(Lb[1]).any()
 
 
 @pytest.mark.parametrize("n,unit", [(32, False), (100, False), (256, True)])
@@ -209,6 +218,11 @@ def test_trsm_blocked_matches_reference(lower, trans, conj, n):
     want_r = np.asarray(ref_trsm.trsm_right_blocked(
         jnp.asarray(a), jnp.asarray(b.T.copy()), **kw))
     np.testing.assert_allclose(got_r, want_r, rtol=1e-10, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        it.trsm_left_blocked(torch.from_numpy(a), torch.from_numpy(b),
-                             check=True, **kw)
+    # the checked solve (Option.Abft) finds nothing to repair in a clean
+    # solve and returns the unchecked bits, as the reference's does
+    for fn, rhs in ((it.trsm_left_blocked, b), (it.trsm_right_blocked,
+                                                b.T.copy())):
+        got_c = fn(torch.from_numpy(a), torch.from_numpy(rhs), check=True,
+                   **kw)
+        assert torch.equal(got_c, fn(torch.from_numpy(a),
+                                     torch.from_numpy(rhs), **kw))

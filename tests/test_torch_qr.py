@@ -232,13 +232,15 @@ def test_info_return_shapes_and_unported_rungs():
     assert h.ok and (Q.m, Q.n, R.m) == (96, 24, 24)
     X, h = st.gels_cholqr(_cpu(a, 32), _cpu(b, 32), info)
     assert h.ok
-    with pytest.raises(NotImplementedError, match="cholqr2 rung"):
-        st.gels(_cpu(a, 32), _cpu(b, 32),
-                _opts(st, Speculate=st.Speculate.On))
-    with pytest.raises(NotImplementedError, match="qr_bf16 rung"):
-        st.gels(_cpu(a, 32), _cpu(b, 32),
-                _opts(st, Speculate=st.Speculate.On,
-                      Precision=st.Precision.Bf16))
+    # the speculative rungs are ported: the certified CholQR2 rung records
+    # its one refinement sweep, the bf16 QR rung its two
+    X, h = st.gels(_cpu(a, 32), _cpu(b, 32),
+                   {**info, st.Option.Speculate: st.Speculate.On})
+    assert h.ok and h.iters == 1
+    X, h = st.gels(_cpu(a, 32), _cpu(b, 32),
+                   {**info, st.Option.Speculate: st.Speculate.On,
+                    st.Option.Precision: st.Precision.Bf16})
+    assert h.ok and h.iters == 2
     # the certified attempt (robust/certify.certify_lstsq) is ported: a
     # well-conditioned A passes, with the refinement recorded as iters
     X, h = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None, refine=1,

@@ -316,8 +316,11 @@ def test_submit_validation_and_unported_parts():
     for fn in (srv.start, srv.shutdown):
         with pytest.raises(NotImplementedError, match="item 9"):
             fn()
-    with pytest.raises(NotImplementedError, match="Abft"):
-        sb.make_batched("solve", {st.Option.Abft: st.Abft.On})
+    # Abft is ported: only chol_solve keeps the ragged route under it
+    abft = {st.Option.Abft: st.Abft.On}
+    assert sb._ragged_plan("solve", torch.zeros(2, 64, 64), abft) is None
+    assert sb._ragged_plan("chol_solve", torch.zeros(2, 64, 64),
+                           abft) is not None
     with pytest.raises(ValueError, match="unknown op"):
         sb.make_batched("cholesky")
 
