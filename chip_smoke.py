@@ -51,7 +51,12 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      the same solve with its products in TF32 is shown to exceed; K2
      launched 3 n/nb - 1 times (update, factor and solve a panel, the
      last panel no solve) and K0 n/nb - 1 times; wall time and GFLOP/s;
-     then a small posv held against the same solve on the CPU;
+     then a small posv held against the same solve on the CPU; then
+     posv_hold, the same posv under Option.HoldLocalWorkspace (its
+     Cholesky attempt captured as one CUDA graph and replayed): cold
+     (capture) and warm walls beside eager posv's, X and the health
+     bit-equal, K2 and K0 launches per replay as eager (torch.profiler's
+     count beside);
   4. the tile route: posv at n = 2048 with the fused panel's plan set to
      the library, so that potrf_tile runs K1 (n/nb launches);
   5. the LU path at full width: ``slate_tpu_torch.gesv`` with MethodLU.CALU
@@ -97,7 +102,19 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      per-problem route (agreeing with the ragged one), with the bf16 rung
      (K6-K8 on bf16 storage; escalated results bit-equal to the f32
      stream's), and a small stream held against the CPU route;
-  9. robustness on those paths (its own generators, --seed + 8 and
+  9. the serving survival layer on the same stream: serve_graph (the
+     stream through the captured cache cold and warm, in turns with the
+     same stream through eager callables; every group's replay against
+     eager make_batched, bit for bit; captures, capture time, reserved
+     memory; K6-K8 launches as each capture's tally times its replays,
+     and torch.profiler's count and idle share), serve_loop
+     (Server.start() with 4 submitter threads, twice, no capture, no
+     ticket lost), serve_pool_drill (two members on the card: a killed,
+     a lying and a wedged member fail over bit-equal, quarantine, canary
+     readmission), serve_watchdog (a stalled capture fails its tickets
+     with reason watchdog) and serve_retune (the fitted ladder, its
+     routes, a cache-hit first flush);
+ 10. robustness on those paths (its own generators, --seed + 8 and
      --seed + 9): abft_posv (posv at n = 20480 with Option.Abft, clean
      beside Abft off as warm wall and device busy, the largest checksum
      residual over its threshold, a transient bitflip in K2's first
@@ -120,8 +137,9 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      stream's chol_solve requests at n = 1900, repaired, its neighbours'
      bits untouched).  Every count, GFLOP/s and bound above comes from
      the flop model (slate_tpu_torch/obs/flops.py);
- 10. print the launch counts, the card line, the kernels line, and last
-     the result line.
+ 11. print the launch counts, the card line, the kernels line, and last
+     the result line.  A kernel's launch count adds its wrapper's eager
+     launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
 QR gels and one warm serving stream down by phase (host clock) and by
 kernel (torch.profiler), with the device's idle share, and the gesv's K4
@@ -139,7 +157,9 @@ and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
 from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
 zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
-tenth, --seed + 9, so that adding to one slice moves no other's matrices.
+tenth, --seed + 9, so that adding to one slice moves no other's matrices;
+the survival phases and posv_hold draw nothing of their own (they reuse
+the stream and posv's matrix).
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
 """
 
@@ -1548,28 +1568,33 @@ def serve_accuracy(reqs, results) -> dict:
     return worst
 
 
-def expected_serve_launches(records) -> dict:
+def expected_serve_launches(records, warmups: bool = True) -> dict:
     """K6, K7 and K8 launches of the ragged route, replayed from the batches
     the server ran: a chol_solve (solve) batch of bucket n runs one K6 (K7)
     step a block column, with nb = min(128, n): 3 n / nb - 1 launches
     (update, factor, solve; the last step no solve) each; a
     least-squares batch of bucket (mb, n, kb) one K8 launch a panel, n / w
-    with w = min(128, n).  Each escalated least-squares problem's safe
-    rung, Householder QR of its (mb, n) bucket in tiles of min(n, 128),
-    launches K5 once a panel; the LU safe rungs run no hand kernel."""
+    with w = min(128, n).  On the card every batch replays its bucket's
+    CUDA graph, and a batch that missed the cache first ran that device
+    part once more, as the capture's warm-up pass (counted with
+    ``warmups``).  Each escalated least-squares problem's safe rung,
+    Householder QR of its (mb, n) bucket in tiles of min(n, 128),
+    launches K5 once a panel, eagerly; the LU safe rungs run no hand
+    kernel."""
     want = {"chol_panel_batched": 0, "lu_panel_batched": 0,
             "qr_panel_batched": 0, "qr_panel": 0}
     for r in records:
         n = r["bucket"][1] if r["op"] == "least_squares_solve" \
             else r["bucket"][0]
         nb = min(128, n)
+        runs = 1 + (warmups and not r["cache_hit"])
         if r["op"] == "least_squares_solve":
-            want["qr_panel_batched"] += n // nb
+            want["qr_panel_batched"] += runs * (n // nb)
             want["qr_panel"] += r["escalated"] * (n // nb)
         elif r["op"] == "chol_solve":
-            want["chol_panel_batched"] += 3 * (n // nb) - 1
+            want["chol_panel_batched"] += runs * (3 * (n // nb) - 1)
         else:
-            want["lu_panel_batched"] += 3 * (n // nb) - 1
+            want["lu_panel_batched"] += runs * (3 * (n // nb) - 1)
     return want
 
 
@@ -1595,13 +1620,15 @@ def group_table(records) -> list:
 
 
 def trace_serve(st, reqs) -> None:
-    """Where one warm serving stream's time goes: pack, factor (the ragged
-    batched factorizations), solve and IR, health read, safe rung and
-    unpack, each timed on the host clock with the device synchronised
-    around it and counted exclusively (a phase inside another is taken out
-    of the outer one), then the device time by kernel under
-    torch.profiler, K6's and K7's by launch (update, factor, solve)."""
-    from slate_tpu_torch.internal import batched as ib
+    """Where one warm serving stream's time goes: pack, the device parts'
+    graph replays (copy-in, replay, copy-out: the ragged factor, solves,
+    refinement and health of every batch), the health read, the safe
+    rungs and unpack, each timed on the host clock with the device
+    synchronised around it and counted exclusively (a phase inside
+    another is taken out of the outer one), then the device time by kernel
+    under torch.profiler, K6's and K7's by launch (update, factor,
+    solve)."""
+    from slate_tpu_torch.internal import graphs as ig
     from slate_tpu_torch.robust import health as rh
     from slate_tpu_torch.serve import batched as sbm
     from slate_tpu_torch.serve import server as ssv
@@ -1629,11 +1656,7 @@ def trace_serve(st, reqs) -> None:
 
     patched = [(ssv.Server, "_pack", "pack"),
                (ssv.Server, "_unpack", "unpack"),
-               (ib, "batch_potrf", "factor"), (ib, "batch_getrf", "factor"),
-               (ib, "batch_geqrf", "factor"),
-               (ib, "batch_getrs", "solve_and_ir"),
-               (ib, "batch_gels", "solve_and_ir"),
-               (sbm, "_chol_solves", "solve_and_ir"),
+               (ig.Captured, "__call__", "graph_replay"),
                (rh.BatchHealth, "to_list", "health_read")]
     saved = [getattr(obj, name) for obj, name, _ in patched]
     safe = dict(sbm.SAFE_RUNGS)
@@ -1838,6 +1861,478 @@ def serve_requests_small(gen):
                      torch.randn(2 * n, n, generator=gen, device="cuda"),
                      torch.randn(2 * n, 3, generator=gen, device="cuda")))
     return reqs
+
+
+# ------------------------------------------- serving survival phases
+
+# the warm ragged stream's wall before its buckets were captured as CUDA
+# graphs, as PERF.md records it (H100 80GB HBM3 at 700 W)
+EAGER_STREAM_WARM_S = 0.456
+# the async loop's flush watermarks
+LOOP_OCCUPANCY, LOOP_DELAY_MS = 8, 5.0
+
+
+def _ev_ms(fn, reps: int = 3):
+    """``fn()``'s mean time over ``reps`` calls between two CUDA events,
+    after one call that is not timed; returns (ms, the last output)."""
+    out = fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def _join_serve_threads(timeout_s: float = 60.0) -> list:
+    """Wait for every slate-serve-* thread (a wedged flush or a dispatch
+    that outlived its deadline) to end; returns the names still alive."""
+    import threading
+    deadline = time.perf_counter() + timeout_s
+    for t in threading.enumerate():
+        if t.name.startswith("slate-serve-"):
+            t.join(max(deadline - time.perf_counter(), 0.0))
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("slate-serve-")]
+
+
+def _graph_replays(cache) -> dict:
+    """Per kernel name, the launches a cache's graphs ran: each capture's
+    tally times that graph's replays."""
+    out: dict = {}
+    for _, exe in cache.entries():
+        for g in getattr(exe, "graphs", {}).values():
+            for k, n in g.launches.items():
+                out[k.name] = out.get(k.name, 0) + n * g.replays
+    return out
+
+
+def check_serve_graph(st, reqs, kernels, reset, counts, failures):
+    """serve_graph: the 120-request stream through the captured cache, cold
+    and warm; every group's captured callable against eager make_batched
+    on the same packed batch (bits, or the op that differs under the
+    serving bounds), each group's eager and replay time by CUDA events,
+    the captures, capture time and reserved memory, the warm wall in turns
+    with the same stream through eager callables (and PERF.md's eager
+    figure beside),
+    K6/K7/K8 launches as each capture's tally times its replays against
+    the batches' prediction, and the same count from torch.profiler over
+    one warm stream, with its device idle share beside the eager
+    stream's."""
+    from slate_tpu_torch.serve import batched as sbm
+    from slate_tpu_torch.serve import server as ssv
+    srv = st.serve.Server(cache=st.serve.ExecutableCache())
+    reset()
+    _, wall_cold = _timed(lambda: srv.serve_batch(reqs))
+    n_cold = len(srv.batch_records)
+    warm_walls = []
+    packed = []
+    real_pack = ssv.Server._pack
+
+    def spy(self, op, dtype, shape, batch, members):
+        out = real_pack(self, op, dtype, shape, batch, members)
+        packed.append((op, dtype, shape, batch, *out[:3]))
+        return out
+    for i in range(2):
+        if i == 1:
+            ssv.Server._pack = spy
+        try:
+            _, wall = _timed(lambda: srv.serve_batch(reqs))
+        finally:
+            ssv.Server._pack = real_pack
+        warm_walls.append(wall)
+    records = srv.batch_records
+    launches = counts()
+    replayed = {name: k.replayed for name, k in kernels.items()}
+    tally = _graph_replays(srv.cache)
+    want_replayed = expected_serve_launches(records, warmups=False)
+    want_total = {**{name: 0 for name in kernels},
+                  **expected_serve_launches(records)}
+    stats = srv.cache.stats()
+    groups, differ = [], []
+    for op, dtype, shape, batch, a, b, s in packed:
+        fn, hit = srv.cache.get_or_compile(op, shape, dtype, batch,
+                                           srv.opts, srv.device)
+        eager = sbm.make_batched(op, srv.opts)
+        eager_ms, (xe, he, ee) = _ev_ms(lambda: eager(a, b, s))
+        call_ms, (xg, hg, eg) = _ev_ms(lambda: fn(a, b, s))
+        replay_ms = sum(_ev_ms(lambda g=g: g(a, b, s))[0]
+                        for g in fn.graphs.values())
+        same = (torch.equal(bits(xg), bits(xe)) and hg == he and eg == ee)
+        row = {"op": op, "bucket": list(shape), "batch": batch,
+               "route": fn.route, "graphs": sorted(fn.graphs),
+               "cache_hit": hit, "bit_equal": same,
+               "eager_ms": eager_ms, "callable_ms": call_ms,
+               "replay_ms": replay_ms}
+        if not same:
+            worst = max(serve_residual(op, a[i], xg[i], b[i])
+                        for i in range(batch) if hg[i].ok)
+            row["worst_residual_replay"] = worst
+            bound = (SERVE_LSQ_BOUND if op == "least_squares_solve"
+                     else SERVE_RESIDUAL_BOUND)
+            differ.append(op)
+            if not worst < bound:
+                failures.append(f"serve_graph: {op} {shape} b{batch} "
+                                f"differs from eager past its bound")
+        groups.append(row)
+    # the same stream through eager callables (make_batched on the card,
+    # the callables before this slice), in turns with the graphs (eager,
+    # graphs, graphs, eager, twice) from an emptied allocator cache; then
+    # each one profiled
+    eager_cache = st.serve.ExecutableCache()
+    eager_cache._compile = lambda op, shape, dtype, batch, opts, device: (
+        sbm.make_batched(op, opts), 0)
+    eager_srv = st.serve.Server(cache=eager_cache)
+    eager_srv.serve_batch(reqs)
+    torch.cuda.empty_cache()
+    turns = {"eager": [], "graphs": []}
+    for which in ("eager", "graphs", "graphs", "eager") * 2:
+        server = eager_srv if which == "eager" else srv
+        turns[which].append(_timed(lambda: server.serve_batch(reqs))[1])
+    profile_device("serve stream warm (eager)",
+                   lambda: eager_srv.serve_batch(reqs))
+    kernels_prof = profile_device("serve stream warm (graphs)",
+                                  lambda: srv.serve_batch(reqs))
+    one_stream = srv.batch_records[-n_cold:]
+    prof = {name: sum(1 for e in kernels_prof if name in e.name)
+            for name in ("chol_panel_batched_", "lu_panel_batched_",
+                         "qr_panel_batched_")}
+    want_one = expected_serve_launches(one_stream, warmups=False)
+    emit({"phase": "serve_graph", "requests": len(reqs),
+          "wall_s_cold": wall_cold, "wall_s_warm": warm_walls,
+          "problems_per_s_warm": len(reqs) / min(warm_walls),
+          "wall_s_warm_turns": turns,
+          "wall_s_warm_median": {k: sorted(v)[len(v) // 2]
+                                 for k, v in turns.items()},
+          "problems_per_s_warm_turns": {
+              k: [len(reqs) / w for w in v] for k, v in turns.items()},
+          "recorded_wall_s_warm_eager": EAGER_STREAM_WARM_S,
+          "captures": stats["captures"], "compile_ms": stats["compile_ms"],
+          "entries": stats["entries"],
+          "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+          "launches_total": launches, "launches_predicted": want_total,
+          "replayed": replayed, "tally_x_replays": tally,
+          "replayed_predicted": want_replayed,
+          "profiler_launches_one_warm_stream": prof,
+          "predicted_one_warm_stream": want_one,
+          "groups_differing": differ})
+    emit({"phase": "serve_graph_groups", "groups": groups})
+    if launches != want_total:
+        failures.append(f"serve_graph launches {launches} != {want_total}")
+    for name in ("chol_panel_batched", "lu_panel_batched",
+                 "qr_panel_batched"):
+        if not (replayed[name] == tally.get(name, 0)
+                == want_replayed[name]):
+            failures.append(f"serve_graph: {name} replayed "
+                            f"{replayed[name]}, tally x replays "
+                            f"{tally.get(name, 0)}, predicted "
+                            f"{want_replayed[name]}")
+    if not all(r["route"] == "ragged" and r["cache_hit"] for r in groups):
+        failures.append("serve_graph: a stream group left the ragged route "
+                        "or missed the cache when warm")
+    return srv
+
+
+def check_serve_loop(st, reqs, failures):
+    """serve_loop: Server.start() with 4 submitter threads sending the
+    stream (flush occupancy 8, 5 ms batch delay), twice.  The loop's
+    flushes group 1 to 8 requests of a bucket (no bucket of the stream
+    holds more), so each bucket's graphs at batch 1, 2, 4 and 8 are
+    captured first; both async passes then capture nothing.  Every ticket
+    settles through result(timeout), within the stream's bounds; the count
+    bit-equal to the synchronous stream, the governor's p50 and p99, the
+    problems/s and health_info() are reported, and shutdown() leaves no
+    serving thread."""
+    import threading
+    srv = st.serve.Server(cache=st.serve.ExecutableCache(),
+                          admission=st.serve.AdmissionConfig(
+                              max_queue=1024,
+                              flush_occupancy=LOOP_OCCUPANCY,
+                              max_batch_delay_ms=LOOP_DELAY_MS))
+    sync = srv.serve_batch(reqs)
+    keys = {(r["op"], tuple(r["bucket"]), r["dtype"])
+            for r in srv.batch_records}
+    t0 = time.perf_counter()
+    for op, shape, dtype in sorted(keys):
+        for batch in (1, 2, 4, 8):
+            srv.cache.get_or_compile(op, shape, dtype, batch, srv.opts,
+                                     srv.device)
+    warm_s = time.perf_counter() - t0
+    srv.start()
+    passes = []
+    try:
+        for _ in range(2):
+            captures0 = srv.cache.stats()["captures"]
+            tickets = [None] * len(reqs)
+
+            def submit(wid):
+                for i in range(wid, len(reqs), 4):
+                    tickets[i] = srv.submit(*reqs[i])
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=submit, args=(w,))
+                       for w in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120.0)
+            got = [t.result(timeout=120.0) for t in tickets]
+            wall = time.perf_counter() - t0
+            acc = serve_accuracy(reqs, got)
+            passes.append({
+                "wall_s": wall, "problems_per_s": len(reqs) / wall,
+                "captures": srv.cache.stats()["captures"] - captures0,
+                "settled": sum(t.done() for t in tickets),
+                "bit_equal_to_sync": sum(
+                    torch.equal(bits(g.x), bits(w.x))
+                    for g, w in zip(got, sync)),
+                "not_bit_equal": [
+                    (reqs[i][0], tuple(reqs[i][1].shape))
+                    for i, (g, w) in enumerate(zip(got, sync))
+                    if not torch.equal(bits(g.x), bits(w.x))],
+                "worst_residual": acc,
+                "latency_p50_ms": srv.queue.governor.estimate_wait_ms(),
+                "latency_p99_ms": srv.queue.governor.p99_ms()})
+            if not (acc["solve"] < SERVE_RESIDUAL_BOUND
+                    and acc["chol_solve"] < SERVE_RESIDUAL_BOUND
+                    and acc["least_squares_solve"] < SERVE_LSQ_BOUND):
+                failures.append(f"serve_loop residuals {acc}")
+            if passes[-1]["settled"] != len(reqs):
+                failures.append("serve_loop: a ticket was lost")
+    finally:
+        srv.shutdown()
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("slate-serve-")]
+    emit({"phase": "serve_loop", "requests": len(reqs), "submitters": 4,
+          "flush_occupancy": LOOP_OCCUPANCY,
+          "max_batch_delay_ms": LOOP_DELAY_MS,
+          "batch_ladder_captures_s": warm_s, "passes": passes,
+          "health_info": srv.health_info(), "threads_left": left})
+    if any(p["captures"] for p in passes):
+        failures.append("serve_loop: a warm async pass captured a graph")
+    if left:
+        failures.append(f"serve_loop: threads left after shutdown {left}")
+
+
+def check_serve_pool_drill(st, faults, reqs, failures):
+    """serve_pool_drill: two pool members on cuda:0 sharing one cache.
+    serve_device_fail on member 0 with kind nan (the device lies: caught
+    by the non-finite check), then raising at dispatch: the same packed
+    batch fails over to member 1, bit-equal to the no-fault run; member 0
+    is quarantined and readmitted by probe(0), whose canary solve runs
+    through the cache.  serve_device_slow past a 1 s dispatch deadline
+    fails over the same way.  Every serve_device record is printed."""
+    from slate_tpu_torch.obs import events
+    sub = [r for r in reqs if r[0] == "solve" and r[1].shape[0] == 450]
+    cache = st.serve.ExecutableCache()
+
+    def pool_server(timeout_s=None):
+        pool = st.serve.DevicePool(
+            ["cuda:0", "cuda:0"], st.serve.PoolConfig(
+                strike_limit=1, canary_interval_s=30.0,
+                dispatch_timeout_s=timeout_s))
+        return st.serve.Server(cache=cache, pool=pool)
+    base = pool_server().serve_batch(sub)
+    cases = (("nan", faults.FaultPlan("serve_device_fail", kind="nan",
+                                      transient=True, device=0), None,
+              "nonfinite"),
+             ("exception", faults.FaultPlan("serve_device_fail", kind="inf",
+                                            transient=True, device=0), None,
+              "exception"),
+             ("deadline", faults.FaultPlan("serve_device_slow",
+                                           transient=True, device=0,
+                                           delay_s=1.5), 1.0, "deadline"))
+    for name, plan, timeout_s, reason in cases:
+        srv = pool_server(timeout_s)
+        with events.recording() as recs:
+            with faults.inject(plan):
+                t0 = time.perf_counter()
+                got = srv.serve_batch(sub)
+                wall = time.perf_counter() - t0
+            quarantined = srv.pool.healthy_count() == 1
+            readmitted = srv.pool.probe(0)
+        left = _join_serve_threads()
+        same = all(torch.equal(bits(g.x), bits(w.x))
+                   for g, w in zip(got, base))
+        dev = [{k: v for k, v in e.items() if k not in ("schema", "ts")}
+               for e in recs if e["kind"] == "serve_device"]
+        batch = [e for e in recs if e["kind"] == "serve_batch"]
+        emit({"phase": "serve_pool_drill", "case": name,
+              "problems": len(sub), "wall_s": wall,
+              "bit_equal_to_no_fault": same, "served_by":
+              [e["device_id"] for e in batch],
+              "failovers": [e["failovers"] for e in batch],
+              "pool": srv.pool.stats(), "serve_device_events": dev,
+              "threads_left": left})
+        fo = [e for e in dev if e["event"] == "failover"]
+        if not (same and quarantined and readmitted and len(got) == len(sub)
+                and fo and fo[0]["device_id"] == 0
+                and fo[0]["reason"] == reason
+                and any(e["event"] == "readmit" for e in dev)
+                and all(e["device_id"] == 1 for e in batch) and not left):
+            failures.append(f"serve_pool_drill {name}: bit-equal {same}, "
+                            f"quarantined {quarantined}, readmitted "
+                            f"{readmitted}, events {dev}, left {left}")
+
+
+def check_serve_watchdog(st, faults, reqs, failures):
+    """serve_watchdog: a 3 s serve_compile_stall on a cold bucket with
+    watchdog_timeout_s = 1: every pending ticket fails with
+    SlateServeTimeoutError reason watchdog, wedged() is set, submit raises
+    and shutdown() returns; the stalled flush thread is waited out."""
+    from slate_tpu_torch.exceptions import SlateServeTimeoutError
+    sub = [r for r in reqs if r[0] == "chol_solve"][:4]
+    srv = st.serve.Server(cache=st.serve.ExecutableCache(),
+                          admission=st.serve.AdmissionConfig(
+                              flush_occupancy=len(sub),
+                              max_batch_delay_ms=1.0,
+                              watchdog_timeout_s=1.0))
+    srv.start()
+    reasons, refused = [], None
+    t0 = time.perf_counter()
+    with faults.inject(faults.FaultPlan("serve_compile_stall",
+                                        transient=True, delay_s=3.0)):
+        tickets = [srv.submit(*r) for r in sub]
+        for t in tickets:
+            try:
+                t.result(timeout=30.0)
+                reasons.append("served")
+            except SlateServeTimeoutError as e:
+                reasons.append(e.reason)
+        failed_after = time.perf_counter() - t0
+        wedged = srv.wedged() is not None
+        try:
+            srv.submit(*sub[0])
+        except SlateServeTimeoutError as e:
+            refused = e.reason
+        t1 = time.perf_counter()
+        srv.shutdown()
+        shutdown_s = time.perf_counter() - t1
+    left = _join_serve_threads()
+    emit({"phase": "serve_watchdog", "stall_s": 3.0,
+          "watchdog_timeout_s": 1.0, "ticket_errors": reasons,
+          "failed_after_s": failed_after, "wedged": wedged,
+          "submit_refused": refused, "shutdown_s": shutdown_s,
+          "threads_left_after_stall": left})
+    if not (reasons == ["watchdog"] * len(sub) and wedged
+            and refused == "wedged" and not left):
+        failures.append(f"serve_watchdog: tickets {reasons}, wedged "
+                        f"{wedged}, submit {refused}, left {left}")
+
+
+def check_serve_retune(st, reqs, failures):
+    """serve_retune: retune_now("float32") on the stream's sizes: the old
+    and new rungs, both wastes, the route each fitted bucket takes (a rung
+    that nb = 128 does not divide goes to the per-problem route), and the
+    first flush after the swap, a group of the hottest fitted bucket,
+    served from the graphs captured before the swap."""
+    from slate_tpu_torch.serve import bucket as sbk
+    srv = st.serve.Server(cache=st.serve.ExecutableCache(),
+                          admission=st.serve.AdmissionConfig(
+                              retune_interval_s=1e9, retune_min_samples=16,
+                              retune_margin=0.02))
+    srv.serve_batch(reqs)
+    n_before = srv.cache.stats()["entries"]
+    t0 = time.perf_counter()
+    info = srv.retune_now("float32")
+    retune_s = time.perf_counter() - t0
+    if info is None:
+        failures.append("serve_retune: no swap on the stream's sizes")
+        return
+    warmed = [k for k, _ in srv.cache.entries()[n_before:]]
+    routes = {f"{k[0]} {'x'.join(map(str, k[1]))} b{k[4]}": exe.route
+              for k, exe in srv.cache.entries()[n_before:]}
+    lad = srv.ladder("float32")
+    # the first flush after the swap: one group of the first warmed
+    # bucket, as many of the stream's requests as bucket there (5 to 8
+    # of them make the warmed batch of 8)
+    op, (nbk, _) = warmed[0][0], warmed[0][1]
+    group = [r for r in reqs if r[0] == op
+             and lad.bucket_for(r[1].shape[0]) == nbk]
+    if sbk.next_pow2(len(group)) != warmed[0][4]:
+        failures.append(f"serve_retune: {len(group)} requests of the "
+                        f"warmed bucket {warmed[0]}")
+        return
+    res = srv.serve_batch(group)
+    first = srv.batch_records[-1]
+    emit({"phase": "serve_retune", **info, "retune_s": retune_s,
+          "routes_of_warmed_buckets": routes,
+          "first_flush": {"op": first["op"], "bucket": first["bucket"],
+                          "batch": first["batch"],
+                          "cache_hit": first["cache_hit"],
+                          "captures": first["captures"],
+                          "route": routes.get(
+                              f"{first['op']} "
+                              f"{'x'.join(map(str, first['bucket']))} "
+                              f"b{first['batch']}")},
+          "first_flush_healthy": all(r.health.ok for r in res)})
+    if not (first["cache_hit"] and first["captures"] == 0
+            and all(r.health.ok for r in res)):
+        failures.append(f"serve_retune: the first flush after the swap "
+                        f"was not a healthy cache hit ({first})")
+
+
+def check_posv_hold(st, a, b, nb, reset, counts, failures):
+    """posv_hold: posv on the main path's matrix with
+    Option.HoldLocalWorkspace (its Cholesky attempt captured as one CUDA
+    graph): the cold wall (the capture) and the warm replay wall beside
+    eager posv in the same run, X and the health bit-equal to eager's,
+    K2 and K0 launches per replay (3 n / nb - 1 and n / nb - 1, as eager)
+    and torch.profiler's count of them, with the device idle share of a
+    warm replay and of eager posv."""
+    from slate_tpu_torch.drivers import cholesky as chol
+    n = a.shape[0]
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    hold = {**info, st.Option.HoldLocalWorkspace: True}
+    A = st.SymmetricMatrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    _, Xe, he = st.posv(A, B, info)
+    eager = [_timed(lambda: st.posv(A, B, info))[1] for _ in range(2)]
+    chol._HELD.clear()
+    (_, Xh, hh), cold = _timed(lambda: st.posv(A, B, hold))
+    reset()
+    (_, Xh2, hh2), warm1 = _timed(lambda: st.posv(A, B, hold))
+    per_replay = counts()
+    warm = [warm1] + [_timed(lambda: st.posv(A, B, hold))[1]
+                      for _ in range(2)]
+    same = (torch.equal(bits(Xh.to_dense()), bits(Xe.to_dense()))
+            and torch.equal(bits(Xh2.to_dense()), bits(Xe.to_dense()))
+            and hh == he and hh2 == he)
+    k_hold = profile_device("posv hold warm", lambda: st.posv(A, B, hold))
+    k_eager = profile_device("posv eager", lambda: st.posv(A, B, info))
+    prof = {"chol_panel_fused": sum(1 for e in k_hold
+                                    if "chol_panel_" in e.name
+                                    and "batched" not in e.name),
+            "upper_tri_inv": sum(1 for e in k_hold
+                                 if "upper_tri_inv" in e.name)}
+    want = {"chol_panel_fused": 3 * (n // nb) - 1,
+            "upper_tri_inv": n // nb - 1}
+    emit({"phase": "posv_hold", "n": n, "nb": nb,
+          "wall_s_cold_capture": cold, "wall_s_warm_replay": warm,
+          "wall_s_eager": eager, "bit_equal_to_eager": same,
+          "health": health_row(hh), "launches_per_replay": per_replay,
+          "launches_predicted": want, "profiler_launches": prof,
+          "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    chol._HELD.clear()
+    if not (same and all(per_replay[k] == v for k, v in want.items())):
+        failures.append(f"posv_hold: bit-equal {same}, launches "
+                        f"{per_replay}, profiler {prof} (want {want})")
+
+
+def check_survival(st, reqs, kernels, reset, counts):
+    """The serving survival slice's phases on the card; any miss fails the
+    run after every phase printed."""
+    from slate_tpu_torch.robust import faults
+    failures = []
+    srv = check_serve_graph(st, reqs, kernels, reset, counts, failures)
+    del srv
+    check_serve_loop(st, reqs, failures)
+    check_serve_pool_drill(st, faults, reqs, failures)
+    check_serve_watchdog(st, faults, reqs, failures)
+    check_serve_retune(st, reqs, failures)
+    if failures:
+        raise AssertionError("serving survival: " + "; ".join(failures))
 
 
 # ---------------------------------------------------- robustness phases
@@ -2437,12 +2932,14 @@ def main(argv=None) -> int:
                "lu_panel_batched": LU_PANEL_BATCHED,
                "qr_panel_batched": QR_PANEL_BATCHED}
 
+    # a kernel's launches are its wrapper's eager ones and those its CUDA
+    # graphs' replays ran (the capture's tally once a replay)
     def reset():
         for k in kernels.values():
-            k.launches = 0
+            k.launches = k.replayed = 0
 
     def counts():
-        return {name: k.launches for name, k in kernels.items()}
+        return {name: k.launches + k.replayed for name, k in kernels.items()}
 
     card = card_line()
     print(card, flush=True)
@@ -2524,6 +3021,11 @@ def main(argv=None) -> int:
     del x, x64, x_tf
     if args.trace:
         trace_posv(st, a, b, nb)
+    # ---- posv with Option.HoldLocalWorkspace: the attempt as one graph ----
+    hold_failures = []
+    check_posv_hold(st, a, b, nb, reset, counts, hold_failures)
+    if hold_failures:
+        raise AssertionError("; ".join(hold_failures))
     del a, b
 
     # ---- a small solve held against the same solve on the CPU ----
@@ -2757,6 +3259,8 @@ def main(argv=None) -> int:
                                                reset, counts)
     if args.trace:
         trace_serve(st, serve_reqs)
+    # ---- the survival layer: graphs, the loop, the pool, the watchdog ----
+    check_survival(st, serve_reqs, kernels, reset, counts)
 
     # ---- robustness: Abft, the fault sites and Speculate (--seed + 8) ----
     robust_launches = check_robustness(

@@ -9,12 +9,19 @@ sources and flags, so an edited source is never served a stale build.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` after its launch; the
-wrapper raises on a nonzero code.  Each :class:`CudaKernel` counts its
-launches in the plain integer ``launches``.
+wrapper raises on a nonzero code, so a launch can be captured into a CUDA
+graph (internal/graphs.py).  Each :class:`CudaKernel` counts the launches
+that ran in two plain integers: ``launches``, added to by the wrapper
+where it launches its kernel, and ``replayed``, added to by the graph
+replays that run it.  A launch made while a graph is being captured only
+enqueues the kernel into the graph: it goes to the capture's tally
+(:func:`capture_tally`), and each replay of the graph adds that tally to
+``replayed``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I64 = ctypes.c_longlong
 I32 = ctypes.c_int
+
+_TLS = threading.local()          # the capture tally of this thread, if any
+_REPLAY_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -61,6 +71,7 @@ class CudaKernel:
         self.source = CSRC_DIR / source
         self.functions = functions
         self.launches = 0
+        self.replayed = 0
         self._lib = None
         self._lock = threading.Lock()
 
@@ -128,9 +139,36 @@ class CudaKernel:
 
     def launch(self, symbol: str, *args) -> None:
         """Call one C entry point that launches the kernel and count the
-        launch; raise if CUDA refused it (the kernel then never ran)."""
+        launch; raise if CUDA refused it (the kernel then never ran).
+        Inside :func:`capture_tally` the launch was only captured, and is
+        counted in the tally instead."""
         self.call(symbol, *args)
-        self.launches += 1
+        tally = getattr(_TLS, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self] = tally.get(self, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Scope of a graph capture on this thread: yields a dict, kernel ->
+    launches captured, that the kernels' launches in the scope fill in
+    place of their ``launches`` counts."""
+    prev = getattr(_TLS, "tally", None)
+    _TLS.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _TLS.tally = prev
+
+
+def add_replay(tally: dict) -> None:
+    """One replay of a graph whose capture tallied ``tally``: each kernel
+    in it ran that many more times."""
+    with _REPLAY_LOCK:
+        for kernel, n in tally.items():
+            kernel.replayed += n
 
 
 def build_all(kernels) -> None:

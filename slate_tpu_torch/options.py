@@ -187,6 +187,19 @@ _ENUM_VALUED = {Option.Target: Target, Option.ErrorPolicy: ErrorPolicy,
                 Option.Precision: Precision}
 
 
+def options_fingerprint(opts: Options | None) -> tuple:
+    """Canonical, hashable digest of an options dict, the key of a cached
+    callable or graph (serve/cache.py, posv's HoldLocalWorkspace).
+    Order-insensitive; enum keys and values collapse to their names so
+    equivalent spellings agree."""
+    items = []
+    for k, v in (opts or {}).items():
+        kn = getattr(k, "name", str(k))
+        vn = getattr(v, "name", None) or str(v)
+        items.append((kn, vn))
+    return tuple(sorted(items))
+
+
 def get_option(opts: Options | None, key: Option,
                default: Any = _UNSET) -> Any:
     """Read one option with framework defaults (ref: types.hh:180-206).

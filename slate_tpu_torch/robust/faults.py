@@ -180,14 +180,22 @@ def active(site: str) -> FaultPlan | None:
     return _ACTIVE.get(site)
 
 
+def device_plans_active() -> bool:
+    """Is a plan armed at any device-side site (``SITES``)?  A strike's
+    positions come from the host and a transient one fires once, so the
+    paths that replay CUDA graphs run eagerly while one is armed."""
+    return any(site in _ACTIVE for site in SITES)
+
+
 def host_fire(site: str, device: int | None = None) -> FaultPlan | None:
     """Consume an active HOST-side chaos plan at ``site``.
 
     The serving and durability layers call it from plain host code (the
     flush loop, the executable cache, the checkpoint writer, the tile-map
     copy path) and act on the returned plan (sleep, evict, tear a write);
-    the port's consumers of these sites come with the slices that port
-    those layers.  Transient
+    the port's serving layer (serve/server.py, cache.py, pool.py) consumes
+    the serving sites, and the durability sites wait for the slice that
+    ports those layers.  Transient
     plans fire at most once per :func:`inject` activation — one stalled
     compile or one torn checkpoint, not a permanently broken disk.
 

@@ -226,21 +226,25 @@ def _indefinite_fallback():
                      "health)", "queue 1, item 8 (hesv)")
 
 
-def posv_with_recovery(A, B, opts: Options | None = None):
+def posv_with_recovery(A, B, opts: Options | None = None,
+                       chol_attempt=None):
     """posv body: the bf16 rung when speculating at Precision = bf16, the
     f32 (or f64/complex) Cholesky attempt, and with UseFallbackSolver the
     Abft retry of the first attempt and the indefinite fallback, then the
     ErrorPolicy boundary.  The first returned element is the Cholesky
-    factor of whichever attempt succeeded."""
+    factor of whichever attempt succeeded.  ``chol_attempt`` replaces
+    :func:`_chol_attempt` (posv's captured one under
+    Option.HoldLocalWorkspace)."""
+    chol = chol_attempt or _chol_attempt
     speculate = resolve_speculate(opts)   # resolved ONCE, like ErrorPolicy
     low = resolve_precision(opts)         # the one Option.Precision read
     if speculate and low:
         first = _chol_bf16_attempt(A, B, opts)
         same = lambda: _chol_bf16_attempt(A, B, opts)      # noqa: E731
-        fallbacks = [lambda: _chol_attempt(A, B, opts)]
+        fallbacks = [lambda: chol(A, B, opts)]
     else:
-        first = _chol_attempt(A, B, opts)
-        same = lambda: _chol_attempt(A, B, opts)           # noqa: E731
+        first = chol(A, B, opts)
+        same = lambda: chol(A, B, opts)                    # noqa: E731
         fallbacks = []
     if get_option(opts, Option.UseFallbackSolver):
         fallbacks.append(_indefinite_fallback)

@@ -10,15 +10,20 @@ requests run as shape-bucketed batches, with
   ``HealthInfo``: the ragged route through the batched kernels K6-K8 and
   the per-problem route through the single-problem drivers, plus the
   certified bf16 rung (:mod:`batched`),
-- a keyed cache of batch callables (:mod:`cache`),
+- a keyed cache of batch callables that captures each bucket's ragged
+  device parts as CUDA graphs on the card and replays them for every
+  batch (:mod:`cache`, the counterpart of the reference's compiled
+  executables),
 - deadline-aware admission control with SLO backpressure and typed
   overflow policies (:mod:`admission`),
-- a synchronous ``Server`` front end with poison retry and quarantine
-  (:mod:`server`).
-
-The device pool, the background flush loop with its watchdog, online
-retune and the obs events are not ported yet (ROADMAP.md queue 1,
-item 9).
+- a ``Server`` front end with poison retry and quarantine, a background
+  flush loop with its watchdog (``start``/``shutdown``), online ladder
+  retune and one obs event per batch, shed, quarantine, device
+  transition and retune (:mod:`server`),
+- an elastic :class:`DevicePool` that round-robins batches over its
+  members, fails the SAME packed batch over to a survivor when a member
+  dies (no lost tickets, bit-identical results), quarantines sick
+  members and readmits them after a clean canary probe (:mod:`pool`).
 """
 
 from .admission import (OVERFLOW_POLICIES, AdmissionConfig, AdmissionQueue,
@@ -30,11 +35,13 @@ from .bucket import (BucketLadder, default_ladder, geometric_ladder,
                      least_squares_buckets, next_pow2, pad_rows, pad_square,
                      pad_tall, padded_fraction, solve_buckets)
 from .cache import ExecutableCache, default_cache, options_fingerprint
+from .pool import DevicePool, PoolConfig, PoolMember
 from .server import SERVE_OPS, Request, Result, Server
 
 __all__ = [
     "AdmissionConfig", "AdmissionQueue", "BucketLadder", "CORES",
-    "ExecutableCache", "OVERFLOW_POLICIES", "Request", "Result",
+    "DevicePool", "ExecutableCache", "OVERFLOW_POLICIES", "PoolConfig",
+    "PoolMember", "Request", "Result",
     "SERVE_DTYPES", "SERVE_OPS", "Server", "SlateServeError",
     "SlateServeOverloadError", "SlateServeTimeoutError", "Ticket",
     "chol_solve_core", "default_cache", "default_ladder", "geometric_ladder",

@@ -24,7 +24,11 @@ Escalation is eager where the reference's is a per-problem ``lax.cond``
 under ``vmap`` (both rungs computed, one selected): the fast rung's health
 is read in one copy, the safe rung runs on the escalating problems only,
 and their results are scattered back, which is what the reference's
-select gives.
+select gives.  So each core is split at that one host read
+(:func:`batch_program`): its device parts compute the first attempts and
+their health as device tensors, its host part reads the health and
+escalates; serve/cache.py captures the device parts of the ragged route
+as CUDA graphs on the card and replays them for every batch.
 
 Precision rung (``Option.Precision = bf16``, or bf16 operands): one more
 rung below the ladders above: factor in bf16 storage with f32 sums (K6-K8
@@ -247,16 +251,23 @@ def _escalate(op: str, h1: list, x1, a, b, opts: Options | None):
     return x, hs, esc
 
 
-def _ragged_solve(a, b, sizes, plan: RaggedPlan, opts: Options | None):
+# Each ragged core is split at its host read: the DEVICE part below (the
+# first attempt through K6, K7 or K8, its solves and refinement sweeps, and
+# its health as a BatchHealth of device tensors; no host read, no branch
+# on a device value) returns ``(x, BatchHealth)``, and the host part
+# (_escalate) reads that health once and runs the escalations eagerly.  On
+# the card serve/cache.py captures each device part as a CUDA graph.
+
+
+def _ragged_solve(a, b, sizes, plan: RaggedPlan):
     """solve's fast rung through batch_getrf (K7): ragged NoPiv LU + 2 IR
-    sweeps."""
+    sweeps, and its health, on the device."""
     fa = _bk.batch_getrf(a, sizes, nb=plan.nb, bw=plan.bw)
     x = _bk.batch_getrs(fa, b)
     for _ in range(2):                     # r = b - A x, dx through fa
         x = x + _bk.batch_getrs(fa, b - a @ x)
-    h1 = _demote_batch(_h.batch_merge(_bk.lu_health(a, fa),
-                                      _h.batch_from_result(x)), a.dtype)
-    return _escalate("solve", h1.to_list(), x, a, b, opts)
+    return x, _demote_batch(_h.batch_merge(_bk.lu_health(a, fa),
+                                           _h.batch_from_result(x)), a.dtype)
 
 
 def _chol_solves(fa: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -265,43 +276,43 @@ def _chol_solves(fa: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(fa.mT, y, upper=True)
 
 
-def _ragged_chol(a, b, sizes, plan: RaggedPlan, opts: Options | None):
+def _ragged_chol(a, b, sizes, plan: RaggedPlan, abft: bool = False):
     """chol_solve's fast rung through batch_potrf (K6), with its in-batch
-    checksum rungs when Option.Abft is on."""
+    checksum rungs under ``abft``, and its health, on the device."""
     fa, counts = _bk.batch_potrf(a, sizes, nb=plan.nb, bw=plan.bw,
-                                 abft=resolve_abft(opts))
+                                 abft=abft)
     x = _chol_solves(fa, b)
     h1 = _bk.chol_health(fa)._replace(
         abft_detected=counts.detected, abft_corrected=counts.corrected,
         abft_site=counts.site)
-    h1 = _demote_batch(_h.batch_merge(h1, _h.batch_from_result(x)), a.dtype)
-    return _escalate("chol_solve", h1.to_list(), x, a, b, opts)
+    return x, _demote_batch(_h.batch_merge(h1, _h.batch_from_result(x)),
+                            a.dtype)
 
 
-def _ragged_lstsq(a, b, sizes, plan: RaggedPlan, opts: Options | None):
+def _ragged_lstsq(a, b, sizes, plan: RaggedPlan):
     """least_squares_solve's fast rung through batch_gels (K8): ragged
-    Householder QR, rank-revealing on |diag R|."""
+    Householder QR, rank-revealing on |diag R|, and its health, on the
+    device."""
     n = a.shape[2]
     x, packed = _bk.batch_gels(a, b, sizes, nb=plan.nb, bw=plan.bw)
     d = torch.diagonal(packed[:, :n, :n], dim1=1, dim2=2)
-    h1 = _demote_batch(_h.batch_merge(_h.batch_from_pivots(d),
-                                      _h.batch_from_result(x)), a.dtype)
-    return _escalate("least_squares_solve", h1.to_list(), x, a, b, opts)
+    return x, _demote_batch(_h.batch_merge(_h.batch_from_pivots(d),
+                                           _h.batch_from_result(x)), a.dtype)
 
 
-RAGGED_CORES = {
-    "solve": _ragged_solve,
-    "chol_solve": _ragged_chol,
-    "least_squares_solve": _ragged_lstsq,
-}
+def _ragged_part(op: str, plan: RaggedPlan, opts: Options | None):
+    """The device part of ``op``'s ragged fast rung: ``fn(a, b, sizes) ->
+    (x, BatchHealth)`` on f32 working copies of the packed stacks."""
+    abft = resolve_abft(opts)
 
-
-def _f32_route(op: str, a, b, sizes, opts: Options | None):
-    """The ladder of ``op`` on the route its plan picks."""
-    plan = _ragged_plan(op, a, opts)
-    if plan is not None:
-        return RAGGED_CORES[op](a, b, sizes, plan, opts)
-    return _per_problem(op, a, b, opts)
+    def fn(a, b, sizes):
+        a, b = _prec.promote(a), _prec.promote(b)
+        if op == "solve":
+            return _ragged_solve(a, b, sizes, plan)
+        if op == "chol_solve":
+            return _ragged_chol(a, b, sizes, plan, abft)
+        return _ragged_lstsq(a, b, sizes, plan)
+    return fn
 
 
 # ---------------------------------------------------- precision rung
@@ -406,54 +417,111 @@ BF16_ATTEMPTS = {
 }
 
 
-def _bf16_rung(op: str, a, b, sizes, opts: Options | None):
-    """The certified precision rung below the f32 ladder.  A problem whose
-    certificate fails escalates to the f32 route, which then runs on the
-    whole batch with the code that serves it with the rung off, so that
-    problem's result is bit-identical to the f32-only route.  The returned
-    flags mark certificate failures (the accept rate is 1 - mean over live
-    slots)."""
-    plan_lo = _ragged_plan(op, a, opts, dtype=_prec.LOW)
-    x1, h1 = BF16_ATTEMPTS[op](a, b, sizes, plan_lo, opts)
-    h1 = h1.to_list()
-    esc = [not _h.acceptable(h, a.dtype) for h in h1]
-    if not any(esc):
-        return x1, h1, esc
-    x32, h32, _ = _f32_route(op, a, b, sizes, opts)
-    pick = torch.tensor(esc, device=x1.device)[:, None, None]
-    return (torch.where(pick, x32, x1),
-            [h32[i] if e else h1[i] for i, e in enumerate(esc)], esc)
+class BatchPart(NamedTuple):
+    """One device part of a bucket's batch program: ``fn(a, b, sizes) ->
+    (x, BatchHealth)`` of the packed stacks, with no host read; ``ragged``
+    marks a part whose factor runs through K6, K7 or K8, which
+    serve/cache.py captures as a CUDA graph on the card (the whole-bucket
+    library factor of a bf16 attempt without a bf16 plan runs eagerly)."""
+    fn: object
+    ragged: bool
+
+
+class BatchProgram(NamedTuple):
+    """One bucket's batched core, split at its host read: the device
+    ``parts`` by name ("f32": the ragged fast rung of the f32 ladder;
+    "low": the bf16 attempt of the precision rung) and ``host(a, b, sizes,
+    run)``, which gets a part's ``(x, BatchHealth)`` from ``run(name)``,
+    reads the health once and runs the escalations eagerly, returning
+    ``(x, [HealthInfo], [escalated])``.  ``route`` names the f32 ladder's
+    route: "ragged" or "per_problem" (every problem through the
+    single-problem drivers, eager on both devices)."""
+    parts: dict
+    host: object
+    route: str
+
+
+def batch_program(op: str, opts: Options | None, a: torch.Tensor
+                  ) -> BatchProgram:
+    """The batch program of ``op`` for buckets shaped, typed and placed as
+    ``a`` [B, mb, nb].  Routing (the plans and the kernels' gates) is
+    decided here, once, from the shape, dtype and device alone.
+
+    bf16 operands take the certified precision rung always (promoted f32
+    working copies, results demoted back), and so do f32 operands under
+    ``Option.Precision = bf16``: the bf16 attempt ("low") runs first, and
+    when a problem fails its certificate the f32 ladder runs on the whole
+    batch, as the reference's select computes it, so the escalated
+    problems get results bit-identical to the same batch served with the
+    rung off.  f64 serves on the per-problem route."""
+    if op not in CORES:
+        raise ValueError(f"make_batched: unknown op {op!r} (known: "
+                         f"{tuple(CORES)})")
+    dtype = _prec.normalize_dtype(a.dtype, supported=SERVE_DTYPES)
+    low = dtype == _prec.LOW
+    bf16_rung = low or (_prec.resolve_precision(opts) and dtype == _prec.HIGH)
+    parts = {}
+    plan = _ragged_plan(op, a, opts, dtype=_prec.HIGH if low else None)
+    if plan is not None:
+        parts["f32"] = BatchPart(_ragged_part(op, plan, opts), True)
+    if bf16_rung:
+        plan_lo = _ragged_plan(op, a, opts, dtype=_prec.LOW)
+        attempt = BF16_ATTEMPTS[op]
+
+        def low_fn(a, b, sizes):
+            return attempt(_prec.promote(a), _prec.promote(b), sizes,
+                           plan_lo, opts)
+        parts["low"] = BatchPart(low_fn, plan_lo is not None)
+
+    def f32_route(a, b, sizes, run):
+        if plan is None:
+            return _per_problem(op, a, b, opts)
+        x, h1 = run("f32")
+        return _escalate(op, h1.to_list(), x, a, b, opts)
+
+    def host(a, b, sizes, run):
+        if low:
+            a, b = _prec.promote(a), _prec.promote(b)
+        if not bf16_rung:
+            return f32_route(a, b, sizes, run)
+        x1, h1 = run("low")
+        h1 = h1.to_list()
+        esc = [not _h.acceptable(h, a.dtype) for h in h1]
+        if any(esc):
+            x32, h32, _ = f32_route(a, b, sizes, run)
+            pick = torch.tensor(esc, device=x1.device)[:, None, None]
+            x1 = torch.where(pick, x32, x1)
+            h1 = [h32[i] if e else h1[i] for i, e in enumerate(esc)]
+        return (_prec.demote(x1) if low else x1), h1, esc
+
+    return BatchProgram(parts, host,
+                        "ragged" if plan is not None else "per_problem")
 
 
 def make_batched(op: str, opts: Options | None = None):
-    """The batched core of one op: ``fn(a, b, sizes) -> (x, [HealthInfo],
-    [escalated])`` on tensors of one device.
+    """The batched core of one op, run eagerly: ``fn(a, b, sizes) -> (x,
+    [HealthInfo], [escalated])`` on tensors of one device.
 
     ``sizes`` [B] int32 holds each problem's live size (n for square
     solves, m + (nb - n) live rows for least squares, 0 for filler slots);
     the ragged route reads it on the device, the per-problem route solves
     the whole padded bucket and ignores it.  ``Option.Precision = bf16``
     (resolved once here) inserts the certified bf16 rung below the f32
-    ladder for f32 buckets; bf16 operands take the same rung always
-    (promoted working copies, results demoted back).  f64 serves on the
-    per-problem route; any other dtype raises SlateUnsupportedDtypeError.
-    Under ``Option.Abft = On`` only ``chol_solve`` stays on the ragged
-    route (batch_potrf's in-batch rungs); the other ops take the
-    per-problem drivers, which carry the rungs, as the reference routes
-    them."""
+    ladder for f32 buckets; bf16 operands take the same rung always.  f64
+    serves on the per-problem route; any other dtype raises
+    SlateUnsupportedDtypeError.  Under ``Option.Abft = On`` only
+    ``chol_solve`` stays on the ragged route (batch_potrf's in-batch
+    rungs); the other ops take the per-problem drivers, which carry the
+    rungs, as the reference routes them.  serve/cache.py runs the same
+    :func:`batch_program` with its device parts replayed from CUDA graphs
+    on the card."""
     if op not in CORES:
         raise ValueError(f"make_batched: unknown op {op!r} (known: "
                          f"{tuple(CORES)})")
-    bf16_rung = _prec.resolve_precision(opts)
 
     def fn(a, b, sizes):
-        dtype = _prec.normalize_dtype(a.dtype, supported=SERVE_DTYPES)
-        low = dtype == _prec.LOW
-        if low:
-            a, b = _prec.promote(a), _prec.promote(b)
-        if low or (bf16_rung and dtype == _prec.HIGH):
-            x, h, esc = _bf16_rung(op, a, b, sizes, opts)
-            return (_prec.demote(x) if low else x), h, esc
-        return _f32_route(op, a, b, sizes, opts)
+        prog = batch_program(op, opts, a)
+        return prog.host(a, b, sizes,
+                         lambda name: prog.parts[name].fn(a, b, sizes))
 
     return fn

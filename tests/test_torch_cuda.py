@@ -684,3 +684,125 @@ def test_abft_strike_corrected_in_a_k6_batch(cuda):
         assert torch.equal(fa[p], clean[p])
     torch.testing.assert_close(torch.tril(fa[1]), torch.tril(clean[1]),
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------- CUDA graphs: warm buckets and posv's hold
+
+def _bucket_batch(rng, op, nb, sizes):
+    """Packed [len(sizes), mb, nb] stacks of well-conditioned problems of
+    ``sizes`` (0 = filler), as serve.Server packs them."""
+    from slate_tpu_torch import serve
+    members = []
+    for s in sizes:
+        if not s:
+            continue
+        if op == "least_squares_solve":
+            a = rng.standard_normal((2 * s, s)).astype(np.float32)
+            b = rng.standard_normal((2 * s, 4)).astype(np.float32)
+        else:
+            g = rng.standard_normal((s, s)).astype(np.float32)
+            a = (g @ g.T / s + np.eye(s, dtype=np.float32) if op ==
+                 "chol_solve" else g / np.float32(np.sqrt(s))
+                 + 4 * np.eye(s, dtype=np.float32))
+            b = rng.standard_normal((s, 4)).astype(np.float32)
+        members.append((len(members), serve.Request(
+            op, torch.from_numpy(a), torch.from_numpy(b))))
+    shape = (2 * nb, nb, 4) if op == "least_squares_solve" else (nb, 4)
+    srv = serve.Server(device="cuda")
+    return shape, srv._pack(op, "float32", shape, len(sizes), members)[:3]
+
+
+@pytest.mark.parametrize("low", [False, True], ids=["f32", "bf16_rung"])
+@pytest.mark.parametrize("op", ["solve", "chol_solve",
+                                "least_squares_solve"])
+def test_bucket_graph_replay_equals_the_eager_program(cuda, op, low):
+    """One bucket captured as CUDA graphs (serve/cache.py) against
+    make_batched run eagerly on the same packed batches: equal bits,
+    health and flags on two batches through one capture, and each replay
+    adds the capture's tally of K6/K7/K8 launches to ``replayed``."""
+    from slate_tpu_torch.serve import batched as sb
+    from slate_tpu_torch.serve import cache as sc
+    opts = {st.Option.Precision: st.Precision.Bf16} if low else None
+    rng = np.random.default_rng(60)
+    nb = 256
+    kernel = {"solve": lk.LU_PANEL_BATCHED,
+              "chol_solve": ck.CHOL_PANEL_BATCHED,
+              "least_squares_solve": qk.QR_PANEL_BATCHED}[op]
+    shape, _ = _bucket_batch(rng, op, nb, [nb])
+    exe = sc.BucketGraphs(op, shape, "float32", 4, opts, cuda)
+    assert exe.route == "ragged"
+    per_replay = exe.graphs["f32"].launches[kernel]
+    assert per_replay == (nb // 128 if op == "least_squares_solve"
+                          else 3 * (nb // 128) - 1)
+    eager = sb.make_batched(op, opts)
+    for sizes in ([256, 200, 17, 0], [130, 256, 64, 0]):
+        _, (a, b, s) = _bucket_batch(rng, op, nb, sizes)
+        before = kernel.replayed
+        x, h, esc = exe(a, b, s)
+        assert kernel.replayed - before >= per_replay
+        wx, wh, wesc = eager(a, b, s)
+        assert torch.equal(x.view(torch.int32), wx.view(torch.int32))
+        assert h == wh and esc == wesc
+
+
+def test_async_server_on_the_card_makes_no_captures_when_warm(cuda):
+    """Server.start() on the card: a warm background pass settles every
+    ticket from replays, with zero captures, bit-equal to the synchronous
+    pass."""
+    from slate_tpu_torch import serve
+    rng = np.random.default_rng(61)
+    reqs = []
+    for n in (40, 100, 128, 200):
+        g = rng.standard_normal((n, n)).astype(np.float32)
+        b = rng.standard_normal((n, 3)).astype(np.float32)
+        reqs.append(("solve", g / np.float32(np.sqrt(n))
+                     + 4 * np.eye(n, dtype=np.float32), b))
+        reqs.append(("chol_solve", g @ g.T / n + np.eye(n, dtype=np.float32),
+                     b))
+    srv = serve.Server(cache=serve.ExecutableCache(),
+                       admission=serve.AdmissionConfig(
+                           flush_occupancy=len(reqs),
+                           max_batch_delay_ms=60_000.0))
+    sync = srv.serve_batch(reqs)
+    captures = srv.cache.stats()["captures"]
+    assert captures > 0
+    srv.start()
+    try:
+        tickets = [srv.submit(op, a, b) for op, a, b in reqs]
+        got = [t.result(timeout=120.0) for t in tickets]
+    finally:
+        srv.shutdown()
+    assert srv.cache.stats()["captures"] == captures
+    for g, w in zip(got, sync):
+        assert torch.equal(g.x.view(torch.int32), w.x.view(torch.int32))
+
+
+def test_hold_local_workspace_posv_equals_eager_posv(cuda):
+    """posv under Option.HoldLocalWorkspace (its Cholesky attempt replayed
+    from one CUDA graph) against eager posv: equal bits of L and X, equal
+    health, on two right-hand sides through one capture; a replay runs
+    K2 3 n / nb - 1 and K0 n / nb - 1 times."""
+    from slate_tpu_torch.drivers import cholesky as chol
+    rng = np.random.default_rng(62)
+    n, nb = 1024, 128
+    a = _spd(rng, n) * n
+    A = st.HermitianMatrix.from_numpy(a, nb, device=cuda)
+    hold = {st.Option.HoldLocalWorkspace: True,
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    chol._HELD.clear()
+    for _ in range(2):
+        B = st.Matrix.from_numpy(
+            rng.standard_normal((n, 8)).astype(np.float32), nb, device=cuda)
+        k2, k0 = ck.CHOL_PANEL.replayed, TRI_INV.replayed
+        L, X, h = st.posv(A, B, hold)
+        assert ck.CHOL_PANEL.replayed - k2 == 3 * (n // nb) - 1
+        assert TRI_INV.replayed - k0 == n // nb - 1
+        wL, wX, wh = st.posv(A, B, info)
+        assert torch.equal(X.to_dense().view(torch.int32),
+                           wX.to_dense().view(torch.int32))
+        assert torch.equal(L.to_dense().view(torch.int32),
+                           wL.to_dense().view(torch.int32))
+        assert h == wh and h.ok
+    assert len(chol._HELD) == 1
+    chol._HELD.clear()

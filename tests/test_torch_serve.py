@@ -313,9 +313,16 @@ def test_submit_validation_and_unported_parts():
     assert t.result(timeout=0).x is res.x
     np.testing.assert_allclose(res.x.numpy(), rhs)
     assert res.health.ok and not res.escalated
-    for fn in (srv.start, srv.shutdown):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn()
+    # the background front door runs: start, a ticket settled by the
+    # flush loop, shutdown with no serving thread left behind
+    srv.start()
+    assert srv.running()
+    t = srv.submit("solve", torch.from_numpy(sq), torch.from_numpy(rhs))
+    np.testing.assert_allclose(t.result(timeout=60).x.numpy(), rhs)
+    srv.shutdown()
+    assert not srv.running()
+    assert not [th for th in threading.enumerate()
+                if th.name.startswith("slate-serve-")]
     # Abft is ported: only chol_solve keeps the ragged route under it
     abft = {st.Option.Abft: st.Abft.On}
     assert sb._ragged_plan("solve", torch.zeros(2, 64, 64), abft) is None
