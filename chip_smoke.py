@@ -137,7 +137,28 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      stream's chol_solve requests at n = 1900, repaired, its neighbours'
      bits untouched).  Every count, GFLOP/s and bound above comes from
      the flop model (slate_tpu_torch/obs/flops.py);
- 11. print the launch counts, the card line, the kernels line, and last
+ 11. slice 12 (its own generators, --seed + 10 to + 13): posv_mixed and
+     posv_mixed_gmres on config 2 in its own dtype (A = G G^T + n I in
+     f64, n = 20480, 128 right-hand sides): the f32 factor on K2 and K0
+     (launched as f32 posv: 479, 159), f64 refinement, iterations, the
+     stop flag's host reads, the reference's stop test as a ratio (<= 1)
+     and the forward error against the library's f64 Cholesky solve,
+     timed beside; potri and trcondest on the f64 factor (rcond beside
+     1 / torch.linalg.cond(L, 1)); gesv_mixed and gesv_mixed_gmres on
+     config 3 in f64 (the orthogonal A) with MethodLU.CALU, which the
+     reference's gesv_mixed does not read (partial pivoting, no hand
+     kernel), and gesv_mixed under Speculate (the RBT NoPiv factor, K3
+     2 n/nb - 1 launches); gecondest on the f64 LU; band in f64 at n =
+     20480: pbsv (kd = 256) and gbsv (kl = ku = 128) against dense
+     solves, tbsm, gbmm and hbmm against dense torch; hesv in f64 at n =
+     8192 (residual, certify_ldlt's ratio) and an f32 posv on an
+     indefinite A at n = 4096 whose ladder takes potrf -> hesv; the API's
+     batch verbs on (8, 1920, 1920) stacks (1900 is not a multiple of the
+     128 panel, so both packages would route it per problem; least
+     squares (8, 3840, 1920)), bit-equal to make_batched with K6/K7/K8
+     launched, and least_squares_solve with MethodGels.QR at 8192 x 4096
+     (K5, 32 launches);
+ 12. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -157,7 +178,8 @@ and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
 from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
 zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
-tenth, --seed + 9, so that adding to one slice moves no other's matrices;
+tenth, --seed + 9, and slice 12's from --seed + 10 to + 13, so that
+adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
@@ -2899,6 +2921,365 @@ def check_robustness(st, gen, qr_gen, serve_reqs, nb, nrhs, n, reset,
     return out
 
 
+# ---------------------------------------------------------------- slice 12
+#
+# The mixed-precision solvers (BASELINE.md configs 2 and 3 in f64), the
+# band and Aasen solvers, the auxiliary drivers and the simplified API.
+# Each phase prints its line before its checks decide; any miss fails the
+# run.  Generators --seed + 10 (mixed, aux), + 11 (band), + 12 (hesv) and
+# + 13 (the API's stacks and least squares).
+
+EPS64 = torch.finfo(torch.float64).eps
+MIXED_FORWARD_BOUND = 1e-10      # vs the library's f64 solve, itself only
+#                                  good to ~n eps64 (4.5e-12 at n = 20480)
+BAND_RESIDUAL_BOUND = 1e-14      # ||AX - B||_max / (||A||_inf ||X||_max)
+HESV_N = 8192
+HESV_RESIDUAL_BOUND = 1e-12      # Aasen is backward stable; cond(A) ~ 1e4
+INDEF_POSV_N = 4096
+API_BATCH = (8, 1920, 16)        # 1900 is not a multiple of the 128 panel:
+API_LSQ_M = 3840                 # both packages route it per problem
+BAND_KD, BAND_KL = 256, 128
+
+
+def _mixed_stop_ratio(a, x, b) -> float:
+    """The reference's stop test as a ratio: max over columns of
+    ||r_j||_max / (||x_j||_max ||A||_inf eps64 sqrt(n)); converged <= 1."""
+    r = b - a @ x
+    anorm = a.abs().sum(dim=1).max()
+    ratio = r.abs().amax(dim=0) / (x.abs().amax(dim=0) * anorm * EPS64
+                                   * a.shape[0] ** 0.5)
+    return float(ratio.max())
+
+
+def _run_mixed(st, fn, a_mat, b_mat, opts, reset, counts):
+    from slate_tpu_torch.drivers import mixed
+    reset()
+    mixed.STOP_READS = 0
+    res, wall = _timed(lambda: getattr(st, fn)(a_mat, b_mat, opts))
+    return res, wall, counts(), mixed.STOP_READS
+
+
+def check_mixed(st, gen, n, nb, nrhs, reset, counts, failures) -> dict:
+    """posv_mixed / posv_mixed_gmres on config 2 (A = G G^T + n I in f64)
+    and gesv_mixed / gesv_mixed_gmres on config 3 (the orthogonal A in
+    f64), f32 factors on the kernels, f64 refinement."""
+    out = {}
+    g = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    a = g @ g.T
+    del g
+    a.diagonal().add_(n)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    x64, lib_s = _timed(lambda: torch.cholesky_solve(
+        b, torch.linalg.cholesky(a)))
+    A = st.HermitianMatrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    want_k = {"chol_panel_fused": 3 * (n // nb) - 1,
+              "upper_tri_inv": n // nb - 1}
+    for fn in ("posv_mixed", "posv_mixed_gmres"):
+        res, wall, launches, reads = _run_mixed(st, fn, A, B, None, reset,
+                                                counts)
+        _, wall_repeat = _timed(lambda: getattr(st, fn)(A, B))
+        x = res.X.to_dense()
+        ratio = _mixed_stop_ratio(a, x, b)
+        fwd = float((x - x64).abs().max() / x64.abs().max())
+        out[fn] = launches
+        emit({"phase": fn, "n": n, "nb": nb, "nrhs": nrhs, "dtype":
+              "float64", "factor_dtype": "float32", "wall_s": wall,
+              "wall_s_repeat": wall_repeat, "iters": res.iters,
+              "converged": res.converged,
+              "fallback": res.health.iters != res.iters, "stop_reads": reads,
+              "stop_test_ratio": ratio,
+              "forward_error_vs_f64_cholesky": fwd,
+              "forward_bound": MIXED_FORWARD_BOUND,
+              "library_f64_cholesky_solve_s": lib_s,
+              "launches": launches})
+        if not (res.converged and ratio <= 1.0
+                and fwd < MIXED_FORWARD_BOUND):
+            failures.append(f"{fn}: converged {res.converged}, stop ratio "
+                            f"{ratio}, forward {fwd}")
+        if {k: launches[k] for k in want_k} != want_k or any(
+                v for k, v in launches.items() if k not in want_k):
+            failures.append(f"{fn}: launches {launches}, want {want_k}")
+    # potri and trcondest on posv's factor (f64, library route)
+    L = st.potrf(A)
+    Ainv, potri_s = _timed(lambda: st.potri(L))
+    eye_err = float((a @ Ainv.to_dense() - torch.eye(
+        n, dtype=a.dtype, device="cuda")).abs().max())
+    rc, trc_s = _timed(lambda: st.trcondest(L))
+    ld = L.to_dense()
+    trc_lib = 1.0 / float(torch.linalg.cond(ld, 1))
+    emit({"phase": "aux_potri_trcondest", "n": n, "potri_s": potri_s,
+          "max_abs_A_Ainv_minus_I": eye_err, "trcondest_rcond": rc,
+          "trcondest_s": trc_s, "rcond_torch_cond1": trc_lib})
+    if not (eye_err < 1e-10 and 0.1 * trc_lib <= rc <= 10 * trc_lib):
+        failures.append(f"potri/trcondest: |A Ainv - I| {eye_err}, rcond "
+                        f"{rc} vs {trc_lib}")
+    del A, B, L, Ainv, ld, a, b, x64
+
+    qa = orthogonal(n, gen).double()
+    b = torch.randn(n, nrhs, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    x64, lib_s = _timed(lambda: torch.linalg.solve(qa, b))
+    A = st.Matrix.from_numpy(qa, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    spec = {st.Option.Speculate: st.Speculate.On}
+    from slate_tpu_torch.internal import rbt
+    nt = rbt.padded_size(n)         # getrf_rbt's padded width
+    for fn, tag, opts, want_k in (
+            ("gesv_mixed", "gesv_mixed", calu, {}),
+            ("gesv_mixed", "gesv_mixed_speculate", spec,
+             {"lu_panel_fused": 2 * (nt // nb) - 1}),
+            ("gesv_mixed_gmres", "gesv_mixed_gmres", calu, {})):
+        res, wall, launches, reads = _run_mixed(st, fn, A, B, opts, reset,
+                                                counts)
+        _, wall_repeat = _timed(lambda: getattr(st, fn)(A, B, opts))
+        x = res.X.to_dense()
+        ratio = _mixed_stop_ratio(qa, x, b)
+        fwd = float((x - x64).abs().max() / x64.abs().max())
+        out[tag] = launches
+        emit({"phase": tag, "n": n, "nb": nb, "nrhs": nrhs, "dtype":
+              "float64", "factor_dtype": "float32",
+              "options": {k.name: v.name for k, v in opts.items()},
+              "wall_s": wall, "wall_s_repeat": wall_repeat,
+              "iters": res.iters, "converged": res.converged,
+              "fallback": res.health.iters != res.iters,
+              "stop_reads": reads, "stop_test_ratio": ratio,
+              "growth": res.health.growth,
+              "forward_error_vs_f64_solve": fwd,
+              "forward_bound": MIXED_FORWARD_BOUND,
+              "library_f64_solve_s": lib_s, "launches": launches})
+        if not (res.converged and ratio <= 1.0
+                and fwd < MIXED_FORWARD_BOUND):
+            failures.append(f"{tag}: converged {res.converged}, stop ratio "
+                            f"{ratio}, forward {fwd}")
+        if any(launches[k] != want_k.get(k, 0) for k in launches):
+            failures.append(f"{tag}: launches {launches}, want {want_k}")
+    # gecondest on the f64 LU factors (library route)
+    F = st.getrf(A)
+    anorm = float(qa.abs().sum(dim=0).max())
+    rc, gec_s = _timed(lambda: st.gecondest(F, anorm))
+    ge_lib, cond_s = _timed(lambda: 1.0 / float(torch.linalg.cond(qa, 1)))
+    emit({"phase": "aux_gecondest", "n": n, "gecondest_rcond": rc,
+          "gecondest_s": gec_s, "rcond_torch_cond1": ge_lib,
+          "torch_cond1_s": cond_s})
+    if not 0.1 * ge_lib <= rc <= 10 * ge_lib:
+        failures.append(f"gecondest: rcond {rc} vs {ge_lib}")
+    return out
+
+
+def _band_dense(gen, n, kl, ku, shift):
+    """A dense f64 band matrix with a diagonal shift (cond ~ 2-10)."""
+    a = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    a = torch.triu(torch.tril(a, ku), -kl)
+    a.diagonal().add_(shift)
+    return a
+
+
+def _scaled_residual(a, x, b) -> float:
+    return float((a @ x - b).abs().max()
+                 / (a.abs().sum(dim=1).max() * x.abs().max()))
+
+
+def check_band(st, gen, n, nb, nrhs, failures) -> None:
+    """pbsv (kd = 256) and gbsv (kl = ku = 128) in f64 at n = 20480, and
+    tbsm, gbmm and hbmm at the same sizes against dense torch."""
+    kd, kl = BAND_KD, BAND_KL
+    h = _band_dense(gen, n, kd, 0, 0.0)
+    h = h + h.T
+    h.diagonal().add_(2.0 * (2 * kd + 1))
+    b = torch.randn(n, nrhs, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    H = st.HermitianBandMatrix.from_numpy(h, kd, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    (F, X), wall = _timed(lambda: st.pbsv(H, B))
+    _, wall_repeat = _timed(lambda: st.pbsv(H, B))
+    res = _scaled_residual(h, X.to_dense(), b)
+    x64, dense_s = _timed(lambda: torch.cholesky_solve(
+        b, torch.linalg.cholesky(h)))
+    fwd = float((X.to_dense() - x64).abs().max() / x64.abs().max())
+    emit({"phase": "band_pbsv", "n": n, "kd": kd, "nb": nb, "w": F.w,
+          "wall_s": wall, "wall_s_repeat": wall_repeat, "residual": res,
+          "residual_bound": BAND_RESIDUAL_BOUND,
+          "forward_error_vs_dense_f64": fwd,
+          "dense_cholesky_solve_s": dense_s})
+    if not (res < BAND_RESIDUAL_BOUND and fwd < 1e-12):
+        failures.append(f"pbsv: residual {res}, forward {fwd}")
+    hb_out, hb_s = _timed(lambda: st.hbmm(st.Side.Left, 1.0, H, B))
+    hd_out, hd_s = _timed(lambda: h @ b)
+    hb_err = float((hb_out.to_dense() - hd_out).abs().max()
+                   / hd_out.abs().max())
+    del H, F, X, x64, hb_out, hd_out
+    tl = torch.tril(h)
+    T = st.TriangularBandMatrix.from_numpy(tl, kd, nb)
+    tx, tb_s = _timed(lambda: st.tbsm(st.Side.Left, 1.0, T, B))
+    tx_d, td_s = _timed(lambda: torch.linalg.solve_triangular(
+        tl, b, upper=False))
+    tb_err = float((tx.to_dense() - tx_d).abs().max() / tx_d.abs().max())
+    del T, tx, tx_d, tl, h
+    g = _band_dense(gen, n, kl, kl, 3.0 * (2 * kl + 1))
+    G = st.BandMatrix.from_numpy(g, kl, kl, nb)
+    (F, X), wall = _timed(lambda: st.gbsv(G, B))
+    _, wall_repeat = _timed(lambda: st.gbsv(G, B))
+    res = _scaled_residual(g, X.to_dense(), b)
+    x64, dense_s = _timed(lambda: torch.linalg.solve(g, b))
+    fwd = float((X.to_dense() - x64).abs().max() / x64.abs().max())
+    emit({"phase": "band_gbsv", "n": n, "kl": kl, "ku": kl, "nb": nb,
+          "w": F.w, "wall_s": wall, "wall_s_repeat": wall_repeat,
+          "residual": res, "residual_bound": BAND_RESIDUAL_BOUND,
+          "forward_error_vs_dense_f64": fwd, "dense_solve_s": dense_s})
+    if not (res < BAND_RESIDUAL_BOUND and fwd < 1e-12):
+        failures.append(f"gbsv: residual {res}, forward {fwd}")
+    gb_out, gb_s = _timed(lambda: st.gbmm(1.0, G, B))
+    gd_out, gd_s = _timed(lambda: g @ b)
+    gb_err = float((gb_out.to_dense() - gd_out).abs().max()
+                   / gd_out.abs().max())
+    emit({"phase": "band_products", "n": n, "nrhs": nrhs,
+          "tbsm": {"kd": kd, "s": tb_s, "dense_trsm_s": td_s,
+                   "rel_max_diff": tb_err},
+          "gbmm": {"kl": kl, "ku": kl, "s": gb_s, "dense_matmul_s": gd_s,
+                   "rel_max_diff": gb_err},
+          "hbmm": {"kd": kd, "s": hb_s, "dense_matmul_s": hd_s,
+                   "rel_max_diff": hb_err}, "tol": 1e-12})
+    if not max(tb_err, gb_err, hb_err) < 1e-12:
+        failures.append(f"band products: tbsm {tb_err}, gbmm {gb_err}, "
+                        f"hbmm {hb_err}")
+
+
+def check_hesv(st, gen, nb, reset, counts, failures) -> dict:
+    """hesv (blocked Aasen) in f64 on a symmetric indefinite A, and one f32
+    posv on an indefinite A whose ladder goes potrf -> hesv."""
+    n = HESV_N
+    g = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    a = (g + g.T) / 2
+    del g
+    b = torch.randn(n, 4, generator=gen, device="cuda", dtype=torch.float64)
+    A = st.SymmetricMatrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    (F, X, h), wall = _timed(lambda: st.hesv(A, B, info))
+    _, wall_repeat = _timed(lambda: st.hesv(A, B, info))
+    res = _scaled_residual(a, X.to_dense(), b)
+    x64, lib_s = _timed(lambda: torch.linalg.solve(a, b))
+    fwd = float((X.to_dense() - x64).abs().max() / x64.abs().max())
+    from slate_tpu_torch.robust import certify
+    cert = certify.certify_ldlt(a, F.L, F.T_dense(), F.piv)
+    emit({"phase": "hesv", "n": n, "nb": nb, "dtype": "float64",
+          "wall_s": wall, "wall_s_repeat": wall_repeat,
+          "factor": type(F).__name__, "ok": h.ok,
+          "residual": res, "residual_bound": HESV_RESIDUAL_BOUND,
+          "certify_ldlt_ratio": cert.growth,
+          "certify_tolerance": certify.tolerance(torch.float64, n),
+          "forward_error_vs_f64_solve": fwd, "library_solve_s": lib_s})
+    if not (type(F).__name__ == "HEFactors" and h.ok
+            and res < HESV_RESIDUAL_BOUND):
+        failures.append(f"hesv: factor {type(F).__name__}, ok {h.ok}, "
+                        f"residual {res}")
+    del A, B, F, X, a, b, x64
+    n = INDEF_POSV_N
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    a = (g + g.T) / 2
+    del g
+    b = torch.randn(n, 4, generator=gen, device="cuda")
+    A = st.SymmetricMatrix.from_numpy(a, nb)
+    B = st.Matrix.from_numpy(b, nb)
+    reset()
+    (F, X, h), wall = _timed(lambda: st.posv(A, B, info))
+    launches = counts()
+    rungs = {"TriangularMatrix": ["potrf"],
+             "HEFactors": ["potrf", "hesv"],
+             "LUFactors": ["potrf", "hesv", "gesv"]}[type(F).__name__]
+    x = X.to_dense().double()
+    res = float((a.double() @ x - b.double()).abs().max()
+                / (a.double().abs().sum(dim=1).max() * x.abs().max()))
+    emit({"phase": "posv_indefinite_ladder", "n": n, "dtype": "float32",
+          "wall_s": wall, "rungs": rungs, "ok": h.ok, "residual": res,
+          "launches": launches})
+    if not (rungs == ["potrf", "hesv"] and h.ok and res < 1e-5):
+        failures.append(f"indefinite posv: rungs {rungs}, ok {h.ok}, "
+                        f"residual {res}")
+    return launches
+
+
+def check_api(st, gen, nb, nrhs, reset, counts, failures) -> dict:
+    """The API's batch verbs on (8, 1920, 1920) stacks with 16 right-hand
+    sides ((8, 3840, 1920) for least squares): bit-equal to make_batched,
+    K6/K7/K8 launched; least_squares_solve at 8192 x 4096 with
+    MethodGels.QR: K5, 32 launches."""
+    from slate_tpu_torch import api
+    from slate_tpu_torch.serve import batched
+    bsz, n, k = API_BATCH
+    out = {}
+    for verb, op, kernel in (
+            ("batch_solve", "solve", "lu_panel_batched"),
+            ("batch_chol_solve", "chol_solve", "chol_panel_batched"),
+            ("batch_least_squares_solve", "least_squares_solve",
+             "qr_panel_batched")):
+        m = API_LSQ_M if op == "least_squares_solve" else n
+        a = torch.randn(bsz, m, n, generator=gen, device="cuda")
+        if op == "solve":
+            a.diagonal(dim1=1, dim2=2).add_(n ** 0.5)
+        elif op == "chol_solve":
+            a = a @ a.transpose(1, 2) / n
+            a.diagonal(dim1=1, dim2=2).add_(1.0)
+        b = torch.randn(bsz, m, k, generator=gen, device="cuda")
+        reset()
+        (x, hs, esc), wall = _timed(lambda: getattr(api, verb)(a, b))
+        launches = counts()
+        sizes = torch.full((bsz,), m, dtype=torch.int32, device="cuda")
+        x2, hs2, esc2 = batched.make_batched(op)(a, b, sizes)
+        same = bool(torch.equal(x, x2)) and hs == hs2 and esc == esc2
+        out[f"api_{verb}"] = launches
+        emit({"phase": f"api_{verb}", "shape": [bsz, m, n], "nrhs": k,
+              "wall_s": wall, "bit_equal_make_batched": same,
+              "ok": all(h.ok for h in hs), "escalated": sum(esc),
+              "launches": launches})
+        if not (same and launches[kernel] > 0 and all(h.ok for h in hs)):
+            failures.append(f"api.{verb}: bit-equal {same}, {kernel} "
+                            f"{launches[kernel]}")
+    mq, nq = GELS_SHAPE
+    a, b, x64 = lstsq_problem(mq, nq, nrhs, gen)
+    A, B = st.Matrix.from_numpy(a, nb), st.Matrix.from_numpy(b, nb)
+    reset()
+    X, wall = _timed(lambda: api.least_squares_solve(
+        A, B, {st.Option.MethodGels: st.MethodGels.QR}))
+    launches = counts()
+    res, fwd = lstsq_accuracy(a, X.to_dense(), b, x64)
+    out["api_least_squares_solve"] = launches
+    emit({"phase": "api_least_squares_solve", "m": mq, "n": nq,
+          "wall_s": wall, "scaled_ne_residual": res,
+          "forward_error_vs_f64": fwd, "launches": launches})
+    want = {name: 0 for name in launches}
+    want["qr_panel"] = -(-nq // nb)
+    if not (launches == want and res < GELS_RESIDUAL_BOUND
+            and fwd < GELS_FORWARD_BOUND):
+        failures.append(f"api.least_squares_solve: launches {launches}, "
+                        f"residual {res}, forward {fwd}")
+    return out
+
+
+def check_slice12(st, seed, n, nb, nrhs, reset, counts) -> dict:
+    """The slice-12 phases; returns the launch counts of their paths."""
+    failures = []
+    torch.cuda.empty_cache()
+    out = check_mixed(st, torch.Generator(device="cuda").manual_seed(
+        seed + 10), n, nb, nrhs, reset, counts, failures)
+    torch.cuda.empty_cache()
+    check_band(st, torch.Generator(device="cuda").manual_seed(seed + 11),
+               n, nb, nrhs, failures)
+    torch.cuda.empty_cache()
+    out["posv_indefinite_ladder"] = check_hesv(
+        st, torch.Generator(device="cuda").manual_seed(seed + 12), nb,
+        reset, counts, failures)
+    torch.cuda.empty_cache()
+    out.update(check_api(st, torch.Generator(device="cuda").manual_seed(
+        seed + 13), nb, nrhs, reset, counts, failures))
+    if failures:
+        raise AssertionError("slice 12: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3269,6 +3650,10 @@ def main(argv=None) -> int:
         serve_reqs, nb, nrhs, n, reset, counts, args.trace)
     del serve_reqs
 
+    # ---- slice 12: mixed precision, band, Aasen, the API ----
+    slice12_launches = check_slice12(st, args.seed, n, nb, nrhs, reset,
+                                     counts)
+
     # ---- the record ----
     emit({"launch_counts": {"posv": main_launches,
                             "posv_tile_route": tile_launches,
@@ -3279,7 +3664,8 @@ def main(argv=None) -> int:
                             "gels_config4_cholqr_default":
                                 cfg4["cholqr_default"],
                             "gels_config4_qr_forced": cfg4["qr_forced"],
-                            **serve_launches, **robust_launches}})
+                            **serve_launches, **robust_launches,
+                            **slice12_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",

@@ -27,6 +27,16 @@ first use).  The ported slices carry the single-device solvers on tiled
   Householder panel), with per-problem escalation to the single-problem
   drivers, admission control, poison quarantine and the certified bf16
   rung (``robust/certify.py``, ``robust/precision.py``);
+- mixed precision, ``gesv_mixed``/``posv_mixed`` and their GMRES-IR
+  variants: factor in ``lower_precision`` (an f64 system on the f32
+  kernels: K2 and K0 for posv, K3 under ``Option.Speculate`` for gesv),
+  refine in the working precision;
+- band (``pbsv``/``gbsv``/``tbsm``/``gbmm``/``hbmm`` on packed band
+  storage) and Hermitian indefinite (``hesv``, blocked Aasen) solvers,
+  posv's fallback hesv -> gesv, the auxiliary drivers (copy, scale, set,
+  redistribute, ...), inverses (``trtri``, ``trtrm``, ``potri``),
+  condition estimates, printing, the test-matrix generator and the
+  simplified ``api`` (its batch verbs over the serving cores);
 - robustness on those paths: ``Option.Abft`` (Huang-Abraham checksums
   that locate and repair a single corrupted element of every panel step,
   ``robust/abft.py``), the fault sites of ``robust/faults.py``, and
@@ -59,8 +69,9 @@ from .exceptions import (  # noqa: E402,F401
 from .core.grid import Grid  # noqa: E402,F401
 from .core.storage import TileStorage  # noqa: E402,F401
 from .core.matrix import (  # noqa: E402,F401
-    BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix, Matrix,
-    SymmetricMatrix, TriangularMatrix,
+    BandMatrix, BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,
+    HermitianBandMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
+    TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix,
 )
 from .robust.health import HealthInfo  # noqa: E402,F401
 from .tune.plans import (  # noqa: E402,F401
@@ -70,8 +81,11 @@ from .drivers.blas3 import (  # noqa: E402,F401
     gemm, gemmA, gemmC, hemm, hemmA, her2k, herk, symm, syr2k, syrk, trmm,
     trsm,
 )
-from .drivers.auxiliary import add, norm  # noqa: E402,F401
-from .drivers.cholesky import posv, potrf, potrs  # noqa: E402,F401
+from .drivers.auxiliary import (  # noqa: E402,F401
+    add, col_norms, copy, norm, redistribute, scale, scale_row_col, set,
+)
+from .drivers.cholesky import posv, potrf, potri, potrs  # noqa: E402,F401
+from .drivers.inverse import trtri, trtrm  # noqa: E402,F401
 from .drivers.lu import (  # noqa: E402,F401
     LUFactors, RBTFactors, gesv, gesv_nopiv, getrf, getrf_nopiv, getrf_ooc,
     getrf_rbt, getrf_tntpiv, getri, getriOOP, getrs,
@@ -80,4 +94,17 @@ from .drivers.qr import (  # noqa: E402,F401
     LQFactors, QRFactors, cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf,
     qr_multiply, unmlq, unmqr,
 )
-from . import serve  # noqa: E402,F401
+from .drivers.band import (  # noqa: E402,F401
+    GBFactors, PBFactors, gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf,
+    pbtrs, tbsm,
+)
+from .drivers.printing import format_matrix, print_matrix  # noqa: E402,F401
+from .drivers.condest import gecondest, norm1est, trcondest  # noqa: E402,F401
+from .drivers.hetrf import HEFactors, hesv, hetrf, hetrs  # noqa: E402,F401
+from .drivers.mixed import (  # noqa: E402,F401
+    MixedResult, gesv_mixed, gesv_mixed_gmres, posv_mixed, posv_mixed_gmres,
+)
+from .util.generator import (  # noqa: E402,F401
+    generate_hermitian, generate_matrix,
+)
+from . import api, serve  # noqa: E402,F401

@@ -3,9 +3,11 @@
 Both packages store a matrix as one tile array in the same (cyclic) order,
 so a reference ``TileStorage.data`` (as a numpy array) becomes the port's
 ``TileStorage.data`` unchanged, and a reference matrix becomes the port's
-matrix of the same class over the same view.  LU factors carry their
-packed matrix and ``perm``, RBT factors their butterflies besides, QR and
-LQ factors their packed matrix and the stack of T triangles.  A batched
+matrix of the same class over the same view (band matrices with their
+kl/ku/kd/uplo/diag).  LU factors carry their packed matrix and ``perm``,
+RBT factors their butterflies besides, QR and LQ factors their packed
+matrix and the stack of T triangles, band and Aasen factors their packed
+arrays and permutations.  A batched
 health record (the reference's leading-axis ``HealthInfo`` pytree) becomes
 one port ``HealthInfo`` per problem.  Nothing here imports the reference:
 objects are read through the attributes both packages share.
@@ -16,8 +18,13 @@ from __future__ import annotations
 import numpy as np
 
 from .core.grid import Grid
-from .core.matrix import (BaseMatrix, BaseTrapezoidMatrix, HermitianMatrix,
-                          Matrix, SymmetricMatrix, TriangularMatrix)
+from .core.matrix import (BandMatrix, BaseBandMatrix, BaseMatrix,
+                          BaseTrapezoidMatrix, HermitianBandMatrix,
+                          HermitianMatrix, Matrix, SymmetricMatrix,
+                          TrapezoidMatrix, TriangularBandMatrix,
+                          TriangularMatrix)
+from .drivers.band import GBFactors, PBFactors
+from .drivers.hetrf import HEFactors
 from .core.storage import TileStorage, as_tensor
 from .drivers.lu import LUFactors, RBTFactors
 from .drivers.qr import LQFactors, QRFactors
@@ -25,8 +32,9 @@ from .exceptions import slate_error
 from .robust.health import HealthInfo
 from .types import Diag, Op, TileKind, Uplo
 
-_CLASSES = {cls.__name__: cls for cls in (Matrix, TriangularMatrix,
-                                          SymmetricMatrix, HermitianMatrix)}
+_CLASSES = {cls.__name__: cls for cls in (
+    Matrix, TrapezoidMatrix, TriangularMatrix, SymmetricMatrix,
+    HermitianMatrix, BandMatrix, TriangularBandMatrix, HermitianBandMatrix)}
 
 
 def storage_from_jax(data, m: int, n: int, mb: int, nb: int,
@@ -41,8 +49,9 @@ def storage_from_jax(data, m: int, n: int, mb: int, nb: int,
 
 def matrix_from_jax(M, device=None) -> BaseMatrix:
     """The port's matrix of the same class, view and structure as the
-    reference matrix ``M`` (Matrix, TriangularMatrix, SymmetricMatrix or
-    HermitianMatrix on a 1 x 1 grid), over the same tile bytes."""
+    reference matrix ``M`` (a general, trapezoid, triangular, symmetric,
+    Hermitian or band matrix on a 1 x 1 grid), over the same tile
+    bytes."""
     cls = _CLASSES.get(type(M).__name__)
     slate_error(cls is not None,
                 f"matrix_from_jax: {type(M).__name__} is not ported")
@@ -55,6 +64,12 @@ def matrix_from_jax(M, device=None) -> BaseMatrix:
                         Op(M.op.value), TileKind(M.kind.value))
     if issubclass(cls, BaseTrapezoidMatrix):
         v._apply_extra_aux((Uplo(M.uplo.value), Diag(M.diag.value)))
+    elif cls is TriangularBandMatrix:
+        v._apply_extra_aux((M.kd, Uplo(M.uplo.value), Diag(M.diag.value)))
+    elif cls is HermitianBandMatrix:
+        v._apply_extra_aux((M.kd, Uplo(M.uplo.value)))
+    elif issubclass(cls, BaseBandMatrix):
+        v._apply_extra_aux((M.kl, M.ku))
     return v
 
 
@@ -99,3 +114,27 @@ def health_from_jax(h) -> list[HealthInfo]:
         growth=float(f[4][i]), iters=int(f[5][i]), converged=bool(f[6][i]),
         abft_detected=int(f[7][i]), abft_corrected=int(f[8][i]),
         abft_site=int(f[9][i])) for i in range(len(f[0]))]
+
+
+def pb_factors_from_jax(F, device=None) -> PBFactors:
+    """The port's PBFactors of a reference ``PBFactors`` (packed band L)."""
+    return PBFactors(as_tensor(np.asarray(F.L_band), device), int(F.kd),
+                     int(F.n), int(F.w))
+
+
+def gb_factors_from_jax(F, device=None) -> GBFactors:
+    """The port's GBFactors of a reference ``GBFactors`` (packed band LU
+    and each block's window permutation)."""
+    return GBFactors(as_tensor(np.asarray(F.LU_band), device),
+                     as_tensor(np.asarray(F.perms).astype(np.int64), device),
+                     int(F.kl), int(F.ku), int(F.n), int(F.w))
+
+
+def he_factors_from_jax(F, device=None) -> HEFactors:
+    """The port's HEFactors of a reference ``HEFactors`` (Aasen's L, T's
+    blocks, the permutation and T's band-LU factors)."""
+    def t(x, dtype=None):
+        a = np.asarray(x)
+        return as_tensor(a if dtype is None else a.astype(dtype), device)
+    return HEFactors(t(F.L), t(F.Tdiag), t(F.Tsub), t(F.piv, np.int64),
+                     int(F.nb), t(F.Tlu), t(F.Tperms, np.int64))

@@ -25,5 +25,12 @@ class Grid:
         self.order = order
         self.size = p * q
 
+    def tile_rank(self, i: int, j: int) -> int:
+        """Linear rank of tile (i, j)'s owner under this grid's GridOrder
+        (ref: grid.py:82)."""
+        r, c = i % self.p, j % self.q
+        return r + c * self.p if self.order is GridOrder.Col \
+            else r * self.q + c
+
     def __repr__(self):
         return f"Grid(p={self.p}, q={self.q}, order={self.order.value})"

@@ -1,5 +1,5 @@
-"""Matrix classes (port of slate_tpu/core/matrix.py): general, triangular,
-symmetric and Hermitian.  The band classes are not ported yet.
+"""Matrix classes (port of slate_tpu/core/matrix.py): general, trapezoid,
+triangular, symmetric, Hermitian and the band classes.
 
 As in the reference, a matrix is its storage plus view metadata
 (tile offset, extent, ``op``); ``transpose``/``conj_transpose`` share the
@@ -20,8 +20,12 @@ from . import layout
 from .grid import Grid
 from .storage import TileStorage, as_tensor
 
-__all__ = ["BaseMatrix", "Matrix", "BaseTrapezoidMatrix", "TriangularMatrix",
-           "SymmetricMatrix", "HermitianMatrix"]
+__all__ = [
+    "BaseMatrix", "Matrix", "BaseTrapezoidMatrix", "TrapezoidMatrix",
+    "TriangularMatrix", "SymmetricMatrix", "HermitianMatrix",
+    "BaseBandMatrix", "BandMatrix", "TriangularBandMatrix",
+    "HermitianBandMatrix",
+]
 
 
 class BaseMatrix:
@@ -110,7 +114,37 @@ class BaseMatrix:
     def nb(self) -> int:
         return self.storage.nb if self.op is Op.NoTrans else self.storage.mb
 
+    def tile_mb(self, i: int) -> int:
+        if self.op is Op.NoTrans:
+            return min(self.storage.tile_mb(self.io + i),
+                       self._m_store() - i * self.mb)
+        return min(self.storage.tile_nb(self.jo + i),
+                   self._n_store() - i * self.mb)
+
+    def tile_nb(self, j: int) -> int:
+        if self.op is Op.NoTrans:
+            return min(self.storage.tile_nb(self.jo + j),
+                       self._n_store() - j * self.nb)
+        return min(self.storage.tile_mb(self.io + j),
+                   self._m_store() - j * self.nb)
+
+    def tile_rank(self, i: int, j: int) -> int:
+        if self.op is not Op.NoTrans:
+            i, j = j, i
+        return self.storage.tile_rank(self.io + i, self.jo + j)
+
     # ---- views (zero-copy: share self.storage) ----
+    def sub(self, i1: int, i2: int, j1: int, j2: int) -> "Matrix":
+        """Tile-index submatrix view, inclusive ranges as in the reference
+        (ref: BaseMatrix.hh:941-1122); always a general Matrix view."""
+        if self.op is not Op.NoTrans:
+            i1, i2, j1, j2 = j1, j2, i1, i2
+        v = Matrix.__new__(Matrix)
+        BaseMatrix.__init__(v, self.storage, self.io + i1, self.jo + j1,
+                            max(0, i2 - i1 + 1), max(0, j2 - j1 + 1),
+                            self.op, self.kind)
+        return v
+
     def transpose(self):
         return self._same_view(self.storage, compose_op(self.op, Op.Trans))
 
@@ -119,6 +153,14 @@ class BaseMatrix:
             return self.transpose()
         return self._same_view(self.storage,
                                compose_op(self.op, Op.ConjTrans))
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    @property
+    def H(self):
+        return self.conj_transpose()
 
     def is_root_view(self) -> bool:
         return (self.io == 0 and self.jo == 0 and
@@ -173,6 +215,14 @@ class BaseMatrix:
             new_st = st.with_canonical(tiles)
         return self._same_view(new_st)
 
+    def emptyLike(self, dtype=None):
+        """Same shape, tiling and view over all-zero storage on this
+        matrix' device (ref: Matrix::emptyLike)."""
+        st = self.storage
+        z = TileStorage.zeros(st.m, st.n, st.mb, st.nb, st.grid,
+                              dtype or st.dtype, st.device)
+        return self._same_view(z)
+
     def __repr__(self):
         extra = "" if self.op is Op.NoTrans else f", op={self.op.name}"
         return (f"{self.__class__.__name__}({self.m}x{self.n}, "
@@ -198,6 +248,22 @@ class Matrix(BaseMatrix):
         st = TileStorage.from_dense(as_tensor(a, device), mb, nb or mb,
                                     grid or Grid(1, 1))
         return cls(st, kind=kind)
+
+    # ---- structure reinterpretation (ref: conversion ctors) ----
+    def triangular(self, uplo: Uplo, diag: Diag = Diag.NonUnit):
+        slate_error(self.m == self.n, "triangular view needs square")
+        return TriangularMatrix._from_view(self, uplo, diag)
+
+    def symmetric(self, uplo: Uplo):
+        slate_error(self.m == self.n, "symmetric view needs square")
+        return SymmetricMatrix._from_view(self, uplo)
+
+    def hermitian(self, uplo: Uplo):
+        slate_error(self.m == self.n, "hermitian view needs square")
+        return HermitianMatrix._from_view(self, uplo)
+
+    def trapezoid(self, uplo: Uplo, diag: Diag = Diag.NonUnit):
+        return TrapezoidMatrix._from_view(self, uplo, diag)
 
 
 class BaseTrapezoidMatrix(BaseMatrix):
@@ -247,6 +313,10 @@ class BaseTrapezoidMatrix(BaseMatrix):
         return g.with_dense(self.to_dense())
 
 
+class TrapezoidMatrix(BaseTrapezoidMatrix):
+    """ref: include/slate/TrapezoidMatrix.hh"""
+
+
 class TriangularMatrix(BaseTrapezoidMatrix):
     """ref: include/slate/TriangularMatrix.hh"""
 
@@ -283,5 +353,98 @@ class HermitianMatrix(BaseTrapezoidMatrix):
         tri = BaseTrapezoidMatrix._expand(self, dense)
         d = tri.diagonal().real.clone()
         full = tri + tri.conj().T
+        full.diagonal().copy_(d.to(full.dtype))
+        return full
+
+
+class BaseBandMatrix(BaseMatrix):
+    """Band storage base (ref: include/slate/BaseBandMatrix.hh).  The band
+    is kept inside the same blocked layout; entries outside it are
+    structural zeros, which ``_expand`` masks."""
+
+    def __init__(self, storage, kl: int = 0, ku: int = 0, **kw):
+        super().__init__(storage, **kw)
+        self.kl, self.ku = int(kl), int(ku)
+
+    def _extra_aux(self):
+        return (self.kl, self.ku)
+
+    def _apply_extra_aux(self, extra):
+        self.kl, self.ku = extra
+
+    def _expand(self, dense):
+        # keep -kl <= j - i <= ku
+        return torch.triu(torch.tril(dense, self.ku), -self.kl)
+
+
+class BandMatrix(BaseBandMatrix):
+    """General band (ref: include/slate/BandMatrix.hh)."""
+
+    @classmethod
+    def from_numpy(cls, a, kl, ku, mb, grid=None, device=None):
+        st = TileStorage.from_dense(as_tensor(a, device), mb, mb,
+                                    grid or Grid(1, 1))
+        return cls(st, kl=kl, ku=ku)
+
+
+class TriangularBandMatrix(BaseBandMatrix):
+    """ref: include/slate/TriangularBandMatrix.hh"""
+
+    @classmethod
+    def from_numpy(cls, a, kd, mb, uplo: Uplo = Uplo.Lower,
+                   diag: Diag = Diag.NonUnit, grid=None, device=None):
+        st = TileStorage.from_dense(as_tensor(a, device), mb, mb,
+                                    grid or Grid(1, 1))
+        return cls(st, kd=kd, uplo=uplo, diag=diag)
+
+    def __init__(self, storage, kd: int = 0, uplo: Uplo = Uplo.Lower,
+                 diag: Diag = Diag.NonUnit, **kw):
+        kl, ku = (kd, 0) if uplo is Uplo.Lower else (0, kd)
+        super().__init__(storage, kl=kl, ku=ku, **kw)
+        self.uplo, self.diag, self.kd = uplo, diag, int(kd)
+
+    def _extra_aux(self):
+        return (self.kd, self.uplo, self.diag)
+
+    def _apply_extra_aux(self, extra):
+        self.kd, self.uplo, self.diag = extra
+        self.kl, self.ku = (self.kd, 0) if self.uplo is Uplo.Lower \
+            else (0, self.kd)
+
+    def _expand(self, dense):
+        band = BaseBandMatrix._expand(self, dense)
+        if self.diag is Diag.Unit:
+            band.diagonal().fill_(1)
+        return band
+
+
+class HermitianBandMatrix(BaseBandMatrix):
+    """ref: include/slate/HermitianBandMatrix.hh"""
+
+    @classmethod
+    def from_numpy(cls, a, kd, mb, uplo: Uplo = Uplo.Lower, grid=None,
+                   device=None):
+        st = TileStorage.from_dense(as_tensor(a, device), mb, mb,
+                                    grid or Grid(1, 1))
+        return cls(st, kd=kd, uplo=uplo)
+
+    def __init__(self, storage, kd: int = 0, uplo: Uplo = Uplo.Lower, **kw):
+        kl, ku = (kd, 0) if uplo is Uplo.Lower else (0, kd)
+        super().__init__(storage, kl=kl, ku=ku, **kw)
+        self.uplo, self.kd = uplo, int(kd)
+
+    def _extra_aux(self):
+        return (self.kd, self.uplo)
+
+    def _apply_extra_aux(self, extra):
+        self.kd, self.uplo = extra
+        self.kl, self.ku = (self.kd, 0) if self.uplo is Uplo.Lower \
+            else (0, self.kd)
+
+    def _expand(self, dense):
+        band = BaseBandMatrix._expand(self, dense)
+        d = band.diagonal().real.clone() if is_complex(self.dtype) \
+            else band.diagonal().clone()
+        full = band + band.conj().T
         full.diagonal().copy_(d.to(full.dtype))
         return full

@@ -97,6 +97,23 @@ class TileStorage:
         data = layout.canonical_to_cyclic(tiles, grid.p, grid.q)
         return cls(data, dense.shape[0], dense.shape[1], mb, nb, grid)
 
+    @classmethod
+    def from_canonical(cls, tiles: torch.Tensor, m, n,
+                       grid: Grid | None = None):
+        """Storage over canonical tiles [Mt, Nt, mb, nb] of an m x n
+        matrix."""
+        grid = grid or Grid(1, 1)
+        Mt, Nt, mb, nb = tiles.shape
+        slate_error(Mt == layout.num_tiles(m, mb) and
+                    Nt == layout.num_tiles(n, nb), "tile grid mismatch")
+        data = layout.canonical_to_cyclic(tiles, grid.p, grid.q)
+        return cls(data, m, n, mb, nb, grid)
+
+    def astype(self, dtype) -> "TileStorage":
+        """Precision-converting copy (ref: storage.py:173)."""
+        return TileStorage(self.data.to(dtype), self.m, self.n, self.mb,
+                           self.nb, self.grid)
+
     # ---- distribution lambdas (ref: MatrixStorage.hh:533-586) ----
     def tile_mb(self, i: int) -> int:
         """Rows in tile-row i (last tile may be partial)."""
@@ -104,6 +121,9 @@ class TileStorage:
 
     def tile_nb(self, j: int) -> int:
         return self.nb if j < self.Nt - 1 else self.n - (self.Nt - 1) * self.nb
+
+    def tile_rank(self, i: int, j: int) -> int:
+        return self.grid.tile_rank(i, j)
 
     # ---- views of the store ----
     def canonical(self) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Cholesky solvers: potrf, potrs, posv (port of the single-device path
-of slate_tpu/drivers/cholesky.py).
+"""Cholesky solvers: potrf, potrs, posv, potri (port of the single-device
+path of slate_tpu/drivers/cholesky.py).
 
 potrf is a blocked left-looking factorisation of the dense matrix: for
 each block column, the rank-k update from the columns already factored,
@@ -215,6 +215,19 @@ def posv(A, B, opts: Options | None = None):
             and not faults.device_plans_active()):
         return posv_with_recovery(A, B, opts, chol_attempt=_held_attempt)
     return posv_with_recovery(A, B, opts)
+
+
+def potri(L: TriangularMatrix, opts: Options | None = None):
+    """Inverse from the Cholesky factor, A^-1 = L^-H L^-1 (ref:
+    src/potri.cc = trtri + trtrm).  Returns a HermitianMatrix; under
+    ``ErrorPolicy.Info``, ``(Ainv, HealthInfo)`` with the two stages'
+    healths merged."""
+    from .inverse import trtri, trtrm
+    if _health.error_policy(opts) is ErrorPolicy.Info:
+        Linv, h1 = trtri(L, opts)
+        C, h2 = trtrm(Linv, opts)
+        return C, _health.merge(h1, h2)
+    return trtrm(trtri(L, opts), opts)
 
 
 # Option.HoldLocalWorkspace: one captured Cholesky attempt per key, the

@@ -6,10 +6,8 @@ internal_hbnorm.cc), including the scaled-sumsq form of the Frobenius norm
 (LAPACK's lassq) that avoids overflow and underflow.
 
 The reference has no Pallas kernel here: these are torch reductions with
-explicit validity masks over the padded tiles.  The masks the reference
-takes from ops/elementwise.py are built here (that module comes with the
-auxiliary drivers, queue 1, item 7); the band kernels serve the band
-classes, which come with item 8.
+explicit validity masks over the padded tiles, taken from
+ops/elementwise.py as the reference takes them.
 """
 
 from __future__ import annotations
@@ -17,35 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Norm
-
-
-def _grid_index(m, n, mb, nb, device=None):
-    """Global row and column indices of every tile entry, [Mt, 1, mb, 1]
-    and [1, Nt, 1, nb], built on ``device`` (the reference builds its
-    masks with host numpy, as constants of its compiled program; here a
-    host mask of the matrix's size would be copied to the card on every
-    call)."""
-    Mt, Nt = -(-m // mb), -(-n // nb)
-    gi = (torch.arange(Mt, device=device)[:, None] * mb
-          + torch.arange(mb, device=device)[None, :])
-    gj = (torch.arange(Nt, device=device)[:, None] * nb
-          + torch.arange(nb, device=device)[None, :])
-    return gi[:, None, :, None], gj[None, :, None, :]
-
-
-def entry_mask(m, n, mb, nb, device=None) -> torch.Tensor:
-    """[Mt, Nt, mb, nb] mask of valid (non-pad) entries."""
-    gi, gj = _grid_index(m, n, mb, nb, device)
-    return (gi < m) & (gj < n)
-
-
-def tri_mask(m, n, mb, nb, uplo_lower: bool, strict: bool = False,
-             device=None) -> torch.Tensor:
-    """[Mt, Nt, mb, nb] triangle mask over GLOBAL indices."""
-    gi, gj = _grid_index(m, n, mb, nb, device)
-    if uplo_lower:
-        return (gi > gj) if strict else (gi >= gj)
-    return (gi < gj) if strict else (gi <= gj)
+from .elementwise import _grid_index, entry_mask, tri_mask
 
 
 def band_mask(m, n, mb, nb, kl, ku, device=None) -> torch.Tensor:

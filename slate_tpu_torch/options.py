@@ -163,6 +163,8 @@ Options = Mapping[Option, Any]
 # as None until the slice that uses it brings its default over.
 _DEFAULTS = {
     Option.MaxPanelThreads: 4,
+    Option.MaxIterations: 30,
+    Option.Tolerance: None,
     Option.Target: Target.auto,
     Option.ErrorPolicy: ErrorPolicy.Raise,
     Option.Speculate: Speculate.Auto,
@@ -177,6 +179,10 @@ _DEFAULTS = {
     Option.MethodLU: MethodLU.Auto,
     Option.HoldLocalWorkspace: False,
     Option.Depth: 2,
+    Option.PrintVerbose: 4,
+    Option.PrintEdgeItems: 16,
+    Option.PrintWidth: 10,
+    Option.PrintPrecision: 4,
 }
 
 _UNSET = object()

@@ -1,5 +1,5 @@
-"""A-posteriori certificates of speculative solves (port of the solve and
-least-squares half of slate_tpu/robust/certify.py).
+"""A-posteriori certificates of speculative solves (port of the solve,
+least-squares and Aasen parts of slate_tpu/robust/certify.py).
 
 A fast attempt (the bf16 serving rung, gels' certified CholQR) produces a
 finite-looking answer with nothing in its factor to flag a wrong one; a
@@ -13,8 +13,9 @@ batched over a leading axis of problems, with the reference's mapping:
 - ``nonfinite``        any NaN/Inf in X
 
 ``min_pivot`` stays +inf, so merging a certificate into a factor's health
-keeps the factor's pivot record.  ``certify_eig``, ``certify_svd`` and
-``certify_ldlt`` come with the spectral and indefinite slices.
+keeps the factor's pivot record.  :func:`certify_ldlt` certifies one Aasen
+factorization the same way, as a HealthInfo.  ``certify_eig`` and
+``certify_svd`` come with the spectral slice.
 """
 
 from __future__ import annotations
@@ -79,3 +80,27 @@ def certify_lstsq(anorm, x, b, rn, *,
     tiny = torch.finfo(col.dtype).tiny
     ratio = _fro(rn) / torch.clamp(denom, min=tiny)
     return _certificate(ratio, worst, x, tol, 0)
+
+
+def certify_ldlt(a, L, T, piv, *, tol: float | None = None
+                 ) -> _health.HealthInfo:
+    """Certificate of the blocked Aasen factorization P A P^H = L T L^H
+    (ref: certify.py:194): the relative residual ||A[piv][:, piv] -
+    L T L^H||_F / ||A||_F against :func:`tolerance`, read from the device
+    in one copy.  ``a`` dense Hermitian [n, n], ``L`` unit lower, ``T``
+    the assembled band (``HEFactors.T_dense()``), ``piv`` the symmetric
+    permutation."""
+    n = a.shape[0]
+    if tol is None:
+        tol = tolerance(a.dtype, n)
+    R = a[piv][:, piv] - L @ T @ L.mH
+    col = (R.abs() * R.abs()).sum(dim=0)
+    tiny = torch.finfo(col.dtype).tiny
+    resid = _fro(R) / torch.clamp(_fro(a), min=tiny)
+    finite = torch.isfinite(L.abs()).all() & torch.isfinite(T.abs()).all()
+    worst, ratio, fin = torch.stack([torch.argmax(col).double(),
+                                     resid.double(),
+                                     finite.double()]).tolist()
+    return _health.healthy()._replace(
+        nonfinite=not fin, min_pivot_index=int(worst), growth=ratio,
+        converged=bool(fin) and ratio <= tol)

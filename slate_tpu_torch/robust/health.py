@@ -211,8 +211,10 @@ def acceptable(h: HealthInfo, dtype: torch.dtype) -> bool:
 
 
 def _poison(result):
-    """NaN-fill every matrix of a result (a matrix or a tuple of them):
-    the ErrorPolicy.Nan guarantee that a failed result is never finite."""
+    """NaN-fill every matrix and every floating tensor of a result (a
+    matrix, a tensor or a tuple of them; integer leaves such as a
+    permutation stay): the ErrorPolicy.Nan guarantee that a failed result
+    is never finite."""
     from ..core.matrix import BaseMatrix
     from ..core.storage import TileStorage
     if isinstance(result, tuple):
@@ -225,6 +227,9 @@ def _poison(result):
         data = torch.full_like(st.data, math.nan)
         return result._same_view(
             TileStorage(data, st.m, st.n, st.mb, st.nb, st.grid))
+    if isinstance(result, torch.Tensor) and (result.is_floating_point()
+                                             or result.is_complex()):
+        return torch.full_like(result, math.nan)
     return result
 
 

@@ -1,5 +1,6 @@
 """Driver-level graceful degradation: escalate, fall back, retry, bounded
-(port of the gesv, posv and gels parts of slate_tpu/robust/recovery.py).
+(port of the gesv, posv, hesv and gels parts of
+slate_tpu/robust/recovery.py).
 
 Each solver factors and solves under ErrorPolicy.Info and resolves the
 health at its boundary, where every option it reads is resolved once:
@@ -17,11 +18,12 @@ health at its boundary, where every option it reads is resolved once:
   rung BELOW it factors the bf16-rounded operand, refines in the original
   system and accepts only on the residual certificate
   (:func:`_chol_bf16_attempt`), the f32 Cholesky attempt its escalation.
-  With ``Option.UseFallbackSolver`` (the default) the reference retries a
-  non-HPD input as Hermitian-indefinite (hesv) and then as plain LU
-  (gesv); hesv is not ported yet, so that rung raises
-  ``NotImplementedError`` when it is reached (an HPD input never reaches
-  it).
+  With ``Option.UseFallbackSolver`` (the default) a non-HPD input is
+  retried as Hermitian-indefinite (hesv, Aasen) and then as plain LU
+  (gesv) on the densified matrix.
+- hesv: Aasen first (``Option.Speculate``: Cholesky first, Aasen its
+  escalation); with ``Option.UseFallbackSolver`` a singular band T falls
+  back to densified LU gesv.
 - gels (m >= n) takes CholQR or Householder QR per ``select_gels_method``;
   Speculate puts the certified CholQR2 rung first, and with
   ``Option.Precision = bf16`` the bf16 QR rung below it
@@ -37,8 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from ..exceptions import (SlateNotPositiveDefiniteError, SlateSingularError,
-                          not_ported)
+from ..exceptions import SlateNotPositiveDefiniteError, SlateSingularError
 from ..options import (ErrorPolicy, MethodGels, MethodLU, Option, Options,
                        get_option, resolve_abft, resolve_speculate,
                        select_gels_method, select_lu_method)
@@ -219,20 +220,14 @@ def _chol_bf16_attempt(A, B, opts, ir_steps: int = 2):
     return (L, X), _h.merge(fh, _certify_solve(A, X, B, R, ir_steps))
 
 
-def _indefinite_fallback():
-    raise not_ported("posv's fallback to hesv (then gesv) for a matrix "
-                     "that is not positive definite (Option.UseFallbackSolver;"
-                     " set it False to get the Cholesky result and its "
-                     "health)", "queue 1, item 8 (hesv)")
-
-
 def posv_with_recovery(A, B, opts: Options | None = None,
                        chol_attempt=None):
     """posv body: the bf16 rung when speculating at Precision = bf16, the
     f32 (or f64/complex) Cholesky attempt, and with UseFallbackSolver the
-    Abft retry of the first attempt and the indefinite fallback, then the
-    ErrorPolicy boundary.  The first returned element is the Cholesky
-    factor of whichever attempt succeeded.  ``chol_attempt`` replaces
+    Abft retry of the first attempt, then hesv, then gesv, then the
+    ErrorPolicy boundary.  The first returned element is the factor object
+    of whichever attempt succeeded (TriangularMatrix, HEFactors or
+    LUFactors).  ``chol_attempt`` replaces
     :func:`_chol_attempt` (posv's captured one under
     Option.HoldLocalWorkspace)."""
     chol = chol_attempt or _chol_attempt
@@ -247,7 +242,8 @@ def posv_with_recovery(A, B, opts: Options | None = None,
         same = lambda: chol(A, B, opts)                    # noqa: E731
         fallbacks = []
     if get_option(opts, Option.UseFallbackSolver):
-        fallbacks.append(_indefinite_fallback)
+        fallbacks += [lambda: _hesv_attempt(A, B, opts),
+                      lambda: _gesv_attempt(A, B, opts)]
         if resolve_abft(opts):  # the one Option.Abft read here
             fallbacks.insert(0, same)
     (F, X), h, _ = bounded_retry(first, fallbacks, dtype=A.dtype,
@@ -257,6 +253,62 @@ def posv_with_recovery(A, B, opts: Options | None = None,
         lambda hh: SlateNotPositiveDefiniteError(
             f"posv: not positive definite and fallback failed "
             f"({hh.describe()})", info=hh.info))
+
+
+def _hesv_attempt(A, B, opts):
+    """The indefinite rung: hesv under Raise; a raise (a singular band T,
+    or a matrix hesv cannot take) reads as an unhealthy attempt."""
+    from ..drivers import hetrf as _he
+    o = _with(opts, ErrorPolicy=ErrorPolicy.Raise)
+    try:
+        F, X = _he.hesv(A, B, o)
+    except Exception:  # noqa: BLE001 -- a failed fallback is just unhealthy
+        return (None, None), _h.healthy()._replace(converged=False)
+    return (F, X), _h.from_result(X.storage.data)
+
+
+def _gesv_attempt(A, B, opts):
+    """The last rung: partial-pivot LU of the densified matrix."""
+    from ..core.matrix import Matrix
+    from ..core.storage import TileStorage
+    from ..drivers import lu as _lu
+    Ag = Matrix(TileStorage.from_dense(A.to_dense(), A.nb, A.nb, A.grid))
+    o = _with(opts, ErrorPolicy=ErrorPolicy.Info)
+    F, fh = _lu.getrf(Ag, o)
+    X = _lu.getrs(F, B, o)
+    return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
+
+
+# ------------------------------------------------------------------ hesv
+
+def hesv_with_recovery(A, B, opts: Options | None = None):
+    """hesv body (drivers/hetrf.py delegates here): Aasen's tridiagonal T
+    is factored without pivoting beyond its band, so a singular T poisons
+    the solve; with ``Option.UseFallbackSolver`` densified LU gesv
+    follows.  ``Option.Speculate = On`` (resolved once here) tries
+    Cholesky first, Aasen as its escalation, then gesv with
+    UseFallbackSolver.  Returns ``(F, X)`` under Raise/Nan,
+    ``(F, X, HealthInfo)`` under Info."""
+    from ..drivers import hetrf as _he
+
+    def aasen():
+        o = _with(opts, ErrorPolicy=ErrorPolicy.Info)
+        F, fh = _he.hetrf(A, o)
+        X = _he.hetrs(F, B, o)
+        return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
+
+    use_fb = get_option(opts, Option.UseFallbackSolver)
+    if resolve_speculate(opts):
+        first = _chol_attempt(A, B, opts)
+        fallbacks = [aasen]
+        if use_fb:
+            fallbacks.append(lambda: _gesv_attempt(A, B, opts))
+    else:
+        first = aasen()
+        fallbacks = [lambda: _gesv_attempt(A, B, opts)] if use_fb else []
+    (F, X), h, _ = bounded_retry(first, fallbacks, dtype=A.dtype,
+                                 max_retries=max(len(fallbacks), 1))
+    return _finalize_solve("hesv", F, X, h, opts, _singular_exc("hesv"))
 
 
 # ------------------------------------------------------------------ gels

@@ -71,5 +71,13 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
         else dtype
 
 
+def lower_precision(dtype: torch.dtype) -> torch.dtype:
+    """Factorisation precision of the mixed solvers (ref: types.py:87-97):
+    f64 -> f32, c128 -> c64, f32 -> bf16; any other dtype maps to
+    itself."""
+    return {torch.float64: torch.float32, torch.complex128: torch.complex64,
+            torch.float32: torch.bfloat16}.get(dtype, dtype)
+
+
 def eps(dtype: torch.dtype) -> float:
     return float(torch.finfo(real_dtype(dtype)).eps)

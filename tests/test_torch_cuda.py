@@ -806,3 +806,74 @@ def test_hold_local_workspace_posv_equals_eager_posv(cuda):
         assert h == wh and h.ok
     assert len(chol._HELD) == 1
     chol._HELD.clear()
+
+
+def _counts():
+    from slate_tpu_torch.internal.chol_kernels import CHOL_PANEL, \
+        CHOL_PANEL_BATCHED
+    from slate_tpu_torch.internal.lu_kernels import LU_PANEL, \
+        LU_PANEL_BATCHED
+    from slate_tpu_torch.internal.qr_kernels import QR_PANEL_BATCHED
+    ks = {"K2": CHOL_PANEL, "K0": TRI_INV, "K3": LU_PANEL,
+          "K6": CHOL_PANEL_BATCHED, "K7": LU_PANEL_BATCHED,
+          "K8": QR_PANEL_BATCHED}
+    return {name: k.launches + k.replayed for name, k in ks.items()}
+
+
+@pytest.mark.parametrize("fn", ["posv_mixed", "posv_mixed_gmres",
+                                "gesv_mixed"])
+def test_mixed_precision_on_the_card_matches_the_cpu(cuda, fn):
+    """An f64 system factored on the f32 kernels (K2 and K0 for posv, K3
+    under Speculate for gesv) and refined in f64: the same iterations as
+    the CPU route and X within 1e-10 of it."""
+    rng = np.random.default_rng(21)
+    n, nb = 512, 128
+    g = rng.standard_normal((n, n))
+    a = g @ g.T + n * np.eye(n)
+    b = rng.standard_normal((n, 4))
+    herm = fn.startswith("posv")
+    opts = None if herm else {st.Option.Speculate: st.Speculate.On}
+    cls = st.HermitianMatrix if herm else st.Matrix
+    before = _counts()
+    got = getattr(st, fn)(cls.from_numpy(a, nb),
+                          st.Matrix.from_numpy(b, nb), opts)
+    after = _counts()
+    want = getattr(st, fn)(cls.from_numpy(a, nb, device="cpu"),
+                           st.Matrix.from_numpy(b, nb, device="cpu"), opts)
+    assert got.converged and got.iters == want.iters
+    assert got.X.dtype == torch.float64
+    x, xw = got.X.to_numpy(), want.X.to_numpy()
+    assert np.abs(x - xw).max() <= 1e-10 * np.abs(xw).max()
+    launched = {k for k in after if after[k] > before[k]}
+    assert launched >= ({"K2", "K0"} if herm else {"K3"})
+
+
+@pytest.mark.parametrize("verb", ["batch_solve", "batch_chol_solve",
+                                  "batch_least_squares_solve"])
+def test_batch_verbs_on_the_card(cuda, verb):
+    """The API's batch verbs on a (4, 256, 256) stack reach K6-K8 and
+    equal make_batched on the same stack bit for bit."""
+    from slate_tpu_torch import api
+    from slate_tpu_torch.serve import batched
+    rng = np.random.default_rng(22)
+    n = 256
+    m = 2 * n if verb == "batch_least_squares_solve" else n
+    a = rng.standard_normal((4, m, n)).astype(np.float32)
+    if verb == "batch_solve":
+        a += n * np.eye(n, dtype=np.float32)
+    elif verb == "batch_chol_solve":
+        a = a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+    b = rng.standard_normal((4, m, 8)).astype(np.float32)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    before = _counts()
+    x, hs, esc = getattr(api, verb)(ta, tb)
+    after = _counts()
+    op = {"batch_solve": "solve", "batch_chol_solve": "chol_solve",
+          "batch_least_squares_solve": "least_squares_solve"}[verb]
+    kernel = {"solve": "K7", "chol_solve": "K6",
+              "least_squares_solve": "K8"}[op]
+    assert after[kernel] > before[kernel]
+    sizes = torch.full((4,), m, dtype=torch.int32, device=cuda)
+    x2, hs2, esc2 = batched.make_batched(op)(ta, tb, sizes)
+    assert torch.equal(x, x2) and hs == hs2 and esc == esc2
+    assert all(h.ok for h in hs)
