@@ -158,7 +158,27 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      squares (8, 3840, 1920)), bit-equal to make_batched with K6/K7/K8
      launched, and least_squares_solve with MethodGels.QR at 8192 x 4096
      (K5, 32 launches);
- 12. print the launch counts, the card line, the kernels line, and last
+ 12. slice 13 (its own generator, --seed + 14): tune, tune_all on the
+     card into a fresh plan-cache file (potrf_tile and lu_select at 128
+     and 512; potrf_panel, getrf_panel and geqrf_panel at 1024, 8192 and
+     20480; the batch ops at buckets 512 and 4096 in f32 and bf16), every
+     candidate's GFLOP/s and each winner printed, the file schema-valid;
+     obs_overhead, the host cost of an @annotate'd call (obs off and on)
+     and of a resolve_plan; obs_default, posv (n = 20480), CALU gesv and
+     QR gels (8192 x 4096) and the 120-request stream (warm) under
+     obs.recording(), record_spans() and obs.timing() with the empty
+     cache: one event per outermost call with device_ms, mfu and its
+     default "cuda" plans, launches equal to and X bit-equal with the same
+     call with obs off, the span tree's ms per driver, a Chrome trace each
+     in chiprun_out/, and the obs-off walls in turns with the same calls
+     with every driver unannotated; obs_tuned, posv and CALU gesv with the
+     tuned cache: every plan they resolve (source and distance), launches
+     equal to what those plans imply, walls beside obs_default's; obs_cli,
+     ``python -m slate_tpu_torch.obs`` over the recorded JSONL, compare of
+     the obs-off walls against themselves and slo against a budgets file,
+     each exiting 0.  Every phase before tune runs with the port's plan
+     cache pointed at an empty file, whatever cache the machine holds;
+ 13. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -178,7 +198,8 @@ and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
 from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
 zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
-tenth, --seed + 9, and slice 12's from --seed + 10 to + 13, so that
+tenth, --seed + 9, slice 12's from --seed + 10 to + 13 and slice 13's
+from --seed + 14, so that
 adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
@@ -191,8 +212,10 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1045,28 +1068,35 @@ def orthogonal(n: int, gen: torch.Generator) -> torch.Tensor:
 
 
 def expected_calu_launches(n: int, nb: int, fits, mpt: int = 4,
-                           depth: int = 2) -> dict:
+                           depth: int = 2, k3_fits=lambda w: True) -> dict:
     """K4 and K3 launches of getrf_tntpiv on an n x n matrix, replayed from
     the tournament's control flow (internal/getrf.py) on the shapes: a
     panel of W > nb rows splits into blocks of br rows; round 1 (when br >
     nb) and each reduction round of ``depth`` candidate sets are one K4
     launch if ``fits(block height)``, else lu_factor; K3 then launches
-    twice (its factor, U^-1 formed inside, and the rows below); a panel of
-    nb rows takes lu_factor alone."""
+    twice (its factor, U^-1 formed inside, and the rows below) if
+    ``k3_fits(W)``; a panel of nb rows takes lu_factor alone."""
     k4 = k3 = 0
     for k0 in range(0, n, nb):
         w = n - k0
         if w <= nb:
             continue
-        br = max(nb, -(-w // (mpt * nb)) * nb)
-        blocks = -(-w // br)
-        rounds = [br] if br > nb else []
-        while blocks > 1:
-            rounds.append(depth * nb)
-            blocks = -(-blocks // depth)
-        k4 += sum(fits(h) for h in rounds)
-        k3 += 2
+        k4 += sum(fits(h) for h in calu_rounds(w, nb, mpt, depth))
+        k3 += 2 * bool(k3_fits(w))
     return {"lu_select": k4, "lu_panel_fused": k3}
+
+
+def calu_rounds(w: int, nb: int, mpt: int = 4, depth: int = 2) -> list:
+    """The block heights of a W-row panel's tournament rounds: round 1 at
+    br rows (when br > nb), then a round of ``depth`` candidate sets
+    (depth * nb rows) until one set is left."""
+    br = max(nb, -(-w // (mpt * nb)) * nb)
+    blocks = -(-w // br)
+    rounds = [br] if br > nb else []
+    while blocks > 1:
+        rounds.append(depth * nb)
+        blocks = -(-blocks // depth)
+    return rounds
 
 
 def run_gesv(st, a, b, nb, opts=None):
@@ -3280,6 +3310,465 @@ def check_slice12(st, seed, n, nb, nrhs, reset, counts) -> dict:
     return out
 
 
+# ---- slice 13: the plan cache, its tuner, driver telemetry ----------------
+
+# the tuner's grid: the sizes the main paths resolve (the tile ops at the
+# reference rule's 128 and 512; the panels at the posv/gesv/gels widths;
+# the batch ops at the stream's buckets 512 and 4096, f32 and bf16)
+TUNE_GRID = ((("potrf_tile", "lu_select"), (128, 512), ("float32",)),
+             (("potrf_panel", "getrf_panel", "geqrf_panel"),
+              (1024, 8192, 20480), ("float32",)),
+             (("batch_potrf", "batch_getrf", "batch_geqrf"), (512, 4096),
+              ("float32", "bfloat16")))
+# warm walls of the same paths before drivers carried @annotate, as
+# PERF.md section 5 records them (H100 80GB HBM3, 700 W), printed beside
+# this run's
+PARENT_WALL_S = {"posv": 0.1564, "gesv_calu": 0.6865, "gels_qr": 0.0527,
+                 "serve_stream": 0.4835}
+OBS_WALL_REPS = 4
+
+
+def set_plan_cache(path: str) -> None:
+    """Point the port's plan cache at ``path`` and drop what was read."""
+    from slate_tpu_torch.tune import plans
+    os.environ["SLATE_TORCH_TUNE_CACHE"] = path
+    plans.reload()
+
+
+def check_tune(cache_path: str) -> dict:
+    """tune: tune_all on the card into a fresh cache file over TUNE_GRID,
+    every candidate's GFLOP/s and each winner printed; the file must pass
+    validate_cache and hold every (op, n, dtype) of the grid under this
+    card's kind.  Returns {(op, n, dtype): winner plan}."""
+    from slate_tpu_torch.tune import autotune, plans
+    set_plan_cache(cache_path)
+    t0 = time.perf_counter()
+    winners = {}
+    for ops, ns, dtypes in TUNE_GRID:
+        for dt in dtypes:
+            def report(op, n, plan, gf, dt=dt):
+                emit({"phase": "tune_candidate", "op": op, "n": n,
+                      "dtype": dt, "kernel": plan.kernel, "bw": plan.bw,
+                      "nb": plan.nb, "gflops": gf})
+            for (op, n), (plan, gf) in autotune.tune_all(
+                    ns=ns, ops=ops, dtype=dt, iters=3,
+                    report=report).items():
+                winners[(op, n, dt)] = plan
+                emit({"phase": "tune_winner", "op": op, "n": n, "dtype": dt,
+                      "kernel": plan.kernel, "bw": plan.bw, "nb": plan.nb,
+                      "gflops": gf})
+    seconds = time.perf_counter() - t0
+    obj = plans.load_cache(cache_path)
+    plans.validate_cache(obj)
+    chip = plans.chip_kind()
+    have = {(op, *plans._parse_key(k)) for op, ents in
+            obj["chips"].get(chip, {}).items() for k in ents}
+    emit({"phase": "tune", "seconds": seconds, "chip": chip,
+          "entries": len(have), "ops": sorted({k[0] for k in have})})
+    if have != set(winners) or len({k[0] for k in have}) != 8:
+        raise AssertionError(f"tune: the cache holds {sorted(have)}, the "
+                             f"grid {sorted(winners)}")
+    return winners
+
+
+@contextlib.contextmanager
+def unannotated(st):
+    """Every @annotate'd driver of the port swapped for its bare function
+    in every module that binds it (all the wrappers share one code
+    object): the drivers as they ran before this slice, for the walls."""
+    code = st.posv.__code__
+    swapped = []
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith("slate_tpu_torch"):
+            continue
+        for attr, val in list(vars(mod).items()):
+            if getattr(val, "__code__", None) is code:
+                swapped.append((mod, attr, val))
+                setattr(mod, attr, val.__wrapped__)
+    try:
+        yield len(swapped)
+    finally:
+        for mod, attr, val in swapped:
+            setattr(mod, attr, val)
+
+
+@contextlib.contextmanager
+def outer_boundaries():
+    """Counts the outermost driver boundaries this thread opens (the calls
+    that must each emit one event)."""
+    from slate_tpu_torch.obs import events
+    real = events.boundary_enter
+    count = [0]
+
+    def spy(op, args=()):
+        if getattr(events._TLS, "depth", 0) == 0:
+            count[0] += 1
+        return real(op, args)
+    events.boundary_enter = spy
+    try:
+        yield count
+    finally:
+        events.boundary_enter = real
+
+
+def span_totals(spans) -> dict:
+    """Host ms the span tree gives each driver name (nested calls counted
+    under their own names)."""
+    out: dict[str, float] = {}
+    for sp in spans:
+        out[sp["name"]] = round(out.get(sp["name"], 0.0) + sp["dur_ms"], 3)
+    return out
+
+
+def expected_posv_launches(n: int, nb: int) -> dict:
+    """K2, K0 and K1 launches of posv on an n x n f32 matrix as the
+    resolved plans route its panels (the seams' own gates): a fused panel
+    of m rows is K2's update, factor and, when m > nb, its solve with one
+    K0; a library panel factors its diagonal tile through potrf_tile (K1
+    under the "cuda" tile plan) and solves below with torch."""
+    from slate_tpu_torch.internal.potrf import _tile_plan_ok, potrf_panel_ok
+    want = {"chol_panel_fused": 0, "upper_tri_inv": 0, "chol_tile": 0}
+    for k0 in range(0, n, nb):
+        m = n - k0
+        if potrf_panel_ok(torch.float32, m, nb, nb):
+            want["chol_panel_fused"] += 3 if m > nb else 2
+            want["upper_tri_inv"] += m > nb
+        elif _tile_plan_ok(torch.float32, nb):
+            want["chol_tile"] += 1
+    return want
+
+
+def calu_plan_launches(n: int, nb: int) -> dict:
+    """K4 and K3 launches of CALU gesv as the resolved plans route its
+    tournament rounds and panels (the seams' own gates)."""
+    from slate_tpu_torch.internal.getrf import _lu_select_ok, _nopiv_fused_ok
+    return expected_calu_launches(
+        n, nb, lambda h: _lu_select_ok(
+            torch.empty((1, h, nb), device="cuda"), nb),
+        k3_fits=lambda w: _nopiv_fused_ok(
+            torch.empty((w, nb), device="cuda")))
+
+
+def resolved_plans(n: int, nb: int) -> dict:
+    """Every plan the posv and CALU gesv paths at n resolve, per size:
+    [n, kernel, bw, source, dist] rows."""
+    from slate_tpu_torch.tune import plans
+
+    def rows(op, sizes):
+        return [[m, *(plans.resolution(op, m)[k] for k in
+                      ("kernel", "bw", "source", "dist"))]
+                for m in sorted(set(sizes), reverse=True)]
+    widths = [n - k0 for k0 in range(0, n, nb)]
+    return {"potrf_panel": rows("potrf_panel", widths),
+            "potrf_tile": rows("potrf_tile", [nb]),
+            "getrf_panel": rows("getrf_panel", [w for w in widths if w > nb]),
+            "lu_select": rows("lu_select", [h for w in widths if w > nb
+                                            for h in calu_rounds(w, nb)])}
+
+
+def obs_paths(st, gen, n, nb, nrhs):
+    """The obs phases' matrices (their own generator) and a runner a path:
+    each returns (X dense, wall seconds)."""
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    a_p = g @ g.T
+    del g
+    a_p.diagonal().add_(n)
+    b_p = torch.randn(n, nrhs, generator=gen, device="cuda")
+    a_g = orthogonal(n, gen)
+    b_g = torch.randn(n, nrhs, generator=gen, device="cuda")
+    mq, nq = GELS_SHAPE
+    a_q, b_q, x64_q = lstsq_problem(mq, nq, nrhs, gen)
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    runs = {"posv": lambda: run_posv(st, a_p, b_p, nb),
+            "gesv_calu": lambda: run_gesv(st, a_g, b_g, nb, calu)[1:],
+            "gels_qr": lambda: run_gels(st, a_q, b_q, nb)}
+    checks = {"posv": lambda x: accuracy(a_p, x, b_p, solve_f64(a_p, b_p)),
+              "gesv_calu": lambda x: accuracy(a_g, x, b_g, torch.linalg.solve(
+                  a_g.double(), b_g.double())),
+              "gels_qr": lambda x: lstsq_accuracy(a_q, x, b_q, x64_q)}
+    bounds = {"posv": (RESIDUAL_BOUND, FORWARD_BOUND),
+              "gesv_calu": (GESV_RESIDUAL_BOUND, GESV_FORWARD_BOUND),
+              "gels_qr": (GELS_RESIDUAL_BOUND, GELS_FORWARD_BOUND)}
+    return runs, checks, bounds
+
+
+EXPECTED_PATH = {"posv": ("posv", "direct:cholesky"),
+                 "gesv_calu": ("gesv", "direct:CALU"),
+                 "gels_qr": ("gels", "direct:qr")}
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return 0.5 * (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2])
+
+
+def walls(st, run) -> dict:
+    """Warm walls of ``run`` with obs off, in turns with the same run with
+    every driver unannotated (ABBA order, so neither side always runs
+    first): the lists and their medians."""
+    off, bare = [], []
+    for i in range(OBS_WALL_REPS):
+        for annotated in ((True, False) if i % 2 == 0 else (False, True)):
+            if annotated:
+                off.append(run()[1])
+            else:
+                with unannotated(st):
+                    bare.append(run()[1])
+    return {"wall_s_obs_off": off, "wall_s_unannotated": bare,
+            "median_obs_off": median(off),
+            "median_unannotated": median(bare)}
+
+
+def check_obs_overhead(st) -> dict:
+    """The instrumentation's own host cost on this machine: a call of an
+    @annotate'd no-op driver against the bare no-op, with obs off and with
+    events, spans and timing on, and a resolve_plan memo hit, in µs a
+    call (best of 5 runs of 20000 calls)."""
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.tune import plans
+    from slate_tpu_torch.util.trace import annotate
+
+    def bare():
+        return None
+    wrapped = annotate("slate.noop")(bare)
+
+    def per_call(fn, reps=20000):
+        best = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        return best / reps * 1e6
+    out = {"bare_us": per_call(bare), "annotate_obs_off_us": per_call(wrapped)}
+    with obs.recording(), obs.record_spans(), obs.timing():
+        out["annotate_obs_on_us"] = per_call(wrapped)
+    plans.resolve_plan("potrf_panel", 20480)
+    out["resolve_plan_us"] = per_call(
+        lambda: plans.resolve_plan("potrf_panel", 20480))
+    emit({"phase": "obs_overhead", **out})
+    return out
+
+
+def check_obs_driver(st, name, run, check, bound_pair, reset, counts,
+                     kernels, want, failures, out_dir):
+    """One driver under obs.recording(), record_spans() and obs.timing():
+    exactly one event, its fields, its default plans, the launches and
+    bits of the same call with obs off, the span tree's times."""
+    from slate_tpu_torch import obs
+    x_warm, _ = run()                                  # warm, obs off
+    del x_warm
+    w = walls(st, run)
+    reset()
+    x_off, _ = run()
+    off = counts()
+    reset()
+    with outer_boundaries() as outer, obs.recording() as evs, \
+            obs.record_spans() as rec, obs.timing():
+        x_on, wall_on = run()
+    on = counts()
+    res, fwd = check(x_on)
+    events = [e for e in evs if e["kind"] == "event"]
+    op, path = EXPECTED_PATH[name]
+    ev = events[0] if events else {}
+    rec.export_chrome_trace(os.path.join(out_dir, f"obs_{name}.json"))
+    emit({"phase": f"obs_default_{name}", **w, "wall_s_obs_on": wall_on,
+          "parent_wall_s": PARENT_WALL_S[name],
+          "events": len(events), "outer_calls": outer[0],
+          "event": {k: ev.get(k) for k in (
+              "op", "shapes", "dtype", "path", "escalations", "policy",
+              "speculate", "abft", "status", "device_ms", "mfu",
+              "achieved_gbps", "dur_ms", "plans", "health")},
+          "span_ms": span_totals(rec.spans), "launches_obs_off": off,
+          "launches_obs_on": on, "scaled_residual": res,
+          "forward_error": fwd})
+    want = {**{k: 0 for k in kernels}, **want}
+    bits = bool(torch.equal(x_on.view(torch.int32), x_off.view(torch.int32)))
+    plans_ok = bool(ev.get("plans")) and all(
+        p["source"] == "default" and p["kernel"] == "cuda"
+        for p in ev.get("plans", []))
+    if not (len(events) == outer[0] == 1 and ev.get("op") == op
+            and ev.get("path") == path and ev.get("status") == "ok"
+            and (ev.get("health") or {}).get("ok")
+            and (ev.get("device_ms") or 0) > 0 and ev.get("mfu")
+            and plans_ok):
+        failures.append(f"obs_default {name}: events {len(events)} for "
+                        f"{outer[0]} outermost calls, event {ev}")
+    if not (on == off == want and bits):
+        failures.append(f"obs_default {name}: launches on {on}, off {off}, "
+                        f"want {want}; bits equal {bits}")
+    if not (res < bound_pair[0] and fwd < bound_pair[1]):
+        failures.append(f"obs_default {name}: residual {res}, forward {fwd}")
+    return w["median_obs_off"], evs, rec
+
+
+def check_obs_stream(st, reqs, reset, counts, failures, out_dir):
+    """The 120-request stream under obs: a server warmed obs off, then its
+    warm pass with events, spans and timing on against one with them off:
+    one serve_batch record a batch, one event per outermost driver call
+    (the escalations' safe rungs), the same launches, bit-equal results."""
+    from slate_tpu_torch import obs
+    srv, _, _ = run_stream(st, reqs)                 # cold: the captures
+
+    def warm():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = srv.serve_batch(reqs)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    warm()
+    w = walls(st, warm)
+    reset()
+    res_off, _ = warm()
+    off = counts()
+    nrec = len(srv.batch_records)
+    reset()
+    with outer_boundaries() as outer, obs.recording() as evs, \
+            obs.record_spans() as rec, obs.timing():
+        res_on, wall_on = warm()
+    on = counts()
+    batches = len(srv.batch_records) - nrec
+    events = [e for e in evs if e["kind"] == "event"]
+    records = [e for e in evs if e["kind"] == "serve_batch"]
+    bits = all(torch.equal(a.x.view(torch.int32), b.x.view(torch.int32))
+               for a, b in zip(res_on, res_off))
+    rec.export_chrome_trace(os.path.join(out_dir, "obs_serve_stream.json"))
+    emit({"phase": "obs_default_serve_stream", **w, "wall_s_obs_on": wall_on,
+          "parent_wall_s": PARENT_WALL_S["serve_stream"],
+          "serve_batch_records": len(records), "batches": batches,
+          "events": len(events), "outer_calls": outer[0],
+          "event_ops": sorted({e["op"] for e in events}),
+          "batch_device_ms": [r.get("device_ms") for r in records],
+          "span_ms": span_totals(rec.spans), "launches_obs_off": off,
+          "launches_obs_on": on, "bits_equal": bits})
+    if not (len(records) == batches and len(events) == outer[0]
+            and on == off and bits
+            and all(r.get("device_ms") is not None for r in records)):
+        failures.append(f"obs_default stream: {len(records)} records for "
+                        f"{batches} batches, {len(events)} events for "
+                        f"{outer[0]} outermost calls, launches {on} vs "
+                        f"{off}, bits equal {bits}")
+    return w["median_obs_off"], evs, rec
+
+
+def check_obs_tuned(st, runs, checks, bounds, n, nb, default_walls,
+                    reset, counts, kernels, failures):
+    """obs_tuned: posv and CALU gesv with the tuned cache: the plans each
+    path resolves (exact or nearest, with their distance), launches equal
+    to what those plans imply, accuracy, and each wall beside
+    obs_default's."""
+    from slate_tpu_torch import obs
+    emit({"phase": "obs_tuned_plans", **resolved_plans(n, nb)})
+    want = {"posv": expected_posv_launches(n, nb),
+            "gesv_calu": calu_plan_launches(n, nb)}
+    for name in ("posv", "gesv_calu"):
+        runs[name]()                                    # warm
+        tuned = [runs[name]()[1] for _ in range(OBS_WALL_REPS)]
+        reset()
+        with obs.recording() as evs:
+            x, _ = runs[name]()
+        got = counts()
+        res, fwd = checks[name](x)
+        ev = next((e for e in evs if e["kind"] == "event"), {})
+        full = {**{k: 0 for k in kernels}, **want[name]}
+        emit({"phase": f"obs_tuned_{name}", "wall_s_tuned": tuned,
+              "median_tuned": median(tuned),
+              "median_default": default_walls[name],
+              "event_plans": ev.get("plans"), "launches": got,
+              "launches_predicted": full, "scaled_residual": res,
+              "forward_error": fwd})
+        sources = {p["source"] for p in ev.get("plans", [])}
+        if not (got == full and sources and sources <= {"exact", "nearest"}
+                and res < bounds[name][0] and fwd < bounds[name][1]):
+            failures.append(f"obs_tuned {name}: launches {got} (plans imply "
+                            f"{full}), sources {sources}, residual {res}, "
+                            f"forward {fwd}")
+
+
+def check_obs_cli(out_dir, records, spans_rec, default_walls, card,
+                  failures):
+    """obs_cli: the metrics CLI over the recorded JSONL (the per-op,
+    plan-usage and serving tables), compare of a bench file of the obs-off
+    walls against itself, and slo against a budgets file: each exits 0."""
+    events_path = os.path.join(out_dir, "obs_events.jsonl")
+    with open(events_path, "w", encoding="utf-8") as fh:
+        for r in records:
+            fh.write(json.dumps(r) + "\n")
+    spans_path = os.path.join(out_dir, "obs_spans.jsonl")
+    spans_rec.export_jsonl(spans_path)
+    bench_path = os.path.join(out_dir, "obs_walls.jsonl")
+    with open(bench_path, "w", encoding="utf-8") as fh:
+        for name, wall in default_walls.items():
+            fh.write(json.dumps({"schema": "slate-bench-v1",
+                                 "metric": f"{name}_wall_ms",
+                                 "value": wall * 1e3, "unit": "ms",
+                                 "chip": card}) + "\n")
+    budgets_path = os.path.join(out_dir, "obs_budgets.json")
+    with open(budgets_path, "w", encoding="utf-8") as fh:
+        json.dump({"*": {"problems": 1, "latency_p99_ms": 600000.0}}, fh)
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    cli = [sys.executable, "-m", "slate_tpu_torch.obs"]
+    for tag, args, must in (
+            ("metrics", [events_path, spans_path],
+             ("per-op events", "plan usage", "serving")),
+            ("compare", ["--compare", bench_path, bench_path],
+             ("0 regressed",)),
+            ("slo", ["--slo", budgets_path, events_path],
+             ("budget check(s) passed",))):
+        out = subprocess.run(cli + args, capture_output=True, text=True,
+                             timeout=300, cwd=ROOT, env=env)
+        emit({"phase": f"obs_cli_{tag}", "rc": out.returncode,
+              "stdout": out.stdout.splitlines()[:40],
+              "stderr": out.stderr.splitlines()[-5:]})
+        if out.returncode != 0 or not all(m in out.stdout for m in must):
+            failures.append(f"obs_cli {tag}: rc {out.returncode}")
+
+
+def check_slice13(st, seed, n, nb, nrhs, serve_reqs, reset, counts,
+                  kernels, card, shield_path) -> dict:
+    """The slice-13 phases (tune, obs_default, obs_tuned, obs_cli); their
+    matrices draw from --seed + 14.  Returns the launch counts of their
+    paths."""
+    failures = []
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    tuned_path = os.path.join(os.path.dirname(shield_path), "tuned.json")
+    check_tune(tuned_path)
+    shutil.copy(tuned_path, os.path.join(out_dir, "tuned_plans.json"))
+    set_plan_cache(shield_path)
+    torch.cuda.empty_cache()
+    runs, checks, bounds = obs_paths(
+        st, torch.Generator(device="cuda").manual_seed(seed + 14), n, nb,
+        nrhs)
+    main_want = {"posv": {"chol_panel_fused": 3 * (n // nb) - 1,
+                          "upper_tri_inv": n // nb - 1},
+                 "gesv_calu": calu_plan_launches(n, nb),
+                 "gels_qr": {"qr_panel": -(-GELS_SHAPE[1] // nb)}}
+    check_obs_overhead(st)
+    default_walls, records = {}, []
+    spans = st.obs.SpanRecorder()       # every phase's spans, for the CLI
+    for name in ("posv", "gesv_calu", "gels_qr"):
+        default_walls[name], evs, rec = check_obs_driver(
+            st, name, runs[name], checks[name], bounds[name], reset, counts,
+            kernels, main_want[name], failures, out_dir)
+        records += evs
+        spans.spans += rec.spans
+    default_walls["serve_stream"], evs, rec = check_obs_stream(
+        st, serve_reqs, reset, counts, failures, out_dir)
+    records += evs
+    spans.spans += rec.spans
+    set_plan_cache(tuned_path)
+    check_obs_tuned(st, runs, checks, bounds, n, nb, default_walls, reset,
+                    counts, kernels, failures)
+    set_plan_cache(shield_path)
+    check_obs_cli(out_dir, records, spans, default_walls, card, failures)
+    if failures:
+        raise AssertionError("slice 13: " + "; ".join(failures))
+    return {"obs_default_" + k: v for k, v in main_want.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3294,6 +3783,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # every phase before `tune` runs on the default plans, whatever plan
+    # cache the machine holds: the port's cache points at an empty one
+    plans_dir = tempfile.TemporaryDirectory(prefix="smoke-plans-")
+    shield_path = os.path.join(plans_dir.name, "empty.json")
+    with open(shield_path, "w", encoding="utf-8") as fh:
+        json.dump({"version": 1, "chips": {}}, fh)
+    os.environ["SLATE_TORCH_TUNE_CACHE"] = shield_path
     sys.path.insert(0, ROOT)
     import slate_tpu_torch as st
     from slate_tpu_torch.internal.chol_kernels import (CHOL_PANEL,
@@ -3648,11 +4144,17 @@ def main(argv=None) -> int:
         st, torch.Generator(device="cuda").manual_seed(args.seed + 8),
         torch.Generator(device="cuda").manual_seed(args.seed + 9),
         serve_reqs, nb, nrhs, n, reset, counts, args.trace)
-    del serve_reqs
 
     # ---- slice 12: mixed precision, band, Aasen, the API ----
     slice12_launches = check_slice12(st, args.seed, n, nb, nrhs, reset,
                                      counts)
+
+    # ---- slice 13: the tuner, then driver telemetry (--seed + 14) ----
+    slice13_launches = check_slice13(st, args.seed, n, nb, nrhs, serve_reqs,
+                                     reset, counts, kernels, card,
+                                     shield_path)
+    del serve_reqs
+    plans_dir.cleanup()
 
     # ---- the record ----
     emit({"launch_counts": {"posv": main_launches,
@@ -3665,7 +4167,7 @@ def main(argv=None) -> int:
                                 cfg4["cholqr_default"],
                             "gels_config4_qr_forced": cfg4["qr_forced"],
                             **serve_launches, **robust_launches,
-                            **slice12_launches}})
+                            **slice12_launches, **slice13_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",

@@ -42,7 +42,13 @@ first use).  The ported slices carry the single-device solvers on tiled
   ``robust/abft.py``), the fault sites of ``robust/faults.py``, and
   ``Option.Speculate`` (the certified RBT rung of gesv, the bf16 rung of
   posv, the CholQR2 and bf16 QR rungs of gels, ``robust/recovery.py``),
-  with the analytic flop model ``obs/flops.py`` that prices them.
+  with the analytic flop model ``obs/flops.py`` that prices them;
+- tuning and telemetry: the plan cache every kernel seam resolves through
+  (``tune``; ``python -m slate_tpu_torch.tune`` measures each kernel
+  against its library route on the card and persists the winners), one
+  ``slate-obs-v1`` event per public driver call, recorded spans, and the
+  metrics, compare and SLO command lines (``obs``; ``python -m
+  slate_tpu_torch.obs``).
 
 Matrices are placed on CUDA unless the caller passes ``device="cpu"``;
 with no GPU, ``device=None`` raises.  On CPU tensors every kernel wrapper
@@ -107,4 +113,4 @@ from .drivers.mixed import (  # noqa: E402,F401
 from .util.generator import (  # noqa: E402,F401
     generate_hermitian, generate_matrix,
 )
-from . import api, serve  # noqa: E402,F401
+from . import api, obs, serve, tune  # noqa: E402,F401

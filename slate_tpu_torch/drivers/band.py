@@ -29,6 +29,7 @@ from ..options import ErrorPolicy, Option, Options
 from ..robust import faults
 from ..robust import health as _health
 from ..types import Diag, Op, Side, Uplo
+from ..util.trace import annotate
 from .blas3 import _conj, _side
 
 
@@ -114,6 +115,7 @@ def _finalize_band_solve(name, F, X, h, opts, make_exc):
 
 # ------------------------------------------------------------- pb chain
 
+@annotate("slate.pbtrf")
 def pbtrf(A: HermitianBandMatrix, opts: Options | None = None) -> PBFactors:
     """Band Cholesky A = L L^H (ref: src/pbtrf.cc).  A matrix that is not
     positive definite NaN-fills the failing block, which reads on the
@@ -134,12 +136,14 @@ def pbtrf(A: HermitianBandMatrix, opts: Options | None = None) -> PBFactors:
             info=hh.info))
 
 
+@annotate("slate.pbtrs")
 def pbtrs(F: PBFactors, B, opts: Options | None = None):
     """Solve from pbtrf factors (ref: src/pbtrs.cc)."""
     b, Bm = _as_dense_rhs(B)
     return _wrap_like(faults.maybe_corrupt("solve", F.solve(b)), Bm)
 
 
+@annotate("slate.pbsv")
 def pbsv(A: HermitianBandMatrix, B, opts: Options | None = None):
     """Solve A X = B, A Hermitian positive-definite band (ref:
     src/pbsv.cc).  Returns (PBFactors, X); ``(F, X, HealthInfo)`` under
@@ -156,6 +160,7 @@ def pbsv(A: HermitianBandMatrix, B, opts: Options | None = None):
 
 # ------------------------------------------------------------- gb chain
 
+@annotate("slate.gbtrf")
 def gbtrf(A: BandMatrix, opts: Options | None = None) -> GBFactors:
     """Band LU with partial pivoting (ref: src/gbtrf.cc).  Pivoting stays
     within kl rows below the diagonal, so the factorization runs on
@@ -191,12 +196,14 @@ def gbtrf(A: BandMatrix, opts: Options | None = None) -> GBFactors:
             f"({hh.describe()})", info=hh.info))
 
 
+@annotate("slate.gbtrs")
 def gbtrs(F: GBFactors, B, opts: Options | None = None):
     """Solve from gbtrf factors (ref: src/gbtrs.cc)."""
     b, Bm = _as_dense_rhs(B)
     return _wrap_like(faults.maybe_corrupt("solve", F.solve(b)), Bm)
 
 
+@annotate("slate.gbsv")
 def gbsv(A: BandMatrix, B, opts: Options | None = None):
     """Solve A X = B, A general band (ref: src/gbsv.cc).  Returns
     (GBFactors, X); ``(F, X, HealthInfo)`` under ErrorPolicy.Info."""
@@ -211,6 +218,7 @@ def gbsv(A: BandMatrix, B, opts: Options | None = None):
 
 # ------------------------------------------------------------- tbsm
 
+@annotate("slate.tbsm")
 def tbsm(side, alpha, A: TriangularBandMatrix, B,
          opts: Options | None = None):
     """Triangular band solve op(A) X = alpha B (Left) or X op(A) = alpha B
@@ -266,6 +274,7 @@ def _tbsm_left(A: TriangularBandMatrix, alpha, b, extra_op: Op):
 
 # ------------------------------------------------------------- band multiply
 
+@annotate("slate.gbmm")
 def gbmm(alpha, A: BandMatrix, B, beta=0.0, C=None,
          opts: Options | None = None):
     """C = alpha op(A) B + beta C with A band (ref: src/gbmm.cc)."""
@@ -283,6 +292,7 @@ def gbmm(alpha, A: BandMatrix, B, beta=0.0, C=None,
     return _wrap_like(out, Bm if Bm is not None else C)
 
 
+@annotate("slate.hbmm")
 def hbmm(side, alpha, A: HermitianBandMatrix, B, beta=0.0, C=None,
          opts: Options | None = None):
     """C = alpha A B + beta C with A Hermitian band (ref: src/hbmm.cc).

@@ -23,6 +23,7 @@ from ..options import (MethodGemm, MethodHemm, Option, Options,
                        select_gemm_method)
 from ..robust import abft as _abft
 from ..types import Diag, Op, Side, Uplo
+from ..util.trace import annotate
 
 
 def as_root_general(A: BaseMatrix, mb: int | None = None,
@@ -65,6 +66,7 @@ def _same_device(*mats) -> None:
 
 # ---------------------------------------------------------------- gemm
 
+@annotate("slate.gemm")
 def gemm(alpha, A: BaseMatrix, B: BaseMatrix, beta=0.0,
          C: Matrix | None = None, opts: Options | None = None) -> Matrix:
     """C = alpha op(A) op(B) + beta C (ref: src/gemm.cc, gemmC.cc).  One
@@ -114,6 +116,7 @@ def gemmC(alpha, A, B, beta=0.0, C=None, opts=None) -> Matrix:
 
 # ---------------------------------------------------------------- trsm/trmm
 
+@annotate("slate.trsm")
 def trsm(side, alpha, A, B, opts: Options | None = None) -> Matrix:
     """Solve op(A) X = alpha B (Left) or X op(A) = alpha B (Right), A
     triangular (ref: src/trsm.cc).  From two block rows up, block
@@ -154,6 +157,7 @@ def trsm(side, alpha, A, B, opts: Options | None = None) -> Matrix:
     return _dense_to_like(B, xd)
 
 
+@annotate("slate.trmm")
 def trmm(side, alpha, A, B, opts: Options | None = None) -> Matrix:
     """B = alpha op(A) B (Left) or alpha B op(A) (Right), A triangular
     (ref: src/trmm.cc): one matmul with the expanded triangle."""
@@ -173,6 +177,7 @@ def _general_of(C) -> Matrix:
     return C if type(C) is Matrix else C.general()
 
 
+@annotate("slate.herk")
 def herk(alpha, A, beta, C, opts: Options | None = None):
     """C = alpha A A^H + beta C, C Hermitian (ref: src/herk.cc): gemm on
     the expanded C, returned as a Hermitian view of C's triangle."""
@@ -183,6 +188,7 @@ def herk(alpha, A, beta, C, opts: Options | None = None):
     return HermitianMatrix._from_view(out, C._uplo_logical())
 
 
+@annotate("slate.syrk")
 def syrk(alpha, A, beta, C, opts: Options | None = None):
     """C = alpha A A^T + beta C, C symmetric (ref: src/syrk.cc)."""
     slate_error(isinstance(C, BaseTrapezoidMatrix),
@@ -191,6 +197,7 @@ def syrk(alpha, A, beta, C, opts: Options | None = None):
     return SymmetricMatrix._from_view(out, C._uplo_logical())
 
 
+@annotate("slate.her2k")
 def her2k(alpha, A, B, beta, C, opts: Options | None = None):
     """C = alpha A B^H + conj(alpha) B A^H + beta C (ref: src/her2k.cc)."""
     slate_error(isinstance(C, BaseTrapezoidMatrix),
@@ -200,6 +207,7 @@ def her2k(alpha, A, B, beta, C, opts: Options | None = None):
     return HermitianMatrix._from_view(out, C._uplo_logical())
 
 
+@annotate("slate.syr2k")
 def syr2k(alpha, A, B, beta, C, opts: Options | None = None):
     """C = alpha A B^T + alpha B A^T + beta C (ref: src/syr2k.cc)."""
     slate_error(isinstance(C, BaseTrapezoidMatrix),
@@ -209,6 +217,7 @@ def syr2k(alpha, A, B, beta, C, opts: Options | None = None):
     return SymmetricMatrix._from_view(out, C._uplo_logical())
 
 
+@annotate("slate.hemm")
 def hemm(side, alpha, A, B, beta=0.0, C=None, opts=None) -> Matrix:
     """C = alpha A B + beta C (Left) or alpha B A + beta C (Right), A
     Hermitian (ref: src/hemm.cc).  MethodHemm is read and validated; the

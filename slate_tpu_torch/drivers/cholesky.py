@@ -37,6 +37,7 @@ from ..robust import abft as _abft
 from ..robust import faults
 from ..robust import health as _health
 from ..types import Uplo
+from ..util.trace import annotate
 from .blas3 import trsm
 
 
@@ -105,6 +106,7 @@ def _potrf_dense_blocked(a: torch.Tensor, nb: int, abft: bool = False):
     return a, counts
 
 
+@annotate("slate.potrf")
 def potrf(A, opts: Options | None = None):
     """Factor A = L L^H (Lower) or A = U^H U (Upper); returns the
     triangular factor (ref: src/potrf.cc).
@@ -178,6 +180,7 @@ def _finalize_potrf(L, h, uplo, opts):
             f"({hh.describe()})", info=hh.info))
 
 
+@annotate("slate.potrs")
 def potrs(L: TriangularMatrix, B, opts: Options | None = None) -> Matrix:
     """Solve with the Cholesky factor: two triangular sweeps
     (ref: src/potrs.cc)."""
@@ -195,6 +198,7 @@ def potrs(L: TriangularMatrix, B, opts: Options | None = None) -> Matrix:
     return X
 
 
+@annotate("slate.posv")
 def posv(A, B, opts: Options | None = None):
     """Solve A X = B for Hermitian positive definite A (ref: src/posv.cc).
     Returns (L, X), or (L, X, HealthInfo) under ErrorPolicy.Info; see
@@ -217,6 +221,7 @@ def posv(A, B, opts: Options | None = None):
     return posv_with_recovery(A, B, opts)
 
 
+@annotate("slate.potri")
 def potri(L: TriangularMatrix, opts: Options | None = None):
     """Inverse from the Cholesky factor, A^-1 = L^-H L^-1 (ref:
     src/potri.cc = trtri + trtrm).  Returns a HermitianMatrix; under

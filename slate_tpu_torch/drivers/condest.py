@@ -25,6 +25,7 @@ from ..internal.qr import phase_of
 from ..options import ErrorPolicy, Options
 from ..robust import health as _health
 from ..types import Diag, Norm, Uplo
+from ..util.trace import annotate
 
 
 def _norm1est_flag(apply_inv, apply_inv_h, n: int, dtype, device,
@@ -98,6 +99,7 @@ def _rcond(anorm, ainv: float, bad: bool):
     return (1.0 / (an * ainv) if safe else 0.0), bad
 
 
+@annotate("slate.gecondest")
 def gecondest(F, anorm, opts: Options | None = None, norm: Norm = Norm.One):
     """Reciprocal condition estimate from LU factors (ref:
     src/gecondest.cc): rcond = 1 / (||A|| est(||A^-1||)), a float.
@@ -134,6 +136,7 @@ def gecondest(F, anorm, opts: Options | None = None, norm: Norm = Norm.One):
     return _condest_result(rcond, bad, opts)
 
 
+@annotate("slate.trcondest")
 def trcondest(R, opts: Options | None = None, norm: Norm = Norm.One):
     """Reciprocal condition estimate of a triangular matrix (ref:
     src/trcondest.cc): rcond = 1 / (||R|| est(||R^-1||)), a float.  A

@@ -28,6 +28,7 @@ from ..robust import certify as _certify
 from ..robust import faults as _faults
 from ..robust import health as _health
 from ..types import is_complex
+from ..util.trace import annotate
 
 
 class HEFactors(NamedTuple):
@@ -152,6 +153,7 @@ def _hetrf_exc(h):
         f"zero/non-finite pivot ({h.describe()})", info=h.info)
 
 
+@annotate("slate.hetrf")
 def hetrf(A, opts: Options | None = None):
     """Blocked Aasen factorization of a Hermitian indefinite matrix (ref:
     src/hetrf.cc).  Returns HEFactors; T has bandwidth A.nb.  Under
@@ -217,6 +219,7 @@ def _packed_band_T(Tdiag, Tsub, nb: int, n0: int, kd: int):
     return torch.where(valid, out, zero)
 
 
+@annotate("slate.hetrs")
 def hetrs(F: HEFactors, B, opts: Options | None = None):
     """Solve from Aasen factors (ref: src/hetrs.cc):
     x = P^H L^-H T^-1 L^-1 P b, with T's band-LU factors from hetrf."""
@@ -234,6 +237,7 @@ def hetrs(F: HEFactors, B, opts: Options | None = None):
     return x
 
 
+@annotate("slate.hesv")
 def hesv(A, B, opts: Options | None = None):
     """Solve A X = B for Hermitian indefinite A (ref: src/hesv.cc).
     Returns (HEFactors, X); under ``ErrorPolicy.Info``,

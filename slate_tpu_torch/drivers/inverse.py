@@ -15,6 +15,7 @@ from ..exceptions import SlateSingularError, slate_error
 from ..options import Options
 from ..robust import health as _health
 from ..types import Diag, Uplo
+from ..util.trace import annotate
 
 
 def _singular_exc(name):
@@ -23,6 +24,7 @@ def _singular_exc(name):
     return make
 
 
+@annotate("slate.trtri")
 def trtri(A: TriangularMatrix, opts: Options | None = None):
     """Triangular inverse (ref: src/trtri.cc): solves op(A) X = I through
     the trsm driver, so it runs where trsm does (block substitution
@@ -53,6 +55,7 @@ def trtri(A: TriangularMatrix, opts: Options | None = None):
     return _health.finalize("trtri", Xt, h, opts, _singular_exc("trtri"))
 
 
+@annotate("slate.trtrm")
 def trtrm(L: TriangularMatrix, opts: Options | None = None):
     """The Hermitian product of a triangular factor with its adjoint (ref:
     src/trtrm.cc): for a lower Linv, Linv^H Linv, the second half of

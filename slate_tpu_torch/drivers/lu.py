@@ -36,6 +36,7 @@ from ..robust import abft as _abft
 from ..robust import faults
 from ..robust import health as _health
 from ..types import Diag, Uplo
+from ..util.trace import annotate
 from .blas3 import trsm
 
 
@@ -151,6 +152,7 @@ def _getrf_dense_blocked(a: torch.Tensor, nb: int, method: str,
     return a, perm_g, counts
 
 
+@annotate("slate.getrf")
 def getrf(A: Matrix, opts: Options | None = None) -> LUFactors:
     """LU with partial pivoting (ref: src/getrf.cc).
 
@@ -160,11 +162,13 @@ def getrf(A: Matrix, opts: Options | None = None) -> LUFactors:
     return _getrf(A, opts, "partial")
 
 
+@annotate("slate.getrf_nopiv")
 def getrf_nopiv(A: Matrix, opts: Options | None = None) -> LUFactors:
     """LU without pivoting (ref: src/getrf_nopiv.cc)."""
     return _getrf(A, opts, "nopiv")
 
 
+@annotate("slate.getrf_tntpiv")
 def getrf_tntpiv(A: Matrix, opts: Options | None = None) -> LUFactors:
     """CALU tournament-pivoting LU (ref: src/getrf_tntpiv.cc)."""
     return _getrf(A, opts, "tntpiv")
@@ -199,6 +203,7 @@ def _info(opts: Options | None) -> dict:
     return o
 
 
+@annotate("slate.getrf_rbt")
 def getrf_rbt(A: Matrix, opts: Options | None = None):
     """Butterfly-preconditioned pivot-free LU (PRBT): A~ = U^T diag(A,
     I_pad) V with depth-2 random butterflies (internal/rbt.py), then
@@ -294,6 +299,7 @@ def _getrs_rbt(F: RBTFactors, B, opts: Options | None) -> Matrix:
     return Matrix(TileStorage.from_dense(xbar[:F.n], B.mb, B.nb, B.grid))
 
 
+@annotate("slate.getrs")
 def getrs(F: LUFactors, B, opts: Options | None = None) -> Matrix:
     """Solve with LU factors: X = U^-1 L^-1 B[perm] (ref: src/getrs.cc).
     :class:`RBTFactors` take the butterfly sandwich."""
@@ -307,6 +313,7 @@ def getrs(F: LUFactors, B, opts: Options | None = None) -> Matrix:
     return trsm("l", 1.0, F.upper(), Y, opts)
 
 
+@annotate("slate.gesv")
 def gesv(A: Matrix, B, opts: Options | None = None):
     """Solve A X = B via LU (ref: src/gesv.cc; MethodLU dispatch).  Returns
     (LUFactors, X), or (LUFactors, X, HealthInfo) under ErrorPolicy.Info;
@@ -322,6 +329,7 @@ def gesv_nopiv(A: Matrix, B, opts: Options | None = None):
     return gesv_nopiv_raw(A, B, opts)
 
 
+@annotate("slate.getri")
 def getri(F: LUFactors, opts: Options | None = None) -> Matrix:
     """Inverse from LU factors, A^-1 = U^-1 L^-1 P (ref: src/getri.cc).
     A zero or non-finite U pivot resolves per Option.ErrorPolicy: raise
@@ -336,6 +344,7 @@ def getri(F: LUFactors, opts: Options | None = None) -> Matrix:
     return _health.finalize("getri", X, h, opts, _singular("getri"))
 
 
+@annotate("slate.getriOOP")
 def getriOOP(A: Matrix, opts: Options | None = None) -> Matrix:
     """Out-of-place inverse (ref: src/getriOOP.cc): factor, then solve
     against I.  Under ErrorPolicy.Info returns ``(X, HealthInfo)`` with

@@ -41,6 +41,7 @@ from ..robust import health as _health
 from ..robust.health import HealthInfo
 from ..robust.recovery import bounded_retry
 from ..types import Norm, eps, lower_precision
+from ..util.trace import annotate
 from . import auxiliary as aux
 from .blas3 import gemm
 from .cholesky import potrf, potrs
@@ -185,6 +186,7 @@ def _chol_solver(A, opts):
     return solve_lo, fh
 
 
+@annotate("slate.gesv_mixed")
 def gesv_mixed(A: Matrix, B, opts: Options | None = None) -> MixedResult:
     """LU in low precision + IR to working precision (ref:
     src/gesv_mixed.cc).  The low factor is getrf's partial pivoting, as
@@ -198,6 +200,7 @@ def gesv_mixed(A: Matrix, B, opts: Options | None = None) -> MixedResult:
                          lambda: _full_lu_attempt(A, B, opts), opts)
 
 
+@annotate("slate.posv_mixed")
 def posv_mixed(A: HermitianMatrix, B, opts: Options | None = None
                ) -> MixedResult:
     """Cholesky in low precision + IR (ref: src/posv_mixed.cc)."""
@@ -287,6 +290,7 @@ def _gmres_ir(A, B: Matrix, solve_lo, opts: Options | None,
     return X, it, bool(conv.all())
 
 
+@annotate("slate.gesv_mixed_gmres")
 def gesv_mixed_gmres(A: Matrix, B, opts: Options | None = None
                      ) -> MixedResult:
     """ref: src/gesv_mixed_gmres.cc (partial pivoting; Speculate is not
@@ -297,6 +301,7 @@ def gesv_mixed_gmres(A: Matrix, B, opts: Options | None = None
                          lambda: _full_lu_attempt(A, B, opts), opts)
 
 
+@annotate("slate.posv_mixed_gmres")
 def posv_mixed_gmres(A: HermitianMatrix, B, opts: Options | None = None
                      ) -> MixedResult:
     """ref: src/posv_mixed_gmres.cc"""

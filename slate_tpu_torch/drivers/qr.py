@@ -24,6 +24,7 @@ from ..options import (ErrorPolicy, MethodCholQR, MethodGemm, Option,
                        Options, method_option, resolve_target)
 from ..robust import health as _health
 from ..types import Op, Side, Uplo, is_complex
+from ..util.trace import annotate
 from .blas3 import _dense_to_like, _side, gemm, herk, trsm
 from .cholesky import potrf
 
@@ -74,6 +75,7 @@ def _geqrf_dense_blocked(a: torch.Tensor, nb: int):
     return a, T_stack
 
 
+@annotate("slate.geqrf")
 def geqrf(A: Matrix, opts: Options | None = None) -> QRFactors:
     """QR factorization A = Q R (ref: src/geqrf.cc).  Returns the packed
     factors; :func:`unmqr` applies Q, and triu(R) serves solves."""
@@ -84,6 +86,7 @@ def geqrf(A: Matrix, opts: Options | None = None) -> QRFactors:
                                                    A.grid)), T)
 
 
+@annotate("slate.gelqf")
 def gelqf(A: Matrix, opts: Options | None = None) -> LQFactors:
     """LQ factorization A = L Q through the QR of A^H (ref: src/gelqf.cc
     computes the mirrored chain; algebraically the same)."""
@@ -108,6 +111,7 @@ def _panel_ranges(m: int, n: int, nb: int):
     return [(k0, min(k0 + nb, r)) for k0 in range(0, r, nb)]
 
 
+@annotate("slate.unmqr")
 def unmqr(side, op, F: QRFactors, C, opts: Options | None = None) -> Matrix:
     """C times Q (op 'n') or Q^H (op 'c'/'t') from the given side (ref:
     src/unmqr.cc); Q is the implicit factor of :func:`geqrf`."""
@@ -133,6 +137,7 @@ def unmqr(side, op, F: QRFactors, C, opts: Options | None = None) -> Matrix:
     return _dense_to_like(C, cd)
 
 
+@annotate("slate.unmlq")
 def unmlq(side, op, F: LQFactors, C, opts: Options | None = None) -> Matrix:
     """C times the LQ factor Q = Qr^H (ref: src/unmlq.cc): flips op on the
     underlying QR reflectors."""
@@ -184,6 +189,7 @@ def _gram_exc(name: str):
         f"({h.describe()})", info=int(h.info))
 
 
+@annotate("slate.cholqr")
 def cholqr(A: Matrix, opts: Options | None = None):
     """Cholesky QR: G = A^H A, R = chol(G)^H, Q = A R^-1 (ref:
     src/cholqr.cc).  Returns (Q, R), R upper triangular; a rank-deficient
@@ -231,6 +237,7 @@ def _gels_cholqr_attempt(A: Matrix, B, opts: Options | None, *,
     return X, h
 
 
+@annotate("slate.gels_cholqr")
 def gels_cholqr(A: Matrix, B, opts: Options | None = None) -> Matrix:
     """Least squares by the semi-normal equations with R from CholQR (ref:
     src/gels_cholqr.cc).  Same failure contract as :func:`cholqr`, no
@@ -241,6 +248,7 @@ def gels_cholqr(A: Matrix, B, opts: Options | None = None) -> Matrix:
                             _gram_exc("gels_cholqr"))
 
 
+@annotate("slate.gels_qr")
 def gels_qr(A: Matrix, B, opts: Options | None = None) -> Matrix:
     """Least squares by Householder QR (ref: src/gels_qr.cc):
     x = R^-1 (Q^H b)[:n]."""
@@ -266,6 +274,7 @@ def _gels_qr_attempt(A: Matrix, B, opts: Options | None):
     return X, _health.from_result(X.storage.data)
 
 
+@annotate("slate.gels")
 def gels(A: Matrix, B, opts: Options | None = None) -> Matrix:
     """Linear least squares / minimum-norm solve (ref: src/gels.cc:141).
 

@@ -20,8 +20,14 @@ from ..tune.plans import resolve_plan
 from .chol_kernels import PANEL_NB, TILE_MAX_N, chol_panel_fused, chol_tile
 
 
+def tile_fits(n: int) -> bool:
+    """True when K1 takes an n x n tile: n % 32 == 0, 32 <= n <= 128 (one
+    n x (n+4) f32 tile in a block's shared memory)."""
+    return n % 32 == 0 and 32 <= n <= TILE_MAX_N
+
+
 def _tile_plan_ok(dtype: torch.dtype, n: int) -> bool:
-    if not (dtype == torch.float32 and n % 32 == 0 and 32 <= n <= TILE_MAX_N):
+    if not (dtype == torch.float32 and tile_fits(n)):
         return False
     plan = resolve_plan("potrf_tile", n, "float32")
     return plan.kernel == "cuda" and n % plan.bw == 0

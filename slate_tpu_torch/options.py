@@ -237,8 +237,12 @@ def resolve_target(opts: Options | None, matrix) -> Target:
 
 def resolve_speculate(opts: Options | None) -> bool:
     """Resolve Option.Speculate once at a driver boundary: True only for
-    an explicit ``Speculate.On``."""
-    return get_option(opts, Option.Speculate) is Speculate.On
+    an explicit ``Speculate.On``.  The resolution is noted into the open
+    obs event frame."""
+    resolved = get_option(opts, Option.Speculate) is Speculate.On
+    from .obs import events as _obs_events
+    _obs_events.note_resolved("speculate", resolved)
+    return resolved
 
 
 def method_option(opts: Options | None, key: Option, enum_cls):
@@ -281,5 +285,9 @@ def resolve_abft(opts: Options | None) -> bool:
     """Resolve Option.Abft once at a driver boundary: True only for an
     explicit ``Abft.On``; Auto and Off resolve to False, so default
     drivers pay no checksum work.  Every consumer below the boundary
-    receives the resolved boolean, never the knob."""
-    return get_option(opts, Option.Abft) is Abft.On
+    receives the resolved boolean, never the knob.  The resolution is
+    noted into the open obs event frame."""
+    resolved = get_option(opts, Option.Abft) is Abft.On
+    from .obs import events as _obs_events
+    _obs_events.note_resolved("abft", resolved)
+    return resolved

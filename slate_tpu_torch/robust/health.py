@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import events as _obs
 from ..options import ErrorPolicy, Option, Options, get_option
 from ..types import eps
 
@@ -243,6 +244,10 @@ def finalize(name: str, result, h: HealthInfo, opts: Options | None,
     Info   return ``(result, h)``
     """
     policy = error_policy(opts)
+    # host-side note into the open obs boundary frame (no-op when none):
+    # nested finalizes are overwritten by the boundary's own, so the
+    # emitted event carries the recovery-merged health
+    _obs.note_health(name, h, policy.name)
     if policy is ErrorPolicy.Info:
         return result, h
     if h.ok:

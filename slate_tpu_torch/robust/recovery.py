@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..exceptions import SlateNotPositiveDefiniteError, SlateSingularError
+from ..obs import events as _obs
 from ..options import (ErrorPolicy, MethodGels, MethodLU, Option, Options,
                        get_option, resolve_abft, resolve_speculate,
                        select_gels_method, select_lu_method)
@@ -148,12 +149,15 @@ def gesv_with_recovery(A, B, opts: Options | None = None):
     if not get_option(opts, Option.UseFallbackSolver):
         fb_methods = ()
     retry_same = [same] if (abft and fb_methods) else []
-    (F, X), h, _ = bounded_retry(
+    (F, X), h, used = bounded_retry(
         first,
         retry_same + [lambda m=m: _lu_attempt(A, B, opts, m)
                       for m in fb_methods],
         dtype=A.dtype,
         max_retries=max(len(fb_methods) + len(retry_same), 1))
+    _obs.note_path("rbt" if speculate else chain[0].name,
+                   (["retry_same"] if retry_same else [])
+                   + [m.name for m in fb_methods], used, speculate)
     return _finalize_solve("gesv", F, X, h, opts, _singular_exc("gesv"))
 
 
@@ -162,6 +166,7 @@ def gesv_nopiv_raw(A, B, opts: Options | None = None):
     demotion: a finite (if catastrophic) NoPiv solve returns, as in the
     reference."""
     (F, X), h = _lu_attempt(A, B, opts, MethodLU.NoPiv)
+    _obs.note_path("NoPiv", (), 0, False)
     return _finalize_solve("gesv_nopiv", F, X, h, opts,
                            _singular_exc("gesv_nopiv"))
 
@@ -233,21 +238,27 @@ def posv_with_recovery(A, B, opts: Options | None = None,
     chol = chol_attempt or _chol_attempt
     speculate = resolve_speculate(opts)   # resolved ONCE, like ErrorPolicy
     low = resolve_precision(opts)         # the one Option.Precision read
-    if speculate and low:
+    bf16 = speculate and low
+    if bf16:
+        first_name = "cholesky_bf16"
         first = _chol_bf16_attempt(A, B, opts)
         same = lambda: _chol_bf16_attempt(A, B, opts)      # noqa: E731
-        fallbacks = [lambda: chol(A, B, opts)]
+        fallbacks, rungs = [lambda: chol(A, B, opts)], ["cholesky"]
     else:
+        first_name = "cholesky"
         first = chol(A, B, opts)
         same = lambda: chol(A, B, opts)                    # noqa: E731
-        fallbacks = []
+        fallbacks, rungs = [], []
     if get_option(opts, Option.UseFallbackSolver):
         fallbacks += [lambda: _hesv_attempt(A, B, opts),
                       lambda: _gesv_attempt(A, B, opts)]
+        rungs += ["hesv", "gesv"]
         if resolve_abft(opts):  # the one Option.Abft read here
             fallbacks.insert(0, same)
-    (F, X), h, _ = bounded_retry(first, fallbacks, dtype=A.dtype,
-                                 max_retries=max(len(fallbacks), 2))
+            rungs.insert(0, "retry_same")
+    (F, X), h, used = bounded_retry(first, fallbacks, dtype=A.dtype,
+                                    max_retries=max(len(fallbacks), 2))
+    _obs.note_path(first_name, rungs, used, bf16)
     return _finalize_solve(
         "posv", F, X, h, opts,
         lambda hh: SlateNotPositiveDefiniteError(
@@ -298,16 +309,20 @@ def hesv_with_recovery(A, B, opts: Options | None = None):
         return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
 
     use_fb = get_option(opts, Option.UseFallbackSolver)
-    if resolve_speculate(opts):
-        first = _chol_attempt(A, B, opts)
-        fallbacks = [aasen]
+    speculate = resolve_speculate(opts)
+    if speculate:
+        first_name, first = "cholesky", _chol_attempt(A, B, opts)
+        fallbacks, rungs = [aasen], ["aasen"]
         if use_fb:
             fallbacks.append(lambda: _gesv_attempt(A, B, opts))
+            rungs.append("gesv")
     else:
-        first = aasen()
+        first_name, first = "aasen", aasen()
         fallbacks = [lambda: _gesv_attempt(A, B, opts)] if use_fb else []
-    (F, X), h, _ = bounded_retry(first, fallbacks, dtype=A.dtype,
-                                 max_retries=max(len(fallbacks), 1))
+        rungs = ["gesv"] if use_fb else []
+    (F, X), h, used = bounded_retry(first, fallbacks, dtype=A.dtype,
+                                    max_retries=max(len(fallbacks), 1))
+    _obs.note_path(first_name, rungs, used, speculate)
     return _finalize_solve("hesv", F, X, h, opts, _singular_exc("hesv"))
 
 
@@ -371,30 +386,35 @@ def gels_with_recovery(A, B, opts: Options | None = None):
     speculate = resolve_speculate(opts)
     low = resolve_precision(opts)         # the one Option.Precision read
     method = select_gels_method(opts, A.m, A.n)
-    fallbacks = []
-    house = False
+    fallbacks, rungs = [], []
     if speculate and low:
+        first_name = "qr_bf16"
         first = _gels_bf16_attempt(A, B, opts)
         fallbacks = [lambda: _qr._gels_cholqr_attempt(A, B, opts, refine=1,
                                                       certify=True)]
+        rungs = ["cholqr2"]
         exc = _qr._gram_exc("gels")
     elif speculate:
+        first_name = "cholqr2"
         first = _qr._gels_cholqr_attempt(A, B, opts, refine=1, certify=True)
         exc = _qr._gram_exc("gels")
     elif method is MethodGels.CholQR:
+        first_name = "cholqr"
         first = _qr._gels_cholqr_attempt(A, B, opts)
         exc = _qr._gram_exc("gels")
     else:
         # Householder QR directly: no speculation rung, but ErrorPolicy
         # still resolves at this boundary, and bounded_retry with no
         # fallbacks is just the growth demotion
-        house = True
+        first_name = "qr"
         first = _qr._gels_qr_attempt(A, B, opts)
         exc = _singular_exc("gels")
-    if not house and get_option(opts, Option.UseFallbackSolver):
+    if first_name != "qr" and get_option(opts, Option.UseFallbackSolver):
         fallbacks.append(lambda: _qr._gels_qr_attempt(A, B, opts))
-    X, h, _ = bounded_retry(first, fallbacks, dtype=A.dtype,
-                            max_retries=max(len(fallbacks), 1))
+        rungs.append("qr")
+    X, h, used = bounded_retry(first, fallbacks, dtype=A.dtype,
+                               max_retries=max(len(fallbacks), 1))
+    _obs.note_path(first_name, rungs, used, speculate)
     return _h.finalize("gels", X, h, opts, exc)
 
 

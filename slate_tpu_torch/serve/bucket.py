@@ -5,8 +5,9 @@ Mixed-size requests share a batch only when their shapes agree, so every
 request is rounded UP to a bucket shape drawn from a ladder.  The default
 ladder is geometric (each rung double the last, from 32): it bounds
 padding waste by a constant factor while the number of distinct batch
-shapes stays logarithmic in the size range.  The port keeps no plan cache,
-so ``tune.serve_buckets`` never overrides it.
+shapes stays logarithmic in the size range, unless the plan cache holds
+tuned rungs for this card (``python -m slate_tpu_torch.tune --serve-hist``,
+read back through ``tune.serve_buckets``).
 
 Packing is exact: a problem of size n in an n_b bucket is augmented with
 the identity, blockdiag(A, I), so the augmented system decouples and the
@@ -60,8 +61,9 @@ def geometric_ladder(base: int = DEFAULT_BASE,
 
 
 def default_ladder(dtype: str = "float32") -> BucketLadder:
-    """The serving ladder: tuned rungs when the plan store has them (never
-    in the port, which keeps no cache), else the geometric default."""
+    """The serving ladder: the tuned rungs of the plan cache for this card
+    and dtype when it has them (``source`` "tuned"), else the geometric
+    default."""
     from ..robust.precision import normalize_dtype
     from ..tune.plans import serve_buckets
     tuned = serve_buckets(normalize_dtype(dtype))

@@ -491,10 +491,14 @@ def test_precision_seam_matches_the_reference():
     assert not precision.resolve_precision(None)
 
 
-def test_batch_plans_default_to_the_kernels():
+def test_batch_plans_default_to_the_kernels(monkeypatch, tmp_path):
     """The batch ops' default plan is the hand kernel for f32 and bf16
-    (K6-K8 take bf16 storage), the library for anything else; there is no
-    plan cache, so no tuned serving ladder."""
+    (K6-K8 take bf16 storage), the library for anything else; with an
+    empty plan cache there is no tuned serving ladder."""
+    cache = tmp_path / "plans.json"
+    monkeypatch.setenv("SLATE_TORCH_TUNE_CACHE", str(cache))
+    plans.save_cache({"version": plans.SCHEMA_VERSION, "chips": {}},
+                     str(cache))
     for op in plans.BATCH_OPS:
         assert op in plans.OPS
         for dt in ("float32", "bfloat16"):

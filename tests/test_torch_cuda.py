@@ -877,3 +877,119 @@ def test_batch_verbs_on_the_card(cuda, verb):
     x2, hs2, esc2 = batched.make_batched(op)(ta, tb, sizes)
     assert torch.equal(x, x2) and hs == hs2 and esc == esc2
     assert all(h.ok for h in hs)
+
+
+@pytest.fixture
+def empty_plans(tmp_path, monkeypatch):
+    """The plan cache pointed at an empty file: the default plans."""
+    from slate_tpu_torch.tune import plans
+    path = tmp_path / "plans.json"
+    monkeypatch.setenv("SLATE_TORCH_TUNE_CACHE", str(path))
+    plans.reload()
+    yield path
+    plans.reload()
+
+
+def test_tune_op_on_the_card_writes_a_valid_cache(cuda, empty_plans):
+    """The tuner on the card: every candidate measured, the winner
+    persisted under the card's kind, schema-valid, resolved exactly."""
+    import json
+
+    from slate_tpu_torch.tune import autotune, plans
+    seen = []
+    for op, n in (("potrf_tile", 128), ("getrf_panel", 1024),
+                  ("batch_potrf", 512)):
+        plan, gflops = autotune.tune_op(op, n, iters=2,
+                                        report=lambda p, g: seen.append(g))
+        assert gflops > 0
+        assert plans.resolution(op, n)["source"] == "exact"
+        assert plans.resolve_plan(op, n) == plan
+    assert all(g > 0 for g in seen) and len(seen) >= 6
+    obj = json.loads(empty_plans.read_text())
+    plans.validate_cache(obj)
+    (chip,) = obj["chips"]
+    assert chip.startswith("nvidia-") and chip == plans.chip_kind()
+
+
+def _launch_counts():
+    from slate_tpu_torch.internal.chol_kernels import CHOL_PANEL, CHOL_TILE
+    return {"K2": CHOL_PANEL.launches, "K0": TRI_INV.launches,
+            "K1": CHOL_TILE.launches}
+
+
+def test_obs_on_and_off_give_equal_launches_and_bits(cuda, empty_plans):
+    """posv at n = 2048 with events, spans and timing on against all of
+    them off: the same launches, the same bits; the event carries the
+    device time and the default plans."""
+    from slate_tpu_torch import obs
+    rng = np.random.default_rng(63)
+    n, nb = 2048, 128
+    A = st.HermitianMatrix.from_numpy(_spd(rng, n) * n, nb, device=cuda)
+    B = st.Matrix.from_numpy(rng.standard_normal((n, 16)).astype(np.float32),
+                             nb, device=cuda)
+    st.posv(A, B)                                      # builds, warms
+    runs = []
+    for on in (False, True, False):
+        before = _launch_counts()
+        if on:
+            with obs.recording() as evs, obs.record_spans() as rec, \
+                    obs.timing():
+                _, X = st.posv(A, B)
+        else:
+            _, X = st.posv(A, B)
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        runs.append(({k: after[k] - before[k] for k in after},
+                     X.to_dense().view(torch.int32).clone()))
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    assert runs[0][0]["K2"] == 3 * (n // nb) - 1
+    assert torch.equal(runs[0][1], runs[1][1])
+    (e,) = evs
+    assert e["op"] == "posv" and e["device_ms"] > 0 and e["mfu"] > 0
+    assert e["plans"] and all(p["source"] == "default"
+                              and p["kernel"] == "cuda" for p in e["plans"])
+    assert rec.spans[-1]["name"] == "slate.posv"
+
+
+def test_timing_never_syncs_inside_a_capture(cuda, empty_plans,
+                                             monkeypatch):
+    """obs.timing() around a HoldLocalWorkspace posv (its attempt captured
+    and replayed) and around a cold and a warm served batch (bucket
+    graphs): no boundary waits while a stream captures, the outermost
+    eager boundary stamps device_ms, frames opened during a capture are
+    flagged traced and carry none."""
+    from slate_tpu_torch import obs, serve
+    from slate_tpu_torch.drivers import cholesky as chol
+    from slate_tpu_torch.util import trace
+    waits = []
+    real = trace._ready
+
+    def spy(out):
+        waits.append(torch.cuda.is_current_stream_capturing())
+        return real(out)
+    monkeypatch.setattr(trace, "_ready", spy)
+    rng = np.random.default_rng(64)
+    n, nb = 1024, 128
+    A = st.HermitianMatrix.from_numpy(_spd(rng, n) * n, nb, device=cuda)
+    B = st.Matrix.from_numpy(rng.standard_normal((n, 8)).astype(np.float32),
+                             nb, device=cuda)
+    hold = {st.Option.HoldLocalWorkspace: True}
+    chol._HELD.clear()
+    reqs = []
+    for m in (40, 100, 200):
+        g = rng.standard_normal((m, m)).astype(np.float32)
+        reqs.append(("chol_solve", g @ g.T / m + np.eye(m, dtype=np.float32),
+                     rng.standard_normal((m, 2)).astype(np.float32)))
+    srv = serve.Server(cache=serve.ExecutableCache())
+    with obs.recording() as evs, obs.timing():
+        for _ in range(2):                       # capture, then replay
+            _, X = st.posv(A, B, hold)
+            srv.serve_batch(reqs)
+    chol._HELD.clear()
+    assert waits and not any(waits)
+    posv = [e for e in evs if e.get("op") == "posv"]
+    assert len(posv) == 2 and all(e["device_ms"] > 0 for e in posv)
+    assert all(e["device_ms"] is None for e in evs
+               if e.get("kind") == "event" and e["traced"])
+    batches = [e for e in evs if e.get("kind") == "serve_batch"]
+    assert batches and all(e["device_ms"] is not None for e in batches)

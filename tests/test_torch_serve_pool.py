@@ -11,8 +11,8 @@ canary, a wedged member fails over on the dispatch deadline, one survivor
 keeps serving and none raises a typed overload error, the governor keeps
 per-member tails, and a bimodal stream makes exactly one ladder hot swap.
 Where the reference pins "no retrace", the port pins zero captures.  The
-metrics-CLI and compare tests wait for the port's obs metrics (ROADMAP.md
-queue 1, item 10).
+metrics-CLI, compare and SLO-device-row tests of the reference are ported
+in tests/test_torch_obs.py.
 """
 
 import threading

@@ -10,8 +10,8 @@ carries a typed error and a ``serve_shed`` record, a poison is retried in
 exactly one fresh batch and then quarantined, and a failed background
 flush is re-raised by the next ``drain()``.  Where the reference counts
 retraces, the port counts CUDA-graph captures, and the CPU makes none.
-The metrics-CLI and compare tests of the reference wait for the port's
-obs metrics (ROADMAP.md queue 1, item 10).
+The metrics-CLI and compare tests of the reference are ported in
+tests/test_torch_obs.py.
 """
 
 import threading
