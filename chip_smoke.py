@@ -178,7 +178,29 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      the obs-off walls against themselves and slo against a budgets file,
      each exiting 0.  Every phase before tune runs with the port's plan
      cache pointed at an empty file, whatever cache the machine holds;
- 13. print the launch counts, the card line, the kernels line, and last
+ 13. slice 14 (its own generator, --seed + 15): the spectral drivers,
+     BASELINE.md config 5 cut to one card: heev at n = 8192 in f32 and in
+     f64 on the generator's heev matrix (A = Q diag(lambda) Q^T, lambda =
+     linspace(-1, 1, n) * sigma reversed, cond 1e3, formed in f64 on the
+     card), cold and warm, heev_vals, the phase split (he2hb, stage2,
+     backtransform, certify; synced), the recorded spans, the
+     certificate's ratio against its tolerance and max|w - lambda| /
+     max|lambda| against its bound, beside the library's own eigh on A;
+     svd at 8192 x 8192 f32 on the generator's svd matrix the same way;
+     hegv (itype 1, B = G G^T + n I): K2 191 and K0 63 launches, as
+     expected_posv_launches(8192, 128) gives; the parity routes at n =
+     1024 (MethodEig DC and QR, MethodSvd Bidiag) against the Auto
+     route's values, with the chase's steps and its launches a step
+     (torch.profiler on a 512 x 512 chase); stedc at n = 4096 on a random
+     and a glued Wilkinson tridiagonal (certificate, wall, peak memory);
+     the spectral fault drills (a transient post_backtransform strike on
+     heev escalated Auto -> DC, a persistent post_secular strike walking
+     DC -> QR, post_stage1 on svd escalated Auto -> Bidiag, each path read
+     from the call's obs event; post_secular on stedc detected, and
+     raising under ErrorPolicy.Raise).  No hand kernel runs on the heev
+     and svd paths (the reference's reach no Pallas kernel): their
+     launches must all be 0;
+ 14. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -187,7 +209,8 @@ kernel (torch.profiler), with the device's idle share, and the gesv's K4
 device time into its round-1 launches and its reduction rounds', K3's
 into its factor and strips launches, and the stream's K6 and K7 device
 time into their update, factor and solve launches, and the kernel
-breakdown of one Abft posv and one Abft CALU gesv.
+breakdown of one Abft posv and one Abft CALU gesv, and one warm heev and
+one warm svd at n = 8192 by span and by kernel, with the idle share.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
@@ -198,8 +221,8 @@ and K0's pivoted U from a fifth, --seed + 4, and K1's tiles at n = 32 and
 from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
 zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
-tenth, --seed + 9, slice 12's from --seed + 10 to + 13 and slice 13's
-from --seed + 14, so that
+tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
+from --seed + 14 and slice 14's from --seed + 15, so that
 adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
@@ -1195,8 +1218,11 @@ def profile_device(label, fn) -> list:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(fn)
+    # the drivers' spans show on the device timeline as user annotations
+    # (named "slate.*"): they are not kernels
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("slate.")]
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -3769,6 +3795,444 @@ def check_slice13(st, seed, n, nb, nrhs, serve_reqs, reset, counts,
     return {"obs_default_" + k: v for k, v in main_want.items()}
 
 
+
+# ---- slice 14: the spectral drivers ---------------------------------------
+
+# BASELINE.md config 5 ("dheev two-stage + dgesvd n=30k") cut to one card
+# and to the smoke's time: n = 8192 in f32 (and one heev in f64)
+SPEC_N = 8192
+# the chase routes (MethodEig DC and QR, MethodSvd Bidiag) and the fault
+# drills: a chase runs its steps one after another, ~37 launches a step
+# for hb2st and ~66 for tb2bd, and n = 2048 takes 17392 steps against
+# n = 1024's 4600, so n is cut to 1024 to keep the smoke inside its time
+SPEC_PARITY_N = 1024
+STEDC_N = 4096
+# max|w - lambda| / max|lambda| (and max|s - sigma| / sigma_0): about
+# 4 n eps_f32 at n = 8192 for f32 (eigenvalues move by at most the
+# backward error's norm, O(n eps ||A||) for the library's routines; the
+# library's own dense call on the same A is printed beside, as
+# `library_rel_err`); the f64 routes at rounding level
+SPEC_BOUND = {torch.float32: 2e-3, torch.float64: 1e-10}
+# ||A X - B X diag(w)||_F / (||A||_F ||X||_F), B = G G^T + n I (cond ~5)
+HEGV_BOUND = 1e-4
+# a parity route's values against the Auto route's, relative to max|w|
+PARITY_BOUND = 2e-3
+
+
+def spectral_matrix(kind: str, n: int, gen, dtype):
+    """The generator's heev or svd matrix (util/generator.py:61-73) built
+    on the card: sigma_i = 1e3^(-i/(n-1)), Q from the QR of a seeded
+    Gaussian; heev: A = Q diag(lambda) Q^T with lambda = linspace(-1, 1,
+    n) * sigma reversed, svd: A = U diag(sigma) V^T.  Formed in f64,
+    rounded to ``dtype``.  Returns (A, the exact spectrum ascending, or
+    the singular values descending)."""
+    f64 = torch.float64
+    sigma = 1e3 ** (-torch.arange(n, dtype=f64, device="cuda") / (n - 1))
+    q1, _ = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda",
+                                        dtype=f64))
+    if kind == "heev":
+        lam = torch.linspace(-1.0, 1.0, n, dtype=f64, device="cuda") \
+            * sigma.flip(0)
+        a = (q1 * lam) @ q1.T
+        a = (a + a.T) / 2
+        return a.to(dtype), torch.sort(lam).values
+    q2, _ = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda",
+                                        dtype=f64))
+    return ((q1 * sigma) @ q2.T).to(dtype), sigma
+
+
+def heev_split(st, a, nb, opts=None) -> dict:
+    """heev's phases one after another, each synced (host clock): the
+    spans' work (he2hb with the band gather, stage2, backtransform,
+    certify) as heev_info runs it."""
+    from slate_tpu_torch.drivers import heev as H
+    from slate_tpu_torch.robust import certify
+    n = a.shape[0]
+    ad = st.HermitianMatrix.from_numpy(a, nb).to_dense()
+    stacks, t1 = _timed(lambda: H._he2hb_scan(ad, nb))
+    band, t1b = _timed(lambda: H._band_from_stacks(stacks[2], stacks[3], n,
+                                                   nb))
+    (w, Z2, _), t2 = _timed(lambda: H._stage2_eig(band, nb, True, opts))
+
+    def back():
+        zp = torch.zeros((stacks[2].shape[0] * nb, n), dtype=Z2.dtype,
+                         device="cuda")
+        zp[:n] = Z2
+        return H._unmtr_he2hb_stack(stacks[0], stacks[1], nb, zp)[:n]
+    Z, t3 = _timed(back)
+    cert, t4 = _timed(lambda: certify.certify_eig(ad, w, Z).to_list()[0])
+    return {"he2hb": t1 + t1b, "stage2": t2, "backtransform": t3,
+            "certify": t4, "certificate_ratio": cert.growth}
+
+
+def svd_split(st, a, nb, opts=None) -> dict:
+    """svd's phases one after another, each synced (host clock)."""
+    from slate_tpu_torch.drivers import svd as S
+    from slate_tpu_torch.robust import certify
+    m, n = a.shape
+    stacks, t1 = _timed(lambda: S._ge2tb_scan(a, nb))
+    band, t1b = _timed(lambda: S._band_upper_from_stacks(stacks[4],
+                                                         stacks[5], n, nb))
+    (s, Un, Vn, _), t2 = _timed(lambda: S._stage2_svd(band, nb, True, opts))
+
+    def back():
+        Mp, Np = stacks[0].shape[1], -(-n // nb) * nb
+        up = torch.zeros((Mp, n), dtype=a.dtype, device="cuda")
+        up[:n] = Un
+        vp = torch.zeros((Np, n), dtype=a.dtype, device="cuda")
+        vp[:n] = Vn
+        return (S._unmbr_ge2tb_u(stacks[0], stacks[1], nb, up)[:m],
+                S._unmbr_ge2tb_v(stacks[2], stacks[3], nb, vp)[:n])
+    (U, V), t3 = _timed(back)
+    cert, t4 = _timed(lambda: certify.certify_svd(a, s, U, V).to_list()[0])
+    return {"ge2tb": t1 + t1b, "stage2": t2, "backtransform": t3,
+            "certify": t4, "certificate_ratio": cert.growth}
+
+
+def span_ms(st, fn) -> dict:
+    """The recorded spans of one ``fn()`` (host clock, not synced inside:
+    a span's kernels may still run when it closes), ms by name."""
+    with st.obs.record_spans() as rec:
+        _timed(fn)
+    return span_totals(rec.spans)
+
+
+def check_heev_full(st, gen, dtype, nb, reset, counts, failures):
+    """heev at n = SPEC_N on the generator's heev matrix: cold and warm
+    with vectors, heev_vals, the synced phase split, the certificate's
+    ratio against its tolerance and the eigenvalues against the exact
+    spectrum, beside the library's dense eigensolver on the same A.
+    Returns (A, the launch counts of the cold call)."""
+    from slate_tpu_torch.robust import certify
+    n = SPEC_N
+    a, lam = spectral_matrix("heev", n, gen, dtype)
+    A = st.HermitianMatrix.from_numpy(a, nb)
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    reset()
+    (w, Z, h), cold = _timed(lambda: st.heev(A, info))
+    launches = counts()
+    (w, Z, h), warm = _timed(lambda: st.heev(A, info))
+    (wv, hv), t_vals = _timed(lambda: st.heev_vals(A, info))
+    scale = float(lam.abs().max())
+    err = float((w.double() - lam).abs().max()) / scale
+    err_vals = float((wv.double() - lam).abs().max()) / scale
+    wl, t_lib = _timed(lambda: torch.linalg.eigh(a))
+    lib_err = float((wl[0].double() - lam).abs().max()) / scale
+    cert = certify.certify_eig(a, w, Z.to_dense()).to_list()[0]
+    tol = certify.tolerance(dtype, n)
+    split = heev_split(st, a, nb)
+    name = f"heev_{str(dtype)[6:]}"
+    emit({"phase": name, "n": n, "nb": nb, "dtype": str(dtype)[6:],
+          "wall_s_cold": cold, "wall_s": warm, "heev_vals_s": t_vals,
+          "library_eigh_s": t_lib, "phase_s": split,
+          "spans_ms": span_ms(st, lambda: st.heev(A)),
+          "certificate_ratio": cert.growth, "certify_tolerance": tol,
+          "rel_err": err, "rel_err_vals": err_vals,
+          "library_rel_err": lib_err, "bound": SPEC_BOUND[dtype],
+          "ok": h.ok and hv.ok, "launches": launches})
+    if not (h.ok and hv.ok and cert.converged and cert.growth <= tol
+            and err <= SPEC_BOUND[dtype] and err_vals <= SPEC_BOUND[dtype]
+            and Z.m == n and torch.isfinite(Z.to_dense()).all()):
+        failures.append(f"{name}: ok {h.ok}/{hv.ok}, certificate "
+                        f"{cert.growth} (tol {tol}), rel err {err}/"
+                        f"{err_vals} (bound {SPEC_BOUND[dtype]})")
+    if any(launches.values()):
+        failures.append(f"{name}: launched {launches}, want none")
+    return a, launches
+
+
+def check_svd_full(st, gen, nb, reset, counts, failures) -> dict:
+    from slate_tpu_torch.robust import certify
+    n = SPEC_N
+    a, sigma = spectral_matrix("svd", n, gen, torch.float32)
+    A = st.Matrix.from_numpy(a, nb)
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    reset()
+    (s, U, V, h), cold = _timed(lambda: st.svd(A, info))
+    launches = counts()
+    (s, U, V, h), warm = _timed(lambda: st.svd(A, info))
+    (sv, hv), t_vals = _timed(lambda: st.svd_vals(A, info))
+    err = float((s.double() - sigma).abs().max() / sigma[0])
+    err_vals = float((sv.double() - sigma).abs().max() / sigma[0])
+    sl, t_lib = _timed(lambda: torch.linalg.svd(a))
+    lib_err = float((sl[1].double() - sigma).abs().max() / sigma[0])
+    cert = certify.certify_svd(a, s, U.to_dense(), V.to_dense()).to_list()[0]
+    tol = certify.tolerance(torch.float32, n)
+    emit({"phase": "svd_float32", "m": n, "n": n, "nb": nb,
+          "wall_s_cold": cold, "wall_s": warm, "svd_vals_s": t_vals,
+          "library_svd_s": t_lib, "phase_s": svd_split(st, a, nb),
+          "certificate_ratio": cert.growth, "certify_tolerance": tol,
+          "rel_err": err, "rel_err_vals": err_vals,
+          "library_rel_err": lib_err, "bound": SPEC_BOUND[torch.float32],
+          "ok": h.ok and hv.ok, "launches": launches})
+    if not (h.ok and hv.ok and cert.converged and cert.growth <= tol
+            and err <= SPEC_BOUND[torch.float32]
+            and err_vals <= SPEC_BOUND[torch.float32]):
+        failures.append(f"svd: ok {h.ok}/{hv.ok}, certificate {cert.growth} "
+                        f"(tol {tol}), rel err {err}/{err_vals}")
+    if any(launches.values()):
+        failures.append(f"svd: launched {launches}, want none")
+    return launches
+
+
+def check_hegv(st, a, gen, nb, reset, counts, failures) -> dict:
+    """hegv itype 1 on the heev matrix and B = G G^T + n I (posv's SPD):
+    potrf launches K2 and K0 as posv does; hegst's solves are library."""
+    n = a.shape[0]
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    b = g @ g.T
+    del g
+    b.diagonal().add_(n)
+    A = st.HermitianMatrix.from_numpy(a, nb)
+    B = st.HermitianMatrix.from_numpy(b, nb)
+    reset()
+    (w, X), wall = _timed(lambda: st.hegv(A, B))
+    launches = counts()
+    _, wall_warm = _timed(lambda: st.hegv(A, B))
+    x = X.to_dense()
+    r = a @ x - (b @ x) * w[None, :]
+    ratio = float(torch.linalg.norm(r) / (torch.linalg.norm(a)
+                                          * torch.linalg.norm(x)))
+    want = {**{k: 0 for k in launches}, **expected_posv_launches(n, nb)}
+    emit({"phase": "hegv", "itype": 1, "n": n, "nb": nb,
+          "wall_s_cold": wall, "wall_s": wall_warm, "residual_ratio": ratio,
+          "bound": HEGV_BOUND, "launches": launches,
+          "expected_posv_launches": want})
+    if launches != want or not ratio <= HEGV_BOUND:
+        failures.append(f"hegv: launches {launches} (want {want}), "
+                        f"residual {ratio}")
+    return launches
+
+
+def chase_launches(st, route: str, nb: int, gen) -> dict:
+    """Kernel launches a chase step takes, counted by torch.profiler on a
+    chase of a 512 x 512 band (the same step at any n: a step touches a
+    kd-wide window and, with vectors, kd columns of Q)."""
+    from torch.profiler import ProfilerActivity, profile
+    from slate_tpu_torch.drivers import heev as H
+    from slate_tpu_torch.drivers import svd as S
+    n = 512
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    if route == "hb2st":
+        band = torch.tril(torch.triu(g + g.T, -nb), nb)
+        fn = lambda: H._hb2st(band, nb, True)           # noqa: E731
+    else:
+        band = torch.triu(torch.tril(g, nb))
+        fn = lambda: S._tb2bd(band, nb, True)           # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    k = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    steps = H.chase_steps(n, nb)
+    return {"profiled_n": n, "profiled_steps": steps, "kernels": k,
+            "kernels_per_step": k / steps}
+
+
+def check_parity_routes(st, gen, nb, failures) -> dict:
+    """heev with MethodEig DC and QR and svd with MethodSvd Bidiag at n =
+    SPEC_PARITY_N, each against the Auto route's values."""
+    from slate_tpu_torch.drivers import heev as H
+    n = SPEC_PARITY_N
+    a, _ = spectral_matrix("heev", n, gen, torch.float32)
+    A = st.HermitianMatrix.from_numpy(a, nb)
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info,
+            st.Option.UseFallbackSolver: False}
+    w0 = st.heev(A, info)[0]
+    scale = float(w0.abs().max())
+    steps = H.chase_steps(n, nb)
+    per = {r: chase_launches(st, r, nb, gen) for r in ("hb2st", "tb2bd")}
+    for route in ("DC", "QR"):
+        o = {**info, st.Option.MethodEig: getattr(st.MethodEig, route)}
+        (w, Z, h), wall = _timed(lambda: st.heev(A, o))
+        diff = float((w - w0).abs().max()) / scale
+        emit({"phase": f"heev_parity_{route}", "n": n, "nb": nb,
+              "wall_s": wall, "chase_steps": steps,
+              "chase_launches_per_step": per["hb2st"],
+              "chase_launches_est": round(per["hb2st"]["kernels_per_step"]
+                                          * steps),
+              "rel_diff_vs_auto": diff, "bound": PARITY_BOUND,
+              "ok": h.ok})
+        if not (h.ok and diff <= PARITY_BOUND):
+            failures.append(f"heev {route}: ok {h.ok}, vs Auto {diff}")
+    g = spectral_matrix("svd", n, gen, torch.float32)[0]
+    G = st.Matrix.from_numpy(g, nb)
+    s0 = st.svd(G, {**info})[0]
+    o = {**info, st.Option.MethodSvd: st.MethodSvd.Bidiag}
+    (s, U, V, h), wall = _timed(lambda: st.svd(G, o))
+    diff = float((s - s0).abs().max() / s0[0])
+    emit({"phase": "svd_parity_Bidiag", "n": n, "nb": nb, "wall_s": wall,
+          "chase_steps": steps, "chase_launches_per_step": per["tb2bd"],
+          "chase_launches_est": round(per["tb2bd"]["kernels_per_step"]
+                                      * steps),
+          "rel_diff_vs_auto": diff, "bound": PARITY_BOUND,
+          "ok": h.ok})
+    if not (h.ok and diff <= PARITY_BOUND):
+        failures.append(f"svd Bidiag: ok {h.ok}, vs Auto {diff}")
+    return per
+
+
+def glued_wilkinson(n: int):
+    """Glued W21+ blocks (couplings 1e-8 between blocks), n // 21 of them:
+    the classic divide and conquer deflation stress."""
+    k = n // 21
+    w21 = torch.arange(-10, 11, dtype=torch.float32, device="cuda").abs()
+    d = w21.repeat(k)
+    e = torch.ones(21 * k - 1, device="cuda")
+    e[20::21] = 1e-8
+    return d, e
+
+
+def check_stedc(st, gen, failures) -> None:
+    """stedc at n = STEDC_N on a seeded random tridiagonal and on glued
+    Wilkinson matrices: the certificate, the wall, the peak device memory
+    of the call (its top merge holds the peak)."""
+    from slate_tpu_torch.drivers import stedc as D
+    from slate_tpu_torch.robust import certify
+    cases = {"random": (torch.randn(STEDC_N, generator=gen, device="cuda"),
+                        torch.randn(STEDC_N - 1, generator=gen,
+                                    device="cuda")),
+             "glued_wilkinson": glued_wilkinson(STEDC_N)}
+    for name, (d, e) in cases.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ((w, Z), h), wall = _timed(lambda: D.stedc_info(d, e))
+        peak = torch.cuda.max_memory_allocated() - base
+        T = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+        cert = certify.certify_eig(T, w, Z).to_list()[0]
+        w64 = torch.linalg.eigvalsh(T.double())
+        err = float((w.double() - w64).abs().max() / w64.abs().max())
+        n = d.shape[0]
+        tol = certify.tolerance(torch.float32, n)
+        emit({"phase": f"stedc_{name}", "n": n, "wall_s": wall,
+              "certificate_ratio": cert.growth, "certify_tolerance": tol,
+              "rel_err_vs_f64_eigvalsh": err,
+              "peak_mib": peak / 2 ** 20, "ok": h.ok})
+        if not (h.ok and cert.converged and err <= SPEC_BOUND[torch.float32]):
+            failures.append(f"stedc {name}: ok {h.ok}, certificate "
+                            f"{cert.growth}, rel err {err}")
+
+
+def check_spectral_faults(st, gen, nb, failures) -> None:
+    """The spectral fault drills of robust/faults.py: each escalates (or
+    raises) as the ladders say, the path noted in the call's event."""
+    from slate_tpu_torch.robust import faults
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+
+    def drill(name, plan, call, want_path):
+        with faults.inject(plan), st.obs.recording() as evs:
+            out, wall = _timed(call)
+        h = out[-1]
+        ev = evs[-1]
+        emit({"phase": f"fault_{name}", "site": plan.site,
+              "transient": plan.transient, "kind": plan.kind,
+              "path": ev.get("path"), "escalations": ev.get("escalations"),
+              "ok": h.ok, "wall_s": wall})
+        if not (h.ok and ev.get("path") == want_path):
+            failures.append(f"fault {name}: ok {h.ok}, path "
+                            f"{ev.get('path')} (want {want_path})")
+
+    a, _ = spectral_matrix("heev", SPEC_PARITY_N, gen, torch.float32)
+    A = st.HermitianMatrix.from_numpy(a, nb)
+    drill("heev_transient_backtransform",
+          faults.FaultPlan(site="post_backtransform", kind="bitflip",
+                           seed=5, count=1, transient=True),
+          lambda: st.heev(A, info), "escalated:DC")
+    drill("heev_persistent_secular_dc_to_qr",
+          faults.FaultPlan(site="post_secular", kind="nan", seed=7,
+                           count=8),
+          lambda: st.heev(A, {**info, st.Option.MethodEig:
+                              st.MethodEig.DC}), "escalated:QR")
+    g, _ = spectral_matrix("svd", SPEC_PARITY_N, gen, torch.float32)
+    G = st.Matrix.from_numpy(g, nb)
+    drill("svd_transient_stage1",
+          faults.FaultPlan(site="post_stage1", kind="nan", seed=17,
+                           count=4, transient=True),
+          lambda: st.svd(G, info), "escalated:Bidiag")
+    d = torch.randn(SPEC_PARITY_N, generator=gen, device="cuda")
+    e = torch.randn(SPEC_PARITY_N - 1, generator=gen, device="cuda")
+    plan = faults.FaultPlan(site="post_secular", kind="nan", seed=2,
+                            count=8)
+    with faults.inject(plan):
+        *_, h = st.stedc(d, e, opts=info)
+    raised = False
+    with faults.inject(plan):
+        try:
+            st.stedc(d, e)
+        except st.SlateNotConvergedError:
+            raised = True
+    emit({"phase": "fault_stedc_secular", "n": SPEC_PARITY_N, "detected":
+          not h.ok, "raised_under_raise_policy": raised})
+    if h.ok or not raised:
+        failures.append(f"stedc post_secular: detected {not h.ok}, raised "
+                        f"{raised}")
+
+
+def trace_spectral(st, heev_a, gen, nb) -> None:
+    """One warm heev and one warm svd at SPEC_N by span (host clock) and
+    by device operation (torch.profiler), with the device's idle share."""
+    A = st.HermitianMatrix.from_numpy(heev_a, nb)
+    st.heev(A)
+    emit({"phase": "trace_spans", "of": "heev",
+          "spans_ms": span_ms(st, lambda: st.heev(A))})
+    profile_device("heev", lambda: st.heev(A))
+    g, _ = spectral_matrix("svd", SPEC_N, gen, torch.float32)
+    G = st.Matrix.from_numpy(g, nb)
+    st.svd(G)
+    emit({"phase": "trace_spans", "of": "svd",
+          "spans_ms": span_ms(st, lambda: st.svd(G))})
+    profile_device("svd", lambda: st.svd(G))
+
+
+def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
+    """The slice-14 phases (the spectral drivers); their matrices draw
+    from --seed + 15.  Returns the launch counts of their paths."""
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    out = {}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a32, out["heev_float32"] = check_heev_full(st, gen, torch.float32, nb,
+                                               reset, counts, failures)
+    emit({"phase": "seconds", "of": "heev_float32",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _, out["heev_float64"] = check_heev_full(st, gen, torch.float64, nb,
+                                             reset, counts, failures)
+    emit({"phase": "seconds", "of": "heev_float64",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["svd_float32"] = check_svd_full(st, gen, nb, reset, counts,
+                                        failures)
+    emit({"phase": "seconds", "of": "svd_float32",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    out["hegv"] = check_hegv(st, a32, gen, nb, reset, counts, failures)
+    emit({"phase": "seconds", "of": "hegv",
+          "seconds": time.perf_counter() - t0})
+    if trace:
+        trace_spectral(st, a32, gen, nb)
+    del a32
+    torch.cuda.empty_cache()
+    for name, fn in (("parity_routes",
+                      lambda: check_parity_routes(st, gen, nb, failures)),
+                     ("stedc", lambda: check_stedc(st, gen, failures)),
+                     ("spectral_faults",
+                      lambda: check_spectral_faults(st, gen, nb, failures))):
+        t0 = time.perf_counter()
+        fn()
+        emit({"phase": "seconds", "of": name,
+              "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError("slice 14: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3777,8 +4241,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nrhs", type=int, default=128)
     ap.add_argument("--trace", action="store_true",
                     help="also break one warm posv, one warm CALU gesv, "
-                         "one warm QR gels and one warm serving stream down "
-                         "by phase and kernel")
+                         "one warm QR gels, one warm serving stream, and one "
+                         "warm heev and svd down by phase and kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4154,6 +4618,10 @@ def main(argv=None) -> int:
                                      reset, counts, kernels, card,
                                      shield_path)
     del serve_reqs
+
+    # ---- slice 14: the spectral drivers (--seed + 15) ----
+    slice14_launches = check_slice14(st, args.seed, nb, reset, counts,
+                                     args.trace)
     plans_dir.cleanup()
 
     # ---- the record ----
@@ -4167,7 +4635,8 @@ def main(argv=None) -> int:
                                 cfg4["cholqr_default"],
                             "gels_config4_qr_forced": cfg4["qr_forced"],
                             **serve_launches, **robust_launches,
-                            **slice12_launches, **slice13_launches}})
+                            **slice12_launches, **slice13_launches,
+                            **slice14_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",

@@ -37,6 +37,15 @@ first use).  The ported slices carry the single-device solvers on tiled
   redistribute, ...), inverses (``trtri``, ``trtrm``, ``potri``),
   condition estimates, printing, the test-matrix generator and the
   simplified ``api`` (its batch verbs over the serving cores);
+- the spectral drivers: ``heev``/``heevd``/``heev_vals`` (two-stage:
+  he2hb band reduction, then the library's eigh of the band, or under
+  ``MethodEig`` QR and DC the hb2st bulge chase and the library's eigh of
+  T or the native divide and conquer ``stedc``), ``svd``/``svd_vals``
+  (ge2tb, then the library's SVD of the band, or under ``MethodSvd``
+  Bidiag the tb2bd chase and ``bdsqr``), ``hegv``/``hegst`` (B factored by
+  ``potrf``: K2 and K0 on the card), ``sterf``, ``steqr``, ``hb2st`` and
+  ``tb2bd``, every result certified (``certify_eig``, ``certify_svd``) and
+  escalated along Auto -> DC -> QR and Auto -> Bidiag on failure;
 - robustness on those paths: ``Option.Abft`` (Huang-Abraham checksums
   that locate and repair a single corrupted element of every panel step,
   ``robust/abft.py``), the fault sites of ``robust/faults.py``, and
@@ -64,8 +73,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .types import Diag, Norm, Op, Side, TileKind, Uplo  # noqa: E402,F401
 from .options import (  # noqa: E402,F401
-    Abft, ErrorPolicy, GridOrder, MethodCholQR, MethodGels, MethodGemm,
-    MethodHemm, MethodLU, NormScope, Option, Precision, Speculate, Target,
+    Abft, ErrorPolicy, GridOrder, MethodCholQR, MethodEig, MethodGels,
+    MethodGemm, MethodHemm, MethodLU, MethodSvd, NormScope, Option,
+    Precision, Speculate, Target,
 )
 from .version import __version__  # noqa: E402,F401
 from .exceptions import (  # noqa: E402,F401
@@ -110,6 +120,11 @@ from .drivers.hetrf import HEFactors, hesv, hetrf, hetrs  # noqa: E402,F401
 from .drivers.mixed import (  # noqa: E402,F401
     MixedResult, gesv_mixed, gesv_mixed_gmres, posv_mixed, posv_mixed_gmres,
 )
+from .drivers.heev import (  # noqa: E402,F401
+    hb2st, heev, heev_vals, heevd, hegst, hegv, steqr, sterf,
+)
+from .drivers.stedc import stedc  # noqa: E402,F401
+from .drivers.svd import bdsqr, svd, svd_vals, tb2bd  # noqa: E402,F401
 from .util.generator import (  # noqa: E402,F401
     generate_hermitian, generate_matrix,
 )

@@ -9,7 +9,8 @@ posv/pbsv, ...).  Every verb returns its result and takes the drivers'
 ``opts``.  The batch verbs run the serving layer's batched cores
 (serve/batched.py ``make_batched``) on one same-shaped stack, which
 reaches K6-K8 on the card where the stack's shape passes their gates.
-The spectral verbs come with queue 1, item 11 and raise until then.
+The spectral verbs (``eig``, ``eig_vals``, ``svd``, ``svd_vals``) call
+heev and svd with their certified escalation ladders.
 
     import slate_tpu_torch as st
     from slate_tpu_torch import api
@@ -31,10 +32,12 @@ from ..drivers import auxiliary as _aux
 from ..drivers import band as _band
 from ..drivers import blas3 as _blas3
 from ..drivers import cholesky as _chol
+from ..drivers import heev as _heev
 from ..drivers import hetrf as _hetrf
 from ..drivers import lu as _lu
 from ..drivers import qr as _qr
-from ..exceptions import not_ported, slate_error
+from ..drivers import svd as _svd
+from ..exceptions import slate_error
 from ..types import Side
 
 __all__ = [
@@ -258,24 +261,24 @@ def lq_multiply_by_q(side, op, F, C, opts=None):
 # ------------------------------------------------------------------ eig / SVD
 
 def eig(A, opts=None):
-    """Full Hermitian eigendecomposition (ref: simplified heev call)."""
-    raise not_ported("api.eig (heev)", "queue 1, item 11 (spectral)")
+    """Full Hermitian eigendecomposition (ref: simplified heev call).
+    Returns (eigenvalues, eigenvector Matrix)."""
+    return _heev.heev(A, opts)
 
 
 def eig_vals(A, opts=None):
     """Eigenvalues only (ref: eig_vals -> heev with Job::NoVec)."""
-    raise not_ported("api.eig_vals (heev_vals)",
-                     "queue 1, item 11 (spectral)")
+    return _heev.heev_vals(A, opts)
 
 
 def svd(A, opts=None):
-    """Full SVD (ref: simplified svd call)."""
-    raise not_ported("api.svd", "queue 1, item 11 (spectral)")
+    """Full SVD (ref: simplified svd call).  Returns per drivers.svd."""
+    return _svd.svd(A, opts)
 
 
 def svd_vals(A, opts=None):
     """Singular values only (ref: svd_vals)."""
-    raise not_ported("api.svd_vals", "queue 1, item 11 (spectral)")
+    return _svd.svd_vals(A, opts)
 
 
 # ------------------------------------------------------------------ batched

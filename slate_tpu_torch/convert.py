@@ -7,7 +7,8 @@ matrix of the same class over the same view (band matrices with their
 kl/ku/kd/uplo/diag).  LU factors carry their packed matrix and ``perm``,
 RBT factors their butterflies besides, QR and LQ factors their packed
 matrix and the stack of T triangles, band and Aasen factors their packed
-arrays and permutations.  A batched
+arrays and permutations, spectral results their arrays, matrices and
+health.  A batched
 health record (the reference's leading-axis ``HealthInfo`` pytree) becomes
 one port ``HealthInfo`` per problem.  Nothing here imports the reference:
 objects are read through the attributes both packages share.
@@ -138,3 +139,22 @@ def he_factors_from_jax(F, device=None) -> HEFactors:
         return as_tensor(a if dtype is None else a.astype(dtype), device)
     return HEFactors(t(F.L), t(F.Tdiag), t(F.Tsub), t(F.piv, np.int64),
                      int(F.nb), t(F.Tlu), t(F.Tperms, np.int64))
+
+
+def spectral_from_jax(result, device=None) -> tuple:
+    """The port's form of a reference spectral result: heev's (w, Z),
+    svd's (s, U, V), a tridiagonal or bidiagonal driver's arrays, each with
+    its HealthInfo under ErrorPolicy.Info.  Arrays become tensors, matrices
+    the port's matrices over the same tiles, the HealthInfo the port's;
+    None (Z when not jobz) stays None."""
+    out = []
+    for x in result:
+        if x is None:
+            out.append(None)
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            out.append(health_from_jax(x)[0])
+        elif hasattr(x, "storage"):
+            out.append(matrix_from_jax(x, device))
+        else:
+            out.append(as_tensor(np.asarray(x), device))
+    return tuple(out)

@@ -34,6 +34,25 @@ def untile_dense(tiles: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return dense[:m, :n]
 
 
+def assemble_band(dd: torch.Tensor, ss: torch.Tensor, *,
+                  lower: bool) -> torch.Tensor:
+    """Dense [K nb, K nb] block band from the diagonal tiles ``dd``
+    [K, nb, nb] and the off-diagonal tiles ``ss`` [>= K-1, nb, nb]
+    (already masked by the caller), tile g of ``ss`` at (g+1, g) when
+    ``lower`` else at (g, g+1): the band gather of the heev and svd
+    stage-1 reductions."""
+    K, nb = dd.shape[0], dd.shape[1]
+    g = torch.arange(K, device=dd.device)
+    tiles = torch.zeros((K, K, nb, nb), dtype=dd.dtype, device=dd.device)
+    tiles[g, g] = dd
+    if K > 1 and ss.shape[0]:
+        if lower:
+            tiles[g[:-1] + 1, g[:-1]] = ss[:K - 1]
+        else:
+            tiles[g[:-1], g[:-1] + 1] = ss[:K - 1]
+    return untile_dense(tiles, K * nb, K * nb)
+
+
 def cyclic_row_maps(Mt: int, p: int) -> tuple[np.ndarray, np.ndarray, int]:
     """Index maps between canonical tile order and 2D block-cyclic storage:
     storage row ``s`` holds canonical tile-row ``(s % mtl) * p + s // mtl``.

@@ -14,8 +14,8 @@ column, so such panels (and f64, complex, or the library plan) take
 for tall panels, all matmuls and one small no-pivot LU, else the
 recursive rank-1 scan.  The reference's
 ``precision=HIGH`` Gram products are plain f32 here (never TF32).
-``rolled_apply`` (the spectral drivers' engine) comes with the spectral
-slice (ROADMAP.md queue 1, item 11).
+``rolled_apply`` is the back-transform engine of the spectral drivers'
+two-stage reductions (drivers/heev.py, drivers/svd.py).
 """
 
 from __future__ import annotations
@@ -114,15 +114,23 @@ def panel_qr_cholqr(a: torch.Tensor):
     return packed, T, ok
 
 
-def householder_panel_blocked(a: torch.Tensor, base_w: int = 32):
+def householder_panel_blocked(a: torch.Tensor, base_w: int = 32,
+                              rows: int | None = None):
     """Blocked Householder QR of a panel [mm, w]: tall panels (mm >= 2 w,
     w >= 8) take :func:`panel_qr_cholqr` and fall back to the recursive
     scan only when its Gram Cholesky breaks down; the recursion splits
     the columns, factors the left half, applies it to the right, factors
     the right and merges T = [[T1, -T1 (V1^H V2) T2], [0, T2]].  Returns
-    (packed, T)."""
+    (packed, T).
+
+    ``rows`` (>= mm) is the panel's height in the reference's zero-padded
+    frame, where the two-stage reductions factor the live rows of a
+    taller panel whose rows below are zero: the route is chosen on it, as
+    the reference chooses (zero rows change neither route's arithmetic,
+    but the two routes differ in the sign convention of a square panel's
+    last reflector)."""
     mm, w = a.shape
-    if mm >= 2 * w and w >= 8:
+    if (mm if rows is None else rows) >= 2 * w and w >= 8 and mm >= w:
         pc, Tc, ok = panel_qr_cholqr(a)
         if ok:
             return pc, Tc
@@ -225,3 +233,25 @@ def apply_q_right(packed, T, C, conj_trans: bool) -> torch.Tensor:
     W = C @ V
     Tm = T.conj().T if conj_trans else T
     return C - (W @ Tm) @ V.conj().T
+
+
+def rolled_apply(Vstack, Tstack, offsets, Z) -> torch.Tensor:
+    """Z <- (prod_k Q_k) Z over stacked panels, the last panel first: the
+    back-transform of the two-stage reductions (heev's he2hb, svd's ge2tb;
+    ref: src/unmtr_he2hb.cc, unmbr_ge2tb).  Panel k is stored from its
+    local row 0 and acts on the rows ``offsets[k]`` (a host int) and below
+    of Z; its rows past Z's height are zero.  The reference zero-pads each
+    panel to Z's height and rolls it into place; here panel k multiplies
+    the row slice ``Z[offsets[k]:]`` directly, the same product without a
+    full-height copy a panel."""
+    Z = Z.clone()
+    rows = Z.shape[0]
+    for k in reversed(range(Tstack.shape[0])):
+        off = int(offsets[k])
+        h = min(rows - off, Vstack.shape[1])
+        if h <= 0:
+            continue
+        V = unit_lower(Vstack[k, :h])
+        Zk = Z[off:off + h]
+        Zk -= V @ (Tstack[k] @ (V.conj().T @ Zk))
+    return Z

@@ -142,6 +142,30 @@ class MethodLU(enum.Enum):
     NoPiv = "NoPiv"
 
 
+class MethodEig(enum.Enum):
+    """Stage-2 eigensolver seam (ref: heev.cc:79 MethodEig).
+
+    Auto: eigendecompose the stage-1 band directly with the library's
+    eigh (no bulge chase: the library's dense eigh is O(n^3) whatever the
+    bandwidth).  QR / DC: the parity routes, through the hb2st bulge chase
+    to a true tridiagonal, then the library's eigh of T (QR, the steqr2
+    analog) or the native divide and conquer (DC, drivers/stedc.py)."""
+
+    Auto = "auto"
+    QR = "qr"
+    DC = "dc"
+
+
+class MethodSvd(enum.Enum):
+    """Stage-2 SVD seam, as MethodEig (ref: svd.cc:286 bdsqr).
+
+    Auto: SVD of the stage-1 band directly.  Bidiag: the parity route,
+    the tb2bd bulge chase to a true bidiagonal, then the bdsqr seam."""
+
+    Auto = "auto"
+    Bidiag = "bidiag"
+
+
 class NormScope(enum.Enum):
     """What a norm reduces over (ref: enums.hh NormScope)."""
 
@@ -177,6 +201,8 @@ _DEFAULTS = {
     Option.MethodCholQR: MethodCholQR.Auto,
     Option.MethodGels: MethodGels.Auto,
     Option.MethodLU: MethodLU.Auto,
+    Option.MethodEig: MethodEig.Auto,
+    Option.MethodSvd: MethodSvd.Auto,
     Option.HoldLocalWorkspace: False,
     Option.Depth: 2,
     Option.PrintVerbose: 4,

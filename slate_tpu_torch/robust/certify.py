@@ -1,7 +1,8 @@
-"""A-posteriori certificates of speculative solves (port of the solve,
-least-squares and Aasen parts of slate_tpu/robust/certify.py).
+"""A-posteriori certificates of speculative solves and spectral results
+(port of slate_tpu/robust/certify.py).
 
-A fast attempt (the bf16 serving rung, gels' certified CholQR) produces a
+A fast attempt (the bf16 serving rung, gels' certified CholQR) or a
+spectral result (a corrupted bulge chase, a bad secular solve) produces a
 finite-looking answer with nothing in its factor to flag a wrong one; a
 residual check against the ORIGINAL operands closes that gap.  Each
 certificate is a :class:`~slate_tpu_torch.robust.health.BatchHealth`,
@@ -13,9 +14,12 @@ batched over a leading axis of problems, with the reference's mapping:
 - ``nonfinite``        any NaN/Inf in X
 
 ``min_pivot`` stays +inf, so merging a certificate into a factor's health
-keeps the factor's pivot record.  :func:`certify_ldlt` certifies one Aasen
-factorization the same way, as a HealthInfo.  ``certify_eig`` and
-``certify_svd`` come with the spectral slice.
+keeps the factor's pivot record.  :func:`certify_eig` and
+:func:`certify_svd` certify one eigen- or singular value decomposition
+(the ratio being the worst of the residual and the orthogonality defects)
+as a BatchHealth of one problem, on the device, with no host read.
+:func:`certify_ldlt` certifies one Aasen factorization the same way, as a
+HealthInfo.
 """
 
 from __future__ import annotations
@@ -80,6 +84,59 @@ def certify_lstsq(anorm, x, b, rn, *,
     tiny = torch.finfo(col.dtype).tiny
     ratio = _fro(rn) / torch.clamp(denom, min=tiny)
     return _certificate(ratio, worst, x, tol, 0)
+
+
+def _one(ratio, worst, finite, converged) -> _health.BatchHealth:
+    """A BatchHealth of one problem from 0-d device tensors."""
+    return _health.batch_healthy(1, ratio.device)._replace(
+        nonfinite=(~finite).reshape(1), min_pivot_index=worst.reshape(1),
+        growth=ratio.double().reshape(1), converged=converged.reshape(1))
+
+
+def certify_eig(a, w, v, *, tol: float | None = None) -> _health.BatchHealth:
+    """Certificate of A = V diag(w) V^H (ref: certify.py:59): the relative
+    residual ||A V - V diag(w)||_F / ||A||_F and the orthogonality defect
+    ||V^H V - I||_F / sqrt(n), each against :func:`tolerance`; ``worst`` is
+    the column of the largest residual.  ``a`` and ``v`` dense [n, n],
+    ``w`` real [n].  Nothing reads the host."""
+    n = a.shape[0]
+    if tol is None:
+        tol = tolerance(a.dtype, n)
+    R = a @ v - v * w[None, :].to(v.dtype)
+    col = (R.abs() * R.abs()).sum(dim=0)
+    tiny = torch.finfo(col.dtype).tiny
+    resid = _fro(R) / torch.clamp(_fro(a), min=tiny)
+    gram = v.conj().T @ v - torch.eye(n, dtype=v.dtype, device=v.device)
+    ortho = _fro(gram) / (float(max(n, 1)) ** 0.5)
+    finite = torch.isfinite(v.abs()).all() & torch.isfinite(w).all()
+    return _one(torch.maximum(resid, ortho), torch.argmax(col), finite,
+                finite & (resid <= tol) & (ortho <= tol))
+
+
+def certify_svd(a, s, u, v, *, tol: float | None = None
+                ) -> _health.BatchHealth:
+    """Certificate of A = U diag(s) V^H with thin factors, r = min(m, n)
+    (ref: certify.py:94): the relative residual ||A - U diag(s) V^H||_F /
+    ||A||_F and the left and right orthogonality defects, each against
+    :func:`tolerance` at max(m, n).  Nothing reads the host."""
+    m, n = a.shape
+    r = min(m, n)
+    if tol is None:
+        tol = tolerance(a.dtype, max(m, n))
+    ur, vr = u[:, :r], v[:, :r]
+    R = a - (ur * s[None, :r].to(ur.dtype)) @ vr.conj().T
+    col = (R.abs() * R.abs()).sum(dim=0)
+    tiny = torch.finfo(col.dtype).tiny
+    resid = _fro(R) / torch.clamp(_fro(a), min=tiny)
+    rnorm = float(max(r, 1)) ** 0.5
+    eye = torch.eye(r, dtype=ur.dtype, device=ur.device)
+    ou = _fro(ur.conj().T @ ur - eye) / rnorm
+    ov = _fro(vr.conj().T @ vr - eye) / rnorm
+    finite = (torch.isfinite(u.abs()).all() & torch.isfinite(v.abs()).all()
+              & torch.isfinite(s).all())
+    return _one(torch.maximum(torch.maximum(resid, ou), ov),
+                torch.argmax(col), finite,
+                finite & (resid <= tol) & (ou <= tol) & (ov <= tol))
 
 
 def certify_ldlt(a, L, T, piv, *, tol: float | None = None

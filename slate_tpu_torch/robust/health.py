@@ -257,6 +257,17 @@ def finalize(name: str, result, h: HealthInfo, opts: Options | None,
     raise (make_exc(h) if make_exc is not None else _default_exc(name, h))
 
 
+def finalize_flat(name: str, result: tuple, h: HealthInfo,
+                  opts: Options | None, make_exc=None):
+    """:func:`finalize` for tuple-shaped results ((w, Z), (s, U, V)):
+    under Info the HealthInfo is appended, ``(w, Z, h)``, not nested."""
+    res = finalize(name, tuple(result), h, opts, make_exc)
+    if error_policy(opts) is ErrorPolicy.Info:
+        r, hh = res
+        return (*r, hh)
+    return res
+
+
 def _default_exc(name: str, h: HealthInfo):
     from ..exceptions import SlateSingularError
     return SlateSingularError(f"{name}: {h.describe()}", info=h.info)

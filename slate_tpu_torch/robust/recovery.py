@@ -1,5 +1,5 @@
 """Driver-level graceful degradation: escalate, fall back, retry, bounded
-(port of the gesv, posv, hesv and gels parts of
+(port of the gesv, posv, hesv, gels, heev and svd parts of
 slate_tpu/robust/recovery.py).
 
 Each solver factors and solves under ErrorPolicy.Info and resolves the
@@ -29,6 +29,12 @@ health at its boundary, where every option it reads is resolved once:
   ``Option.Precision = bf16`` the bf16 QR rung below it
   (:func:`_gels_bf16_attempt`); ``Option.UseFallbackSolver`` adds
   Householder QR as the last rung.
+- heev and svd: a failed a-posteriori certificate (robust/certify.py)
+  escalates the METHOD, MethodEig Auto -> DC -> QR and MethodSvd Auto ->
+  Bidiag (ScaLAPACK's ladder: divide and conquer falls back to QR
+  iteration), each attempt certified again (:func:`heev_with_recovery`,
+  :func:`svd_with_recovery`); ``Option.UseFallbackSolver`` off keeps
+  the first rung only.
 - ``Option.Abft``: the drivers repair a single struck element in place;
   an UNREPAIRED detection (``abft_detected > abft_corrected``, which fails
   ``HealthInfo.ok``) retries the SAME attempt once, before any method
@@ -39,11 +45,13 @@ from __future__ import annotations
 
 import torch
 
-from ..exceptions import SlateNotPositiveDefiniteError, SlateSingularError
+from ..exceptions import (SlateNotConvergedError,
+                          SlateNotPositiveDefiniteError, SlateSingularError)
 from ..obs import events as _obs
-from ..options import (ErrorPolicy, MethodGels, MethodLU, Option, Options,
-                       get_option, resolve_abft, resolve_speculate,
-                       select_gels_method, select_lu_method)
+from ..options import (ErrorPolicy, MethodEig, MethodGels, MethodLU,
+                       MethodSvd, Option, Options, get_option, resolve_abft,
+                       resolve_speculate, select_gels_method,
+                       select_lu_method)
 from . import health as _h
 from .precision import resolve_precision
 
@@ -416,6 +424,65 @@ def gels_with_recovery(A, B, opts: Options | None = None):
                                max_retries=max(len(fallbacks), 1))
     _obs.note_path(first_name, rungs, used, speculate)
     return _h.finalize("gels", X, h, opts, exc)
+
+
+# ------------------------------------------------------------- heev / svd
+
+# ScaLAPACK's spectral ladder: divide and conquer falls back to QR
+# iteration.  Auto tries the library's band eigensolver first.
+_EIG_CHAIN = {
+    MethodEig.Auto: (MethodEig.Auto, MethodEig.DC, MethodEig.QR),
+    MethodEig.DC: (MethodEig.DC, MethodEig.QR),
+    MethodEig.QR: (MethodEig.QR,),
+}
+
+_SVD_CHAIN = {
+    MethodSvd.Auto: (MethodSvd.Auto, MethodSvd.Bidiag),
+    MethodSvd.Bidiag: (MethodSvd.Bidiag,),
+}
+
+
+def _notconverged_exc(name):
+    return lambda h: SlateNotConvergedError(
+        f"{name}: spectral result failed certification and escalation "
+        f"was exhausted ({h.describe()})", iters=int(h.iters))
+
+
+def _spectral_ladder(name, chain, key, attempt, dtype, opts):
+    """Walk ``chain`` (method enums) through :func:`bounded_retry`, each
+    attempt ``attempt(opts with key = method)`` returning ``(result,
+    HealthInfo)``; note the path and resolve the ErrorPolicy."""
+    if not get_option(opts, Option.UseFallbackSolver):
+        chain = chain[:1]
+
+    def run(m):
+        return attempt(_with(opts, **{key: m}))
+
+    result, h, used = bounded_retry(
+        run(chain[0]), [lambda m=m: run(m) for m in chain[1:]],
+        dtype=dtype, max_retries=len(chain))
+    _obs.note_path(chain[0].name, [m.name for m in chain[1:]], used, False)
+    return _h.finalize_flat(name, result, h, opts, _notconverged_exc(name))
+
+
+def heev_with_recovery(A, opts: Options | None = None, *, jobz: bool = True):
+    """heev's body with certification-gated MethodEig escalation
+    (ref: recovery.py:361): Auto -> DC -> QR.  Returns ``(w, Z)``, under
+    Info ``(w, Z, HealthInfo)``."""
+    from ..drivers import heev as _heev
+    return _spectral_ladder(
+        "heev", _EIG_CHAIN[get_option(opts, Option.MethodEig)], "MethodEig",
+        lambda o: _heev.heev_info(A, o, jobz=jobz), A.dtype, opts)
+
+
+def svd_with_recovery(A, opts: Options | None = None, *, jobu: bool = True):
+    """svd's body with certification-gated MethodSvd escalation
+    (ref: recovery.py:384): Auto -> Bidiag.  Returns ``(s, U, V)``, under
+    Info ``(s, U, V, HealthInfo)``."""
+    from ..drivers import svd as _svd
+    return _spectral_ladder(
+        "svd", _SVD_CHAIN[get_option(opts, Option.MethodSvd)], "MethodSvd",
+        lambda o: _svd.svd_info(A, o, jobu=jobu), A.dtype, opts)
 
 
 def _finalize_solve(name, F, X, h, opts, make_exc):

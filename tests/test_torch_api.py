@@ -7,8 +7,9 @@ makes are recorded: the port must reach the same driver (module and
 function) as the reference, and its result must agree, within 1e-12
 relative in f64.  The batch verbs are bit-equal to the port's own
 ``make_batched`` on the same stack and agree with the reference's within
-1e-4 (f32), with the same escalation flags.  The spectral verbs raise
-NotImplementedError citing queue 1, item 11.  The reference's drivers
+1e-4 (f32), with the same escalation flags.  The spectral verbs reach
+heev and svd as the reference's do (values within 1e-9 relative; their
+mesh target raises, citing queue 1, item 12).  The reference's drivers
 are wrapped in ``@annotate``, which calls ``jax.core.trace_state_clean``;
 the installed JAX no longer exports that name, so the ``ref_drivers``
 fixture restores it on the test side only.
@@ -324,9 +325,41 @@ def test_api_all_is_the_reference_all():
 
 @pytest.mark.parametrize("verb", ["eig", "eig_vals", "svd", "svd_vals"])
 def test_spectral_verbs_are_not_ported(verb):
-    A = st.HermitianMatrix.from_numpy(A_SPD, NB, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        getattr(api, verb)(A)
+    """Only their mesh target: it comes with queue 1, item 12."""
+    A = (st.HermitianMatrix.from_numpy(A_SPD, NB, device="cpu")
+         if verb.startswith("eig") else
+         st.Matrix.from_numpy(A_GEN, NB, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        getattr(api, verb)(A, {st.Option.Target: st.Target.mesh})
+
+
+SPECTRAL_CASES = [("eig", "hermitian", "_heev", "heev"),
+                  ("eig", "symmetric", "_heev", "heev"),
+                  ("eig_vals", "hermitian", "_heev", "heev_vals"),
+                  ("svd", "general", "_svd", "svd"),
+                  ("svd_vals", "general", "_svd", "svd_vals")]
+
+
+@pytest.mark.parametrize("case", SPECTRAL_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in SPECTRAL_CASES])
+def test_spectral_verbs_reach_the_reference_driver(monkeypatch, case):
+    verb, kind, mod, driver = case
+    calls_p, calls_r = [], []
+    for api_mod, calls in ((api, calls_p), (ref_api, calls_r)):
+        m = getattr(api_mod, mod)
+        fn = getattr(m, driver)
+
+        def wrapped(*a, __fn=fn, __calls=calls, **k):
+            __calls.append(driver)
+            return __fn(*a, **k)
+        monkeypatch.setattr(m, driver, wrapped)
+    got = getattr(api, verb)(_m(kind)(st))
+    want = getattr(ref_api, verb)(_m(kind)(ref))
+    assert calls_p == calls_r == [driver]
+    vals = got if verb.endswith("_vals") else got[0]
+    wvals = want if verb.endswith("_vals") else want[0]
+    assert np.abs(np.sort(vals.numpy()) - np.sort(np.asarray(wvals))).max() \
+        <= RTOL * np.abs(np.asarray(wvals)).max() * 1e3
 
 
 def test_operand_errors_match():

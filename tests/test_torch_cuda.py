@@ -993,3 +993,77 @@ def test_timing_never_syncs_inside_a_capture(cuda, empty_plans,
                if e.get("kind") == "event" and e["traced"])
     batches = [e for e in evs if e.get("kind") == "serve_batch"]
     assert batches and all(e["device_ms"] is not None for e in batches)
+
+
+# ---- slice 14: the spectral drivers on the card -------------------------
+
+# the smoke's f32 bound on eigen- and singular values (~4 n eps_f32 at n =
+# 8192): cuSOLVER's f32 eigh and SVD, which the Auto routes call on the
+# band, sit near 2e-4 of the largest value at n = 512, past 1e-4
+SPEC_TOL = 2e-3
+
+def _herm32(rng, n):
+    g = rng.standard_normal((n, n))
+    return ((g + g.T) / 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("route", ["Auto", "DC", "QR"])
+def test_heev_on_the_card_matches_the_cpu_route(cuda, route):
+    """heev at n = 512 in f32 on the card against the same call on the
+    CPU and against the f64 eigenvalues: within SPEC_TOL of the largest,
+    the certificate passed, residual and orthogonality at f32 grade."""
+    rng = np.random.default_rng(140)
+    n, nb = 512, 128
+    a = _herm32(rng, n)
+    opts = {st.Option.MethodEig: getattr(st.MethodEig, route),
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    wg, Zg, hg = st.heev(st.HermitianMatrix.from_numpy(a, nb), opts)
+    wc, _, hc = st.heev(st.HermitianMatrix.from_numpy(a, nb, device="cpu"),
+                        opts)
+    assert hg.ok and hc.ok and wg.device.type == "cuda"
+    w64 = np.linalg.eigvalsh(a.astype(np.float64))
+    for w in (wg.cpu().numpy(), wc.numpy()):
+        np.testing.assert_allclose(w, w64, rtol=0,
+                                   atol=SPEC_TOL * np.abs(w64).max())
+    z, w = Zg.to_numpy().astype(np.float64), wg.cpu().numpy()
+    assert np.abs(a @ z - z * w[None, :]).max() < 1e-3 * np.abs(w).max()
+    assert np.abs(z.T @ z - np.eye(n)).max() < 1e-3
+
+
+@pytest.mark.parametrize("route", ["Auto", "Bidiag"])
+def test_svd_on_the_card_matches_the_cpu_route(cuda, route):
+    rng = np.random.default_rng(141)
+    m, n, nb = 640, 512, 128
+    a = rng.standard_normal((m, n)).astype(np.float32)
+    opts = {st.Option.MethodSvd: getattr(st.MethodSvd, route),
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    sg, Ug, Vg, hg = st.svd(st.Matrix.from_numpy(a, nb), opts)
+    sc, _, _, hc = st.svd(st.Matrix.from_numpy(a, nb, device="cpu"), opts)
+    assert hg.ok and hc.ok
+    s64 = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+    for s in (sg.cpu().numpy(), sc.numpy()):
+        np.testing.assert_allclose(s, s64, rtol=0, atol=SPEC_TOL * s64[0])
+    u, v = Ug.to_numpy().astype(np.float64), Vg.to_numpy().astype(np.float64)
+    s = sg.cpu().numpy()
+    assert np.abs(u * s[None, :] @ v.T - a).max() < 1e-3 * s.max()
+
+
+def test_hegv_on_the_card_launches_k2_and_k0_as_potrf(cuda):
+    """hegv factors B with potrf: K2 3 n/nb - 1 and K0 n/nb - 1 launches;
+    hegst's and the back-transform's solves are the library's."""
+    rng = np.random.default_rng(142)
+    n, nb = 512, 128
+    a = _herm32(rng, n)
+    b = _spd(rng, n) * n
+    before = ck.CHOL_PANEL.launches, TRI_INV.launches
+    wg, Xg = st.hegv(st.HermitianMatrix.from_numpy(a, nb),
+                     st.HermitianMatrix.from_numpy(b, nb))
+    assert ck.CHOL_PANEL.launches - before[0] == 3 * n // nb - 1
+    assert TRI_INV.launches - before[1] == n // nb - 1
+    wc, _ = st.hegv(st.HermitianMatrix.from_numpy(a, nb, device="cpu"),
+                    st.HermitianMatrix.from_numpy(b, nb, device="cpu"))
+    np.testing.assert_allclose(wg.cpu().numpy(), wc.numpy(), rtol=0,
+                               atol=SPEC_TOL * np.abs(wc.numpy()).max())
+    x, w = Xg.to_numpy().astype(np.float64), wg.cpu().numpy()
+    r = a @ x - b @ x * w[None, :]
+    assert np.linalg.norm(r) / (np.linalg.norm(a) * np.linalg.norm(x)) < 1e-4
