@@ -200,7 +200,31 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      raising under ErrorPolicy.Raise).  No hand kernel runs on the heev
      and svd paths (the reference's reach no Pallas kernel): their
      launches must all be 0;
- 14. print the launch counts, the card line, the kernels line, and last
+ 14. slice 15 (its own generator, --seed + 16): durable jobs and
+     compatibility.  potrf_ooc at n = 20480, f32, nb = 128 on A = G G^T +
+     n I from a host array (the TileMap: pinned host block columns, each
+     panel window one contiguous range, copies on a side stream): the factor
+     against the in-core potrf's, ||A - L L^T||_F / ||A||_F beside the
+     in-core factor's, K1 launched once a panel step (160), the H2D and
+     D2H bytes equal to the loop's (~45 GB in), cold and warm walls
+     beside in-core posv's, the factor bit-equal across runs, and under
+     torch.profiler the kernels' and the copies' device busy time, their
+     overlap and the device's idle share; getrf_ooc at n = 20480, f32, at
+     the default width (256) on the orthogonal A: ||A[perm] - L U|| /
+     ||A||, the solve through getrs on its factors beside the in-core
+     partial-pivot gesv's, no hand kernel, the traffic, walls and idle
+     share; the kill-and-resume drill at n = 8192 for both drivers (an
+     uninterrupted run, a run killed after the checkpoint of a middle
+     step at cadence 4, the resume, a full run with checkpoints on: every
+     factor and permutation bit-equal), the refusals (a ckpt_torn_write
+     plan: torn; a ckpt_stale_read plan: stale; a flipped payload byte:
+     corrupt) and the checkpoint events' bytes and wall ms; the shims:
+     compat.lapack gesv, posv and gels at n = 4096 in f64 (gels on 8192 x
+     4096) and the C API's dgesv and dposv through ctypes pointers into
+     numpy buffers, their backward errors and the hand kernels each
+     launched (none), and an f32 posv through the shim, whose tile size
+     (256 at this n) lies past K1's and K2's gates;
+ 15. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -222,7 +246,8 @@ from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
 zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
 tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
-from --seed + 14 and slice 14's from --seed + 15, so that
+from --seed + 14, slice 14's from --seed + 15 and slice 15's from
+--seed + 16, so that
 adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
@@ -241,6 +266,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2475,7 +2501,6 @@ def strike_seed(rows: int, cols: int, where, count: int = 1) -> int:
     draws them in a [rows, cols] block, all satisfy ``where(row, col)``:
     so that a strike lands on a live element of the part of the factor it
     is meant for (a bitflip scales its element, and a zero stays zero)."""
-    import numpy as np
     seed = 0
     while True:
         p = np.random.default_rng(seed).choice(rows * cols, size=count,
@@ -4233,6 +4258,409 @@ def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
     return out
 
 
+# ---- slice 15: durable jobs and compatibility (--seed + 16) ----
+OOC_N = 20480             # potrf_ooc and getrf_ooc at the main path's width
+OOC_NB = 128              # potrf_ooc's panel: K1 takes its f32 diagonal tile
+DRILL_N = 8192            # the kill-and-resume drill
+DRILL_EVERY = 4           # the killed run's cadence
+SHIM_N = 4096             # the LAPACK shims and the C entry points, f64
+SHIM_NRHS = 16
+EPS64 = 2.0 ** -52
+
+
+def ooc_traffic(op: str, m: int, n: int, nb: int, itemsize: int) -> tuple:
+    """(H2D, D2H) bytes of the reference's out-of-core loops: potrf_ooc
+    brings in each step's panel and every earlier block column below the
+    diagonal and writes the panel back; getrf_ooc brings in and writes
+    back the panel and every trailing block column below the diagonal."""
+    h2d = d2h = 0
+    if op == "potrf_ooc":
+        for si, k0 in enumerate(range(0, n, nb)):
+            w = min(k0 + nb, n) - k0
+            h2d += (n - k0) * (w + si * nb)
+            d2h += (n - k0) * w
+    else:
+        for k0 in range(0, min(m, n), nb):
+            h2d += (m - k0) * (n - k0)
+            d2h += (m - k0) * (n - k0)
+    return h2d * itemsize, d2h * itemsize
+
+
+def ooc_profile(fn) -> tuple:
+    """One ``fn()`` under torch.profiler: (its result, the kernels' and the
+    copies' device busy time apart, their union against the wall (the
+    device's idle share) and their overlap, kernels + copies - union: how
+    much of the copying ran while the update did)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, wall = _timed(fn)
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.name.startswith("slate.")]
+    copies = [e for e in ev if e.name.startswith("Memcpy")]
+    kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+    if not ev:
+        return out, {"profiled_wall_s": wall,
+                     "device_idle_share": "not measured"}
+    kb = _busy_seconds(kernels) if kernels else 0.0
+    cb = _busy_seconds(copies) if copies else 0.0
+    ub = _busy_seconds(ev)
+    return out, {"profiled_wall_s": wall, "kernel_busy_s": kb,
+                 "copy_busy_s": cb, "device_busy_s": ub,
+                 "device_idle_share": 1 - ub / wall,
+                 "copy_compute_overlap_s": kb + cb - ub,
+                 "kernel_events": len(kernels), "copy_events": len(copies)}
+
+
+def rel_factor_residual(a, lhs) -> float:
+    """||A - lhs||_F / ||A||_F in f64 on the card."""
+    a64 = a.double()
+    return float(torch.linalg.norm(a64 - lhs) / torch.linalg.norm(a64))
+
+
+def check_potrf_ooc(st, gen, nrhs, reset, counts, kernels, card,
+                    failures) -> dict:
+    """potrf_ooc at n = 20480, f32, nb = 128, on the posv matrix (A = G
+    G^T + n I): the factor against the in-core potrf's, its residual, K1
+    once a step, the TileMap's traffic, walls beside in-core posv's and
+    the device's idle share."""
+    from slate_tpu_torch.core import storage
+    n, nb = OOC_N, OOC_NB
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    a = g @ g.T
+    del g
+    a.diagonal().add_(n)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    a_h = a.cpu().numpy()
+    l_in = st.potrf(st.HermitianMatrix.from_numpy(a, nb)).to_dense()
+    _, posv_cold = run_posv(st, a, b, nb)
+    _, posv_warm = run_posv(st, a, b, nb)
+    del b
+    reset()
+    storage.reset_traffic()
+    lfac, wall = _timed(lambda: st.potrf_ooc(a_h, nb=nb))
+    launches = counts()
+    traffic = dict(storage.TRAFFIC)
+    lfac2, wall_warm = _timed(lambda: st.potrf_ooc(a_h, nb=nb))
+    repeat = bool(np.array_equal(lfac, lfac2))
+    del lfac2
+    _, prof = ooc_profile(lambda: st.potrf_ooc(a_h, nb=nb))
+    lt = torch.from_numpy(lfac).cuda()
+    agree = float((lt - l_in).abs().max() / l_in.abs().max())
+    l64 = lt.double()
+    res = rel_factor_residual(a, l64 @ l64.T)
+    del l64
+    li64 = l_in.double()
+    res_in = rel_factor_residual(a, li64 @ li64.T)
+    del li64, lt, l_in, a
+    h2d, d2h = ooc_traffic("potrf_ooc", n, n, nb, 4)
+    want = {**{name: 0 for name in kernels}, "chol_tile": -(-n // nb)}
+    bound = n * EPS32
+    emit({"phase": "potrf_ooc", "n": n, "nb": nb, "dtype": "float32",
+          "rel_max_diff_vs_incore_potrf": agree, "tol": RTOL,
+          "factor_residual": res, "incore_factor_residual": res_in,
+          "residual_bound": bound, "launches": launches,
+          "h2d_bytes": traffic["h2d"], "h2d_bytes_expected": h2d,
+          "d2h_bytes": traffic["d2h"], "d2h_bytes_expected": d2h,
+          "wall_s": wall, "wall_s_warm": wall_warm,
+          "h2d_gbps_warm": traffic["h2d"] / wall_warm / 1e9,
+          "incore_posv_wall_s": posv_cold, "incore_posv_wall_s_warm":
+          posv_warm, "bitwise_repeatable": repeat, **prof, "card": card})
+    if not (np.isfinite(lfac).all() and lfac.shape == (n, n)):
+        failures.append("potrf_ooc: non-finite or misshapen factor")
+    if not (agree <= RTOL and res < bound and repeat):
+        failures.append(f"potrf_ooc: diff {agree} (tol {RTOL}), residual "
+                        f"{res} (bound {bound}), repeatable {repeat}")
+    if launches != want or (traffic["h2d"], traffic["d2h"]) != (h2d, d2h):
+        failures.append(f"potrf_ooc: launches {launches} (want {want}), "
+                        f"traffic {traffic} (want {h2d}, {d2h})")
+    return launches
+
+
+def check_getrf_ooc(st, gen, nb, nrhs, reset, counts, kernels, card,
+                    failures) -> dict:
+    """getrf_ooc at n = 20480, f32, at the default width on the gesv
+    matrix (A = Q of a Gaussian): the residual of A[perm] = L U, the solve
+    through getrs on its factors beside the in-core partial-pivot gesv,
+    the traffic, the walls and the idle share."""
+    from slate_tpu_torch.core import storage
+    from slate_tpu_torch.tune.plans import ooc_panel_width
+    n = OOC_N
+    width = ooc_panel_width(n, "float32")
+    a = orthogonal(n, gen)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    a_h = a.cpu().numpy()
+    pp = {st.Option.MethodLU: st.MethodLU.PartialPiv,
+          st.Option.UseFallbackSolver: False,
+          st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    _, x_in, gesv_wall = run_gesv(st, a, b, nb, pp)
+    reset()
+    storage.reset_traffic()
+    F, wall = _timed(lambda: st.getrf_ooc(a_h))
+    launches = counts()
+    traffic = dict(storage.TRAFFIC)
+    # the second run, under the profiler, also checks the bits repeat
+    F2, prof = ooc_profile(lambda: st.getrf_ooc(a_h))
+    repeat = bool(np.array_equal(F.LU, F2.LU)
+                  and np.array_equal(F.perm, F2.perm))
+    del F2
+    lu = torch.from_numpy(F.LU).cuda()
+    perm = torch.from_numpy(F.perm).cuda()
+    lu64 = lu.double()
+    lower = torch.tril(lu64, -1)
+    lower.diagonal().fill_(1)
+    res = rel_factor_residual(a[perm], lower @ torch.triu(lu64))
+    del lu64, lower
+    Fo = st.LUFactors(st.Matrix.from_numpy(lu, nb), perm)
+    x = st.getrs(Fo, st.Matrix.from_numpy(b, nb)).to_dense()
+    x64 = torch.linalg.solve(a.double(), b.double())
+    res_x, fwd_x = accuracy(a, x, b, x64)
+    res_in, fwd_in = accuracy(a, x_in, b, x64)
+    is_perm = bool(np.array_equal(np.sort(F.perm), np.arange(n)))
+    del lu, x, x64, x_in, a, b, Fo
+    h2d, d2h = ooc_traffic("getrf_ooc", n, n, width, 4)
+    bound = n * EPS32
+    emit({"phase": "getrf_ooc", "n": n, "nb": width, "dtype": "float32",
+          "factor_residual": res, "residual_bound": bound,
+          "solve_scaled_residual": res_x, "solve_forward_error_vs_f64":
+          fwd_x, "incore_gesv_scaled_residual": res_in,
+          "incore_gesv_forward_error_vs_f64": fwd_in,
+          "residual_bound_solve": GESV_RESIDUAL_BOUND, "launches": launches,
+          "h2d_bytes": traffic["h2d"], "h2d_bytes_expected": h2d,
+          "d2h_bytes": traffic["d2h"], "d2h_bytes_expected": d2h,
+          "wall_s": wall,
+          "copy_gbps": (traffic["h2d"] + traffic["d2h"]) / wall / 1e9,
+          "incore_gesv_wall_s": gesv_wall,
+          "bitwise_repeatable": repeat, **prof, "card": card})
+    if not (np.isfinite(F.LU).all() and is_perm and repeat):
+        failures.append(f"getrf_ooc: non-finite factor, perm a "
+                        f"permutation {is_perm}, repeatable {repeat}")
+    if not (res < bound and res_x < GESV_RESIDUAL_BOUND
+            and fwd_x < GESV_FORWARD_BOUND):
+        failures.append(f"getrf_ooc: residual {res} (bound {bound}), solve "
+                        f"{res_x} / {fwd_x}")
+    want = {name: 0 for name in kernels}
+    if launches != want or (traffic["h2d"], traffic["d2h"]) != (h2d, d2h):
+        failures.append(f"getrf_ooc: launches {launches} (want none), "
+                        f"traffic {traffic} (want {h2d}, {d2h})")
+    return launches
+
+
+def check_ooc_drill(st, gen, faults, failures) -> None:
+    """The kill-and-resume drill at n = 8192, f32, for both drivers in a
+    temporary directory: an uninterrupted run, a run killed right after
+    the checkpoint of a step in the middle, the resume, and a full run
+    with checkpoints on, every result bit-equal to the first; then the
+    refusals (torn, stale, corrupt) and the checkpoint events' bytes and
+    wall times."""
+    from slate_tpu_torch.exceptions import SlateCheckpointError
+    from slate_tpu_torch.robust.checkpoint import (PAYLOAD_NAME,
+                                                   CheckpointManager,
+                                                   SimulatedPreemption,
+                                                   ooc_fingerprint)
+    nd = DRILL_N
+    g = torch.randn(nd, nd, generator=gen, device="cuda")
+    spd_h = (g @ g.T + nd * torch.eye(nd, device="cuda")).cpu().numpy()
+    del g
+    gen_h = orthogonal(nd, gen).cpu().numpy()
+
+    def same(x, y):
+        if isinstance(x, tuple):
+            return all(np.array_equal(u, v) for u, v in zip(x, y))
+        return bool(np.array_equal(x, y))
+
+    def refused(call):
+        try:
+            call()
+        except SlateCheckpointError as e:
+            return e.reason
+        return "accepted"
+
+    with tempfile.TemporaryDirectory(prefix="smoke-ckpt-") as tmp, \
+            st.obs.recording() as recs:
+        for op, x, nbd in (("potrf_ooc", spd_h, OOC_NB),
+                           ("getrf_ooc", gen_h, 256)):
+            fn = getattr(st, op)
+            d = os.path.join(tmp, op)
+            steps = -(-nd // nbd)
+            kill = steps // 2 // DRILL_EVERY * DRILL_EVERY   # a middle save
+            base, t_base = _timed(lambda: fn(x, nb=nbd))
+            t0 = time.perf_counter()
+            try:
+                fn(x, nb=nbd, checkpoint=CheckpointManager(
+                    d, every=DRILL_EVERY, abort_after_step=kill))
+                failures.append(f"{op} drill: no simulated preemption")
+            except SimulatedPreemption:
+                pass
+            t_kill = time.perf_counter() - t0
+            # the resume saves nothing more (a cadence of the step count)
+            res, t_res = _timed(lambda: fn(None, checkpoint=CheckpointManager(
+                d, every=steps), resume=True))
+            on_every = steps // 2
+            on, t_on = _timed(lambda: fn(x, nb=nbd, checkpoint=(
+                CheckpointManager(d + "_on", every=on_every))))
+            emit({"phase": "ooc_drill", "op": op, "n": nd, "nb": nbd,
+                  "steps": steps, "every": DRILL_EVERY, "killed_after": kill,
+                  "resumed_bit_identical": same(res, base),
+                  "checkpoints_on_bit_identical": same(on, base),
+                  "on_every": on_every, "wall_s_uninterrupted": t_base,
+                  "wall_s_killed_run": t_kill, "wall_s_resume": t_res,
+                  "wall_s_checkpoints_on": t_on})
+            if not (same(res, base) and same(on, base)):
+                failures.append(f"{op} drill: resumed or checkpointed run "
+                                f"not bit-identical")
+        # the refusals, on getrf_ooc's geometry
+        d_torn = os.path.join(tmp, "torn")
+        with faults.inject(faults.FaultPlan(site="ckpt_torn_write")):
+            try:
+                st.getrf_ooc(gen_h, nb=256, checkpoint=CheckpointManager(
+                    d_torn, every=DRILL_EVERY, abort_after_step=0))
+            except SimulatedPreemption:
+                pass
+        torn = refused(lambda: st.getrf_ooc(
+            None, checkpoint=CheckpointManager(d_torn), resume=True))
+        d_stale = os.path.join(tmp, "stale")
+        cm = CheckpointManager(d_stale)
+        fp = ooc_fingerprint("getrf_ooc", nd, nd, 256, "float32")
+        cm.save("getrf_ooc", 0, gen_h, 256, 256, fp)
+        with faults.inject(faults.FaultPlan(site="ckpt_stale_read")):
+            cm.save("getrf_ooc", 1, gen_h, 256, 256, fp)
+        stale = refused(lambda: st.getrf_ooc(
+            None, checkpoint=CheckpointManager(d_stale), resume=True))
+        path = os.path.join(tmp, "getrf_ooc", PAYLOAD_NAME)
+        with open(path, "r+b") as fh:
+            fh.seek(-1, os.SEEK_END)
+            last = fh.read(1)
+            fh.seek(-1, os.SEEK_END)
+            fh.write(bytes([last[0] ^ 0xFF]))
+        corrupt = refused(lambda: st.getrf_ooc(
+            None, checkpoint=CheckpointManager(os.path.join(tmp,
+                                                            "getrf_ooc")),
+            resume=True))
+    got = {"torn": torn, "stale": stale, "corrupt": corrupt}
+    events = {}
+    for e in recs:
+        if e.get("kind") in ("checkpoint_save", "checkpoint_restore"):
+            row = events.setdefault(f"{e['op']}/{e['kind']}", {
+                "count": 0, "bytes": [], "wall_ms": [], "verify": {}})
+            row["count"] += 1
+            row["bytes"].append(e["bytes"])
+            row["wall_ms"].append(e["wall_ms"])
+            row["verify"][e["verify"]] = row["verify"].get(e["verify"], 0) + 1
+    for row in events.values():
+        w = row.pop("wall_ms")
+        row["bytes"] = sorted(set(row["bytes"]))
+        row["wall_ms_min"], row["wall_ms_median"], row["wall_ms_max"] = (
+            min(w), median(w), max(w))
+    emit({"phase": "ooc_refusals", "reasons": got,
+          "checkpoint_events": events})
+    if got != {"torn": "torn", "stale": "stale", "corrupt": "corrupt"}:
+        failures.append(f"checkpoint refusals {got}")
+
+
+def check_shims(st, gen, reset, counts, failures) -> None:
+    """The LAPACK shims gesv, posv and gels at n = 4096 in f64 (gels on
+    2n x n), and the C API's dgesv and dposv called through ctypes
+    pointers into numpy buffers as the C host calls them, on the card:
+    the backward errors, the hand kernels each launched (none: every
+    kernel is f32, and the shims' tile size, 256 at this n, lies past K1's
+    and K2's gates), and an f32 posv through the shim to show that gate."""
+    from slate_tpu_torch.compat import capi, lapack
+    ns, k = SHIM_N, SHIM_NRHS
+    g = torch.randn(ns, ns, generator=gen, device="cuda", dtype=torch.float64)
+    a = g + ns ** 0.5 * torch.eye(ns, device="cuda", dtype=torch.float64)
+    s = g @ g.T + ns * torch.eye(ns, device="cuda", dtype=torch.float64)
+    tall = torch.randn(2 * ns, ns, generator=gen, device="cuda",
+                       dtype=torch.float64)
+    b = torch.randn(2 * ns, k, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    a_h, s_h, t_h, b_h = (np.ascontiguousarray(x.cpu().numpy())
+                          for x in (a, s, tall, b))
+    bs_h = np.ascontiguousarray(b_h[:ns])
+
+    def backward(m, x, rhs):
+        m, x, rhs = (torch.as_tensor(np.asarray(v), device="cuda",
+                                     dtype=torch.float64)
+                     for v in (m, x, rhs))
+        return float(torch.linalg.norm(m @ x - rhs)
+                     / (torch.linalg.norm(m) * torch.linalg.norm(x)))
+
+    def ne_residual(m, x, rhs):
+        m, x, rhs = (torch.as_tensor(np.asarray(v), device="cuda")
+                     for v in (m, x, rhs))
+        return float(torch.linalg.norm(m.T @ (m @ x - rhs))
+                     / (torch.linalg.norm(m) ** 2 * torch.linalg.norm(x)))
+
+    def c_call(fn, m_h):
+        x = np.zeros((ns, k))
+        rc = fn(ns, k, m_h.ctypes.data, ns, bs_h.ctypes.data, k,
+                x.ctypes.data, k, lapack._nb(ns))
+        return rc, x
+
+    os.environ.pop("SLATE_TORCH_CAPI_DEVICE", None)   # CUDA, as a C caller
+    rows = {}
+    for name, call, check in (
+            ("lapack_gesv", lambda: lapack.gesv(a_h, bs_h)[0],
+             lambda x: backward(a_h, x, bs_h)),
+            ("lapack_posv", lambda: lapack.posv(s_h, bs_h),
+             lambda x: backward(s_h, x, bs_h)),
+            ("lapack_gels", lambda: lapack.gels(t_h, b_h),
+             lambda x: ne_residual(t_h, x, b_h)),
+            ("capi_dgesv", lambda: c_call(capi.dgesv, a_h),
+             lambda x: backward(a_h, x, bs_h)),
+            ("capi_dposv", lambda: c_call(capi.dposv, s_h),
+             lambda x: backward(s_h, x, bs_h)),
+            ("lapack_posv_float32", lambda: lapack.posv(
+                s_h.astype(np.float32), bs_h.astype(np.float32)),
+             lambda x: backward(s_h, x.astype(np.float64), bs_h))):
+        reset()
+        out, wall = _timed(call)
+        launches = {kk: v for kk, v in counts().items() if v}
+        rc = 0
+        if name.startswith("capi"):
+            rc, out = out
+        err = check(out)
+        bound = ns * (EPS32 if name.endswith("float32") else EPS64)
+        rows[name] = {"rc": rc, "backward_error": err, "bound": bound,
+                      "wall_s": wall, "hand_kernels_launched": launches,
+                      "nb": lapack._nb(ns)}
+        if rc != 0 or not err < bound or launches:
+            failures.append(f"{name}: rc {rc}, backward error {err} (bound "
+                            f"{bound}), launches {launches} (want none)")
+    emit({"phase": "shims", "n": ns, "nrhs": k, "gels_m": 2 * ns,
+          "dtype": "float64", "rows": rows})
+
+
+def check_slice15(st, seed, nb, nrhs, reset, counts, kernels,
+                  card) -> dict:
+    """The slice-15 phases (durable jobs and compatibility); their
+    matrices draw from --seed + 16.  Returns the launch counts of their
+    paths."""
+    from slate_tpu_torch.robust import faults
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    out = {}
+    for name, fn in (
+            ("potrf_ooc", lambda: check_potrf_ooc(
+                st, gen, nrhs, reset, counts, kernels, card, failures)),
+            ("getrf_ooc", lambda: check_getrf_ooc(
+                st, gen, nb, nrhs, reset, counts, kernels, card, failures)),
+            ("ooc_drill", lambda: check_ooc_drill(st, gen, faults,
+                                                  failures)),
+            ("shims", lambda: check_shims(st, gen, reset, counts,
+                                          failures))):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        launches = fn()
+        if launches is not None:
+            out[name] = launches
+        emit({"phase": "seconds", "of": name,
+              "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError("slice 15: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4622,6 +5050,10 @@ def main(argv=None) -> int:
     # ---- slice 14: the spectral drivers (--seed + 15) ----
     slice14_launches = check_slice14(st, args.seed, nb, reset, counts,
                                      args.trace)
+
+    # ---- slice 15: durable jobs and compatibility (--seed + 16) ----
+    slice15_launches = check_slice15(st, args.seed, nb, nrhs, reset, counts,
+                                     kernels, card)
     plans_dir.cleanup()
 
     # ---- the record ----
@@ -4636,14 +5068,16 @@ def main(argv=None) -> int:
                             "gels_config4_qr_forced": cfg4["qr_forced"],
                             **serve_launches, **robust_launches,
                             **slice12_launches, **slice13_launches,
-                            **slice14_launches}})
+                            **slice14_launches, **slice15_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
                           main_launches),
         "chol_tile": ("slate_tpu_torch/csrc/chol_tile.cu",
                       "slate_tpu/internal/pallas_chol.py:320",
-                      "posv_tile_route", tile_launches),
+                      "posv_tile_route+potrf_ooc",
+                      {"chol_tile": tile_launches["chol_tile"]
+                       + slice15_launches["potrf_ooc"]["chol_tile"]}),
         "chol_panel_fused": ("slate_tpu_torch/csrc/chol_panel.cu",
                              "slate_tpu/internal/pallas_chol.py:180", "posv",
                              main_launches),

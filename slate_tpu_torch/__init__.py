@@ -57,7 +57,16 @@ first use).  The ported slices carry the single-device solvers on tiled
   against its library route on the card and persists the winners), one
   ``slate-obs-v1`` event per public driver call, recorded spans, and the
   metrics, compare and SLO command lines (``obs``; ``python -m
-  slate_tpu_torch.obs``).
+  slate_tpu_torch.obs``);
+- durable jobs: ``potrf_ooc`` (K1 for each f32 diagonal tile of width <=
+  128) and ``getrf_ooc``, out-of-core factorizations of a host matrix
+  streamed through the card by a ``TileMap`` (pinned host bytes, copies on
+  a side stream), with panel-boundary checkpoints and a bit-identical
+  resume (``robust/checkpoint.py``, ``CheckpointManager``);
+- compatibility: the ScaLAPACK descriptors and ``pd*`` routines, the
+  LAPACK-style shims, the buffer-pointer entry points of an embedded C
+  API (``native/slate_tpu_torch_capi.h``) and its Fortran module
+  (``compat``), and the host tile packing of ``native.py`` in numpy.
 
 Matrices are placed on CUDA unless the caller passes ``device="cpu"``;
 with no GPU, ``device=None`` raises.  On CPU tensors every kernel wrapper
@@ -83,7 +92,7 @@ from .exceptions import (  # noqa: E402,F401
     SlateSingularError, SlateUnsupportedDtypeError, SlateValueError,
 )
 from .core.grid import Grid  # noqa: E402,F401
-from .core.storage import TileStorage  # noqa: E402,F401
+from .core.storage import TileMap, TileStorage  # noqa: E402,F401
 from .core.matrix import (  # noqa: E402,F401
     BandMatrix, BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,
     HermitianBandMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
@@ -100,11 +109,13 @@ from .drivers.blas3 import (  # noqa: E402,F401
 from .drivers.auxiliary import (  # noqa: E402,F401
     add, col_norms, copy, norm, redistribute, scale, scale_row_col, set,
 )
-from .drivers.cholesky import posv, potrf, potri, potrs  # noqa: E402,F401
+from .drivers.cholesky import (  # noqa: E402,F401
+    posv, potrf, potrf_ooc, potri, potrs,
+)
 from .drivers.inverse import trtri, trtrm  # noqa: E402,F401
 from .drivers.lu import (  # noqa: E402,F401
-    LUFactors, RBTFactors, gesv, gesv_nopiv, getrf, getrf_nopiv, getrf_ooc,
-    getrf_rbt, getrf_tntpiv, getri, getriOOP, getrs,
+    LUFactors, OocLUFactors, RBTFactors, gesv, gesv_nopiv, getrf,
+    getrf_nopiv, getrf_ooc, getrf_rbt, getrf_tntpiv, getri, getriOOP, getrs,
 )
 from .drivers.qr import (  # noqa: E402,F401
     LQFactors, QRFactors, cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf,
@@ -128,4 +139,5 @@ from .drivers.svd import bdsqr, svd, svd_vals, tb2bd  # noqa: E402,F401
 from .util.generator import (  # noqa: E402,F401
     generate_hermitian, generate_matrix,
 )
-from . import api, obs, serve, tune  # noqa: E402,F401
+from .robust.checkpoint import CheckpointManager  # noqa: E402,F401
+from . import api, compat, obs, serve, tune  # noqa: E402,F401

@@ -4,11 +4,18 @@ reference's slate_tpu/core/storage.py ``TileStorage``).
 ``data`` is one tensor ``[Mt, Nt, mb, nb]`` on one explicit device, in
 the reference's cyclic order (which on the 1 x 1 grid is the natural tile
 order), so ``data`` holds the same bytes as the reference's
-``TileStorage.data`` for the same matrix.  The host-offload ``TileMap``
-is not ported yet.
+``TileStorage.data`` for the same matrix.
+
+``TileMap`` (ref: storage.py:191) is the host-resident tile map of the
+out-of-core drivers: the authoritative bytes stay in host memory and
+panel-shaped windows stream through the device.
 """
 
 from __future__ import annotations
+
+import threading
+import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -152,3 +159,293 @@ class TileStorage:
         return (f"TileStorage({self.m}x{self.n}, tiles {self.mb}x{self.nb}, "
                 f"grid {self.grid.p}x{self.grid.q}, {self.dtype}, "
                 f"{self.device})")
+
+
+# residency codes for TileMap._res
+_RES_HOST = 0    # host bytes authoritative, no device copy
+_RES_DEVICE = 1  # clean copy staged on device (prefetch in flight or held)
+_RES_DIRTY = 2   # device bytes newer than host (writeback pending)
+
+_RES_NAMES = {_RES_HOST: "host", _RES_DEVICE: "device", _RES_DIRTY: "dirty"}
+
+#: bytes every TileMap of this process moved host -> device ("h2d") and
+#: device -> host ("d2h"): the traffic counters the smoke reads around a
+#: driver call
+TRAFFIC = {"h2d": 0, "d2h": 0}
+
+
+def reset_traffic() -> None:
+    for k in TRAFFIC:
+        TRAFFIC[k] = 0
+
+
+class TileMap:
+    """Host-resident tile map with per-tile residency for out-of-core work
+    (port of slate_tpu/core/storage.py ``TileMap``).
+
+    The authoritative bytes live in host memory, and panel-shaped windows
+    stream to the device on demand, so that ``potrf_ooc``/``getrf_ooc``
+    run at n beyond device memory.  Residency of each tile:
+
+    - ``host``    host bytes authoritative, nothing staged,
+    - ``device``  a clean copy staged on the device (``prefetch`` issued),
+    - ``dirty``   device bytes newer than host (``store`` writeback
+      pending until :meth:`drain`).
+
+    The host bytes are kept as block columns, each an [m, nb] row-major
+    array in one pinned buffer (on CUDA), so that the rows of a panel
+    window, the out-of-core loops' only window, are one contiguous range
+    of pinned memory: a window of a row-major matrix would be strided, and
+    a non-blocking copy of a strided pinned tensor goes through an
+    unpinned temporary and is synchronous.  Every copy is non-blocking on
+    one side stream: ``prefetch(window)`` issues the H2D copy and records
+    an event; ``fetch(window)`` pops the staged buffer (or copies it now
+    on a miss) and makes the current (compute) stream wait on its event;
+    ``store(window, t)`` queues the D2H copy into the host block after the
+    compute stream's work and records an event; ``drain`` waits on each
+    pending event before the window's host bytes count as authoritative
+    again, and every read of those bytes (an overlapping fetch,
+    ``permute_rows``, ``host_array``) drains first.  A buffer filled on
+    the side stream is ``record_stream``-ed onto the compute stream, and a
+    stored tensor onto the side stream and kept in ``_pending`` until its
+    drain, so that the caching allocator reuses neither while a copy is in
+    flight.  A window that is not whole block columns is copied correctly
+    but synchronously.  On the CPU (``device="cpu"``) a window is a copy of
+    the host bytes and a writeback lands at drain.  ``device=None`` means
+    CUDA and raises without it.
+
+    Thread safety: the residency ledger (``_res``), the staged-buffer
+    table (``_device``) and the writeback queue (``_pending``) are guarded
+    by ``_lock``, so that a checkpoint or observer thread can read
+    residency while the factorization thread streams.  Blocking work (the
+    ``ooc_copy_stall`` chaos sleep, event waits, host copies) happens
+    outside the lock.
+    """
+
+    def __init__(self, dense, mb: int, nb: int, max_pending: int = 4,
+                 device=None):
+        slate_error(np.ndim(dense) == 2, "TileMap needs a 2D host array")
+        self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
+        src = np.asarray(dense)
+        self.m, self.n = src.shape
+        self.mb, self.nb = int(mb), int(nb)
+        # writeback queue depth before a forced drain: bounds how much
+        # device memory in-flight D2H copies can pin
+        self.max_pending = max(1, int(max_pending))
+        self.Mt = layout.num_tiles(self.m, self.mb)
+        self.Nt = layout.num_tiles(self.n, self.nb)
+        self._dtype = src.dtype
+        tdtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
+        flat = torch.empty(src.size, dtype=tdtype, pin_memory=self._cuda)
+        self._cols = []                      # block column j: [m, nb_j]
+        for j in range(self.Nt):
+            c0, c1 = j * self.nb, min((j + 1) * self.nb, self.n)
+            blk = flat[self.m * c0:self.m * c1].view(self.m, c1 - c0)
+            np.copyto(blk.numpy(), src[:, c0:c1])
+            self._cols.append(blk)
+        self._side = torch.cuda.Stream(self.device) if self._cuda else None
+        self._res = np.zeros((self.Mt, self.Nt), np.uint8)
+        self._device: dict[tuple, Any] = {}
+        self._pending: list[tuple] = []
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_dense(cls, dense, mb: int, nb: int, device=None) -> "TileMap":
+        return cls(np.asarray(dense), mb, nb, device=device)
+
+    # ---- residency ledger ----
+    def _tiles_of(self, r0, r1, c0, c1):
+        return (slice(r0 // self.mb, -(-r1 // self.mb)),
+                slice(c0 // self.nb, -(-c1 // self.nb)))
+
+    def residency(self, i: int, j: int) -> str:
+        """Residency of tile (i, j): 'host' | 'device' | 'dirty'."""
+        with self._lock:
+            return _RES_NAMES[int(self._res[i, j])]
+
+    def residency_counts(self) -> dict:
+        with self._lock:
+            counts = np.bincount(self._res.reshape(-1), minlength=3)
+        return {name: int(counts[code]) for code, name in _RES_NAMES.items()}
+
+    @staticmethod
+    def _stall() -> None:
+        # chaos: a congested host<->device copy path; the sleep stays
+        # outside _lock
+        from ..robust import faults
+        plan = faults.host_fire("ooc_copy_stall")
+        if plan is not None and plan.delay_s > 0:
+            time.sleep(plan.delay_s)
+
+    @staticmethod
+    def _hits(key: tuple, other: tuple) -> bool:
+        return not (other[1] <= key[0] or other[0] >= key[1]
+                    or other[3] <= key[2] or other[2] >= key[3])
+
+    # ---- copies ----
+    def _pieces(self, r0, r1, c0, c1):
+        """(host view, first column, last column) of the window's part in
+        each block column it touches, columns relative to c0."""
+        for j in range(c0 // self.nb, -(-c1 // self.nb)):
+            b0 = j * self.nb
+            lo, hi = max(c0, b0), min(c1, b0 + self._cols[j].shape[1])
+            yield self._cols[j][r0:r1, lo - b0:hi - b0], lo - c0, hi - c0
+
+    def _h2d(self, key: tuple) -> tuple:
+        """Copy a host window to the device: (tensor, event), the event
+        None on the CPU."""
+        r0, r1, c0, c1 = key
+        pieces = list(self._pieces(*key))
+        TRAFFIC["h2d"] += (r1 - r0) * (c1 - c0) * self._dtype.itemsize
+        if not self._cuda:
+            return torch.cat([p for p, _, _ in pieces], dim=1), None
+        with torch.cuda.stream(self._side):
+            buf = torch.empty((r1 - r0, c1 - c0), dtype=pieces[0][0].dtype,
+                              device=self.device)
+            for p, a, b in pieces:
+                buf[:, a:b].copy_(p, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._side)
+        return buf, ev
+
+    def _consume(self, staged: tuple) -> torch.Tensor:
+        """A staged window, safe to use on the current stream."""
+        buf, ev = staged
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ev)
+            buf.record_stream(cur)
+        return buf
+
+    def _d2h(self, key: tuple, arr) -> tuple:
+        """Queue the copy of ``arr`` into the window's host bytes: (source,
+        event); host data (a CPU tensor or array) is written at drain, a
+        CUDA tensor is copied on the side stream now."""
+        TRAFFIC["d2h"] += int(np.prod(arr.shape)) * self._dtype.itemsize
+        if not (isinstance(arr, torch.Tensor) and arr.is_cuda):
+            return torch.as_tensor(np.asarray(arr)), None
+        src = arr if arr.is_contiguous() else arr.contiguous()
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            for p, a, b in self._pieces(*key):
+                p.copy_(src[:, a:b], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._side)
+        src.record_stream(self._side)
+        return src, ev
+
+    # ---- streaming ----
+    def prefetch(self, r0: int, r1: int, c0: int, c1: int) -> None:
+        """Stage host window [r0:r1, c0:c1] on the device (async H2D)."""
+        key = (int(r0), int(r1), int(c0), int(c1))
+        with self._lock:
+            staged = key in self._device
+            conflict = any(self._hits(key, p[0]) for p in self._pending)
+        if staged:
+            return
+        self._stall()
+        if conflict:
+            self.drain()
+        buf = self._h2d(key)
+        ti, tj = self._tiles_of(*key)
+        with self._lock:
+            self._device[key] = buf
+            self._res[ti, tj] = np.maximum(self._res[ti, tj], _RES_DEVICE)
+
+    def fetch(self, r0: int, r1: int, c0: int, c1: int) -> torch.Tensor:
+        """Consume the staged window (pop), or copy it now on a miss.
+
+        A window overlapping a pending writeback drains first, so a fetch
+        always observes the newest bytes; disjoint windows ride through
+        without waiting for in-flight D2H copies."""
+        key = (int(r0), int(r1), int(c0), int(c1))
+        with self._lock:
+            buf = self._device.pop(key, None)
+            conflict = any(self._hits(key, p[0]) for p in self._pending)
+        if buf is not None:
+            return self._consume(buf)
+        self._stall()
+        if conflict:
+            self.drain()
+        buf = self._h2d(key)
+        ti, tj = self._tiles_of(*key)
+        with self._lock:
+            self._res[ti, tj] = np.maximum(self._res[ti, tj], _RES_DEVICE)
+        return self._consume(buf)
+
+    def store(self, r0: int, r1: int, c0: int, c1: int, arr) -> None:
+        """Queue an async writeback of ``arr`` into the window."""
+        key = (int(r0), int(r1), int(c0), int(c1))
+        slate_error(tuple(arr.shape) == (r1 - r0, c1 - c0),
+                    f"store shape {tuple(arr.shape)} != window "
+                    f"({r1 - r0},{c1 - c0})")
+        self._stall()
+        entry = self._d2h(key, arr)
+        ti, tj = self._tiles_of(*key)
+        with self._lock:
+            self._pending.append((key, entry))
+            depth = len(self._pending)
+            self._res[ti, tj] = _RES_DIRTY
+            # staged clean copies overlapping a dirty window are stale
+            for k in [k for k in self._device if self._hits(key, k)]:
+                del self._device[k]
+        if depth > self.max_pending:
+            self.drain()
+
+    def drain(self) -> None:
+        """Land every pending writeback in host memory (blocks)."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for key, (src, ev) in pending:
+            if ev is not None:
+                ev.synchronize()
+                continue
+            for p, a, b in self._pieces(*key):
+                p.copy_(src[:, a:b])
+        if pending:
+            with self._lock:
+                for key, _ in pending:
+                    ti, tj = self._tiles_of(*key)
+                    self._res[ti, tj] = _RES_HOST
+
+    def permute_rows(self, r0: int, c0: int, c1: int, perm) -> None:
+        """Host-side row permutation of the window [r0:, c0:c1], the LU
+        left-columns pivot exchange: ``host[r0:][i] = host[r0:][perm[i]]``,
+        written for the rows ``perm`` moves only (a partial-pivot panel
+        moves at most twice its width)."""
+        self.drain()
+        perm = np.asarray(perm)
+        slate_error(perm.shape == (self.m - r0,),
+                    f"permute_rows: perm of {perm.shape} for "
+                    f"{self.m - r0} rows")
+        moved = np.flatnonzero(perm != np.arange(perm.size))
+        if c1 > c0 and moved.size:
+            dst = torch.from_numpy(r0 + moved)
+            src = torch.from_numpy(r0 + perm[moved])
+            for p, _, _ in self._pieces(0, self.m, c0, c1):
+                p[dst] = p[src]
+
+    # ---- host views ----
+    def host_array(self) -> np.ndarray:
+        """The authoritative host bytes after draining writebacks, as a
+        new row-major array (the block columns side by side): a snapshot
+        that later steps do not change."""
+        self.drain()
+        return torch.cat(self._cols, dim=1).numpy()
+
+    def to_dense(self) -> np.ndarray:
+        return self.host_array()
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.m * self.n * self._dtype.itemsize
+
+    def __repr__(self):
+        counts = self.residency_counts()
+        return (f"TileMap({self.m}x{self.n}, tiles {self.mb}x{self.nb}, "
+                f"{self.dtype}, {self.device}, residency {counts})")

@@ -14,6 +14,10 @@ reference's do.  ``Option.HoldLocalWorkspace`` runs posv's Cholesky
 attempt as one CUDA graph on the card (the reference's one jitted
 factor+solve program): potrf's device work (:func:`_potrf_device`) is
 split from its health read (:func:`_chol_health`) for it.
+
+``potrf_ooc`` is the out-of-core factorization of a host matrix: a
+``TileMap`` streams block-column panels through the device, with
+checkpoints at panel-step boundaries and a bit-identical resume.
 """
 
 from __future__ import annotations
@@ -177,6 +181,96 @@ def _finalize_potrf(L, h, uplo, opts):
         "potrf", Lv, h, opts,
         lambda hh: SlateNotPositiveDefiniteError(
             f"potrf: leading minor not positive definite "
+            f"({hh.describe()})", info=hh.info))
+
+
+def _ooc_chol_health(lfac_host) -> _health.HealthInfo:
+    """Cholesky health from host reductions: the out-of-core factor is not
+    brought back to the device to be checked (it may not fit)."""
+    import numpy as np
+    d = np.abs(np.diagonal(lfac_host))
+    d = np.where(np.isnan(d), 0.0, d)
+    minidx = int(np.argmin(d)) if d.size else 0
+    minpiv = float(d[minidx]) if d.size else math.inf
+    bad = (minpiv == 0.0) or not math.isfinite(minpiv)
+    return _health.healthy()._replace(
+        nonfinite=not bool(np.all(np.isfinite(lfac_host))),
+        info=minidx + 1 if bad else 0,
+        min_pivot=minpiv, min_pivot_index=minidx)
+
+
+@annotate("slate.potrf_ooc")
+def potrf_ooc(a, nb: int | None = None, opts: Options | None = None,
+              checkpoint=None, resume: bool = False, device=None):
+    """Out-of-core Cholesky of a host-resident SPD matrix (lower; ref:
+    drivers/cholesky.py:229).
+
+    ``a`` is a dense host numpy array that need not fit device memory: a
+    :class:`~slate_tpu_torch.core.storage.TileMap` on ``device`` (``None``
+    means CUDA and raises without it) streams block-column panels through
+    it, the next left panel's H2D copy issued on the side stream while the
+    current update runs.  Each step accumulates the panel against every
+    earlier block column (``ooc_chol_update``) and factors it
+    (``ooc_chol_panel``: K1 for an f32 diagonal tile of width <= 128).
+    ``nb`` defaults to the tuned ``ooc_panel_width``.  Only the lower
+    triangle of ``a`` is read.  Returns the lower factor as a host numpy
+    array; Option.ErrorPolicy resolves failures as :func:`potrf` does.
+
+    With a ``checkpoint`` :class:`~slate_tpu_torch.robust.checkpoint.
+    CheckpointManager` the host tile map is snapshotted at panel-step
+    boundaries at the manager's cadence; ``resume=True`` verifies the
+    latest snapshot and continues from it, bit-identical to the
+    uninterrupted run, or refuses with a typed ``SlateCheckpointError``.
+    """
+    import numpy as np
+    from ..core.storage import TileMap
+    from ..internal.potrf import ooc_chol_panel, ooc_chol_update
+    from ..robust.checkpoint import ensure_fingerprint, ooc_fingerprint
+    from ..tune.plans import ooc_panel_width
+
+    if resume:
+        slate_error(checkpoint is not None,
+                    "potrf_ooc: resume=True needs a checkpoint manager")
+        ck = checkpoint.load(op="potrf_ooc")
+        n = ck.matrix.shape[0]
+        nb = int(ck.meta["nb"])
+        fp = ooc_fingerprint("potrf_ooc", n, n, nb, ck.meta["dtype"])
+        ensure_fingerprint(ck, fp)
+        tm = TileMap(ck.matrix, nb, nb, device=device)
+        k_start = int(ck.step)
+    else:
+        ad = np.asarray(a)
+        slate_error(ad.ndim == 2 and ad.shape[0] == ad.shape[1],
+                    "potrf_ooc: square 2D host matrix")
+        n = ad.shape[0]
+        nb = int(nb) if nb else ooc_panel_width(n, ad.dtype.name)
+        fp = ooc_fingerprint("potrf_ooc", n, n, nb, ad.dtype.name)
+        tm = TileMap(ad, nb, nb, device=device)
+        k_start = 0
+
+    steps = list(range(0, n, nb))
+    for si in range(k_start, len(steps)):
+        k0 = steps[si]
+        k1 = min(k0 + nb, n)
+        w = k1 - k0
+        if checkpoint is not None and checkpoint.should_save(si):
+            checkpoint.save("potrf_ooc", si, tm.host_array(), nb, nb, fp)
+        prev = steps[:si]
+        if prev:
+            tm.prefetch(k0, n, prev[0], prev[0] + nb)
+        acc = tm.fetch(k0, n, k0, k1)
+        for idx, j0 in enumerate(prev):
+            left = tm.fetch(k0, n, j0, j0 + nb)
+            if idx + 1 < len(prev):
+                tm.prefetch(k0, n, prev[idx + 1], prev[idx + 1] + nb)
+            # A[k0:k1, j0:j1] is the leading w rows of the left panel
+            acc = ooc_chol_update(acc, left, left[:w])
+        tm.store(k0, n, k0, k1, ooc_chol_panel(acc))
+    lfac = np.tril(tm.host_array())
+    return _health.finalize(
+        "potrf_ooc", lfac, _ooc_chol_health(lfac), opts,
+        lambda hh: SlateNotPositiveDefiniteError(
+            f"potrf_ooc: leading minor not positive definite "
             f"({hh.describe()})", info=hh.info))
 
 

@@ -360,13 +360,22 @@ def heev_vals(A, opts: Options | None = None):
     return res[0]
 
 
+def _lower_factor(L):
+    """The lower Cholesky factor of B = L L^H, given L or an upper U with
+    B = U^H U."""
+    return L.conj_transpose() if L._uplo_logical() is Uplo.Upper else L
+
+
 @annotate("slate.hegst")
 def hegst(A, L, opts: Options | None = None, *, itype: int = 1):
     """Reduce a generalized Hermitian-definite problem to standard form,
     B = L L^H (ref: src/hegst.cc:40-41): itype 1, C = L^-1 A L^-H (two
-    trsm); itype 2 and 3, C = L^H A L (two trmm)."""
+    trsm); itype 2 and 3, C = L^H A L (two trmm).  An upper factor U (B =
+    U^H U, what ``potrf`` returns for an Upper-stored B) is taken as L =
+    U^H; the reference applies the formulas to U itself, which is wrong."""
     from .blas3 import trmm, trsm
     slate_error(itype in (1, 2, 3), "hegst: itype must be 1, 2, or 3")
+    L = _lower_factor(L)
     Ag = A.general() if not isinstance(A, Matrix) else A
     if itype == 1:
         G = trsm("l", 1.0, L, Ag, opts)
@@ -382,9 +391,10 @@ def hegv(A, B, opts: Options | None = None, *, jobz: bool = True,
          itype: int = 1):
     """Generalized Hermitian-definite eigenproblem (ref: src/hegv.cc:22-35):
     itype 1, A x = w B x; 2, A B x = w x; 3, B A x = w x.  B = L L^H by
-    ``potrf`` (K2 and K0 on the card); returns (w, X), X None when not
-    jobz; under ``ErrorPolicy.Info``, ``(w, X, HealthInfo)`` merging the
-    Cholesky and eigensolve healths."""
+    ``potrf`` (K2 and K0 on the card; an Upper-stored B's factor U is
+    taken as L = U^H, where the reference uses U and is wrong); returns
+    (w, X), X None when not jobz; under ``ErrorPolicy.Info``, ``(w, X,
+    HealthInfo)`` merging the Cholesky and eigensolve healths."""
     from .blas3 import trmm, trsm
     from .cholesky import potrf
     slate_error(itype in (1, 2, 3), "hegv: itype must be 1, 2, or 3")
@@ -393,6 +403,7 @@ def hegv(A, B, opts: Options | None = None, *, jobz: bool = True,
         L, h_chol = potrf(B, opts)
     else:
         L = potrf(B, opts)                   # Raise / Nan resolve inside
+    L = _lower_factor(L)
     C = hegst(A, L, opts, itype=itype)
     res = heev(C, opts, jobz=jobz)
     if info:

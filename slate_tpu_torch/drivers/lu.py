@@ -12,8 +12,10 @@ no-pivot panel, the K4 tournament and K3 for CALU), the row exchange of
 the at most 2 nb rows the panel's permutation displaces, the U12 solve and
 the trailing matmul.  ``Option.Abft`` adds the reference's checksum rungs
 to every step, and the fault sites ``input``, ``post_panel`` and
-``post_rbt`` sit where the reference's do.  ``getrf_ooc`` (host offload)
-raises: it is not ported.
+``post_rbt`` sit where the reference's do.  ``getrf_ooc`` is the
+out-of-core LU of a host matrix: a ``TileMap`` streams the pivot panel and
+one trailing block column at a time through the device, with checkpoints
+at panel-step boundaries and a bit-identical resume.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from ..core.matrix import Matrix, TriangularMatrix
 from ..core.storage import TileStorage
-from ..exceptions import SlateSingularError, not_ported, slate_error
+from ..exceptions import SlateSingularError, slate_error
 from ..internal import rbt
 from ..internal.getrf import (panel_lu, panel_lu_nopiv, panel_lu_threshold,
                               panel_lu_tournament)
@@ -277,11 +279,117 @@ def _singular(name: str):
         f"({h.describe()})", info=h.info)
 
 
-def getrf_ooc(*args, **kwargs):
-    """Out-of-core LU of a host-resident matrix (ref: drivers/lu.py:373):
-    not ported, always raises NotImplementedError."""
-    raise not_ported("getrf_ooc (out-of-core LU with host offload and "
-                     "checkpoints)", "queue 1, item 13 (durable jobs)")
+class OocLUFactors(NamedTuple):
+    """Out-of-core LU result: L\\U packed in one host numpy array and the
+    global row permutation (A[perm] = L U).  Host-resident, because the
+    factor need not fit device memory."""
+    LU: "np.ndarray"  # noqa: F821 (numpy is imported where it is built)
+    perm: "np.ndarray"  # noqa: F821
+
+
+def _ooc_lu_health(lu_host, minpiv: float, minidx: int,
+                   amax: float) -> _health.HealthInfo:
+    """LU health from host reductions (the factor stays off the device)."""
+    import numpy as np
+    fmax = float(np.max(np.abs(lu_host))) if lu_host.size else 0.0
+    bad = (minpiv == 0.0) or not math.isfinite(minpiv)
+    return _health.healthy()._replace(
+        nonfinite=not bool(np.all(np.isfinite(lu_host))),
+        info=minidx + 1 if bad else 0,
+        min_pivot=minpiv, min_pivot_index=minidx,
+        growth=fmax / amax if amax > 0 else math.inf)
+
+
+@annotate("slate.getrf_ooc")
+def getrf_ooc(a, nb: int | None = None, opts: Options | None = None,
+              checkpoint=None, resume: bool = False, device=None):
+    """Out-of-core partially pivoted LU of a host-resident matrix (ref:
+    drivers/lu.py:373).
+
+    ``a`` is a dense host numpy array that need not fit device memory: a
+    :class:`~slate_tpu_torch.core.storage.TileMap` on ``device`` (``None``
+    means CUDA and raises without it) streams the panel and one trailing
+    block column at a time through it, the next column's H2D copy issued
+    on the side stream while the current one updates.  Each step factors
+    its panel (``ooc_lu_panel``, the library's pivoted LU), exchanges the
+    rows of the columns to its left on the host (``permute_rows``) and
+    updates every trailing block column (``ooc_lu_trailing``).  ``nb``
+    defaults to the tuned ``ooc_panel_width``.  Returns
+    :class:`OocLUFactors`; Option.ErrorPolicy resolves failures as
+    :func:`getrf` does.
+
+    With a ``checkpoint`` :class:`~slate_tpu_torch.robust.checkpoint.
+    CheckpointManager` the host tile map and the accumulated permutation
+    are snapshotted at panel-step boundaries; ``resume=True`` verifies the
+    latest snapshot and continues from it, bit-identical to the
+    uninterrupted run, or refuses with a typed ``SlateCheckpointError``.
+    """
+    import numpy as np
+    from ..core.storage import TileMap
+    from ..internal.getrf import ooc_lu_panel, ooc_lu_trailing
+    from ..robust.checkpoint import ensure_fingerprint, ooc_fingerprint
+    from ..tune.plans import ooc_panel_width
+
+    if resume:
+        slate_error(checkpoint is not None,
+                    "getrf_ooc: resume=True needs a checkpoint manager")
+        ck = checkpoint.load(op="getrf_ooc")
+        m, n = ck.matrix.shape
+        nb = int(ck.meta["nb"])
+        fp = ooc_fingerprint("getrf_ooc", m, n, nb, ck.meta["dtype"])
+        ensure_fingerprint(ck, fp)
+        tm = TileMap(ck.matrix, nb, nb, device=device)
+        perm_g = ck.extras["perm"].astype(np.int64, copy=True)
+        amax = float(ck.extras["amax"][()])
+        k_start = int(ck.step)
+    else:
+        ad = np.asarray(a)
+        slate_error(ad.ndim == 2, "getrf_ooc: 2D host matrix")
+        m, n = ad.shape
+        nb = int(nb) if nb else ooc_panel_width(max(m, n), ad.dtype.name)
+        fp = ooc_fingerprint("getrf_ooc", m, n, nb, ad.dtype.name)
+        tm = TileMap(ad, nb, nb, device=device)
+        perm_g = np.arange(m, dtype=np.int64)
+        amax = float(np.max(np.abs(ad))) if ad.size else 0.0
+        k_start = 0
+
+    kmax = min(m, n)
+    steps = list(range(0, kmax, nb))
+    for si in range(k_start, len(steps)):
+        k0 = steps[si]
+        k1 = min(k0 + nb, kmax)
+        if checkpoint is not None and checkpoint.should_save(si):
+            checkpoint.save(
+                "getrf_ooc", si, tm.host_array(), nb, nb, fp,
+                extras={"perm": perm_g,
+                        "amax": np.asarray(amax, np.float64)})
+        panel = tm.fetch(k0, m, k0, k1)
+        lu, perm = ooc_lu_panel(panel)
+        perm_h = perm.cpu().numpy()
+        if k0:
+            tm.permute_rows(k0, 0, k0, perm_h)
+        perm_g[k0:] = perm_g[k0:][perm_h]
+        tm.store(k0, m, k0, k1, lu)
+        trail = list(range(k1, n, nb))
+        if trail:
+            tm.prefetch(k0, m, trail[0], min(trail[0] + nb, n))
+            l11_inv = tri_inv_lower(lu[:k1 - k0, :k1 - k0], unit_diag=True)
+        for ti, j0 in enumerate(trail):
+            j1 = min(j0 + nb, n)
+            colj = tm.fetch(k0, m, j0, j1)
+            if ti + 1 < len(trail):
+                tm.prefetch(k0, m, trail[ti + 1],
+                            min(trail[ti + 1] + nb, n))
+            tm.store(k0, m, j0, j1,
+                     ooc_lu_trailing(colj, lu, perm, l11_inv))
+    lu_h = tm.host_array()
+    udiag = np.abs(np.diagonal(lu_h[:kmax, :kmax]))
+    udiag = np.where(np.isnan(udiag), 0.0, udiag)
+    minidx = int(np.argmin(udiag)) if udiag.size else 0
+    minpiv = float(udiag[minidx]) if udiag.size else math.inf
+    h = _ooc_lu_health(lu_h, minpiv, minidx, amax)
+    return _health.finalize("getrf_ooc", OocLUFactors(lu_h, perm_g), h,
+                            opts, _singular("getrf_ooc"))
 
 
 def _getrs_rbt(F: RBTFactors, B, opts: Options | None) -> Matrix:

@@ -71,6 +71,37 @@ def panel_lu(panel: torch.Tensor):
     return lu, pivots_to_perm(piv.long() - 1, panel.shape[-2])
 
 
+# ---- out-of-core steps (drivers/lu.py getrf_ooc) ----
+# Pure functions of the device windows the TileMap brings in; the same
+# launches on the same window shapes make a resumed run repeat the
+# uninterrupted one bit for bit.
+
+def ooc_lu_panel(panel: torch.Tensor):
+    """Partially pivoted LU of the current panel [W, nb]: (lu, perm) with
+    panel[perm] = L U.  The reference's panel is XLA's pivoted LU, outside
+    any Pallas kernel; here it is ``lu_factor_ex``, its LAPACK swaps
+    turned into the reference's gather index (:func:`pivots_to_perm`)."""
+    return panel_lu(panel)
+
+
+def ooc_lu_trailing(colj: torch.Tensor, lu: torch.Tensor,
+                    perm: torch.Tensor,
+                    l11_inv: torch.Tensor | None = None) -> torch.Tensor:
+    """One streamed right-looking trailing update: apply the panel's row
+    permutation to trailing block column ``colj`` [W, wj], solve the U12
+    strip against unit L11 and subtract L21 @ U12.  Returns the updated
+    [U12; trailing] column.  ``l11_inv``, unit L11's inverse, is formed
+    here when not given (a caller updating many columns of one panel
+    forms it once: the same launches, the same bits)."""
+    w = lu.shape[1]
+    colj = colj[perm]
+    if l11_inv is None:
+        l11_inv = tri_inv_lower(lu[:w, :w], unit_diag=True)
+    u12 = l11_inv @ colj[:w]
+    tail = colj[w:] - lu[w:, :w] @ u12
+    return torch.cat([u12, tail], dim=0)
+
+
 def _nopiv_fused_ok(panel: torch.Tensor) -> bool:
     """True when the plan routes this no-pivot panel through K3: f32, a
     full tile on top, the plan's bw dividing nb, and on the card the

@@ -74,3 +74,29 @@ def potrf_panel_fused(col, left, lead):
         left = F.pad(left, (0, 0, 0, mp - m))
     upd, fac = chol_panel_fused(col, left, lead, bw=plan.bw)
     return upd[:m], fac[:m]
+
+
+# ---- out-of-core panel steps (drivers/cholesky.py potrf_ooc) ----
+# Each step of the streamed left-looking loop is a pure function of the
+# device windows the TileMap brings in, with the same launches on the
+# same shapes every time: a resumed run repeats the uninterrupted run's
+# steps bit for bit.
+
+def ooc_chol_update(acc: torch.Tensor, left: torch.Tensor,
+                    lead: torch.Tensor) -> torch.Tensor:
+    """One streamed left-looking accumulation: subtract the contribution
+    of a previous block column.  ``acc`` [m-k0, w] is the running panel,
+    ``left`` = A[k0:, j0:j1], ``lead`` = A[k0:k1, j0:j1]."""
+    return acc - left @ lead.conj().T
+
+
+def ooc_chol_panel(upd: torch.Tensor) -> torch.Tensor:
+    """Factor the accumulated [m-k0, w] panel: [L00; L21], the diagonal
+    tile through :func:`potrf_tile` (K1 for an f32 tile with w <= 128
+    under the "cuda" plan) and the rows below one matmul against the
+    inverted L00, as the in-core blocked loop does."""
+    from .trsm import tri_inv_lower
+    w = upd.shape[1]
+    lkk = potrf_tile(upd[:w])
+    tail = upd[w:] @ tri_inv_lower(lkk).conj().T
+    return torch.cat([lkk, tail], dim=0)

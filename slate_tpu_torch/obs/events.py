@@ -349,8 +349,7 @@ def emit_checkpoint(kind: str, payload: dict) -> None:
     ``checkpoint_save`` / ``checkpoint_restore``): the op, the panel-step
     index ``step``, payload ``bytes``, the ``verify`` result ("ok" or the
     typed refusal reason) and ``wall_ms``, the inputs of the metrics CLI's
-    durability table.  The durable drivers that call it come with the
-    out-of-core slice (ROADMAP.md queue 1, item 13)."""
+    durability table.  robust/checkpoint.py is its caller."""
     _emit_kind(kind, payload)
 
 

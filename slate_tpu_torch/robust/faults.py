@@ -194,8 +194,8 @@ def host_fire(site: str, device: int | None = None) -> FaultPlan | None:
     flush loop, the executable cache, the checkpoint writer, the tile-map
     copy path) and act on the returned plan (sleep, evict, tear a write);
     the port's serving layer (serve/server.py, cache.py, pool.py) consumes
-    the serving sites, and the durability sites wait for the slice that
-    ports those layers.  Transient
+    the serving sites, robust/checkpoint.py and core/storage.py's
+    ``TileMap`` the durability sites.  Transient
     plans fire at most once per :func:`inject` activation — one stalled
     compile or one torn checkpoint, not a permanently broken disk.
 

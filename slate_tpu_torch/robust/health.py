@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..obs import events as _obs
@@ -212,8 +213,8 @@ def acceptable(h: HealthInfo, dtype: torch.dtype) -> bool:
 
 
 def _poison(result):
-    """NaN-fill every matrix and every floating tensor of a result (a
-    matrix, a tensor or a tuple of them; integer leaves such as a
+    """NaN-fill every matrix and every floating tensor or host array of a
+    result (a matrix, a tensor or a tuple of them; integer leaves such as a
     permutation stay): the ErrorPolicy.Nan guarantee that a failed result
     is never finite."""
     from ..core.matrix import BaseMatrix
@@ -231,6 +232,8 @@ def _poison(result):
     if isinstance(result, torch.Tensor) and (result.is_floating_point()
                                              or result.is_complex()):
         return torch.full_like(result, math.nan)
+    if isinstance(result, np.ndarray) and result.dtype.kind in "fc":
+        return np.full_like(result, math.nan)    # an out-of-core host factor
     return result
 
 

@@ -180,9 +180,21 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = {str(f.relative_to(PKG.parent)) for f in files}
     assert {"slate_tpu_torch/drivers/heev.py",
             "slate_tpu_torch/drivers/stedc.py",
-            "slate_tpu_torch/drivers/svd.py"} <= names
+            "slate_tpu_torch/drivers/svd.py",
+            "slate_tpu_torch/compat/capi.py",
+            "slate_tpu_torch/compat/lapack.py",
+            "slate_tpu_torch/compat/scalapack.py",
+            "slate_tpu_torch/compat/scalapack_api.py",
+            "slate_tpu_torch/compat/fortran.py",
+            "slate_tpu_torch/robust/checkpoint.py",
+            "slate_tpu_torch/util/debug.py",
+            "slate_tpu_torch/native.py"} <= names
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if _forbidden(mod)]
     assert bad == []
+    # the C host embeds the port's entry points, not the reference's
+    host = (PKG / "native" / "slate_tpu_torch_capi.cc").read_text()
+    assert '"slate_tpu_torch.compat.capi"' in host
+    assert '"slate_tpu.' not in host
     assert not _forbidden("slate_tpu_torch.core")
     assert _forbidden("slate_tpu.core") and _forbidden("jax.numpy")

@@ -1067,3 +1067,68 @@ def test_hegv_on_the_card_launches_k2_and_k0_as_potrf(cuda):
     x, w = Xg.to_numpy().astype(np.float64), wg.cpu().numpy()
     r = a @ x - b @ x * w[None, :]
     assert np.linalg.norm(r) / (np.linalg.norm(a) * np.linalg.norm(x)) < 1e-4
+
+
+def test_tilemap_on_the_card_pins_and_round_trips(cuda):
+    """Host block columns pinned; panel windows copied on the side stream;
+    a fetched window equals the host bytes; a store lands at drain; a
+    window across block columns and one inside a block column (copied
+    synchronously) come back right too."""
+    from slate_tpu_torch.core import storage
+    rng = np.random.default_rng(160)
+    a = rng.standard_normal((512, 384)).astype(np.float32)
+    tm = st.TileMap(a, 128, 128, max_pending=2)
+    assert all(c.is_pinned() for c in tm._cols) and tm.device.type == "cuda"
+    storage.reset_traffic()
+    expect = a.copy()
+    for step in range(6):
+        j = step % 3
+        cols = slice(128 * j, 128 * j + 128)
+        tm.prefetch(0, 512, cols.start, cols.stop)
+        win = tm.fetch(0, 512, cols.start, cols.stop)
+        assert win.is_cuda
+        assert np.array_equal(win.cpu().numpy(), expect[:, cols])
+        tm.store(0, 512, cols.start, cols.stop, win * 2)
+        expect[:, cols] *= 2
+    np.testing.assert_array_equal(tm.to_dense(), expect)
+    assert storage.TRAFFIC["h2d"] == storage.TRAFFIC["d2h"] == 6 * 512 * 512
+    for c0, c1 in ((64, 320), (10, 20)):
+        win = tm.fetch(100, 300, c0, c1)
+        assert np.array_equal(win.cpu().numpy(), expect[100:300, c0:c1])
+        tm.store(100, 300, c0, c1, win + 1)
+        expect[100:300, c0:c1] += 1
+    np.testing.assert_array_equal(tm.to_dense(), expect)
+
+
+def test_potrf_ooc_on_the_card_launches_k1_once_a_step(cuda, empty_plans,
+                                                        tmp_path):
+    """nb = 128 in f32: each panel step's diagonal tile is one K1 launch;
+    the factor agrees with the CPU route, repeats bit for bit, and a kill
+    and resume gives the same bits, for potrf_ooc and getrf_ooc."""
+    from slate_tpu_torch.robust.checkpoint import (CheckpointManager,
+                                                   SimulatedPreemption)
+    rng = np.random.default_rng(161)
+    n, nb = 640, 128
+    spd = _spd(rng, n) * n
+    before = ck.CHOL_TILE.launches
+    L = st.potrf_ooc(spd, nb=nb)
+    assert ck.CHOL_TILE.launches - before == n // nb
+    Lc = st.potrf_ooc(spd, nb=nb, device="cpu")
+    np.testing.assert_allclose(L, Lc, rtol=0, atol=1e-4 * np.abs(Lc).max())
+    assert np.array_equal(L, st.potrf_ooc(spd, nb=nb))
+    with pytest.raises(SimulatedPreemption):
+        st.potrf_ooc(spd, nb=nb, checkpoint=CheckpointManager(
+            tmp_path / "p", every=2, abort_after_step=2))
+    assert np.array_equal(L, st.potrf_ooc(
+        None, checkpoint=CheckpointManager(tmp_path / "p"), resume=True))
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    F = st.getrf_ooc(a, nb=nb)
+    with pytest.raises(SimulatedPreemption):
+        st.getrf_ooc(a, nb=nb, checkpoint=CheckpointManager(
+            tmp_path / "g", every=1, abort_after_step=3))
+    R = st.getrf_ooc(None, checkpoint=CheckpointManager(tmp_path / "g"),
+                     resume=True)
+    assert np.array_equal(F.LU, R.LU) and np.array_equal(F.perm, R.perm)
+    lu = F.LU.astype(np.float64)
+    res = np.abs(a[F.perm] - (np.tril(lu, -1) + np.eye(n)) @ np.triu(lu))
+    assert res.max() < 1e-4 * np.abs(a).max() * n ** 0.5

@@ -247,6 +247,69 @@ def test_hegv_matches_the_reference(itype):
     _close(w2, w_ref, 1e-10)
 
 
+def _hpd(seed, n, dtype):
+    g = herm(seed, n, dtype) + np.triu(herm(seed + 1, n, dtype), 1)
+    return (g @ g.conj().T + n * np.eye(n)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128],
+                         ids=["f64", "c128"])
+@pytest.mark.parametrize("itype", [1, 2, 3])
+def test_hegv_upper_stored_b_matches_scipy(itype, dtype):
+    """B stored Upper: potrf returns U with B = U^H U, and hegv/hegst work
+    with L = U^H.  Eigenvalues within 1e-12 of scipy's, relative to the
+    largest, and the eigenpairs' residual as small."""
+    n, nb = 20, 6
+    a, b = herm(50 + itype, n, dtype), _hpd(60 + itype, n, dtype)
+    want = scipy.linalg.eigh(a, b, type=itype, eigvals_only=True)
+    for uplo_a in (st.Uplo.Lower, st.Uplo.Upper):
+        w, X = st.hegv(
+            st.HermitianMatrix.from_numpy(a, nb, uplo_a, device="cpu"),
+            st.HermitianMatrix.from_numpy(b, nb, st.Uplo.Upper,
+                                          device="cpu"), itype=itype)
+        _close(w, want, 1e-12)
+        x, w = X.to_numpy(), w.numpy()
+        lhs = {1: a @ x, 2: a @ (b @ x), 3: b @ (a @ x)}[itype]
+        rhs = {1: b @ x * w[None, :], 2: x * w[None, :],
+               3: x * w[None, :]}[itype]
+        assert np.abs(lhs - rhs).max() <= 1e-12 * np.abs(lhs).max()
+
+
+def test_hegv_upper_b_the_reference_is_wrong_and_the_port_right():
+    """The reference's hegst applies the B = L L^H formulas to the upper
+    factor U itself, so on an Upper-stored B its eigenvalues miss scipy's
+    by more than 1e-3 relative, where the port's are within 1e-12."""
+    n, nb = 20, 6
+    a, b = herm(70, n), _hpd(71, n, np.float64)
+    want = scipy.linalg.eigh(a, b, type=1, eigvals_only=True)
+    scale = np.abs(want).max()
+    w_ref, _ = ref.hegv(ref.HermitianMatrix.from_numpy(a, nb),
+                        ref.HermitianMatrix.from_numpy(b, nb, ref.Uplo.Upper))
+    w, _ = st.hegv(st.HermitianMatrix.from_numpy(a, nb, device="cpu"),
+                   st.HermitianMatrix.from_numpy(b, nb, st.Uplo.Upper,
+                                                 device="cpu"))
+    assert np.abs(np.asarray(w_ref) - want).max() > 1e-3 * scale
+    assert np.abs(w.numpy() - want).max() <= 1e-12 * scale
+
+
+def test_hegst_takes_an_upper_factor_as_its_conjugate_transpose():
+    n, nb = 12, 4
+    a = herm(42, n, np.complex128)
+    b = _hpd(43, n, np.complex128)
+    L = np.linalg.cholesky(b)
+    for itype in (1, 2, 3):
+        lower = st.hegst(
+            st.HermitianMatrix.from_numpy(a, nb, device="cpu"),
+            st.TriangularMatrix.from_numpy(L, nb, device="cpu"),
+            itype=itype).to_numpy()
+        upper = st.hegst(
+            st.HermitianMatrix.from_numpy(a, nb, device="cpu"),
+            st.TriangularMatrix.from_numpy(L.conj().T, nb, st.Uplo.Upper,
+                                           device="cpu"),
+            itype=itype).to_numpy()
+        _close(upper, lower, 1e-12)
+
+
 def test_hegst_matches_the_reference():
     n, nb = 12, 4
     a = herm(40, n)

@@ -273,8 +273,3 @@ def test_unported_gesv_options_raise_not_implemented(opts, what):
         return
     with pytest.raises(NotImplementedError, match=what):
         st.gesv(A, B, _opts(st, **opts))
-
-
-def test_getrf_ooc_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        st.getrf_ooc(np.eye(4, dtype=np.float32), 2)
