@@ -224,7 +224,27 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      numpy buffers, their backward errors and the hand kernels each
      launched (none), and an f32 posv through the shim, whose tile size
      (256 at this n) lies past K1's and K2's gates;
- 15. print the launch counts, the card line, the kernels line, and last
+ 15. slice 16 (its own generator, --seed + 17): the distributed layer in
+     a one-rank NCCL world (init_process_group("nccl", store=FileStore,
+     rank=0, world_size=1)), Grid(1, 1, group=WORLD) on cuda:0, every call
+     with Target.mesh: dist_posv at n = 20480, f32, nb = 128, 128
+     right-hand sides (dist_potrf, K1 on each diagonal tile: 160
+     launches, then dist_trsm twice), posv's bounds, cold and warm beside
+     the single route's posv; dist_gemm (SUMMA, 20480^3), dist_gemmA (a
+     128-column C), dist_herk (n = 20480, k = 2048), dist_trsm and
+     dist_trmm (the dist_posv factor against 20480 x 128), each against
+     the library's product or solve within 1e-4 of its largest entry, no
+     hand kernel launched; dist_lookahead, SUMMA and dist_potrf at n =
+     8192 at depths 0, 1 and 2 bit for bit; dist_strike, a transient
+     bitflip planted in the first diagonal factor of a mesh posv under
+     Option.Abft (n = 8192), located at tile (0, 0) and repaired; the
+     mesh posv by span and by kernel (trace_spans, trace_profile); the
+     process group destroyed, then gloo_2x2, four CPU processes (this
+     script with --gloo-child, no card visible) on a 2 x 2 grid over gloo
+     running posv and SUMMA gemm in f64 at n = 256 against torch's own
+     solve and product: a check of comm/ under this machine's torch, no
+     card result (its line says "device": "cpu");
+ 16. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -246,8 +266,8 @@ from a seventh, --seed + 6, and K3's panels at W = 10240 and 128 and its
 zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
 tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
-from --seed + 14, slice 14's from --seed + 15 and slice 15's from
---seed + 16, so that
+from --seed + 14, slice 14's from --seed + 15, slice 15's from
+--seed + 16 and slice 16's from --seed + 17, so that
 adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
@@ -4661,6 +4681,348 @@ def check_slice15(st, seed, nb, nrhs, reset, counts, kernels,
     return out
 
 
+# slice 16: the distributed layer at world size 1 on the card.  The mesh
+# products are held against the library's single product of the same
+# operands, max|got - want| / max|want|: both are f32 with TF32 off and
+# differ in the order of their sums only (SUMMA adds n/nb rank-nb
+# updates, herk sums tile pairs)
+DIST_REL_TOL = 1e-4
+DIST_BITS_N = 8192              # the lookahead bit-identity and the strike
+DIST_HERK_K = 2048
+GLOO_N = 256                    # the 2 x 2 gloo world of CPU processes
+GLOO_NB = 32
+GLOO_TIMEOUT_S = 180
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dist_matrix(st, g, a, nb, kind="general"):
+    """``a`` (a tensor on the card) as a matrix on the grid ``g``."""
+    if kind == "hermitian":
+        return st.HermitianMatrix.from_numpy(a, nb, st.Uplo.Lower, grid=g)
+    return st.Matrix.from_numpy(a, nb, grid=g)
+
+
+def check_dist_posv(st, g, gen, n, nb, nrhs, reset, counts, failures):
+    """dist_posv: posv on the one-rank mesh (dist_potrf, K1 on each
+    diagonal tile, then dist_trsm twice), cold and warm, beside the
+    single route's posv on the same system, then by span and by kernel
+    (torch.profiler: device busy and idle share); returns the launches
+    and the factor (for the trsm and trmm phases)."""
+    gg = torch.randn(n, n, generator=gen, device="cuda")
+    a = gg @ gg.T
+    del gg
+    a.diagonal().add_(n)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    mesh = {st.Option.Target: st.Target.mesh}
+
+    def run():
+        A = dist_matrix(st, g, a, nb, "hermitian")
+        B = dist_matrix(st, g, b, nb)
+        (L, X), wall = _timed(lambda: st.posv(A, B, mesh))
+        return L, X.to_dense(), wall
+
+    reset()
+    L, x, wall_cold = run()
+    launches = counts()
+    _, x_warm, wall = run()
+    _, wall_single_cold = run_posv(st, a, b, nb)
+    x_single, wall_single = run_posv(st, a, b, nb)
+    x64 = solve_f64(a, b)
+    res, fwd = accuracy(a, x, b, x64)
+    res_s, fwd_s = accuracy(a, x_single, b, x64)
+    row = {"phase": "dist_posv", "n": n, "nb": nb, "nrhs": nrhs,
+           "grid": [g.p, g.q], "backend": "nccl", "dtype": "float32",
+           "wall_s_cold": wall_cold, "wall_s": wall,
+           "gflops": op_flops("posv", (n, n), (n, nrhs)) / wall / 1e9,
+           "single_route_wall_s": wall_single,
+           "single_route_wall_s_cold": wall_single_cold,
+           "scaled_residual": res, "residual_bound": RESIDUAL_BOUND,
+           "forward_error_vs_f64": fwd, "forward_bound": FORWARD_BOUND,
+           "single_route_scaled_residual": res_s,
+           "single_route_forward_error_vs_f64": fwd_s,
+           "warm_bit_equal": bool(torch.equal(x, x_warm)),
+           "launches": launches}
+    emit(row)
+    # the mesh posv by span (host ms) and by kernel (device ms, idle):
+    # its host cost is what this layer adds at one rank
+    emit({"phase": "trace_spans", "of": "dist_posv",
+          "span_ms": span_ms(st, run)})
+    profile_device("dist_posv", run)
+    want = {**{k: 0 for k in launches}, "chol_tile": -(-n // nb)}
+    if launches != want:
+        failures.append(f"dist_posv launches {launches} (want {want})")
+    if not (torch.isfinite(x).all() and x.shape == (n, nrhs)
+            and res < RESIDUAL_BOUND and fwd < FORWARD_BOUND):
+        failures.append(f"dist_posv: residual {res}, forward {fwd}")
+    return launches, L
+
+
+def check_dist_blas3(st, g, gen, n, nb, nrhs, L, reset, counts, failures):
+    """dist_gemm (SUMMA, n x n x n), dist_gemmA (a 128-column C), dist_herk
+    (n, k = 2048) and dist_trsm / dist_trmm (the dist_posv factor against
+    n x 128) on the one-rank mesh, each against the library's product or
+    solve of the same operands; no hand kernel runs on these paths."""
+    mesh = {st.Option.Target: st.Target.mesh}
+    out = {}
+
+    def phase(name, call, want, flops, extra=None):
+        reset()
+        got, wall_cold = _timed(call)
+        launches = counts()
+        got, wall = _timed(call)
+        err = rel_err(got, want)
+        emit({"phase": name, **(extra or {}), "wall_s_cold": wall_cold,
+              "wall_s": wall, "gflops": flops / wall / 1e9,
+              "max_rel_err": err, "tol": DIST_REL_TOL,
+              "launches": launches})
+        if err > DIST_REL_TOL or not torch.isfinite(got).all():
+            failures.append(f"{name}: max rel err {err}")
+        if any(launches.values()):
+            failures.append(f"{name} launches {launches} (want none)")
+        out[name] = launches
+
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    bm = torch.randn(n, n, generator=gen, device="cuda")
+    A, Bm = dist_matrix(st, g, a, nb), dist_matrix(st, g, bm, nb)
+    phase("dist_gemm", lambda: st.gemm(1.0, A, Bm, opts=mesh).to_dense(),
+          a @ bm, 2.0 * n ** 3, {"m": n, "n": n, "k": n, "nb": nb,
+                                 "method": "SUMMA"})
+    del Bm, bm
+    bs = torch.randn(n, nrhs, generator=gen, device="cuda")
+    Bs = dist_matrix(st, g, bs, nb)
+    ga = {**mesh, st.Option.MethodGemm: st.MethodGemm.gemmA}
+    phase("dist_gemmA", lambda: st.gemm(1.0, A, Bs, opts=ga).to_dense(),
+          a @ bs, 2.0 * n * n * nrhs, {"m": n, "n": nrhs, "k": n,
+                                       "nb": nb, "method": "gemmA"})
+    del A, a
+    ak = torch.randn(n, DIST_HERK_K, generator=gen, device="cuda")
+    Ak = dist_matrix(st, g, ak, nb)
+    C0 = st.HermitianMatrix.from_numpy(
+        torch.zeros(n, n, device="cuda"), nb, st.Uplo.Lower, grid=g)
+    phase("dist_herk",
+          lambda: torch.tril(st.herk(1.0, Ak, 0.0, C0, mesh).storage
+                             .to_dense()),
+          torch.tril(ak @ ak.T), 1.0 * n * n * DIST_HERK_K,
+          {"n": n, "k": DIST_HERK_K, "nb": nb})
+    del Ak, ak, C0
+    ld = L.to_dense()
+    phase("dist_trsm", lambda: st.trsm("l", 1.0, L, Bs, mesh).to_dense(),
+          torch.linalg.solve_triangular(ld, bs, upper=False),
+          1.0 * n * n * nrhs, {"m": n, "n": nrhs, "nb": nb,
+                               "side": "left"})
+    phase("dist_trmm", lambda: st.trmm("l", 1.0, L, Bs, mesh).to_dense(),
+          ld @ bs, 1.0 * n * n * nrhs, {"m": n, "n": nrhs, "nb": nb,
+                                        "side": "left"})
+    return out
+
+
+def check_dist_bits(st, g, gen, nb, reset, counts, failures):
+    """dist_lookahead: SUMMA and dist_potrf at n = 8192 at lookahead depths
+    0, 1 and 2, every output bit for bit (torch.equal), health included;
+    then dist_strike: one transient bitflip planted below the diagonal of
+    the first diagonal tile's factor (K1's) of a mesh posv under
+    Option.Abft, located at tile (0, 0) and repaired."""
+    from slate_tpu_torch.parallel.dist_chol import dist_potrf
+    from slate_tpu_torch.parallel.summa import summa_gemm_data
+    from slate_tpu_torch.robust import faults
+    n = DIST_BITS_N
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    bm = torch.randn(n, n, generator=gen, device="cuda")
+    A, Bm = dist_matrix(st, g, a, nb), dist_matrix(st, g, bm, nb)
+    C = dist_matrix(st, g, torch.zeros(n, n, device="cuda"), nb)
+    summa, walls = [], []
+    for la in (0, 1, 2):
+        d, w = _timed(lambda: summa_gemm_data(
+            A.storage.data, Bm.storage.data, C.storage.data, 1.0, 0.0,
+            A.storage.Nt, g, la=la))
+        summa.append(d)
+        walls.append(w)
+    del A, Bm, C, bm
+    spd_a = a @ a.T
+    del a
+    spd_a.diagonal().add_(n)
+    H = dist_matrix(st, g, spd_a, nb, "hermitian")
+    chol, cwalls = [], []
+    for la in (0, 1, 2):
+        reset()
+        o, w = _timed(lambda: dist_potrf(H.storage.data, H.storage.Nt, g,
+                                         n=n, la=la))
+        chol.append((o, counts()))
+        cwalls.append(w)
+    same_summa = all(torch.equal(summa[0], s) for s in summa[1:])
+    same_chol = all(all(torch.equal(x, y) for x, y in zip(chol[0][0], c[0]))
+                    for c in chol[1:])
+    emit({"phase": "dist_lookahead", "n": n, "nb": nb,
+          "summa_wall_s_by_depth": walls, "potrf_wall_s_by_depth": cwalls,
+          "summa_bit_equal": same_summa, "potrf_bit_equal": same_chol,
+          "potrf_launches_by_depth": [c[1]["chol_tile"] for c in chol]})
+    if not (same_summa and same_chol):
+        failures.append(f"dist_lookahead: SUMMA equal {same_summa}, "
+                        f"dist_potrf equal {same_chol}")
+    del summa, chol
+    b = torch.randn(n, 16, generator=gen, device="cuda")
+    seed = strike_seed(nb, nb, below_diagonal)
+    plan = faults.FaultPlan("post_panel", kind="bitflip", seed=seed,
+                            transient=True)
+    # no fallback rung: the repair must happen in the attempt itself (the
+    # ladder's hesv and gesv rungs have no mesh route yet)
+    abft = {st.Option.Target: st.Target.mesh, st.Option.Abft: st.Abft.On,
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info,
+            st.Option.UseFallbackSolver: False}
+    B = dist_matrix(st, g, b, nb)
+    x64 = solve_f64(spd_a, b)
+    (_, X0, h0), wall0 = _timed(lambda: st.posv(H, B, abft))
+    with faults.inject(plan):
+        (_, X, h), wall = _timed(lambda: st.posv(H, B, abft))
+    res, fwd = accuracy(spd_a, X.to_dense(), b, x64)
+    res0, fwd0 = accuracy(spd_a, X0.to_dense(), b, x64)
+    emit({"phase": "dist_strike", "n": n, "nb": nb, "seed": seed,
+          "planted_tile": [0, 0], "wall_s": wall, "scaled_residual": res,
+          "forward_error_vs_f64": fwd, "health": health_row(h),
+          "clean_wall_s": wall0, "clean_scaled_residual": res0,
+          "clean_forward_error_vs_f64": fwd0,
+          "clean_health": health_row(h0)})
+    if not ((h.abft_detected, h.abft_corrected, h.abft_site) == (1, 1, 0)
+            and h.ok and h0.ok and h0.abft_detected == 0
+            and res < RESIDUAL_BOUND and fwd < FORWARD_BOUND):
+        failures.append(f"dist_strike: {health_row(h)} (clean "
+                        f"{health_row(h0)}), residual {res}, forward {fwd}")
+
+
+def gloo_child(rank: int, work: str) -> int:
+    """One rank of the 2 x 2 gloo world (CPU processes): posv and SUMMA
+    gemm on the grid, in f64 at n = GLOO_N, against torch's own solve and
+    product on the whole matrix; writes its result to ``work``."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    import slate_tpu_torch as st
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "rendezvous"),
+        rank=rank, world_size=4, timeout=datetime.timedelta(seconds=60))
+    try:
+        g = st.Grid(2, 2, device="cpu")
+        gen = torch.Generator().manual_seed(17)
+        n = GLOO_N
+        gg = torch.randn(n, n, generator=gen, dtype=torch.float64)
+        a = gg @ gg.T + n * torch.eye(n, dtype=torch.float64)
+        b = torch.randn(n, 8, generator=gen, dtype=torch.float64)
+        mesh = {st.Option.Target: st.Target.mesh}
+        A = st.HermitianMatrix.from_numpy(a, GLOO_NB, st.Uplo.Lower, grid=g)
+        B = st.Matrix.from_numpy(b, GLOO_NB, grid=g)
+        t0 = time.perf_counter()
+        _, X = st.posv(A, B, mesh)
+        x = X.to_dense()
+        wall = time.perf_counter() - t0
+        C = st.gemm(1.0, st.Matrix.from_numpy(gg, GLOO_NB, grid=g),
+                    st.Matrix.from_numpy(a, GLOO_NB, grid=g), opts=mesh)
+        out = {"rank": rank, "coords": list(g.coords),
+               "posv_rel_err": rel_err(x, torch.linalg.solve(a, b)),
+               "gemm_rel_err": rel_err(C.to_dense(), gg @ a),
+               "posv_wall_s": wall}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def check_gloo_world(failures) -> None:
+    """gloo_2x2: four CPU processes (this script with --gloo-child, no
+    card visible to them) form a 2 x 2 grid over gloo and check comm/ and
+    the mesh drivers under this machine's torch.  It stands for no card
+    result: its line says "device": "cpu"."""
+    with tempfile.TemporaryDirectory(prefix="smoke-gloo-") as work:
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+               "OMP_NUM_THREADS": "1"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-child",
+             str(r), work], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in range(4)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                logs.append(b"timed out")
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ranks = []
+        for r in range(4):
+            path = os.path.join(work, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path, encoding="utf-8") as fh:
+                    ranks.append(json.load(fh))
+        row = {"phase": "gloo_2x2", "device": "cpu", "n": GLOO_N,
+               "nb": GLOO_NB, "dtype": "float64",
+               "wall_s": time.perf_counter() - t0, "ranks": ranks}
+        emit(row)
+        ok = (len(ranks) == 4
+              and all(x["posv_rel_err"] < 1e-12 and x["gemm_rel_err"] < 1e-12
+                      for x in ranks))
+        if not ok:
+            failures.append("gloo_2x2: " + " | ".join(
+                log.decode(errors="replace")[-2000:] for log in logs))
+
+
+def check_slice16(st, seed, n, nb, nrhs, reset, counts) -> dict:
+    """The slice-16 phases (the distributed layer): a one-rank NCCL world,
+    Grid(1, 1, group=WORLD) on cuda:0, the mesh routes at full width, the
+    lookahead bit-identity and a planted strike; the process group is
+    destroyed before the gloo world runs.  Matrices draw from --seed +
+    17.  Returns the launch counts of the paths."""
+    import torch.distributed as dist
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="smoke-nccl-") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            g = st.Grid(1, 1, group=dist.group.WORLD)
+            emit({"phase": "seconds", "of": "nccl_init",
+                  "seconds": time.perf_counter() - t0,
+                  "grid": repr(g), "device": str(g.device)})
+            for name, fn in (
+                    ("dist_posv", lambda: check_dist_posv(
+                        st, g, gen, n, nb, nrhs, reset, counts, failures)),
+                    ("dist_blas3", lambda: check_dist_blas3(
+                        st, g, gen, n, nb, nrhs, out.pop("_L"), reset,
+                        counts, failures)),
+                    ("dist_lookahead", lambda: check_dist_bits(
+                        st, g, gen, nb, reset, counts, failures))):
+                t0 = time.perf_counter()
+                torch.cuda.empty_cache()
+                res = fn()
+                if name == "dist_posv":
+                    out["dist_posv"], out["_L"] = res
+                elif res:
+                    out.update(res)
+                emit({"phase": "seconds", "of": name,
+                      "seconds": time.perf_counter() - t0})
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_gloo_world(failures)
+    emit({"phase": "seconds", "of": "gloo_2x2",
+          "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError("slice 16: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4671,7 +5033,11 @@ def main(argv=None) -> int:
                     help="also break one warm posv, one warm CALU gesv, "
                          "one warm QR gels, one warm serving stream, and one "
                          "warm heev and svd down by phase and kernel")
+    ap.add_argument("--gloo-child", nargs=2, metavar=("RANK", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.gloo_child:
+        return gloo_child(int(args.gloo_child[0]), args.gloo_child[1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5054,6 +5420,10 @@ def main(argv=None) -> int:
     # ---- slice 15: durable jobs and compatibility (--seed + 16) ----
     slice15_launches = check_slice15(st, args.seed, nb, nrhs, reset, counts,
                                      kernels, card)
+
+    # ---- slice 16: the distributed layer, one NCCL rank (--seed + 17) ----
+    slice16_launches = check_slice16(st, args.seed, n, nb, nrhs, reset,
+                                     counts)
     plans_dir.cleanup()
 
     # ---- the record ----
@@ -5068,16 +5438,18 @@ def main(argv=None) -> int:
                             "gels_config4_qr_forced": cfg4["qr_forced"],
                             **serve_launches, **robust_launches,
                             **slice12_launches, **slice13_launches,
-                            **slice14_launches, **slice15_launches}})
+                            **slice14_launches, **slice15_launches,
+                            **slice16_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
                           main_launches),
         "chol_tile": ("slate_tpu_torch/csrc/chol_tile.cu",
                       "slate_tpu/internal/pallas_chol.py:320",
-                      "posv_tile_route+potrf_ooc",
+                      "posv_tile_route+potrf_ooc+dist_posv",
                       {"chol_tile": tile_launches["chol_tile"]
-                       + slice15_launches["potrf_ooc"]["chol_tile"]}),
+                       + slice15_launches["potrf_ooc"]["chol_tile"]
+                       + slice16_launches["dist_posv"]["chol_tile"]}),
         "chol_panel_fused": ("slate_tpu_torch/csrc/chol_panel.cu",
                              "slate_tpu/internal/pallas_chol.py:180", "posv",
                              main_launches),

@@ -66,7 +66,15 @@ first use).  The ported slices carry the single-device solvers on tiled
 - compatibility: the ScaLAPACK descriptors and ``pd*`` routines, the
   LAPACK-style shims, the buffer-pointer entry points of an embedded C
   API (``native/slate_tpu_torch_capi.h``) and its Fortran module
-  (``compat``), and the host tile packing of ``native.py`` in numpy.
+  (``compat``), and the host tile packing of ``native.py`` in numpy;
+- the distributed BLAS-3 and Cholesky layer, SPMD over
+  ``torch.distributed`` (one rank a device, as SLATE's MPI ranks): a
+  ``Grid(p, q, group=...)`` shards every matrix 2D block-cyclically, each
+  rank holding only its own tiles (``core/storage.py``), and ``gemm``
+  (SUMMA and gemmA), ``hemm``, ``trsm``, ``trmm``, the rank-k updates,
+  ``potrf``/``potrs``/``posv`` and ``trtri`` take their mesh routes
+  (``parallel/``, over the collectives of ``comm/``); the distributed
+  Cholesky factors each diagonal tile through K1.
 
 Matrices are placed on CUDA unless the caller passes ``device="cpu"``;
 with no GPU, ``device=None`` raises.  On CPU tensors every kernel wrapper
@@ -83,7 +91,8 @@ torch.backends.cudnn.allow_tf32 = False
 from .types import Diag, Norm, Op, Side, TileKind, Uplo  # noqa: E402,F401
 from .options import (  # noqa: E402,F401
     Abft, ErrorPolicy, GridOrder, MethodCholQR, MethodEig, MethodGels,
-    MethodGemm, MethodHemm, MethodLU, MethodSvd, NormScope, Option,
+    MethodGemm, MethodHemm, MethodLU, MethodSvd, MethodTrsm, NormScope,
+    Option,
     Precision, Speculate, Target,
 )
 from .version import __version__  # noqa: E402,F401
@@ -91,7 +100,7 @@ from .exceptions import (  # noqa: E402,F401
     SlateError, SlateNotConvergedError, SlateNotPositiveDefiniteError,
     SlateSingularError, SlateUnsupportedDtypeError, SlateValueError,
 )
-from .core.grid import Grid  # noqa: E402,F401
+from .core.grid import Grid, make_grid  # noqa: E402,F401
 from .core.storage import TileMap, TileStorage  # noqa: E402,F401
 from .core.matrix import (  # noqa: E402,F401
     BandMatrix, BaseBandMatrix, BaseMatrix, BaseTrapezoidMatrix,

@@ -157,7 +157,7 @@ def from_scalapack(desc, locals_, grid: Grid | None = None, device=None):
     p, q = _process_grid(locals_)
     if p * q > 1:
         raise not_ported(f"from_scalapack onto a {p}x{q} process grid",
-                         "queue 1, item 12 (distributed)")
+                         "queue 1, item 12b (distributed)")
     _, _, mb, nb, _ = _check_desc(desc)
     dense = gather_locals(desc, locals_, grid.p, grid.q)
     return Matrix.from_numpy(dense, mb, nb, grid, device=device)

@@ -18,7 +18,7 @@ from ..exceptions import slate_error
 from ..types import Diag, Op, TileKind, Uplo, compose_op, is_complex
 from . import layout
 from .grid import Grid
-from .storage import TileStorage, as_tensor
+from .storage import TileStorage, as_tensor, grid_device
 
 __all__ = [
     "BaseMatrix", "Matrix", "BaseTrapezoidMatrix", "TrapezoidMatrix",
@@ -243,10 +243,13 @@ class Matrix(BaseMatrix):
     @classmethod
     def from_numpy(cls, a, mb, nb=None, grid=None, kind=TileKind.UserOwned,
                    device=None):
-        """Import host data (ref: fromLAPACK).  ``device=None`` means CUDA
-        and raises without it; ``device="cpu"`` runs the plain versions."""
-        st = TileStorage.from_dense(as_tensor(a, device), mb, nb or mb,
-                                    grid or Grid(1, 1))
+        """Import host data (ref: fromLAPACK).  ``device=None`` means the
+        grid's device, and on the serial grid CUDA, raising without it;
+        ``device="cpu"`` runs the plain versions.  On a grid with a
+        process group ``a`` is the whole matrix, the same on every rank,
+        and each rank keeps its own tiles."""
+        st = TileStorage.from_dense(as_tensor(a, grid_device(grid, device)),
+                                    mb, nb or mb, grid or Grid(1, 1))
         return cls(st, kind=kind)
 
     # ---- structure reinterpretation (ref: conversion ctors) ----
@@ -382,7 +385,8 @@ class BandMatrix(BaseBandMatrix):
 
     @classmethod
     def from_numpy(cls, a, kl, ku, mb, grid=None, device=None):
-        st = TileStorage.from_dense(as_tensor(a, device), mb, mb,
+        st = TileStorage.from_dense(as_tensor(a, grid_device(grid, device)),
+                                    mb, mb,
                                     grid or Grid(1, 1))
         return cls(st, kl=kl, ku=ku)
 
@@ -393,7 +397,8 @@ class TriangularBandMatrix(BaseBandMatrix):
     @classmethod
     def from_numpy(cls, a, kd, mb, uplo: Uplo = Uplo.Lower,
                    diag: Diag = Diag.NonUnit, grid=None, device=None):
-        st = TileStorage.from_dense(as_tensor(a, device), mb, mb,
+        st = TileStorage.from_dense(as_tensor(a, grid_device(grid, device)),
+                                    mb, mb,
                                     grid or Grid(1, 1))
         return cls(st, kd=kd, uplo=uplo, diag=diag)
 
@@ -424,7 +429,8 @@ class HermitianBandMatrix(BaseBandMatrix):
     @classmethod
     def from_numpy(cls, a, kd, mb, uplo: Uplo = Uplo.Lower, grid=None,
                    device=None):
-        st = TileStorage.from_dense(as_tensor(a, device), mb, mb,
+        st = TileStorage.from_dense(as_tensor(a, grid_device(grid, device)),
+                                    mb, mb,
                                     grid or Grid(1, 1))
         return cls(st, kd=kd, uplo=uplo)
 

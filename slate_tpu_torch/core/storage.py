@@ -1,10 +1,19 @@
 """TileStorage: the tile map as one blocked tensor (port of the
 reference's slate_tpu/core/storage.py ``TileStorage``).
 
-``data`` is one tensor ``[Mt, Nt, mb, nb]`` on one explicit device, in
-the reference's cyclic order (which on the 1 x 1 grid is the natural tile
-order), so ``data`` holds the same bytes as the reference's
-``TileStorage.data`` for the same matrix.
+On the serial grid ``data`` is one tensor ``[Mt, Nt, mb, nb]`` on one
+explicit device, in the reference's cyclic order (which on the 1 x 1 grid
+is the natural tile order), so ``data`` holds the same bytes as the
+reference's ``TileStorage.data`` for the same matrix.
+
+On a grid with a process group (core/grid.py) the storage is SHARDED:
+each rank's ``data`` is its local block ``[mtl, ntl, mb, nb]``, bit for
+bit the slice ``[r*mtl:(r+1)*mtl, c*ntl:(c+1)*ntl]`` of the reference's
+cyclic array ``[p*mtl, q*ntl, mb, nb]`` for grid coordinate (r, c), pad
+tiles zero: local slot (s, t) holds global tile (r + p*s, c + q*t).
+``from_dense`` takes the global array, replicated on every rank, and
+keeps the rank's tiles; ``canonical`` and ``to_dense`` all-gather the
+tiles of every rank, so they are collectives that every rank calls.
 
 ``TileMap`` (ref: storage.py:191) is the host-resident tile map of the
 out-of-core drivers: the authoritative bytes stay in host memory and
@@ -38,6 +47,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def grid_device(grid, device=None):
+    """The device an entry point's data goes to on ``grid``: ``device``
+    when given, else the grid's own (a rank's card on a grid with a
+    group; None, hence CUDA, on the serial grid)."""
+    if device is not None or grid is None:
+        return device
+    return grid.device
+
+
 def as_tensor(a, device=None) -> torch.Tensor:
     """Host data (numpy array, tensor or nested lists) -> tensor on the
     resolved device (:func:`resolve_device`)."""
@@ -51,9 +69,20 @@ def as_tensor(a, device=None) -> torch.Tensor:
     return t.to(resolve_device(device))
 
 
+def _local(cyclic: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """This rank's block of a whole cyclic array [p*mtl, q*ntl, ...] on a
+    grid with a group; the array itself on the serial grid."""
+    if grid.group is None:
+        return cyclic
+    r, c = grid.coords
+    mtl, ntl = cyclic.shape[0] // grid.p, cyclic.shape[1] // grid.q
+    return cyclic[r * mtl:(r + 1) * mtl, c * ntl:(c + 1) * ntl].contiguous()
+
+
 class TileStorage:
     """Tiles of an m x n matrix, ``data[s, t]`` = tile (i, j) in the 2D
-    block-cyclic order of ``grid`` (identity order on the 1 x 1 grid)."""
+    block-cyclic order of ``grid`` (identity order on the 1 x 1 grid); on
+    a grid with a group, the rank's local block of that order."""
 
     def __init__(self, data: torch.Tensor, m: int, n: int, mb: int, nb: int,
                  grid: Grid | None = None):
@@ -65,23 +94,31 @@ class TileStorage:
         self.Nt = layout.num_tiles(self.n, self.nb)
         self.mtl = -(-self.Mt // self.grid.p)
         self.ntl = -(-self.Nt // self.grid.q)
-        slate_error(tuple(data.shape) == (self.grid.p * self.mtl,
-                                          self.grid.q * self.ntl,
-                                          self.mb, self.nb),
+        want = ((self.mtl, self.ntl) if self.sharded else
+                (self.grid.p * self.mtl, self.grid.q * self.ntl))
+        slate_error(tuple(data.shape) == want + (self.mb, self.nb),
                     f"tile data shape {tuple(data.shape)} does not hold a "
-                    f"{m}x{n} matrix in {mb}x{nb} tiles")
+                    f"{m}x{n} matrix in {mb}x{nb} tiles on {self.grid}")
+
+    @property
+    def sharded(self) -> bool:
+        """True when ``data`` is this rank's local block of a grid with a
+        process group."""
+        return self.grid.group is not None
 
     # ---- constructors ----
     @classmethod
     def zeros(cls, m, n, mb, nb, grid: Grid | None = None,
               dtype=torch.float32, device=None):
-        """All-zero tiles on ``device`` (``None`` means CUDA, as
-        :func:`resolve_device` reads it)."""
+        """All-zero tiles on ``device`` (``None`` means the grid's device,
+        and on the serial grid CUDA, as :func:`resolve_device` reads it)."""
         grid = grid or Grid(1, 1)
         Mt, Nt = layout.num_tiles(m, mb), layout.num_tiles(n, nb)
         mtl, ntl = -(-Mt // grid.p), -(-Nt // grid.q)
-        data = torch.zeros((grid.p * mtl, grid.q * ntl, mb, nb), dtype=dtype,
-                           device=resolve_device(device))
+        shape = ((mtl, ntl) if grid.group is not None
+                 else (grid.p * mtl, grid.q * ntl))
+        data = torch.zeros(shape + (mb, nb), dtype=dtype,
+                           device=resolve_device(grid_device(grid, device)))
         return cls(data, m, n, mb, nb, grid)
 
     def with_dense(self, dense: torch.Tensor) -> "TileStorage":
@@ -90,30 +127,32 @@ class TileStorage:
 
     def with_canonical(self, tiles: torch.Tensor) -> "TileStorage":
         """This storage's shape over canonical tiles [Mt, Nt, mb, nb]."""
-        data = layout.canonical_to_cyclic(tiles, self.grid.p, self.grid.q)
-        return TileStorage(data, self.m, self.n, self.mb, self.nb, self.grid)
+        return TileStorage.from_canonical(tiles, self.m, self.n, self.grid)
 
     @classmethod
     def from_dense(cls, dense: torch.Tensor, mb, nb,
                    grid: Grid | None = None):
         """Tile a dense tensor on the device it lies on (ref:
-        Matrix::fromLAPACK); host data enters through ``Matrix.from_numpy``."""
+        Matrix::fromLAPACK); host data enters through ``Matrix.from_numpy``.
+        On a grid with a group, ``dense`` is the whole matrix, the same on
+        every rank, and the rank keeps its own tiles."""
         grid = grid or Grid(1, 1)
         slate_error(dense.dim() == 2, "from_dense needs a 2D tensor")
         tiles = layout.tile_dense(dense, mb, nb)
-        data = layout.canonical_to_cyclic(tiles, grid.p, grid.q)
-        return cls(data, dense.shape[0], dense.shape[1], mb, nb, grid)
+        return cls.from_canonical(tiles, dense.shape[0], dense.shape[1],
+                                  grid)
 
     @classmethod
     def from_canonical(cls, tiles: torch.Tensor, m, n,
                        grid: Grid | None = None):
         """Storage over canonical tiles [Mt, Nt, mb, nb] of an m x n
-        matrix."""
+        matrix (the whole matrix's, on a grid with a group too)."""
         grid = grid or Grid(1, 1)
         Mt, Nt, mb, nb = tiles.shape
         slate_error(Mt == layout.num_tiles(m, mb) and
                     Nt == layout.num_tiles(n, nb), "tile grid mismatch")
-        data = layout.canonical_to_cyclic(tiles, grid.p, grid.q)
+        data = _local(layout.canonical_to_cyclic(tiles, grid.p, grid.q),
+                      grid)
         return cls(data, m, n, mb, nb, grid)
 
     def astype(self, dtype) -> "TileStorage":
@@ -133,19 +172,38 @@ class TileStorage:
         return self.grid.tile_rank(i, j)
 
     # ---- views of the store ----
+    def cyclic(self) -> torch.Tensor:
+        """The whole cyclic array [p*mtl, q*ntl, mb, nb]: on a grid with a
+        group, every rank's block all-gathered (a collective)."""
+        if not self.sharded:
+            return self.data
+        from ..comm.collectives import allgather_grid
+        blocks = allgather_grid(self.data, self.grid)
+        g = self.grid
+        rows = [torch.cat([blocks[g.coord_rank(r, c)] for c in range(g.q)],
+                          dim=1) for r in range(g.p)]
+        return torch.cat(rows, dim=0)
+
+    def local_block(self, cyclic: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole cyclic array [p*mtl, q*ntl, ...]
+        (the array itself on the serial grid)."""
+        return _local(cyclic, self.grid)
+
     def canonical(self) -> torch.Tensor:
-        """Tiles in natural (i, j) order: [Mt, Nt, mb, nb]."""
+        """Tiles in natural (i, j) order: [Mt, Nt, mb, nb] (a collective on
+        a grid with a group)."""
         return layout.cyclic_to_canonical(
-            self.data, self.Mt, self.Nt, self.grid.p, self.grid.q)
+            self.cyclic(), self.Mt, self.Nt, self.grid.p, self.grid.q)
 
     def to_dense(self) -> torch.Tensor:
         return layout.untile_dense(self.canonical(), self.m, self.n)
 
     def tile(self, i: int, j: int) -> torch.Tensor:
-        """One tile (debug/test path; ref: BaseMatrix::at)."""
+        """One tile (debug/test path; ref: BaseMatrix::at); a collective on
+        a grid with a group."""
         ci, _, _ = layout.cyclic_row_maps(self.Mt, self.grid.p)
         cj, _, _ = layout.cyclic_row_maps(self.Nt, self.grid.q)
-        return self.data[int(ci[i]), int(cj[j])]
+        return self.cyclic()[int(ci[i]), int(cj[j])]
 
     @property
     def dtype(self) -> torch.dtype:

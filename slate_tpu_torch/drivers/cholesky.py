@@ -1,5 +1,10 @@
-"""Cholesky solvers: potrf, potrs, posv, potri (port of the single-device
-path of slate_tpu/drivers/cholesky.py).
+"""Cholesky solvers: potrf, potrs, posv, potri (port of
+slate_tpu/drivers/cholesky.py).
+
+On a mesh (the target mesh and a grid with a process group) potrf is the
+distributed right-looking factorization of parallel/dist_chol.py, which
+factors every diagonal tile through K1, and potrs and posv solve through
+the distributed trsm.  On one device:
 
 potrf is a blocked left-looking factorisation of the dense matrix: for
 each block column, the rank-k update from the columns already factored,
@@ -35,12 +40,12 @@ from ..exceptions import SlateNotPositiveDefiniteError, slate_error
 from ..internal.potrf import potrf_panel_fused, potrf_panel_ok, potrf_tile
 from ..internal.trsm import tri_inv_lower
 from ..obs import sentinel as _sentinel
-from ..options import (ErrorPolicy, Option, Options, get_option,
+from ..options import (ErrorPolicy, Option, Options, get_option, on_mesh,
                        options_fingerprint, resolve_abft, resolve_target)
 from ..robust import abft as _abft
 from ..robust import faults
 from ..robust import health as _health
-from ..types import Uplo
+from ..types import Op, Uplo
 from ..util.trace import annotate
 from .blas3 import trsm
 
@@ -124,11 +129,66 @@ def potrf(A, opts: Options | None = None):
     into the health, read with the rest of it in one copy."""
     slate_error(isinstance(A, (HermitianMatrix, SymmetricMatrix)),
                 "potrf: need HermitianMatrix/SymmetricMatrix")
-    resolve_target(opts, A)
+    mesh = on_mesh(opts, A)
     abft = resolve_abft(opts)  # the one Option.Abft read (driver boundary)
+    if mesh:
+        L, stats = _potrf_mesh(A, abft)
+        return _finalize_potrf(L, _chol_health(stats), A._uplo_logical(),
+                               opts)
     lfac, stats = _potrf_device(A, abft)
     return _finalize_potrf(_lower_factor(lfac, A), _chol_health(stats),
                            A._uplo_logical(), opts)
+
+
+def _corrupt_storage(site: str, st: TileStorage) -> torch.Tensor:
+    """``faults.maybe_corrupt`` of a storage's tiles: on a grid with a
+    group the strike lands where the reference's lands in its global
+    cyclic array (gathered, struck, this rank's block kept)."""
+    if not st.sharded or faults.active(site) is None:
+        return faults.maybe_corrupt(site, st.data)
+    return st.local_block(faults.maybe_corrupt(site, st.cyclic()))
+
+
+def _lower_finite(st: TileStorage) -> torch.Tensor:
+    """1 when every element of the factor's lower triangle (the tiles the
+    factorization writes) is finite, over the whole grid (0-d int)."""
+    from ..comm.collectives import reduce_grid
+    g = st.grid
+    r, c = g.coords
+    dev = st.data.device
+    gi = (r + g.p * torch.arange(st.mtl, device=dev))[:, None, None, None]
+    gj = (c + g.q * torch.arange(st.ntl, device=dev))[None, :, None, None]
+    ii = torch.arange(st.nb, device=dev)
+    low = ii[:, None] >= ii[None, :]
+    keep = ((gi > gj) | ((gi == gj) & low)) & (gi < st.Mt) & (gj < st.Nt)
+    bad = keep & ~torch.isfinite(st.data)
+    return reduce_grid((~bad.any()).to(torch.int32), g, op="min")
+
+
+def _potrf_mesh(A, abft: bool):
+    """potrf's mesh route (ref: cholesky.py:138-163): the LOWER
+    representation factored by dist_potrf.  dist_potrf reads only the
+    lower triangle (the diagonal tiles are Hermitian-completed), so a
+    lower-stored root view goes in zero-copy; any other view is densified
+    (an all-gather on every rank) and re-tiled.  Returns the lower factor
+    and its health statistics (:func:`_chol_stats`' layout), the same on
+    every rank."""
+    from ..parallel.dist_chol import dist_potrf
+    nb = A.nb
+    if (A.uplo is Uplo.Lower and A.op is Op.NoTrans and A.is_root_view()
+            and A.storage.mb == nb):
+        st_l = A.storage
+    else:
+        st_l = TileStorage.from_dense(A.to_dense(), nb, nb, A.grid)
+    data_in = _corrupt_storage("input", st_l)
+    out, minpiv, minidx, det, cor, site = dist_potrf(
+        data_in, st_l.Nt, A.grid, n=st_l.n, abft=abft)
+    st_out = TileStorage(out, st_l.m, st_l.n, nb, nb, A.grid)
+    L = TriangularMatrix._from_view(Matrix(st_out), Uplo.Lower)
+    stats = torch.stack([minpiv.double(), minidx.double(),
+                         _lower_finite(st_out).double(), det.double(),
+                         cor.double(), site.double()])
+    return L, stats
 
 
 def _potrf_device(A, abft: bool):
@@ -287,8 +347,8 @@ def potrs(L: TriangularMatrix, B, opts: Options | None = None) -> Matrix:
         X = trsm("l", 1.0, L, Y, opts)
     if faults.active("solve") is not None:
         sx = X.storage
-        X = Matrix(TileStorage(faults.maybe_corrupt("solve", sx.data),
-                               sx.m, sx.n, sx.mb, sx.nb, sx.grid))
+        X = Matrix(TileStorage(_corrupt_storage("solve", sx), sx.m, sx.n,
+                               sx.mb, sx.nb, sx.grid))
     return X
 
 
@@ -305,11 +365,14 @@ def posv(A, B, opts: Options | None = None):
     is captured once per (shape, tiling, dtype, options) as a CUDA graph
     and replayed; the host then reads the health and runs the ladder's
     rungs eagerly.  The results equal a plain posv's bit for bit.  On CPU
-    tensors, and while a fault plan is armed at a device site, the body
-    runs eagerly."""
+    tensors, on a grid with a process group (whose collectives stay out of
+    a graph), and while a fault plan is armed at a device site, the body
+    runs eagerly.  On a mesh the attempt is the distributed potrf and
+    trsm."""
     from ..robust.recovery import posv_with_recovery
     if (get_option(opts, Option.HoldLocalWorkspace)
             and A.storage.data.device.type == "cuda"
+            and A.grid.group is None
             and not faults.device_plans_active()):
         return posv_with_recovery(A, B, opts, chol_attempt=_held_attempt)
     return posv_with_recovery(A, B, opts)

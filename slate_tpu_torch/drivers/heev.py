@@ -20,8 +20,9 @@ he2hb.cc:25, hb2st.cc:41-314, unmtr_he2hb.cc).
 
 The reference runs all of it outside any Pallas kernel, so on the card it
 is library calls; ``hegv`` factors B with ``potrf`` (K2 and K0 on the
-card).  The mesh route (``_heev_mesh``) belongs to the distributed slice
-and raises through ``resolve_target``.
+card).  The mesh route (``_heev_mesh``) comes with queue 1, item 12b:
+``Target.mesh`` or a grid with a process group raises
+(options.single_route).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..exceptions import SlateNotConvergedError, slate_error
 from ..internal.qr import (householder_panel_blocked, householder_vec,
                            phase_of, rolled_apply, unit_lower)
 from ..options import (ErrorPolicy, MethodEig, Option, Options, get_option,
-                       resolve_target)
+                       single_route)
 from ..robust import certify as _certify
 from ..robust import faults as _faults
 from ..robust import health as _health
@@ -309,7 +310,7 @@ def heev_info(A, opts: Options | None = None, *, jobz: bool = True):
     slate_error(isinstance(A, HermitianMatrix) or not is_complex(A.dtype),
                 "heev: complex SymmetricMatrix is not Hermitian — "
                 "no eigensolver for complex-symmetric matrices")
-    resolve_target(opts, A)
+    single_route(opts, "heev (_heev_mesh)", A, mesh_target=True)
     n, nb = A.m, A.nb
     ad = A.to_dense()
     with span("slate.heev/he2hb"):

@@ -165,7 +165,7 @@ def hetrf(A, opts: Options | None = None):
                 "hetrf: complex SymmetricMatrix unsupported (use "
                 "HermitianMatrix)")
     nb = A.nb
-    if resolve_target(opts, A) is Target.mesh:
+    if resolve_target(opts, A) is Target.mesh or A.grid.group is not None:
         F = _hetrf_mesh(A, nb)
     else:
         L, Tdiag, Tsub, piv = _aasen_blocked(A.to_dense(), nb)
@@ -177,9 +177,10 @@ def hetrf(A, opts: Options | None = None):
 
 def _hetrf_mesh(A, nb: int) -> HEFactors:
     """The mesh Aasen (ref: hetrf.py _hetrf_mesh): a row-sharded layout
-    across several devices."""
+    across several devices, taken for Target.mesh and on a grid with a
+    process group."""
     raise not_ported("the mesh Aasen factorization (_hetrf_mesh)",
-                     "queue 1, item 12 (distributed)")
+                     "queue 1, item 12b (distributed)")
 
 
 def _finish_factors(L, Tdiag, Tsub, piv, nb: int) -> HEFactors:

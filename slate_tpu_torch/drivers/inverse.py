@@ -27,8 +27,10 @@ def _singular_exc(name):
 @annotate("slate.trtri")
 def trtri(A: TriangularMatrix, opts: Options | None = None):
     """Triangular inverse (ref: src/trtri.cc): solves op(A) X = I through
-    the trsm driver, so it runs where trsm does (block substitution
-    against the inverted diagonal blocks from two block rows up).
+    the trsm driver, so it runs where trsm does: the dist_trsm
+    substitution pipeline on a mesh (the reference's distributed trtri,
+    ref: inverse.py:33), block substitution against the inverted diagonal
+    blocks from two block rows up on one device.
 
     A zero diagonal entry of A makes op(A) exactly singular: reported as
     ``info = k`` (1-based index of the first zero pivot) and resolved
@@ -47,11 +49,11 @@ def trtri(A: TriangularMatrix, opts: Options | None = None):
         X, Uplo.Lower if eff_lower else Uplo.Upper, A.diag)
     if A.diag is Diag.Unit:
         # a unit diagonal is implicit ones: never singular
-        h = _health.from_result(X.storage.data)
+        h = _health.from_result(X.storage.data, X.grid)
     else:
         h = _health.merge(
             _health.from_pivots(torch.diagonal(A.to_dense())),
-            _health.from_result(X.storage.data))
+            _health.from_result(X.storage.data, X.grid))
     return _health.finalize("trtri", Xt, h, opts, _singular_exc("trtri"))
 
 
@@ -59,7 +61,8 @@ def trtri(A: TriangularMatrix, opts: Options | None = None):
 def trtrm(L: TriangularMatrix, opts: Options | None = None):
     """The Hermitian product of a triangular factor with its adjoint (ref:
     src/trtrm.cc): for a lower Linv, Linv^H Linv, the second half of
-    potri, through the herk driver."""
+    potri, through the herk driver (on a mesh, its triangle-aware
+    kernel)."""
     from .blas3 import herk
     n = L.m
     nb = L.storage.nb
@@ -69,5 +72,5 @@ def trtrm(L: TriangularMatrix, opts: Options | None = None):
         C = herk(1.0, L.conj_transpose().general(), 0.0, C0, opts)
     else:
         C = herk(1.0, L.general(), 0.0, C0, opts)
-    h = _health.from_result(C.storage.data)
+    h = _health.from_result(C.storage.data, C.grid)
     return _health.finalize("trtrm", C, h, opts, _singular_exc("trtrm"))

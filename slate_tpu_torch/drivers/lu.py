@@ -33,7 +33,7 @@ from ..internal.getrf import (panel_lu, panel_lu_nopiv, panel_lu_threshold,
                               panel_lu_tournament)
 from ..internal.trsm import tri_inv_lower
 from ..options import (ErrorPolicy, Option, Options, get_option,
-                       resolve_abft, resolve_target)
+                       resolve_abft, single_route)
 from ..robust import abft as _abft
 from ..robust import faults
 from ..robust import health as _health
@@ -213,7 +213,7 @@ def getrf_rbt(A: Matrix, opts: Options | None = None):
     NoPiv factor's over the transformed matrix."""
     slate_error(A.m == A.n, "getrf_rbt: square matrices (gesv path)")
     n, nb = A.m, A.nb
-    resolve_target(opts, A)
+    single_route(opts, "getrf_rbt", A)
     nt = rbt.padded_size(n)
     ad = faults.maybe_corrupt("input", A.to_dense())
     abar = torch.zeros((nt, nt), dtype=ad.dtype, device=ad.device)
@@ -253,7 +253,7 @@ def _lu_health(factor: torch.Tensor, minpiv: torch.Tensor,
 
 
 def _getrf(A: Matrix, opts: Options | None, method: str):
-    resolve_target(opts, A)
+    single_route(opts, "getrf (dist_getrf)", A)
     abft = resolve_abft(opts)  # the one Option.Abft read (driver boundary)
     tau = float(get_option(opts, Option.PivotThreshold))
     mpt = int(get_option(opts, Option.MaxPanelThreads))
@@ -414,7 +414,7 @@ def getrs(F: LUFactors, B, opts: Options | None = None) -> Matrix:
     if isinstance(F, RBTFactors):
         return _getrs_rbt(F, B, opts)
     slate_error(F.LU.m == B.m, "getrs: dims")
-    resolve_target(opts, B)
+    single_route(opts, "getrs", F.LU, B)
     Bp = Matrix(TileStorage.from_dense(B.to_dense()[F.perm], B.mb, B.nb,
                                        B.grid))
     Y = trsm("l", 1.0, F.lower(), Bp, opts)
@@ -428,6 +428,7 @@ def gesv(A: Matrix, B, opts: Options | None = None):
     with Option.UseFallbackSolver an unhealthy factor escalates the
     pivoting (NoPiv -> PartialPiv -> CALU), see robust/recovery.py."""
     from ..robust.recovery import gesv_with_recovery
+    single_route(opts, "gesv", A, B)
     return gesv_with_recovery(A, B, opts)
 
 

@@ -21,7 +21,7 @@ from ..exceptions import SlateNotPositiveDefiniteError, not_ported, \
     slate_error
 from ..internal.qr import apply_q_left, apply_q_right, geqrf_panel
 from ..options import (ErrorPolicy, MethodCholQR, MethodGemm, Option,
-                       Options, method_option, resolve_target)
+                       Options, method_option, single_route)
 from ..robust import health as _health
 from ..types import Op, Side, Uplo, is_complex
 from ..util.trace import annotate
@@ -79,7 +79,7 @@ def _geqrf_dense_blocked(a: torch.Tensor, nb: int):
 def geqrf(A: Matrix, opts: Options | None = None) -> QRFactors:
     """QR factorization A = Q R (ref: src/geqrf.cc).  Returns the packed
     factors; :func:`unmqr` applies Q, and triu(R) serves solves."""
-    resolve_target(opts, A)
+    single_route(opts, "geqrf (dist_qr)", A)
     ad = A.to_dense().clone(memory_format=torch.contiguous_format)
     packed, T = _geqrf_dense_blocked(ad, A.nb)
     return QRFactors(Matrix(TileStorage.from_dense(packed, A.mb, A.nb,
@@ -117,7 +117,7 @@ def unmqr(side, op, F: QRFactors, C, opts: Options | None = None) -> Matrix:
     src/unmqr.cc); Q is the implicit factor of :func:`geqrf`."""
     sd = _side(side)
     conj_trans = _parse_trans(op, F.QR.dtype)
-    resolve_target(opts, C)
+    single_route(opts, "unmqr", F.QR, C)
     packed = F.QR.to_dense()
     mq, nq = packed.shape
     nb = F.QR.nb
@@ -196,6 +196,7 @@ def cholqr(A: Matrix, opts: Options | None = None):
     A raises :class:`SlateNotPositiveDefiniteError` (under ErrorPolicy.Info
     the return is ((Q, R), HealthInfo))."""
     slate_error(A.m >= A.n, "cholqr: need m >= n")
+    single_route(opts, "cholqr", A)
     G = _gram(A, opts)
     L, fh = potrf(G, _info_opts(opts))       # G = L L^H
     R = L.conj_transpose()                   # upper
@@ -284,6 +285,7 @@ def gels(A: Matrix, B, opts: Options | None = None) -> Matrix:
     m < n: the minimum-norm solution through LQ, x = Q^H L^-1 b.
     Returns X, or (X, HealthInfo) under ErrorPolicy.Info."""
     m, n = A.m, A.n
+    single_route(opts, "gels", A, B)
     if m >= n:
         from ..robust.recovery import gels_with_recovery
         return gels_with_recovery(A, B, opts)

@@ -24,8 +24,8 @@ stedc_deflate.cc:595, stedc_secular.cc:271, stedc_sort.cc).
   eigenvectors are one product Q0 @ U.
 
 The reference pins its products to "highest" precision; here every merge
-runs with TF32 off.  The row-distributed merge product of a mesh belongs
-to the distributed slice (ROADMAP.md queue 1, item 12).
+runs with TF32 off.  The row-distributed merge product of a mesh comes
+with the distributed spectral drivers (ROADMAP.md queue 1, item 12b).
 """
 
 from __future__ import annotations
@@ -327,9 +327,9 @@ def stedc_info(d, e, grid=None, certify: bool = True, *, device=None):
     certificate of (w, Z) against T itself (``certify.certify_eig``), read
     from the device in one copy.  ``d`` and ``e`` stay where they are when
     they are tensors; host data goes to ``device`` (None: CUDA)."""
-    if grid is not None and grid.size > 1:
+    if grid is not None and (grid.size > 1 or grid.group is not None):
         raise not_ported("stedc on a mesh (row-distributed merges)",
-                         "queue 1, item 12 (distributed)")
+                         "queue 1, item 12b (distributed)")
     d = d if isinstance(d, torch.Tensor) else as_tensor(np.asarray(d),
                                                         device)
     e = e if isinstance(e, torch.Tensor) else as_tensor(np.asarray(e),

@@ -15,8 +15,8 @@ tb2bd.cc).
 - vectors: U = Q_qr [Un; 0], V = V1 Vn, the stage-1 panels applied by
   ``rolled_apply``.
 
-The mesh route (``_svd_mesh``) belongs to the distributed slice and raises
-through ``resolve_target``.
+The mesh route (``_svd_mesh``) comes with queue 1, item 12b: ``Target.mesh``
+or a grid with a process group raises (options.single_route).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ..internal.qr import (apply_q_left, apply_q_right,
                            householder_panel_blocked, householder_vec,
                            phase_of, rolled_apply)
 from ..options import (ErrorPolicy, MethodSvd, Option, Options, get_option,
-                       resolve_target)
+                       single_route)
 from ..robust import certify as _certify
 from ..robust import faults as _faults
 from ..robust import health as _health
@@ -285,7 +285,7 @@ def _svd_compute(A: Matrix, opts: Options | None, jobu: bool):
     if m < n:
         s, V, U, h = _svd_compute(_conj_t_root(A), opts, jobu)
         return s, U, V, h
-    resolve_target(opts, A)
+    single_route(opts, "svd (_svd_mesh)", A, mesh_target=True)
     nb = A.nb
     ad = A.to_dense()
     with span("slate.svd/ge2tb"):

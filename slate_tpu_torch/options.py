@@ -1,9 +1,9 @@
 """Options / enums (the port's copy of slate_tpu/options.py).
 
 The keys and values are the reference's, so an options map written for
-``slate_tpu`` means the same here.  What this slice of the
-port does not carry (``Target.mesh``, ``Abft.On``, ...) raises
-``NotImplementedError`` where it is resolved; it is never ignored.
+``slate_tpu`` means the same here.  What the port does not carry yet (the
+distributed LU, QR, spectral and Aasen drivers of queue 1, item 12b)
+raises ``NotImplementedError`` where it is resolved; it is never ignored.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ class Target(enum.Enum):
 
     auto    pick from the matrix' grid (mesh if p*q > 1 else single)
     single  one device, blocked algorithm on the whole matrix
-    mesh    several devices (not ported yet)
+    mesh    the distributed kernels over the grid's process group
+            (slate_tpu_torch.parallel), where the grid has one
     """
 
     auto = "auto"
@@ -110,6 +111,15 @@ class MethodGemm(enum.Enum):
     gemmC = "gemmC"  # stationary C (SUMMA); default for nt >= 2
 
 
+class MethodTrsm(enum.Enum):
+    """trsm variant (ref: method.hh:25-74): the operand that stays where
+    it is when A and B live on different grids."""
+
+    Auto = "auto"
+    trsmA = "trsmA"  # stationary A
+    trsmB = "trsmB"  # stationary B; default
+
+
 class MethodHemm(enum.Enum):
     Auto = "auto"
     hemmA = "hemmA"
@@ -198,6 +208,7 @@ _DEFAULTS = {
     Option.PivotThreshold: 1.0,
     Option.MethodGemm: MethodGemm.Auto,
     Option.MethodHemm: MethodHemm.Auto,
+    Option.MethodTrsm: MethodTrsm.Auto,
     Option.MethodCholQR: MethodCholQR.Auto,
     Option.MethodGels: MethodGels.Auto,
     Option.MethodLU: MethodLU.Auto,
@@ -250,14 +261,43 @@ def get_option(opts: Options | None, key: Option,
 
 def resolve_target(opts: Options | None, matrix) -> Target:
     """Target::auto resolution: mesh iff the matrix lives on a >1-device
-    grid.  This slice runs ``single`` only: an explicit ``mesh`` raises."""
+    grid (ref: options.py:308).  A driver takes its mesh route where the
+    target is mesh AND the grid carries a process group; on a serial grid
+    ``Target.mesh`` takes the single route, as the reference's drivers do
+    when the grid has no mesh."""
     t = get_option(opts, Option.Target)
-    if t is Target.auto:
-        grid = getattr(matrix, "grid", None)
-        t = Target.mesh if grid is not None and grid.size > 1 \
-            else Target.single
-    if t is Target.mesh:
-        raise not_ported("Target.mesh", "queue 1, item 12 (distributed)")
+    if t is not Target.auto:
+        return t
+    grid = getattr(matrix, "grid", None)
+    if grid is not None and grid.size > 1:
+        return Target.mesh
+    return Target.single
+
+
+def on_mesh(opts: Options | None, matrix) -> bool:
+    """True when a driver takes its mesh route: the target resolves to
+    mesh and the matrix' grid carries a process group (the reference's
+    ``target is Target.mesh and grid.mesh is not None``)."""
+    return (resolve_target(opts, matrix) is Target.mesh
+            and matrix.grid.group is not None)
+
+
+def single_route(opts: Options | None, what: str, *mats,
+                 mesh_target: bool = False) -> Target:
+    """Target resolution for a driver whose distributed route is not
+    ported yet (queue 1, item 12b): a matrix on a grid with a process
+    group raises (the driver never runs the single route on a rank's local
+    tiles); with ``mesh_target`` a target that resolves to mesh raises
+    too (the drivers whose mesh route is a body of its own: hetrf, heev,
+    svd); otherwise the target resolves as :func:`resolve_target` does."""
+    for m in mats:
+        if getattr(m.grid, "group", None) is not None:
+            raise not_ported(f"{what} on a grid with a process group",
+                             "queue 1, item 12b (distributed)")
+    t = resolve_target(opts, mats[0])
+    if mesh_target and t is Target.mesh:
+        raise not_ported(f"{what} on Target.mesh",
+                         "queue 1, item 12b (distributed)")
     return t
 
 
@@ -288,6 +328,14 @@ def select_gemm_method(opts: Options | None, nt: int) -> MethodGemm:
     if m is not MethodGemm.Auto:
         return m
     return MethodGemm.gemmA if nt < 2 else MethodGemm.gemmC
+
+
+def select_trsm_method(opts: Options | None, nt: int) -> MethodTrsm:
+    """ref: method.hh:56-74: trsmB (B stays) unless asked otherwise."""
+    m = method_option(opts, Option.MethodTrsm, MethodTrsm)
+    if m is not MethodTrsm.Auto:
+        return m
+    return MethodTrsm.trsmB
 
 
 def select_gels_method(opts: Options | None, m: int, n: int) -> MethodGels:

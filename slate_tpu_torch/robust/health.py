@@ -89,9 +89,15 @@ def from_pivots(diag: torch.Tensor) -> HealthInfo:
         min_pivot_index=int(mpi_v))
 
 
-def from_result(x: torch.Tensor) -> HealthInfo:
-    """Health of a computed result: the non-finite flag only."""
-    return healthy()._replace(nonfinite=not bool(torch.isfinite(x).all()))
+def from_result(x: torch.Tensor, grid=None) -> HealthInfo:
+    """Health of a computed result: the non-finite flag only.  On a grid
+    with a process group ``x`` is a rank's local tiles, and the flag is
+    reduced over the grid, so that every rank reads the same health."""
+    finite = torch.isfinite(x).all()
+    if grid is not None and grid.group is not None:
+        from ..comm.collectives import reduce_grid
+        finite = reduce_grid(finite.to(torch.int32), grid, op="min")
+    return healthy()._replace(nonfinite=not bool(finite))
 
 
 def merge(*hs: HealthInfo) -> HealthInfo:

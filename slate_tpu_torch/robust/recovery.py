@@ -194,7 +194,7 @@ def _chol_attempt(A, B, opts):
     o = _with(opts, ErrorPolicy=ErrorPolicy.Info)
     L, fh = _chol.potrf(A, o)
     X = _chol.potrs(L, B, o)
-    return (L, X), _h.merge(fh, _h.from_result(X.storage.data))
+    return (L, X), _h.merge(fh, _h.from_result(X.storage.data, X.grid))
 
 
 def _round_bf16(M):

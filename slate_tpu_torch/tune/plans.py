@@ -380,7 +380,8 @@ def resolution(op: str, n: int, dtype="float32") -> dict:
 
 def lookahead_depth(n: int, dtype="float32") -> int:
     """Tuned comm/compute lookahead depth of the distributed kernels
-    (ROADMAP.md queue 1, item 12): 0, the bulk-synchronous route, unless a
+    (parallel/summa.py and parallel/dist_chol.py): 0, the
+    bulk-synchronous route, unless a
     ``dist_lookahead`` entry names the "ring" pipeline, whose ``bw`` is
     the depth, clamped to 1..2."""
     plan = resolve_plan(DIST_LOOKAHEAD_OP, n, dtype)

@@ -183,13 +183,15 @@ def test_error_policy_nan_poisons_and_potrf_potrs_split():
     ({"Target": "mesh"}, "mesh"),
 ])
 def test_unported_options_raise_not_implemented(opts, what):
-    """The options the port does not carry yet raise NotImplementedError
-    naming them; Abft, HoldLocalWorkspace (on CPU tensors its eager body)
-    and the bf16 rung, ported since, solve instead."""
+    """The options the port once did not carry raised NotImplementedError
+    naming them; Abft, HoldLocalWorkspace (on CPU tensors its eager body),
+    the bf16 rung and Target.mesh, ported since, solve instead (mesh on a
+    grid without a process group takes the single route, as the
+    reference's posv does when its grid has no mesh)."""
     a, b = _problem(17, n=128)
     A = st.SymmetricMatrix.from_numpy(a, 64, device="cpu")
     B = st.Matrix.from_numpy(b, 64, device="cpu")
-    if what in ("Abft", "HoldLocalWorkspace", "bf16"):
+    if what in ("Abft", "HoldLocalWorkspace", "bf16", "mesh"):
         _, X = st.posv(A, B, _opts(st, **opts))
         _close(X.to_numpy(), np.linalg.solve(a.astype(np.float64), b),
                F32_RTOL)

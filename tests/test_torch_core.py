@@ -134,11 +134,14 @@ def test_options_coerce_and_unported_targets_raise():
     assert get_option(None, st.Option.Tolerance, default=None) is None
     A = st.Matrix.from_numpy(np.eye(4, dtype=np.float32), 2, device="cpu")
     assert resolve_target(None, A) is st.Target.single
-    with pytest.raises(NotImplementedError, match="item 12"):
-        resolve_target({st.Option.Target: st.Target.mesh}, A)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # Target.mesh resolves as the reference's does; a driver takes its
+    # mesh route only where the grid also carries a process group
+    assert resolve_target({st.Option.Target: st.Target.mesh},
+                          A) is st.Target.mesh
+    # a grid larger than the ranks it has raises, as grid.py:65-66 does
+    with pytest.raises(st.SlateError, match="need 4 ranks, have 1"):
         st.Grid(2, 2)
-    assert st.Grid(1, 1).size == 1
+    assert st.Grid(1, 1).size == 1 and st.Grid(1, 1).group is None
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -260,16 +260,15 @@ def test_apply_row_perm_moves_only_the_displaced_rows():
     ({"Target": "mesh"}, "mesh"),
 ])
 def test_unported_gesv_options_raise_not_implemented(opts, what):
-    """Target.mesh is not ported and raises naming it; Speculate (the
-    certified RBT rung) and Abft, ported since, solve instead."""
+    """Speculate (the certified RBT rung), Abft and Target.mesh, ported
+    since, solve: mesh on a grid without a process group takes the single
+    route, as the reference's gesv does when its grid has no mesh (on a
+    grid with a group gesv raises naming queue 1, item 12b:
+    tests/test_torch_dist_chol.py)."""
     a, b = _dominant(10, 128), _rhs(10, 128)
     A = st.Matrix.from_numpy(a, 64, device="cpu")
     B = st.Matrix.from_numpy(b, 64, device="cpu")
-    if what != "mesh":
-        F, X = st.gesv(A, B, _opts(st, **opts))
-        assert isinstance(F, st.RBTFactors if what == "item 6"
-                          else st.LUFactors)
-        _close(X.to_numpy(), np.linalg.solve(a.astype(np.float64), b))
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        st.gesv(A, B, _opts(st, **opts))
+    F, X = st.gesv(A, B, _opts(st, **opts))
+    assert isinstance(F, st.RBTFactors if what == "item 6"
+                      else st.LUFactors)
+    _close(X.to_numpy(), np.linalg.solve(a.astype(np.float64), b))

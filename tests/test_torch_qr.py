@@ -246,8 +246,13 @@ def test_info_return_shapes_and_unported_rungs():
     X, h = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None, refine=1,
                                    certify=True)
     assert h.ok and h.iters == 1
-    with pytest.raises(NotImplementedError, match="Target.mesh"):
-        st.geqrf(_cpu(a, 32), _opts(st, Target=st.Target.mesh))
+    # Target.mesh on a grid without a process group takes the single
+    # route, as the reference's geqrf does when its grid has no mesh (on a
+    # grid with a group geqrf raises naming queue 1, item 12b:
+    # tests/test_torch_dist_chol.py)
+    F_mesh = st.geqrf(_cpu(a, 32), _opts(st, Target=st.Target.mesh))
+    assert torch.equal(F_mesh.QR.to_dense(),
+                       st.geqrf(_cpu(a, 32)).QR.to_dense())
     with pytest.raises(ValueError, match="MethodGels"):
         st.gels(_cpu(a, 32), _cpu(b, 32), _opts(st, MethodGels="qr"))
 

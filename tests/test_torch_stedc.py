@@ -17,6 +17,7 @@ name, so the ``ref_drivers`` fixture restores it on the test side only.
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -233,5 +234,7 @@ def test_stedc_on_a_tensor_stays_on_its_device_and_host_data_needs_one():
     assert w.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         st.stedc(d.numpy(), e.numpy())
+    # a grid of more than one rank (a 2 x 1 grid needs a process group of
+    # two ranks, so its two attributes stedc reads stand in for it)
     with pytest.raises(NotImplementedError, match="item 12"):
-        st.stedc(d, e, st.Grid(2, 1))
+        st.stedc(d, e, types.SimpleNamespace(size=2, group=None))
