@@ -244,7 +244,24 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      running posv and SUMMA gemm in f64 at n = 256 against torch's own
      solve and product: a check of comm/ under this machine's torch, no
      card result (its line says "device": "cpu");
- 16. print the launch counts, the card line, the kernels line, and last
+ 16. slice 17 (its own generator, --seed + 18): distributed LU, CAQR and
+     the mesh Aasen in a second one-rank NCCL world, every call with
+     Target.mesh: dist_gesv, CALU at n = 20480 with 128 right-hand sides
+     (dist_getrf: K4's tournament and K3 on every panel, 470 and 318
+     launches), gesv's bounds, beside the single route's CALU gesv;
+     dist_gesv_nopiv and dist_rbt (gesv under Speculate: the butterflies
+     on the tiles, then K3) at n = 8192, 127 K3 launches each;
+     dist_gels at 8192 x 4096 through CAQR (K5 on each of the 32 local
+     panels) and through CholQR (K1 on each of dist_potrf's 32 diagonal
+     tiles), gels' bounds; dist_hesv (the row-distributed Aasen) at n =
+     4096 beside the single route's; dist_lu_lookahead, dist_getrf
+     (CALU, 8192) and dist_geqrf (8192 x 4096) at depths 0, 1 and 2 bit
+     for bit; dist_gesv_strike, a transient bitflip planted in the first
+     panel of a mesh gesv under Option.Abft (n = 8192), located at its
+     tile and repaired; the process group destroyed; the gloo_2x2
+     children also run a CALU gesv, a QR gels, from_scalapack and pdgesv
+     (the gloo_2x2_slice17 line, "device": "cpu");
+ 17. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -254,7 +271,11 @@ device time into its round-1 launches and its reduction rounds', K3's
 into its factor and strips launches, and the stream's K6 and K7 device
 time into their update, factor and solve launches, and the kernel
 breakdown of one Abft posv and one Abft CALU gesv, and one warm heev and
-one warm svd at n = 8192 by span and by kernel, with the idle share.
+one warm svd at n = 8192 by span and by kernel (device activity alone),
+with the idle share, and the mesh CALU gesv by span and by kernel.
+Each profiled run has its own time limit (TRACE_PROFILE_LIMIT_S) and so
+has the spectral trace (TRACE_SPECTRAL_LIMIT_S): past it the run exits
+nonzero, naming the phase.
 
 The Cholesky and LU phases draw their matrices from one generator seeded
 with --seed, the QR phases (K5's check included) from their own, seeded
@@ -267,7 +288,8 @@ zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
 tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
 from --seed + 14, slice 14's from --seed + 15, slice 15's from
---seed + 16 and slice 16's from --seed + 17, so that
+--seed + 16, slice 16's from --seed + 17 and slice 17's from --seed +
+18, so that
 adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
@@ -1155,11 +1177,13 @@ def expected_calu_launches(n: int, nb: int, fits, mpt: int = 4,
     return {"lu_select": k4, "lu_panel_fused": k3}
 
 
-def calu_rounds(w: int, nb: int, mpt: int = 4, depth: int = 2) -> list:
+def calu_rounds(w: int, nb: int, mpt: int = 4, depth: int = 2,
+                height: int | None = None) -> list:
     """The block heights of a W-row panel's tournament rounds: round 1 at
     br rows (when br > nb), then a round of ``depth`` candidate sets
-    (depth * nb rows) until one set is left."""
-    br = max(nb, -(-w // (mpt * nb)) * nb)
+    (depth * nb rows) until one set is left.  br is sized from
+    ``height`` when given (the mesh route's reference panel height)."""
+    br = max(nb, -(-(height or w) // (mpt * nb)) * nb)
     blocks = -(-w // br)
     rounds = [br] if br > nb else []
     while blocks > 1:
@@ -1257,18 +1281,71 @@ def trace_posv(st, a, b, nb) -> None:
     profile_device("posv", lambda: st.posv(A, B))
 
 
-def profile_device(label, fn) -> list:
+# --trace: each profiled run has its own time limit, and so has the
+# spectral trace as a whole; past it the run fails, naming the phase
+TRACE_PROFILE_LIMIT_S = 300
+TRACE_SPECTRAL_LIMIT_S = 600
+TRACE_GRACE_S = 60
+
+
+@contextlib.contextmanager
+def phase_limit(name: str, seconds: float):
+    """Fail the run when the block passes ``seconds``: a TimeoutError
+    naming the phase (SIGALRM; an enclosing limit keeps running and
+    fires with its own name), and, should the block sit in code that
+    does not return to the interpreter, a line naming it and exit code 3
+    ``TRACE_GRACE_S`` later."""
+    import signal
+    import threading
+    t0 = time.monotonic()
+    outer = signal.getitimer(signal.ITIMER_REAL)[0]
+    old = signal.getsignal(signal.SIGALRM)
+
+    def on_alarm(signum, frame):
+        if time.monotonic() - t0 >= seconds or not callable(old):
+            raise TimeoutError(f"phase {name} passed its limit of "
+                               f"{seconds} s")
+        old(signum, frame)
+
+    done = threading.Event()
+
+    def hard_stop():
+        if not done.wait(seconds + TRACE_GRACE_S):
+            print(json.dumps({"phase": "timeout", "of": name,
+                              "limit_s": seconds}), flush=True)
+            os._exit(3)
+
+    signal.signal(signal.SIGALRM, on_alarm)
+    signal.setitimer(signal.ITIMER_REAL,
+                     min(seconds, outer) if outer else seconds)
+    threading.Thread(target=hard_stop, daemon=True,
+                     name="smoke-phase-limit").start()
+    try:
+        yield
+    finally:
+        done.set()
+        left = outer - (time.monotonic() - t0) if outer else 0.0
+        signal.setitimer(signal.ITIMER_REAL, max(left, 1e-3) if outer
+                         else 0.0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def profile_device(label, fn, cpu: bool = True) -> list:
     """Device time by kernel and the device's idle share of one ``fn()``
-    under torch.profiler; returns the kernels' device events."""
+    under torch.profiler (``cpu=False``: the device activity alone, for
+    runs of very many host operations); returns the kernels' device
+    events.  The profiled run and the reading of its events have
+    TRACE_PROFILE_LIMIT_S."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(fn)
-    # the drivers' spans show on the device timeline as user annotations
-    # (named "slate.*"): they are not kernels
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("slate.")]
+    acts = ([ProfilerActivity.CPU] if cpu else []) + [ProfilerActivity.CUDA]
+    with phase_limit(f"trace_profile {label}", TRACE_PROFILE_LIMIT_S):
+        with profile(activities=acts) as prof:
+            _, wall = _timed(fn)
+        # the drivers' spans show on the device timeline as user
+        # annotations (named "slate.*"): they are not kernels
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("slate.")]
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -4223,13 +4300,13 @@ def trace_spectral(st, heev_a, gen, nb) -> None:
     st.heev(A)
     emit({"phase": "trace_spans", "of": "heev",
           "spans_ms": span_ms(st, lambda: st.heev(A))})
-    profile_device("heev", lambda: st.heev(A))
+    profile_device("heev", lambda: st.heev(A), cpu=False)
     g, _ = spectral_matrix("svd", SPEC_N, gen, torch.float32)
     G = st.Matrix.from_numpy(g, nb)
     st.svd(G)
     emit({"phase": "trace_spans", "of": "svd",
           "spans_ms": span_ms(st, lambda: st.svd(G))})
-    profile_device("svd", lambda: st.svd(G))
+    profile_device("svd", lambda: st.svd(G), cpu=False)
 
 
 def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
@@ -4261,7 +4338,8 @@ def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
     emit({"phase": "seconds", "of": "hegv",
           "seconds": time.perf_counter() - t0})
     if trace:
-        trace_spectral(st, a32, gen, nb)
+        with phase_limit("trace_spectral", TRACE_SPECTRAL_LIMIT_S):
+            trace_spectral(st, a32, gen, nb)
     del a32
     torch.cuda.empty_cache()
     for name, fn in (("parity_routes",
@@ -4892,6 +4970,41 @@ def check_dist_bits(st, g, gen, nb, reset, counts, failures):
                         f"{health_row(h0)}), residual {res}, forward {fwd}")
 
 
+def gloo_slice17(st, g, gg, b) -> dict:
+    """The slice-17 checks of one gloo rank: a CALU gesv on ``gg``, a QR
+    gels on its first GLOO_N / 2 columns, and ``gg`` through
+    from_scalapack (the grid's ScaLAPACK locals) and pdgesv, each against
+    torch's own solve; the relative errors and walls."""
+    from slate_tpu_torch.compat import scalapack as sc
+    from slate_tpu_torch.compat import scalapack_api as sapi
+    mesh = {st.Option.Target: st.Target.mesh}
+    out = {}
+    t0 = time.perf_counter()
+    _, X = st.gesv(st.Matrix.from_numpy(gg, GLOO_NB, grid=g),
+                   st.Matrix.from_numpy(b, GLOO_NB, grid=g),
+                   {**mesh, st.Option.MethodLU: st.MethodLU.CALU})
+    out["calu_gesv_rel_err"] = rel_err(X.to_dense(),
+                                       torch.linalg.solve(gg, b))
+    out["calu_gesv_wall_s"] = time.perf_counter() - t0
+    aq = gg[:, :GLOO_N // 2]
+    t0 = time.perf_counter()
+    X = st.gels(st.Matrix.from_numpy(aq, GLOO_NB, grid=g),
+                st.Matrix.from_numpy(b, GLOO_NB, grid=g),
+                {**mesh, st.Option.MethodGels: st.MethodGels.QR})
+    out["qr_gels_rel_err"] = rel_err(X.to_dense(),
+                                     torch.linalg.lstsq(aq, b).solution)
+    out["qr_gels_wall_s"] = time.perf_counter() - t0
+    da, la_ = sc.scatter_locals(gg.numpy(), GLOO_NB, GLOO_NB, g.p, g.q)
+    db, lb = sc.scatter_locals(b.numpy(), GLOO_NB, GLOO_NB, g.p, g.q)
+    A = sc.from_scalapack(da, la_, g)
+    out["from_scalapack_exact"] = bool(torch.equal(A.to_dense(), gg))
+    dx, lx = sapi.pdgesv(GLOO_N, b.shape[1], da, la_, db, lb, g)
+    out["pdgesv_rel_err"] = rel_err(
+        torch.from_numpy(sc.gather_locals(dx, lx, g.p, g.q)),
+        torch.linalg.solve(gg, b))
+    return out
+
+
 def gloo_child(rank: int, work: str) -> int:
     """One rank of the 2 x 2 gloo world (CPU processes): posv and SUMMA
     gemm on the grid, in f64 at n = GLOO_N, against torch's own solve and
@@ -4923,7 +5036,7 @@ def gloo_child(rank: int, work: str) -> int:
         out = {"rank": rank, "coords": list(g.coords),
                "posv_rel_err": rel_err(x, torch.linalg.solve(a, b)),
                "gemm_rel_err": rel_err(C.to_dense(), gg @ a),
-               "posv_wall_s": wall}
+               "posv_wall_s": wall, "slice17": gloo_slice17(st, g, gg, b)}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w",
@@ -4965,9 +5078,17 @@ def check_gloo_world(failures) -> None:
                "nb": GLOO_NB, "dtype": "float64",
                "wall_s": time.perf_counter() - t0, "ranks": ranks}
         emit(row)
+        emit({"phase": "gloo_2x2_slice17", "device": "cpu", "n": GLOO_N,
+              "nb": GLOO_NB, "dtype": "float64",
+              "ranks": [x.get("slice17") for x in ranks]})
+        s17 = [x["slice17"] for x in ranks]
         ok = (len(ranks) == 4
               and all(x["posv_rel_err"] < 1e-12 and x["gemm_rel_err"] < 1e-12
-                      for x in ranks))
+                      for x in ranks)
+              and all(y["calu_gesv_rel_err"] < 1e-10
+                      and y["qr_gels_rel_err"] < 1e-10
+                      and y["from_scalapack_exact"]
+                      and y["pdgesv_rel_err"] < 1e-10 for y in s17))
         if not ok:
             failures.append("gloo_2x2: " + " | ".join(
                 log.decode(errors="replace")[-2000:] for log in logs))
@@ -5020,6 +5141,309 @@ def check_slice16(st, seed, n, nb, nrhs, reset, counts) -> dict:
           "seconds": time.perf_counter() - t0})
     if failures:
         raise AssertionError("slice 16: " + "; ".join(failures))
+    return out
+
+
+# ---- slice 17: distributed LU, CAQR and the mesh Aasen (--seed + 18) ----
+DIST_LU_N = 8192                # NoPiv, RBT, the depths and the strike
+DIST_HESV_N = 4096              # the mesh Aasen beside the single route's
+DIST_HESV_BOUND = 1e-4          # f32 Aasen, max-norm backward error
+DIST_HESV_TOL = 1e-3            # the mesh solve against the single route's
+
+
+def sum_launches(name: str, *runs) -> dict:
+    """{name: the launches of ``name`` summed over the runs' counts}."""
+    return {name: sum(r[name] for r in runs)}
+
+
+def dist_calu_launches(n: int, nb: int, fits) -> dict:
+    """K4 and K3 launches of the mesh getrf_tntpiv (dist_getrf) on an n x
+    n matrix at Option.Lookahead 1: as :func:`expected_calu_launches`, but
+    each panel's row blocks are sized from the reference's superblocked
+    panel height (parallel/dist_lu.py), while the tournament runs on the
+    live rows."""
+    from slate_tpu_torch.parallel.dist_lu import superblock
+    Nt = -(-n // nb)
+    sb = superblock(Nt)
+    k4 = k3 = 0
+    for k in range(Nt - 1):
+        height = n - (k // sb) * sb * nb
+        k4 += sum(fits(h) for h in calu_rounds(n - k * nb, nb,
+                                                height=height))
+        k3 += 2
+    return {"lu_select": k4, "lu_panel_fused": k3}
+
+
+def dist_solve_phase(name, st, run, single_wall, want, a, b, x64, bounds,
+                     reset, counts, failures, extra=None):
+    """One mesh solve, cold (its launches counted) and warm, beside the
+    single route's warm wall, held to the single route's bounds and to the
+    launches ``want``; returns the launches and the solution."""
+    reset()
+    x, wall_cold = _timed(run)
+    launches = counts()
+    x_warm, wall = _timed(run)
+    res, fwd = accuracy(a, x, b, x64) if bounds[2] == "solve" else \
+        lstsq_accuracy(a, x, b, x64)
+    emit({"phase": name, **(extra or {}), "grid": [1, 1], "backend": "nccl",
+          "dtype": "float32", "wall_s_cold": wall_cold, "wall_s": wall,
+          "single_route_wall_s": single_wall,
+          "scaled_residual": res, "residual_bound": bounds[0],
+          "forward_error_vs_f64": fwd, "forward_bound": bounds[1],
+          "warm_bit_equal": bool(torch.equal(x, x_warm)),
+          "launches": launches})
+    if not (torch.isfinite(x).all() and res < bounds[0] and fwd < bounds[1]):
+        failures.append(f"{name}: residual {res}, forward {fwd}")
+    if launches != want:
+        failures.append(f"{name} launches {launches} (want {want})")
+    return launches, x
+
+
+def check_dist_lu(st, g, gen, n, nb, nrhs, reset, counts, kernels, trace,
+                  failures) -> dict:
+    """dist_gesv (CALU at n, K4 and K3 on every panel), dist_gesv_nopiv
+    and dist_rbt (gesv under Speculate: dist_rbt_two_sided, then K3) at
+    DIST_LU_N, each beside the single route's wall; returns the launches."""
+    from slate_tpu_torch.internal.getrf import _lu_select_ok
+    mesh = {st.Option.Target: st.Target.mesh}
+    zero = {name: 0 for name in kernels}
+    out = {}
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    a = orthogonal(n, gen)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    _, _, wall_single = run_gesv(st, a, b, nb, calu)
+    _, _, wall_single = run_gesv(st, a, b, nb, calu)
+    x64 = torch.linalg.solve(a.double(), b.double())
+    fits = lambda h: _lu_select_ok(torch.empty((1, h, nb), device="cuda"),
+                                   nb)
+
+    def run_calu():
+        A, B = dist_matrix(st, g, a, nb), dist_matrix(st, g, b, nb)
+        return st.gesv(A, B, {**mesh, **calu})[1].to_dense()
+
+    out["dist_gesv"], _ = dist_solve_phase(
+        "dist_gesv", st, run_calu, wall_single,
+        {**zero, **dist_calu_launches(n, nb, fits)}, a, b, x64,
+        (GESV_RESIDUAL_BOUND, GESV_FORWARD_BOUND, "solve"), reset, counts,
+        failures, {"n": n, "nb": nb, "nrhs": nrhs, "method": "CALU"})
+    if trace:
+        emit({"phase": "trace_spans", "of": "dist_gesv",
+              "span_ms": span_ms(st, run_calu)})
+        profile_device("dist_gesv", run_calu)
+    del a, b, x64
+    nn = DIST_LU_N
+    a = torch.randn(nn, nn, generator=gen, device="cuda")
+    a.diagonal().add_(nn)                    # strictly diagonally dominant
+    b = torch.randn(nn, nrhs, generator=gen, device="cuda")
+    x64 = torch.linalg.solve(a.double(), b.double())
+    nopiv = {st.Option.MethodLU: st.MethodLU.NoPiv}
+    _, _, wall_single = run_gesv(st, a, b, nb, nopiv)
+    out["dist_gesv_nopiv"], _ = dist_solve_phase(
+        "dist_gesv_nopiv", st,
+        lambda: st.gesv_nopiv(dist_matrix(st, g, a, nb),
+                              dist_matrix(st, g, b, nb), mesh)[1].to_dense(),
+        wall_single, {**zero, "lu_panel_fused": 2 * (nn // nb) - 1}, a, b,
+        x64, (GESV_RESIDUAL_BOUND, GESV_FORWARD_BOUND, "solve"), reset,
+        counts, failures, {"n": nn, "nb": nb, "nrhs": nrhs})
+    spec = {st.Option.Speculate: st.Speculate.On,
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    _, _, wall_single = run_gesv(st, a, b, nb, spec)
+    kinds = []
+
+    def run_rbt():
+        F, X, h = st.gesv(dist_matrix(st, g, a, nb),
+                          dist_matrix(st, g, b, nb), {**mesh, **spec})
+        kinds.append((type(F).__name__, h.ok))
+        return X.to_dense()
+
+    out["dist_rbt"], _ = dist_solve_phase(
+        "dist_rbt", st, run_rbt, wall_single,
+        {**zero, "lu_panel_fused": 2 * (nn // nb) - 1}, a, b, x64,
+        (GESV_RESIDUAL_BOUND, GESV_FORWARD_BOUND, "solve"), reset, counts,
+        failures, {"n": nn, "nb": nb, "nrhs": nrhs})
+    if any(k != ("RBTFactors", True) for k in kinds):
+        failures.append(f"dist_rbt: the RBT rung not accepted: {kinds}")
+    return out
+
+
+def check_dist_qr(st, g, gen, nb, nrhs, reset, counts, kernels,
+                  failures) -> dict:
+    """dist_gels at GELS_SHAPE: MethodGels.QR (CAQR, K5 on every local
+    panel: one rank's slab is the whole 8192-row column, inside K5's
+    gate) and the default CholQR (the mesh herk, dist_potrf with K1 on
+    each diagonal tile, the mesh trsm), beside the single route's."""
+    mq, nq = GELS_SHAPE
+    a, b, x64 = lstsq_problem(mq, nq, nrhs, gen)
+    mesh = {st.Option.Target: st.Target.mesh}
+    zero = {name: 0 for name in kernels}
+    out = {}
+    for name, opts, want, bounds in (
+            ("dist_gels", {st.Option.MethodGels: st.MethodGels.QR},
+             {"qr_panel": -(-nq // nb)},
+             (GELS_RESIDUAL_BOUND, GELS_FORWARD_BOUND, "lstsq")),
+            ("dist_gels_cholqr", {st.Option.MethodGels: st.MethodGels.CholQR},
+             {"chol_tile": -(-nq // nb)},
+             (CFG4_RESIDUAL_BOUND, CFG4_FORWARD_BOUND, "lstsq"))):
+        _, wall_single = run_gels(st, a, b, nb, opts)
+        _, wall_single = run_gels(st, a, b, nb, opts)
+        out[name], _ = dist_solve_phase(
+            name, st, lambda: st.gels(
+                dist_matrix(st, g, a, nb), dist_matrix(st, g, b, nb),
+                {**mesh, **(opts or {})}).to_dense(),
+            wall_single, {**zero, **want}, a, b, x64, bounds, reset, counts,
+            failures, {"m": mq, "n": nq, "nb": nb, "nrhs": nrhs})
+    return out
+
+
+def check_dist_hesv(st, g, gen, nb, reset, counts, failures) -> dict:
+    """dist_hesv: the mesh Aasen (A and L in row blocks, one rank here) on
+    a symmetric indefinite f32 A at DIST_HESV_N, beside the single
+    route's hesv on the same system; no hand kernel."""
+    n = DIST_HESV_N
+    gg = torch.randn(n, n, generator=gen, device="cuda")
+    a = (gg + gg.T) / 2
+    del gg
+    b = torch.randn(n, 4, generator=gen, device="cuda")
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    A, B = (st.SymmetricMatrix.from_numpy(a, nb),
+            st.Matrix.from_numpy(b, nb))
+    (_, Xs, hs), _ = _timed(lambda: st.hesv(A, B, info))
+    (_, Xs, hs), wall_single = _timed(lambda: st.hesv(A, B, info))
+    Am = st.SymmetricMatrix.from_numpy(a, nb, grid=g)
+    Bm = dist_matrix(st, g, b, nb)
+    mesh = {**info, st.Option.Target: st.Target.mesh}
+    reset()
+    (F, X, h), wall_cold = _timed(lambda: st.hesv(Am, Bm, mesh))
+    launches = counts()
+    (F, X, h), wall = _timed(lambda: st.hesv(Am, Bm, mesh))
+    x, xs = X.to_dense(), Xs.to_dense()
+    res = _scaled_residual(a.double(), x.double(), b.double())
+    diff = float((x - xs).abs().max() / xs.abs().max())
+    emit({"phase": "dist_hesv", "n": n, "nb": nb, "dtype": "float32",
+          "grid": [1, 1], "backend": "nccl", "wall_s_cold": wall_cold,
+          "wall_s": wall, "single_route_wall_s": wall_single,
+          "factor": type(F).__name__, "ok": h.ok, "single_ok": hs.ok,
+          "residual": res, "residual_bound": DIST_HESV_BOUND,
+          "rel_diff_vs_single": diff, "tol": DIST_HESV_TOL,
+          "bit_equal_to_single": bool(torch.equal(x, xs)),
+          "launches": launches})
+    if not (type(F).__name__ == "HEFactors" and h.ok
+            and res < DIST_HESV_BOUND and diff <= DIST_HESV_TOL):
+        failures.append(f"dist_hesv: factor {type(F).__name__}, ok {h.ok}, "
+                        f"residual {res}, vs single {diff}")
+    if any(launches.values()):
+        failures.append(f"dist_hesv launches {launches} (want none)")
+    return launches
+
+
+def check_dist_lu_bits(st, g, gen, nb, reset, counts, failures) -> None:
+    """dist_lu_lookahead: dist_getrf (CALU) at DIST_LU_N and dist_geqrf at
+    GELS_SHAPE at depths 0, 1 and 2, every output bit for bit; then
+    dist_gesv_strike: one transient bitflip planted in the first panel of
+    a mesh gesv under Option.Abft, located and repaired."""
+    from slate_tpu_torch.parallel.dist_lu import dist_getrf
+    from slate_tpu_torch.parallel.dist_qr import dist_geqrf_data
+    from slate_tpu_torch.robust import faults
+    n = DIST_LU_N
+    a = orthogonal(n, gen)
+    S = dist_matrix(st, g, a, nb).storage
+    lu, walls = [], []
+    for la in (0, 1, 2):
+        o, w = _timed(lambda: dist_getrf(S.data, S.Nt, g, n, "tntpiv",
+                                         la=la))
+        lu.append(o)
+        walls.append(w)
+    mq, nq = GELS_SHAPE
+    aq = torch.randn(mq, nq, generator=gen, device="cuda")
+    Q = dist_matrix(st, g, aq, nb).storage
+    qr, qwalls = [], []
+    for la in (0, 1, 2):
+        o, w = _timed(lambda: dist_geqrf_data(Q.data, Q.Nt, Q.Mt, mq, nq, g,
+                                              la=la))
+        qr.append(o)
+        qwalls.append(w)
+    same_lu = all(all(torch.equal(x, y) for x, y in zip(lu[0], o))
+                  for o in lu[1:])
+    same_qr = all(all(torch.equal(x, y) for x, y in zip(qr[0], o))
+                  for o in qr[1:])
+    emit({"phase": "dist_lu_lookahead", "n": n, "qr_shape": [mq, nq],
+          "nb": nb, "getrf_wall_s_by_depth": walls,
+          "geqrf_wall_s_by_depth": qwalls, "getrf_bit_equal": same_lu,
+          "geqrf_bit_equal": same_qr})
+    if not (same_lu and same_qr):
+        failures.append(f"dist_lu_lookahead: dist_getrf equal {same_lu}, "
+                        f"dist_geqrf equal {same_qr}")
+    del lu, qr, S, Q, aq
+    b = torch.randn(n, 16, generator=gen, device="cuda")
+    x64 = torch.linalg.solve(a.double(), b.double())
+    seed = strike_seed(n, nb, lambda r, c: True)
+    row = int(np.random.default_rng(seed).choice(n * nb, size=1,
+                                                 replace=False)[0]) // nb
+    plan = faults.FaultPlan("post_panel", kind="bitflip", seed=seed,
+                            transient=True)
+    abft = {st.Option.Target: st.Target.mesh, st.Option.Abft: st.Abft.On,
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info,
+            st.Option.UseFallbackSolver: False}
+    A, B = dist_matrix(st, g, a, nb), dist_matrix(st, g, b, nb)
+    (_, X0, h0), wall0 = _timed(lambda: st.gesv(A, B, abft))
+    with faults.inject(plan):
+        (_, X, h), wall = _timed(lambda: st.gesv(A, B, abft))
+    res, fwd = accuracy(a, X.to_dense(), b, x64)
+    res0, fwd0 = accuracy(a, X0.to_dense(), b, x64)
+    want_site = (row // nb) * 65536
+    emit({"phase": "dist_gesv_strike", "n": n, "nb": nb, "seed": seed,
+          "planted_tile": [row // nb, 0], "wall_s": wall,
+          "scaled_residual": res, "forward_error_vs_f64": fwd,
+          "health": health_row(h), "clean_wall_s": wall0,
+          "clean_scaled_residual": res0, "clean_forward_error_vs_f64": fwd0,
+          "clean_health": health_row(h0)})
+    if not ((h.abft_detected, h.abft_corrected, h.abft_site)
+            == (1, 1, want_site) and h.ok and h0.ok
+            and h0.abft_detected == 0 and res < GESV_RESIDUAL_BOUND
+            and fwd < GESV_FORWARD_BOUND):
+        failures.append(f"dist_gesv_strike: {health_row(h)} (clean "
+                        f"{health_row(h0)}), residual {res}, forward {fwd}")
+
+
+def check_slice17(st, seed, n, nb, nrhs, reset, counts, kernels,
+                  trace) -> dict:
+    """The slice-17 phases (distributed LU, CAQR and the mesh Aasen) in a
+    one-rank NCCL world, Grid(1, 1, group=WORLD) on cuda:0, as slice 16
+    sets one up; the group is destroyed before the gloo world's slice-17
+    checks run.  Matrices draw from --seed + 18.  Returns the launch
+    counts of the paths."""
+    import torch.distributed as dist
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="smoke-nccl17-") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            g = st.Grid(1, 1, group=dist.group.WORLD)
+            for name, fn in (
+                    ("dist_lu", lambda: check_dist_lu(
+                        st, g, gen, n, nb, nrhs, reset, counts, kernels,
+                        trace, failures)),
+                    ("dist_qr", lambda: check_dist_qr(
+                        st, g, gen, nb, nrhs, reset, counts, kernels,
+                        failures)),
+                    ("dist_hesv", lambda: {"dist_hesv": check_dist_hesv(
+                        st, g, gen, nb, reset, counts, failures)}),
+                    ("dist_lu_lookahead", lambda: check_dist_lu_bits(
+                        st, g, gen, nb, reset, counts, failures))):
+                t0 = time.perf_counter()
+                torch.cuda.empty_cache()
+                out.update(fn() or {})
+                emit({"phase": "seconds", "of": name,
+                      "seconds": time.perf_counter() - t0})
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("slice 17: " + "; ".join(failures))
     return out
 
 
@@ -5424,6 +5848,10 @@ def main(argv=None) -> int:
     # ---- slice 16: the distributed layer, one NCCL rank (--seed + 17) ----
     slice16_launches = check_slice16(st, args.seed, n, nb, nrhs, reset,
                                      counts)
+
+    # ---- slice 17: distributed LU, CAQR, the mesh Aasen (--seed + 18) ----
+    slice17_launches = check_slice17(st, args.seed, n, nb, nrhs, reset,
+                                     counts, kernels, args.trace)
     plans_dir.cleanup()
 
     # ---- the record ----
@@ -5439,29 +5867,38 @@ def main(argv=None) -> int:
                             **serve_launches, **robust_launches,
                             **slice12_launches, **slice13_launches,
                             **slice14_launches, **slice15_launches,
-                            **slice16_launches}})
+                            **slice16_launches, **slice17_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
                           main_launches),
         "chol_tile": ("slate_tpu_torch/csrc/chol_tile.cu",
                       "slate_tpu/internal/pallas_chol.py:320",
-                      "posv_tile_route+potrf_ooc+dist_posv",
+                      "posv_tile_route+potrf_ooc+dist_posv+dist_gels_cholqr",
                       {"chol_tile": tile_launches["chol_tile"]
                        + slice15_launches["potrf_ooc"]["chol_tile"]
-                       + slice16_launches["dist_posv"]["chol_tile"]}),
+                       + slice16_launches["dist_posv"]["chol_tile"]
+                       + slice17_launches["dist_gels_cholqr"]["chol_tile"]}),
         "chol_panel_fused": ("slate_tpu_torch/csrc/chol_panel.cu",
                              "slate_tpu/internal/pallas_chol.py:180", "posv",
                              main_launches),
         "lu_panel_fused": ("slate_tpu_torch/csrc/lu_panel.cu",
                            "slate_tpu/internal/pallas_lu.py:217",
-                           "gesv_calu", calu_launches),
+                           "gesv_calu+dist_gesv+dist_gesv_nopiv+dist_rbt",
+                           sum_launches("lu_panel_fused", calu_launches,
+                                        *(slice17_launches[k] for k in (
+                                            "dist_gesv", "dist_gesv_nopiv",
+                                            "dist_rbt")))),
         "lu_select": ("slate_tpu_torch/csrc/lu_select.cu",
-                      "slate_tpu/internal/pallas_lu.py:346", "gesv_calu",
-                      calu_launches),
+                      "slate_tpu/internal/pallas_lu.py:346",
+                      "gesv_calu+dist_gesv",
+                      sum_launches("lu_select", calu_launches,
+                                   slice17_launches["dist_gesv"])),
         "qr_panel": ("slate_tpu_torch/csrc/qr_panel.cu",
-                     "slate_tpu/internal/pallas_qr.py:129", "gels_qr",
-                     qr_launches),
+                     "slate_tpu/internal/pallas_qr.py:129",
+                     "gels_qr+dist_gels",
+                     sum_launches("qr_panel", qr_launches,
+                                  slice17_launches["dist_gels"])),
         "chol_panel_batched": ("slate_tpu_torch/csrc/chol_panel_batched.cu",
                                "slate_tpu/internal/pallas_chol.py:286",
                                "serve_ragged", serve_launches["serve_ragged"]),

@@ -12,9 +12,12 @@ block-cyclic column-major layout, described by the 9-integer descriptor
   layout is the checkpoint payload format (robust/checkpoint.py): a real
   ScaLAPACK program could read a payload without a slate-specific
   decoder.
-- ``from_scalapack`` and ``to_scalapack`` cross into tiled matrices on the
-  1 x 1 grid, the only grid the port has; locals of a larger process
-  grid raise until the distributed layer is ported.
+- ``from_scalapack`` and ``to_scalapack`` cross into tiled matrices on any
+  p x q grid: ScaLAPACK process (pr, pc) is grid coordinate (r, c), under
+  either GridOrder (the order numbers the ranks, not the tiles).  On a
+  grid with a process group every rank passes the whole map of locals
+  and keeps its own tiles; ``to_scalapack`` all-gathers, so every rank
+  calls it.  Locals that do not match the grid raise SlateValueError.
 
 Local arrays on import may be exactly numroc-sized or allocated with LLD
 rows (what a single-descriptor ScaLAPACK program holds); at ragged sizes
@@ -27,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.grid import Grid
-from ..exceptions import not_ported, slate_error
+from ..exceptions import slate_error
 
 DTYPE_DENSE = 1  # ScaLAPACK descriptor DTYPE_ for dense matrices
 
@@ -135,29 +138,16 @@ def scatter_locals(dense: np.ndarray, mb: int, nb: int,
     return desc, out
 
 
-def _process_grid(locals_) -> tuple:
-    """(p, q) that the locals describe: the largest process row and
-    column index plus one."""
-    if isinstance(locals_, dict):
-        keys = list(locals_)
-    else:
-        keys = [(pr, pc) for pr, row in enumerate(locals_)
-                for pc in range(len(row))]
-    return (1 + max(k[0] for k in keys), 1 + max(k[1] for k in keys))
-
-
 def from_scalapack(desc, locals_, grid: Grid | None = None, device=None):
     """Assemble per-process local arrays into a tiled ``Matrix`` with tile
-    sizes (MB, NB) on the 1 x 1 grid, on ``device`` (``None`` means CUDA).
-    Pieces may be numroc-sized or LLD-padded, in either memory order.
-    Locals of more than one process raise: the p x q grid comes with the
-    distributed layer."""
+    sizes (MB, NB) on ``grid`` (1 x 1 by default; ref:
+    scalapack.py:160-173), on ``device`` (``None`` means the grid's, and
+    on the serial grid CUDA).  Pieces may be numroc-sized or LLD-padded,
+    in either memory order, and must be those of a ``grid.p x grid.q``
+    process grid: others raise SlateValueError, as the reference's do.
+    On a grid with a process group each rank keeps its own tiles."""
     from ..core.matrix import Matrix
     grid = grid or Grid(1, 1)
-    p, q = _process_grid(locals_)
-    if p * q > 1:
-        raise not_ported(f"from_scalapack onto a {p}x{q} process grid",
-                         "queue 1, item 12b (distributed)")
     _, _, mb, nb, _ = _check_desc(desc)
     dense = gather_locals(desc, locals_, grid.p, grid.q)
     return Matrix.from_numpy(dense, mb, nb, grid, device=device)
@@ -166,5 +156,6 @@ def from_scalapack(desc, locals_, grid: Grid | None = None, device=None):
 def to_scalapack(A):
     """Export a Matrix to (desc, {(pr, pc): local array}) in ScaLAPACK
     layout on A's grid: Fortran-ordered locals, as a ScaLAPACK program
-    holds them."""
+    holds them (on a grid with a process group an all-gather: every rank
+    calls it and gets every process's locals)."""
     return scatter_locals(A.to_numpy(), A.mb, A.nb, A.grid.p, A.grid.q)

@@ -6,11 +6,13 @@ scalapack_api/scalapack_gemm.cc:24-38 slate_pdgemm and the pdgesv /
 pdpotrf / pdgeqrf / pdsyev wrappers): each ``pd*`` function takes the
 9-integer descriptor plus a ``{(pr, pc): local array}`` mapping per
 matrix, runs the port's driver, and returns its results in ScaLAPACK
-layout (``to_scalapack``).  The port has the 1 x 1 grid only: locals of
-a larger process grid raise (``from_scalapack``) until the distributed
-layer is ported.  Full matrices (IA = JA = 1) and RSRC = CSRC = 0, as
-the reference's wrappers assert.  ``device=None`` means CUDA and raises
-without it.
+layout (``to_scalapack``).  On a p x q grid with a process group every
+rank calls the routine with the whole map of locals and the drivers take
+their mesh routes; ``pdsyev`` and ``pdgesvd`` raise there until the
+distributed spectral drivers are ported (queue 1, item 12c).  Full
+matrices (IA = JA = 1) and RSRC = CSRC = 0, as the reference's wrappers
+assert.  ``device=None`` means the grid's device, on the serial grid
+CUDA, and raises without it.
 """
 
 from __future__ import annotations

@@ -20,9 +20,10 @@ he2hb.cc:25, hb2st.cc:41-314, unmtr_he2hb.cc).
 
 The reference runs all of it outside any Pallas kernel, so on the card it
 is library calls; ``hegv`` factors B with ``potrf`` (K2 and K0 on the
-card).  The mesh route (``_heev_mesh``) comes with queue 1, item 12b:
-``Target.mesh`` or a grid with a process group raises
-(options.single_route).
+card).  The mesh route (``_heev_mesh``) comes with queue 1, item 12c: a
+grid with a process group raises (options.single_route); ``Target.mesh``
+on a grid without one takes the single route, as the reference does
+where the grid has no mesh.
 """
 
 from __future__ import annotations
@@ -310,7 +311,7 @@ def heev_info(A, opts: Options | None = None, *, jobz: bool = True):
     slate_error(isinstance(A, HermitianMatrix) or not is_complex(A.dtype),
                 "heev: complex SymmetricMatrix is not Hermitian — "
                 "no eigensolver for complex-symmetric matrices")
-    single_route(opts, "heev (_heev_mesh)", A, mesh_target=True)
+    single_route(opts, "heev (_heev_mesh)", A)
     n, nb = A.m, A.nb
     ad = A.to_dense()
     with span("slate.heev/he2hb"):

@@ -9,7 +9,9 @@ product W = A[j0:, j] - L[j0:, :j0] H[:j0, j]; pivoting stays inside the
 panel LU (internal/getrf.panel_lu), applied as one symmetric row and
 column permutation of the trailing part.  The reference computes all of
 it outside any Pallas kernel, so on the card these are library calls.
-The mesh variant belongs to the distributed slice and raises.
+On a mesh (the target mesh and a grid with a process group) the
+factorization keeps A and L in row blocks over the grid's ranks
+(:func:`_hetrf_mesh`); the factors come back replicated.
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ import torch
 
 from ..core.matrix import HermitianMatrix, Matrix, SymmetricMatrix
 from ..core.storage import TileStorage
-from ..exceptions import SlateSingularError, not_ported, slate_error
+from ..exceptions import SlateSingularError, slate_error
 from ..internal.band import _tri_solve, gbtrf_banded, gbtrs_banded
 from ..internal.getrf import panel_lu
-from ..options import Options, Target, resolve_target
+from ..options import Options, on_mesh
 from ..robust import certify as _certify
 from ..robust import faults as _faults
 from ..robust import health as _health
@@ -165,7 +167,7 @@ def hetrf(A, opts: Options | None = None):
                 "hetrf: complex SymmetricMatrix unsupported (use "
                 "HermitianMatrix)")
     nb = A.nb
-    if resolve_target(opts, A) is Target.mesh or A.grid.group is not None:
+    if on_mesh(opts, A):
         F = _hetrf_mesh(A, nb)
     else:
         L, Tdiag, Tsub, piv = _aasen_blocked(A.to_dense(), nb)
@@ -176,11 +178,111 @@ def hetrf(A, opts: Options | None = None):
 
 
 def _hetrf_mesh(A, nb: int) -> HEFactors:
-    """The mesh Aasen (ref: hetrf.py _hetrf_mesh): a row-sharded layout
-    across several devices, taken for Target.mesh and on a grid with a
-    process group."""
-    raise not_ported("the mesh Aasen factorization (_hetrf_mesh)",
-                     "queue 1, item 12b (distributed)")
+    """The mesh Aasen (ref: hetrf.py:225-252, which runs the blocked Aasen
+    under a row-sharding constraint over all devices): the same
+    arithmetic with the pivoted A and the growing L in contiguous row
+    blocks over the grid's ranks.  Each step forms its rows of the hot
+    product W = A[j0:, j] - L[j0:, :j0] H with H replicated, gathers the
+    panel (W and L's block column) with one all-reduce, factors it
+    replicated, and applies the symmetric pivot as one exchange of the
+    <= 2 nb displaced rows and a local swap of the columns.  Panel-sized
+    objects (H, the T blocks, the panel LU) are replicated on every rank,
+    and so is L once it is done, for the band factor and the solves."""
+    from ..comm import collectives as cc
+    grid = A.grid
+    ad = A.to_dense()
+    n0 = ad.shape[0]
+    dt, dev = ad.dtype, ad.device
+    Nt = max(1, -(-n0 // nb))
+    n = Nt * nb
+    rb = -(-n // grid.size)
+    lo = min(grid.rank * rb, n)
+    hi = min(lo + rb, n)
+    h = hi - lo
+    # this rank's rows [lo, hi) of the padded A and of L, and one spare
+    # row that the pivot exchange writes the rows it does not own to
+    apb = torch.zeros((rb + 1, n), dtype=dt, device=dev)
+    Lb = torch.zeros((rb + 1, n), dtype=dt, device=dev)
+    ap, L = apb[:h], Lb[:h]
+    live = max(0, min(hi, n0) - lo)
+    ap[:live, :n0] = ad[lo:lo + live]
+    for g in range(max(lo, n0), hi):
+        ap[g - lo, g] = 1
+    for g in range(lo, min(hi, nb)):
+        L[g - lo, g] = 1
+    del ad
+    Tdiag = torch.zeros((Nt, nb, nb), dtype=dt, device=dev)
+    Tsub = torch.zeros((max(Nt - 1, 1), nb, nb), dtype=dt, device=dev)
+    piv = torch.arange(n, device=dev)
+
+    def gather_rows(part, g0: int, g1: int):
+        """Rows [g0, g1) of a row-distributed array on every rank, from
+        each rank's ``part`` (its rows from max(lo, g0) down): one
+        all-reduce of the zero-padded rows."""
+        buf = torch.zeros((g1 - g0, part.shape[1]), dtype=dt, device=dev)
+        a0, a1 = max(lo, g0), min(hi, g1)
+        if a1 > a0:
+            buf[a0 - g0:a1 - g0] = part[:a1 - a0]
+        return cc.reduce_grid(buf, grid)
+
+    for j in range(Nt):
+        j0, j1 = j * nb, (j + 1) * nb
+        s0 = max(lo, j0) - lo
+        if j > 0:
+            Lrow = gather_rows(L[max(lo, j0) - lo:, :j1], j0, j1)
+            Ljj = Lrow[:, j0:j1]
+            LbH = Lrow.reshape(nb, j + 1, nb).permute(1, 2, 0).conj()
+            H = torch.bmm(Tdiag[:j], LbH[:j])
+            if j > 1:
+                H[1:] += torch.bmm(Tsub[:j - 1], LbH[:j - 1])
+            H = H + torch.bmm(Tsub[:j].mH, LbH[1:j + 1])
+            # the hot op, row-parallel: this rank's rows of W
+            W_own = ap[s0:, j0:j1] - L[s0:, :j0] @ H.reshape(j * nb, nb)
+        else:
+            Ljj = torch.eye(nb, dtype=dt, device=dev)
+            W_own = ap[s0:, :nb]
+        WL = gather_rows(torch.cat([W_own, L[s0:, j0:j1]], dim=1), j0, n)
+        W, Lcol = WL[:, :nb], WL[:, nb:]
+
+        Hjj = _tri_solve(Ljj, W[:nb], lower=True, unit=True)
+        rhs = Hjj if j == 0 else (
+            Hjj - Tsub[j - 1] @ Lrow[:, j0 - nb:j0].mH)
+        Tjj = _tri_solve(Ljj.mH, rhs, lower=False, left=False, unit=True)
+        Tdiag[j] = (Tjj + Tjj.mH) / 2
+
+        if j + 1 < Nt:
+            V = W[nb:] - Lcol[nb:] @ Hjj
+            R = _tri_solve(Ljj.mH, V, lower=False, left=False, unit=True)
+            wl = n0 - j1
+            lu, perm = panel_lu(R[:wl])                  # R[perm] = Lp Up
+            k = min(wl, nb)
+            Tsub[j] = 0
+            Tsub[j, :k] = torch.triu(lu[:nb])[:k]
+            # the symmetric permutation: the displaced rows of A and L
+            # move in one exchange, the columns of A swap locally
+            iota = torch.arange(wl, device=dev)
+            key = torch.where(perm != iota, wl - iota, 0)
+            moved = torch.topk(key, min(2 * nb, wl)).indices
+            src, dst = j1 + perm[moved], j1 + moved
+            mine = (src >= lo) & (src < hi)
+            at = (src - lo).clamp(0, max(h - 1, 0))
+            rows = torch.cat([apb[at], Lb[at]], dim=1)
+            rows = cc.reduce_grid(torch.where(mine[:, None], rows,
+                                              torch.zeros_like(rows)), grid)
+            slot = torch.where((dst >= lo) & (dst < hi), dst - lo, h)
+            apb[slot] = rows[:, :n]
+            Lb[slot] = rows[:, n:]
+            ap[:, dst] = ap[:, src]
+            piv[j1:j1 + wl] = piv[j1 + perm]
+            Lp = torch.zeros((n - j1, nb), dtype=dt, device=dev)
+            Lp[:wl] = (torch.tril(lu, -1)[:wl]
+                       + torch.eye(wl, nb, dtype=dt, device=dev))
+            if hi > j1:
+                L[max(lo, j1) - lo:, j1:j1 + nb] = Lp[max(lo, j1) - j1:
+                                                      hi - j1]
+
+    Lfull = torch.cat(cc.allgather_grid(Lb[:rb], grid))
+    return _finish_factors(Lfull[:n0, :n0], Tdiag, Tsub, piv[:n0], nb)
 
 
 def _finish_factors(L, Tdiag, Tsub, piv, nb: int) -> HEFactors:

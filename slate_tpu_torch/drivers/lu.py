@@ -12,7 +12,13 @@ no-pivot panel, the K4 tournament and K3 for CALU), the row exchange of
 the at most 2 nb rows the panel's permutation displaces, the U12 solve and
 the trailing matmul.  ``Option.Abft`` adds the reference's checksum rungs
 to every step, and the fault sites ``input``, ``post_panel`` and
-``post_rbt`` sit where the reference's do.  ``getrf_ooc`` is the
+``post_rbt`` sit where the reference's do.  On a mesh (the target mesh
+and a grid with a process group) getrf is parallel/dist_lu.py's
+``dist_getrf`` over the ranks' local tiles (the same panel kernels, on
+every rank), getrs applies the pivots with ``dist_permute_rows`` and
+solves through the distributed trsm, and getrf_rbt transforms the tiles
+with ``dist_rbt_two_sided`` where the padded size is a multiple of the
+butterfly's.  ``getrf_ooc`` is the
 out-of-core LU of a host matrix: a ``TileMap`` streams the pivot panel and
 one trailing block column at a time through the device, with checkpoints
 at panel-step boundaries and a bit-identical resume.
@@ -32,12 +38,12 @@ from ..internal import rbt
 from ..internal.getrf import (panel_lu, panel_lu_nopiv, panel_lu_threshold,
                               panel_lu_tournament)
 from ..internal.trsm import tri_inv_lower
-from ..options import (ErrorPolicy, Option, Options, get_option,
-                       resolve_abft, single_route)
+from ..options import (ErrorPolicy, Option, Options, get_option, on_mesh,
+                       resolve_abft)
 from ..robust import abft as _abft
 from ..robust import faults
 from ..robust import health as _health
-from ..types import Diag, Uplo
+from ..types import Diag, Op, Uplo
 from ..util.trace import annotate
 from .blas3 import trsm
 
@@ -210,10 +216,31 @@ def getrf_rbt(A: Matrix, opts: Options | None = None):
     """Butterfly-preconditioned pivot-free LU (PRBT): A~ = U^T diag(A,
     I_pad) V with depth-2 random butterflies (internal/rbt.py), then
     :func:`getrf_nopiv` on A~.  Returns :class:`RBTFactors`; health is the
-    NoPiv factor's over the transformed matrix."""
+    NoPiv factor's over the transformed matrix.  On a mesh the transform
+    runs on the local tiles (``dist_rbt_two_sided``) when the tile-padded
+    size is a multiple of the butterfly's, else on the dense matrix,
+    re-tiled onto the grid (ref: lu.py:240-268)."""
     slate_error(A.m == A.n, "getrf_rbt: square matrices (gesv path)")
     n, nb = A.m, A.nb
-    single_route(opts, "getrf_rbt", A)
+    if on_mesh(opts, A):
+        from ..parallel.dist_lu import dist_rbt_two_sided
+        from .blas3 import as_root_general
+        from .cholesky import _corrupt_storage
+        st = as_root_general(A, nb, nb, grid=A.grid).storage
+        m_pad = st.Mt * nb
+        if m_pad % (1 << rbt.DEFAULT_DEPTH) == 0:
+            u = rbt.generate(m_pad, seed=_RBT_SEED, dtype=A.dtype,
+                             device=A.device)
+            v = rbt.generate(m_pad, seed=_RBT_SEED + 1, dtype=A.dtype,
+                             device=A.device)
+            data = dist_rbt_two_sided(_corrupt_storage("input", st), u, v,
+                                      A.grid, n, st.Mt)
+            st_t = TileStorage(data, m_pad, m_pad, nb, nb, A.grid)
+            st_t = TileStorage(_corrupt_storage("post_rbt", st_t), m_pad,
+                               m_pad, nb, nb, A.grid)
+            Fi, fh = getrf_nopiv(Matrix(st_t), _info(opts))
+            return _health.finalize("getrf_rbt", RBTFactors(Fi, u, v, n),
+                                    fh, opts, _singular("getrf_rbt"))
     nt = rbt.padded_size(n)
     ad = faults.maybe_corrupt("input", A.to_dense())
     abar = torch.zeros((nt, nt), dtype=ad.dtype, device=ad.device)
@@ -233,13 +260,21 @@ def getrf_rbt(A: Matrix, opts: Options | None = None):
 
 def _lu_health(factor: torch.Tensor, minpiv: torch.Tensor,
                minidx: torch.Tensor, amax: torch.Tensor,
-               counts: _abft.AbftCounts):
+               counts: _abft.AbftCounts, grid=None):
     """The LU HealthInfo: pivot record, whole-factor finiteness, the pivot
     growth max|factor| / max|A| and the checksum counts, read from the
-    device at once."""
+    device at once.  On a grid with a process group ``factor`` and
+    ``amax`` are a rank's own, reduced over the grid here (the pivot
+    record and the counts come reduced)."""
+    fmax = factor.abs().max().double()
+    finite = torch.isfinite(factor).all().double()
+    if grid is not None and grid.group is not None:
+        from ..comm.collectives import reduce_grid
+        fmax, finite, amax = (reduce_grid(fmax, grid, op="max"),
+                              reduce_grid(finite, grid, op="min"),
+                              reduce_grid(amax.double(), grid, op="max"))
     fmax, mp, mi, am, finite, det, cor, site = torch.stack([
-        factor.abs().max().double(), minpiv.double(), minidx.double(),
-        amax.double(), torch.isfinite(factor).all().double(),
+        fmax, minpiv.double(), minidx.double(), amax.double(), finite,
         *(c.double() for c in counts)]).tolist()
     bad = mp == 0 or not math.isfinite(mp)
     return _health.healthy()._replace(
@@ -252,12 +287,41 @@ def _lu_health(factor: torch.Tensor, minpiv: torch.Tensor,
         abft_site=int(site))
 
 
+def _getrf_mesh(A: Matrix, opts, method: str, tau: float, mpt: int,
+                depth: int, abft: bool):
+    """getrf's mesh route (ref: lu.py:304-330): ``dist_getrf`` on the
+    local tiles, the pad region cleared after it (the ragged last panel
+    is identity-augmented inside), the health from reduced scalars."""
+    from ..parallel.dist_lu import (SUPERBLOCKS, dist_getrf,
+                                    local_entry_mask, superblock)
+    from .blas3 import as_root_general
+    from .cholesky import _corrupt_storage
+    slate_error(A.m == A.n, "mesh getrf: square matrices (gesv path)")
+    nb = A.nb
+    st = as_root_general(A, nb, nb, grid=A.grid).storage
+    data_in = _corrupt_storage("input", st)
+    la = max(1, int(get_option(opts, Option.Lookahead)))
+    data, perm, minpiv, minidx, det, cor, site = dist_getrf(
+        data_in, st.Nt, A.grid, st.n, method,
+        ib=int(get_option(opts, Option.InnerBlocking)),
+        sb=superblock(st.Nt, SUPERBLOCKS * la), tau=tau, mpt=mpt,
+        depth=depth, abft=abft)
+    data = torch.where(local_entry_mask(st), data, torch.zeros_like(data))
+    F = LUFactors(Matrix(TileStorage(data, st.m, st.n, nb, nb, A.grid)),
+                  perm[:st.m])
+    h = _lu_health(data, minpiv, minidx, data_in.abs().max(),
+                   _abft.AbftCounts(det, cor, site), A.grid)
+    return _health.finalize(f"getrf[{method}]", F, h, opts,
+                            _singular(f"getrf[{method}]"))
+
+
 def _getrf(A: Matrix, opts: Options | None, method: str):
-    single_route(opts, "getrf (dist_getrf)", A)
     abft = resolve_abft(opts)  # the one Option.Abft read (driver boundary)
     tau = float(get_option(opts, Option.PivotThreshold))
     mpt = int(get_option(opts, Option.MaxPanelThreads))
     depth = int(get_option(opts, Option.Depth))
+    if on_mesh(opts, A):
+        return _getrf_mesh(A, opts, method, tau, mpt, depth, abft)
     # to_dense may share memory with the caller's tiles; factor a copy
     # (a struck copy, when the input site is armed)
     ad = faults.maybe_corrupt("input", A.to_dense())
@@ -410,13 +474,21 @@ def _getrs_rbt(F: RBTFactors, B, opts: Options | None) -> Matrix:
 @annotate("slate.getrs")
 def getrs(F: LUFactors, B, opts: Options | None = None) -> Matrix:
     """Solve with LU factors: X = U^-1 L^-1 B[perm] (ref: src/getrs.cc).
-    :class:`RBTFactors` take the butterfly sandwich."""
+    :class:`RBTFactors` take the butterfly sandwich.  On a mesh the pivots
+    are applied to B's local tiles (``dist_permute_rows``: a column strip
+    a rank, never the whole B) and the solves are the distributed trsm."""
     if isinstance(F, RBTFactors):
         return _getrs_rbt(F, B, opts)
     slate_error(F.LU.m == B.m, "getrs: dims")
-    single_route(opts, "getrs", F.LU, B)
-    Bp = Matrix(TileStorage.from_dense(B.to_dense()[F.perm], B.mb, B.nb,
-                                       B.grid))
+    if (on_mesh(opts, B) and type(B) is Matrix and B.op is Op.NoTrans
+            and B.is_root_view()):
+        from ..parallel.dist_lu import dist_permute_rows
+        st = B.storage
+        Bp = Matrix(TileStorage(dist_permute_rows(st.data, F.perm, B.grid),
+                                st.m, st.n, st.mb, st.nb, st.grid))
+    else:
+        Bp = Matrix(TileStorage.from_dense(B.to_dense()[F.perm], B.mb,
+                                           B.nb, B.grid))
     Y = trsm("l", 1.0, F.lower(), Bp, opts)
     return trsm("l", 1.0, F.upper(), Y, opts)
 
@@ -428,7 +500,6 @@ def gesv(A: Matrix, B, opts: Options | None = None):
     with Option.UseFallbackSolver an unhealthy factor escalates the
     pivoting (NoPiv -> PartialPiv -> CALU), see robust/recovery.py."""
     from ..robust.recovery import gesv_with_recovery
-    single_route(opts, "gesv", A, B)
     return gesv_with_recovery(A, B, opts)
 
 
@@ -449,7 +520,7 @@ def getri(F: LUFactors, opts: Options | None = None) -> Matrix:
     X = getrs(F, Matrix(TileStorage.from_dense(eye, F.LU.mb, F.LU.nb,
                                                F.LU.grid)), opts)
     h = _health.merge(_health.from_pivots(torch.diagonal(F.LU.to_dense())),
-                      _health.from_result(X.storage.data))
+                      _health.from_result(X.storage.data, X.grid))
     return _health.finalize("getri", X, h, opts, _singular("getri"))
 
 

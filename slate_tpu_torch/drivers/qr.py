@@ -6,9 +6,12 @@ geqrf is a blocked Householder QR of the dense matrix: per block column
 the panel (internal/qr.py ``geqrf_panel``: K5 for f32 panels inside its
 gate, else CholQR2 reconstruction or the rank-1 scan) and the larfb
 trailing update, three matmuls.  cholqr and gels_cholqr compose herk,
-potrf (K2 and K0 for f32) and trsm.  The mesh factors (``CAQRFactors``)
-come with the distributed slice: ``Target.mesh`` raises where it is
-resolved.
+potrf (K2 and K0 for f32) and trsm, so on a mesh they run on those
+drivers' mesh routes.  On a mesh (the target mesh and a grid with a
+process group) geqrf is the communication-avoiding QR of
+parallel/dist_qr.py, whose factors are ``CAQRFactors``; unmqr applies
+them through ``dist_unmqr_data``, a right-side apply through the left
+one on Cᴴ.
 """
 
 from __future__ import annotations
@@ -17,11 +20,10 @@ import torch
 
 from ..core.matrix import HermitianMatrix, Matrix
 from ..core.storage import TileStorage
-from ..exceptions import SlateNotPositiveDefiniteError, not_ported, \
-    slate_error
+from ..exceptions import SlateNotPositiveDefiniteError, slate_error
 from ..internal.qr import apply_q_left, apply_q_right, geqrf_panel
 from ..options import (ErrorPolicy, MethodCholQR, MethodGemm, Option,
-                       Options, method_option, single_route)
+                       Options, method_option, on_mesh)
 from ..robust import health as _health
 from ..types import Op, Side, Uplo, is_complex
 from ..util.trace import annotate
@@ -40,6 +42,23 @@ class QRFactors:
 
     def __repr__(self):
         return f"QRFactors({self.QR.m}x{self.QR.n}, nb={self.QR.nb})"
+
+
+class CAQRFactors:
+    """Mesh CAQR factors (ref: qr.py:77-98): the packed local V's and the
+    final R in ``QR``, every grid row's block-reflector triangles
+    ``Tloc`` [p, Kt, nb, nb], and the tree factors ``Vtree`` [Kt, p*nb,
+    nb] and ``Ttree`` [Kt, nb, nb], the last three the same on every
+    rank."""
+
+    def __init__(self, QR: Matrix, Tloc, Vtree, Ttree):
+        self.QR = QR
+        self.Tloc = Tloc
+        self.Vtree = Vtree
+        self.Ttree = Ttree
+
+    def __repr__(self):
+        return f"CAQRFactors({self.QR.m}x{self.QR.n}, nb={self.QR.nb})"
 
 
 class LQFactors:
@@ -78,8 +97,18 @@ def _geqrf_dense_blocked(a: torch.Tensor, nb: int):
 @annotate("slate.geqrf")
 def geqrf(A: Matrix, opts: Options | None = None) -> QRFactors:
     """QR factorization A = Q R (ref: src/geqrf.cc).  Returns the packed
-    factors; :func:`unmqr` applies Q, and triu(R) serves solves."""
-    single_route(opts, "geqrf (dist_qr)", A)
+    factors; :func:`unmqr` applies Q, and triu(R) serves solves.  On a
+    mesh: :class:`CAQRFactors` of ``dist_geqrf_data`` (ref:
+    qr.py:132-141)."""
+    if on_mesh(opts, A):
+        from ..parallel.dist_qr import dist_geqrf_data
+        from .blas3 import as_root_general
+        nb = A.nb
+        st = as_root_general(A, nb, nb, A.grid).storage
+        data, Tloc, Vtree, Ttree = dist_geqrf_data(
+            st.data, -(-min(st.m, st.n) // nb), st.Mt, st.m, st.n, A.grid)
+        return CAQRFactors(Matrix(TileStorage(data, st.m, st.n, nb, nb,
+                                              A.grid)), Tloc, Vtree, Ttree)
     ad = A.to_dense().clone(memory_format=torch.contiguous_format)
     packed, T = _geqrf_dense_blocked(ad, A.nb)
     return QRFactors(Matrix(TileStorage.from_dense(packed, A.mb, A.nb,
@@ -117,7 +146,8 @@ def unmqr(side, op, F: QRFactors, C, opts: Options | None = None) -> Matrix:
     src/unmqr.cc); Q is the implicit factor of :func:`geqrf`."""
     sd = _side(side)
     conj_trans = _parse_trans(op, F.QR.dtype)
-    single_route(opts, "unmqr", F.QR, C)
+    if isinstance(F, CAQRFactors):
+        return _unmqr_caqr(sd, conj_trans, F, C)
     packed = F.QR.to_dense()
     mq, nq = packed.shape
     nb = F.QR.nb
@@ -135,6 +165,25 @@ def unmqr(side, op, F: QRFactors, C, opts: Options | None = None) -> Matrix:
         else:
             cd[:, k0:] = apply_q_right(pk, Tk, cd[:, k0:], conj_trans)
     return _dense_to_like(C, cd)
+
+
+def _unmqr_caqr(sd: Side, conj_trans: bool, F: CAQRFactors, C) -> Matrix:
+    """The mesh apply of CAQR's Q (ref: qr.py:203-220): from the left on
+    C's local tiles, re-tiled in rows as the factor; from the right as
+    C op(Q) = (op(Q)^H C^H)^H, through the left apply."""
+    from ..parallel.dist_qr import dist_unmqr_data
+    from .blas3 import as_root_general
+    st = F.QR.storage
+    if sd is Side.Right:
+        Ct = Matrix(TileStorage.from_dense(C.to_dense().conj().T, st.nb,
+                                           C.mb, C.grid))
+        Xt = _unmqr_caqr(Side.Left, not conj_trans, F, Ct)
+        return _dense_to_like(C, Xt.to_dense().conj().T)
+    cs = as_root_general(C, st.nb, None, grid=F.QR.grid).storage
+    data = dist_unmqr_data(st.data, cs.data, F.Tloc, F.Vtree, F.Ttree,
+                           F.Tloc.shape[1], st.Mt, st.m, F.QR.grid,
+                           conj_trans)
+    return Matrix(TileStorage(data, cs.m, cs.n, cs.mb, cs.nb, cs.grid))
 
 
 @annotate("slate.unmlq")
@@ -196,12 +245,11 @@ def cholqr(A: Matrix, opts: Options | None = None):
     A raises :class:`SlateNotPositiveDefiniteError` (under ErrorPolicy.Info
     the return is ((Q, R), HealthInfo))."""
     slate_error(A.m >= A.n, "cholqr: need m >= n")
-    single_route(opts, "cholqr", A)
     G = _gram(A, opts)
     L, fh = potrf(G, _info_opts(opts))       # G = L L^H
     R = L.conj_transpose()                   # upper
     Q = trsm(Side.Right, 1.0, R, A, opts)    # Q = A R^-1
-    h = _health.merge(fh, _health.from_result(Q.storage.data))
+    h = _health.merge(fh, _health.from_result(Q.storage.data, Q.grid))
     return _health.finalize("cholqr", (Q, R), h, opts, _gram_exc("cholqr"))
 
 
@@ -221,7 +269,7 @@ def _gels_cholqr_attempt(A: Matrix, B, opts: Options | None, *,
         return trsm(Side.Left, 1.0, L.conj_transpose(), Y, opts)
 
     X = sne(B)
-    h = _health.merge(fh, _health.from_result(X.storage.data))
+    h = _health.merge(fh, _health.from_result(X.storage.data, X.grid))
     for _ in range(refine):
         R = gemm(-1.0, A, X, 1.0, B, opts)            # r = B - A X
         X = X.with_dense(sne(R).to_dense() + X.to_dense())
@@ -272,7 +320,7 @@ def _solve_r(F: QRFactors, yd: torch.Tensor) -> torch.Tensor:
 def _gels_qr_attempt(A: Matrix, B, opts: Options | None):
     """The Householder-QR attempt of gels' bounded retry."""
     X = gels_qr(A, B, opts)
-    return X, _health.from_result(X.storage.data)
+    return X, _health.from_result(X.storage.data, X.grid)
 
 
 @annotate("slate.gels")
@@ -285,7 +333,6 @@ def gels(A: Matrix, B, opts: Options | None = None) -> Matrix:
     m < n: the minimum-norm solution through LQ, x = Q^H L^-1 b.
     Returns X, or (X, HealthInfo) under ErrorPolicy.Info."""
     m, n = A.m, A.n
-    single_route(opts, "gels", A, B)
     if m >= n:
         from ..robust.recovery import gels_with_recovery
         return gels_with_recovery(A, B, opts)
@@ -298,5 +345,6 @@ def gels(A: Matrix, B, opts: Options | None = None) -> Matrix:
     Yp = Matrix.zeros(n, yd.shape[1], A.nb, B.nb, A.grid, yd.dtype,
                       yd.device).with_dense(ypad)
     X = unmqr(Side.Left, "n", F.F, Yp, opts)       # x = Qr y
-    return _health.finalize("gels", X, _health.from_result(X.storage.data),
+    return _health.finalize("gels", X,
+                            _health.from_result(X.storage.data, X.grid),
                             opts)

@@ -25,7 +25,7 @@ stedc_deflate.cc:595, stedc_secular.cc:271, stedc_sort.cc).
 
 The reference pins its products to "highest" precision; here every merge
 runs with TF32 off.  The row-distributed merge product of a mesh comes
-with the distributed spectral drivers (ROADMAP.md queue 1, item 12b).
+with the distributed spectral drivers (ROADMAP.md queue 1, item 12c).
 """
 
 from __future__ import annotations
@@ -329,7 +329,7 @@ def stedc_info(d, e, grid=None, certify: bool = True, *, device=None):
     they are tensors; host data goes to ``device`` (None: CUDA)."""
     if grid is not None and (grid.size > 1 or grid.group is not None):
         raise not_ported("stedc on a mesh (row-distributed merges)",
-                         "queue 1, item 12b (distributed)")
+                         "queue 1, item 12c (distributed spectral)")
     d = d if isinstance(d, torch.Tensor) else as_tensor(np.asarray(d),
                                                         device)
     e = e if isinstance(e, torch.Tensor) else as_tensor(np.asarray(e),

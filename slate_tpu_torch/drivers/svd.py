@@ -15,8 +15,9 @@ tb2bd.cc).
 - vectors: U = Q_qr [Un; 0], V = V1 Vn, the stage-1 panels applied by
   ``rolled_apply``.
 
-The mesh route (``_svd_mesh``) comes with queue 1, item 12b: ``Target.mesh``
-or a grid with a process group raises (options.single_route).
+The mesh route (``_svd_mesh``) comes with queue 1, item 12c: a grid with a
+process group raises (options.single_route); ``Target.mesh`` on a grid
+without one takes the single route, as the reference does.
 """
 
 from __future__ import annotations
@@ -285,7 +286,7 @@ def _svd_compute(A: Matrix, opts: Options | None, jobu: bool):
     if m < n:
         s, V, U, h = _svd_compute(_conj_t_root(A), opts, jobu)
         return s, U, V, h
-    single_route(opts, "svd (_svd_mesh)", A, mesh_target=True)
+    single_route(opts, "svd (_svd_mesh)", A)
     nb = A.nb
     ad = A.to_dense()
     with span("slate.svd/ge2tb"):

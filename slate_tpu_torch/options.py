@@ -2,8 +2,8 @@
 
 The keys and values are the reference's, so an options map written for
 ``slate_tpu`` means the same here.  What the port does not carry yet (the
-distributed LU, QR, spectral and Aasen drivers of queue 1, item 12b)
-raises ``NotImplementedError`` where it is resolved; it is never ignored.
+distributed spectral drivers of queue 1, item 12c) raises
+``NotImplementedError`` where it is resolved; it is never ignored.
 """
 
 from __future__ import annotations
@@ -197,6 +197,8 @@ Options = Mapping[Option, Any]
 # as None until the slice that uses it brings its default over.
 _DEFAULTS = {
     Option.MaxPanelThreads: 4,
+    Option.Lookahead: 1,
+    Option.InnerBlocking: 16,
     Option.MaxIterations: 30,
     Option.Tolerance: None,
     Option.Target: Target.auto,
@@ -282,23 +284,19 @@ def on_mesh(opts: Options | None, matrix) -> bool:
             and matrix.grid.group is not None)
 
 
-def single_route(opts: Options | None, what: str, *mats,
-                 mesh_target: bool = False) -> Target:
+def single_route(opts: Options | None, what: str, *mats) -> Target:
     """Target resolution for a driver whose distributed route is not
-    ported yet (queue 1, item 12b): a matrix on a grid with a process
-    group raises (the driver never runs the single route on a rank's local
-    tiles); with ``mesh_target`` a target that resolves to mesh raises
-    too (the drivers whose mesh route is a body of its own: hetrf, heev,
-    svd); otherwise the target resolves as :func:`resolve_target` does."""
+    ported yet (queue 1, item 12c: the spectral reductions): a matrix on a
+    grid with a process group raises (the driver never runs the single
+    route on a rank's local tiles); otherwise the target resolves as
+    :func:`resolve_target` does, and ``Target.mesh`` on a grid without a
+    group takes the single route, as the reference's drivers do where the
+    grid has no mesh."""
     for m in mats:
         if getattr(m.grid, "group", None) is not None:
             raise not_ported(f"{what} on a grid with a process group",
-                             "queue 1, item 12b (distributed)")
-    t = resolve_target(opts, mats[0])
-    if mesh_target and t is Target.mesh:
-        raise not_ported(f"{what} on Target.mesh",
-                         "queue 1, item 12b (distributed)")
-    return t
+                             "queue 1, item 12c (distributed spectral)")
+    return resolve_target(opts, mats[0])
 
 
 def resolve_speculate(opts: Options | None) -> bool:

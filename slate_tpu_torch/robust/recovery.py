@@ -112,7 +112,7 @@ def _lu_attempt(A, B, opts, method):
               MethodLU.CALU: _lu.getrf_tntpiv}.get(method, _lu.getrf)
     F, fh = factor(A, o)
     X = _lu.getrs(F, B, o)
-    return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
+    return (F, X), _h.merge(fh, _h.from_result(X.storage.data, X.grid))
 
 
 def _rbt_attempt(A, B, opts, ir_steps: int = 2):
@@ -283,7 +283,7 @@ def _hesv_attempt(A, B, opts):
         F, X = _he.hesv(A, B, o)
     except Exception:  # noqa: BLE001 -- a failed fallback is just unhealthy
         return (None, None), _h.healthy()._replace(converged=False)
-    return (F, X), _h.from_result(X.storage.data)
+    return (F, X), _h.from_result(X.storage.data, X.grid)
 
 
 def _gesv_attempt(A, B, opts):
@@ -295,7 +295,7 @@ def _gesv_attempt(A, B, opts):
     o = _with(opts, ErrorPolicy=ErrorPolicy.Info)
     F, fh = _lu.getrf(Ag, o)
     X = _lu.getrs(F, B, o)
-    return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
+    return (F, X), _h.merge(fh, _h.from_result(X.storage.data, X.grid))
 
 
 # ------------------------------------------------------------------ hesv
@@ -314,7 +314,7 @@ def hesv_with_recovery(A, B, opts: Options | None = None):
         o = _with(opts, ErrorPolicy=ErrorPolicy.Info)
         F, fh = _he.hetrf(A, o)
         X = _he.hetrs(F, B, o)
-        return (F, X), _h.merge(fh, _h.from_result(X.storage.data))
+        return (F, X), _h.merge(fh, _h.from_result(X.storage.data, X.grid))
 
     use_fb = get_option(opts, Option.UseFallbackSolver)
     speculate = resolve_speculate(opts)
@@ -377,7 +377,7 @@ def _gels_bf16_attempt(A, B, opts, refine: int = 2):
     d = torch.diagonal(rd).abs()
     dmin = torch.clamp(d.min(), min=torch.finfo(d.dtype).tiny)
     piv = _h.from_pivots(d)._replace(growth=float(anorm / dmin))
-    h = _h.merge(piv, _h.merge(_h.from_result(X.storage.data),
+    h = _h.merge(piv, _h.merge(_h.from_result(X.storage.data, X.grid),
                                cert._replace(iters=refine)))
     return X, h
 

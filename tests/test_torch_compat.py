@@ -152,11 +152,17 @@ def test_from_to_scalapack_round_trip_on_one_device(m, n, mb, nb):
 
 
 def test_from_scalapack_onto_a_process_grid_raises():
+    """The locals of a 2 x 2 process grid onto a 1 x 1 grid without a
+    process group do not match it: SlateValueError, as the reference's
+    ("local (0,0) shape (8, 8) != numroc (12,12) ..."); onto a 2 x 2 grid
+    with a group they land (tests/test_torch_dist_qr.py)."""
     a = np.random.default_rng(0).standard_normal((12, 12))
     desc, locals_ = sc.scatter_locals(a, 4, 4, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(st.SlateValueError, match="numroc"):
         sc.from_scalapack(desc, locals_, **CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ref.SlateValueError, match="numroc"):
+        ref_sc.from_scalapack(desc, locals_)
+    with pytest.raises(st.SlateValueError, match="numroc"):
         sapi.pdgesv(12, 1, desc, locals_, desc, locals_, **CPU)
 
 

@@ -3,7 +3,8 @@ in gloo worlds of CPU processes: potrf (Lower and Upper), posv (potrf and
 two dist_trsm sweeps), trtri; dist_potrf at lookahead depths 0, 1 and 2
 with and without ABFT; planted post_panel and post_collective strikes;
 the health of an indefinite matrix on every rank; and the queue-1 item
-12b drivers' refusal on a grid with a process group.
+12b drivers' results (ported with that item) and the item-12c drivers'
+refusal on a grid with a process group.
 
 Each grid of ``torch_dist_cases.GRIDS`` is one world of p*q spawned ranks
 that runs everything once (``torch_dist_cases.chol_body``); the
@@ -147,7 +148,38 @@ def test_indefinite_health_on_every_rank(worlds, grid):
                                     "svd", "hetrf", "hesv", "stedc"])
 @pytest.mark.parametrize("grid", GRIDS, ids=GRID_IDS)
 def test_item_12b_drivers_refuse_a_grid_with_a_group(worlds, grid, driver):
-    """No 12b driver runs the single route on a rank's local tiles: each
-    raises NotImplementedError naming queue 1, item 12b."""
+    """The item-12b drivers, ported, take their mesh routes on a grid
+    with a process group and give the right answer on every rank (held
+    here to numpy and scipy on the refusals' inputs; against the
+    reference's mesh drivers in tests/test_torch_dist_lu.py and
+    test_torch_dist_qr.py).  The item-12c drivers (heev, svd, stedc)
+    still raise NotImplementedError naming queue 1, item 12c: none runs
+    the single route on a rank's local tiles."""
+    import scipy.linalg
+    x = cases.inputs("float64")
+    a, h, b = x["spd"], x["herm"], x["rhs"]
     for rank in worlds[grid]:
-        assert "item 12b" in rank["refusals"][driver]
+        got = rank["refusals"][driver]
+        if driver in ("heev", "svd", "stedc"):
+            assert isinstance(got, str) and "item 12c" in got
+        elif driver == "gesv":
+            _close(got, np.linalg.solve(a, b), "float64")
+        elif driver == "hesv":
+            _close(got, np.linalg.solve(h, b), "float64")
+        elif driver == "gels":
+            _close(got, np.linalg.lstsq(a, b, rcond=None)[0], "float64")
+        elif driver == "getrf":
+            lu, perm = got
+            _, piv = scipy.linalg.lu_factor(a)
+            want = np.arange(cases.N)
+            for i, pv in enumerate(piv):
+                want[[i, pv]] = want[[pv, i]]
+            np.testing.assert_array_equal(perm, want)
+            _close(np.tril(lu, -1) @ np.triu(lu) + np.triu(lu), a[perm],
+                   "float64")
+        elif driver == "geqrf":
+            _close(np.abs(np.triu(got)), np.abs(np.linalg.qr(a, "r")),
+                   "float64")
+        else:
+            L, T, piv = got
+            _close(L @ T @ L.conj().T, h[np.ix_(piv, piv)], "float64")

@@ -26,7 +26,6 @@ from slate_tpu.robust import faults as ref_faults
 
 import slate_tpu_torch as st
 from slate_tpu_torch import convert
-from slate_tpu_torch.drivers import hetrf as port_hetrf
 from slate_tpu_torch.robust import certify, faults
 
 RTOL = {np.float32: 1e-5, np.complex64: 1e-5, np.float64: 1e-12,
@@ -135,11 +134,18 @@ def test_hetrf_rejects_complex_symmetric():
 
 
 def test_hetrf_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_hetrf._hetrf_mesh(None, 8)
+    """The mesh Aasen is ported (tests/test_torch_dist_lu.py holds it on
+    grids with a process group); Target.mesh on a grid without one takes
+    the single route, as the reference's hetrf does where the grid has no
+    mesh: the same bits as the default target."""
     P = st.HermitianMatrix.from_numpy(_indef(6, 16), 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        st.hetrf(P, {st.Option.Target: st.Target.mesh})
+    F = st.hetrf(P, {st.Option.Target: st.Target.mesh})
+    G = st.hetrf(P)
+    for x, y in zip(F, G):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        else:
+            assert x == y
 
 
 # ------------------------------------------------------------- health

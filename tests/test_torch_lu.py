@@ -263,8 +263,8 @@ def test_unported_gesv_options_raise_not_implemented(opts, what):
     """Speculate (the certified RBT rung), Abft and Target.mesh, ported
     since, solve: mesh on a grid without a process group takes the single
     route, as the reference's gesv does when its grid has no mesh (on a
-    grid with a group gesv raises naming queue 1, item 12b:
-    tests/test_torch_dist_chol.py)."""
+    grid with a group gesv takes the mesh route, ported with queue 1,
+    item 12b: tests/test_torch_dist_lu.py)."""
     a, b = _dominant(10, 128), _rhs(10, 128)
     A = st.Matrix.from_numpy(a, 64, device="cpu")
     B = st.Matrix.from_numpy(b, 64, device="cpu")

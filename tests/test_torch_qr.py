@@ -248,8 +248,8 @@ def test_info_return_shapes_and_unported_rungs():
     assert h.ok and h.iters == 1
     # Target.mesh on a grid without a process group takes the single
     # route, as the reference's geqrf does when its grid has no mesh (on a
-    # grid with a group geqrf raises naming queue 1, item 12b:
-    # tests/test_torch_dist_chol.py)
+    # grid with a group geqrf is CAQR, ported with queue 1, item 12b:
+    # tests/test_torch_dist_qr.py)
     F_mesh = st.geqrf(_cpu(a, 32), _opts(st, Target=st.Target.mesh))
     assert torch.equal(F_mesh.QR.to_dense(),
                        st.geqrf(_cpu(a, 32)).QR.to_dense())

@@ -390,8 +390,8 @@ def indefinite() -> np.ndarray:
 def chol_body(p: int, q: int) -> dict:
     """The Cholesky cases, dist_potrf at lookahead depths 0, 1 and 2 (with
     and without ABFT, and under each planted strike), the health of an
-    indefinite matrix under Info and Raise, and the 12b drivers' refusal
-    on this grid."""
+    indefinite matrix under Info and Raise, and the queue-1 item-12
+    drivers on this grid (:func:`refusals`)."""
     import slate_tpu_torch as st
     from slate_tpu_torch.parallel.dist_chol import dist_potrf
     from slate_tpu_torch.robust import faults
@@ -427,20 +427,378 @@ def chol_body(p: int, q: int) -> dict:
 
 
 def refusals(st, g) -> dict:
-    """Each queue-1 item-12b driver on this grid: the message it raised
-    (NotImplementedError), or what it returned instead."""
+    """Each queue-1 item-12b driver (ported) and item-12c driver (not
+    yet) on this grid with Target.mesh: the result as numpy data, or the
+    message it raised (NotImplementedError).  A is ``inputs("float64")
+    ["spd"]``, H its ``herm``, B its ``rhs`` (n = 23 in 4 x 4 tiles)."""
     x = inputs("float64")
+    o = {st.Option.Target: st.Target.mesh}
     A = st.Matrix.from_numpy(x["spd"], NB, NB, grid=g)
     H = st.HermitianMatrix.from_numpy(x["herm"], NB, st.Uplo.Lower, grid=g)
     B = st.Matrix.from_numpy(x["rhs"], NB, NB, grid=g)
-    calls = {"gesv": lambda: st.gesv(A, B), "getrf": lambda: st.getrf(A),
-             "gels": lambda: st.gels(A, B), "geqrf": lambda: st.geqrf(A),
-             "heev": lambda: st.heev(H), "svd": lambda: st.svd(A),
-             "hetrf": lambda: st.hetrf(H), "hesv": lambda: st.hesv(H, B),
+
+    def lu():
+        F = st.getrf(A, o)
+        return _np(F.LU), _np(F.perm)
+
+    calls = {"gesv": lambda: _np(st.gesv(A, B, o)[1]), "getrf": lu,
+             "gels": lambda: _np(st.gels(A, B, o)),
+             "geqrf": lambda: _np(st.geqrf(A, o).QR),
+             "heev": lambda: st.heev(H, o), "svd": lambda: st.svd(A, o),
+             "hetrf": lambda: _he_factors(st.hetrf(H, o)),
+             "hesv": lambda: _np(st.hesv(H, B, o)[1]),
              "stedc": lambda: st.stedc(np.ones(N), np.ones(N - 1), grid=g,
                                        device="cpu")}
     out = {}
     for name, call in calls.items():
+        try:
+            out[name] = call()
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+# ------------------------------------------- distributed LU and Aasen
+
+LU_NB = {"a22": 5, "a24": 4, "d18": 4, "d24": 4, "h24": 4}
+
+
+def lu_inputs(dtype: str, seed: int = 18) -> dict:
+    """The LU and Aasen operands in ``dtype``: ragged general matrices
+    (22 in 5 x 5 tiles, 24 in 4 x 4), diagonally dominant ones for NoPiv
+    (18, 24), a Hermitian indefinite 24 x 24 and right-hand sides."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in ("a22", "a24", "d18", "d24", "h24"):
+        n = int(key[1:])
+        x = _rng_matrix(rng, dtype, n, n)
+        if key[0] == "d":
+            x = x + n * np.eye(n, dtype=dtype)
+        if key[0] == "h":
+            x = (x + x.conj().T) / 2
+        out[key] = x.astype(dtype)
+        out["b" + key[1:]] = _rng_matrix(rng, dtype, n, 3)
+    return out
+
+
+def _np(v):
+    """A driver's output as numpy: a matrix densified, a tensor or array
+    copied to the host."""
+    if hasattr(v, "to_numpy") or hasattr(v, "to_dense"):
+        return dense(v)
+    if hasattr(v, "detach"):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+_LU_FACTOR = {"partial": "getrf", "calu": "getrf_tntpiv",
+              "nopiv": "getrf_nopiv"}
+
+
+def _lu_factor(method, which):
+    """getrf / getrf_tntpiv / getrf_nopiv of ``which``: (LU, perm)."""
+    def call(st, M, x, o):
+        F = getattr(st, _LU_FACTOR[method])(M(x[which], nb=LU_NB[which]), o)
+        return F.LU, F.perm
+    return call
+
+
+def _gesv(which, method):
+    def call(st, M, x, o):
+        o = {**o, st.Option.MethodLU: getattr(st.MethodLU, method)}
+        nb = LU_NB[which]
+        _, X = st.gesv(M(x[which], nb=nb), M(x["b" + which[1:]], nb=nb), o)
+        return X
+    return call
+
+
+def _gesv_nopiv(st, M, x, o):
+    return st.gesv_nopiv(M(x["d18"]), M(x["b18"]), o)[1]
+
+
+def _gesv_speculate(which):
+    """gesv under Speculate: the RBT rung (a24: 24 = Mt nb, a multiple of
+    the butterfly's 4, on the tiles; a22 in 5 x 5 tiles: 25 is not, so
+    the dense transform), accepted on these matrices."""
+    def call(st, M, x, o):
+        o = {**o, st.Option.Speculate: st.options.Speculate.On,
+             st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+        nb = LU_NB[which]
+        F, X, h = st.gesv(M(x[which], nb=nb), M(x["b" + which[1:]], nb=nb),
+                          o)
+        return X, type(F).__name__, h.ok
+    return call
+
+
+def _rbt_factor(which):
+    """getrf_rbt: the NoPiv factor of the transformed matrix."""
+    def call(st, M, x, o):
+        return st.getrf_rbt(M(x[which], nb=LU_NB[which]), o).F.LU
+    return call
+
+
+def _getrs_mb4(st, M, x, o):
+    """getrs with B in 4-row tiles against a factor in 5 x 5 tiles (ref:
+    tests/test_lu.py:123-135)."""
+    F = st.getrf(M(x["a22"], nb=5), o)
+    return st.getrs(F, M(x["b22"], nb=4), o)
+
+
+def _getri(st, M, x, o):
+    return st.getri(st.getrf(M(x["a22"], nb=5), o), o)
+
+
+LU_CASES = [
+    ("getrf_partial", "float64", _lu_factor("partial", "a22")),
+    ("getrf_partial", "float32", _lu_factor("partial", "a22")),
+    ("getrf_calu", "float64", _lu_factor("calu", "a24")),
+    ("getrf_nopiv", "complex128", _lu_factor("nopiv", "d18")),
+    ("getrf_rbt_tiles", "float64", _rbt_factor("a24")),
+    ("getrf_rbt_dense", "float64", _rbt_factor("a22")),
+    ("getrs_mb4", "float64", _getrs_mb4),
+]
+
+# held against numpy's solve and inverse (the reference's mesh gesv is
+# getrf and getrs, held above; its compiles are what a test pays for)
+LU_SOLVES = [
+    ("gesv_partial", "float32", _gesv("a22", "PartialPiv")),
+    ("gesv_partial", "float64", _gesv("a22", "PartialPiv")),
+    ("gesv_calu", "float64", _gesv("a24", "CALU")),
+    ("gesv_calu", "complex128", _gesv("a24", "CALU")),
+    ("gesv_nopiv", "complex128", _gesv_nopiv),
+    ("gesv_speculate_tiles", "float64", _gesv_speculate("a24")),
+    ("gesv_speculate_dense", "float64", _gesv_speculate("a22")),
+    ("getri", "float64", _getri),
+]
+
+
+def lu_solve_want(name: str, dt: str):
+    """numpy's answer to an LU_SOLVES case, in f64 or complex128."""
+    x = lu_inputs(ref_dtype(dt))
+    if name == "getri":
+        return np.linalg.inv(x["a22"])
+    which = {"gesv_partial": "22", "gesv_calu": "24", "gesv_nopiv": "18",
+             "gesv_speculate_tiles": "24", "gesv_speculate_dense": "22"}[name]
+    a = x[("d" if name == "gesv_nopiv" else "a") + which]
+    return np.linalg.solve(a, x["b" + which])
+
+
+# the lookahead runs: dist_getrf on the reference's test_lookahead.py
+# matrix shape (21 in 4 x 4 tiles), every method with and without ABFT
+LA_METHODS = ("partial", "nopiv", "tntpiv")
+
+
+def la_lu_array(dt: str, n: int = 21, seed: int = 21) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, n)) + n * np.eye(n)).astype(dt)
+
+
+# a planted post_panel strike on a mesh gesv under Abft (ref:
+# tests/test_abft.py:275-292): the last tile row of the first panel
+STRIKE_N, STRIKE_NB = 24, 4
+LU_STRIKE = dict(kind="bitflip", seed=11, tile=(STRIKE_N // STRIKE_NB - 1, 0),
+                 nb=STRIKE_NB)
+
+
+def strike_system():
+    rng = np.random.default_rng(24)
+    n = STRIKE_N
+    return (rng.standard_normal((n, n)) + n * np.eye(n),
+            rng.standard_normal((n, 3)))
+
+
+def _he_factors(F):
+    """Aasen factors as numpy: (L, T, piv)."""
+    return _np(F.L), _np(F.T_dense()), _np(F.piv)
+
+
+def lu_body(p: int, q: int) -> dict:
+    """The LU and Aasen cases on a p x q grid with Target.mesh: every case
+    of LU_CASES and LU_SOLVES, the factor's local tiles, dist_getrf at
+    lookahead depths 0, 1 and 2, a planted strike on a mesh gesv under
+    Abft, the mesh Aasen (hetrf, hesv) and an indefinite posv through its
+    ladder."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.parallel.dist_lu import dist_getrf
+    from slate_tpu_torch.robust import faults
+    g = mesh_grid(st, p, q)
+    r, c = g.coords
+    M = matrix_maker(st, g)
+    o = {st.Option.Target: st.Target.mesh}
+    out = {"coords": (r, c), "cases": {}}
+    for case in LU_CASES + LU_SOLVES:
+        _, dt, call = case
+        res = call(st, M, lu_inputs(dt), o)
+        res = res if isinstance(res, tuple) else (res,)
+        out["cases"][case_id(case)] = tuple(
+            v if isinstance(v, (str, bool)) else _np(v) for v in res)
+    F = st.getrf(M(lu_inputs("float64")["a22"], nb=5), o)
+    out["local_getrf"] = F.LU.storage.data.numpy().copy()
+    for dt in ("float32", "float64"):
+        S = st.Matrix.from_numpy(la_lu_array(dt), NB, NB, grid=g).storage
+        for method in LA_METHODS:
+            for abft in (False, True):
+                out[f"la_{method}_{dt}_{abft}"] = [
+                    [_np(v) for v in dist_getrf(S.data, S.Nt, g, S.n, method,
+                                                abft=abft, la=la)]
+                    for la in (0, 1, 2)]
+    a, b = strike_system()
+    info = {**o, st.Option.Abft: st.Abft.On,
+            st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    A = M(a)
+    B = M(b)
+    _, X0, h0 = st.gesv(A, B, info)
+    with faults.inject(faults.FaultPlan("post_panel", **LU_STRIKE)):
+        _, X, h = st.gesv(A, B, info)
+    out["strike"] = {"clean": (h0.abft_detected, h0.abft_corrected, h0.ok),
+                     "struck": (h.abft_detected, h.abft_corrected,
+                                h.abft_site, h.ok),
+                     "x": _np(X), "x_clean": _np(X0)}
+    for dt in ("float64", "complex128"):
+        x = lu_inputs(dt)
+        H = M(x["h24"], "herm", st.Uplo.Lower)
+        out[f"hetrf_{dt}"] = _he_factors(st.hetrf(H, o))
+        F, X = st.hesv(H, M(x["b24"]), o)
+        out[f"hesv_{dt}"] = _np(X)
+    x = lu_inputs("float64")
+    F, X, h = st.posv(M(x["h24"], "herm", st.Uplo.Lower), M(x["b24"]),
+                      {**o, st.Option.ErrorPolicy: st.ErrorPolicy.Info})
+    out["posv_indefinite"] = (type(F).__name__, h.ok, _np(X))
+    return out
+
+
+# ---------------------------------------------------- distributed QR
+
+QR_SHAPES = {"a24": (24, 24), "a37": (37, 15), "a48": (48, 8),
+             "w15": (15, 37)}
+
+
+def qr_inputs(dtype: str, seed: int = 37) -> dict:
+    """The QR operands in ``dtype`` (4 x 4 tiles): 24 x 24, 37 x 15, 48 x 8
+    and a wide 15 x 37, their right-hand sides, and the unmqr operands
+    (37 x 7 from the left, 7 x 37 from the right)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, (m, n) in QR_SHAPES.items():
+        out[key] = _rng_matrix(rng, dtype, m, n)
+        out["b" + key[1:]] = _rng_matrix(rng, dtype, m, 3)
+    out["cl"] = _rng_matrix(rng, dtype, 37, 7)
+    out["cr"] = _rng_matrix(rng, dtype, 7, 37)
+    return out
+
+
+def _gels(which, method):
+    def call(st, M, x, o):
+        o = {**o, st.Option.MethodGels: getattr(st.MethodGels, method)}
+        return st.gels(M(x[which]), M(x["b" + which[1:]]), o)
+    return call
+
+
+def _unmqr(side, op):
+    def call(st, M, x, o):
+        F = st.geqrf(M(x["a37"]), o)
+        return st.unmqr(side, op, F, M(x["cl" if side == "l" else "cr"]), o)
+    return call
+
+
+def _geqrf(st, M, x, o):
+    F = st.geqrf(M(x["a37"]), o)
+    return F.QR, F.Tloc, F.Vtree, F.Ttree
+
+
+def _gelqf_unmlq(st, M, x, o):
+    """unmlq of gelqf's Q (the wide 15 x 37 A's) from the left on a
+    37 x 7 C, with op 'c'."""
+    F = st.gelqf(M(x["w15"]), o)
+    return st.unmlq("l", "c", F, M(x["cl"]), o)
+
+
+# held against the reference's mesh drivers on a grid of the same p
+# (CAQR's factors depend on the grid rows: its tree stacks their R's)
+QR_GRID_CASES = [
+    ("geqrf", "float64", _geqrf),
+    ("unmqr_ln", "float64", _unmqr("l", "n")),
+    ("unmqr_lc", "float64", _unmqr("l", "c")),
+    ("unmqr_rn", "float64", _unmqr("r", "n")),
+    ("unmqr_rc", "float64", _unmqr("r", "c")),
+    ("gelqf_unmlq", "float64", _gelqf_unmlq),
+]
+
+# grid-independent: held against the reference's mesh drivers on 2 x 2
+QR_CASES = [
+    ("gels_qr", "float64", _gels("a37", "QR")),
+    ("gels_qr", "float32", _gels("a37", "QR")),
+    ("gels_qr_square", "complex128", _gels("a24", "QR")),
+    ("gels_cholqr", "float64", _gels("a48", "CholQR")),
+    ("gels_min_norm", "float64", _gels("w15", "QR")),
+]
+
+
+def la_qr_array(dt: str, m: int = 22, n: int = 17, seed: int = 22):
+    """The reference's test_lookahead.py CAQR shape, one input."""
+    return np.random.default_rng(seed).standard_normal((m, n)).astype(dt)
+
+
+SCALAPACK_N, SCALAPACK_NB = 22, 4
+
+
+def scalapack_system():
+    rng = np.random.default_rng(99)
+    n = SCALAPACK_N
+    return (rng.standard_normal((n, n)) + n * np.eye(n),
+            rng.standard_normal((n, 3)), rng.standard_normal((37, 15)),
+            rng.standard_normal((37, 3)))
+
+
+def qr_body(p: int, q: int) -> dict:
+    """The QR cases on a p x q grid with Target.mesh, dist_geqrf at
+    lookahead depths 0, 1 and 2, and from_scalapack / to_scalapack /
+    pdgesv / pdgels over the grid's ScaLAPACK locals, and the refusals of
+    pdsyev and pdgesvd."""
+    import slate_tpu_torch as st
+    from slate_tpu_torch.compat import scalapack as sc
+    from slate_tpu_torch.compat import scalapack_api as sapi
+    from slate_tpu_torch.core.layout import num_tiles
+    from slate_tpu_torch.parallel.dist_qr import dist_geqrf_data
+    g = mesh_grid(st, p, q)
+    r, c = g.coords
+    M = matrix_maker(st, g)
+    o = {st.Option.Target: st.Target.mesh}
+    out = {"coords": (r, c), "cases": {}}
+    for case in QR_GRID_CASES + QR_CASES:
+        _, dt, call = case
+        res = call(st, M, qr_inputs(dt), o)
+        res = res if isinstance(res, tuple) else (res,)
+        out["cases"][case_id(case)] = tuple(_np(v) for v in res)
+    F = st.geqrf(M(qr_inputs("float64")["a37"]), o)
+    out["local_geqrf"] = F.QR.storage.data.numpy().copy()
+    for dt in ("float32", "float64"):
+        a = la_qr_array(dt)
+        S = st.Matrix.from_numpy(a, NB, NB, grid=g).storage
+        out[f"la_qr_{dt}"] = [
+            [_np(v) for v in dist_geqrf_data(
+                S.data, num_tiles(a.shape[1], NB), num_tiles(a.shape[0], NB),
+                a.shape[0], a.shape[1], g, la=la)]
+            for la in (0, 1, 2)]
+    a, b, aq, bq = scalapack_system()
+    nb = SCALAPACK_NB
+    da, la_ = sc.scatter_locals(a, nb, nb, p, q)
+    db, lb = sc.scatter_locals(b, nb, nb, p, q)
+    A = sc.from_scalapack(da, la_, g)
+    out["scalapack_local"] = A.storage.data.numpy().copy()
+    back = sc.to_scalapack(A)[1]
+    out["scalapack_round_trip"] = all(
+        np.array_equal(back[k], la_[k]) for k in la_)
+    dx, lx = sapi.pdgesv(SCALAPACK_N, 3, da, la_, db, lb, g)
+    out["pdgesv"] = sc.gather_locals(dx, lx, p, q)
+    dq, lq = sc.scatter_locals(aq, nb, nb, p, q)
+    dbq, lbq = sc.scatter_locals(bq, nb, nb, p, q)
+    dx, lx = sapi.pdgels(37, 15, 3, dq, lq, dbq, lbq, g)
+    out["pdgels"] = sc.gather_locals(dx, lx, p, q)
+    for name, call in (("pdsyev", lambda: sapi.pdsyev(
+            "v", "l", SCALAPACK_N, da, la_, g)),
+                       ("pdgesvd", lambda: sapi.pdgesvd(
+                           "v", SCALAPACK_N, SCALAPACK_N, da, la_, g))):
         try:
             call()
             out[name] = "returned"
