@@ -189,7 +189,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      svd at 8192 x 8192 f32 on the generator's svd matrix the same way;
      hegv (itype 1, B = G G^T + n I): K2 191 and K0 63 launches, as
      expected_posv_launches(8192, 128) gives; the parity routes at n =
-     1024 (MethodEig DC and QR, MethodSvd Bidiag) against the Auto
+     512 (MethodEig DC and QR, MethodSvd Bidiag) against the Auto
      route's values, with the chase's steps and its launches a step
      (torch.profiler on a 512 x 512 chase); stedc at n = 4096 on a random
      and a glued Wilkinson tridiagonal (certificate, wall, peak memory);
@@ -213,7 +213,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      the default width (256) on the orthogonal A: ||A[perm] - L U|| /
      ||A||, the solve through getrs on its factors beside the in-core
      partial-pivot gesv's, no hand kernel, the traffic, walls and idle
-     share; the kill-and-resume drill at n = 8192 for both drivers (an
+     share; the kill-and-resume drill at n = 4096 for both drivers (an
      uninterrupted run, a run killed after the checkpoint of a middle
      step at cadence 4, the resume, a full run with checkpoints on: every
      factor and permutation bit-equal), the refusals (a ckpt_torn_write
@@ -261,7 +261,25 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      tile and repaired; the process group destroyed; the gloo_2x2
      children also run a CALU gesv, a QR gels, from_scalapack and pdgesv
      (the gloo_2x2_slice17 line, "device": "cpu");
- 17. print the launch counts, the card line, the kernels line, and last
+ 17. slice 18 (its own generator, --seed + 19): the distributed spectral
+     reductions in a third one-rank NCCL world, every call with
+     Target.mesh, each beside the single route's wall on the same input:
+     dist_heev, heev at n = 8192, f32, nb = 128 on slice 14's kind of heev
+     matrix (dist_he2hb, the band gathered, stage 2 replicated,
+     dist_unmtr_he2hb), cold and warm, the certificate under 50 n eps, the
+     eigenvalues within 2e-3 of the exact spectrum, its spans, no hand
+     kernel; dist_heev_vals; dist_hegv (itype 1, 8192: dist_potrf's K1
+     on each of the 64 diagonal tiles); dist_svd at 8192 x 8192 under
+     slice 14's svd bounds; dist_heev_dc, MethodEig.DC at 512 (the chase
+     runs a step after another; stedc's merges row-distributed);
+     dist_stedc at 4096 against the single route's; pdsyev and pdgesvd at
+     2048 in f64 against numpy; dist_spectral_lookahead, dist_he2hb and
+     dist_ge2tb at 4096 at depths 0, 1 and 2 bit for bit;
+     dist_heev_strike, a transient NaN strike on the band at 512 that
+     the ladder escalates Auto -> DC and certifies; the gloo_2x2 children
+     also run heev, svd, hegv, stedc, pdsyev and pdgesvd in f64 (the
+     gloo_2x2_slice18 line, "device": "cpu");
+ 18. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -272,7 +290,8 @@ into its factor and strips launches, and the stream's K6 and K7 device
 time into their update, factor and solve launches, and the kernel
 breakdown of one Abft posv and one Abft CALU gesv, and one warm heev and
 one warm svd at n = 8192 by span and by kernel (device activity alone),
-with the idle share, and the mesh CALU gesv by span and by kernel.
+with the idle share, and the mesh CALU gesv and the mesh heev by span
+and by kernel (the heev's device activity alone).
 Each profiled run has its own time limit (TRACE_PROFILE_LIMIT_S) and so
 has the spectral trace (TRACE_SPECTRAL_LIMIT_S): past it the run exits
 nonzero, naming the phase.
@@ -288,8 +307,8 @@ zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
 tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
 from --seed + 14, slice 14's from --seed + 15, slice 15's from
---seed + 16, slice 16's from --seed + 17 and slice 17's from --seed +
-18, so that
+--seed + 16, slice 16's from --seed + 17, slice 17's from --seed + 18
+and slice 18's from --seed + 19, so that
 adding to one slice moves no other's matrices;
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
@@ -2125,6 +2144,10 @@ def check_serve_graph(st, reqs, kernels, reset, counts, failures):
     from slate_tpu_torch.serve import batched as sbm
     from slate_tpu_torch.serve import server as ssv
     srv = st.serve.Server(cache=st.serve.ExecutableCache())
+    # the captures start from an emptied allocator cache: a capture that
+    # meets a device full of cached blocks runs out of memory and is
+    # retried (internal/graphs.py), one more warm-up pass than counted
+    torch.cuda.empty_cache()
     reset()
     _, wall_cold = _timed(lambda: srv.serve_batch(reqs))
     n_cold = len(srv.batch_records)
@@ -3925,9 +3948,9 @@ def check_slice13(st, seed, n, nb, nrhs, serve_reqs, reset, counts,
 SPEC_N = 8192
 # the chase routes (MethodEig DC and QR, MethodSvd Bidiag) and the fault
 # drills: a chase runs its steps one after another, ~37 launches a step
-# for hb2st and ~66 for tb2bd, and n = 2048 takes 17392 steps against
-# n = 1024's 4600, so n is cut to 1024 to keep the smoke inside its time
-SPEC_PARITY_N = 1024
+# for hb2st and ~66 for tb2bd, and n = 1024 takes 4600 steps against
+# n = 512's 1276, so n is cut to 512 to keep the smoke inside its time
+SPEC_PARITY_N = 512
 STEDC_N = 4096
 # max|w - lambda| / max|lambda| (and max|s - sigma| / sigma_0): about
 # 4 n eps_f32 at n = 8192 for f32 (eigenvalues move by at most the
@@ -4359,7 +4382,7 @@ def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
 # ---- slice 15: durable jobs and compatibility (--seed + 16) ----
 OOC_N = 20480             # potrf_ooc and getrf_ooc at the main path's width
 OOC_NB = 128              # potrf_ooc's panel: K1 takes its f32 diagonal tile
-DRILL_N = 8192            # the kill-and-resume drill
+DRILL_N = 4096            # the kill-and-resume drill (32 and 16 steps)
 DRILL_EVERY = 4           # the killed run's cadence
 SHIM_N = 4096             # the LAPACK shims and the C entry points, f64
 SHIM_NRHS = 16
@@ -4545,7 +4568,7 @@ def check_getrf_ooc(st, gen, nb, nrhs, reset, counts, kernels, card,
 
 
 def check_ooc_drill(st, gen, faults, failures) -> None:
-    """The kill-and-resume drill at n = 8192, f32, for both drivers in a
+    """The kill-and-resume drill at n = DRILL_N, f32, for both drivers in a
     temporary directory: an uninterrupted run, a run killed right after
     the checkpoint of a step in the middle, the resume, and a full run
     with checkpoints on, every result bit-equal to the first; then the
@@ -5005,6 +5028,57 @@ def gloo_slice17(st, g, gg, b) -> dict:
     return out
 
 
+def gloo_slice18(st, g, gg, a) -> dict:
+    """The slice-18 checks of one gloo rank, f64 at GLOO_N: heev on the
+    symmetric part of ``gg``, svd of ``gg``, hegv of that pair with B =
+    ``a`` (SPD), stedc on a seeded tridiagonal over the grid, pdsyev and
+    pdgesvd over the grid's ScaLAPACK locals, each against torch's own
+    eigensolver or SVD on the whole matrix; the relative errors and
+    walls."""
+    from slate_tpu_torch.compat import scalapack as sc
+    from slate_tpu_torch.compat import scalapack_api as sapi
+    mesh = {st.Option.Target: st.Target.mesh}
+    h = (gg + gg.T) / 2
+    wh = torch.linalg.eigvalsh(h)
+    sv = torch.linalg.svdvals(gg)
+    out = {}
+    t0 = time.perf_counter()
+    H = st.HermitianMatrix.from_numpy(h, GLOO_NB, st.Uplo.Lower, grid=g)
+    w, Z = st.heev(H, mesh)
+    z = Z.to_dense()
+    out["heev_rel_err"] = rel_err(w, wh)
+    out["heev_residual"] = rel_err(h @ z, z * w[None, :])
+    out["heev_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s, U, V = st.svd(st.Matrix.from_numpy(gg, GLOO_NB, grid=g), mesh)
+    out["svd_rel_err"] = rel_err(s, sv)
+    out["svd_residual"] = rel_err((U.to_dense() * s[None, :])
+                                  @ V.to_dense().T, gg)
+    out["svd_wall_s"] = time.perf_counter() - t0
+    L = torch.linalg.cholesky(a)
+    c = torch.linalg.solve_triangular(
+        L, torch.linalg.solve_triangular(L, h, upper=False).T, upper=False)
+    w, X = st.hegv(H, st.HermitianMatrix.from_numpy(a, GLOO_NB,
+                                                     st.Uplo.Lower, grid=g),
+                   mesh)
+    out["hegv_rel_err"] = rel_err(w, torch.linalg.eigvalsh((c + c.T) / 2))
+    x = X.to_dense()
+    out["hegv_residual"] = rel_err(h @ x, (a @ x) * w[None, :])
+    gen = torch.Generator().manual_seed(18)
+    d = torch.randn(GLOO_N, generator=gen, dtype=torch.float64)
+    e = torch.randn(GLOO_N - 1, generator=gen, dtype=torch.float64)
+    w, _ = st.stedc(d, e, grid=g)
+    out["stedc_rel_err"] = rel_err(w, torch.linalg.eigvalsh(
+        torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)))
+    dh, lh = sc.scatter_locals(h.numpy(), GLOO_NB, GLOO_NB, g.p, g.q)
+    w = sapi.pdsyev("n", "l", GLOO_N, dh, lh, g)[0]
+    out["pdsyev_rel_err"] = rel_err(torch.from_numpy(w), wh)
+    dg, lg = sc.scatter_locals(gg.numpy(), GLOO_NB, GLOO_NB, g.p, g.q)
+    s = sapi.pdgesvd("n", GLOO_N, GLOO_N, dg, lg, g)[0]
+    out["pdgesvd_rel_err"] = rel_err(torch.from_numpy(s), sv)
+    return out
+
+
 def gloo_child(rank: int, work: str) -> int:
     """One rank of the 2 x 2 gloo world (CPU processes): posv and SUMMA
     gemm on the grid, in f64 at n = GLOO_N, against torch's own solve and
@@ -5036,7 +5110,8 @@ def gloo_child(rank: int, work: str) -> int:
         out = {"rank": rank, "coords": list(g.coords),
                "posv_rel_err": rel_err(x, torch.linalg.solve(a, b)),
                "gemm_rel_err": rel_err(C.to_dense(), gg @ a),
-               "posv_wall_s": wall, "slice17": gloo_slice17(st, g, gg, b)}
+               "posv_wall_s": wall, "slice17": gloo_slice17(st, g, gg, b),
+               "slice18": gloo_slice18(st, g, gg, a)}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w",
@@ -5081,14 +5156,20 @@ def check_gloo_world(failures) -> None:
         emit({"phase": "gloo_2x2_slice17", "device": "cpu", "n": GLOO_N,
               "nb": GLOO_NB, "dtype": "float64",
               "ranks": [x.get("slice17") for x in ranks]})
+        emit({"phase": "gloo_2x2_slice18", "device": "cpu", "n": GLOO_N,
+              "nb": GLOO_NB, "dtype": "float64",
+              "ranks": [x.get("slice18") for x in ranks]})
         s17 = [x["slice17"] for x in ranks]
+        s18 = [x["slice18"] for x in ranks]
         ok = (len(ranks) == 4
               and all(x["posv_rel_err"] < 1e-12 and x["gemm_rel_err"] < 1e-12
                       for x in ranks)
               and all(y["calu_gesv_rel_err"] < 1e-10
                       and y["qr_gels_rel_err"] < 1e-10
                       and y["from_scalapack_exact"]
-                      and y["pdgesv_rel_err"] < 1e-10 for y in s17))
+                      and y["pdgesv_rel_err"] < 1e-10 for y in s17)
+              and all(v < 1e-10 for y in s18 for k, v in y.items()
+                      if not k.endswith("wall_s")))
         if not ok:
             failures.append("gloo_2x2: " + " | ".join(
                 log.decode(errors="replace")[-2000:] for log in logs))
@@ -5444,6 +5525,379 @@ def check_slice17(st, seed, n, nb, nrhs, reset, counts, kernels,
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("slice 17: " + "; ".join(failures))
+    return out
+
+
+# ---- slice 18: the distributed spectral reductions (--seed + 19) ----
+# heev's DC route and the strike walk the hb2st chase, a step after
+# another (slice 14's SPEC_PARITY_N): at n = 8192 the chase alone would
+# take ~260k steps, so those two run at 512; everything else at SPEC_N
+DIST_STEDC_N = 4096
+DIST_STEDC_TOL = 1e-3           # the mesh stedc against the single route's
+DIST_PD_N = 2048                # pdsyev and pdgesvd, f64
+DIST_PD_BOUND = 1e-10           # their values against numpy's, f64
+DIST_SPEC_BITS_N = 4096         # dist_he2hb and dist_ge2tb at depths 0-2
+MESH_HEEV_SPANS = ("slate.heev/he2hb", "slate.heev/stage2",
+                   "slate.heev/backtransform", "slate.he2hb/panel",
+                   "slate.he2hb/hemm", "slate.he2hb/her2k")
+
+
+def mesh_opts(st, **kw) -> dict:
+    """Target.mesh and ErrorPolicy.Info, with ``kw`` as options."""
+    o = {st.Option.Target: st.Target.mesh,
+         st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    for k, v in kw.items():
+        o[st.Option[k]] = v
+    return o
+
+
+def check_dist_heev(st, g, gen, nb, reset, counts, failures):
+    """dist_heev and dist_heev_vals: heev on the one-rank mesh at SPEC_N,
+    f32, on the generator's heev matrix, cold (launches counted: none)
+    and warm (spans recorded), beside the single route's heev on the same
+    A; the certificate against its tolerance, the eigenvalues against the
+    exact spectrum.  Returns (launches, A, the mesh A)."""
+    from slate_tpu_torch.robust import certify
+    n = SPEC_N
+    a, lam = spectral_matrix("heev", n, gen, torch.float32)
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    A1 = st.HermitianMatrix.from_numpy(a, nb)
+    (w1, _, h1), wall_single = _timed(lambda: st.heev(A1, info))
+    Am = st.HermitianMatrix.from_numpy(a, nb, grid=g)
+    mesh = mesh_opts(st)
+    reset()
+    (w, Z, h), cold = _timed(lambda: st.heev(Am, mesh))
+    launches = counts()
+    with st.obs.record_spans() as rec:
+        (w, Z, h), warm = _timed(lambda: st.heev(Am, mesh))
+    spans = span_totals(rec.spans)
+    (wv, hv), t_vals = _timed(lambda: st.heev_vals(Am, mesh))
+    scale = float(lam.abs().max())
+    err = float((w.double() - lam).abs().max()) / scale
+    err_vals = float((wv.double() - lam).abs().max()) / scale
+    err_single = float((w1.double() - lam).abs().max()) / scale
+    zd = Z.to_dense()
+    cert = certify.certify_eig(a, w, zd).to_list()[0]
+    tol = certify.tolerance(torch.float32, n)
+    missing = [k for k in MESH_HEEV_SPANS if k not in spans]
+    emit({"phase": "dist_heev", "n": n, "nb": nb, "dtype": "float32",
+          "grid": [g.p, g.q], "backend": "nccl", "method": "Auto",
+          "wall_s_cold": cold, "wall_s": warm,
+          "single_route_wall_s": wall_single,
+          "spans_ms": {k: v for k, v in spans.items()
+                       if k.startswith(("slate.heev", "slate.he2hb"))},
+          "certificate_ratio": cert.growth, "certify_tolerance": tol,
+          "rel_err": err, "single_route_rel_err": err_single,
+          "bound": SPEC_BOUND[torch.float32], "ok": h.ok,
+          "single_ok": h1.ok, "launches": launches})
+    emit({"phase": "dist_heev_vals", "n": n, "nb": nb, "wall_s": t_vals,
+          "rel_err": err_vals, "ok": hv.ok})
+    if not (h.ok and hv.ok and cert.converged and cert.growth <= tol
+            and err <= SPEC_BOUND[torch.float32]
+            and err_vals <= SPEC_BOUND[torch.float32]
+            and tuple(zd.shape) == (n, n) and torch.isfinite(zd).all()):
+        failures.append(f"dist_heev: ok {h.ok}/{hv.ok}, certificate "
+                        f"{cert.growth} (tol {tol}), rel err {err}/"
+                        f"{err_vals}")
+    if missing:
+        failures.append(f"dist_heev: spans {missing} not recorded")
+    if any(launches.values()):
+        failures.append(f"dist_heev launched {launches}, want none")
+    return launches, a, Am
+
+
+def check_dist_heev_dc(st, g, gen, nb, failures) -> None:
+    """dist_heev_dc: heev with MethodEig.DC on the mesh at SPEC_PARITY_N
+    (the hb2st chase, then stedc with its merges row-distributed), beside
+    the single route's DC on the same A; the fallback ladder off."""
+    from slate_tpu_torch.drivers.heev import chase_steps
+    from slate_tpu_torch.robust import certify
+    n = SPEC_PARITY_N
+    a, lam = spectral_matrix("heev", n, gen, torch.float32)
+    o = {st.Option.ErrorPolicy: st.ErrorPolicy.Info,
+         st.Option.MethodEig: st.MethodEig.DC,
+         st.Option.UseFallbackSolver: False}
+    (w1, _, h1), wall_single = _timed(lambda: st.heev(
+        st.HermitianMatrix.from_numpy(a, nb), o))
+    Am = st.HermitianMatrix.from_numpy(a, nb, grid=g)
+    mesh = {**o, st.Option.Target: st.Target.mesh}
+    (w, Z, h), cold = _timed(lambda: st.heev(Am, mesh))
+    (w, Z, h), warm = _timed(lambda: st.heev(Am, mesh))
+    scale = float(lam.abs().max())
+    err = float((w.double() - lam).abs().max()) / scale
+    diff = float((w - w1).abs().max()) / scale
+    cert = certify.certify_eig(a, w, Z.to_dense()).to_list()[0]
+    tol = certify.tolerance(torch.float32, n)
+    emit({"phase": "dist_heev_dc", "n": n, "nb": nb, "method": "DC",
+          "wall_s_cold": cold, "wall_s": warm,
+          "single_route_wall_s": wall_single,
+          "chase_steps": chase_steps(n, nb),
+          "certificate_ratio": cert.growth, "certify_tolerance": tol,
+          "rel_err": err, "rel_diff_vs_single": diff, "ok": h.ok,
+          "single_ok": h1.ok})
+    if not (h.ok and cert.converged and cert.growth <= tol
+            and err <= SPEC_BOUND[torch.float32] and diff <= PARITY_BOUND):
+        failures.append(f"dist_heev_dc: ok {h.ok}, certificate "
+                        f"{cert.growth}, rel err {err}, vs single {diff}")
+
+
+def check_dist_svd(st, g, gen, nb, reset, counts, failures) -> dict:
+    """dist_svd: svd on the one-rank mesh at SPEC_N x SPEC_N, f32, on the
+    generator's svd matrix, cold and warm beside the single route's; the
+    certificate and the singular values against the exact ones; no hand
+    kernel."""
+    from slate_tpu_torch.robust import certify
+    n = SPEC_N
+    a, sigma = spectral_matrix("svd", n, gen, torch.float32)
+    info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    (s1, _, _, h1), wall_single = _timed(lambda: st.svd(
+        st.Matrix.from_numpy(a, nb), info))
+    Am = st.Matrix.from_numpy(a, nb, grid=g)
+    mesh = mesh_opts(st)
+    reset()
+    (s, U, V, h), cold = _timed(lambda: st.svd(Am, mesh))
+    launches = counts()
+    with st.obs.record_spans() as rec:
+        (s, U, V, h), warm = _timed(lambda: st.svd(Am, mesh))
+    spans = span_totals(rec.spans)
+    err = float((s.double() - sigma).abs().max() / sigma[0])
+    err_single = float((s1.double() - sigma).abs().max() / sigma[0])
+    cert = certify.certify_svd(a, s, U.to_dense(), V.to_dense()).to_list()[0]
+    tol = certify.tolerance(torch.float32, n)
+    emit({"phase": "dist_svd", "m": n, "n": n, "nb": nb,
+          "dtype": "float32", "grid": [g.p, g.q], "backend": "nccl",
+          "wall_s_cold": cold, "wall_s": warm,
+          "single_route_wall_s": wall_single,
+          "spans_ms": {k: v for k, v in spans.items()
+                       if k.startswith(("slate.svd", "slate.ge2tb"))},
+          "certificate_ratio": cert.growth, "certify_tolerance": tol,
+          "rel_err": err, "single_route_rel_err": err_single,
+          "bound": SPEC_BOUND[torch.float32], "ok": h.ok,
+          "single_ok": h1.ok, "launches": launches})
+    if not (h.ok and cert.converged and cert.growth <= tol
+            and err <= SPEC_BOUND[torch.float32]):
+        failures.append(f"dist_svd: ok {h.ok}, certificate {cert.growth} "
+                        f"(tol {tol}), rel err {err}")
+    if any(launches.values()):
+        failures.append(f"dist_svd launched {launches}, want none")
+    return launches
+
+
+def check_dist_hegv(st, g, a, gen, nb, reset, counts, failures) -> dict:
+    """dist_hegv: hegv itype 1 on the mesh (dist_potrf of B, K1 on each
+    diagonal tile: SPEC_N / nb launches; the mesh trsm; the mesh heev),
+    cold and warm beside the single route's hegv on the same pair."""
+    n = a.shape[0]
+    gg = torch.randn(n, n, generator=gen, device="cuda")
+    b = gg @ gg.T
+    del gg
+    b.diagonal().add_(n)
+    (w1, X1), wall_single = _timed(lambda: st.hegv(
+        st.HermitianMatrix.from_numpy(a, nb),
+        st.HermitianMatrix.from_numpy(b, nb)))
+    del X1
+    Am = st.HermitianMatrix.from_numpy(a, nb, grid=g)
+    Bm = st.HermitianMatrix.from_numpy(b, nb, grid=g)
+    mesh = {st.Option.Target: st.Target.mesh}
+    reset()
+    (w, X), cold = _timed(lambda: st.hegv(Am, Bm, mesh))
+    launches = counts()
+    (w, X), warm = _timed(lambda: st.hegv(Am, Bm, mesh))
+    x = X.to_dense()
+    r = a @ x - (b @ x) * w[None, :]
+    ratio = float(torch.linalg.norm(r) / (torch.linalg.norm(a)
+                                          * torch.linalg.norm(x)))
+    diff = float((w - w1).abs().max() / w1.abs().max())
+    want = {**{k: 0 for k in launches}, "chol_tile": -(-n // nb)}
+    emit({"phase": "dist_hegv", "itype": 1, "n": n, "nb": nb,
+          "grid": [g.p, g.q], "backend": "nccl", "wall_s_cold": cold,
+          "wall_s": warm, "single_route_wall_s": wall_single,
+          "residual_ratio": ratio, "bound": HEGV_BOUND,
+          "rel_diff_vs_single": diff, "launches": launches,
+          "expected_launches": want})
+    if launches != want or not ratio <= HEGV_BOUND or not diff <= 1e-4:
+        failures.append(f"dist_hegv: launches {launches} (want {want}), "
+                        f"residual {ratio}, vs single {diff}")
+    return launches
+
+
+def check_dist_stedc(st, g, gen, failures) -> None:
+    """dist_stedc: stedc at DIST_STEDC_N with its merge products
+    row-distributed over the grid (one rank: each merge's all-gather a
+    copy), beside the single route's on the same tridiagonal."""
+    from slate_tpu_torch.drivers import stedc as D
+    n = DIST_STEDC_N
+    d = torch.randn(n, generator=gen, device="cuda")
+    e = torch.randn(n - 1, generator=gen, device="cuda")
+    ((w1, Z1), h1), wall_single = _timed(lambda: D.stedc_info(d, e))
+    ((w, Z), h), cold = _timed(lambda: D.stedc_info(d, e, g))
+    ((w, Z), h), warm = _timed(lambda: D.stedc_info(d, e, g))
+    diff = float((w - w1).abs().max() / w1.abs().max())
+    vec = float((1 - (Z1 * Z).sum(dim=0).abs()).abs().max())
+    emit({"phase": "dist_stedc", "n": n, "grid": [g.p, g.q],
+          "wall_s_cold": cold, "wall_s": warm,
+          "single_route_wall_s": wall_single, "rel_diff_vs_single": diff,
+          "vectors_phase_defect_vs_single": vec, "tol": DIST_STEDC_TOL,
+          "ok": h.ok, "single_ok": h1.ok})
+    if not (h.ok and diff <= DIST_STEDC_TOL):
+        failures.append(f"dist_stedc: ok {h.ok}, vs single {diff}")
+
+
+def check_dist_pd(st, g, gen, nb, failures) -> None:
+    """pdsyev and pdgesvd at DIST_PD_N in f64 over the grid's ScaLAPACK
+    locals (one process: one local each), against numpy's values."""
+    from slate_tpu_torch.compat import scalapack as sc
+    from slate_tpu_torch.compat import scalapack_api as sapi
+    n = DIST_PD_N
+    ga = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    a = ga.cpu().numpy()
+    h = (a + a.T) / 2
+    dh, lh = sc.scatter_locals(h, nb, nb, g.p, g.q)
+    (w, dz, lz), t_syev = _timed(lambda: sapi.pdsyev("v", "l", n, dh, lh,
+                                                     g))
+    z = sc.gather_locals(dz, lz, g.p, g.q)
+    wn = np.linalg.eigvalsh(h)
+    err_w = float(np.abs(w - wn).max() / np.abs(wn).max())
+    res_z = float(np.abs(h @ z - z * w[None, :]).max() / np.abs(h).max())
+    da, la_ = sc.scatter_locals(a, nb, nb, g.p, g.q)
+    (s, du, lu, dvt, lvt), t_svd = _timed(lambda: sapi.pdgesvd(
+        "v", n, n, da, la_, g))
+    u, vt = sc.gather_locals(du, lu, g.p, g.q), sc.gather_locals(
+        dvt, lvt, g.p, g.q)
+    sn = np.linalg.svd(a, compute_uv=False)
+    err_s = float(np.abs(s - sn).max() / sn[0])
+    res_u = float(np.abs(a - (u * s[None, :]) @ vt).max() / np.abs(a).max())
+    emit({"phase": "dist_pd_spectral", "n": n, "nb": nb, "dtype": "float64",
+          "pdsyev_wall_s": t_syev, "pdsyev_rel_err": err_w,
+          "pdsyev_residual": res_z, "pdgesvd_wall_s": t_svd,
+          "pdgesvd_rel_err": err_s, "pdgesvd_residual": res_u,
+          "bound": DIST_PD_BOUND})
+    if not all(x <= DIST_PD_BOUND for x in (err_w, res_z, err_s, res_u)):
+        failures.append(f"pdsyev/pdgesvd: {err_w}, {res_z}, {err_s}, "
+                        f"{res_u}")
+
+
+def check_dist_spectral_bits(st, g, gen, nb, failures) -> None:
+    """dist_spectral_lookahead: dist_he2hb and dist_ge2tb at
+    DIST_SPEC_BITS_N at depths 0, 1 and 2, every output bit for bit."""
+    from slate_tpu_torch.parallel.dist_ge2tb import dist_ge2tb
+    from slate_tpu_torch.parallel.dist_he2hb import dist_he2hb
+    n = DIST_SPEC_BITS_N
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    H = st.HermitianMatrix.from_numpy((a + a.T) / 2, nb, grid=g).storage
+    G = dist_matrix(st, g, a, nb).storage
+    he, ge, hw, gw = [], [], [], []
+    for la in (0, 1, 2):
+        o, t = _timed(lambda: dist_he2hb(H.data, H.Nt, g, n=n, la=la))
+        he.append(o)
+        hw.append(t)
+        o, t = _timed(lambda: dist_ge2tb(G.data, G.Mt, G.Nt, n, n, g,
+                                         la=la))
+        ge.append(o)
+        gw.append(t)
+    same_he = all(all(torch.equal(x, y) for x, y in zip(he[0], o))
+                  for o in he[1:])
+    same_ge = all(all(torch.equal(x, y) for x, y in zip(ge[0], o))
+                  for o in ge[1:])
+    emit({"phase": "dist_spectral_lookahead", "n": n, "nb": nb,
+          "he2hb_wall_s_by_depth": hw, "ge2tb_wall_s_by_depth": gw,
+          "he2hb_bit_equal": same_he, "ge2tb_bit_equal": same_ge})
+    if not (same_he and same_ge):
+        failures.append(f"dist_spectral_lookahead: dist_he2hb equal "
+                        f"{same_he}, dist_ge2tb equal {same_ge}")
+
+
+def check_dist_heev_strike(st, g, gen, nb, failures) -> None:
+    """dist_heev_strike: a transient NaN strike on the gathered band
+    (post_stage1) of a mesh heev at SPEC_PARITY_N: Auto's certificate
+    fails, the ladder escalates to DC, which certifies; the path read
+    from the call's obs event."""
+    from slate_tpu_torch.robust import certify, faults
+    n = SPEC_PARITY_N
+    a, lam = spectral_matrix("heev", n, gen, torch.float32)
+    Am = st.HermitianMatrix.from_numpy(a, nb, grid=g)
+    plan = faults.FaultPlan(site="post_stage1", kind="nan", seed=17,
+                            count=4, transient=True)
+    with faults.inject(plan), st.obs.recording() as evs:
+        (w, Z, h), wall = _timed(lambda: st.heev(Am, mesh_opts(st)))
+    ev = evs[-1]
+    cert = certify.certify_eig(a, w, Z.to_dense()).to_list()[0]
+    err = float((w.double() - lam).abs().max() / lam.abs().max())
+    emit({"phase": "dist_heev_strike", "n": n, "nb": nb,
+          "site": plan.site, "kind": plan.kind, "transient": True,
+          "path": ev.get("path"), "escalations": ev.get("escalations"),
+          "ok": h.ok, "certificate_ratio": cert.growth, "rel_err": err,
+          "wall_s": wall})
+    if not (h.ok and ev.get("path") == "escalated:DC" and cert.converged
+            and err <= SPEC_BOUND[torch.float32]):
+        failures.append(f"dist_heev_strike: ok {h.ok}, path "
+                        f"{ev.get('path')}, certificate {cert.growth}, "
+                        f"rel err {err}")
+
+
+def check_slice18(st, seed, nb, reset, counts, trace) -> dict:
+    """The slice-18 phases (the distributed spectral reductions) in a
+    third one-rank NCCL world, Grid(1, 1, group=WORLD) on cuda:0, every
+    call with Target.mesh; matrices draw from --seed + 19.  Returns the
+    launch counts of the paths."""
+    import torch.distributed as dist
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    out = {}
+    t_slice = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="smoke-nccl18-") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            g = st.Grid(1, 1, group=dist.group.WORLD)
+            t0 = time.perf_counter()
+            out["dist_heev"], a, Am = check_dist_heev(st, g, gen, nb, reset,
+                                                      counts, failures)
+            emit({"phase": "seconds", "of": "dist_heev",
+                  "seconds": time.perf_counter() - t0})
+            if trace:
+                with phase_limit("trace_dist_spectral",
+                                 TRACE_SPECTRAL_LIMIT_S):
+                    emit({"phase": "trace_spans", "of": "dist_heev",
+                          "spans_ms": span_ms(st, lambda: st.heev(
+                              Am, mesh_opts(st)))})
+                    profile_device("dist_heev", lambda: st.heev(
+                        Am, mesh_opts(st)), cpu=False)
+            del Am
+            t0 = time.perf_counter()
+            out["dist_hegv"] = check_dist_hegv(st, g, a, gen, nb, reset,
+                                               counts, failures)
+            del a
+            emit({"phase": "seconds", "of": "dist_hegv",
+                  "seconds": time.perf_counter() - t0})
+            for name, fn in (
+                    ("dist_svd", lambda: {"dist_svd": check_dist_svd(
+                        st, g, gen, nb, reset, counts, failures)}),
+                    ("dist_heev_dc", lambda: check_dist_heev_dc(
+                        st, g, gen, nb, failures)),
+                    ("dist_stedc", lambda: check_dist_stedc(
+                        st, g, gen, failures)),
+                    ("dist_pd_spectral", lambda: check_dist_pd(
+                        st, g, gen, nb, failures)),
+                    ("dist_spectral_lookahead",
+                     lambda: check_dist_spectral_bits(st, g, gen, nb,
+                                                      failures)),
+                    ("dist_heev_strike", lambda: check_dist_heev_strike(
+                        st, g, gen, nb, failures))):
+                t0 = time.perf_counter()
+                torch.cuda.empty_cache()
+                out.update(fn() or {})
+                emit({"phase": "seconds", "of": name,
+                      "seconds": time.perf_counter() - t0})
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit({"phase": "seconds", "of": "slice18",
+          "seconds": time.perf_counter() - t_slice})
+    if failures:
+        raise AssertionError("slice 18: " + "; ".join(failures))
     return out
 
 
@@ -5852,6 +6306,10 @@ def main(argv=None) -> int:
     # ---- slice 17: distributed LU, CAQR, the mesh Aasen (--seed + 18) ----
     slice17_launches = check_slice17(st, args.seed, n, nb, nrhs, reset,
                                      counts, kernels, args.trace)
+
+    # ---- slice 18: the distributed spectral reductions (--seed + 19) ----
+    slice18_launches = check_slice18(st, args.seed, nb, reset, counts,
+                                     args.trace)
     plans_dir.cleanup()
 
     # ---- the record ----
@@ -5867,18 +6325,21 @@ def main(argv=None) -> int:
                             **serve_launches, **robust_launches,
                             **slice12_launches, **slice13_launches,
                             **slice14_launches, **slice15_launches,
-                            **slice16_launches, **slice17_launches}})
+                            **slice16_launches, **slice17_launches,
+                            **slice18_launches}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
                           main_launches),
         "chol_tile": ("slate_tpu_torch/csrc/chol_tile.cu",
                       "slate_tpu/internal/pallas_chol.py:320",
-                      "posv_tile_route+potrf_ooc+dist_posv+dist_gels_cholqr",
+                      "posv_tile_route+potrf_ooc+dist_posv+dist_gels_cholqr"
+                      "+dist_hegv",
                       {"chol_tile": tile_launches["chol_tile"]
                        + slice15_launches["potrf_ooc"]["chol_tile"]
                        + slice16_launches["dist_posv"]["chol_tile"]
-                       + slice17_launches["dist_gels_cholqr"]["chol_tile"]}),
+                       + slice17_launches["dist_gels_cholqr"]["chol_tile"]
+                       + slice18_launches["dist_hegv"]["chol_tile"]}),
         "chol_panel_fused": ("slate_tpu_torch/csrc/chol_panel.cu",
                              "slate_tpu/internal/pallas_chol.py:180", "posv",
                              main_launches),

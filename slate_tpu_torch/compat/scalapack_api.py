@@ -8,8 +8,8 @@ pdpotrf / pdgeqrf / pdsyev wrappers): each ``pd*`` function takes the
 matrix, runs the port's driver, and returns its results in ScaLAPACK
 layout (``to_scalapack``).  On a p x q grid with a process group every
 rank calls the routine with the whole map of locals and the drivers take
-their mesh routes; ``pdsyev`` and ``pdgesvd`` raise there until the
-distributed spectral drivers are ported (queue 1, item 12c).  Full
+their mesh routes (``pdsyev`` and ``pdgesvd`` the distributed spectral
+reductions, parallel/dist_he2hb.py and dist_ge2tb.py).  Full
 matrices (IA = JA = 1) and RSRC = CSRC = 0, as the reference's wrappers
 assert.  ``device=None`` means the grid's device, on the serial grid
 CUDA, and raises without it.

@@ -20,10 +20,17 @@ he2hb.cc:25, hb2st.cc:41-314, unmtr_he2hb.cc).
 
 The reference runs all of it outside any Pallas kernel, so on the card it
 is library calls; ``hegv`` factors B with ``potrf`` (K2 and K0 on the
-card).  The mesh route (``_heev_mesh``) comes with queue 1, item 12c: a
-grid with a process group raises (options.single_route); ``Target.mesh``
-on a grid without one takes the single route, as the reference does
-where the grid has no mesh.
+card; on a mesh ``dist_potrf``, K1 on each diagonal tile).
+
+On a grid with a process group (``Target.mesh``, auto on more than one
+rank) heev takes ``_heev_mesh``: stage 1 runs distributed
+(parallel/dist_he2hb.py) on the rank's tiles, only the O(n nb) band
+leaves the grid (``_band_from_tiles``), stage 2 runs replicated on every
+rank, as the reference's does, with stedc's merges row-distributed on
+the DC route, and the back-transform is distributed.  The health that
+picks a ladder rung is folded over the grid before any rank reads it.
+``Target.mesh`` on a grid without a group takes the single route, as the
+reference does where the grid has no mesh.
 """
 
 from __future__ import annotations
@@ -38,11 +45,11 @@ from ..exceptions import SlateNotConvergedError, slate_error
 from ..internal.qr import (householder_panel_blocked, householder_vec,
                            phase_of, rolled_apply, unit_lower)
 from ..options import (ErrorPolicy, MethodEig, Option, Options, get_option,
-                       single_route)
+                       on_mesh)
 from ..robust import certify as _certify
 from ..robust import faults as _faults
 from ..robust import health as _health
-from ..types import Uplo, is_complex
+from ..types import Op, Uplo, is_complex
 from ..util.trace import annotate, span
 
 
@@ -133,6 +140,37 @@ def _band_of(a_packed: torch.Tensor, kd: int) -> torch.Tensor:
     return full
 
 
+def _band_diag_tiles(st, off: int) -> torch.Tensor:
+    """The tile diagonal at row offset ``off`` (tiles (g + max(off, 0),
+    g + max(-off, 0))) of a storage sharded over a grid with a process
+    group, never a full ``canonical()`` (ref: heev.py:129): each rank
+    fills the tiles it owns and one all-reduce over the grid gives them
+    all to every rank (the others add zeros)."""
+    from ..comm.collectives import reduce_grid
+    count = max(min(st.Mt - max(off, 0), st.Nt - max(-off, 0)), 0)
+    gi = np.arange(count) + max(off, 0)
+    gj = np.arange(count) + max(-off, 0)
+    g = st.grid
+    r, c = g.coords
+    mine = np.nonzero((gi % g.p == r) & (gj % g.q == c))[0]
+    out = torch.zeros((count, st.mb, st.nb), dtype=st.dtype,
+                      device=st.device)
+    out[mine] = st.data[gi[mine] // g.p, gj[mine] // g.q]
+    return reduce_grid(out, g)
+
+
+def _band_from_tiles(st, n: int, nb: int) -> torch.Tensor:
+    """The Hermitian band (dense [n, n], both triangles) from the
+    he2hb-packed storage: the diagonal tiles and the triu of the
+    subdiagonal R blocks (ref: heev.py:142, HermitianBandMatrix::
+    he2hbGather): only the O(n nb) band tiles leave the grid."""
+    dd = _band_diag_tiles(st, 0)
+    ss = (torch.triu(_band_diag_tiles(st, 1)) if st.Mt > 1
+          else torch.zeros((0, nb, nb), dtype=st.dtype, device=st.device))
+    bd = assemble_band(dd, ss, lower=True)
+    return _band_of(bd[:n, :n], nb)
+
+
 def _unmtr_he2hb_stack(Vs, Ts, nb: int, Z):
     """Z <- Q1 Z, Q1 he2hb's panel product (ref: unmtr_he2hb.cc): panel k
     acts on rows (k+1) nb and below; Z has N = Mt nb rows."""
@@ -216,17 +254,19 @@ def _tridiag(d, e):
     return T
 
 
-def _tridiag_eig(d, e, want_z: bool, opts: Options | None = None):
+def _tridiag_eig(d, e, want_z: bool, opts: Options | None = None,
+                 grid=None):
     """Tridiagonal kernel seam (ref: heev.cc:141-153): MethodEig.DC runs
-    the divide and conquer (drivers/stedc.py); otherwise the library's
-    eigh of the assembled T (the steqr2 analog).  Returns (w, Z or None,
-    BatchHealth)."""
+    the divide and conquer (drivers/stedc.py; its merge products
+    row-distributed when ``grid`` carries a process group); otherwise the
+    library's eigh of the assembled T (the steqr2 analog).  Returns (w, Z
+    or None, BatchHealth)."""
     dev = d.device
     if (get_option(opts, Option.MethodEig) is MethodEig.DC and want_z
             and d.shape[0] > 1):
         from .stedc import _stedc_device
         # heev certifies its own (w, Z) against A: only the merges' flags
-        w, z, ok = _stedc_device(d, e)
+        w, z, ok = _stedc_device(d, e, grid)
         h = _health.batch_merge(
             _health.batch_healthy(1, dev)._replace(converged=ok.reshape(1)),
             _health.batch_from_result(w[None]))
@@ -239,12 +279,14 @@ def _tridiag_eig(d, e, want_z: bool, opts: Options | None = None):
     return w, None, _health.batch_from_result(w[None])
 
 
-def _stage2_eig(band, nb: int, jobz: bool, opts: Options | None):
+def _stage2_eig(band, nb: int, jobz: bool, opts: Options | None,
+                grid=None):
     """Stage 2 and the tridiagonal seam by MethodEig: (w, Z2, BatchHealth)
     with band = Z2 diag(w) Z2^H (Z2 None when not jobz).  The fault sites
     ``post_stage1`` (the band) and ``post_chase`` (the chased diagonal)
     fire here.  Auto: the library's eigh of the band, no chase; QR and
-    DC: the hb2st chase, then the (d, e) seam."""
+    DC: the hb2st chase, then the (d, e) seam (``grid``: see
+    :func:`_tridiag_eig`)."""
     band = _faults.maybe_corrupt("post_stage1", band)
     if get_option(opts, Option.MethodEig) is MethodEig.Auto:
         if jobz:
@@ -255,7 +297,7 @@ def _stage2_eig(band, nb: int, jobz: bool, opts: Options | None):
         return w, Z2, _health.batch_from_result(w[None])
     d, e, Q2 = _hb2st(band, nb, want_q=jobz)
     d = _faults.maybe_corrupt("post_chase", d)
-    w, ztri, h = _tridiag_eig(d, e, jobz, opts)
+    w, ztri, h = _tridiag_eig(d, e, jobz, opts, grid)
     h = _health.batch_merge(h, _health.batch_from_result(d[None]),
                             _health.batch_from_result(e[None]))
     if not jobz:
@@ -304,14 +346,22 @@ def heev_info(A, opts: Options | None = None, *, jobz: bool = True):
     """heev's body: ``((w, Zm), HealthInfo)``, no policy resolution (the
     recovery ladder escalates on it).  The health merges stage 2's flags
     with the eigen-certificate of the back-transformed pairs against the
-    original A (``certify.certify_eig``), read from the device once."""
+    original A (``certify.certify_eig``), folded over the grid on a mesh
+    and read from the device once."""
     slate_error(isinstance(A, (HermitianMatrix, SymmetricMatrix)),
                 "heev: need HermitianMatrix/SymmetricMatrix")
     # a complex symmetric matrix has no eigendecomposition of this form
     slate_error(isinstance(A, HermitianMatrix) or not is_complex(A.dtype),
                 "heev: complex SymmetricMatrix is not Hermitian — "
                 "no eigensolver for complex-symmetric matrices")
-    single_route(opts, "heev (_heev_mesh)", A)
+    if on_mesh(opts, A):
+        w, Zm, h = _heev_mesh(A, opts, jobz)
+        if jobz:
+            # to_dense on a grid with a group is an all-gather (every rank)
+            with span("slate.heev/certify"):
+                h = _health.batch_merge(_certify.certify_eig(
+                    A.to_dense(), w, Zm.to_dense()), h)
+        return (w, Zm), _health.batch_fold(h, A.grid).to_list()[0]
     n, nb = A.m, A.nb
     ad = A.to_dense()
     with span("slate.heev/he2hb"):
@@ -331,6 +381,45 @@ def heev_info(A, opts: Options | None = None, *, jobz: bool = True):
         with span("slate.heev/certify"):
             h = _health.batch_merge(_certify.certify_eig(ad, w, Z), h)
     return (w, Zm), h.to_list()[0]
+
+
+def _heev_mesh(A, opts, jobz: bool):
+    """heev's mesh route (ref: heev.py:398-441): stage 1 distributed
+    (``dist_he2hb``) on the rank's tiles, the band gathered, stage 2
+    replicated, the back-transform distributed (``dist_unmtr_he2hb``).
+    Returns (w, Zm or None, BatchHealth).  The input is used in place
+    when it is a Lower-stored root view in square tiles whose op leaves a
+    Hermitian matrix as it is (NoTrans, ConjTrans, and Trans when real);
+    the Trans view of a complex Hermitian is conj(A), and an Upper view
+    must be normalised, so those are densified first."""
+    from ..parallel.dist_he2hb import dist_he2hb, dist_unmtr_he2hb
+    from ..parallel.dist_lu import SUPERBLOCKS, superblock
+    n, nb, grid = A.m, A.nb, A.grid
+    safe = ((Op.NoTrans, Op.ConjTrans) if is_complex(A.dtype)
+            else (Op.NoTrans, Op.ConjTrans, Op.Trans))
+    if (A.uplo is Uplo.Lower and A.op in safe and A.is_root_view()
+            and A.storage.mb == A.storage.nb):
+        st_in = A.storage
+    else:
+        st_in = TileStorage.from_dense(A.to_dense(), nb, nb, grid)
+    # Option.Lookahead sizes the reference's superblocks, which choose the
+    # panel routine's route; the pipeline depth is dist_he2hb's own
+    la = max(1, int(get_option(opts, Option.Lookahead)))
+    with span("slate.heev/he2hb"):
+        data, Ts = dist_he2hb(st_in.data, st_in.Nt, grid, n=n,
+                              sb=superblock(max(st_in.Nt - 1, 1),
+                                            SUPERBLOCKS * la))
+        band = _band_from_tiles(TileStorage(data, n, n, nb, nb, grid), n,
+                                nb)
+    with span("slate.heev/stage2"):
+        w, Z2, h = _stage2_eig(band, nb, jobz, opts, grid)
+    if not jobz:
+        return w, None, h
+    with span("slate.heev/backtransform"):
+        z0 = TileStorage.from_dense(Z2, nb, nb, grid)
+        z_data = dist_unmtr_he2hb(data, Ts, z0.data, st_in.Nt, grid, n=n)
+        z_data = _faults.maybe_corrupt("post_backtransform", z_data)
+    return w, Matrix(TileStorage(z_data, n, n, nb, nb, grid)), h
 
 
 @annotate("slate.heev")
@@ -393,8 +482,10 @@ def hegv(A, B, opts: Options | None = None, *, jobz: bool = True,
          itype: int = 1):
     """Generalized Hermitian-definite eigenproblem (ref: src/hegv.cc:22-35):
     itype 1, A x = w B x; 2, A B x = w x; 3, B A x = w x.  B = L L^H by
-    ``potrf`` (K2 and K0 on the card; an Upper-stored B's factor U is
-    taken as L = U^H, where the reference uses U and is wrong); returns
+    ``potrf`` (K2 and K0 on the card; on a mesh ``dist_potrf``, K1 on
+    each diagonal tile, then the mesh trsm or trmm and heev; an
+    Upper-stored B's factor U is taken as L = U^H, where the reference
+    uses U and is wrong); returns
     (w, X), X None when not jobz; under ``ErrorPolicy.Info``, ``(w, X,
     HealthInfo)`` merging the Cholesky and eigensolve healths."""
     from .blas3 import trmm, trsm
@@ -420,5 +511,6 @@ def hegv(A, B, opts: Options | None = None, *, jobz: bool = True,
     else:
         X = trsm("l", 1.0, L.conj_transpose(), Z, opts)
     if info:
-        return w, X, _health.merge(h, _health.from_result(X.storage.data))
+        return w, X, _health.merge(h, _health.from_result(X.storage.data,
+                                                          X.grid))
     return w, X

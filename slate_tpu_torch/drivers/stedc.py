@@ -24,8 +24,10 @@ stedc_deflate.cc:595, stedc_secular.cc:271, stedc_sort.cc).
   eigenvectors are one product Q0 @ U.
 
 The reference pins its products to "highest" precision; here every merge
-runs with TF32 off.  The row-distributed merge product of a mesh comes
-with the distributed spectral drivers (ROADMAP.md queue 1, item 12c).
+runs with TF32 off.  On a grid with a process group each merge's product
+Qm = Q0 U is row-distributed (``_merge_gemm``): every rank forms its own
+block of rows, U replicated, and one all-gather over the grid gives the
+whole Qm to every rank; deflation and the secular solves stay replicated.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ import contextlib
 import numpy as np
 import torch
 
-from ..core.storage import as_tensor
-from ..exceptions import SlateNotConvergedError, not_ported
+from ..core.storage import as_tensor, grid_device
+from ..exceptions import SlateNotConvergedError
 from ..options import Options
 from ..robust import certify as _certify
 from ..robust import faults as _faults
@@ -158,11 +160,35 @@ def _chain_waves(rot):
     return [torch.nonzero(pos == t).flatten() for t in range(waves)]
 
 
-def _merge(d1, Q1, d2, Q2, rho):
+def _on_group(grid) -> bool:
+    return grid is not None and getattr(grid, "group", None) is not None
+
+
+def _merge_gemm(Q0, ut, grid):
+    """The merge product Qm = Q0 @ ut, row-distributed on a grid with a
+    process group (ref: stedc.py:155, stedc_merge.cc's Z block rows): rank
+    i forms rows [i b, (i+1) b) of Qm, b = ceil(n / p q) (an uneven split:
+    the last blocks may be short or empty, padded to b for the
+    all-gather), and one all-gather over the grid returns the whole Qm to
+    every rank.  Every rank takes the same route.  Other grids: one
+    product."""
+    if not _on_group(grid):
+        return Q0 @ ut
+    from ..comm.collectives import allgather_grid
+    n = Q0.shape[0]
+    b = -(-n // grid.size)
+    lo = min(grid.rank * b, n)
+    hi = min(lo + b, n)
+    blk = torch.zeros((b, ut.shape[1]), dtype=Q0.dtype, device=Q0.device)
+    blk[:hi - lo] = Q0[lo:hi] @ ut
+    return torch.cat(allgather_grid(blk, grid))[:n]
+
+
+def _merge(d1, Q1, d2, Q2, rho, grid=None):
     """Eigendecomposition of [[T1, rho e e^T], [rho e e^T, T2]] from the
     halves' decompositions (ref: stedc_merge.cc).  Returns (lam, Qm, ok),
     ``ok`` a 0-d bool tensor: the deflation-mask NaN guard and the
-    secular-root sanity check."""
+    secular-root sanity check.  ``grid``: see :func:`_merge_gemm`."""
     dt, dev = d1.dtype, d1.device
     n1 = d1.shape[0]
     d = torch.cat([d1, d2])
@@ -255,7 +281,7 @@ def _merge(d1, Q1, d2, Q2, rho):
         Q0[:, i] = s * qp + c * qi
     Q0 = Q0[:, pi2]
 
-    Qm = Q0 @ u.T                               # columns = eigenvectors
+    Qm = _merge_gemm(Q0, u.T, grid)             # columns = eigenvectors
     lam = sgn * lam_c
     fin = torch.argsort(lam, stable=True)
     return lam[fin], Qm[:, fin], defl_ok & sec_ok
@@ -297,26 +323,28 @@ def _leaf_eigh(leaves):
     return out
 
 
-def _stedc_rec(d, e, off, leaf_eigs):
+def _stedc_rec(d, e, off, leaf_eigs, grid=None):
     n = d.shape[0]
     if n <= LEAF:
         w, Q = leaf_eigs[off]
         return w, Q, torch.ones((), dtype=torch.bool, device=d.device)
     m = n // 2
     rho = e[m - 1]
-    w1, Q1, ok1 = _stedc_rec(d[:m], e[:m - 1], off, leaf_eigs)
-    w2, Q2, ok2 = _stedc_rec(d[m:], e[m:], off + m, leaf_eigs)
-    lam, Qm, okm = _merge(w1, Q1, w2, Q2, rho)
+    w1, Q1, ok1 = _stedc_rec(d[:m], e[:m - 1], off, leaf_eigs, grid)
+    w2, Q2, ok2 = _stedc_rec(d[m:], e[m:], off + m, leaf_eigs, grid)
+    lam, Qm, okm = _merge(w1, Q1, w2, Q2, rho, grid)
     return lam, Qm, ok1 & ok2 & okm
 
 
-def _stedc_device(d, e):
+def _stedc_device(d, e, grid=None):
     """The recursion on the device: (w, Z, ok), ``ok`` a 0-d bool tensor
-    (every merge's secular and deflation flags), no host read."""
+    (every merge's secular and deflation flags), no host read; the merge
+    products row-distributed over ``grid`` when it carries a process
+    group."""
     leaves = []
     _tear(d, e, 0, leaves)
     with _full_precision():
-        return _stedc_rec(d, e, 0, _leaf_eigh(leaves))
+        return _stedc_rec(d, e, 0, _leaf_eigh(leaves), grid)
 
 
 def stedc_info(d, e, grid=None, certify: bool = True, *, device=None):
@@ -326,10 +354,12 @@ def stedc_info(d, e, grid=None, certify: bool = True, *, device=None):
     NaN guard) into ``converged`` and, with ``certify``, the eigen-
     certificate of (w, Z) against T itself (``certify.certify_eig``), read
     from the device in one copy.  ``d`` and ``e`` stay where they are when
-    they are tensors; host data goes to ``device`` (None: CUDA)."""
-    if grid is not None and (grid.size > 1 or grid.group is not None):
-        raise not_ported("stedc on a mesh (row-distributed merges)",
-                         "queue 1, item 12c (distributed spectral)")
+    they are tensors; host data goes to ``device`` (None: the device of a
+    grid with a process group, else CUDA).  On a grid with a group the
+    merge products are row-distributed (:func:`_merge_gemm`) and the
+    health is folded over the grid, so every rank reads the same."""
+    if _on_group(grid):
+        device = grid_device(grid, device)
     d = d if isinstance(d, torch.Tensor) else as_tensor(np.asarray(d),
                                                         device)
     e = e if isinstance(e, torch.Tensor) else as_tensor(np.asarray(e),
@@ -338,7 +368,7 @@ def stedc_info(d, e, grid=None, certify: bool = True, *, device=None):
         w, Z = d.clone(), torch.ones((1, 1), dtype=d.dtype, device=d.device)
         return (w, Z), _health.from_result(w)
     with span("slate.stedc/recurse"):
-        w, Z, ok = _stedc_device(d, e)
+        w, Z, ok = _stedc_device(d, e, grid)
     hb = _health.batch_merge(
         _health.batch_healthy(1, d.device)._replace(converged=ok.reshape(1)),
         _health.batch_from_result(w[None]))
@@ -346,7 +376,7 @@ def stedc_info(d, e, grid=None, certify: bool = True, *, device=None):
         with span("slate.stedc/certify"), _full_precision():
             T = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
             hb = _health.batch_merge(_certify.certify_eig(T, w, Z), hb)
-    return (w, Z), hb.to_list()[0]
+    return (w, Z), _health.batch_fold(hb, grid).to_list()[0]
 
 
 @annotate("slate.stedc")

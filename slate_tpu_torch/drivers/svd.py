@@ -15,9 +15,13 @@ tb2bd.cc).
 - vectors: U = Q_qr [Un; 0], V = V1 Vn, the stage-1 panels applied by
   ``rolled_apply``.
 
-The mesh route (``_svd_mesh``) comes with queue 1, item 12c: a grid with a
-process group raises (options.single_route); ``Target.mesh`` on a grid
-without one takes the single route, as the reference does.
+On a grid with a process group (``Target.mesh``, auto on more than one
+rank) svd takes ``_svd_mesh``: stage 1 distributed
+(parallel/dist_ge2tb.py) on the rank's tiles, only the O(n nb) band
+gathered (``_band_upper_from_tiles``), stage 2 replicated on every rank,
+as the reference's is, both back-transforms distributed; the certificate's
+health is folded over the grid before any rank reads it.  ``Target.mesh``
+on a grid without a group takes the single route, as the reference does.
 """
 
 from __future__ import annotations
@@ -32,11 +36,11 @@ from ..internal.qr import (apply_q_left, apply_q_right,
                            householder_panel_blocked, householder_vec,
                            phase_of, rolled_apply)
 from ..options import (ErrorPolicy, MethodSvd, Option, Options, get_option,
-                       single_route)
+                       on_mesh)
 from ..robust import certify as _certify
 from ..robust import faults as _faults
 from ..robust import health as _health
-from ..types import is_complex
+from ..types import Op, is_complex
 from ..util.trace import annotate, span
 from .heev import _vec, library_call
 
@@ -286,7 +290,8 @@ def _svd_compute(A: Matrix, opts: Options | None, jobu: bool):
     if m < n:
         s, V, U, h = _svd_compute(_conj_t_root(A), opts, jobu)
         return s, U, V, h
-    single_route(opts, "svd (_svd_mesh)", A)
+    if on_mesh(opts, A):
+        return _svd_mesh(A, opts, jobu)
     nb = A.nb
     ad = A.to_dense()
     with span("slate.svd/ge2tb"):
@@ -313,18 +318,74 @@ def _svd_compute(A: Matrix, opts: Options | None, jobu: bool):
     return s, Um, Vm, h
 
 
+def _band_upper_from_tiles(st, n: int, nb: int) -> torch.Tensor:
+    """The n x n upper band from the ge2tb-packed storage: the triu of the
+    diagonal tiles and the tril of the superdiagonal ones (ref:
+    svd.py:373, TriangularBandMatrix::ge2tbGather): only the O(n nb) band
+    tiles leave the grid."""
+    from .heev import _band_diag_tiles
+    Ntn = -(-n // nb)
+    dd = torch.triu(_band_diag_tiles(st, 0)[:Ntn])
+    ss = (torch.tril(_band_diag_tiles(st, -1)[:Ntn - 1]) if Ntn > 1
+          else torch.zeros((0, nb, nb), dtype=st.dtype, device=st.device))
+    bd = assemble_band(dd, ss, lower=False)
+    return _band_upper_of(bd[:n, :n], n, nb)
+
+
+def _svd_mesh(A: Matrix, opts, jobu: bool):
+    """svd's mesh route for m >= n (ref: svd.py:388-440): stage 1
+    distributed (``dist_ge2tb``) on the rank's tiles (in place for a root
+    NoTrans view in square tiles, else densified first), the band
+    gathered, stage 2 replicated, U = U1 [Un; 0] and V = V1 Vn by the
+    distributed panel chains, Un padded to m x n in tile space, never as a
+    replicated dense m x n.  Returns (s, Um, Vm, BatchHealth)."""
+    from ..parallel.dist_ge2tb import (dist_ge2tb, dist_unmbr_ge2tb_u,
+                                       dist_unmbr_ge2tb_v)
+    from ..parallel.dist_lu import SUPERBLOCKS, superblock
+    m, n, nb, grid = A.m, A.n, A.nb, A.grid
+    if (A.op is Op.NoTrans and A.is_root_view()
+            and A.storage.mb == A.storage.nb):
+        st_in = A.storage
+    else:
+        st_in = TileStorage.from_dense(A.to_dense(), nb, nb, grid)
+    la = max(1, int(get_option(opts, Option.Lookahead)))
+    with span("slate.svd/ge2tb"):
+        data, Tqs, Tls = dist_ge2tb(st_in.data, st_in.Mt, st_in.Nt, m, n,
+                                    grid, sb=superblock(max(st_in.Nt, 1),
+                                                        SUPERBLOCKS * la))
+        band = _band_upper_from_tiles(TileStorage(data, m, n, nb, nb, grid),
+                                      n, nb)
+    with span("slate.svd/stage2"):
+        s, Uns, Vns, h = _stage2_svd(band, nb, jobu, opts)
+    if not jobu:
+        return s, None, None, h
+    with span("slate.svd/backtransform"):
+        dt = data.dtype
+        un = TileStorage.from_dense(Uns.to(dt), nb, nb, grid)
+        vn = TileStorage.from_dense(Vns.to(dt), nb, nb, grid)
+        # [Un; 0]: local tile row s is global row r + p s in both storages
+        uf = TileStorage.zeros(m, n, nb, nb, grid, dt, data.device)
+        uf.data[:un.mtl] = un.data
+        u_data = dist_unmbr_ge2tb_u(data, Tqs, uf.data, grid, m)
+        u_data = _faults.maybe_corrupt("post_backtransform", u_data)
+        v_data = dist_unmbr_ge2tb_v(data, Tls, vn.data, grid, n)
+    return (s, Matrix(TileStorage(u_data, m, n, nb, nb, grid)),
+            Matrix(TileStorage(v_data, n, n, nb, nb, grid)), h)
+
+
 def svd_info(A: Matrix, opts: Options | None = None, *, jobu: bool = True):
     """svd's body: ``((s, Um, Vm), HealthInfo)``, no policy resolution
     (the recovery ladder escalates on it).  The health merges stage 2's
     flags with the SVD certificate of the back-transformed factors against
-    the original A (``certify.certify_svd``), read from the device once."""
+    the original A (``certify.certify_svd``), folded over the grid on a
+    mesh and read from the device once."""
     s, Um, Vm, h = _svd_compute(A, opts, jobu)
     if jobu:
         with span("slate.svd/certify"):
             h = _health.batch_merge(
                 _certify.certify_svd(A.to_dense(), s, Um.to_dense(),
                                      Vm.to_dense()), h)
-    return (s, Um, Vm), h.to_list()[0]
+    return (s, Um, Vm), _health.batch_fold(h, A.grid).to_list()[0]
 
 
 @annotate("slate.svd")

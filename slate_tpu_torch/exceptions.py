@@ -1,9 +1,7 @@
 """Error hierarchy (the port's copy of slate_tpu/exceptions.py).
 
 The classes and their attributes match the reference one for one, so a
-caller's ``except`` clauses carry over unchanged.  Features that later
-slices of the port bring in raise the built-in ``NotImplementedError``
-(see :func:`not_ported`), never one of these.
+caller's ``except`` clauses carry over unchanged.
 """
 
 from __future__ import annotations
@@ -92,12 +90,3 @@ def slate_assert(cond: bool, msg: str = "assertion failed") -> None:
     """Internal-consistency assert (ref: Exception.hh slate_assert)."""
     if not cond:
         raise AssertionError(msg)
-
-
-def not_ported(what: str, where: str) -> NotImplementedError:
-    """The error for a feature of the reference that a later slice of the
-    port brings in: ``what`` names the feature, ``where`` the ROADMAP.md
-    queue item that ports it.  Callers ``raise`` the result."""
-    return NotImplementedError(
-        f"{what} is not ported to slate_tpu_torch yet ({where} in "
-        f"ROADMAP.md); slate_tpu has it")

@@ -1,17 +1,13 @@
 """Options / enums (the port's copy of slate_tpu/options.py).
 
 The keys and values are the reference's, so an options map written for
-``slate_tpu`` means the same here.  What the port does not carry yet (the
-distributed spectral drivers of queue 1, item 12c) raises
-``NotImplementedError`` where it is resolved; it is never ignored.
+``slate_tpu`` means the same here.
 """
 
 from __future__ import annotations
 
 import enum
 from typing import Any, Mapping
-
-from .exceptions import not_ported
 
 
 class Target(enum.Enum):
@@ -282,21 +278,6 @@ def on_mesh(opts: Options | None, matrix) -> bool:
     ``target is Target.mesh and grid.mesh is not None``)."""
     return (resolve_target(opts, matrix) is Target.mesh
             and matrix.grid.group is not None)
-
-
-def single_route(opts: Options | None, what: str, *mats) -> Target:
-    """Target resolution for a driver whose distributed route is not
-    ported yet (queue 1, item 12c: the spectral reductions): a matrix on a
-    grid with a process group raises (the driver never runs the single
-    route on a rank's local tiles); otherwise the target resolves as
-    :func:`resolve_target` does, and ``Target.mesh`` on a grid without a
-    group takes the single route, as the reference's drivers do where the
-    grid has no mesh."""
-    for m in mats:
-        if getattr(m.grid, "group", None) is not None:
-            raise not_ported(f"{what} on a grid with a process group",
-                             "queue 1, item 12c (distributed spectral)")
-    return resolve_target(opts, mats[0])
 
 
 def resolve_speculate(opts: Options | None) -> bool:

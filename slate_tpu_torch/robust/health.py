@@ -204,6 +204,24 @@ def batch_merge(*hs: BatchHealth) -> BatchHealth:
     return out
 
 
+def batch_fold(h: BatchHealth, grid) -> BatchHealth:
+    """``h`` the same on every rank of a grid with a process group: the
+    non-finite flag and the worst ratio (``growth``) folded by their
+    maximum, ``converged`` by its minimum, in one all-reduce over the grid
+    and no host read (the fold :func:`from_result` makes of ``finite``).
+    A rank whose own reading picked another ladder rung than its
+    neighbours would leave them waiting in a collective.  Other grids:
+    ``h`` itself."""
+    if grid is None or getattr(grid, "group", None) is None:
+        return h
+    from ..comm.collectives import reduce_grid
+    bad = torch.stack([h.nonfinite.double(), (~h.converged).double(),
+                       torch.nan_to_num(h.growth.double(), nan=math.inf)])
+    bad = reduce_grid(bad, grid, op="max")
+    return h._replace(nonfinite=bad[0] > 0, converged=bad[1] == 0,
+                      growth=bad[2])
+
+
 def error_policy(opts: Options | None) -> ErrorPolicy:
     return get_option(opts, Option.ErrorPolicy)
 

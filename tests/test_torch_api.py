@@ -324,12 +324,12 @@ def test_api_all_is_the_reference_all():
 
 
 @pytest.mark.parametrize("verb", ["eig", "eig_vals", "svd", "svd_vals"])
-def test_spectral_verbs_are_not_ported(verb):
-    """Only their route on a grid with a process group is not ported
-    (queue 1, item 12c): Target.mesh on a grid without one takes the
-    single route, as the reference's verbs do where the grid has no
-    mesh, so it gives the single route's bits (held against the
-    reference below)."""
+def test_spectral_verbs_take_the_single_route_without_a_group(verb):
+    """Target.mesh on a grid without a process group takes the single
+    route, as the reference's verbs do where the grid has no mesh, so it
+    gives the single route's bits (held against the reference below; the
+    mesh routes on grids with a group in
+    tests/test_torch_dist_spectral.py)."""
     A = (st.HermitianMatrix.from_numpy(A_SPD, NB, device="cpu")
          if verb.startswith("eig") else
          st.Matrix.from_numpy(A_GEN, NB, device="cpu"))

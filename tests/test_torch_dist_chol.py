@@ -3,8 +3,8 @@ in gloo worlds of CPU processes: potrf (Lower and Upper), posv (potrf and
 two dist_trsm sweeps), trtri; dist_potrf at lookahead depths 0, 1 and 2
 with and without ABFT; planted post_panel and post_collective strikes;
 the health of an indefinite matrix on every rank; and the queue-1 item
-12b drivers' results (ported with that item) and the item-12c drivers'
-refusal on a grid with a process group.
+12b and 12c drivers' results on a grid with a process group (ported
+with those items).
 
 Each grid of ``torch_dist_cases.GRIDS`` is one world of p*q spawned ranks
 that runs everything once (``torch_dist_cases.chol_body``); the
@@ -147,21 +147,33 @@ def test_indefinite_health_on_every_rank(worlds, grid):
 @pytest.mark.parametrize("driver", ["gesv", "getrf", "gels", "geqrf", "heev",
                                     "svd", "hetrf", "hesv", "stedc"])
 @pytest.mark.parametrize("grid", GRIDS, ids=GRID_IDS)
-def test_item_12b_drivers_refuse_a_grid_with_a_group(worlds, grid, driver):
-    """The item-12b drivers, ported, take their mesh routes on a grid
-    with a process group and give the right answer on every rank (held
-    here to numpy and scipy on the refusals' inputs; against the
-    reference's mesh drivers in tests/test_torch_dist_lu.py and
-    test_torch_dist_qr.py).  The item-12c drivers (heev, svd, stedc)
-    still raise NotImplementedError naming queue 1, item 12c: none runs
-    the single route on a rank's local tiles."""
+def test_item_12_drivers_solve_on_a_grid_with_a_group(worlds, grid, driver):
+    """The queue-1 item-12b and item-12c drivers, which once refused a
+    grid with a process group, take their mesh routes there and give the
+    right answer on every rank (held here to numpy and scipy on the same
+    inputs; against the reference's mesh drivers in
+    tests/test_torch_dist_lu.py, test_torch_dist_qr.py and
+    test_torch_dist_spectral.py): heev, svd and stedc numpy's eigenvalues
+    and singular values, their vectors by residual."""
     import scipy.linalg
     x = cases.inputs("float64")
     a, h, b = x["spd"], x["herm"], x["rhs"]
     for rank in worlds[grid]:
         got = rank["refusals"][driver]
-        if driver in ("heev", "svd", "stedc"):
-            assert isinstance(got, str) and "item 12c" in got
+        if driver == "heev":
+            w, z = got
+            _close(w, np.linalg.eigvalsh(h), "float64")
+            _close(h @ z, z * w[None, :], "float64")
+        elif driver == "svd":
+            s, u, v = got
+            _close(s, np.linalg.svd(a, compute_uv=False), "float64")
+            _close((u * s[None, :]) @ v.T, a, "float64")
+        elif driver == "stedc":
+            d, e = cases.stedc_refusal_input()
+            t = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+            w, z = got
+            _close(w, np.linalg.eigvalsh(t), "float64")
+            _close(t @ z, z * w[None, :], "float64")
         elif driver == "gesv":
             _close(got, np.linalg.solve(a, b), "float64")
         elif driver == "hesv":

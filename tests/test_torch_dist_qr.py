@@ -3,8 +3,7 @@ gloo worlds of CPU processes: geqrf's CAQR factors, unmqr from either
 side with Q and Qᴴ (tests/test_qr.py:59-85), gelqf with unmlq, gels
 (Householder QR, CholQR, square complex, minimum norm); dist_geqrf at
 lookahead depths 0, 1 and 2; and from_scalapack / to_scalapack, pdgesv,
-pdgels and the refusals of pdsyev and pdgesvd over a p x q grid's
-ScaLAPACK locals.
+pdgels, pdsyev and pdgesvd over a p x q grid's ScaLAPACK locals.
 
 Each grid of ``torch_dist_cases.GRIDS`` is one world of p*q spawned ranks
 that runs everything once (``torch_dist_cases.qr_body``).  CAQR's factors
@@ -13,8 +12,8 @@ blocks), so geqrf, unmqr and gelqf are held against the reference on a
 grid of the same p (1 x 2 for the one-rank world: the reference's 1 x 1
 grid has no mesh, and q does not enter CAQR's arithmetic); gels is held
 against the reference's 2 x 2 result.  The ScaLAPACK routines are held
-to numpy's solve and least squares, their locals bit for bit to the
-grid's cyclic slices.  Depths 1 and 2 are held bit for bit against depth
+to numpy's solve, least squares, eigenvalues and singular values, their
+locals bit for bit to the grid's cyclic slices.  Depths 1 and 2 are held bit for bit against depth
 0 on one input (the reference's tests/test_lookahead.py:183-200 draws two
 matrices a comparison, so the frozen test fails; on one input the
 reference's CAQR is bit-identical across depths in f64).
@@ -192,8 +191,19 @@ def test_pdgesv_and_pdgels_over_the_grid(worlds, grid):
 
 @pytest.mark.parametrize("routine", ["pdsyev", "pdgesvd"])
 @pytest.mark.parametrize("grid", GRIDS, ids=GRID_IDS)
-def test_spectral_pd_routines_on_a_grid_with_a_group_name_item_12c(
-        worlds, grid, routine):
-    """Not ported yet: they raise rather than run on a rank's tiles."""
+def test_spectral_pd_routines_on_a_grid_with_a_group(worlds, grid, routine):
+    """pdsyev (the lower triangle of A read as Hermitian) and pdgesvd over
+    the grid's ScaLAPACK locals, on every rank: numpy's eigenvalues and
+    singular values, and the vectors they return in ScaLAPACK layout by
+    their residual."""
+    a = cases.scalapack_system()[0]
     for rank in worlds[grid]:
-        assert "item 12c" in rank[routine]
+        if routine == "pdsyev":
+            h = np.tril(a) + np.tril(a, -1).T
+            w, z = rank["pdsyev"]
+            _close(w, np.linalg.eigvalsh(h), "float64")
+            _close(h @ z, z * w[None, :], "float64")
+        else:
+            s, u, vt = rank["pdgesvd"]
+            _close(s, np.linalg.svd(a, compute_uv=False), "float64")
+            _close((u * s[None, :]) @ vt, a, "float64")

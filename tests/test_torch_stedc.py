@@ -194,9 +194,9 @@ def test_heev_dc_uses_stedc():
     calls = []
     real = port_stedc._stedc_device
 
-    def spy(d, e):
+    def spy(d, e, grid=None):
         calls.append(d.shape[0])
-        return real(d, e)
+        return real(d, e, grid)
     port_stedc._stedc_device = spy
     try:
         w, Z = st.heev(st.HermitianMatrix.from_numpy(a, nb, device="cpu"),
@@ -234,7 +234,7 @@ def test_stedc_on_a_tensor_stays_on_its_device_and_host_data_needs_one():
     assert w.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         st.stedc(d.numpy(), e.numpy())
-    # a grid of more than one rank (a 2 x 1 grid needs a process group of
-    # two ranks, so its two attributes stedc reads stand in for it)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        st.stedc(d, e, types.SimpleNamespace(size=2, group=None))
+    # a grid without a process group takes the serial route, the same
+    # bits (the row-distributed merges: tests/test_torch_dist_spectral.py)
+    w2, Z2 = st.stedc(d, e, types.SimpleNamespace(size=2, group=None))
+    assert torch.equal(w2, w) and torch.equal(Z2, Z)

@@ -427,10 +427,11 @@ def chol_body(p: int, q: int) -> dict:
 
 
 def refusals(st, g) -> dict:
-    """Each queue-1 item-12b driver (ported) and item-12c driver (not
-    yet) on this grid with Target.mesh: the result as numpy data, or the
-    message it raised (NotImplementedError).  A is ``inputs("float64")
-    ["spd"]``, H its ``herm``, B its ``rhs`` (n = 23 in 4 x 4 tiles)."""
+    """Each queue-1 item-12b and item-12c driver on this grid with
+    Target.mesh (drivers that once refused a grid with a process group):
+    the result as numpy data.  A is ``inputs("float64")["spd"]``, H its
+    ``herm``, B its ``rhs`` (n = 23 in 4 x 4 tiles); stedc takes the
+    tridiagonal (linspace(-1, 1, N), 0.3)."""
     x = inputs("float64")
     o = {st.Option.Target: st.Target.mesh}
     A = st.Matrix.from_numpy(x["spd"], NB, NB, grid=g)
@@ -444,18 +445,18 @@ def refusals(st, g) -> dict:
     calls = {"gesv": lambda: _np(st.gesv(A, B, o)[1]), "getrf": lu,
              "gels": lambda: _np(st.gels(A, B, o)),
              "geqrf": lambda: _np(st.geqrf(A, o).QR),
-             "heev": lambda: st.heev(H, o), "svd": lambda: st.svd(A, o),
+             "heev": lambda: tuple(_np(v) for v in st.heev(H, o)),
+             "svd": lambda: tuple(_np(v) for v in st.svd(A, o)),
              "hetrf": lambda: _he_factors(st.hetrf(H, o)),
              "hesv": lambda: _np(st.hesv(H, B, o)[1]),
-             "stedc": lambda: st.stedc(np.ones(N), np.ones(N - 1), grid=g,
-                                       device="cpu")}
-    out = {}
-    for name, call in calls.items():
-        try:
-            out[name] = call()
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
+             "stedc": lambda: tuple(_np(v) for v in st.stedc(
+                 *stedc_refusal_input(), grid=g))}
+    return {name: call() for name, call in calls.items()}
+
+
+def stedc_refusal_input():
+    """The tridiagonal the drivers' grid check gives stedc."""
+    return np.linspace(-1.0, 1.0, N), np.full(N - 1, 0.3)
 
 
 # ------------------------------------------- distributed LU and Aasen
@@ -753,8 +754,8 @@ def scalapack_system():
 def qr_body(p: int, q: int) -> dict:
     """The QR cases on a p x q grid with Target.mesh, dist_geqrf at
     lookahead depths 0, 1 and 2, and from_scalapack / to_scalapack /
-    pdgesv / pdgels over the grid's ScaLAPACK locals, and the refusals of
-    pdsyev and pdgesvd."""
+    pdgesv / pdgels / pdsyev / pdgesvd over the grid's ScaLAPACK
+    locals."""
     import slate_tpu_torch as st
     from slate_tpu_torch.compat import scalapack as sc
     from slate_tpu_torch.compat import scalapack_api as sapi
@@ -795,15 +796,12 @@ def qr_body(p: int, q: int) -> dict:
     dbq, lbq = sc.scatter_locals(bq, nb, nb, p, q)
     dx, lx = sapi.pdgels(37, 15, 3, dq, lq, dbq, lbq, g)
     out["pdgels"] = sc.gather_locals(dx, lx, p, q)
-    for name, call in (("pdsyev", lambda: sapi.pdsyev(
-            "v", "l", SCALAPACK_N, da, la_, g)),
-                       ("pdgesvd", lambda: sapi.pdgesvd(
-                           "v", SCALAPACK_N, SCALAPACK_N, da, la_, g))):
-        try:
-            call()
-            out[name] = "returned"
-        except NotImplementedError as e:
-            out[name] = str(e)
+    w, dz, lz = sapi.pdsyev("v", "l", SCALAPACK_N, da, la_, g)
+    out["pdsyev"] = (w, sc.gather_locals(dz, lz, p, q))
+    sv, du, lu, dvt, lvt = sapi.pdgesvd("v", SCALAPACK_N, SCALAPACK_N, da,
+                                        la_, g)
+    out["pdgesvd"] = (sv, sc.gather_locals(du, lu, p, q),
+                      sc.gather_locals(dvt, lvt, p, q))
     return out
 
 
@@ -823,3 +821,183 @@ def deadlock_body() -> None:
     if dist.get_rank() == 0:
         time.sleep(600)
     dist.barrier()
+
+
+# ------------------------------------- distributed spectral reductions
+
+# tile sizes: h37 and g37 are ragged (37 = 7*5 + 2, 23 = 5*4 + 3)
+SPEC_NB = {"h23": 4, "h37": 5, "h16": 4, "b23": 4, "g23": 4, "g16": 4,
+           "g24": 4, "g37": 5}
+
+
+def spec_inputs(seed: int = 19) -> dict:
+    """The spectral operands, numpy: Hermitian h23 (f64), h37 and h16
+    (complex128), an SPD b23 for hegv, general g23 (23 x 16, tall), g16
+    (16 x 23, wide), g24 (24 x 24, complex128) and g37 (37 x 23, the
+    reference's tests/test_svd.py:73 shape), and a tridiagonal (d40,
+    e39)."""
+    rng = np.random.default_rng(seed)
+
+    def herm(n, dt):
+        x = _rng_matrix(rng, dt, n, n)
+        return ((x + x.conj().T) / 2).astype(dt)
+
+    out = {"h23": herm(23, "float64"), "h37": herm(37, "complex128"),
+           "h16": herm(16, "complex128")}
+    g = rng.standard_normal((23, 23))
+    out["b23"] = g @ g.T + 23 * np.eye(23)
+    out["g23"] = _rng_matrix(rng, "float64", 23, 16)
+    out["g16"] = _rng_matrix(rng, "float64", 16, 23)
+    out["g24"] = _rng_matrix(rng, "complex128", 24, 24)
+    out["g37"] = _rng_matrix(rng, "float64", 37, 23)
+    out["d40"] = rng.standard_normal(40)
+    out["e39"] = rng.standard_normal(39)
+    return out
+
+
+def spec_herm(st, M, x, which, uplo="l"):
+    U = st.Uplo.Lower if uplo == "l" else st.Uplo.Upper
+    return M(x[which], "herm", U, nb=SPEC_NB[which])
+
+
+def _heev_case(which, meth="Auto", uplo="l", view=None, vals=False):
+    def call(st, M, x, o):
+        A = spec_herm(st, M, x, which, uplo)
+        if view == "t":
+            A = A.transpose()
+        o = {**o, st.Option.MethodEig: getattr(st.MethodEig, meth)}
+        return (st.heev_vals(A, o),) if vals else st.heev(A, o)
+    return call
+
+
+def _svd_case(which, meth="Auto", vals=False):
+    def call(st, M, x, o):
+        A = M(x[which], nb=SPEC_NB[which])
+        o = {**o, st.Option.MethodSvd: getattr(st.MethodSvd, meth)}
+        return (st.svd_vals(A, o),) if vals else st.svd(A, o)
+    return call
+
+
+def _api_case(verb, which):
+    """The simplified API's spectral verb on the case's matrix."""
+    def call(st, M, x, o):
+        A = (spec_herm(st, M, x, which) if verb.startswith("eig")
+             else M(x[which], nb=SPEC_NB[which]))
+        out = getattr(st.api, verb)(A, o)
+        return out if isinstance(out, tuple) else (out,)
+    return call
+
+
+def _hegv_case(itype, uplo="l"):
+    def call(st, M, x, o):
+        B = spec_herm(st, M, x, "b23", uplo)
+        return st.hegv(spec_herm(st, M, x, "h23"), B, o, itype=itype)
+    return call
+
+
+def spec_matrix(name: str) -> np.ndarray:
+    """The dense matrix a SPEC_CASES case decomposes (its view applied)."""
+    x = spec_inputs()
+    if name == "heev_trans_view":
+        return x["h37"].T
+    for key in ("h23", "h37", "g23", "g16", "g24", "g37"):
+        if name.endswith(key):
+            return x[key]
+    return x["h23"]
+
+
+# (name, call, whether the reference's mesh result is held beside numpy's)
+SPEC_CASES = [
+    ("heev_auto_h23", _heev_case("h23"), True),
+    ("heev_dc_h23", _heev_case("h23", "DC"), True),
+    ("heev_qr_h23", _heev_case("h23", "QR"), True),
+    ("heev_auto_h37", _heev_case("h37"), False),
+    ("heev_trans_view", _heev_case("h37", view="t"), False),
+    ("heev_upper_h23", _heev_case("h23", uplo="u"), False),
+    ("heev_vals_h23", _heev_case("h23", vals=True), True),
+    ("svd_auto_g23", _svd_case("g23"), True),
+    ("svd_bidiag_g23", _svd_case("g23", "Bidiag"), True),
+    ("svd_auto_g37", _svd_case("g37"), False),
+    ("svd_wide_g16", _svd_case("g16"), False),
+    ("svd_complex_g24", _svd_case("g24"), False),
+    ("svd_vals_g23", _svd_case("g23", vals=True), True),
+    ("api_eig_h23", _api_case("eig", "h23"), True),
+    ("api_eig_vals_h37", _api_case("eig_vals", "h37"), False),
+    ("api_svd_g23", _api_case("svd", "g23"), True),
+    ("api_svd_vals_g16", _api_case("svd_vals", "g16"), False),
+]
+HEGV_CASES = [(itype, uplo) for itype in (1, 2, 3) for uplo in ("l", "u")]
+
+
+def spectral_body(p: int, q: int) -> dict:
+    """The distributed spectral reductions on a p x q grid: dist_he2hb's
+    and dist_ge2tb's packings and Ts (and their local tiles) and their
+    lookahead depths 0, 1 and 2, the SPEC_CASES drivers with Target.mesh,
+    stedc on the grid, hegv (every itype, B stored either way), pdsyev
+    and pdgesvd over the grid's ScaLAPACK locals, and a post_stage1
+    strike that the heev ladder escalates."""
+    import torch
+    import slate_tpu_torch as st
+    from slate_tpu_torch.compat import scalapack as sc
+    from slate_tpu_torch.compat import scalapack_api as sapi
+    from slate_tpu_torch.core.storage import TileStorage
+    from slate_tpu_torch.parallel.dist_ge2tb import dist_ge2tb
+    from slate_tpu_torch.parallel.dist_he2hb import dist_he2hb
+    from slate_tpu_torch.robust import faults
+    g = mesh_grid(st, p, q)
+    M = matrix_maker(st, g)
+    o = {st.Option.Target: st.Target.mesh}
+    x = spec_inputs()
+    out = {"coords": g.coords, "cases": {}}
+    for which in ("h23", "h37"):
+        S = spec_herm(st, M, x, which).storage
+        runs = [[v.numpy().copy() for v in dist_he2hb(
+            S.data, S.Nt, g, n=S.n, la=la)] for la in (0, 1, 2)]
+        out[f"he2hb_{which}"] = (
+            TileStorage(torch.from_numpy(runs[0][0]), S.m, S.n, S.mb, S.nb,
+                        g).to_dense().numpy(), runs[0][1], runs[0][0])
+        out[f"he2hb_depths_{which}"] = runs
+    for which in ("g23", "g24"):
+        S = M(x[which], nb=SPEC_NB[which]).storage
+        runs = [[v.numpy().copy() for v in dist_ge2tb(
+            S.data, S.Mt, S.Nt, S.m, S.n, g, la=la)] for la in (0, 1, 2)]
+        out[f"ge2tb_{which}"] = (
+            TileStorage(torch.from_numpy(runs[0][0]), S.m, S.n, S.mb, S.nb,
+                        g).to_dense().numpy(), runs[0][1], runs[0][2],
+            runs[0][0])
+        out[f"ge2tb_depths_{which}"] = runs
+    for name, call, _ in SPEC_CASES:
+        out["cases"][name] = tuple(_np(v) for v in call(st, M, x, o))
+    out["stedc"] = tuple(_np(v) for v in st.stedc(x["d40"], x["e39"],
+                                                   grid=g))
+    for itype, uplo in HEGV_CASES:
+        out[f"hegv_{itype}{uplo}"] = tuple(
+            _np(v) for v in _hegv_case(itype, uplo)(st, M, x, o))
+    nb = SPEC_NB["h23"]
+    da, la_ = sc.scatter_locals(x["h23"], nb, nb, p, q)
+    w, dz, lz = sapi.pdsyev("v", "l", 23, da, la_, g)
+    zd = _np(st.heev(st.HermitianMatrix._from_view(
+        sc.from_scalapack(da, la_, g), st.Uplo.Lower))[1])
+    out["pdsyev"] = (w, sc.gather_locals(dz, lz, p, q),
+                     _same_locals(lz, sc.scatter_locals(zd, nb, nb, p, q)))
+    dg, lg = sc.scatter_locals(x["g23"], nb, nb, p, q)
+    s, du, lu, dvt, lvt = sapi.pdgesvd("v", 23, 16, dg, lg, g)
+    _, U, V = st.svd(sc.from_scalapack(dg, lg, g))
+    out["pdgesvd"] = (
+        s, sc.gather_locals(du, lu, p, q), sc.gather_locals(dvt, lvt, p, q),
+        _same_locals(lu, sc.scatter_locals(_np(U), nb, nb, p, q))
+        and _same_locals(lvt, sc.scatter_locals(_np(V).conj().T, nb, nb,
+                                                p, q)))
+    plan = faults.FaultPlan("post_stage1", kind="nan", seed=17, count=4,
+                            transient=True)
+    info = {**o, st.Option.ErrorPolicy: st.ErrorPolicy.Info}
+    with faults.inject(plan), st.obs.recording() as evs:
+        w, Z, h = st.heev(spec_herm(st, M, x, "h23"), info)
+    out["strike"] = (h.ok, evs[-1].get("path"), _np(w), _np(Z))
+    return out
+
+
+def _same_locals(got: dict, want) -> bool:
+    """ScaLAPACK locals bit for bit those of ``want`` = (desc, locals)."""
+    return all(np.array_equal(np.asarray(got[k]), v)
+               for k, v in want[1].items())
