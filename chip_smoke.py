@@ -201,15 +201,15 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      and svd paths (the reference's reach no Pallas kernel): their
      launches must all be 0;
  14. slice 15 (its own generator, --seed + 16): durable jobs and
-     compatibility.  potrf_ooc at n = 20480, f32, nb = 128 on A = G G^T +
+     compatibility.  potrf_ooc at n = 16384, f32, nb = 128 on A = G G^T +
      n I from a host array (the TileMap: pinned host block columns, each
      panel window one contiguous range, copies on a side stream): the factor
      against the in-core potrf's, ||A - L L^T||_F / ||A||_F beside the
-     in-core factor's, K1 launched once a panel step (160), the H2D and
-     D2H bytes equal to the loop's (~45 GB in), cold and warm walls
+     in-core factor's, K1 launched once a panel step (128), the H2D and
+     D2H bytes equal to the loop's (~23 GB in), cold and warm walls
      beside in-core posv's, the factor bit-equal across runs, and under
      torch.profiler the kernels' and the copies' device busy time, their
-     overlap and the device's idle share; getrf_ooc at n = 20480, f32, at
+     overlap and the device's idle share; getrf_ooc at n = 16384, f32, at
      the default width (256) on the orthogonal A: ||A[perm] - L U|| /
      ||A||, the solve through getrs on its factors beside the in-core
      partial-pivot gesv's, no hand kernel, the traffic, walls and idle
@@ -279,7 +279,19 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      the ladder escalates Auto -> DC and certifies; the gloo_2x2 children
      also run heev, svd, hegv, stedc, pdsyev and pdgesvd in f64 (the
      gloo_2x2_slice18 line, "device": "cpu");
- 18. print the launch counts, the card line, the kernels line, and last
+ 18. slice 19: the tester and the examples.  ``python -m
+     slate_tpu_torch.tester``'s command lines in this process on the
+     serial route: every routine in s and d at n = 4096 and in c and z at
+     2048, nb = 128, the --ref runners (gesv, heev, svd, gels) in all four
+     types at 2048, and posv in s at n = 4000 (its ragged last panel
+     factors on K1); every table row printed, a JSON line a command with
+     each row's driver time, whole-runner wall, error, status and the
+     kernels it launched: posv's K2 and K0, gesv_tntpiv's K4 and K3,
+     geqrf's and gels' K5 and the n = 4000 posv's K1 as their gates route
+     them, none on a d, c or z row; any FAILED or ERROR row fails; then
+     ex01-ex14 (run_all) in a fourth one-rank NCCL world (the gloo
+     children run them in their 2 x 2 world: gloo_2x2_slice19);
+ 19. print the launch counts, the card line, the kernels line, and last
      the result line.  A kernel's launch count adds its wrapper's eager
      launches and those its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
@@ -309,7 +321,9 @@ tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
 from --seed + 14, slice 14's from --seed + 15, slice 15's from
 --seed + 16, slice 16's from --seed + 17, slice 17's from --seed + 18
 and slice 18's from --seed + 19, so that
-adding to one slice moves no other's matrices;
+adding to one slice moves no other's matrices (slice 19 draws from no
+generator of this script: the tester's runners and the examples draw
+from their own fixed seeds, the reference's);
 the survival phases and posv_hold draw nothing of their own (they reuse
 the stream and posv's matrix).
 It imports nothing of JAX or slate_tpu, and exits nonzero without a GPU.
@@ -4380,7 +4394,8 @@ def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
 
 
 # ---- slice 15: durable jobs and compatibility (--seed + 16) ----
-OOC_N = 20480             # potrf_ooc and getrf_ooc at the main path's width
+OOC_N = 16384             # potrf_ooc and getrf_ooc (cut from the main
+#                           path's 20480 to keep the smoke's margin)
 OOC_NB = 128              # potrf_ooc's panel: K1 takes its f32 diagonal tile
 DRILL_N = 4096            # the kill-and-resume drill (32 and 16 steps)
 DRILL_EVERY = 4           # the killed run's cadence
@@ -4441,7 +4456,7 @@ def rel_factor_residual(a, lhs) -> float:
 
 def check_potrf_ooc(st, gen, nrhs, reset, counts, kernels, card,
                     failures) -> dict:
-    """potrf_ooc at n = 20480, f32, nb = 128, on the posv matrix (A = G
+    """potrf_ooc at n = OOC_N, f32, nb = 128, on the posv matrix (A = G
     G^T + n I): the factor against the in-core potrf's, its residual, K1
     once a step, the TileMap's traffic, walls beside in-core posv's and
     the device's idle share."""
@@ -4500,7 +4515,7 @@ def check_potrf_ooc(st, gen, nrhs, reset, counts, kernels, card,
 
 def check_getrf_ooc(st, gen, nb, nrhs, reset, counts, kernels, card,
                     failures) -> dict:
-    """getrf_ooc at n = 20480, f32, at the default width on the gesv
+    """getrf_ooc at n = OOC_N, f32, at the default width on the gesv
     matrix (A = Q of a Gaussian): the residual of A[perm] = L U, the solve
     through getrs on its factors beside the in-core partial-pivot gesv,
     the traffic, the walls and the idle share."""
@@ -5079,6 +5094,20 @@ def gloo_slice18(st, g, gg, a) -> dict:
     return out
 
 
+def gloo_slice19() -> dict:
+    """The slice-19 check of one gloo rank: ex01-ex14 (run_all) on the
+    CPU in the 2 x 2 world, every example's grid 2 x 2; the failed ones
+    and the wall."""
+    import contextlib
+    import io
+    from slate_tpu_torch.examples import run_all
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        failed = run_all.run(run_all.EXAMPLES, torch.device("cpu"))
+    return {"examples": len(run_all.EXAMPLES), "failed": failed,
+            "wall_s": time.perf_counter() - t0}
+
+
 def gloo_child(rank: int, work: str) -> int:
     """One rank of the 2 x 2 gloo world (CPU processes): posv and SUMMA
     gemm on the grid, in f64 at n = GLOO_N, against torch's own solve and
@@ -5111,7 +5140,8 @@ def gloo_child(rank: int, work: str) -> int:
                "posv_rel_err": rel_err(x, torch.linalg.solve(a, b)),
                "gemm_rel_err": rel_err(C.to_dense(), gg @ a),
                "posv_wall_s": wall, "slice17": gloo_slice17(st, g, gg, b),
-               "slice18": gloo_slice18(st, g, gg, a)}
+               "slice18": gloo_slice18(st, g, gg, a),
+               "slice19": gloo_slice19()}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w",
@@ -5159,6 +5189,8 @@ def check_gloo_world(failures) -> None:
         emit({"phase": "gloo_2x2_slice18", "device": "cpu", "n": GLOO_N,
               "nb": GLOO_NB, "dtype": "float64",
               "ranks": [x.get("slice18") for x in ranks]})
+        emit({"phase": "gloo_2x2_slice19", "device": "cpu",
+              "ranks": [x.get("slice19") for x in ranks]})
         s17 = [x["slice17"] for x in ranks]
         s18 = [x["slice18"] for x in ranks]
         ok = (len(ranks) == 4
@@ -5169,7 +5201,8 @@ def check_gloo_world(failures) -> None:
                       and y["from_scalapack_exact"]
                       and y["pdgesv_rel_err"] < 1e-10 for y in s17)
               and all(v < 1e-10 for y in s18 for k, v in y.items()
-                      if not k.endswith("wall_s")))
+                      if not k.endswith("wall_s"))
+              and all(x["slice19"]["failed"] == [] for x in ranks))
         if not ok:
             failures.append("gloo_2x2: " + " | ".join(
                 log.decode(errors="replace")[-2000:] for log in logs))
@@ -5901,6 +5934,133 @@ def check_slice18(st, seed, nb, reset, counts, trace) -> dict:
     return out
 
 
+# ---- slice 19: the tester and the examples ----
+# the tester's command lines on the serial route (1x1): every routine in
+# s and d at 4096, in c and z at 2048, the --ref runners in all four types
+# at 2048, and posv at n = 4000, whose last 32-column panel factors on K1
+# (at n = 4096 every posv panel is K2's fused step, K1's loop inside its
+# factor launch)
+TESTER_RUNS = (
+    ("tester_sd", ["all", "--type", "s,d", "--dims", "4096", "--nb", "128"]),
+    ("tester_cz", ["all", "--type", "c,z", "--dims", "2048", "--nb", "128"]),
+    ("tester_ref", ["--ref", "gesv", "heev", "svd", "gels", "--type",
+                    "s,d,c,z", "--dims", "2048", "--nb", "128"]),
+    ("tester_k1", ["posv", "--type", "s", "--dims", "4000", "--nb", "128"]),
+)
+
+
+def tester_launches(kernels, fits) -> dict:
+    """The hand kernels each tester row must launch, by (routine, type,
+    n): none on an f64 or complex row; posv, gesv_tntpiv, geqrf and gels
+    in s as their seams route them at nb = 128 (posv by
+    expected_posv_launches, the CALU tournament by
+    expected_calu_launches, one K5 a panel of the 2n x n geqrf and gels)."""
+    zero = {name: 0 for name in kernels}
+    want = {}
+    for n in (4096, 4000):
+        want[("posv", "s", n)] = {**zero, **expected_posv_launches(n, 128)}
+    want[("gesv_tntpiv", "s", 4096)] = {
+        **zero, **expected_calu_launches(4096, 128, fits)}
+    for routine in ("geqrf", "gels"):
+        want[(routine, "s", 4096)] = {**zero, "qr_panel": 4096 // 128}
+    return want
+
+
+def check_tester(st, kernels, reset, counts, failures) -> dict:
+    """The tester's runs (TESTER_RUNS) on the card: every table row on a
+    line of its own (the tester prints them), a JSON line a run with each
+    row's time, gflops, error, status and the kernels it launched; a
+    FAILED or ERROR row, a nonzero exit or a row that launches other
+    kernels than tester_launches says fails.  Returns the launches summed
+    over the rows, by kernel."""
+    from slate_tpu_torch import tester
+    from slate_tpu_torch.internal.getrf import _lu_select_ok
+    want = tester_launches(kernels, lambda h: _lu_select_ok(
+        torch.empty((1, h, 128), device="cuda"), 128))
+    zero = {name: 0 for name in kernels}
+    total = dict(zero)
+
+    def tally(row):
+        torch.cuda.synchronize()
+        row["launches"] = counts()
+        reset()
+
+    for name, argv in TESTER_RUNS:
+        rows = []
+        t0 = time.perf_counter()
+        reset()
+        rc = tester.main(argv + ["--grids", "1x1"], rows, tally)
+        wall = time.perf_counter() - t0
+        emit({"phase": name, "argv": argv, "rc": rc, "wall_s": wall,
+              "rows": rows})
+        if rc != 0 or tester.failures(rows):
+            failures.append(f"{name}: rc {rc}, rows " + "; ".join(
+                f"{r['routine']} {r['type']} {r['status']}" for r in rows
+                if r["status"] != "pass"))
+        for r in rows:
+            got = r.get("launches", {})
+            key = (r["routine"], r["type"], r["n"])
+            # the other s rows (gesv's library LU, hesv, ...) launch what
+            # their gates give: counted, not asserted
+            expect = want.get(key, None if key[1] == "s" else zero)
+            if expect is not None and got != expect:
+                failures.append(f"{name} {key}: launches {got} != "
+                                f"{expect}")
+            for k, v in got.items():
+                total[k] += v
+    missing = sorted({"upper_tri_inv", "chol_tile", "chol_panel_fused",
+                      "lu_panel_fused", "lu_select", "qr_panel"}
+                     - {k for k, v in total.items() if v})
+    if missing:
+        failures.append(f"tester: kernels not launched {missing}")
+    return total
+
+
+def check_examples_nccl(failures) -> None:
+    """ex01-ex14 (run_all) in a fourth one-rank NCCL world: Grid(1, 1,
+    group=WORLD) on cuda:0 where an example takes a grid."""
+    import torch.distributed as dist
+    from slate_tpu_torch.examples import run_all
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="smoke-nccl19-") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            failed = run_all.run(run_all.EXAMPLES, torch.device("cuda", 0))
+            emit({"phase": "examples_nccl", "world": 1,
+                  "examples": len(run_all.EXAMPLES), "failed": failed,
+                  "wall_s": time.perf_counter() - t0})
+        finally:
+            dist.destroy_process_group()
+    if failed:
+        failures.append(f"examples_nccl: {failed}")
+
+
+def check_slice19(st, kernels, reset, counts) -> dict:
+    """The slice-19 phases: the tester (check_tester), then the examples
+    in a one-rank NCCL world; the gloo children ran them in their 2 x 2
+    world (gloo_2x2_slice19).  The tester's runners draw their inputs
+    from their own seeds (the reference tester's), the examples from
+    theirs.  Returns the tester's launches by kernel."""
+    failures = []
+    t_slice = time.perf_counter()
+    out = check_tester(st, kernels, reset, counts, failures)
+    emit({"phase": "seconds", "of": "tester",
+          "seconds": time.perf_counter() - t_slice})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_examples_nccl(failures)
+    emit({"phase": "seconds", "of": "examples_nccl",
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "seconds", "of": "slice19",
+          "seconds": time.perf_counter() - t_slice})
+    if failures:
+        raise AssertionError("slice 19: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6310,6 +6470,9 @@ def main(argv=None) -> int:
     # ---- slice 18: the distributed spectral reductions (--seed + 19) ----
     slice18_launches = check_slice18(st, args.seed, nb, reset, counts,
                                      args.trace)
+
+    # ---- slice 19: the tester and the examples ----
+    tester_total = check_slice19(st, kernels, reset, counts)
     plans_dir.cleanup()
 
     # ---- the record ----
@@ -6326,7 +6489,7 @@ def main(argv=None) -> int:
                             **slice12_launches, **slice13_launches,
                             **slice14_launches, **slice15_launches,
                             **slice16_launches, **slice17_launches,
-                            **slice18_launches}})
+                            **slice18_launches, "tester": tester_total}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
                           "slate_tpu/internal/pallas_tri.py:28", "posv",
@@ -6374,8 +6537,9 @@ def main(argv=None) -> int:
     for name, (source, ref, path, launches) in replaces.items():
         r = rows[name]
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": ref, "launches": launches[name],
-                     "path": path,
+                     "replaces": ref,
+                     "launches": launches[name] + tester_total[name],
+                     "path": path + "+tester",
                      "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -88,14 +88,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .types import Diag, Norm, Op, Side, TileKind, Uplo  # noqa: E402,F401
+from .types import (  # noqa: E402,F401
+    Diag, Layout, Norm, Op, Side, TileKind, Uplo,
+)
 from .options import (  # noqa: E402,F401
     Abft, ErrorPolicy, GridOrder, MethodCholQR, MethodEig, MethodGels,
     MethodGemm, MethodHemm, MethodLU, MethodSvd, MethodTrsm, NormScope,
     Option,
     Precision, Speculate, Target,
 )
-from .version import __version__  # noqa: E402,F401
+from .version import __version__, id, version  # noqa: E402,F401
 from .exceptions import (  # noqa: E402,F401
     SlateError, SlateNotConvergedError, SlateNotPositiveDefiniteError,
     SlateSingularError, SlateUnsupportedDtypeError, SlateValueError,
@@ -107,6 +109,7 @@ from .core.matrix import (  # noqa: E402,F401
     HermitianBandMatrix, HermitianMatrix, Matrix, SymmetricMatrix,
     TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix,
 )
+from . import robust  # noqa: E402,F401
 from .robust.health import HealthInfo  # noqa: E402,F401
 from .tune.plans import (  # noqa: E402,F401
     CUDA_PLAN, LIBRARY_PLAN, TilePlan, plan_override,
@@ -127,8 +130,8 @@ from .drivers.lu import (  # noqa: E402,F401
     getrf_nopiv, getrf_ooc, getrf_rbt, getrf_tntpiv, getri, getriOOP, getrs,
 )
 from .drivers.qr import (  # noqa: E402,F401
-    LQFactors, QRFactors, cholqr, gelqf, gels, gels_cholqr, gels_qr, geqrf,
-    qr_multiply, unmlq, unmqr,
+    CAQRFactors, LQFactors, QRFactors, cholqr, gelqf, gels, gels_cholqr,
+    gels_qr, geqrf, qr_multiply, unmlq, unmqr,
 )
 from .drivers.band import (  # noqa: E402,F401
     GBFactors, PBFactors, gbmm, gbsv, gbtrf, gbtrs, hbmm, pbsv, pbtrf,

@@ -17,7 +17,10 @@ The row and column subgroups, along which the distributed kernels
 broadcast and reduce, are built once by :meth:`Grid.__init__`, on every
 rank of the default group in the same order: ``dist.new_group`` is
 collective, and a rank that skipped one would leave the others waiting,
-so every rank of the default group builds the grid.
+so every rank of the default group builds the grid.  A rank of the group
+past the grid's p*q members (a 2 x 2 grid in a world of 8) takes part in
+that and holds nothing: its ``member`` is False, and placing a matrix on
+its grid raises.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ class Grid:
         self.group = None
         self.rank = 0
         self.coords = (0, 0)
+        self.member = True
         self.device = torch.device(device) if device is not None else None
         # point-to-point state of comm/collectives.py: each subgroup's ring
         # sends in issue order, and the sends in flight with their tensors
@@ -94,9 +98,9 @@ class Grid:
         self.col_groups = [dist.new_group(
             [self._global[self.coord_rank(r, c)] for r in range(p)])
             for c in range(q)]
-        slate_error(0 <= self.rank < self.size,
-                    f"rank {self.rank} of the group lies outside the "
-                    f"{p}x{q} grid")
+        self.member = 0 <= self.rank < self.size
+        if not self.member:
+            return
         self.coords = self.rank_coords(self.rank)
         if self.device is None:
             n_cards = torch.cuda.device_count()
@@ -179,3 +183,30 @@ def make_grid(n_ranks: int | None = None, *, group=None,
     while n % p != 0:
         p -= 1
     return Grid(p, n // p, group=group, device=device)
+
+
+def join_world(device) -> bool:
+    """Join the ``torch.distributed`` world that torchrun announces
+    (``WORLD_SIZE`` and the rest in the environment): NCCL when ``device``
+    is a card, whose index is then ``LOCAL_RANK``, gloo on CPUs.  Returns
+    True when this call joined it; False when a group was already
+    initialised or no launcher announced one (a world of one rank)."""
+    dist = _dist()
+    if (not dist.is_available() or dist.is_initialized()
+            or "WORLD_SIZE" not in os.environ):
+        return False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
+def world() -> tuple[int, int]:
+    """(size, rank) of the initialised ``torch.distributed`` world, (1, 0)
+    without one."""
+    dist = _dist()
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0

@@ -36,21 +36,23 @@ from .grid import Grid
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point places data on: ``None`` means CUDA, and
-    raises when there is none, so nothing runs on the CPU unless the
-    caller asks for it with ``device="cpu"``."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "slate_tpu_torch: no CUDA device is available; pass "
-                "device='cpu' to run the kernels' plain versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    CUDA (by default or by name) raises when there is none, so nothing
+    runs on the CPU unless the caller asks for it with ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "slate_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to run the kernels' plain versions on the CPU")
+    return device
 
 
 def grid_device(grid, device=None):
     """The device an entry point's data goes to on ``grid``: ``device``
     when given, else the grid's own (a rank's card on a grid with a
     group; None, hence CUDA, on the serial grid)."""
+    if grid is not None:
+        slate_error(grid.member, f"rank {grid.rank} of the group lies "
+                    f"outside the {grid.p}x{grid.q} grid")
     if device is not None or grid is None:
         return device
     return grid.device

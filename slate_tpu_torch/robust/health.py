@@ -237,10 +237,10 @@ def acceptable(h: HealthInfo, dtype: torch.dtype) -> bool:
 
 
 def _poison(result):
-    """NaN-fill every matrix and every floating tensor or host array of a
-    result (a matrix, a tensor or a tuple of them; integer leaves such as a
-    permutation stay): the ErrorPolicy.Nan guarantee that a failed result
-    is never finite."""
+    """NaN-fill every matrix and every floating or complex tensor or host
+    array of a result (a matrix, a tensor, or tuples, lists and dicts of
+    them, nested; integer leaves such as a permutation stay): the
+    ErrorPolicy.Nan guarantee that a failed result is never finite."""
     from ..core.matrix import BaseMatrix
     from ..core.storage import TileStorage
     if isinstance(result, tuple):
@@ -248,6 +248,10 @@ def _poison(result):
         # a NamedTuple (LUFactors) keeps its type; integer leaves (perm) stay
         return (type(result)(*parts) if hasattr(result, "_fields")
                 else tuple(parts))
+    if isinstance(result, list):
+        return [_poison(r) for r in result]
+    if isinstance(result, dict):
+        return {k: _poison(v) for k, v in result.items()}
     if isinstance(result, BaseMatrix):
         st = result.storage
         data = torch.full_like(st.data, math.nan)
@@ -259,6 +263,15 @@ def _poison(result):
     if isinstance(result, np.ndarray) and result.dtype.kind in "fc":
         return np.full_like(result, math.nan)    # an out-of-core host factor
     return result
+
+
+def poison(tree, h: HealthInfo):
+    """NaN-fill every floating or complex leaf of ``tree`` (tensors,
+    matrices, host arrays, nested in tuples, lists and dicts) where the
+    health is bad, and return it untouched where it is good (ref:
+    health.py:181): the ErrorPolicy.Nan guarantee that a failed result is
+    never finite garbage.  Integer leaves stay, as the reference's do."""
+    return tree if h.ok else _poison(tree)
 
 
 def finalize(name: str, result, h: HealthInfo, opts: Options | None,
@@ -280,7 +293,7 @@ def finalize(name: str, result, h: HealthInfo, opts: Options | None,
     if h.ok:
         return result
     if policy is ErrorPolicy.Nan:
-        return _poison(result)
+        return poison(result, h)
     raise (make_exc(h) if make_exc is not None else _default_exc(name, h))
 
 

@@ -8,14 +8,14 @@ width rides it under ``OOC_PANEL_OP`` (:func:`plans.ooc_panel_width`)."""
 
 from .plans import (ALL_OPS, CUDA_PLAN, DIST_LOOKAHEAD_OP, LIBRARY_PLAN,
                     OOC_PANEL_OP, OPS, SCHEMA_VERSION, SERVE_BUCKET_OP,
-                    TilePlan, cache_path, chip_kind, load_cache,
+                    XLA_PLAN, TilePlan, cache_path, chip_kind, load_cache,
                     lookahead_depth, ooc_panel_width, plan_override,
                     record_plan, reload, resolve_plan, save_cache,
                     serve_buckets, validate_cache)
 
 __all__ = ["ALL_OPS", "CUDA_PLAN", "DIST_LOOKAHEAD_OP", "LIBRARY_PLAN",
            "OOC_PANEL_OP", "OPS", "SCHEMA_VERSION", "SERVE_BUCKET_OP",
-           "TilePlan", "cache_path", "chip_kind", "load_cache",
+           "XLA_PLAN", "TilePlan", "cache_path", "chip_kind", "load_cache",
            "lookahead_depth", "ooc_panel_width", "plan_override",
            "record_plan", "reload", "resolve_plan", "save_cache",
            "serve_buckets", "validate_cache"]

@@ -96,6 +96,9 @@ class TilePlan(NamedTuple):
 
 CUDA_PLAN = TilePlan()
 LIBRARY_PLAN = TilePlan(kernel="torch")
+# the reference's name for its no-cache plan (plans.py:82): the port's
+# default, the hand kernel
+XLA_PLAN = CUDA_PLAN
 
 _LOCK = threading.Lock()
 _CACHE: dict | None = None          # lazily loaded, keyed by cache_path()

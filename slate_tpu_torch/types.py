@@ -34,6 +34,11 @@ class Side(enum.Enum):
     Right = "r"
 
 
+class Layout(enum.Enum):
+    ColMajor = "c"
+    RowMajor = "r"
+
+
 class Norm(enum.Enum):
     One = "1"
     Inf = "i"

@@ -65,9 +65,12 @@ def _dense(kind: str, m: int, n: int, rng, dtype, cond: float):
         c = cond or 1e3
         sigma = c ** (-np.arange(k) / max(k - 1, 1))
         q1, _ = np.linalg.qr(rnd((m, k), "randn"))
-        q2, _ = np.linalg.qr(rnd((n, k), "randn"))
         if kind == "svd":
+            q2, _ = np.linalg.qr(rnd((n, k), "randn"))
             return (q1 * sigma) @ q2.conj().T
+        # the reference also draws and factors a q2 here that poev and heev
+        # never read; nothing is drawn after it, so leaving it out keeps
+        # the bits and halves the cost (two n x n QRs are most of it)
         if kind == "poev":                      # SPD/HPD with cond c
             return ((q1 * sigma) @ q1.conj().T).astype(dtype)
         lam = np.linspace(-1.0, 1.0, k) * sigma[::-1]

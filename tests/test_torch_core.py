@@ -20,6 +20,7 @@ import slate_tpu_torch as st
 from slate_tpu_torch.convert import matrix_from_jax, storage_from_jax
 from slate_tpu_torch.core import layout
 from slate_tpu_torch.drivers.blas3 import as_root_general
+from slate_tpu_torch.examples.run_all import EXAMPLES
 
 PKG = pathlib.Path(st.__file__).resolve().parent
 SHAPES = [(64, 64, 32, 32), (100, 70, 32, 16), (7, 130, 8, 64)]
@@ -191,7 +192,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "slate_tpu_torch/compat/fortran.py",
             "slate_tpu_torch/robust/checkpoint.py",
             "slate_tpu_torch/util/debug.py",
-            "slate_tpu_torch/native.py"} <= names
+            "slate_tpu_torch/native.py",
+            "slate_tpu_torch/tester.py",
+            "slate_tpu_torch/examples/_common.py",
+            "slate_tpu_torch/examples/run_all.py",
+            *(f"slate_tpu_torch/examples/{name}.py"
+              for name in EXAMPLES)} <= names
     bad = [(f.name, mod) for f in files for mod in _imports(f)
            if _forbidden(mod)]
     assert bad == []

@@ -1001,3 +1001,33 @@ def _same_locals(got: dict, want) -> bool:
     """ScaLAPACK locals bit for bit those of ``want`` = (desc, locals)."""
     return all(np.array_equal(np.asarray(got[k]), v)
                for k, v in want[1].items())
+
+
+# ------------------------------------------------ the tester and examples
+
+def tester_body(argvs) -> list:
+    """Each command line of ``argvs`` through ``slate_tpu_torch.tester`` on
+    this rank: (exit code, rows, what it printed)."""
+    import contextlib
+    import io
+    from slate_tpu_torch import tester
+    out = []
+    for argv in argvs:
+        buf, rows = io.StringIO(), []
+        with contextlib.redirect_stdout(buf):
+            rc = tester.main(argv, rows)
+        out.append((rc, rows, buf.getvalue()))
+    return out
+
+
+def examples_body(names) -> tuple:
+    """The named examples on this rank, on the CPU: (the failed ones, what
+    it printed)."""
+    import contextlib
+    import io
+    import torch
+    from slate_tpu_torch.examples import run_all
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        failed = run_all.run(names, torch.device("cpu"))
+    return failed, buf.getvalue()
