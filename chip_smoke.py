@@ -4185,7 +4185,7 @@ def chase_launches(st, route: str, nb: int, gen) -> dict:
         torch.cuda.synchronize()
     k = sum(1 for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA)
-    steps = H.chase_steps(n, nb)
+    steps = H._chase_steps(n, nb)
     return {"profiled_n": n, "profiled_steps": steps, "kernels": k,
             "kernels_per_step": k / steps}
 
@@ -4201,7 +4201,7 @@ def check_parity_routes(st, gen, nb, failures) -> dict:
             st.Option.UseFallbackSolver: False}
     w0 = st.heev(A, info)[0]
     scale = float(w0.abs().max())
-    steps = H.chase_steps(n, nb)
+    steps = H._chase_steps(n, nb)
     per = {r: chase_launches(st, r, nb, gen) for r in ("hb2st", "tb2bd")}
     for route in ("DC", "QR"):
         o = {**info, st.Option.MethodEig: getattr(st.MethodEig, route)}
@@ -5643,7 +5643,7 @@ def check_dist_heev_dc(st, g, gen, nb, failures) -> None:
     """dist_heev_dc: heev with MethodEig.DC on the mesh at SPEC_PARITY_N
     (the hb2st chase, then stedc with its merges row-distributed), beside
     the single route's DC on the same A; the fallback ladder off."""
-    from slate_tpu_torch.drivers.heev import chase_steps
+    from slate_tpu_torch.drivers.heev import _chase_steps
     from slate_tpu_torch.robust import certify
     n = SPEC_PARITY_N
     a, lam = spectral_matrix("heev", n, gen, torch.float32)
@@ -5664,7 +5664,7 @@ def check_dist_heev_dc(st, g, gen, nb, failures) -> None:
     emit({"phase": "dist_heev_dc", "n": n, "nb": nb, "method": "DC",
           "wall_s_cold": cold, "wall_s": warm,
           "single_route_wall_s": wall_single,
-          "chase_steps": chase_steps(n, nb),
+          "chase_steps": _chase_steps(n, nb),
           "certificate_ratio": cert.growth, "certify_tolerance": tol,
           "rel_err": err, "rel_diff_vs_single": diff, "ok": h.ok,
           "single_ok": h1.ok})

@@ -115,7 +115,7 @@ def _finalize_band_solve(name, F, X, h, opts, make_exc):
 
 # ------------------------------------------------------------- pb chain
 
-@annotate("slate.pbtrf")
+@annotate("slate.pbtrf")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def pbtrf(A: HermitianBandMatrix, opts: Options | None = None) -> PBFactors:
     """Band Cholesky A = L L^H (ref: src/pbtrf.cc).  A matrix that is not
     positive definite NaN-fills the failing block, which reads on the
@@ -136,14 +136,14 @@ def pbtrf(A: HermitianBandMatrix, opts: Options | None = None) -> PBFactors:
             info=hh.info))
 
 
-@annotate("slate.pbtrs")
+@annotate("slate.pbtrs")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def pbtrs(F: PBFactors, B, opts: Options | None = None):
     """Solve from pbtrf factors (ref: src/pbtrs.cc)."""
     b, Bm = _as_dense_rhs(B)
     return _wrap_like(faults.maybe_corrupt("solve", F.solve(b)), Bm)
 
 
-@annotate("slate.pbsv")
+@annotate("slate.pbsv")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def pbsv(A: HermitianBandMatrix, B, opts: Options | None = None):
     """Solve A X = B, A Hermitian positive-definite band (ref:
     src/pbsv.cc).  Returns (PBFactors, X); ``(F, X, HealthInfo)`` under
@@ -160,7 +160,7 @@ def pbsv(A: HermitianBandMatrix, B, opts: Options | None = None):
 
 # ------------------------------------------------------------- gb chain
 
-@annotate("slate.gbtrf")
+@annotate("slate.gbtrf")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def gbtrf(A: BandMatrix, opts: Options | None = None) -> GBFactors:
     """Band LU with partial pivoting (ref: src/gbtrf.cc).  Pivoting stays
     within kl rows below the diagonal, so the factorization runs on
@@ -196,14 +196,14 @@ def gbtrf(A: BandMatrix, opts: Options | None = None) -> GBFactors:
             f"({hh.describe()})", info=hh.info))
 
 
-@annotate("slate.gbtrs")
+@annotate("slate.gbtrs")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def gbtrs(F: GBFactors, B, opts: Options | None = None):
     """Solve from gbtrf factors (ref: src/gbtrs.cc)."""
     b, Bm = _as_dense_rhs(B)
     return _wrap_like(faults.maybe_corrupt("solve", F.solve(b)), Bm)
 
 
-@annotate("slate.gbsv")
+@annotate("slate.gbsv")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def gbsv(A: BandMatrix, B, opts: Options | None = None):
     """Solve A X = B, A general band (ref: src/gbsv.cc).  Returns
     (GBFactors, X); ``(F, X, HealthInfo)`` under ErrorPolicy.Info."""
@@ -218,7 +218,7 @@ def gbsv(A: BandMatrix, B, opts: Options | None = None):
 
 # ------------------------------------------------------------- tbsm
 
-@annotate("slate.tbsm")
+@annotate("slate.tbsm")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def tbsm(side, alpha, A: TriangularBandMatrix, B,
          opts: Options | None = None):
     """Triangular band solve op(A) X = alpha B (Left) or X op(A) = alpha B
@@ -274,7 +274,7 @@ def _tbsm_left(A: TriangularBandMatrix, alpha, b, extra_op: Op):
 
 # ------------------------------------------------------------- band multiply
 
-@annotate("slate.gbmm")
+@annotate("slate.gbmm")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def gbmm(alpha, A: BandMatrix, B, beta=0.0, C=None,
          opts: Options | None = None):
     """C = alpha op(A) B + beta C with A band (ref: src/gbmm.cc)."""
@@ -292,7 +292,7 @@ def gbmm(alpha, A: BandMatrix, B, beta=0.0, C=None,
     return _wrap_like(out, Bm if Bm is not None else C)
 
 
-@annotate("slate.hbmm")
+@annotate("slate.hbmm")  # slate-lint: disable=OBS002 -- band cost needs kl/ku, not recoverable from event shapes
 def hbmm(side, alpha, A: HermitianBandMatrix, B, beta=0.0, C=None,
          opts: Options | None = None):
     """C = alpha A B + beta C with A Hermitian band (ref: src/hbmm.cc).

@@ -428,6 +428,15 @@ class _HeldAttempt:
         self.captured = Captured(attempt, (sa, sb))
         self.lock = threading.Lock()
 
+    def __call__(self, a: torch.Tensor, b: torch.Tensor):
+        """Replay on ``a`` and ``b`` (A's and B's tile data) and read the
+        health on the host: ``(lfac, X data, HealthInfo)``."""
+        with self.lock:
+            lfac, stats, X, xfin = self.captured(a, b)
+            h = _health.merge(_chol_health(stats), _health.healthy()._replace(
+                nonfinite=not bool(xfin)))
+        return lfac, X, h
+
 
 def _same_tiling(st: TileStorage, data: torch.Tensor) -> TileStorage:
     return TileStorage(data, st.m, st.n, st.mb, st.nb, st.grid)
@@ -461,10 +470,7 @@ def _held_attempt(A, B, opts):
             held = _HELD.setdefault(key, held)
             while len(_HELD) > _HELD_MAX:
                 _HELD.popitem(last=False)
-    with held.lock:
-        lfac, stats, X, xfin = held.captured(A.storage.data, B.storage.data)
-        h = _health.merge(_chol_health(stats), _health.healthy()._replace(
-            nonfinite=not bool(xfin)))
+    lfac, X, h = held(A.storage.data, B.storage.data)
     xv = held.x_view
     return ((_solve_factor(lfac, A),
              xv._same_view(_same_tiling(xv.storage, X))), h)

@@ -66,7 +66,7 @@ def _vec(x, device):
                                                            device)
 
 
-def library_call(fn, x, *, hermitian: bool = False):
+def _library_call(fn, x, *, hermitian: bool = False):
     """``fn(x)`` of a library eigen- or singular value routine, as XLA's
     routine answers.  ``hermitian``: the input is symmetrized, (x + x^H) /
     2, first, as jnp.linalg.eigh does (the library's eigh would read the
@@ -180,7 +180,7 @@ def _unmtr_he2hb_stack(Vs, Ts, nb: int, Z):
 
 # ---------------------------------------------------------------- stage 2
 
-def chase_steps(n: int, kd: int) -> int:
+def _chase_steps(n: int, kd: int) -> int:
     """The (sweep, step) pairs of hb2st's chase of an n x n band of
     bandwidth kd (tb2bd's chase takes as many pairs, two reflectors
     each)."""
@@ -273,9 +273,9 @@ def _tridiag_eig(d, e, want_z: bool, opts: Options | None = None,
         return w, z, h
     T = _tridiag(d, e)
     if want_z:
-        w, z = library_call(torch.linalg.eigh, T, hermitian=True)
+        w, z = _library_call(torch.linalg.eigh, T, hermitian=True)
         return w, z, _health.batch_from_result(w[None])
-    w = library_call(torch.linalg.eigvalsh, T, hermitian=True)
+    w = _library_call(torch.linalg.eigvalsh, T, hermitian=True)
     return w, None, _health.batch_from_result(w[None])
 
 
@@ -290,9 +290,9 @@ def _stage2_eig(band, nb: int, jobz: bool, opts: Options | None,
     band = _faults.maybe_corrupt("post_stage1", band)
     if get_option(opts, Option.MethodEig) is MethodEig.Auto:
         if jobz:
-            w, Z2 = library_call(torch.linalg.eigh, band, hermitian=True)
+            w, Z2 = _library_call(torch.linalg.eigh, band, hermitian=True)
         else:
-            w = library_call(torch.linalg.eigvalsh, band, hermitian=True)
+            w = _library_call(torch.linalg.eigvalsh, band, hermitian=True)
             Z2 = None
         return w, Z2, _health.batch_from_result(w[None])
     d, e, Q2 = _hb2st(band, nb, want_q=jobz)

@@ -45,7 +45,7 @@ from ..robust import faults as _faults
 from ..robust import health as _health
 from ..types import eps as _eps
 from ..util.trace import annotate, span
-from .heev import library_call
+from .heev import _library_call
 
 LEAF = 32
 # the largest [rows, n] temporary of the secular bisection: 64 MB in f32
@@ -317,7 +317,7 @@ def _leaf_eigh(leaves):
         if s > 1:
             ee = torch.stack([e for _, _, e in group])
             T = T + torch.diag_embed(ee, 1) + torch.diag_embed(ee, -1)
-        w, Q = library_call(torch.linalg.eigh, T, hermitian=True)
+        w, Q = _library_call(torch.linalg.eigh, T, hermitian=True)
         for k, (off, _, _) in enumerate(group):
             out[off] = (w[k], Q[k])
     return out

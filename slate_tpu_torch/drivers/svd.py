@@ -42,7 +42,7 @@ from ..robust import faults as _faults
 from ..robust import health as _health
 from ..types import Op, is_complex
 from ..util.trace import annotate, span
-from .heev import _vec, library_call
+from .heev import _library_call, _vec
 
 
 def _notconv_exc(name):
@@ -210,9 +210,9 @@ def _bd_svd(d, e, want_uv: bool):
     if d.shape[0] > 1:
         B = B + torch.diag(e, 1)
     if want_uv:
-        Ub, s, Vbh = library_call(torch.linalg.svd, B)
+        Ub, s, Vbh = _library_call(torch.linalg.svd, B)
         return s, Ub, Vbh
-    return library_call(torch.linalg.svdvals, B), None, None
+    return _library_call(torch.linalg.svdvals, B), None, None
 
 
 @annotate("slate.bdsqr")
@@ -251,9 +251,9 @@ def _stage2_svd(band, nb: int, jobu: bool, opts: Options | None):
     band = _faults.maybe_corrupt("post_stage1", band)
     if get_option(opts, Option.MethodSvd) is MethodSvd.Auto:
         if jobu:
-            Ub, s, Vbh = library_call(torch.linalg.svd, band)
+            Ub, s, Vbh = _library_call(torch.linalg.svd, band)
             return s, Ub, Vbh.conj().T, _health.batch_from_result(s[None])
-        s = library_call(torch.linalg.svdvals, band)
+        s = _library_call(torch.linalg.svdvals, band)
         return s, None, None, _health.batch_from_result(s[None])
     d, e, U2, V2 = _tb2bd(band, nb, want_uv=jobu)
     d = _faults.maybe_corrupt("post_chase", d)

@@ -50,6 +50,7 @@ class Captured:
         stream.wait_stream(caller)
         with _CAPTURE_LOCK:
             try:
+                # slate-lint: disable=CON003 -- captures are made one at a time in the process by design (module docstring): the lock holds back only other captures, never replays or eager launches
                 tally = self._capture(fn, stream)
             except torch.cuda.OutOfMemoryError:
                 tally = None
@@ -61,6 +62,7 @@ class Captured:
                 # try once more
                 self.graph = None
                 torch.cuda.empty_cache()
+                # slate-lint: disable=CON003 -- the one retry of the capture above, under the same one-capture-at-a-time lock
                 tally = self._capture(fn, stream)
         caller.wait_stream(stream)
         self.launches = dict(tally)

@@ -115,8 +115,10 @@ class CudaKernel:
         """The loaded library, built first if needed."""
         with self._lock:
             if self._lib is None:
+                # slate-lint: disable=CON003 -- one build per kernel by design: a thread waiting on this lock needs this library before it can launch anyway; build_all starts every source's nvcc at once, outside any lock
                 proc = self.start_build()
                 if proc is not None:
+                    # slate-lint: disable=CON003 -- the wait for the build started above, under the same per-kernel lock for the same reason
                     self.finish_build(proc)
                 lib = ctypes.CDLL(str(self.library_path()))
                 for sym, argtypes in self.functions.items():

@@ -74,8 +74,7 @@ def _frames() -> list:
 
 
 def _active() -> bool:
-    # a lock-free peek on the per-batch path: a stale read only delays one
-    # record past a concurrent enable/disable
+    # slate-lint: disable=CON001 -- designed lock-free peek on the per-call fast path: a stale read only delays one event past a concurrent enable/disable, never tears (dict read is atomic under the GIL)
     return _CFG["enabled"] or bool(_COLLECTORS)
 
 
@@ -146,6 +145,7 @@ def clear() -> None:
 def timing_enabled() -> bool:
     """Is device-time measurement on (``timing()`` or
     ``SLATE_OBS_TIMING=1``)?"""
+    # slate-lint: disable=CON001 -- designed lock-free peek on the per-call fast path: one boundary may miss a concurrent toggle, which is benign (atomic dict read under the GIL)
     return _CFG["timing"]
 
 
@@ -172,6 +172,7 @@ def should_time(token) -> bool:
     the OUTERMOST frame, timing on, outside a capture: nested boundaries
     would wait twice, and a captured frame holds work that runs at
     replay."""
+    # slate-lint: disable=CON001 -- designed lock-free peek on the per-call fast path: one boundary may miss a concurrent toggle, which is benign (atomic dict read under the GIL)
     if token is None or not _CFG["timing"] or token.traced:
         return False
     frames = _frames()

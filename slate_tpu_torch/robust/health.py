@@ -32,7 +32,7 @@ class HealthInfo(NamedTuple):
     growth           max|factor| / max|input| (1.0 when not tracked)
     iters            refinement iterations (0 for direct solves)
     converged        iterative convergence (True for direct paths)
-    abft_detected    checksum mismatches found (0: checksums not ported)
+    abft_detected    checksum mismatches found (0 without Option.Abft)
     abft_corrected   of those, how many were repaired in place
     abft_site        first detection's tile, ``ti * 65536 + tj``; -1 none
     """

@@ -165,7 +165,7 @@ class DevicePool:
     # ------------------------------------------------------------ queries
 
     def size(self) -> int:
-        # the member list is built once here and never resized
+        # slate-lint: disable=CON001 -- the member list is built once in __init__ and never reassigned or resized; only per-member fields mutate (under the lock), so its length is immutable
         return len(self._members)
 
     def members(self) -> list:

@@ -334,6 +334,7 @@ def _resolve(op: str, n: int, dtype) -> tuple:
     """(plan, source, dist, dtype name) of one resolution, memoized."""
     path = cache_path()
     key = (op, n, dtype, path)
+    # slate-lint: disable=CON001 -- designed lock-free memo peek on every plan resolution: a dict get is atomic under the GIL, and a miss (or a stale miss after reload) only resolves again and stores under the lock
     hit = _MEMO.get(key)
     if hit is not None:
         return hit

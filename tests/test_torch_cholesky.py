@@ -141,7 +141,7 @@ def test_posv_not_spd_reports_the_reference_info(ref_drivers):
     assert h_tile.info == int(hr_tile.info) == 201
 
 
-def test_posv_not_spd_with_fallback_solver_raises_not_ported(ref_drivers):
+def test_posv_not_spd_with_fallback_solver_returns_hefactors(ref_drivers):
     """With Option.UseFallbackSolver (the default) a matrix that is not
     positive definite takes the reference's next rung, hesv (blocked
     Aasen), where this slice used to raise NotImplementedError: both

@@ -170,13 +170,14 @@ def _imports(path):
 
 def _forbidden(name):
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "slate_tpu")
+    return root in ("jax", "jaxlib", "slate_tpu", "tools")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of slate_tpu_torch, chip_smoke.py and the card-only test
-    file are scanned with ast: no import of jax or of slate_tpu (or
-    anything under slate_tpu.); slate_tpu_torch itself is allowed."""
+    file are scanned with ast: no import of jax, of slate_tpu (or anything
+    under slate_tpu.) or of the reference's tools/ (its lint and tester);
+    slate_tpu_torch itself is allowed."""
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
                                          PKG.parent / "tests" /
                                          "test_torch_cuda.py"]
@@ -194,6 +195,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "slate_tpu_torch/util/debug.py",
             "slate_tpu_torch/native.py",
             "slate_tpu_torch/tester.py",
+            "slate_tpu_torch/lint/cli.py",
+            "slate_tpu_torch/lint/rules/concurrency.py",
             "slate_tpu_torch/examples/_common.py",
             "slate_tpu_torch/examples/run_all.py",
             *(f"slate_tpu_torch/examples/{name}.py"
@@ -207,3 +210,4 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert '"slate_tpu.' not in host
     assert not _forbidden("slate_tpu_torch.core")
     assert _forbidden("slate_tpu.core") and _forbidden("jax.numpy")
+    assert _forbidden("tools.slate_lint") and not _forbidden("toolsx")

@@ -141,7 +141,7 @@ def test_chase_steps_count_the_reference_schedule():
         tmax = max(1, -(-(n - 1) // kd_))
         pairs = [(j, t) for j in range(n - 1) for t in range(tmax)
                  if j + 1 + t * kd_ < n]
-        assert port_heev.chase_steps(n, kd) == len(pairs)
+        assert port_heev._chase_steps(n, kd) == len(pairs)
 
 
 @pytest.mark.parametrize("case_i", [0, 1], ids=IDS[:2])
