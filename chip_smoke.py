@@ -281,9 +281,10 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      gloo_2x2_slice18 line, "device": "cpu");
  18. slice 19: the tester and the examples.  ``python -m
      slate_tpu_torch.tester``'s command lines in this process on the
-     serial route: every routine in s and d at n = 4096 and in c and z at
-     2048, nb = 128, the --ref runners (gesv, heev, svd, gels) in all four
-     types at 2048, and posv in s at n = 4000 (its ragged last panel
+     serial route: every routine in s and d at n = 3072 and in c and z at
+     1536 (4096 and 2048 before slice 21), nb = 128, the --ref runners
+     (gesv, heev, svd, gels) in all four types at 1536 (2048 before),
+     and posv in s at n = 4000 (its ragged last panel
      factors on K1); every table row printed, a JSON line a command with
      each row's driver time, whole-runner wall, error, status and the
      kernels it launched: posv's K2 and K0, gesv_tntpiv's K4 and K3,
@@ -291,9 +292,27 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      them, none on a d, c or z row; any FAILED or ERROR row fails; then
      ex01-ex14 (run_all) in a fourth one-rank NCCL world (the gloo
      children run them in their 2 x 2 world: gloo_2x2_slice19);
- 19. print the launch counts, the card line, the kernels line, and last
-     the result line.  A kernel's launch count adds its wrapper's eager
-     launches and those its CUDA graphs' replays ran.
+ 19. slice 21 (its own generator, --seed + 20), the wide widths: right
+     after K2's late panels, K1 at n = 256, 512 and 1024 and on an
+     indefinite 512 tile (the same first bad pivot, 300, as the plain
+     version), K2 at [M, K] = [10240, 10240] at nb = 256 and 512 and at
+     [2048, 1000] with a transposed left (a ragged K, plain-load
+     staging), K0 at n = 256 and 512 on a Cholesky U and on a pivoted
+     LU's U (within 1e-5 of f64), K3 at W = 20480 and W = nb at nb = 256
+     and 512 on diagonally dominant panels, each against its plain
+     version, timed beside its bound and library call, launched twice
+     bit for bit; after the main posv, posv_nb256 and posv_nb512 on its
+     matrix (K2 239 and 119, K0 79 and 39 launches, its accuracy bounds,
+     warm wall and device busy time beside nb = 128's); after the NoPiv
+     route, gesv_nopiv_nb256 on its matrix (K3 63 launches) and
+     potrf_ooc_default_width (n = 8192 at ooc_panel_width's 256: K1 32
+     launches, walls beside in-core posv's); slice 15's shims phase now
+     holds the f32 LAPACK posv at 4096 (nb 256) to K2 47 and K0 15
+     launches;
+ 20. print the launch counts, the card line, the kernels line (K0-K3
+     with a "wide" list of their wide rows), and last the result line.
+     A kernel's launch count adds its wrapper's eager launches and those
+     its CUDA graphs' replays ran.
 With --trace it also breaks one warm posv, one warm CALU gesv, one warm
 QR gels and one warm serving stream down by phase (host clock) and by
 kernel (torch.profiler), with the device's idle share, and the gesv's K4
@@ -319,8 +338,8 @@ zero-pivot tiles from an eighth, --seed + 7, the robustness phases' square
 matrices from a ninth, --seed + 8, and their least-squares problems from a
 tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
 from --seed + 14, slice 14's from --seed + 15, slice 15's from
---seed + 16, slice 16's from --seed + 17, slice 17's from --seed + 18
-and slice 18's from --seed + 19, so that
+--seed + 16, slice 16's from --seed + 17, slice 17's from --seed + 18,
+slice 18's from --seed + 19 and slice 21's from --seed + 20, so that
 adding to one slice moves no other's matrices (slice 19 draws from no
 generator of this script: the tester's runners and the examples draw
 from their own fixed seeds, the reference's);
@@ -499,19 +518,25 @@ def k2_launch_times(fn, reps: int = 5) -> dict:
 
     def pick(tag):
         return sum(v for k, v in by_name.items() if tag in k)
+    # the wide widths' factor and K0 launches are the *_wide_kernel ones,
+    # their solve wide_factor.cuh's wf_solve_kernel
     parts = {"update": pick("chol_panel_update_kernel"),
-             "factor": pick("chol_panel_factor_kernel"),
-             "solve": pick("chol_panel_solve_kernel")}
+             "factor": pick("chol_panel_factor"),
+             "solve": (pick("chol_panel_solve_kernel")
+                       + pick("wf_solve_kernel"))}
     return {"k2_own_ms": sum(parts.values()), "k2_launch_ms": parts,
-            "k0_ms": pick("upper_tri_inv_kernel")}
+            "k0_ms": pick("upper_tri_inv")}
 
 
 def k3_launch_times(fn, reps: int = 5) -> dict:
     """K3's own launches (the factor with U^-1, the rows below) per call
     of a lu_panel_fused ``fn``: device ms by launch, from torch.profiler."""
     by_name = device_ms(fn, reps, per_launch=True)
+    # at nb = 256 .. 512: lu_panel_factor_wide_kernel and wf_solve_kernel
+    tags = {"factor": ("lu_panel_factor",),
+            "below": ("lu_panel_below_kernel", "wf_solve_kernel")}
     parts = {part: sum(v for k, v in by_name.items()
-                       if f"lu_panel_{part}_kernel" in k)
+                       if any(t in k for t in tags[part]))
              for part in ("factor", "below")}
     return {"k3_own_ms": sum(parts.values()), "k3_launch_ms": parts}
 
@@ -4698,9 +4723,10 @@ def check_shims(st, gen, reset, counts, failures) -> None:
     """The LAPACK shims gesv, posv and gels at n = 4096 in f64 (gels on
     2n x n), and the C API's dgesv and dposv called through ctypes
     pointers into numpy buffers as the C host calls them, on the card:
-    the backward errors, the hand kernels each launched (none: every
-    kernel is f32, and the shims' tile size, 256 at this n, lies past K1's
-    and K2's gates), and an f32 posv through the shim to show that gate."""
+    the backward errors, the hand kernels each launched (none on the f64
+    rows: every kernel is f32), and an f32 posv through the shim, whose
+    tile size (256 at this n) K2 and K0 take since slice 21: every panel
+    launches them, as wide_posv_launches counts."""
     from slate_tpu_torch.compat import capi, lapack
     ns, k = SHIM_N, SHIM_NRHS
     g = torch.randn(ns, ns, generator=gen, device="cuda", dtype=torch.float64)
@@ -4756,13 +4782,15 @@ def check_shims(st, gen, reset, counts, failures) -> None:
         if name.startswith("capi"):
             rc, out = out
         err = check(out)
-        bound = ns * (EPS32 if name.endswith("float32") else EPS64)
+        f32 = name.endswith("float32")
+        bound = ns * (EPS32 if f32 else EPS64)
+        want = wide_posv_launches(ns, lapack._nb(ns)) if f32 else {}
         rows[name] = {"rc": rc, "backward_error": err, "bound": bound,
                       "wall_s": wall, "hand_kernels_launched": launches,
                       "nb": lapack._nb(ns)}
-        if rc != 0 or not err < bound or launches:
+        if rc != 0 or not err < bound or launches != want:
             failures.append(f"{name}: rc {rc}, backward error {err} (bound "
-                            f"{bound}), launches {launches} (want none)")
+                            f"{bound}), launches {launches} (want {want})")
     emit({"phase": "shims", "n": ns, "nrhs": k, "gels_m": 2 * ns,
           "dtype": "float64", "rows": rows})
 
@@ -5940,11 +5968,20 @@ def check_slice18(st, seed, nb, reset, counts, trace) -> dict:
 # at 2048, and posv at n = 4000, whose last 32-column panel factors on K1
 # (at n = 4096 every posv panel is K2's fused step, K1's loop inside its
 # factor launch)
+# the tester's sizes: s and d at TESTER_N, c, z and --ref at
+# TESTER_SMALL_N (4096 and 2048 before slice 21, cut to keep the smoke
+# inside its limit on a slow host: the tester's time is mostly the
+# reference's host-side generators, ~n^3)
+TESTER_N = 3072
+TESTER_SMALL_N = 1536
 TESTER_RUNS = (
-    ("tester_sd", ["all", "--type", "s,d", "--dims", "4096", "--nb", "128"]),
-    ("tester_cz", ["all", "--type", "c,z", "--dims", "2048", "--nb", "128"]),
+    ("tester_sd", ["all", "--type", "s,d", "--dims", str(TESTER_N),
+                   "--nb", "128"]),
+    ("tester_cz", ["all", "--type", "c,z", "--dims", str(TESTER_SMALL_N),
+                   "--nb", "128"]),
     ("tester_ref", ["--ref", "gesv", "heev", "svd", "gels", "--type",
-                    "s,d,c,z", "--dims", "2048", "--nb", "128"]),
+                    "s,d,c,z", "--dims", str(TESTER_SMALL_N), "--nb",
+                    "128"]),
     ("tester_k1", ["posv", "--type", "s", "--dims", "4000", "--nb", "128"]),
 )
 
@@ -5957,12 +5994,13 @@ def tester_launches(kernels, fits) -> dict:
     expected_calu_launches, one K5 a panel of the 2n x n geqrf and gels)."""
     zero = {name: 0 for name in kernels}
     want = {}
-    for n in (4096, 4000):
+    for n in (TESTER_N, 4000):
         want[("posv", "s", n)] = {**zero, **expected_posv_launches(n, 128)}
-    want[("gesv_tntpiv", "s", 4096)] = {
-        **zero, **expected_calu_launches(4096, 128, fits)}
+    want[("gesv_tntpiv", "s", TESTER_N)] = {
+        **zero, **expected_calu_launches(TESTER_N, 128, fits)}
     for routine in ("geqrf", "gels"):
-        want[(routine, "s", 4096)] = {**zero, "qr_panel": 4096 // 128}
+        want[(routine, "s", TESTER_N)] = {**zero,
+                                          "qr_panel": TESTER_N // 128}
     return want
 
 
@@ -6061,6 +6099,241 @@ def check_slice19(st, kernels, reset, counts) -> dict:
     return out
 
 
+# slice 21: K0-K3 at the reference's wide widths.  K1 takes tiles up to
+# 1024, K0, K2 and K3 panels of 256, 384 and 512 columns (one
+# thread-block cluster factors the diagonal block in device memory by
+# 128-column blocks: csrc/wide_factor.cuh).  These phases draw from
+# --seed + 20, apart from the posv and NoPiv runs at the wide widths,
+# which reuse the main path's matrices.
+WIDE_NBS = (256, 512)           # posv's panels and K2's, K0's and K3's checks
+WIDE_TILE_NS = (256, 512, 1024)  # K1's tiles
+WIDE_NOPIV_NB = 256
+WIDE_OOC_N = 8192               # potrf_ooc at its default width (256)
+
+
+def wide_posv_launches(n: int, nb: int) -> dict:
+    """K2 and K0 launches of an f32 posv at n on nb-wide panels that K2
+    takes: three K2 launches a panel with rows below, two on the last, one
+    K0 a panel with rows below."""
+    panels = -(-n // nb)
+    return {"chol_panel_fused": 3 * panels - 1,
+            "upper_tri_inv": panels - 1}
+
+
+def check_wide_kernels(gen) -> dict:
+    """K1 at n = 256, 512 and 1024 and on an indefinite 512 tile (the same
+    first bad pivot as the plain version); K2 at [M, K] = [10240, 10240]
+    at nb = 256 and 512 and at a ragged K = 1000 with a transposed left;
+    K0 at n = 256 and 512 on a Cholesky U, and on a partially pivoted
+    LU's U within 1e-5 of the f64 inverse; K3 at W = 20480 and W = nb at
+    nb = 256 and 512.  Each against its plain version, timed beside its
+    bound and the library call, launched twice and compared bit for bit.
+    Returns {kernel name: [rows]}."""
+    from slate_tpu_torch.internal.chol_kernels import (chol_tile,
+                                                       chol_tile_plain)
+    from slate_tpu_torch.internal.lu_kernels import (lu_panel_fused,
+                                                     lu_panel_plain)
+    from slate_tpu_torch.internal.tri_inv import (upper_tri_inv,
+                                                  upper_tri_inv_plain)
+    rows = {"chol_tile": [], "chol_panel_fused": [], "upper_tri_inv": [],
+            "lu_panel_fused": []}
+
+    def repeat(name, shape, got, again):
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        if not same:
+            raise AssertionError(f"{name} {shape}: two launches on the "
+                                 f"same input differ")
+        return same
+
+    for n in WIDE_TILE_NS:
+        a = spd(n, gen)
+        got = chol_tile(a, 8)
+        row = check(
+            "chol_tile", {"n": n, "bw": 8}, [got], [chol_tile_plain(a, 8)],
+            "the kernel's 128-column diagonal blocks (32-column blocks "
+            "inside) against the reference's bw = 8 slabs: the same factor, "
+            "f32 sums in another order, on A with cond <= ~5",
+            time_ms(lambda: chol_tile(a, 8), 20),
+            time_ms(lambda: chol_tile_plain(a, 8), 2),
+            time_ms(lambda: torch.linalg.cholesky_ex(a), 20),
+            op_flops("potrf", (n, n)), 4 * (n * (n + 1) // 2 + n * n))
+        row["bitwise_repeatable"] = repeat("chol_tile", n, [got],
+                                           [chol_tile(a, 8)])
+        rows["chol_tile"].append(row)
+    check_first_bad_pivot(gen, n=512, at=300)
+    for m, k, left_t, nb in ((10240, 10240, False, 256),
+                             (10240, 10240, False, 512),
+                             (2048, 1000, True, 256)):
+        rows["chol_panel_fused"].append(check_chol_panel(gen, m, k, left_t,
+                                                         nb))
+    for n in WIDE_NBS:
+        u = torch.linalg.cholesky(spd(n, gen)).mT.contiguous()
+        eye = torch.eye(n, device="cuda")
+        got = upper_tri_inv(u)
+        row = check(
+            "upper_tri_inv", {"n": n}, [got], [upper_tri_inv_plain(u)],
+            "blocked doubling in both (128 x 128 diagonal blocks joined by "
+            "tiled products in the kernel), sums in another order, on U "
+            "with cond <= ~3",
+            time_ms(lambda: upper_tri_inv(u), 20),
+            time_ms(lambda: upper_tri_inv_plain(u), 3),
+            time_ms(lambda: torch.linalg.solve_triangular(u, eye, upper=True),
+                    20),
+            op_flops("trtri", (n, n)), 4 * (n * (n + 1) // 2 + n * n))
+        row["bitwise_repeatable"] = repeat("upper_tri_inv", n, [got],
+                                           [upper_tri_inv(u)])
+        g = torch.randn(4 * n, n, generator=gen, device="cuda")
+        up = torch.triu(torch.linalg.lu_factor(g)[0][:n]).contiguous()
+        x64 = torch.linalg.inv(up.double())
+        xp = upper_tri_inv(up)
+        rel = float((xp.double() - x64).abs().max() / x64.abs().max())
+        rel_plain = float((xp - upper_tri_inv_plain(up)).abs().max()
+                          / x64.abs().max())
+        repeat("upper_tri_inv", (n, "pivoted"), [xp], [upper_tri_inv(up)])
+        emit({"phase": "upper_tri_inv_pivoted_u", "n": n,
+              "rel_err_vs_f64": rel, "tol": 1e-5,
+              "rel_diff_vs_plain": rel_plain,
+              "cond": float(torch.linalg.cond(up.double()))})
+        row["pivoted_u_rel_err_vs_f64"] = rel
+        if not rel < 1e-5:
+            raise AssertionError(f"upper_tri_inv on a pivoted U at {n}: "
+                                 f"{rel} from the f64 inverse (tolerance "
+                                 f"1e-5)")
+        rows["upper_tri_inv"].append(row)
+    for nb in WIDE_NBS:
+        for w in (20480, nb):
+            # diagonally dominant top block: the no-pivot factor is stable
+            # at any width, so kernel and plain differ by sum order alone
+            x = torch.randn(w, nb, generator=gen, device="cuda")
+            x[:nb] += nb * torch.eye(nb, device="cuda")
+
+            def library():
+                return torch.linalg.lu_factor_ex(x, pivot=False)[0]
+            got = lu_panel_fused(x, 8)
+            times = k3_launch_times(lambda: lu_panel_fused(x, 8))
+            row = check(
+                "lu_panel_fused", {"W": w, "nb": nb, "bw": 8}, [got],
+                [lu_panel_plain(x, 8)],
+                "128-column diagonal blocks (32-column blocks inside) on "
+                "one cluster against the reference's bw = 8 slabs, U^-1 by "
+                "blocked doubling in both, f32 sums in another order, on a "
+                "diagonally dominant panel (|L| ~ 1 / nb); the library's "
+                "unpivoted LU as a witness",
+                time_ms(lambda: lu_panel_fused(x, 8), 10),
+                time_ms(lambda: lu_panel_plain(x, 8), 2),
+                time_ms(library, 10),
+                panel_flops(w, 0, nb, "getrf"), 4 * 2 * w * nb,
+                witness=[library()])
+            row.update(times, bitwise_repeatable=repeat(
+                "lu_panel_fused", (w, nb), [got], [lu_panel_fused(x, 8)]))
+            emit({"phase": "lu_panel_plan", "W": w, "nb": nb, **times,
+                  "bitwise_repeatable": True, "kernel_ms": row["kernel_ms"]})
+            rows["lu_panel_fused"].append(row)
+    return rows
+
+
+def check_wide_posv(st, a, b, x64, nb, kernels, reset, counts,
+                    card) -> dict:
+    """posv on the main path's matrix at nb = 256 and 512 beside the nb =
+    128 route of the same run: K2 and K0 on every panel
+    (wide_posv_launches), PERF.md's accuracy bounds, cold and warm walls
+    and the device's busy time of a warm run (torch.profiler)."""
+    n = a.shape[0]
+    base_warm = min(run_posv(st, a, b, nb)[1] for _ in range(2))
+    base_busy = device_busy(lambda: run_posv(st, a, b, nb))
+    out = {}
+    for wnb in WIDE_NBS:
+        reset()
+        x, cold = run_posv(st, a, b, wnb)
+        launches = counts()
+        warm = min(run_posv(st, a, b, wnb)[1] for _ in range(2))
+        busy = device_busy(lambda: run_posv(st, a, b, wnb))
+        res, fwd = accuracy(a, x, b, x64)
+        want = {**{name: 0 for name in kernels},
+                **wide_posv_launches(n, wnb)}
+        emit({"phase": f"posv_nb{wnb}", "n": n, "nb": wnb,
+              "nrhs": b.shape[1], "wall_s": cold, "wall_s_warm": warm,
+              "device_busy_s": busy, "nb128_wall_s_warm": base_warm,
+              "nb128_device_busy_s": base_busy,
+              "scaled_residual": res, "residual_bound": RESIDUAL_BOUND,
+              "forward_error_vs_f64": fwd, "forward_bound": FORWARD_BOUND,
+              "launches": launches, "want": want, "card": card})
+        if not (torch.isfinite(x).all() and launches == want
+                and res < RESIDUAL_BOUND and fwd < FORWARD_BOUND):
+            raise AssertionError(f"posv at nb = {wnb}: launches {launches} "
+                                 f"(want {want}), residual {res}, forward "
+                                 f"{fwd}")
+        out[f"posv_nb{wnb}"] = launches
+    return out
+
+
+def check_wide_nopiv(st, a, b, kernels, reset, counts, card) -> dict:
+    """NoPiv gesv on the NoPiv phase's matrix at nb = 256: K3 on every
+    panel (two launches a panel with rows below, one on the last), under
+    that phase's bounds."""
+    n, nb = a.shape[0], WIDE_NOPIV_NB
+    opts = {st.Option.MethodLU: st.MethodLU.NoPiv}
+    reset()
+    _, x, wall = run_gesv(st, a, b, nb, opts)
+    launches = counts()
+    _, _, warm = run_gesv(st, a, b, nb, opts)
+    res, fwd = accuracy(a, x, b, torch.linalg.solve(a.double(), b.double()))
+    want = {**{name: 0 for name in kernels},
+            "lu_panel_fused": 2 * (n // nb) - 1}
+    emit({"phase": f"gesv_nopiv_nb{nb}", "n": n, "nb": nb, "wall_s": wall,
+          "wall_s_warm": warm, "scaled_residual": res,
+          "forward_error_vs_f64": fwd, "launches": launches, "card": card})
+    if (launches != want or not res < GESV_RESIDUAL_BOUND
+            or not fwd < GESV_FORWARD_BOUND):
+        raise AssertionError(f"NoPiv at nb = {nb}: launches {launches} "
+                             f"(want {want}), residual {res}, forward {fwd}")
+    return {f"gesv_nopiv_nb{nb}": launches}
+
+
+def check_wide_ooc(st, gen, nrhs, kernels, reset, counts, card) -> dict:
+    """potrf_ooc at WIDE_OOC_N, f32, at its default width (256, from
+    ooc_panel_width on the empty plan cache): K1 once a step at 256, the
+    factor against the in-core potrf's, its residual, the walls beside
+    in-core posv's at nb = 128 and 256."""
+    from slate_tpu_torch.tune.plans import ooc_panel_width
+    n = WIDE_OOC_N
+    nb = ooc_panel_width(n)
+    g = torch.randn(n, n, generator=gen, device="cuda")
+    a = g @ g.T
+    del g
+    a.diagonal().add_(n)
+    b = torch.randn(n, nrhs, generator=gen, device="cuda")
+    a_h = a.cpu().numpy()
+    l_in = st.potrf(st.HermitianMatrix.from_numpy(a, nb)).to_dense()
+    posv = {f"incore_posv_nb{w}_wall_s_warm":
+            min(run_posv(st, a, b, w)[1] for _ in range(3))
+            for w in (128, nb)}
+    reset()
+    lfac, wall = _timed(lambda: st.potrf_ooc(a_h))
+    launches = counts()
+    lfac2, warm = _timed(lambda: st.potrf_ooc(a_h))
+    repeat = bool(np.array_equal(lfac, lfac2))
+    lt = torch.from_numpy(lfac).cuda()
+    agree = float((lt - l_in).abs().max() / l_in.abs().max())
+    l64 = lt.double()
+    res = rel_factor_residual(a, l64 @ l64.T)
+    del l64, lt, l_in, lfac2
+    want = {**{name: 0 for name in kernels}, "chol_tile": -(-n // nb)}
+    bound = n * EPS32
+    emit({"phase": "potrf_ooc_default_width", "n": n, "nb": nb,
+          "dtype": "float32", "rel_max_diff_vs_incore_potrf": agree,
+          "tol": RTOL, "factor_residual": res, "residual_bound": bound,
+          "launches": launches, "wall_s": wall, "wall_s_warm": warm,
+          **posv, "bitwise_repeatable": repeat, "card": card})
+    if not (nb == 256 and np.isfinite(lfac).all() and launches == want
+            and agree <= RTOL and res < bound and repeat):
+        raise AssertionError(f"potrf_ooc at its default width {nb}: "
+                             f"launches {launches} (want {want}), diff "
+                             f"{agree}, residual {res}, repeatable {repeat}")
+    return {"potrf_ooc_default_width": launches}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6147,6 +6420,9 @@ def main(argv=None) -> int:
     # K2's late panels and K0's pivoted U: a fifth generator
     check_k2_k0_edges(torch.Generator(device="cuda").manual_seed(
         args.seed + 4))
+    # slice 21: K0-K3 at the wide widths, from --seed + 20
+    wide_gen = torch.Generator(device="cuda").manual_seed(args.seed + 20)
+    wide_rows = check_wide_kernels(wide_gen)
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -6191,6 +6467,9 @@ def main(argv=None) -> int:
             "upper_tri_inv": n // nb - 1}
     if main_launches != want:
         raise AssertionError(f"posv launches {main_launches} != {want}")
+    # ---- slice 21: the same posv at nb = 256 and 512 ----
+    wide_launches = check_wide_posv(st, a, b, x64, nb, kernels, reset,
+                                    counts, card)
     del x, x64, x_tf
     if args.trace:
         trace_posv(st, a, b, nb)
@@ -6328,7 +6607,13 @@ def main(argv=None) -> int:
             or not fwd_n < GESV_FORWARD_BOUND):
         raise AssertionError(f"NoPiv route: launches {nopiv_launches} (want "
                              f"{want_n}), residual {res_n}, forward {fwd_n}")
+    # ---- slice 21: the NoPiv route at nb = 256, potrf_ooc at 256 ----
+    wide_launches.update(check_wide_nopiv(st, a_n, b_n, kernels, reset,
+                                          counts, card))
     del a_n, b_n, x_n
+    torch.cuda.empty_cache()
+    wide_launches.update(check_wide_ooc(st, wide_gen, nrhs, kernels, reset,
+                                        counts, card))
 
     # ---- a small CALU solve held against the same solve on the CPU ----
     a_s = orthogonal(ns, gen)
@@ -6489,27 +6774,38 @@ def main(argv=None) -> int:
                             **slice12_launches, **slice13_launches,
                             **slice14_launches, **slice15_launches,
                             **slice16_launches, **slice17_launches,
-                            **slice18_launches, "tester": tester_total}})
+                            **slice18_launches, **wide_launches,
+                            "tester": tester_total}})
     replaces = {
         "upper_tri_inv": ("slate_tpu_torch/csrc/tri_inv.cu",
-                          "slate_tpu/internal/pallas_tri.py:28", "posv",
-                          main_launches),
+                          "slate_tpu/internal/pallas_tri.py:28",
+                          "posv+posv_nb256+posv_nb512",
+                          sum_launches("upper_tri_inv", main_launches,
+                                       wide_launches["posv_nb256"],
+                                       wide_launches["posv_nb512"])),
         "chol_tile": ("slate_tpu_torch/csrc/chol_tile.cu",
                       "slate_tpu/internal/pallas_chol.py:320",
-                      "posv_tile_route+potrf_ooc+dist_posv+dist_gels_cholqr"
-                      "+dist_hegv",
+                      "posv_tile_route+potrf_ooc+potrf_ooc_default_width"
+                      "+dist_posv+dist_gels_cholqr+dist_hegv",
                       {"chol_tile": tile_launches["chol_tile"]
                        + slice15_launches["potrf_ooc"]["chol_tile"]
+                       + wide_launches["potrf_ooc_default_width"][
+                           "chol_tile"]
                        + slice16_launches["dist_posv"]["chol_tile"]
                        + slice17_launches["dist_gels_cholqr"]["chol_tile"]
                        + slice18_launches["dist_hegv"]["chol_tile"]}),
         "chol_panel_fused": ("slate_tpu_torch/csrc/chol_panel.cu",
-                             "slate_tpu/internal/pallas_chol.py:180", "posv",
-                             main_launches),
+                             "slate_tpu/internal/pallas_chol.py:180",
+                             "posv+posv_nb256+posv_nb512",
+                             sum_launches("chol_panel_fused", main_launches,
+                                          wide_launches["posv_nb256"],
+                                          wide_launches["posv_nb512"])),
         "lu_panel_fused": ("slate_tpu_torch/csrc/lu_panel.cu",
                            "slate_tpu/internal/pallas_lu.py:217",
-                           "gesv_calu+dist_gesv+dist_gesv_nopiv+dist_rbt",
+                           "gesv_calu+gesv_nopiv_nb256+dist_gesv"
+                           "+dist_gesv_nopiv+dist_rbt",
                            sum_launches("lu_panel_fused", calu_launches,
+                                        wide_launches["gesv_nopiv_nb256"],
                                         *(slice17_launches[k] for k in (
                                             "dist_gesv", "dist_gesv_nopiv",
                                             "dist_rbt")))),
@@ -6551,7 +6847,13 @@ def main(argv=None) -> int:
                                           "k0_ms", "wrapper_ms",
                                           "library_cholesky_ms",
                                           "library_device_ms")
-                        if k in r}})
+                        if k in r},
+                     **({"wide": [{k: w[k] for k in (
+                         "shape", "max_abs_err", "kernel_ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms",
+                         "bitwise_repeatable") if k in w}
+                         for w in wide_rows[name]]}
+                        if name in wide_rows else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": line})

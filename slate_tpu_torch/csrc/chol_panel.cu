@@ -44,6 +44,19 @@
 // strides take the kernel's plain-load staging (slate_chol_panel_plan
 // reports which).
 //
+// At the reference's wider panels, nb = 256, 384 and 512 (slate_tpu/
+// internal/potrf.py:59-68), the three launches keep their roles:
+//   (a) takes the panel in 128-column tiles, a third grid dimension: each
+//       (row tile, column tile) is the nb = 128 update above, written into
+//       its columns of upd;
+//   (b) factors the nb x nb diagonal block, which no longer fits one
+//       block's shared memory, by K1's wide route (wide_factor.cuh): one
+//       thread-block cluster, the block in device memory (fac's top rows)
+//       by 128-column diagonal blocks;
+//   (c) one CTA per (128-row tile, 128-column tile) of the rows below
+//       multiplies by the nb x nb U^-1 that the wrapper's K0 launch formed,
+//       summing only over U^-1's rows down to the column tile's end.
+//
 // Bound on this card: 2 M K nb flops of the update plus nb^3/3 + (M - nb)
 // nb^2 of the factor and the triangular solve, against the bytes of col,
 // left, lead, upd and fac read or written once. With K >= nb it is bound by
@@ -59,6 +72,7 @@
 #include "chol_factor.cuh"
 #include "common.cuh"
 #include "panel_gemm.cuh"
+#include "wide_factor.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -72,7 +86,9 @@ constexpr size_t update_smem_bytes() {
   return sizeof(float) * (ring > partial ? ring : partial);
 }
 
-// (a): upd for the 128-row tile blockIdx.y, K split over the cluster.
+// (a): upd for the 128-row tile blockIdx.y, K split over the cluster; its
+// columns NB blockIdx.z .. + NB of a panel ldo wide (ldo == NB but at the
+// wide widths, where NB = 128).
 template <int NB>
 __global__ void __launch_bounds__(PanelGemm<NB>::THREADS, 2)
 chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
@@ -80,9 +96,13 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
                          long long ls0, long long ls1, int fast_left,
                          const float* __restrict__ lead, long long ds0,
                          long long ds1, int fast_lead, int M, int K,
-                         int slices, float* __restrict__ upd) {
+                         int slices, float* __restrict__ upd, int ldo) {
   using G = PanelGemm<NB>;
   extern __shared__ __align__(16) float smem[];
+  const long long c0 = (long long)blockIdx.z * NB;
+  col += c0 * cs1;
+  lead += c0 * ds1;
+  upd += c0;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const long long row0 = (long long)blockIdx.y * PG_BM;
@@ -103,7 +123,7 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tx + G::TX * j;
-        upd[(row0 + r) * NB + c] =
+        upd[(row0 + r) * ldo + c] =
             col[(row0 + r) * cs0 + c * cs1] - acc[i][j];
       }
     }
@@ -115,7 +135,7 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
       out.y = crow[(c + 1) * cs1] - s.y;
       out.z = crow[(c + 2) * cs1] - s.z;
       out.w = crow[(c + 3) * cs1] - s.w;
-      *reinterpret_cast<float4*>(upd + (row0 + r) * NB + c) = out;
+      *reinterpret_cast<float4*>(upd + (row0 + r) * ldo + c) = out;
     });
   }
 }
@@ -145,6 +165,23 @@ chol_panel_factor_kernel(const float* __restrict__ upd, int nb,
   }
 }
 
+// (b) at nb = 256 .. 512, one cluster: fac's top nb x nb = lower(upd_0)
+// with zeros above, factored in place by wf_chol (slots: nb / 128 - 1
+// tiles for the diagonal blocks' inverses).
+__global__ void __launch_bounds__(WF_THREADS)
+chol_panel_factor_wide_kernel(const float* __restrict__ upd, int nb,
+                              float* __restrict__ fac,
+                              float* __restrict__ slots) {
+  extern __shared__ __align__(16) float smem[];
+  const int rank = wf_rank(), ctas = wf_ctas();
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+       idx += ctas * blockDim.x) {
+    fac[idx] = idx % nb > idx / nb ? 0.f : upd[idx];
+  }
+  wf_sync();
+  wf_chol(fac, nb, nb, slots, smem);
+}
+
 // (c): fac rows NB + 128*blockIdx.x .. +128 = upd rows @ U^-1, by the solve
 // body K3 shares (panel_gemm.cuh pg_solve_rows): upd is unit-stride along
 // K with 16-byte aligned rows.
@@ -163,18 +200,20 @@ chol_panel_solve_kernel(const float* __restrict__ upd,
 // Opt the update kernel into its shared memory and into clusters of more
 // than 8, and choose the split *split for an [M, nb] panel K deep: the S
 // in 1..16 that minimises ceil(R / placed(S)) * ceil(slices / S), R the
-// row tiles, placed(S) the clusters of S CTAs the card holds at once, every
+// output tiles (the row tiles times a wide panel's ctiles column tiles),
+// placed(S) the clusters of S CTAs the card holds at once, every
 // CTA at least PANEL_MIN_SLICES slices (ties to the smaller S). *slices =
 // K slices per CTA.
 template <int NB>
-int prepare_update(int device, int M, int K, int* split, int* slices) {
+int prepare_update(int device, int M, int K, int ctiles, int* split,
+                   int* slices) {
   auto kernel = chol_panel_update_kernel<NB>;
   constexpr size_t smem = update_smem_bytes<NB>();
   constexpr int threads = PanelGemm<NB>::THREADS;
   SLATE_SET_SMEM(kernel, smem);
   SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-  const long long tiles = (M + PG_BM - 1) / PG_BM;
+  const long long tiles = (long long)ctiles * ((M + PG_BM - 1) / PG_BM);
   const int total = (K + PG_KC - 1) / PG_KC;
   int best = 1;
   long long best_cost = -1;
@@ -200,9 +239,10 @@ template <int NB>
 int launch_update(cudaStream_t stream, int device, const float* col,
                   long long cs0, long long cs1, const float* left,
                   long long ls0, long long ls1, const float* lead,
-                  long long ds0, long long ds1, int K, int M, float* upd) {
+                  long long ds0, long long ds1, int K, int M, float* upd,
+                  int nb) {
   int split = 1, slices = 0;
-  const int e = prepare_update<NB>(device, M, K, &split, &slices);
+  const int e = prepare_update<NB>(device, M, K, nb / NB, &split, &slices);
   if (e != 0) return e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -210,7 +250,7 @@ int launch_update(cudaStream_t stream, int device, const float* col,
   attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(split, (M + PG_BM - 1) / PG_BM, 1);
+  cfg.gridDim = dim3(split, (M + PG_BM - 1) / PG_BM, nb / NB);
   cfg.blockDim = dim3(PanelGemm<NB>::THREADS, 1, 1);
   cfg.dynamicSmemBytes = update_smem_bytes<NB>();
   cfg.stream = stream;
@@ -219,7 +259,7 @@ int launch_update(cudaStream_t stream, int device, const float* col,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, chol_panel_update_kernel<NB>, col, cs0, cs1, left, ls0, ls1,
       staged_by_copy(left, ls1, ls0), lead, ds0, ds1,
-      staged_by_copy(lead, ds0, ds1), M, K, slices, upd);
+      staged_by_copy(lead, ds0, ds1), M, K, slices, upd, nb);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -235,18 +275,26 @@ int launch_solve(cudaStream_t stream, const float* upd, const float* uinv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// return fn<nb>(args...) for the instantiated widths
+// return fn<nb>(args...) for the instantiated widths, fn<128> for the wide
+// ones
 #define SLATE_PANEL_NB(fn, ...)                              \
   switch (nb) {                                              \
     case 32: return fn<32>(__VA_ARGS__);                     \
     case 64: return fn<64>(__VA_ARGS__);                     \
     case 96: return fn<96>(__VA_ARGS__);                     \
     case 128: return fn<128>(__VA_ARGS__);                   \
+    case 256:                                                \
+    case 384:                                                \
+    case 512: return fn<128>(__VA_ARGS__);                   \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-// Launch (a): upd [M, nb] row-major; nb in {32, 64, 96, 128}, M a
-// multiple of nb.
+static bool panel_nb_ok(int nb) {
+  return nb == 32 || nb == 64 || nb == 96 || nb == 128 || wf_panel_nb(nb);
+}
+
+// Launch (a): upd [M, nb] row-major; nb in {32, 64, 96, 128, 256, 384,
+// 512}, M a multiple of nb.
 extern "C" int slate_chol_panel_update(int device, void* stream,
                                        const float* col, long long cs0,
                                        long long cs1, const float* left,
@@ -257,13 +305,38 @@ extern "C" int slate_chol_panel_update(int device, void* stream,
   SLATE_SET_DEVICE(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SLATE_PANEL_NB(launch_update, s, device, col, cs0, cs1, left, ls0, ls1,
-                 lead, ds0, ds1, K, M, upd)
+                 lead, ds0, ds1, K, M, upd, nb)
 }
 
-// Launch (b): rows 0 .. nb-1 of fac [M, nb] = chol of rows 0 .. nb-1 of upd.
-extern "C" int slate_chol_panel_factor(int device, void* stream,
-                                       const float* upd, int nb, float* fac) {
+// *fits = 1 when K2 takes a panel nb wide on this device: nb in {32, 64,
+// 96, 128} (one block's factor), or 256, 384 or 512 where the card places
+// the wide factor's cluster.
+extern "C" int slate_chol_panel_fits(int device, int nb, int* fits) {
   SLATE_SET_DEVICE(device);
+  *fits = panel_nb_ok(nb);
+  if (*fits && nb > 128) {
+    return wf_fits(chol_panel_factor_wide_kernel, device, fits);
+  }
+  return 0;
+}
+
+// *floats = the scratch launch (b) takes at width nb (0 up to 128).
+extern "C" int slate_chol_panel_work(int device, int nb, int* floats) {
+  *floats = nb > 128 ? nb * WF_T : 0;
+  return 0;
+}
+
+// Launch (b): rows 0 .. nb-1 of fac [M, nb] = chol of rows 0 .. nb-1 of upd;
+// work holds slate_chol_panel_work(nb) floats (null up to 128).
+extern "C" int slate_chol_panel_factor(int device, void* stream,
+                                       const float* upd, int nb, float* fac,
+                                       float* work) {
+  SLATE_SET_DEVICE(device);
+  if (wf_panel_nb(nb)) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return wf_launch(chol_panel_factor_wide_kernel,
+                     static_cast<cudaStream_t>(stream), upd, nb, fac, work);
+  }
   if (nb != 32 && nb != 64 && nb != 96 && nb != 128) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -283,6 +356,9 @@ extern "C" int slate_chol_panel_solve(int device, void* stream,
                                       int nb, int M, float* fac) {
   SLATE_SET_DEVICE(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wf_panel_nb(nb)) {
+    return wf_launch_solve<PG_COPY16>(s, upd, nb, 1, M, nb, uinv, fac);
+  }
   SLATE_PANEL_NB(launch_solve, s, upd, uinv, M, fac)
 }
 
@@ -298,5 +374,6 @@ extern "C" int slate_chol_panel_plan(int device, int M, int K, int nb,
   int slices = 0;
   *staging = staged_by_copy(left, ls1, ls0) + 2 * staged_by_copy(lead, ds0,
                                                                  ds1);
-  SLATE_PANEL_NB(prepare_update, device, M, K, split, &slices)
+  SLATE_PANEL_NB(prepare_update, device, M, K, nb > 128 ? nb / 128 : 1,
+                 split, &slices)
 }

@@ -18,10 +18,18 @@
 // block. The kernel's blocking is its own: the reference's slab width bw
 // is the plain version's business, not the kernel's. Returns L with exact
 // zeros above the diagonal.
+//
+// Past n = 128 (up to 1024, the reference's widest tile, pallas_chol.py
+// :316 under slate_tpu/internal/potrf.py:40-43) the tile does not fit one
+// block: the wide route (wide_factor.cuh) copies it, padded to np, the next
+// multiple of 128, with the identity, into a device-memory workspace and
+// factors it there by 128-column diagonal blocks on one thread-block
+// cluster, in one launch.
 #include <cstdint>
 
 #include "common.cuh"
 #include "chol_factor.cuh"
+#include "wide_factor.cuh"
 
 constexpr int TILE_THREADS = 512;
 
@@ -72,10 +80,70 @@ chol_tile_kernel(const float* __restrict__ a, long long as0, long long as1,
   }
 }
 
+// The wide route, one cluster: w (np x np, row-major) = lower(a) padded
+// with the identity, factored by wf_chol (slots: np / 128 - 1 tiles for the
+// diagonal blocks' inverses), then l (n x n) = its lower n x n corner.
+__global__ void __launch_bounds__(WF_THREADS)
+chol_tile_wide_kernel(const float* __restrict__ a, long long as0,
+                      long long as1, float* __restrict__ l, int n,
+                      float* __restrict__ w, int np,
+                      float* __restrict__ slots) {
+  extern __shared__ __align__(16) float smem[];
+  const int rank = wf_rank(), ctas = wf_ctas();
+  const long long stride = (long long)ctas * blockDim.x;
+  for (long long idx = (long long)rank * blockDim.x + threadIdx.x;
+       idx < (long long)np * np; idx += stride) {
+    const int r = (int)(idx / np), c = (int)(idx % np);
+    float v = r == c ? 1.f : 0.f;
+    if (r < n && c <= r) v = a[r * as0 + c * as1];
+    w[idx] = v;
+  }
+  wf_sync();
+  wf_chol(w, np, np, slots, smem);
+  for (long long idx = (long long)rank * blockDim.x + threadIdx.x;
+       idx < (long long)n * n; idx += stride) {
+    const int r = (int)(idx / n), c = (int)(idx % n);
+    l[idx] = __ldcg(w + (long long)r * np + c);
+  }
+}
+
+// *floats = the workspace of the wide route for an n x n tile (0 at n <=
+// 128, where the one-block kernel takes it).
+extern "C" int slate_chol_tile_work(int device, int n, int* floats) {
+  const int np = (n + WF_T - 1) / WF_T * WF_T;
+  *floats = n <= 128 ? 0 : np * np + np * WF_T;
+  return 0;
+}
+
+// *fits = 1 when K1 takes an n x n tile on this device: n % 32 == 0 and
+// 32 <= n <= 1024 (one block's shared memory up to 128, one cluster of the
+// wide route past it).
+extern "C" int slate_chol_tile_fits(int device, int n, int* fits) {
+  SLATE_SET_DEVICE(device);
+  *fits = 0;
+  if (n % CF_BLOCK || n < CF_BLOCK || n > WF_MAX_TILE) return 0;
+  if (n <= 128) {
+    *fits = 1;
+    return 0;
+  }
+  return wf_fits(chol_tile_wide_kernel, device, fits);
+}
+
+// One launch for one n x n tile, within slate_chol_tile_fits; work holds
+// slate_chol_tile_work(n) floats (null at n <= 128).
 extern "C" int slate_chol_tile(int device, void* stream, const float* a,
                                long long as0, long long as1, float* l,
-                               int n) {
+                               int n, float* work) {
   SLATE_SET_DEVICE(device);
+  if (n > 128) {
+    if (n % CF_BLOCK || n > WF_MAX_TILE || work == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int np = (n + WF_T - 1) / WF_T * WF_T;
+    return wf_launch(chol_tile_wide_kernel, static_cast<cudaStream_t>(stream),
+                     a, as0, as1, l, n, work, np,
+                     work + (long long)np * np);
+  }
   const int np = (n + CF_BLOCK - 1) / CF_BLOCK * CF_BLOCK;
   const size_t smem = sizeof(float) * ((size_t)np * (np + 4) +
                                        chol_factor_scratch(TILE_THREADS));

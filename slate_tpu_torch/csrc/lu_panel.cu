@@ -30,9 +30,22 @@
 // 3.35 TB/s = 20, so bound by bytes. The products are FFMA on the CUDA
 // cores (the reference asks for Precision.HIGHEST, so never TF32); the
 // strips' product with U^-1 takes 20/32 of a full product's FMAs.
+//
+// At the reference's wider panels, nb = 256, 384 and 512 (slate_tpu/
+// internal/getrf.py:67-75), the top block no longer fits one block's
+// shared memory, and the two launches keep their roles:
+//   (a) one thread-block cluster copies the top nb x nb into out's top
+//       rows and factors it there by 128-column diagonal blocks, each in
+//       lu_factor.cuh's one-block routine on one CTA (wide_factor.cuh
+//       wf_lu), then forms U^-1 by the blocked doubling one level up
+//       (wf_tri_inv), in the same launch;
+//   (b) one CTA per (128-row tile, 128-column tile) of the rows below
+//       multiplies by that U^-1 (wide_factor.cuh wf_solve_kernel), summing
+//       only over U^-1's rows down to the column tile's end.
 #include "common.cuh"
 #include "lu_factor.cuh"
 #include "panel_gemm.cuh"
+#include "wide_factor.cuh"
 
 // (a): row tile 0 of the panel, factored, into rows 0 .. nb-1 of out; U^-1
 // into uinv unless it is null.
@@ -99,26 +112,72 @@ static bool panel_nb_ok(int nb) {
   return nb == 32 || nb == 64 || nb == 96 || nb == 128;
 }
 
+// (a) at nb = 256 .. 512, one cluster: out's top nb x nb = the panel's top
+// block, factored in place by wf_lu (work: 2 (nb / 128) slots of 128 x 128
+// for the diagonal blocks' inverses, then nb x nb for wf_tri_inv's
+// scratch), and U^-1 into uinv [nb, nb] unless it is null.
+__global__ void __launch_bounds__(WF_THREADS)
+lu_panel_factor_wide_kernel(const float* __restrict__ p, long long ps0,
+                            long long ps1, int nb, int bw,
+                            float* __restrict__ out,
+                            float* __restrict__ uinv,
+                            float* __restrict__ work) {
+  extern __shared__ __align__(16) float smem[];
+  const int rank = wf_rank(), ctas = wf_ctas();
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+       idx += ctas * blockDim.x) {
+    out[idx] = p[(idx / nb) * ps0 + (idx % nb) * ps1];
+  }
+  wf_sync();
+  wf_lu(out, nb, nb, bw, work, smem);
+  if (uinv != nullptr) {
+    wf_tri_inv(out, uinv, work + 2 * nb * WF_T, nb, nb, smem);
+  }
+}
+
 // *fits = 1 when K3 takes a panel of width nb at slab width bw on this
-// device: nb in {32, 64, 96, 128} (whole 32-column blocks, at most the 128
-// columns of (b)'s tile), bw divides nb, and (a)'s shared memory within one
-// block's opt-in limit; else 0.
+// device: bw divides nb, and nb in {32, 64, 96, 128} (whole 32-column
+// blocks, at most the 128 columns of (b)'s tile) with (a)'s shared memory
+// within one block's opt-in limit, or nb in {256, 384, 512} with bw
+// dividing 128 (a slab inside one diagonal block) where the card places
+// the wide factor's cluster; else 0.
 extern "C" int slate_lu_panel_fits(int device, int nb, int bw, int* fits) {
+  SLATE_SET_DEVICE(device);
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  *fits = panel_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
-          lu_factor_launch_bytes(nb) <= (size_t)limit;
+  *fits = bw >= 1 && nb % bw == 0 &&
+          ((panel_nb_ok(nb) && lu_factor_launch_bytes(nb) <= (size_t)limit) ||
+           (wf_panel_nb(nb) && WF_T % bw == 0));
+  if (*fits && nb > 128) {
+    return wf_fits(lu_panel_factor_wide_kernel, device, fits);
+  }
+  return 0;
+}
+
+// *floats = the scratch launch (a) takes at width nb (0 up to 128).
+extern "C" int slate_lu_panel_work(int device, int nb, int* floats) {
+  *floats = nb > 128 ? 2 * nb * WF_T + nb * nb : 0;
   return 0;
 }
 
 // Launch (a), within slate_lu_panel_fits; out is [W, nb] row-major and (a)
 // writes its rows 0 .. nb-1; uinv is [nb, nb] row-major scratch for (b), or
-// null when W == nb.
+// null when W == nb; work holds slate_lu_panel_work(nb) floats (null up to
+// 128).
 extern "C" int slate_lu_panel_factor(int device, void* stream, const float* p,
                                      long long ps0, long long ps1, int nb,
-                                     int bw, float* out, float* uinv) {
+                                     int bw, float* out, float* uinv,
+                                     float* work) {
   SLATE_SET_DEVICE(device);
+  if (wf_panel_nb(nb)) {
+    if (bw < 1 || WF_T % bw || work == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return wf_launch(lu_panel_factor_wide_kernel,
+                     static_cast<cudaStream_t>(stream), p, ps0, ps1, nb, bw,
+                     out, uinv, work);
+  }
   if (!panel_nb_ok(nb) || bw < 1 || nb % bw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -138,6 +197,11 @@ extern "C" int slate_lu_panel_below(int device, void* stream, const float* p,
   SLATE_SET_DEVICE(device);
   if (W <= nb || W % nb) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wf_panel_nb(nb)) {
+    return staged_by_copy(p, ps1, ps0)
+               ? wf_launch_solve<PG_COPY16>(s, p, ps0, ps1, W, nb, uinv, out)
+               : wf_launch_solve<PG_LOADS>(s, p, ps0, ps1, W, nb, uinv, out);
+  }
   switch (nb) {
     case 32: return launch_below<32>(s, p, ps0, ps1, W, uinv, out);
     case 64: return launch_below<64>(s, p, ps0, ps1, W, uinv, out);

@@ -271,7 +271,7 @@ def potrf_ooc(a, nb: int | None = None, opts: Options | None = None,
     it, the next left panel's H2D copy issued on the side stream while the
     current update runs.  Each step accumulates the panel against every
     earlier block column (``ooc_chol_update``) and factors it
-    (``ooc_chol_panel``: K1 for an f32 diagonal tile of width <= 128).
+    (``ooc_chol_panel``: K1 for an f32 diagonal tile of width <= 1024).
     ``nb`` defaults to the tuned ``ooc_panel_width``.  Only the lower
     triangle of ``a`` is read.  Returns the lower factor as a host numpy
     array; Option.ErrorPolicy resolves failures as :func:`potrf` does.

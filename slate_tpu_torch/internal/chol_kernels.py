@@ -17,15 +17,20 @@ import torch
 
 from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
                       CudaKernel, batched_panel_step, batched_panel_step_plan,
-                      check_cuda_f32, device_and_stream, query)
+                      check_cuda_f32, device_and_stream, query, shape_query,
+                      workspace)
 from .tri_inv import upper_tri_inv, upper_tri_inv_plain
 
 CHOL_TILE = CudaKernel("chol_tile", "chol_tile.cu", {
-    "slate_chol_tile": [I32, P, P, I64, I64, P, I32]})
+    "slate_chol_tile": [I32, P, P, I64, I64, P, I32, P],
+    "slate_chol_tile_fits": [I32, I32, ctypes.POINTER(I32)],
+    "slate_chol_tile_work": [I32, I32, ctypes.POINTER(I32)]})
 CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
     "slate_chol_panel_update": [I32, P, P, I64, I64, P, I64, I64, P, I64,
                                 I64, I32, I32, I32, P],
-    "slate_chol_panel_factor": [I32, P, P, I32, P],
+    "slate_chol_panel_factor": [I32, P, P, I32, P, P],
+    "slate_chol_panel_fits": [I32, I32, ctypes.POINTER(I32)],
+    "slate_chol_panel_work": [I32, I32, ctypes.POINTER(I32)],
     "slate_chol_panel_solve": [I32, P, P, P, I32, I32, P],
     "slate_chol_panel_plan": [I32, I32, I32, I32, P, I64, I64, P, I64, I64,
                               ctypes.POINTER(I32), ctypes.POINTER(I32)]})
@@ -35,9 +40,11 @@ CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
     "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_chol_panel_batched_plan": BATCHED_PLAN_ARGS})
 
-TILE_MAX_N = 128          # one n x (n+4) f32 tile in shared memory
-PANEL_NB = (32, 64, 96, 128)   # the instantiated widths (128-row tiles,
-                               # a 16 x 8 register tile per thread)
+# The kernels' limits as the CPU routes mirror them; on the card each
+# wrapper asks its kernel (slate_chol_tile_fits, slate_chol_panel_fits).
+TILE_MAX_N = 1024         # one block up to 128, one cluster past it
+PANEL_NB = (32, 64, 96, 128, 256, 384, 512)   # the one-block factor's
+                          # widths, then the wide factor's (128-column tiles)
 
 
 def chol_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
@@ -63,10 +70,25 @@ def chol_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     return torch.tril(s)
 
 
+def tile_fits_on(device: torch.device, n: int) -> bool:
+    """True when K1 takes an n x n tile on this CUDA device: the kernel's
+    own answer (``slate_chol_tile_fits``: n % 32 == 0, 32 <= n <= 1024)."""
+    return bool(shape_query(CHOL_TILE, "slate_chol_tile_fits", device, n))
+
+
+def panel_fits(device: torch.device, nb: int) -> bool:
+    """True when K2 takes a panel nb wide on this CUDA device: the kernel's
+    own answer (``slate_chol_panel_fits``: nb in {32, 64, 96, 128, 256,
+    384, 512})."""
+    return bool(shape_query(CHOL_PANEL, "slate_chol_panel_fits", device, nb))
+
+
 def chol_tile(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     """Lower Cholesky factor of one SPD [n, n] tile, n % bw == 0.  A CPU
     tensor takes the plain version (bw-column slabs, as the reference); a
-    CUDA tensor launches K1 (f32, n <= 128; its own 32-column blocking) or
+    CUDA tensor launches K1 (f32, within :func:`tile_fits_on`: one block
+    up to n = 128, its own 32-column blocking; one thread-block cluster
+    past it, 128-column diagonal blocks in a workspace allocated here) or
     raises."""
     n = a.shape[-1]
     if a.dim() != 2 or a.shape[0] != n or bw < 1 or n % bw:
@@ -75,12 +97,13 @@ def chol_tile(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     if a.device.type == "cpu":
         return chol_tile_plain(a, bw)
     check_cuda_f32("chol_tile", a)
-    if n > TILE_MAX_N:
-        raise ValueError(f"chol_tile: n = {n} > {TILE_MAX_N} does not fit "
-                         f"one block's shared memory")
+    if not tile_fits_on(a.device, n):
+        raise ValueError(f"chol_tile: n = {n} past the kernel's limits "
+                         f"(slate_chol_tile_fits)")
     out = torch.empty((n, n), dtype=a.dtype, device=a.device)
+    work, work_ptr = workspace(CHOL_TILE, "slate_chol_tile_work", a, n)
     CHOL_TILE.launch("slate_chol_tile", *device_and_stream(a), a.data_ptr(),
-                     a.stride(0), a.stride(1), out.data_ptr(), n)
+                     a.stride(0), a.stride(1), out.data_ptr(), n, work_ptr)
     return out
 
 
@@ -106,14 +129,16 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
     Returns (upd, fac): ``upd`` = col - left @ lead, the pre-factor panel;
     ``fac`` = [L00; L21], the factored panel.  Any strides; M % nb == 0.
     A CPU tensor takes the plain version; CUDA tensors launch K2 (f32,
-    nb in {32, 64, 96, 128}) or raise.  On CUDA, on the current stream:
-    K2's update launch (upd over every 128-row tile, the K loop split
-    over a thread-block cluster when row tiles are few) and its factor
-    launch (L00 from tile 0 on one block, K1's blocked factor); when M >
-    nb, K0 on U = L00^T (counted by K0's wrapper) and K2's solve launch,
-    fac rows below = upd rows @ U^-1.  CHOL_PANEL counts K2's two or
-    three launches; :func:`panel_plan` says how the update launch splits
-    and stages.
+    nb within :func:`panel_fits`: 32, 64, 96, 128, 256, 384 or 512) or
+    raise.  On CUDA, on the current stream: K2's update launch (upd over
+    every 128-row tile, and every 128-column tile of a wider panel, the K
+    loop split over a thread-block cluster when tiles are few) and its
+    factor launch (L00 from tile 0: K1's blocked factor on one block up to
+    nb = 128, K1's wide route on one cluster past it); when M > nb, K0 on
+    U = L00^T (counted by K0's wrapper) and K2's solve launch, fac rows
+    below = upd rows @ U^-1.  CHOL_PANEL counts K2's two or three
+    launches; :func:`panel_plan` says how the update launch splits and
+    stages.
     """
     m, nb = col.shape
     k = left.shape[1]
@@ -125,10 +150,12 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
     if col.device.type == "cpu":
         return chol_panel_plain(col, left, lead, bw)
     check_cuda_f32("chol_panel_fused", col, left, lead)
-    if nb not in PANEL_NB:
-        raise ValueError(f"chol_panel_fused: nb = {nb} not in {PANEL_NB}")
+    if not panel_fits(col.device, nb):
+        raise ValueError(f"chol_panel_fused: nb = {nb} past the kernel's "
+                         f"limits (slate_chol_panel_fits)")
     upd = torch.empty((m, nb), dtype=col.dtype, device=col.device)
     fac = torch.empty_like(upd)
+    work, work_ptr = workspace(CHOL_PANEL, "slate_chol_panel_work", col, nb)
     dev, stream = device_and_stream(col)
     CHOL_PANEL.launch("slate_chol_panel_update", dev, stream, col.data_ptr(),
                       col.stride(0), col.stride(1), left.data_ptr(),
@@ -136,7 +163,7 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
                       lead.stride(0), lead.stride(1), k, nb, m,
                       upd.data_ptr())
     CHOL_PANEL.launch("slate_chol_panel_factor", dev, stream, upd.data_ptr(),
-                      nb, fac.data_ptr())
+                      nb, fac.data_ptr(), work_ptr)
     if m > nb:
         uinv = upper_tri_inv(fac[:nb].mT)        # K0 on U = L00^T
         CHOL_PANEL.launch("slate_chol_panel_solve", dev, stream,

@@ -14,9 +14,10 @@ slate_tpu/internal/getrf.py).
 
 The gates carry this card's limits, not the TPU's VMEM ones, and on the
 card ask the kernel for them (lu_kernels.py: K3's ``slate_lu_panel_fits``,
-nb in {32, 64, 96, 128}; K4 for nb <= 128 with a chunk that fits one
-thread-block cluster's shared memory, ``slate_lu_select_fits``).  Nothing
-here reads a tensor's values on the host.
+nb in {32, 64, 96, 128, 256, 384, 512}; K4 for nb <= 128 with a chunk
+that fits one thread-block cluster's shared memory,
+``slate_lu_select_fits``).  Nothing here reads a tensor's values on the
+host.
 """
 
 from __future__ import annotations
@@ -105,9 +106,9 @@ def ooc_lu_trailing(colj: torch.Tensor, lu: torch.Tensor,
 def _nopiv_fused_ok(panel: torch.Tensor) -> bool:
     """True when the plan routes this no-pivot panel through K3: f32, a
     full tile on top, the plan's bw dividing nb, and on the card the
-    kernel's own gate (``slate_lu_panel_fits``: nb in {32, 64, 96, 128} and
-    its factor launch's shared memory); the plain version that CPU tensors
-    take has no such limit."""
+    kernel's own gate (``slate_lu_panel_fits``: nb in {32, 64, 96, 128,
+    256, 384, 512} and its factor launch's resources); the plain version
+    that CPU tensors take has no such limit."""
     w, nb = panel.shape
     if not (panel.dtype == torch.float32 and w >= nb):
         return False

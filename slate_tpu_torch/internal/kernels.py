@@ -233,6 +233,37 @@ def fits(kernel: CudaKernel, symbol: str, device: torch.device,
     return bool(query(kernel, symbol, device, *shape))
 
 
+_ANSWERS: dict = {}
+
+
+def shape_query(kernel: CudaKernel, symbol: str, device: torch.device,
+                *shape: int) -> int:
+    """:func:`query` for an answer that depends on ``shape`` and the device
+    alone (a ``slate_*_fits`` gate, a ``slate_*_work`` scratch size),
+    asked once per (kernel, symbol, device, shape): the wrappers on the
+    panel loops ask it on every call."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (kernel.name, symbol, index, shape)
+    if key not in _ANSWERS:
+        _ANSWERS[key] = query(kernel, symbol, torch.device("cuda", index),
+                              *shape)
+    return _ANSWERS[key]
+
+
+def workspace(kernel: CudaKernel, symbol: str, t: torch.Tensor, *shape: int):
+    """The f32 scratch that a kernel's wide route takes for ``shape`` on
+    ``t``'s device, sized by its library (``symbol``, a ``slate_*_work``
+    entry point), as a raw pointer argument: the tensor's address, or None
+    where the kernel takes none.  Returns (tensor or None, pointer); the
+    caller holds the tensor until the launch is enqueued."""
+    floats = shape_query(kernel, symbol, t.device, *shape)
+    if not floats:
+        return None, None
+    buf = torch.empty(floats, dtype=torch.float32, device=t.device)
+    return buf, buf.data_ptr()
+
+
 # The ragged batched panel step of K6 and K7 (csrc/batched_step.cuh): the C
 # signature of a launch (device, stream, which, bf16, then col, left and
 # lead with their batch, row and column strides, tiles, B, k, K, M, nb, bw,

@@ -19,11 +19,13 @@ import torch
 from .chol_kernels import live_rows
 from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
                       CudaKernel, batched_panel_step, batched_panel_step_plan,
-                      check_cuda_f32, device_and_stream, fits, query)
+                      check_cuda_f32, device_and_stream, fits, query,
+                      shape_query, workspace)
 from .tri_inv import back_substitution_plain, upper_tri_inv_plain
 
 LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
-    "slate_lu_panel_factor": [I32, P, P, I64, I64, I32, I32, P, P],
+    "slate_lu_panel_factor": [I32, P, P, I64, I64, I32, I32, P, P, P],
+    "slate_lu_panel_work": [I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_below": [I32, P, P, I64, I64, I32, I32, P, P],
     "slate_lu_panel_fits": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_plan": [I32, P, I64, I64, ctypes.POINTER(I32)]})
@@ -42,8 +44,11 @@ SELECT_MAX_NB = 128            # K4: four columns a lane
 def panel_fits(device: torch.device, nb: int, bw: int) -> bool:
     """True when K3 takes a panel of width nb at slab width bw on this CUDA
     device: the kernel's own answer (``slate_lu_panel_fits``: nb in {32,
-    64, 96, 128}, bw dividing nb, its factor launch's shared memory)."""
-    return fits(LU_PANEL, "slate_lu_panel_fits", device, nb, bw)
+    64, 96, 128} with bw dividing nb and its factor launch's shared memory,
+    or nb in {256, 384, 512} with bw dividing 128 and its wide factor's
+    thread-block cluster)."""
+    return bool(shape_query(LU_PANEL, "slate_lu_panel_fits", device, nb,
+                            bw))
 
 
 def panel_plan(panel: torch.Tensor) -> dict:
@@ -120,8 +125,10 @@ def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     strides.  A CPU tensor takes the plain version; CUDA tensors launch K3
     (f32, nb and bw within :func:`panel_fits`) or raise.  On CUDA, on the
     current stream: K3's factor launch (row tile 0 factored and, when W >
-    nb, U^-1 formed in the same launch) and, when W > nb, its launch for
-    the rows below; LU_PANEL counts the one or two launches."""
+    nb, U^-1 formed in the same launch: one block up to nb = 128, one
+    thread-block cluster past it, with its scratch allocated here) and,
+    when W > nb, its launch for the rows below; LU_PANEL counts the one or
+    two launches."""
     w, nb = panel.shape
     if w < nb or w % nb or bw < 1 or nb % bw:
         raise ValueError(f"lu_panel_fused: needs W % nb == 0 and nb % bw == "
@@ -135,10 +142,12 @@ def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     out = torch.empty((w, nb), dtype=panel.dtype, device=panel.device)
     uinv = (torch.empty((nb, nb), dtype=panel.dtype, device=panel.device)
             if w > nb else None)
+    work, work_ptr = workspace(LU_PANEL, "slate_lu_panel_work", panel, nb)
     dev, stream = device_and_stream(panel)
     strides = (panel.data_ptr(), panel.stride(0), panel.stride(1), nb)
     LU_PANEL.launch("slate_lu_panel_factor", dev, stream, *strides, bw,
-                    out.data_ptr(), None if uinv is None else uinv.data_ptr())
+                    out.data_ptr(), None if uinv is None else uinv.data_ptr(),
+                    work_ptr)
     if uinv is not None:
         LU_PANEL.launch("slate_lu_panel_below", dev, stream, *strides, w,
                         uinv.data_ptr(), out.data_ptr())

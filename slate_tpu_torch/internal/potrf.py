@@ -2,11 +2,14 @@
 of slate_tpu/internal/potrf.py).
 
 Both seams consult the tile plan (tune/plans.py).  The gates carry this
-card's limits, not the TPU's VMEM ones: K1 holds one n x (n+4) f32 tile
-in a block's shared memory, and so does K2's factor launch, while its
-update and solve launches keep a 16 x 8 register tile a thread over nb /
-8 thread columns (instantiated at nb = 32, 64, 96, 128), which caps both
-at 128.
+card's limits, not the TPU's VMEM ones, at the reference's widths: K1
+holds one n x (n+4) f32 tile in a block's shared memory up to n = 128 and
+factors a wider one (up to 1024) on one thread-block cluster, in device
+memory by 128-column diagonal blocks; K2's factor launch does the same at
+nb = 32 .. 128 and 256, 384, 512, while its update and solve launches
+keep a 16 x 8 register tile a thread over 128-column tiles.  The CPU
+routes take the same widths, so that both devices route a panel alike;
+on the card each wrapper asks its kernel.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from .chol_kernels import PANEL_NB, TILE_MAX_N, chol_panel_fused, chol_tile
 
 
 def tile_fits(n: int) -> bool:
-    """True when K1 takes an n x n tile: n % 32 == 0, 32 <= n <= 128 (one
-    n x (n+4) f32 tile in a block's shared memory)."""
+    """True when K1 takes an n x n tile: n % 32 == 0, 32 <= n <= 1024 (one
+    block's shared memory up to 128, one thread-block cluster past it)."""
     return n % 32 == 0 and 32 <= n <= TILE_MAX_N
 
 
@@ -36,8 +39,8 @@ def _tile_plan_ok(dtype: torch.dtype, n: int) -> bool:
 def potrf_tile(a: torch.Tensor) -> torch.Tensor:
     """Factor one Hermitian positive-definite tile: returns lower L.
 
-    Under the "cuda" plan an f32 tile with 32 <= n <= 128, n % 32 == 0 goes
-    to K1; anything else to ``torch.linalg.cholesky_ex``, whose failed
+    Under the "cuda" plan an f32 tile with 32 <= n <= 1024, n % 32 == 0
+    goes to K1; anything else to ``torch.linalg.cholesky_ex``, whose failed
     factor is NaN-filled from the first failing minor's column on (its
     ``info``), so that the first bad diagonal is the same on every route
     and dtype, as K1 leaves it.  (The reference's XLA route NaN-fills a
@@ -53,7 +56,8 @@ def potrf_tile(a: torch.Tensor) -> torch.Tensor:
 
 def potrf_panel_ok(dtype: torch.dtype, m: int, w: int, nb: int) -> bool:
     """True when the fused panel step (K2) serves this panel: the "cuda"
-    plan, f32, a full-width panel, nb in {32, 64, 96, 128}."""
+    plan, f32, a full-width panel, nb in {32, 64, 96, 128, 256, 384,
+    512}."""
     if not (dtype == torch.float32 and w == nb and m >= nb
             and nb in PANEL_NB):
         return False
@@ -92,7 +96,7 @@ def ooc_chol_update(acc: torch.Tensor, left: torch.Tensor,
 
 def ooc_chol_panel(upd: torch.Tensor) -> torch.Tensor:
     """Factor the accumulated [m-k0, w] panel: [L00; L21], the diagonal
-    tile through :func:`potrf_tile` (K1 for an f32 tile with w <= 128
+    tile through :func:`potrf_tile` (K1 for an f32 tile with w <= 1024
     under the "cuda" plan) and the rows below one matmul against the
     inverted L00, as the in-core blocked loop does."""
     from .trsm import tri_inv_lower

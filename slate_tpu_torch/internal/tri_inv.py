@@ -16,15 +16,18 @@ substitution of the reference's slab solve, which K3's plain tile
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
-    device_and_stream
+    device_and_stream, shape_query, workspace
 
-TRI_INV = CudaKernel("upper_tri_inv", "tri_inv.cu",
-                     {"slate_upper_tri_inv": [I32, P, P, I64, I64, P, I32]})
+TRI_INV = CudaKernel("upper_tri_inv", "tri_inv.cu", {
+    "slate_upper_tri_inv": [I32, P, P, I64, I64, P, I32, P],
+    "slate_upper_tri_inv_fits": [I32, I32, ctypes.POINTER(I32)],
+    "slate_upper_tri_inv_work": [I32, I32, ctypes.POINTER(I32)]})
 
-MAX_N = 128   # U, X and the scratch of one tile in a block's shared memory
 DIAG = 8      # the diagonal blocks the doubling starts from (TRI_DIAG)
 
 
@@ -72,15 +75,22 @@ def upper_tri_inv_plain(u: torch.Tensor) -> torch.Tensor:
 def upper_tri_inv(u: torch.Tensor) -> torch.Tensor:
     """Inverse of an upper-triangular [n, n] tile (nonzero diagonal;
     entries below the diagonal are ignored).  A CPU tensor takes the plain
-    version; a CUDA tensor launches K0 (f32, n <= 128) or raises."""
+    version; a CUDA tensor launches K0 (f32, n within the kernel's
+    ``slate_upper_tri_inv_fits``: one block up to 128, one thread-block
+    cluster up to 512, in a workspace allocated here) or raises."""
     if u.device.type == "cpu":
         return upper_tri_inv_plain(u)
     check_cuda_f32("upper_tri_inv", u)
     n = u.shape[-1]
-    if u.dim() != 2 or u.shape[0] != n or not 1 <= n <= MAX_N:
-        raise ValueError(f"upper_tri_inv: needs one square tile with "
-                         f"n <= {MAX_N}, got {tuple(u.shape)}")
+    if (u.dim() != 2 or u.shape[0] != n
+            or not shape_query(TRI_INV, "slate_upper_tri_inv_fits",
+                               u.device, n)):
+        raise ValueError(f"upper_tri_inv: needs one square tile within the "
+                         f"kernel's limits (slate_upper_tri_inv_fits), got "
+                         f"{tuple(u.shape)}")
     x = torch.empty((n, n), dtype=u.dtype, device=u.device)
+    work, work_ptr = workspace(TRI_INV, "slate_upper_tri_inv_work", u, n)
     TRI_INV.launch("slate_upper_tri_inv", *device_and_stream(u),
-                   u.data_ptr(), u.stride(0), u.stride(1), x.data_ptr(), n)
+                   u.data_ptr(), u.stride(0), u.stride(1), x.data_ptr(), n,
+                   work_ptr)
     return x

@@ -10,7 +10,7 @@ internal::potrf on the diagonal tile   | the tile broadcast from its owner
                                        |   rank by internal/potrf.py
                                        |   ``potrf_tile``: K1 (csrc/
                                        |   chol_tile.cu) for f32 tiles of
-                                       |   32 <= nb <= 128
+                                       |   32 <= nb <= 1024
 internal::trsm on the panel column     | ``solve_triangular`` on the owner
   (:225)                               |   column's tiles below the diagonal
 listBcastMT(A(i, k) -> row i, col i)   | all-gather along p, broadcast

@@ -57,17 +57,17 @@ def _kernel_fits(op: str, n: int, nb: int, bw: int,
                  device: torch.device) -> bool:
     """Does the op's hand kernel take the reference's problem at (n, nb,
     bw) on ``device``?  On the CPU the plain versions take any shape; on
-    the card the seam's gate asks the kernel where the kernel answers."""
+    the card the kernel answers (K1 tiles up to 1024, K2 and K3 panels up
+    to 512: the reference's own candidates)."""
     if device.type == "cpu":
         return True
     from ..internal import chol_kernels, lu_kernels, qr_kernels
     from ..internal.kernels import fits
-    from ..internal.potrf import tile_fits
     from ..internal.qr import QR_PANEL_MAX_ELEMS
     if op == "potrf_tile":
-        return tile_fits(n)
+        return chol_kernels.tile_fits_on(device, n)
     if op == "potrf_panel":
-        return nb in chol_kernels.PANEL_NB
+        return chol_kernels.panel_fits(device, nb)
     if op == "getrf_panel":
         return lu_kernels.panel_fits(device, nb, bw)
     if op == "lu_select":

@@ -77,8 +77,8 @@ def test_kernels_match_plain_versions(cuda):
             (launches[0] + 3, launches[1] + 1)
     with pytest.raises(ValueError, match="float32"):
         ck.chol_tile(a.double(), 8)
-    with pytest.raises(ValueError, match="nb = 256"):
-        col, left, lead = _panel(rng, 512, 256, 8, cuda)
+    with pytest.raises(ValueError, match="nb = 640"):
+        col, left, lead = _panel(rng, 1280, 640, 8, cuda)
         ck.chol_panel_fused(col, left, lead, 8)
 
 
@@ -285,17 +285,18 @@ def test_lu_panel_zero_pivot_health_matches_plain(cuda, j):
 
 def test_lu_panel_gate_asks_the_kernel(cuda):
     """K3's gate is the kernel's (slate_lu_panel_fits): nb in {32, 64, 96,
-    128} with bw dividing it; past that the no-pivot route takes the
-    library, and a launch raises."""
-    for nb in (32, 64, 96, 128):
+    128, 256, 384, 512} with bw dividing it (and 128 at the wide widths);
+    past that the no-pivot route takes the library, and a launch raises."""
+    for nb in (32, 64, 96, 128, 256, 384, 512):
         assert lk.panel_fits(cuda, nb, 8)
         assert ig._nopiv_fused_ok(torch.zeros((2 * nb, nb), device=cuda))
-    assert not lk.panel_fits(cuda, 256, 8)
+    assert not lk.panel_fits(cuda, 640, 8)
     assert not lk.panel_fits(cuda, 48, 8)
     assert not lk.panel_fits(cuda, 128, 48)
-    assert not ig._nopiv_fused_ok(torch.zeros((512, 256), device=cuda))
+    assert not lk.panel_fits(cuda, 384, 192)       # a slab past one block
+    assert not ig._nopiv_fused_ok(torch.zeros((1280, 640), device=cuda))
     with pytest.raises(ValueError, match="slate_lu_panel_fits"):
-        lk.lu_panel_fused(torch.zeros((512, 256), device=cuda), 8)
+        lk.lu_panel_fused(torch.zeros((1280, 640), device=cuda), 8)
 
 
 def test_calu_gesv_on_the_card_matches_the_cpu_route(cuda):
@@ -1132,3 +1133,132 @@ def test_potrf_ooc_on_the_card_launches_k1_once_a_step(cuda, empty_plans,
     lu = F.LU.astype(np.float64)
     res = np.abs(a[F.perm] - (np.tril(lu, -1) + np.eye(n)) @ np.triu(lu))
     assert res.max() < 1e-4 * np.abs(a).max() * n ** 0.5
+
+
+# ---- the wide widths: K1 past 128, K0, K2 and K3 at 256 .. 512 ----
+
+def test_wide_gates_ask_the_kernels(cuda):
+    """K1, K2 and K0 answer for their own widths on the card, and the CPU
+    gates mirror them: K1 n % 32 == 0 up to 1024, K2 nb in {32, 64, 96,
+    128, 256, 384, 512}, K0 up to 512."""
+    from slate_tpu_torch.internal import potrf as ip
+    from slate_tpu_torch.internal.kernels import fits
+    for n in (32, 96, 128, 160, 256, 512, 1000, 1024, 1056, 2048, 48):
+        assert ck.tile_fits_on(cuda, n) == ip.tile_fits(n)
+    for nb in (32, 64, 96, 128, 192, 256, 384, 512, 640):
+        assert ck.panel_fits(cuda, nb) == (nb in ck.PANEL_NB)
+    for n in (1, 100, 128, 200, 512, 513):
+        assert fits(TRI_INV, "slate_upper_tri_inv_fits", cuda, n) == \
+            (n <= 512)
+    with pytest.raises(ValueError, match="slate_chol_tile_fits"):
+        ck.chol_tile(torch.eye(1056, device=cuda), 8)
+    with pytest.raises(ValueError, match="slate_upper_tri_inv_fits"):
+        upper_tri_inv(torch.eye(640, device=cuda))
+
+
+@pytest.mark.parametrize("n", [160, 256, 512, 1024])
+def test_wide_chol_tile_matches_plain_and_repeats_bitwise(cuda, n):
+    """K1's wide route (one cluster, 128-column diagonal blocks in device
+    memory; n = 160 pads to 256 with the identity) against the plain
+    version, zeros above the diagonal, and two launches bit for bit."""
+    a = torch.from_numpy(_spd(np.random.default_rng(n), n)).to(cuda)
+    before = ck.CHOL_TILE.launches
+    got = ck.chol_tile(a, 8)
+    assert ck.CHOL_TILE.launches == before + 1
+    torch.testing.assert_close(got, ck.chol_tile_plain(a, 8), rtol=RTOL,
+                               atol=ATOL)
+    assert bool((torch.triu(got, 1) == 0).all())
+    assert torch.equal(got, ck.chol_tile(a, 8))
+
+
+def test_wide_chol_tile_first_bad_pivot(cuda):
+    """An indefinite 512 tile: the same first bad pivot in the kernel and
+    the plain version (in the third diagonal block), every later diagonal
+    entry non-finite."""
+    a = torch.from_numpy(_spd(np.random.default_rng(11), 512)).to(cuda)
+    a[300, 300] -= 8.0
+    got, want = ck.chol_tile(a, 8), ck.chol_tile_plain(a, 8)
+
+    def first_bad(l):
+        d = torch.diagonal(l)
+        return int((~(torch.isfinite(d) & (d > 0))).nonzero()[0])
+    assert first_bad(got) == first_bad(want) == 300
+    assert not bool(torch.isfinite(torch.diagonal(got)[301:]).any())
+
+
+@pytest.mark.parametrize("nb,m,k", [(256, 1024, 0), (256, 1024, 700),
+                                    (384, 768, 384), (512, 2048, 1024),
+                                    (512, 512, 300)])
+def test_wide_chol_panel_matches_plain_and_repeats_bitwise(cuda, nb, m, k):
+    """K2 at nb = 256 .. 512 (the update by 128-column tiles, the wide
+    factor, K0's wide route on U = L00^T, the solve by column tiles),
+    K = 700 and 300 ragged, M = nb the last panel: against the plain
+    version, its launches, and two launches bit for bit."""
+    col, left, lead = _panel_apart(np.random.default_rng(nb + m + k), m, nb,
+                                   k, cuda)
+    launches = ck.CHOL_PANEL.launches, TRI_INV.launches
+    got = ck.chol_panel_fused(col, left, lead, 8)
+    below = int(m > nb)
+    assert (ck.CHOL_PANEL.launches, TRI_INV.launches) == \
+        (launches[0] + 2 + below, launches[1] + below)
+    for g, w in zip(got, ck.chol_panel_plain(col, left, lead, 8)):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    for g, h in zip(got, ck.chol_panel_fused(col, left, lead, 8)):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.parametrize("n", [200, 256, 384, 512])
+def test_wide_upper_tri_inv_matches_plain_and_f64(cuda, n):
+    """K0 past 128 (the 128 x 128 diagonal blocks by the one-block
+    doubling, joined by tiled products; n = 200 pads) on a pivoted LU's U
+    (cond ~100): within 1e-5 of the f64 inverse relative to its largest
+    entry, against the plain version, and bit for bit."""
+    g = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (4 * n, n)).astype(np.float32)).to(cuda)
+    u = torch.triu(torch.linalg.lu_factor(g)[0][:n]).contiguous()
+    x64 = torch.linalg.inv(u.double())
+    got = upper_tri_inv(u)
+    assert float((got.double() - x64).abs().max() / x64.abs().max()) < 1e-5
+    want = upper_tri_inv_plain(u)
+    assert bool(((got - want).abs() <= ATOL + RTOL * want.abs().max()).all())
+    assert torch.equal(got, upper_tri_inv(u))
+    assert bool((torch.tril(got, -1) == 0).all())
+
+
+@pytest.mark.parametrize("nb,w", [(256, 256), (256, 4096), (384, 1536),
+                                  (512, 2048)])
+def test_wide_lu_panel_matches_plain_and_repeats_bitwise(cuda, nb, w):
+    """K3 at nb = 256 .. 512 on a diagonally dominant panel (the top block
+    by 128-column diagonal blocks on one cluster, U^-1 in the same launch,
+    the rows below by column tiles), W = nb alone: against the plain
+    version, its launches, and two launches bit for bit."""
+    rng = np.random.default_rng(nb + w)
+    p = rng.standard_normal((w, nb)).astype(np.float32)
+    p[:nb] += nb * np.eye(nb, dtype=np.float32)
+    panel = torch.from_numpy(p).to(cuda)
+    before = lk.LU_PANEL.launches
+    got = lk.lu_panel_fused(panel, 8)
+    assert lk.LU_PANEL.launches == before + 1 + int(w > nb)
+    torch.testing.assert_close(got, lk.lu_panel_plain(panel, 8), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(got, lk.lu_panel_fused(panel, 8))
+
+
+@pytest.mark.parametrize("nb", [256, 512])
+def test_wide_posv_launches_k2_and_k0_every_panel(cuda, nb):
+    """posv at nb = 256 and 512 on the card: K2 three launches a panel (two
+    on the last) and K0 one, against the same solve on the CPU."""
+    rng = np.random.default_rng(nb)
+    n = 4 * nb
+    a = _spd(rng, n) * n
+    b = rng.standard_normal((n, 4)).astype(np.float32)
+    before = ck.CHOL_PANEL.launches, TRI_INV.launches
+    _, Xg = st.posv(st.SymmetricMatrix.from_numpy(a, nb),
+                    st.Matrix.from_numpy(b, nb))
+    assert ck.CHOL_PANEL.launches - before[0] == 3 * n // nb - 1
+    assert TRI_INV.launches - before[1] == n // nb - 1
+    _, Xc = st.posv(st.SymmetricMatrix.from_numpy(a, nb, device="cpu"),
+                    st.Matrix.from_numpy(b, nb, device="cpu"))
+    want = Xc.to_numpy()
+    np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
+                               atol=RTOL * np.abs(want).max())

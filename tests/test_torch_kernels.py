@@ -151,10 +151,13 @@ def test_wrappers_check_shapes_and_take_plain_on_cpu():
 def test_potrf_gates_carry_hopper_limits():
     f32, f64 = torch.float32, torch.float64
     assert ip.potrf_panel_ok(f32, 384, 128, 128)
-    assert not ip.potrf_panel_ok(f32, 384, 256, 256)     # > 227 KB / block
+    assert ip.potrf_panel_ok(f32, 384, 256, 256)         # the wide factor
+    assert ip.potrf_panel_ok(f32, 1024, 512, 512)
+    assert not ip.potrf_panel_ok(f32, 1280, 640, 640)    # past 512
     assert not ip.potrf_panel_ok(f32, 384, 100, 128)     # ragged last panel
     assert not ip.potrf_panel_ok(f64, 384, 128, 128)
-    assert ip._tile_plan_ok(f32, 128) and not ip._tile_plan_ok(f32, 256)
+    assert ip._tile_plan_ok(f32, 128) and ip._tile_plan_ok(f32, 256)
+    assert ip._tile_plan_ok(f32, 1024) and not ip._tile_plan_ok(f32, 1056)
     with plan_override("potrf_panel", LIBRARY_PLAN):
         assert not ip.potrf_panel_ok(f32, 384, 128, 128)
         assert ip._tile_plan_ok(f32, 128)
