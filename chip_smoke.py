@@ -3868,7 +3868,17 @@ def check_obs_tuned(st, runs, checks, bounds, n, nb, default_walls,
     to what those plans imply, accuracy, and each wall beside
     obs_default's."""
     from slate_tpu_torch import obs
+    from slate_tpu_torch.tune import plans
     emit({"phase": "obs_tuned_plans", **resolved_plans(n, nb)})
+    # what the card's tuner picks where K4 and K5 now take 256 .. 512
+    picks = {}
+    for op, ms in (("lu_select", (128, 512)),
+                   ("geqrf_panel", (1024, 8192, 20480))):
+        for m in ms:
+            plan = plans.resolve_plan(op, m, "float32")
+            picks[f"{op}@{m}"] = {"kernel": plan.kernel, "nb": plan.nb,
+                                  "bw": plan.bw}
+    emit({"phase": "obs_tuned_wide_picks", "picks": picks})
     want = {"posv": expected_posv_launches(n, nb),
             "gesv_calu": calu_plan_launches(n, nb)}
     for name in ("posv", "gesv_calu"):
@@ -5983,24 +5993,32 @@ TESTER_RUNS = (
                     "s,d,c,z", "--dims", str(TESTER_SMALL_N), "--nb",
                     "128"]),
     ("tester_k1", ["posv", "--type", "s", "--dims", "4000", "--nb", "128"]),
+    # slice 22: K4 and K5 at the tuned width 256
+    ("tester_nb256", ["gesv_tntpiv", "geqrf", "gels", "--type", "s",
+                      "--dims", str(TESTER_N), "--nb", "256"]),
 )
 
 
 def tester_launches(kernels, fits) -> dict:
     """The hand kernels each tester row must launch, by (routine, type,
-    n): none on an f64 or complex row; posv, gesv_tntpiv, geqrf and gels
-    in s as their seams route them at nb = 128 (posv by
-    expected_posv_launches, the CALU tournament by
-    expected_calu_launches, one K5 a panel of the 2n x n geqrf and gels)."""
+    n, nb): none on an f64 or complex row; posv, gesv_tntpiv, geqrf and
+    gels in s as their seams route them at nb = 128 and (gesv_tntpiv,
+    geqrf, gels) 256 (posv by expected_posv_launches, the CALU tournament
+    by expected_calu_launches with ``fits(h, nb)``, one K5 a panel of the
+    2n x n geqrf and gels within the 2^20-element cap)."""
     zero = {name: 0 for name in kernels}
     want = {}
     for n in (TESTER_N, 4000):
-        want[("posv", "s", n)] = {**zero, **expected_posv_launches(n, 128)}
-    want[("gesv_tntpiv", "s", TESTER_N)] = {
-        **zero, **expected_calu_launches(TESTER_N, 128, fits)}
-    for routine in ("geqrf", "gels"):
-        want[(routine, "s", TESTER_N)] = {**zero,
-                                          "qr_panel": TESTER_N // 128}
+        want[("posv", "s", n, 128)] = {**zero,
+                                       **expected_posv_launches(n, 128)}
+    for nb in (128, 256):
+        want[("gesv_tntpiv", "s", TESTER_N, nb)] = {
+            **zero, **expected_calu_launches(TESTER_N, nb,
+                                             lambda h: fits(h, nb))}
+        for routine in ("geqrf", "gels"):
+            want[(routine, "s", TESTER_N, nb)] = {
+                **zero, "qr_panel": gels_k5_panels(2 * TESTER_N, TESTER_N,
+                                                   nb)}
     return want
 
 
@@ -6013,8 +6031,8 @@ def check_tester(st, kernels, reset, counts, failures) -> dict:
     over the rows, by kernel."""
     from slate_tpu_torch import tester
     from slate_tpu_torch.internal.getrf import _lu_select_ok
-    want = tester_launches(kernels, lambda h: _lu_select_ok(
-        torch.empty((1, h, 128), device="cuda"), 128))
+    want = tester_launches(kernels, lambda h, nb: _lu_select_ok(
+        torch.empty((1, h, nb), device="cuda"), nb))
     zero = {name: 0 for name in kernels}
     total = dict(zero)
 
@@ -6037,10 +6055,13 @@ def check_tester(st, kernels, reset, counts, failures) -> dict:
                 if r["status"] != "pass"))
         for r in rows:
             got = r.get("launches", {})
-            key = (r["routine"], r["type"], r["n"])
+            key = (r["routine"], r["type"], r["n"], r["nb"])
             # the other s rows (gesv's library LU, hesv, ...) launch what
             # their gates give: counted, not asserted
             expect = want.get(key, None if key[1] == "s" else zero)
+            if name == "tester_nb256" and not (got.get("qr_panel") or
+                                               got.get("lu_select")):
+                failures.append(f"{name} {key}: no K4 or K5 launch")
             if expect is not None and got != expect:
                 failures.append(f"{name} {key}: launches {got} != "
                                 f"{expect}")
@@ -6334,6 +6355,202 @@ def check_wide_ooc(st, gen, nrhs, kernels, reset, counts, card) -> dict:
 
 
 
+# slice 22: K4 and K5 at the reference's wide widths.  K4 takes chunks of
+# nb = 256, 384 and 512 columns (the chunk's working copy in a workspace,
+# walked by 128-column blocks), K5 panels of w = 256, 384 and 512 (by
+# 128-column blocks, T in device memory).  These phases draw from --seed +
+# 21, apart from the CALU runs at the wide widths, which reuse the main
+# CALU phase's matrix.
+WIDE_SELECT_SHAPES = ((4, 5120, 256, None), (4, 5120, 512, None),
+                      (2, 512, 256, None), (2, 1024, 512, None),
+                      (2, 1024, 384, (1024, 700)))
+WIDE_QR_SHAPES = ((4096, 256), (2048, 512), (3000, 256))
+WIDE_CALU_NBS = (256, 512)
+WIDE_GELS = ((4096, 2048, 256), (2048, 1024, 512))   # (m, n, nb)
+
+
+def gels_k5_panels(m: int, n: int, nb: int) -> int:
+    """K5 launches of a QR gels of an m x n matrix on nb-wide panels: one a
+    panel within the 2^20-element cap (internal/qr.py)."""
+    from slate_tpu_torch.internal.qr import QR_PANEL_MAX_ELEMS
+    return sum((m - k0) * min(nb, n - k0) <= QR_PANEL_MAX_ELEMS
+               for k0 in range(0, n, nb))
+
+
+def check_wide_select_qr(gen) -> dict:
+    """K4 at WIDE_SELECT_SHAPES (the main path's 5120-row round-1 chunks at
+    nb = 256 and 512, reduction rounds, a chunk with 700 live rows of
+    1024) with indices equal to the plain version's and (all rows live)
+    lu_factor's, a ``lu_select_plan`` line each; K5 at WIDE_QR_SHAPES
+    against its plain version (packed and T within 1e-4 + 1e-4 |plain|,
+    ||QR - A|| checked).  Each launched twice and compared bit for bit,
+    timed beside its bound and the library call (batched lu_factor_ex,
+    torch.geqrf).  Returns {kernel name: [rows]}."""
+    from slate_tpu_torch.internal.getrf import panel_lu
+    from slate_tpu_torch.internal.lu_kernels import (lu_select,
+                                                     lu_select_plain,
+                                                     select_plan)
+    from slate_tpu_torch.internal.qr_kernels import (panel_cluster, qr_panel,
+                                                     qr_panel_plain)
+    rows = {"lu_select": [], "qr_panel": []}
+    for g, w, nb, nrows in WIDE_SELECT_SHAPES:
+        x = torch.randn(g, w, nb, generator=gen, device="cuda")
+        live = (None if nrows is None else
+                torch.tensor(nrows, dtype=torch.int32, device="cuda"))
+        got = lu_select(x, nrows=live)
+        repeatable = bool(torch.equal(got, lu_select(x, nrows=live)))
+        plain = lu_select_plain(x, live)
+        library = None if nrows is not None else panel_lu(x)[1][:, :nb]
+        equal = bool(torch.equal(got, plain)) and (
+            library is None or bool(torch.equal(got, library)))
+        if nrows is not None:
+            equal = equal and all(int(got[i].max()) < nrows[i]
+                                  for i in range(g))
+        b_ms, b_by = bound(g * panel_flops(w, 0, nb, "getrf"),
+                           g * (4 * w * nb + 4 + 8 * nb))
+        shape = {"G": g, "W": w, "nb": nb, "bw": 8,
+                 "nrows": list(nrows) if nrows else None}
+        plan = select_plan(x.device, w, nb, 8)
+        row = {"check": "lu_select", "shape": shape,
+               "max_abs_err": float((got - plain).abs().max()),
+               "indices_equal_plain_and_lu_factor": equal,
+               "bitwise_repeatable": repeatable,
+               "tol_reason": "pivot rows: equal indices, to the plain "
+                             "version's and (all rows live) to lu_factor's",
+               "kernel_ms": time_ms(lambda: lu_select(x, nrows=live), 10),
+               "plain_ms": time_ms(lambda: lu_select_plain(x, live), 2),
+               "library_ms": time_ms(lambda: torch.linalg.lu_factor_ex(x),
+                                     5),
+               "bound_ms": b_ms, "bound_by": b_by, "cluster": plan["cluster"]}
+        emit(row)
+        emit({"phase": "lu_select_plan", "shape": shape, **plan,
+              "kernel_ms": row["kernel_ms"]})
+        if not (equal and repeatable):
+            raise AssertionError(f"lu_select {shape}: pivot rows differ from "
+                                 f"the plain version's or lu_factor's, or "
+                                 f"two launches differ")
+        rows["lu_select"].append(row)
+    for mm, w in WIDE_QR_SHAPES:
+        x = torch.randn(mm, w, generator=gen, device="cuda")
+        got = qr_panel(x)
+        repeatable = all(torch.equal(a, b) for a, b in zip(got, qr_panel(x)))
+        packed, t = (v.double() for v in got)
+        v = torch.tril(packed, -1)
+        v[torch.arange(w), torch.arange(w)] = 1
+        r = torch.zeros_like(packed)
+        r[:w] = torch.triu(packed[:w])
+        qr_err = float((r - v @ (t @ (v.T @ r)) - x.double()).abs().max()
+                       / x.abs().max())
+        row = check(
+            "qr_panel", {"mm": mm, "w": w, "bw": 8}, list(got),
+            list(qr_panel_plain(x)),
+            "128-column blocks of the same slab loop in both, each block's "
+            "slabs applied in turn to the columns right of it; sums over "
+            "mm rows in another order; Gaussian panel, |R| <= ~sqrt(mm), "
+            "|V| <= 1, T ~ 1",
+            time_ms(lambda: qr_panel(x), 10),
+            time_ms(lambda: qr_panel_plain(x), 2),
+            time_ms(lambda: torch.geqrf(x), 10),
+            op_flops("geqrf", (mm, w)), 4 * (2 * mm * w + w * w))
+        row.update(cluster=panel_cluster(x.device, mm, w, 8),
+                   bitwise_repeatable=repeatable, qr_minus_a_rel=qr_err)
+        emit({"phase": "cluster", "check": "qr_panel", "mm": mm, "w": w,
+              "cluster": row["cluster"], "bitwise_repeatable": repeatable,
+              "qr_minus_a_rel": qr_err, "kernel_ms": row["kernel_ms"]})
+        if not (repeatable and qr_err < 1e-5 * mm ** 0.5):
+            raise AssertionError(f"qr_panel [{mm}, {w}]: two launches differ "
+                                 f"({repeatable}) or ||QR - A|| / max|A| = "
+                                 f"{qr_err}")
+        rows["qr_panel"].append(row)
+    return rows
+
+
+def check_wide_calu(st, a, b, x64, nb, kernels, reset, counts,
+                    card) -> dict:
+    """CALU gesv on the main CALU phase's matrix at nb = 256 and 512
+    beside the nb = 128 route of the same run: K4 on every tournament
+    round and K3 on every clean factor (expected_calu_launches with the
+    wide gate), PERF.md's CALU bounds, cold and warm walls and the
+    device's busy time of a warm run (torch.profiler)."""
+    from slate_tpu_torch.internal.getrf import _lu_select_ok
+    n = a.shape[0]
+    calu = {st.Option.MethodLU: st.MethodLU.CALU}
+    base_warm = min(run_gesv(st, a, b, nb, calu)[2] for _ in range(2))
+    base_busy = device_busy(lambda: run_gesv(st, a, b, nb, calu))
+    out = {}
+    for wnb in WIDE_CALU_NBS:
+        reset()
+        _, x, cold = run_gesv(st, a, b, wnb, calu)
+        launches = counts()
+        warm = min(run_gesv(st, a, b, wnb, calu)[2] for _ in range(2))
+        busy = device_busy(lambda: run_gesv(st, a, b, wnb, calu))
+        res, fwd = accuracy(a, x, b, x64)
+        want = {**{name: 0 for name in kernels},
+                **expected_calu_launches(n, wnb, lambda h: _lu_select_ok(
+                    torch.empty((1, h, wnb), device="cuda"), wnb))}
+        emit({"phase": f"gesv_calu_nb{wnb}", "n": n, "nb": wnb,
+              "nrhs": b.shape[1], "wall_s": cold, "wall_s_warm": warm,
+              "device_busy_s": busy, "nb128_wall_s_warm": base_warm,
+              "nb128_device_busy_s": base_busy,
+              "scaled_residual": res, "residual_bound": GESV_RESIDUAL_BOUND,
+              "forward_error_vs_f64": fwd,
+              "forward_bound": GESV_FORWARD_BOUND, "launches": launches,
+              "want": want, "card": card})
+        if not (torch.isfinite(x).all() and launches == want
+                and res < GESV_RESIDUAL_BOUND and fwd < GESV_FORWARD_BOUND):
+            raise AssertionError(f"CALU gesv at nb = {wnb}: launches "
+                                 f"{launches} (want {want}), residual {res}, "
+                                 f"forward {fwd}")
+        out[f"gesv_calu_nb{wnb}"] = launches
+    return out
+
+
+def check_wide_gels(st, gen, nb, nrhs, kernels, reset, counts,
+                    card) -> dict:
+    """QR gels (MethodGels.QR) at WIDE_GELS: K5 on every panel within the
+    2^20-element cap (all of them at these shapes), PERF.md's gels QR
+    bounds, the warm wall beside the nb = 128 route at the same shape.
+    The line also says what config 4 (GELS_SHAPE and CFG4_SHAPE) launches
+    at the wide widths: no K5, its panels past the cap in both packages."""
+    qr = {st.Option.MethodGels: st.MethodGels.QR}
+    out = {}
+    for m, n, wnb in WIDE_GELS:
+        a, b, x64 = lstsq_problem(m, n, nrhs, gen)
+        base_warm = min(run_gels(st, a, b, nb, qr)[1] for _ in range(2))
+        reset()
+        x, cold = run_gels(st, a, b, wnb, qr)
+        launches = counts()
+        warm = min(run_gels(st, a, b, wnb, qr)[1] for _ in range(2))
+        res, fwd = lstsq_accuracy(a, x, b, x64)
+        want = {**{name: 0 for name in kernels},
+                "qr_panel": gels_k5_panels(m, n, wnb)}
+        config4 = {f"{mc}x{nc}_nb{w}": gels_k5_panels(mc, nc, w)
+                   for mc, nc in (GELS_SHAPE, CFG4_SHAPE)
+                   for w in WIDE_CALU_NBS}
+        emit({"phase": f"gels_qr_nb{wnb}", "m": m, "n": n, "nb": wnb,
+              "nrhs": nrhs, "wall_s": cold, "wall_s_warm": warm,
+              "nb128_wall_s_warm": base_warm,
+              "scaled_ne_residual": res, "residual_bound": GELS_RESIDUAL_BOUND,
+              "forward_error_vs_f64": fwd, "forward_bound": GELS_FORWARD_BOUND,
+              "launches": launches, "want": want,
+              "config4_k5_panels": config4,
+              "config4_note": "config 4 at nb = 256 and 512 reaches no K5 in "
+                              "either package: every panel is past the "
+                              "2^20-element cap, so householder_panel_blocked "
+                              "takes it",
+              "card": card})
+        if not (torch.isfinite(x).all() and launches == want
+                and want["qr_panel"] == -(-n // wnb)
+                and not any(config4.values())
+                and res < GELS_RESIDUAL_BOUND and fwd < GELS_FORWARD_BOUND):
+            raise AssertionError(f"gels QR at {m} x {n}, nb = {wnb}: launches "
+                                 f"{launches} (want {want}), residual {res}, "
+                                 f"forward {fwd}, config 4 {config4}")
+        out[f"gels_qr_nb{wnb}"] = launches
+        del a, b, x64, x
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6423,6 +6640,9 @@ def main(argv=None) -> int:
     # slice 21: K0-K3 at the wide widths, from --seed + 20
     wide_gen = torch.Generator(device="cuda").manual_seed(args.seed + 20)
     wide_rows = check_wide_kernels(wide_gen)
+    # slice 22: K4 and K5 at the wide widths, from --seed + 21
+    sel_gen = torch.Generator(device="cuda").manual_seed(args.seed + 21)
+    wide_rows.update(check_wide_select_qr(sel_gen))
 
     # ---- main path: posv at full width ----
     n, nb, nrhs = args.n, args.nb, args.nrhs
@@ -6558,6 +6778,9 @@ def main(argv=None) -> int:
                 torch.empty((1, h, nb), device="cuda"), nb))}
     if calu_launches != want:
         raise AssertionError(f"gesv CALU launches {calu_launches} != {want}")
+    # ---- slice 22: the same CALU gesv at nb = 256 and 512 ----
+    wide_launches.update(check_wide_calu(st, a, b, x64, nb, kernels, reset,
+                                         counts, card))
     del x, x_tf
     if args.trace:
         trace_gesv(st, a, b, nb, calu)
@@ -6670,6 +6893,9 @@ def main(argv=None) -> int:
     if args.trace:
         trace_gels(st, a, b, nb)
     del a, b, x64
+    # ---- slice 22: QR gels at nb = 256 and 512 ----
+    wide_launches.update(check_wide_gels(st, sel_gen, nb, nrhs, kernels,
+                                         reset, counts, card))
 
     # ---- BASELINE config 4, cut to f32 and one card: 200000 x 1024 ----
     m4, n4 = CFG4_SHAPE
@@ -6802,22 +7028,29 @@ def main(argv=None) -> int:
                                           wide_launches["posv_nb512"])),
         "lu_panel_fused": ("slate_tpu_torch/csrc/lu_panel.cu",
                            "slate_tpu/internal/pallas_lu.py:217",
-                           "gesv_calu+gesv_nopiv_nb256+dist_gesv"
+                           "gesv_calu+gesv_calu_nb256+gesv_calu_nb512"
+                           "+gesv_nopiv_nb256+dist_gesv"
                            "+dist_gesv_nopiv+dist_rbt",
                            sum_launches("lu_panel_fused", calu_launches,
+                                        wide_launches["gesv_calu_nb256"],
+                                        wide_launches["gesv_calu_nb512"],
                                         wide_launches["gesv_nopiv_nb256"],
                                         *(slice17_launches[k] for k in (
                                             "dist_gesv", "dist_gesv_nopiv",
                                             "dist_rbt")))),
         "lu_select": ("slate_tpu_torch/csrc/lu_select.cu",
                       "slate_tpu/internal/pallas_lu.py:346",
-                      "gesv_calu+dist_gesv",
+                      "gesv_calu+gesv_calu_nb256+gesv_calu_nb512+dist_gesv",
                       sum_launches("lu_select", calu_launches,
+                                   wide_launches["gesv_calu_nb256"],
+                                   wide_launches["gesv_calu_nb512"],
                                    slice17_launches["dist_gesv"])),
         "qr_panel": ("slate_tpu_torch/csrc/qr_panel.cu",
                      "slate_tpu/internal/pallas_qr.py:129",
-                     "gels_qr+dist_gels",
+                     "gels_qr+gels_qr_nb256+gels_qr_nb512+dist_gels",
                      sum_launches("qr_panel", qr_launches,
+                                  wide_launches["gels_qr_nb256"],
+                                  wide_launches["gels_qr_nb512"],
                                   slice17_launches["dist_gels"])),
         "chol_panel_batched": ("slate_tpu_torch/csrc/chol_panel_batched.cu",
                                "slate_tpu/internal/pallas_chol.py:286",

@@ -145,8 +145,9 @@ __device__ inline int qr_sum8_index(int lane) {
   return ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
 }
 
-// One row of A into f32, lanes over the columns; 16-byte loads where the
-// row is contiguous and aligned.
+// One row of A into f32, lanes over the columns; 16-byte loads through L2
+// where the row is contiguous and aligned (K5's wide kernel hands the
+// routine rows that other CTAs of the cluster wrote).
 template <class TA>
 __device__ inline void qr_load_row(const TA* src, long long as1, int w,
                                    float* dst, int lane) {
@@ -154,7 +155,7 @@ __device__ inline void qr_load_row(const TA* src, long long as1, int w,
   if (as1 == 1 && w % VEC == 0 &&
       (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     for (int c = lane * VEC; c < w; c += 32 * VEC) {
-      const uint4 u = *reinterpret_cast<const uint4*>(src + c);
+      const uint4 u = __ldcg(reinterpret_cast<const uint4*>(src + c));
       const TA* e = reinterpret_cast<const TA*>(&u);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) dst[c + k] = to_f32(e[k]);

@@ -14,10 +14,10 @@ slate_tpu/internal/getrf.py).
 
 The gates carry this card's limits, not the TPU's VMEM ones, and on the
 card ask the kernel for them (lu_kernels.py: K3's ``slate_lu_panel_fits``,
-nb in {32, 64, 96, 128, 256, 384, 512}; K4 for nb <= 128 with a chunk
-that fits one thread-block cluster's shared memory,
-``slate_lu_select_fits``).  Nothing here reads a tensor's values on the
-host.
+nb in {32, 64, 96, 128, 256, 384, 512}; K4's ``slate_lu_select_fits``, nb
+<= 128 or nb in {256, 384, 512}, with a chunk's rows of one 128-column
+block in one thread-block cluster's shared memory).  Nothing here reads a
+tensor's values on the host.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..tune.plans import resolve_plan
-from .lu_kernels import (SELECT_MAX_NB, lu_panel_fused, lu_select,
-                         panel_fits, select_fits)
+from .lu_kernels import (lu_panel_fused, lu_select, panel_fits,
+                         select_fits, select_width_ok)
 from .trsm import tri_inv_lower, tri_inv_upper
 
 
@@ -195,19 +195,22 @@ def panel_lu_threshold(panel: torch.Tensor, tau: float):
 
 
 def _lu_select_ok(blocks: torch.Tensor, nb: int) -> bool:
-    """True when the plan sends this tournament round through K4: f32,
-    nb <= 128, the plan's bw dividing nb, and on the card the kernel's own
-    gate (bw <= 8, and a thread-block cluster of at most 16 CTAs whose
-    shared memory holds a chunk's rows; the CPU's plain version has no
-    such limit)."""
+    """True when the plan sends this tournament round through K4: f32, the
+    "cuda" plan, and the kernel's gate: on the card its own answer
+    (``slate_lu_select_fits``: nb <= 128 or nb in {256, 384, 512}, the
+    plan's bw dividing nb (and 128), and a thread-block cluster of at most
+    16 CTAs whose shared memory holds a chunk's rows of one 128-column
+    block); on the CPU the same widths (:func:`select_width_ok`), so that
+    both devices route a round alike."""
     w = blocks.shape[1]
-    if not (blocks.dtype == torch.float32 and nb <= SELECT_MAX_NB):
+    if blocks.dtype != torch.float32:
         return False
     plan = resolve_plan("lu_select", w, "float32")
-    if plan.kernel != "cuda" or nb % plan.bw:
+    if plan.kernel != "cuda":
         return False
-    return (blocks.device.type == "cpu"
-            or select_fits(blocks.device, w, nb, plan.bw))
+    if blocks.device.type == "cpu":
+        return select_width_ok(nb, plan.bw)
+    return select_fits(blocks.device, w, nb, plan.bw)
 
 
 def _keep_best(blocks, idx, nb: int):

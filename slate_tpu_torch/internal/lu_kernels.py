@@ -19,7 +19,7 @@ import torch
 from .chol_kernels import live_rows
 from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
                       CudaKernel, batched_panel_step, batched_panel_step_plan,
-                      check_cuda_f32, device_and_stream, fits, query,
+                      check_cuda_f32, device_and_stream, query,
                       shape_query, workspace)
 from .tri_inv import back_substitution_plain, upper_tri_inv_plain
 
@@ -30,15 +30,21 @@ LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
     "slate_lu_panel_fits": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_plan": [I32, P, I64, I64, ctypes.POINTER(I32)]})
 LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
-    "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P],
+    "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P,
+                        P],
     "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)],
-    "slate_lu_select_plan": [I32, I32, I32, I32, *[ctypes.POINTER(I32)] * 4]})
+    "slate_lu_select_work": [I32, I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_lu_select_plan": [I32, I32, I32, I32, *[ctypes.POINTER(I32)] * 5]})
 LU_PANEL_BATCHED = CudaKernel("lu_panel_batched", "lu_panel_batched.cu", {
     "slate_lu_panel_batched": BATCHED_PANEL_ARGS,
     "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_batched_plan": BATCHED_PLAN_ARGS})
 
-SELECT_MAX_NB = 128            # K4: four columns a lane
+# K4's widths as the CPU route mirrors them; on the card the wrapper asks
+# the kernel (slate_lu_select_fits).  Past SELECT_BLOCK columns a chunk is
+# walked by blocks of that many, in the kernel and in the plain version.
+SELECT_BLOCK = 128
+SELECT_NB = (256, 384, 512)   # the wide widths; any nb up to 128 besides
 
 
 def panel_fits(device: torch.device, nb: int, bw: int) -> bool:
@@ -63,9 +69,20 @@ def panel_plan(panel: torch.Tensor) -> dict:
 
 def select_fits(device: torch.device, w: int, nb: int, bw: int) -> bool:
     """True when K4 can take a round of w-row chunks on this CUDA device:
-    the kernel's own answer (bw <= 8, and a thread-block cluster of at most
-    16 CTAs that holds a chunk's rows in its shared memory)."""
-    return fits(LU_SELECT, "slate_lu_select_fits", device, w, nb, bw)
+    the kernel's own answer (``slate_lu_select_fits``: nb <= 128 with bw
+    dividing it, or nb in {256, 384, 512} with bw dividing 128; bw <= 8;
+    and a thread-block cluster of at most 16 CTAs that holds a chunk's rows
+    of one 128-column block in its shared memory)."""
+    return bool(shape_query(LU_SELECT, "slate_lu_select_fits", device, w,
+                            nb, bw))
+
+
+def select_width_ok(nb: int, bw: int) -> bool:
+    """The widths K4 takes, as the CPU route mirrors the kernel's gate: nb
+    up to 128, or 256, 384 or 512 walked by 128-column blocks, bw dividing
+    the block (the plain version takes any bw that does)."""
+    return bw >= 1 and nb % bw == 0 and (
+        nb <= SELECT_BLOCK or (nb in SELECT_NB and SELECT_BLOCK % bw == 0))
 
 
 def select_plan(device: torch.device, w: int, nb: int, bw: int) -> dict:
@@ -74,11 +91,14 @@ def select_plan(device: torch.device, w: int, nb: int, bw: int) -> dict:
     CTAs a chunk is split over (from w, nb, bw and the device alone; 0 when
     it does not fit); ``rows``, a CTA's rows; ``smem_bytes``, a CTA's shared
     memory; ``resident``, the clusters of that size the card holds at
-    once."""
-    c, rows, smem, resident = query(LU_SELECT, "slate_lu_select_plan",
-                                    device, w, nb, bw, outs=4)
+    once; ``block``, the chunk's columns in shared memory at once, and
+    ``chunk``, where the chunk lives for the launch ("shared memory", or
+    "workspace" when it is walked by 128-column blocks)."""
+    c, rows, smem, resident, block = query(
+        LU_SELECT, "slate_lu_select_plan", device, w, nb, bw, outs=5)
     return {"cluster": c, "rows": rows, "smem_bytes": smem,
-            "resident": resident}
+            "resident": resident, "block": block,
+            "chunk": "shared memory" if block == nb else "workspace"}
 
 
 def lu_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
@@ -164,20 +184,15 @@ def _live_rows(nrows, g: int, w: int, device) -> torch.Tensor:
             .contiguous())
 
 
-def lu_select_plain(chunks: torch.Tensor, nrows=None,
-                    bw: int = 8) -> torch.Tensor:
-    """K4's steps in torch ops over a batch [G, W, nb]: per bw-column slab,
-    column by column the masked argmax (first maximum; dead rows count -1),
-    the live rows' multipliers (0 for a zero pivot) and the slab's later
-    columns; then the U rows of the slab's pivots and the trailing update
-    of the rows still live.  Returns [G, nb] int64."""
-    g, w, nb = chunks.shape
-    gi = torch.arange(g, device=chunks.device)
-    ws = chunks.clone()
-    live = (torch.arange(w, device=chunks.device)[None, :]
-            < _live_rows(nrows, g, w, chunks.device)[:, None])
-    piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
-    for j0 in range(0, nb, bw):
+def _select_columns(ws, live, piv, gi, c0: int, c1: int, bw: int):
+    """K4's column loop on columns [c0, c1) of the batch ``ws`` [G, W, nb]
+    (in place): per bw-column slab, column by column the masked argmax
+    (first maximum; dead rows count -1), the live rows' multipliers (0 for
+    a zero pivot) and the slab's later columns; then the U rows of the
+    slab's pivots and the update of the live rows' columns up to c1.  The
+    slab's values (the multipliers of the live rows) are written back;
+    ``piv`` and ``live`` are filled in as the pivots are chosen."""
+    for j0 in range(c0, c1, bw):
         j1 = j0 + bw
         slab = ws[:, :, j0:j1].clone()
         for i in range(bw):
@@ -192,16 +207,47 @@ def lu_select_plain(chunks: torch.Tensor, nrows=None,
             slab[:, :, i] = torch.where(live, mult, col)
             prow = slab[gi, p, i + 1:]
             slab[:, :, i + 1:] -= mult[:, :, None] * prow[:, None]
-        if j1 < nb:
+        if j1 < c1:
             rows = piv[:, j0:j1]
             us = []
             for i in range(bw):
-                u = ws[gi, rows[:, i], j1:]
+                u = ws[gi, rows[:, i], j1:c1]
                 for k in range(i):
                     u = u - slab[gi, rows[:, i], k][:, None] * us[k]
                 us.append(u)
             mult = torch.where(live[:, :, None], slab, 0.0)
-            ws[:, :, j1:] -= mult @ torch.stack(us, dim=1)
+            ws[:, :, j1:c1] -= mult @ torch.stack(us, dim=1)
+        ws[:, :, j0:j1] = slab
+
+
+def lu_select_plain(chunks: torch.Tensor, nrows=None,
+                    bw: int = 8) -> torch.Tensor:
+    """K4's steps in torch ops over a batch [G, W, nb]: the column loop
+    (:func:`_select_columns`) over all nb columns at nb <= 128; past it,
+    as the wide kernel walks them, over 128-column blocks, each followed by
+    U = L11^-1 A(pivots, right of the block), L11 the pivot rows' unit
+    lower multipliers, and the update of the live rows right of the
+    block, A -= L U.  Returns [G, nb] int64."""
+    g, w, nb = chunks.shape
+    gi = torch.arange(g, device=chunks.device)
+    ws = chunks.clone()
+    live = (torch.arange(w, device=chunks.device)[None, :]
+            < _live_rows(nrows, g, w, chunks.device)[:, None])
+    piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
+    blk = nb if nb <= SELECT_BLOCK else SELECT_BLOCK
+    for c0 in range(0, nb, blk):
+        c1 = c0 + blk
+        _select_columns(ws, live, piv, gi, c0, c1, bw)
+        if c1 == nb:
+            break
+        rows = piv[:, c0:c1]
+        lpiv = ws[gi[:, None], rows, c0:c1]             # [G, blk, blk]
+        l11 = torch.tril(lpiv, -1) + torch.eye(blk, dtype=ws.dtype,
+                                               device=ws.device)
+        u = torch.linalg.solve_triangular(l11, ws[gi[:, None], rows, c1:],
+                                          upper=False, unitriangular=True)
+        mult = torch.where(live[:, :, None], ws[:, :, c0:c1], 0.0)
+        ws[:, :, c1:] -= mult @ u
     return piv
 
 
@@ -211,7 +257,8 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
     live; an int or a [G] tensor) are dead.  On input without ties this is
     lax.linalg.lu's perm[:nb] of each chunk.  A CPU tensor takes the plain
     version; CUDA tensors launch K4 once for the whole batch (f32, within
-    :func:`select_fits`: one thread-block cluster a chunk) or raise."""
+    :func:`select_fits`: one thread-block cluster a chunk; past nb = 128
+    the chunks' working copies in a workspace allocated here) or raise."""
     g, w, nb = chunks.shape
     if bw < 1 or nb % bw or w < nb:
         raise ValueError(f"lu_select: needs W >= nb and nb % bw == 0, got "
@@ -221,10 +268,12 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
     check_cuda_f32("lu_select", chunks)
     live = _live_rows(nrows, g, w, chunks.device)
     piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
+    work, work_ptr = workspace(LU_SELECT, "slate_lu_select_work", chunks, w,
+                               nb, g)
     LU_SELECT.launch("slate_lu_select", *device_and_stream(chunks),
                      chunks.data_ptr(), chunks.stride(0), chunks.stride(1),
                      chunks.stride(2), live.data_ptr(), g, w, nb, bw,
-                     piv.data_ptr())
+                     piv.data_ptr(), work_ptr)
     return piv
 
 

@@ -6,8 +6,9 @@ H_j = I - tau_j v_j v_j^H, v_j[j] = 1, v_j[:j] = 0, and Q = I - V T V^H
 with T the larft Forward/Columnwise triangle.
 
 ``geqrf_panel`` is the tuned panel seam.  Under the default plan an f32
-panel of at most 2^20 elements, within the limits K5 reports (on the card,
-at most 128 columns), goes to K5 (internal/qr_kernels.py); past that cap
+panel of at most 2^20 elements, within the limits K5 reports (on the
+card, up to 128 columns, or 256, 384 or 512), goes to K5
+(internal/qr_kernels.py); past that cap
 a Householder panel would read a tall panel from device memory once a
 column, so such panels (and f64, complex, or the library plan) take
 ``householder_panel_blocked``: CholQR2 with Householder reconstruction
@@ -141,8 +142,9 @@ def _qr_panel_ok(a: torch.Tensor) -> bool:
     """True when the plan routes this panel through K5: real f32, at most
     QR_PANEL_MAX_ELEMS elements, the "cuda" plan, and on the card the
     kernel's own limits, asked of the kernel (``slate_qr_panel_fits``:
-    panel width, slab width, T and scratch within one block's shared
-    memory).  The plain version that CPU tensors take has no such limits."""
+    w <= 128 or w in {256, 384, 512}, the slab width, T and scratch within
+    one block's shared memory).  The plain version that CPU tensors take
+    has no such limits."""
     mm, w = a.shape
     if not (a.dtype == torch.float32 and 1 <= w <= mm
             and mm * w <= QR_PANEL_MAX_ELEMS):

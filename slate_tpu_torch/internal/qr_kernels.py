@@ -7,7 +7,8 @@ kernel's slab blocking: the CPU tests run it, and on the card it is only
 the comparison.  ``qr_panel`` takes it for CPU tensors only; for CUDA
 tensors it launches the kernel (``csrc/qr_panel.cu``, whose per-panel
 routine is ``csrc/qr_panel.cuh``: one thread-block cluster a panel, its
-rows split over the cluster's CTAs) or raises.  ``qr_panel_batched`` does
+rows split over the cluster's CTAs; past 128 columns the same cluster
+factors the panel by 128-column blocks) or raises.  ``qr_panel_batched`` does
 the same with ``qr_panel_batched_plain`` and ``csrc/qr_panel_batched.cu``,
 which runs the same per-panel routine, one cluster a problem.  The kernels
 choose their cluster size themselves; :func:`panel_cluster` and
@@ -21,12 +22,18 @@ import ctypes
 import torch
 
 from .kernels import (I32, I64, P, CudaKernel, check_cuda_f32,
-                      check_cuda_storage, device_and_stream, fits, query)
+                      check_cuda_storage, device_and_stream, fits, query,
+                      shape_query, workspace)
 
 QR_PANEL = CudaKernel("qr_panel", "qr_panel.cu", {
-    "slate_qr_panel": [I32, P, P, I64, I64, I32, I32, I32, P, P],
+    "slate_qr_panel": [I32, P, P, I64, I64, I32, I32, I32, P, P, P],
     "slate_qr_panel_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_qr_panel_work": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_qr_panel_cluster": [I32, I32, I32, I32, ctypes.POINTER(I32)]})
+
+# Past QR_BLOCK columns a panel is factored by blocks of that many, in the
+# wide kernel and in the plain version.
+QR_BLOCK = 128
 
 QR_PANEL_BATCHED = CudaKernel("qr_panel_batched", "qr_panel_batched.cu", {
     "slate_qr_panel_batched": [I32, P, I32, P, I64, I64, I64, P, I32, I32,
@@ -40,9 +47,11 @@ QR_PANEL_BATCHED = CudaKernel("qr_panel_batched", "qr_panel_batched.cu", {
 
 def panel_fits(device: torch.device, mm: int, w: int, bw: int) -> bool:
     """True when K5 takes a [mm, w] panel at slab width bw on this CUDA
-    device: the kernel's own limits and its count of its shared memory
-    (T and scratch) against the device's per-block limit."""
-    return fits(QR_PANEL, "slate_qr_panel_fits", device, mm, w, bw)
+    device: the kernel's own limits (``slate_qr_panel_fits``: w <= 128, or
+    w in {256, 384, 512} by 128-column blocks; mm >= w, bw <= 8) and its
+    count of its shared memory against the device's per-block limit."""
+    return bool(shape_query(QR_PANEL, "slate_qr_panel_fits", device, mm, w,
+                            bw))
 
 
 def panel_cluster(device: torch.device, mm: int, w: int, bw: int) -> int:
@@ -52,6 +61,26 @@ def panel_cluster(device: torch.device, mm: int, w: int, bw: int) -> int:
     return query(QR_PANEL, "slate_qr_panel_cluster", device, mm, w, bw)
 
 
+def _merge_apply(p: torch.Tensor, T: torch.Tensor, j0: int, j1: int,
+                 right: int | None = None, merge: bool = True):
+    """Fold the factored columns [j0, j1) of ``p`` into the rest, in place:
+    Z = Vs^T P[j0:, :] with Vs the columns' unit lower V, the merge of
+    their T block into the panel's, T12 = -T1 (V1^T Vs) Ts (unless not
+    ``merge``), and the compact-WY update of the columns from ``right``
+    (default j1) on, A_right -= Vs (Ts^T Z); right = w: no update."""
+    w = p.shape[1]
+    right = j1 if right is None else right
+    r = torch.arange(j0, p.shape[0], device=p.device)[:, None]
+    d = torch.arange(j0, j1, device=p.device)[None, :]
+    vs = torch.where(r > d, p[j0:, j0:j1], (r == d).to(p.dtype))
+    z = vs.T @ p[j0:]                             # Vs^T P[j0:, :]
+    ts = T[j0:j1, j0:j1]
+    if j0 and merge:
+        T[:j0, j0:j1] = -(T[:j0, :j0] @ (z[:, :j0].T @ ts))
+    if right < w:
+        p[j0:, right:] -= vs @ (ts.T @ z[:, right:])
+
+
 def qr_panel_plain(a: torch.Tensor, bw: int = 8):
     """K5's steps in torch ops on a real panel [mm, w], mm >= w: per slab
     of bw columns, column by column the larfg scalars of qr.py ``_larfg``
@@ -59,9 +88,12 @@ def qr_panel_plain(a: torch.Tensor, bw: int = 8):
     x^T P[:, t]; s_j = x^T x), w_t = P[j, t] + scale s_t (the reflector's
     row for t > j, T's recursion V_t^T v_j for t < j), the column and the
     slab's later columns written (a column with mu = 0 is left as it is);
-    then Z = Vs^T P[j0:, :], which merges the slab's T into the panel's,
-    T12 = -T1 (V1^T Vs) Ts, and the compact-WY update of the columns to
-    the right, A_right -= Vs (Ts^T Z).  Returns (packed, T)."""
+    then the slab folded into the rest (:func:`_merge_apply`).  Past w =
+    128, as the wide kernel, by 128-column blocks: each block factored so
+    (rows from its diagonal down), its T merged into the panel's, and its
+    slabs applied in turn to the columns right of it (the same update of
+    those columns as one slab loop over the whole panel).  Returns (packed,
+    T)."""
     mm, w = a.shape
     if mm < w or bw < 1 or a.is_complex():
         raise ValueError(f"qr_panel_plain: needs a real [mm, w] panel with "
@@ -69,7 +101,17 @@ def qr_panel_plain(a: torch.Tensor, bw: int = 8):
                          f"{a.dtype}, bw={bw}")
     p = a.clone(memory_format=torch.contiguous_format)
     T = torch.zeros((w, w), dtype=a.dtype, device=a.device)
-    rows = torch.arange(mm, device=a.device)
+    if w > QR_BLOCK:
+        for c0 in range(0, w, QR_BLOCK):
+            c1 = min(c0 + QR_BLOCK, w)
+            p[c0:, c0:c1], T[c0:c1, c0:c1] = qr_panel_plain(p[c0:, c0:c1],
+                                                            bw)
+            _merge_apply(p, T, c0, c1, right=w)
+            if c1 < w:
+                for s0 in range(c0, c1, bw):
+                    _merge_apply(p, T, s0, min(s0 + bw, c1), right=c1,
+                                 merge=False)
+        return p, T
     for j0 in range(0, w, bw):
         j1 = min(j0 + bw, w)
         for j in range(j0, j1):
@@ -94,16 +136,7 @@ def qr_panel_plain(a: torch.Tensor, bw: int = 8):
             p[j:, j] = torch.where(live, col, p[j:, j])
         if j0 == 0 and j1 == w:
             break
-        r = rows[j0:, None]
-        d = torch.arange(j0, j1, device=a.device)[None, :]
-        vs = torch.where(r > d, p[j0:, j0:j1],
-                         (r == d).to(a.dtype))        # [mm - j0, nbs]
-        z = vs.T @ p[j0:]                             # Vs^T P[j0:, :]
-        ts = T[j0:j1, j0:j1]
-        if j0:
-            T[:j0, j0:j1] = -(T[:j0, :j0] @ (z[:, :j0].T @ ts))
-        if j1 < w:
-            p[j0:, j1:] -= vs @ (ts.T @ z[:, j1:])
+        _merge_apply(p, T, j0, j1)
     return p, T
 
 
@@ -111,7 +144,8 @@ def qr_panel(a: torch.Tensor, bw: int = 8):
     """Householder QR of a panel [mm, w], mm >= w: (packed, T) with
     ``householder_panel``'s packing and ``build_t``'s T (qr.py), Q = I -
     V T V^T.  Any strides.  A CPU tensor takes the plain version; a CUDA
-    tensor launches K5 once (f32, within :func:`panel_fits`) or raises."""
+    tensor launches K5 once (f32, within :func:`panel_fits`; past w = 128
+    with a workspace allocated here) or raises."""
     mm, w = a.shape
     if mm < w or w < 1 or bw < 1:
         raise ValueError(f"qr_panel: needs mm >= w >= 1 and bw >= 1, got "
@@ -121,9 +155,10 @@ def qr_panel(a: torch.Tensor, bw: int = 8):
     check_cuda_f32("qr_panel", a)
     packed = torch.empty((mm, w), dtype=a.dtype, device=a.device)
     T = torch.empty((w, w), dtype=a.dtype, device=a.device)
+    work, work_ptr = workspace(QR_PANEL, "slate_qr_panel_work", a, mm, w)
     QR_PANEL.launch("slate_qr_panel", *device_and_stream(a), a.data_ptr(),
                     a.stride(0), a.stride(1), mm, w, bw, packed.data_ptr(),
-                    T.data_ptr())
+                    T.data_ptr(), work_ptr)
     return packed, T
 
 

@@ -57,8 +57,8 @@ def _kernel_fits(op: str, n: int, nb: int, bw: int,
                  device: torch.device) -> bool:
     """Does the op's hand kernel take the reference's problem at (n, nb,
     bw) on ``device``?  On the CPU the plain versions take any shape; on
-    the card the kernel answers (K1 tiles up to 1024, K2 and K3 panels up
-    to 512: the reference's own candidates)."""
+    the card the kernel answers (K1 tiles up to 1024, K2, K3, K4 and K5
+    panels up to 512: the reference's own candidates)."""
     if device.type == "cpu":
         return True
     from ..internal import chol_kernels, lu_kernels, qr_kernels
@@ -71,8 +71,7 @@ def _kernel_fits(op: str, n: int, nb: int, bw: int,
     if op == "getrf_panel":
         return lu_kernels.panel_fits(device, nb, bw)
     if op == "lu_select":
-        return (nb <= lu_kernels.SELECT_MAX_NB
-                and lu_kernels.select_fits(device, n, nb, bw))
+        return lu_kernels.select_fits(device, n, nb, bw)
     if op == "geqrf_panel":
         return (n * nb <= QR_PANEL_MAX_ELEMS
                 and qr_kernels.panel_fits(device, n, nb, bw))

@@ -1262,3 +1262,118 @@ def test_wide_posv_launches_k2_and_k0_every_panel(cuda, nb):
     want = Xc.to_numpy()
     np.testing.assert_allclose(Xg.to_numpy(), want, rtol=0,
                                atol=RTOL * np.abs(want).max())
+
+
+# ---- the wide widths of K4 and K5: 256 .. 512 ----
+
+def test_wide_select_gate_asks_the_kernel(cuda):
+    """K4 answers for its own widths on the card, and the CPU gate mirrors
+    them: nb up to 128, then 256, 384 and 512 (a chunk's rows of one
+    128-column block in the cluster's shared memory, the chunk itself in a
+    workspace), nothing between or past; a launch past them raises."""
+    for nb in (64, 128, 200, 256, 384, 512, 640):
+        assert lk.select_fits(cuda, 1024, nb, 8) == lk.select_width_ok(nb, 8)
+    for w in (512, 1024, 5120, 5376):
+        for nb in (256, 384, 512):
+            assert ig._lu_select_ok(torch.zeros((1, w, nb), device=cuda), nb)
+    wide = lk.select_plan(cuda, 5120, 512, 8)
+    assert (wide["cluster"], wide["rows"], wide["block"], wide["chunk"]) == \
+        (16, 320, 128, "workspace")
+    narrow = lk.select_plan(cuda, 5120, 128, 8)
+    assert narrow["chunk"] == "shared memory"
+    assert narrow["smem_bytes"] < wide["smem_bytes"]
+    with pytest.raises(RuntimeError, match="slate_lu_select"):
+        lk.lu_select(torch.zeros((1, 1280, 640), device=cuda))
+
+
+@pytest.mark.parametrize("g,w,nb,nrows", [
+    (4, 5120, 256, None), (4, 5120, 512, None), (2, 512, 256, None),
+    (2, 1024, 512, None), (2, 1024, 384, (1024, 700))])
+def test_wide_select_matches_plain_and_repeats_bitwise(cuda, g, w, nb,
+                                                       nrows):
+    """K4 at the wide widths: one launch a round, indices equal to the plain
+    version's and (all rows live) lu_factor's, the same bits twice."""
+    rng = np.random.default_rng(w + nb)
+    x = torch.from_numpy(rng.standard_normal((g, w, nb)).astype(
+        np.float32)).to(cuda)
+    live = None if nrows is None else torch.tensor(nrows, device=cuda)
+    before = lk.LU_SELECT.launches
+    got = lk.lu_select(x, nrows=live)
+    assert lk.LU_SELECT.launches == before + 1
+    assert torch.equal(got, lk.lu_select_plain(x, live))
+    assert torch.equal(got, lk.lu_select(x, nrows=live))
+    if nrows is None:
+        assert torch.equal(got, panel_lu(x)[1][:, :nb])
+    else:
+        assert int(got[1].max()) < nrows[1]
+
+
+def test_wide_qr_gate_asks_the_kernel(cuda):
+    """K5 takes w up to 128 and 256, 384, 512 (by 128-column blocks, T in
+    device memory), not 129 or 640; the 2^20-element cap stays the gate's
+    on both devices; a launch past the kernel's widths raises."""
+    for w, ok in ((128, True), (129, False), (200, False), (256, True),
+                  (384, True), (512, True), (640, False)):
+        assert qk.panel_fits(cuda, 2048, w, 8) == ok
+    assert iq._qr_panel_ok(torch.zeros((4096, 256), device=cuda))
+    assert iq._qr_panel_ok(torch.zeros((2048, 512), device=cuda))
+    assert not iq._qr_panel_ok(torch.zeros((2049, 512), device=cuda))
+    assert qk.panel_cluster(cuda, 4096, 256, 8) == 16
+    with pytest.raises(RuntimeError, match="slate_qr_panel"):
+        qk.qr_panel(torch.zeros((2048, 640), device=cuda))
+
+
+@pytest.mark.parametrize("m,w", [(4096, 256), (2048, 512), (3000, 256),
+                                 (1152, 384)])
+def test_wide_qr_panel_matches_plain_and_repeats_bitwise(cuda, m, w):
+    """K5 at the wide widths against its plain version (1e-4 + 1e-4
+    |plain|), Q R = A through the compact WY, one launch, the same bits
+    twice."""
+    rng = np.random.default_rng(m + w)
+    x = torch.from_numpy(rng.standard_normal((m, w)).astype(
+        np.float32)).to(cuda)
+    before = qk.QR_PANEL.launches
+    got = qk.qr_panel(x)
+    assert qk.QR_PANEL.launches == before + 1
+    for g, p in zip(got, qk.qr_panel_plain(x)):
+        torch.testing.assert_close(g, p, rtol=RTOL, atol=ATOL)
+    assert all(torch.equal(g, h) for g, h in zip(got, qk.qr_panel(x)))
+    packed, T = (t.double() for t in got)
+    v = torch.tril(packed, -1)
+    v[torch.arange(w), torch.arange(w)] = 1
+    r = torch.zeros_like(packed)
+    r[:w] = torch.triu(packed[:w])
+    qr_ = r - v @ (T @ (v.T @ r))
+    assert float((qr_ - x.double()).abs().max()) < 1e-4 * float(
+        x.abs().max()) * m ** 0.5
+
+
+def test_wide_calu_and_gels_launch_the_kernels(cuda):
+    """CALU gesv at nb = 256 sends every tournament round to K4 and every
+    clean factor to K3; the QR gels at nb = 512 every panel to K5."""
+    rng = np.random.default_rng(31)
+    n, nb = 2048, 256
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = torch.from_numpy(q.astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((n, 4)).astype(
+        np.float32)).to(cuda)
+    k4, k3 = lk.LU_SELECT.launches, lk.LU_PANEL.launches
+    _, X = st.gesv(st.Matrix.from_numpy(a, nb), st.Matrix.from_numpy(b, nb),
+                   {st.Option.MethodLU: st.MethodLU.CALU})
+    panels = n // nb - 1
+    assert lk.LU_PANEL.launches - k3 == 2 * panels
+    assert lk.LU_SELECT.launches - k4 >= panels
+    x = X.to_dense()
+    assert float((a @ x - b).abs().max()) < 1e-3 * float(b.abs().max())
+    m, nq, nbq = 2048, 1024, 512
+    aq = torch.from_numpy(rng.standard_normal((m, nq)).astype(
+        np.float32)).to(cuda)
+    bq = torch.from_numpy(rng.standard_normal((m, 3)).astype(
+        np.float32)).to(cuda)
+    k5 = qk.QR_PANEL.launches
+    X = st.gels(st.Matrix.from_numpy(aq, nbq), st.Matrix.from_numpy(bq, nbq),
+                {st.Option.MethodGels: st.MethodGels.QR})
+    assert qk.QR_PANEL.launches - k5 == nq // nbq
+    want = torch.linalg.lstsq(aq.double(), bq.double()).solution
+    assert float((X.to_dense().double() - want).abs().max()) < \
+        1e-4 * float(want.abs().max())

@@ -300,7 +300,13 @@ def test_gates_carry_hopper_limits():
     assert ig._lu_select_ok(blocks, NB)
     assert ig._lu_select_ok(torch.zeros((2, 5120, NB)), NB)
     assert ig._lu_select_ok(torch.zeros((2, 300, NB)), NB)
-    assert not ig._lu_select_ok(torch.zeros((2, 512, 256)), 256)  # nb > 128
+    # past 128, the reference's wide widths: 256, 384, 512 (the kernel
+    # walks them by 128-column blocks), and no width between or beyond
+    assert ig._lu_select_ok(torch.zeros((2, 512, 256)), 256)
+    assert ig._lu_select_ok(torch.zeros((2, 768, 384)), 384)
+    assert ig._lu_select_ok(torch.zeros((2, 1024, 512)), 512)
+    assert not ig._lu_select_ok(torch.zeros((2, 512, 200)), 200)
+    assert not ig._lu_select_ok(torch.zeros((2, 1280, 640)), 640)
     assert not ig._lu_select_ok(blocks.double(), NB)
     with plan_override("lu_select", LIBRARY_PLAN):
         assert not ig._lu_select_ok(blocks, NB)
