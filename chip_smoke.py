@@ -179,16 +179,16 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      each exiting 0.  Every phase before tune runs with the port's plan
      cache pointed at an empty file, whatever cache the machine holds;
  13. slice 14 (its own generator, --seed + 15): the spectral drivers,
-     BASELINE.md config 5 cut to one card: heev at n = 8192 in f32 and in
-     f64 on the generator's heev matrix (A = Q diag(lambda) Q^T, lambda =
+     BASELINE.md config 5 cut to one card: heev at n = 6144 (8192
+     before slice 23) in f32 and in f64 on the generator's heev matrix (A = Q diag(lambda) Q^T, lambda =
      linspace(-1, 1, n) * sigma reversed, cond 1e3, formed in f64 on the
      card), cold and warm, heev_vals, the phase split (he2hb, stage2,
      backtransform, certify; synced), the recorded spans, the
      certificate's ratio against its tolerance and max|w - lambda| /
      max|lambda| against its bound, beside the library's own eigh on A;
-     svd at 8192 x 8192 f32 on the generator's svd matrix the same way;
-     hegv (itype 1, B = G G^T + n I): K2 191 and K0 63 launches, as
-     expected_posv_launches(8192, 128) gives; the parity routes at n =
+     svd at 6144 x 6144 f32 on the generator's svd matrix the same way;
+     hegv (itype 1, B = G G^T + n I): K2 143 and K0 47 launches, as
+     expected_posv_launches(6144, 128) gives; the parity routes at n =
      512 (MethodEig DC and QR, MethodSvd Bidiag) against the Auto
      route's values, with the chase's steps and its launches a step
      (torch.profiler on a 512 x 512 chase); stedc at n = 4096 on a random
@@ -282,7 +282,8 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
  18. slice 19: the tester and the examples.  ``python -m
      slate_tpu_torch.tester``'s command lines in this process on the
      serial route: every routine in s and d at n = 3072 and in c and z at
-     1536 (4096 and 2048 before slice 21), nb = 128, the --ref runners
+     1024 (4096 and 2048 before slice 21, 1536 before slice 23), nb =
+     128, the --ref runners
      (gesv, heev, svd, gels) in all four types at 1536 (2048 before),
      and posv in s at n = 4000 (its ragged last panel
      factors on K1); every table row printed, a JSON line a command with
@@ -309,7 +310,25 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      launches, walls beside in-core posv's); slice 15's shims phase now
      holds the f32 LAPACK posv at 4096 (nb 256) to K2 47 and K0 15
      launches;
- 20. print the launch counts, the card line, the kernels line (K0-K3
+ 20. slice 22 (--seed + 21): K4 and K5 at nb = 256-512 after slice 21's
+     kernel rows, CALU gesv and the QR gels at nb = 256 and 512 after
+     their nb = 128 runs, the tester's s rows at 256;
+ 21. slice 23 (its own generator, --seed + 22), the serving kernels at
+     the tuned plan's width: right after the serving kernels' rows
+     (serve_wide_kernels), K6 and K7 at B = 8, M = 4096, K = 2048, nb =
+     256 and 512 with live, partly dead and dead tiles, K8 at [8, 4096,
+     256] and [8, 2048, 512] with a rows = 0 slot, in f32 and bf16, each
+     against its plain version, launched twice bit for bit, one problem
+     alone bit-equal to its slot, timed beside its bound and library
+     composition; after the serving stream, the same 120 requests under
+     plan_override for the three batch ops at TilePlan("cuda", 8, 256)
+     and 512 (stream_nb256, stream_nb512: K6-K8 launches as
+     expected_serve_launches predicts at nb = min(plan.nb, bucket), the
+     residual bounds, warm wall and device busy beside the default
+     nb = 128's in the same run), then tuned_batch_picks (the tuner's
+     batch candidates at bucket 1024, nb 128, 256 and 512, swept into a
+     temporary cache, and the nb each op picks);
+ 22. print the launch counts, the card line, the kernels line (K0-K8
      with a "wide" list of their wide rows), and last the result line.
      A kernel's launch count adds its wrapper's eager launches and those
      its CUDA graphs' replays ran.
@@ -339,7 +358,8 @@ matrices from a ninth, --seed + 8, and their least-squares problems from a
 tenth, --seed + 9, slice 12's from --seed + 10 to + 13, slice 13's
 from --seed + 14, slice 14's from --seed + 15, slice 15's from
 --seed + 16, slice 16's from --seed + 17, slice 17's from --seed + 18,
-slice 18's from --seed + 19 and slice 21's from --seed + 20, so that
+slice 18's from --seed + 19, slice 21's from --seed + 20, slice 22's
+from --seed + 21 and slice 23's from --seed + 22, so that
 adding to one slice moves no other's matrices (slice 19 draws from no
 generator of this script: the tester's runners and the examples draw
 from their own fixed seeds, the reference's);
@@ -1517,14 +1537,15 @@ SERVE_TILES = {0: (32, 32, 20, 9, 1, 32, 0, 16),      # live, partly dead,
                16: (48, 48, 30, 9, 17, 0, 40, 48)}    # and wholly dead
 
 
-def serve_panel_inputs(gen, chol: bool, k: int, dtype):
+def serve_panel_inputs(gen, chol: bool, k: int, dtype, nb: int = SERVE_NB):
     """A batch of K6/K7 operands at a serving shape: B = 8 problems of
-    M = 4096 rows, nb = 128, K = k nb columns of history with O(1)
-    products (left, lead ~ N(0,1) / K^(1/4), drawn apart), strided as
-    batch_potrf and batch_getrf pass them (lead a transposed view for
-    Cholesky); the top block of col - left @ lead SPD with cond <= ~5
-    (Cholesky) or G / sqrt(nb) + 2 I (LU).  bf16: the same values rounded."""
-    b, m, nb, kk = SERVE_B, SERVE_M, SERVE_NB, k * SERVE_NB
+    M = 4096 rows, width nb (128 unless given), K = k nb columns of history
+    with O(1) products (left, lead ~ N(0,1) / K^(1/4), drawn apart),
+    strided as batch_potrf and batch_getrf pass them (lead a transposed
+    view for Cholesky); the top block of col - left @ lead SPD with cond <=
+    ~5 (Cholesky) or G / sqrt(nb) + 2 I (LU).  bf16: the same values
+    rounded."""
+    b, m, kk = SERVE_B, SERVE_M, k * nb
     scale = max(kk, 1) ** -0.25
     left = (torch.randn(b, m, kk + 8, generator=gen, device="cuda")
             * scale)[:, :, 8:]
@@ -1827,13 +1848,15 @@ def serve_accuracy(reqs, results) -> dict:
     return worst
 
 
-def expected_serve_launches(records, warmups: bool = True) -> dict:
+def expected_serve_launches(records, warmups: bool = True,
+                            plan_nb: int = 128) -> dict:
     """K6, K7 and K8 launches of the ragged route, replayed from the batches
-    the server ran: a chol_solve (solve) batch of bucket n runs one K6 (K7)
-    step a block column, with nb = min(128, n): 3 n / nb - 1 launches
-    (update, factor, solve; the last step no solve) each; a
+    the server ran under a batch plan of width ``plan_nb`` (the default
+    plan's 128 unless given): a chol_solve (solve) batch of bucket n runs
+    one K6 (K7) step a block column, with nb = min(plan_nb, n): 3 n / nb -
+    1 launches (update, factor, solve; the last step no solve) each; a
     least-squares batch of bucket (mb, n, kb) one K8 launch a panel, n / w
-    with w = min(128, n).  On the card every batch replays its bucket's
+    with w = min(plan_nb, n).  On the card every batch replays its bucket's
     CUDA graph, and a batch that missed the cache first ran that device
     part once more, as the capture's warm-up pass (counted with
     ``warmups``).  Each escalated least-squares problem's safe rung,
@@ -1845,11 +1868,13 @@ def expected_serve_launches(records, warmups: bool = True) -> dict:
     for r in records:
         n = r["bucket"][1] if r["op"] == "least_squares_solve" \
             else r["bucket"][0]
-        nb = min(128, n)
+        nb = min(plan_nb, n)
         runs = 1 + (warmups and not r["cache_hit"])
         if r["op"] == "least_squares_solve":
             want["qr_panel_batched"] += runs * (n // nb)
-            want["qr_panel"] += r["escalated"] * (n // nb)
+            # the safe rung's Householder QR tiles by min(n, 128) whatever
+            # the batch plan
+            want["qr_panel"] += r["escalated"] * (n // min(128, n))
         elif r["op"] == "chol_solve":
             want["chol_panel_batched"] += runs * (3 * (n // nb) - 1)
         else:
@@ -3993,8 +4018,10 @@ def check_slice13(st, seed, n, nb, nrhs, serve_reqs, reset, counts,
 # ---- slice 14: the spectral drivers ---------------------------------------
 
 # BASELINE.md config 5 ("dheev two-stage + dgesvd n=30k") cut to one card
-# and to the smoke's time: n = 8192 in f32 (and one heev in f64)
-SPEC_N = 8192
+# and to the smoke's time: n = 6144 in f32 (and one heev in f64; 8192
+# before slice 23, whose phases took the difference; the mesh routes of
+# slice 18 keep DIST_SPEC_N)
+SPEC_N = 6144
 # the chase routes (MethodEig DC and QR, MethodSvd Bidiag) and the fault
 # drills: a chase runs its steps one after another, ~37 launches a step
 # for hb2st and ~66 for tb2bd, and n = 1024 takes 4600 steps against
@@ -4002,7 +4029,7 @@ SPEC_N = 8192
 SPEC_PARITY_N = 512
 STEDC_N = 4096
 # max|w - lambda| / max|lambda| (and max|s - sigma| / sigma_0): about
-# 4 n eps_f32 at n = 8192 for f32 (eigenvalues move by at most the
+# 4 n eps_f32 at n = 6144-8192 for f32 (eigenvalues move by at most the
 # backward error's norm, O(n eps ||A||) for the library's routines; the
 # library's own dense call on the same A is printed beside, as
 # `library_rel_err`); the f64 routes at rounding level
@@ -5602,7 +5629,9 @@ def check_slice17(st, seed, n, nb, nrhs, reset, counts, kernels,
 # ---- slice 18: the distributed spectral reductions (--seed + 19) ----
 # heev's DC route and the strike walk the hb2st chase, a step after
 # another (slice 14's SPEC_PARITY_N): at n = 8192 the chase alone would
-# take ~260k steps, so those two run at 512; everything else at SPEC_N
+# take ~260k steps, so those two run at 512; everything else at
+# DIST_SPEC_N, slice 14's size before slice 23 cut it
+DIST_SPEC_N = 8192
 DIST_STEDC_N = 4096
 DIST_STEDC_TOL = 1e-3           # the mesh stedc against the single route's
 DIST_PD_N = 2048                # pdsyev and pdgesvd, f64
@@ -5623,13 +5652,13 @@ def mesh_opts(st, **kw) -> dict:
 
 
 def check_dist_heev(st, g, gen, nb, reset, counts, failures):
-    """dist_heev and dist_heev_vals: heev on the one-rank mesh at SPEC_N,
+    """dist_heev and dist_heev_vals: heev on the one-rank mesh at DIST_SPEC_N,
     f32, on the generator's heev matrix, cold (launches counted: none)
     and warm (spans recorded), beside the single route's heev on the same
     A; the certificate against its tolerance, the eigenvalues against the
     exact spectrum.  Returns (launches, A, the mesh A)."""
     from slate_tpu_torch.robust import certify
-    n = SPEC_N
+    n = DIST_SPEC_N
     a, lam = spectral_matrix("heev", n, gen, torch.float32)
     info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
     A1 = st.HermitianMatrix.from_numpy(a, nb)
@@ -5713,12 +5742,12 @@ def check_dist_heev_dc(st, g, gen, nb, failures) -> None:
 
 
 def check_dist_svd(st, g, gen, nb, reset, counts, failures) -> dict:
-    """dist_svd: svd on the one-rank mesh at SPEC_N x SPEC_N, f32, on the
+    """dist_svd: svd on the one-rank mesh at DIST_SPEC_N squared, f32, on the
     generator's svd matrix, cold and warm beside the single route's; the
     certificate and the singular values against the exact ones; no hand
     kernel."""
     from slate_tpu_torch.robust import certify
-    n = SPEC_N
+    n = DIST_SPEC_N
     a, sigma = spectral_matrix("svd", n, gen, torch.float32)
     info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
     (s1, _, _, h1), wall_single = _timed(lambda: st.svd(
@@ -5756,7 +5785,7 @@ def check_dist_svd(st, g, gen, nb, reset, counts, failures) -> dict:
 
 def check_dist_hegv(st, g, a, gen, nb, reset, counts, failures) -> dict:
     """dist_hegv: hegv itype 1 on the mesh (dist_potrf of B, K1 on each
-    diagonal tile: SPEC_N / nb launches; the mesh trsm; the mesh heev),
+    diagonal tile: DIST_SPEC_N / nb launches; the mesh trsm; the mesh heev),
     cold and warm beside the single route's hegv on the same pair."""
     n = a.shape[0]
     gg = torch.randn(n, n, generator=gen, device="cuda")
@@ -5981,13 +6010,16 @@ def check_slice18(st, seed, nb, reset, counts, trace) -> dict:
 # the tester's sizes: s and d at TESTER_N, c, z and --ref at
 # TESTER_SMALL_N (4096 and 2048 before slice 21, cut to keep the smoke
 # inside its limit on a slow host: the tester's time is mostly the
-# reference's host-side generators, ~n^3)
+# reference's host-side generators, ~n^3); c and z at TESTER_CZ_N (1536
+# before slice 23, whose phases took the difference; c and z rows launch
+# no hand kernel)
 TESTER_N = 3072
 TESTER_SMALL_N = 1536
+TESTER_CZ_N = 1024
 TESTER_RUNS = (
     ("tester_sd", ["all", "--type", "s,d", "--dims", str(TESTER_N),
                    "--nb", "128"]),
-    ("tester_cz", ["all", "--type", "c,z", "--dims", str(TESTER_SMALL_N),
+    ("tester_cz", ["all", "--type", "c,z", "--dims", str(TESTER_CZ_N),
                    "--nb", "128"]),
     ("tester_ref", ["--ref", "gesv", "heev", "svd", "gels", "--type",
                     "s,d,c,z", "--dims", str(TESTER_SMALL_N), "--nb",
@@ -6551,6 +6583,299 @@ def check_wide_gels(st, gen, nb, nrhs, kernels, reset, counts,
     return out
 
 
+# ---- slice 23: the serving kernels at the tuned plan's width -------------
+# (--seed + 22)  K6 and K7 at nb = 256 and 512 on the serving check's
+# shape (B = 8, M = 4096) with K = 2048 columns of history, K8 at the
+# widest panels of the 4096 and 2048 buckets; then the 120-request stream
+# under a 256- and a 512-wide batch plan, and the tuner's batch picks.
+SERVE_WIDE_NBS = (256, 512)
+SERVE_WIDE_K = 2048
+SERVE_WIDE_QR = ((4096, 256), (2048, 512))     # K8's [8, mm, w]
+SERVE_WIDE_PICKS_N = 1024
+
+
+def serve_wide_tiles(nb: int) -> tuple[int, tuple]:
+    """(k, tiles) of a K6/K7 check at width nb: k = K / nb and per problem
+    its live tile count, in nb-row tiles: wholly live, live to half the
+    panel, tile 0 alone, all but the last, wholly dead (k itself), a few
+    tiles."""
+    k, t = SERVE_WIDE_K // nb, SERVE_M // nb
+    return k, (k + t, k + t, k + t // 2, k + 1, k + t - 1, k, k + t, k + 3)
+
+
+def timed_once(fn):
+    """(fn()'s result, its device ms by CUDA events): one call, for the
+    plain versions, whose result is also the comparison's."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_serve_wide_kernels(gen) -> dict:
+    """K6 and K7 at B = 8, M = 4096, K = 2048 and nb = 256, 512 (ragged
+    tiles: serve_wide_tiles), K8 at SERVE_WIDE_QR with a rows = 0 slot,
+    each in f32 and bf16 against its plain version (f32: ATOL + RTOL
+    |plain|; bf16: ATOL + 2^-7 |plain|), dead tiles and the filler slot
+    bit-equal to the input, two launches bit for bit, and one problem alone
+    bit-equal to its slot in the batch; each timed (K6's and K7's own
+    launches' device time, torch.profiler) beside its bound on live tiles
+    and, in f32, its library composition (matmul + batched cholesky_ex +
+    solve_triangular for K6, matmul + batched lu_factor_ex(pivot=False)
+    for K7, batched torch.geqrf for K8).  Returns {kernel: [rows]}."""
+    from slate_tpu_torch.internal import chol_kernels as ck
+    from slate_tpu_torch.internal import lu_kernels as lk
+    from slate_tpu_torch.internal import qr_kernels as qk
+    rows = {"chol_panel_batched": [], "lu_panel_batched": [],
+            "qr_panel_batched": []}
+    for name, chol, kern, plain in (
+            ("chol_panel_batched", True, ck.chol_panel_batched,
+             ck.chol_panel_batched_plain),
+            ("lu_panel_batched", False, lk.lu_panel_batched,
+             lk.lu_panel_batched_plain)):
+        tag = "k6" if chol else "k7"
+        for nb in SERVE_WIDE_NBS:
+            k, tiles_b = serve_wide_tiles(nb)
+            tiles = torch.tensor(tiles_b, dtype=torch.int32, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                col, left, lead = serve_panel_inputs(gen, chol, k, dtype, nb)
+
+                def run(col=col, left=left, lead=lead, tiles=tiles, k=k):
+                    return kern(col, left, lead, tiles, k, 8)
+                got = run()
+                repeatable = all(torch.equal(bits(g), bits(h))
+                                 for g, h in zip(got, run()))
+                one = 2                             # live to half the panel
+                alone = kern(col[one:one + 1], left[one:one + 1],
+                             lead[one:one + 1], tiles[one:one + 1], k, 8)
+                invariant = all(torch.equal(bits(g[one]), bits(h[0]))
+                                for g, h in zip(got, alone))
+                want, plain_ms = timed_once(
+                    lambda: plain(col, left, lead, tiles, k, 8))
+                live = ck.live_rows(tiles, k, SERVE_M, nb)
+                dead_equal = all(torch.equal(bits(torch.where(live, col, g)),
+                                             bits(col)) for g in got)
+                f32 = dtype == torch.float32
+
+                def library(col=col, left=left, lead=lead, nb=nb):
+                    upd = col - left @ lead
+                    if not chol:
+                        return torch.linalg.lu_factor_ex(upd, pivot=False)[0]
+                    l00 = torch.linalg.cholesky_ex(upd[:, :nb])[0]
+                    return torch.linalg.solve_triangular(
+                        l00.mT, upd[:, nb:], upper=True, left=False)
+                kk, esz = k * nb, col.element_size()
+                live_m = [max(0, min(SERVE_M, (t - k) * nb)) for t in tiles_b]
+                flops = sum(panel_flops(mb, kk, nb,
+                                        "potrf" if chol else "getrf")
+                            for mb in live_m if mb)
+                nbytes = esz * (3 * SERVE_B * SERVE_M * nb + sum(live_m) * kk
+                                + sum(1 for mb in live_m if mb) * kk * nb)
+                times = step_launch_times(name, tag, run, reps=3)
+                row = check(
+                    name, {"B": SERVE_B, "M": SERVE_M, "nb": nb, "K": kk,
+                           "bw": 8, "dtype": str(dtype)[6:],
+                           "tiles": list(tiles_b)},
+                    list(got), list(want),
+                    "f32: K-long f32 sums with O(1) partial sums in another "
+                    "order, the tile factored by 128-column blocks (the "
+                    "plain version by bw-column slabs) with cond <= ~5; "
+                    "bf16: the same f32 values, then each store rounds to "
+                    "bf16, so one bf16 ulp (2^-7 relative) apart at most",
+                    times[f"{tag}_own_ms"], plain_ms,
+                    time_ms(library, 5) if f32 else None, flops, nbytes,
+                    rtol=RTOL if f32 else BF16_RTOL)
+                row.update(times, bitwise_repeatable=repeatable,
+                           batch_invariant=invariant,
+                           dead_tiles_bit_equal=dead_equal,
+                           plan=(ck if chol else lk).batched_panel_plan(
+                               col, left, lead))
+                emit({"phase": "serve_wide_kernels", "check": name,
+                      "nb": nb, "dtype": str(dtype)[6:],
+                      "bitwise_repeatable": repeatable,
+                      "batch_invariant": invariant,
+                      "dead_tiles_bit_equal": dead_equal, **times,
+                      "plan": row["plan"]})
+                if not (repeatable and invariant and dead_equal):
+                    raise AssertionError(
+                        f"{name} nb={nb} {dtype}: repeatable {repeatable}, "
+                        f"batch-invariant {invariant}, dead tiles "
+                        f"{dead_equal}")
+                rows[name].append(row)
+    for mm, w in SERVE_WIDE_QR:
+        rows_b = (mm, mm - 100, 0, mm, mm, mm - 7, mm, mm)
+        rws = torch.tensor(rows_b, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn(SERVE_B, mm, w, generator=gen,
+                            device="cuda").to(dtype)
+            got = qk.qr_panel_batched(a, rws)
+            repeatable = all(torch.equal(bits(g), bits(h)) for g, h in
+                             zip(got, qk.qr_panel_batched(a, rws)))
+            alone = qk.qr_panel_batched(a[:1], rws[:1])
+            invariant = all(torch.equal(bits(g[0]), bits(h[0]))
+                            for g, h in zip(got, alone))
+            filler_equal = (torch.equal(bits(got[0][2]), bits(a[2]))
+                            and not bool(got[1][2].any()))
+            want, plain_ms = timed_once(
+                lambda: qk.qr_panel_batched_plain(a, rws))
+            f32 = dtype == torch.float32
+            live = sum(1 for r in rows_b if r)
+            cluster, resident = qk.batched_panel_cluster(a.device, dtype, mm,
+                                                         w, 8)
+            row = check(
+                "qr_panel_batched", {"B": SERVE_B, "mm": mm, "w": w, "bw": 8,
+                                     "dtype": str(dtype)[6:],
+                                     "rows": list(rows_b)},
+                list(got), list(want),
+                "128-column blocks of K5's slab loop in both, each block's "
+                "slabs applied in turn to the columns right of it; sums "
+                "over mm rows in another order; Gaussian panels, |R| <= "
+                "~sqrt(mm), |V| <= 1; bf16: each store rounds, one bf16 ulp "
+                "apart at most",
+                time_ms(lambda: qk.qr_panel_batched(a, rws), 3), plain_ms,
+                time_ms(lambda: torch.geqrf(a), 3) if f32 else None,
+                live * op_flops("geqrf", (mm, w)),
+                a.element_size() * SERVE_B * (2 * mm * w + w * w),
+                rtol=RTOL if f32 else BF16_RTOL)
+            row.update(cluster=cluster, waves=-(-SERVE_B // resident),
+                       bitwise_repeatable=repeatable,
+                       batch_invariant=invariant,
+                       filler_slot_bit_equal=filler_equal)
+            emit({"phase": "serve_wide_kernels", "check": "qr_panel_batched",
+                  "mm": mm, "w": w, "dtype": str(dtype)[6:],
+                  "cluster": cluster, "waves": row["waves"],
+                  "bitwise_repeatable": repeatable,
+                  "batch_invariant": invariant,
+                  "filler_slot_bit_equal": filler_equal})
+            if not (repeatable and invariant and filler_equal):
+                raise AssertionError(
+                    f"qr_panel_batched [{SERVE_B}, {mm}, {w}] {dtype}: "
+                    f"repeatable {repeatable}, batch-invariant {invariant}, "
+                    f"filler slot {filler_equal}")
+            rows["qr_panel_batched"].append(row)
+    return rows
+
+
+BATCH_PLAN_OPS = ("batch_potrf", "batch_getrf", "batch_geqrf")
+
+
+def serve_stream_at(st, reqs, nb, reset, counts):
+    """The stream through a fresh Server with the three batch ops' plans at
+    TilePlan("cuda", 8, nb) (the default plan at nb = 128): cold (the
+    captures), then warm twice and once under torch.profiler.  Returns
+    (launches of the cold run, its batch records, the cold results, cold
+    wall, best warm wall, warm device busy seconds).  The allocator's
+    cache goes back to the device first: a capture that runs out of
+    memory beside blocks an earlier phase left cached drops them and
+    captures again (internal/graphs.py), one more warm-up pass than
+    expected_serve_launches counts."""
+    torch.cuda.empty_cache()
+    with contextlib.ExitStack() as stack:
+        if nb != 128:
+            for op in BATCH_PLAN_OPS:
+                stack.enter_context(st.plan_override(
+                    op, st.TilePlan("cuda", 8, nb)))
+        reset()
+        srv, res, cold = run_stream(st, reqs)
+        launches = counts()
+        records = list(srv.batch_records)
+
+        def warm():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve_batch(reqs)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        best = min(warm() for _ in range(2))
+        busy = device_busy(lambda: srv.serve_batch(reqs))
+    return launches, records, res, cold, best, busy
+
+
+def check_serve_wide_streams(st, reqs, kernels, reset, counts, card) -> dict:
+    """stream_nb256, stream_nb512: the 120-request stream under the batch
+    ops' plans at nb = 256 and 512 beside the default nb = 128 in the same
+    run: K6, K7 and K8 launches as expected_serve_launches predicts at nb
+    = min(plan.nb, bucket), every healthy result within the stream's
+    residual bounds and the same problems unhealthy as at 128 (the zero
+    column), the warm wall and device busy time.  Returns {phase:
+    launches}."""
+    bounds = {"solve": SERVE_RESIDUAL_BOUND,
+              "chol_solve": SERVE_RESIDUAL_BOUND,
+              "least_squares_solve": SERVE_LSQ_BOUND}
+    _, _, res128, _, warm128, busy128 = serve_stream_at(st, reqs, 128, reset,
+                                                        counts)
+    bad128 = [i for i, r in enumerate(res128) if not r.health.ok]
+    out, failures = {}, []
+    for nb in SERVE_WIDE_NBS:
+        launches, records, res, cold, warm, busy = serve_stream_at(
+            st, reqs, nb, reset, counts)
+        want = {**{name: 0 for name in kernels},
+                **expected_serve_launches(records, plan_nb=nb)}
+        acc = serve_accuracy(reqs, res)
+        bad = [i for i, r in enumerate(res) if not r.health.ok]
+        emit({"phase": f"stream_nb{nb}", "requests": len(reqs),
+              "wall_s_cold": cold, "wall_s_warm": warm,
+              "device_busy_s": busy, "nb128_wall_s_warm": warm128,
+              "nb128_device_busy_s": busy128,
+              "problems_per_s_warm": len(reqs) / warm,
+              "launches": launches, "launches_predicted": want,
+              "batch_nbs": sorted({min(nb, r["bucket"][1] if r["op"] ==
+                                       "least_squares_solve"
+                                       else r["bucket"][0])
+                                   for r in records}),
+              "worst_residual": acc, "residual_bounds": bounds,
+              "unhealthy": bad, "nb128_unhealthy": bad128, "card": card})
+        if launches != want:
+            failures.append(f"stream_nb{nb}: launches {launches} != {want}")
+        for op, bnd in bounds.items():
+            if not acc.get(op, 0.0) < bnd:
+                failures.append(f"stream_nb{nb} {op}: worst healthy "
+                                f"residual {acc.get(op)} (bound {bnd})")
+        if bad != bad128:
+            failures.append(f"stream_nb{nb}: unhealthy {bad}, at 128 "
+                            f"{bad128}")
+        out[f"stream_nb{nb}"] = launches
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def check_tuned_batch_picks(card) -> None:
+    """tuned_batch_picks: on the card the tuner's candidates for the three
+    batch ops at bucket 1024 hold nb 128, 256 and 512 (the kernels' gates
+    take them now); one sweep of them into a temporary cache, and the plan
+    each op picks.  The smoke's own cache is restored after."""
+    from slate_tpu_torch.tune import autotune
+    shield = os.environ["SLATE_TORCH_TUNE_CACHE"]
+    n = SERVE_WIDE_PICKS_N
+    cands = {op: sorted({p.nb for p in autotune.candidates(op, n)
+                         if p.kernel == "cuda"}) for op in BATCH_PLAN_OPS}
+    seen = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-picks-") as d:
+        set_plan_cache(os.path.join(d, "picks.json"))
+        try:
+            won = autotune.tune_all(
+                ns=(n,), ops=BATCH_PLAN_OPS, dtype="float32", iters=2,
+                report=lambda op, m, plan, gf: seen.append(
+                    {"op": op, "kernel": plan.kernel, "nb": plan.nb,
+                     "bw": plan.bw, "gflops": gf}))
+        finally:
+            set_plan_cache(shield)
+    picks = {op: {"kernel": plan.kernel, "nb": plan.nb, "bw": plan.bw,
+                  "gflops": gf} for (op, _), (plan, gf) in won.items()}
+    emit({"phase": "tuned_batch_picks", "n": n, "candidates_nb": cands,
+          "swept": seen, "picks": picks,
+          "seconds": time.perf_counter() - t0, "card": card})
+    if any(cands[op] != [128, 256, 512] for op in BATCH_PLAN_OPS):
+        raise AssertionError(f"tuned_batch_picks: the batch candidates at "
+                             f"{n} are {cands}, not nb 128, 256 and 512")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6634,12 +6959,15 @@ def main(argv=None) -> int:
     edge_gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
     rows.update(check_qr_kernels(qr_gen, edge_gen))
     rows.update(check_serve_kernels(serve_gen, edge_gen))
+    # slice 23: K6-K8 at the tuned plan's widths, from --seed + 22
+    wide_rows = check_serve_wide_kernels(
+        torch.Generator(device="cuda").manual_seed(args.seed + 22))
     # K2's late panels and K0's pivoted U: a fifth generator
     check_k2_k0_edges(torch.Generator(device="cuda").manual_seed(
         args.seed + 4))
     # slice 21: K0-K3 at the wide widths, from --seed + 20
     wide_gen = torch.Generator(device="cuda").manual_seed(args.seed + 20)
-    wide_rows = check_wide_kernels(wide_gen)
+    wide_rows.update(check_wide_kernels(wide_gen))
     # slice 22: K4 and K5 at the wide widths, from --seed + 21
     sel_gen = torch.Generator(device="cuda").manual_seed(args.seed + 21)
     wide_rows.update(check_wide_select_qr(sel_gen))
@@ -6941,6 +7269,10 @@ def main(argv=None) -> int:
     # ---- the serving path: serve.Server over K6, K7 and K8 ----
     serve_launches, serve_reqs = check_serving(st, serve_gen, kernels,
                                                reset, counts)
+    # ---- slice 23: the stream at the tuned widths, the tuner's picks ----
+    wide_launches.update(check_serve_wide_streams(st, serve_reqs, kernels,
+                                                  reset, counts, card))
+    check_tuned_batch_picks(card)
     if args.trace:
         trace_serve(st, serve_reqs)
     # ---- the survival layer: graphs, the loop, the pool, the watchdog ----
@@ -7052,16 +7384,18 @@ def main(argv=None) -> int:
                                   wide_launches["gels_qr_nb256"],
                                   wide_launches["gels_qr_nb512"],
                                   slice17_launches["dist_gels"])),
-        "chol_panel_batched": ("slate_tpu_torch/csrc/chol_panel_batched.cu",
-                               "slate_tpu/internal/pallas_chol.py:286",
-                               "serve_ragged", serve_launches["serve_ragged"]),
-        "lu_panel_batched": ("slate_tpu_torch/csrc/lu_panel_batched.cu",
-                             "slate_tpu/internal/pallas_lu.py:308",
-                             "serve_ragged", serve_launches["serve_ragged"]),
-        "qr_panel_batched": ("slate_tpu_torch/csrc/qr_panel_batched.cu",
-                             "slate_tpu/internal/pallas_qr.py:154",
-                             "serve_ragged", serve_launches["serve_ragged"]),
     }
+    streams = "serve_ragged+stream_nb256+stream_nb512"
+    for name, source, ref in (
+            ("chol_panel_batched", "chol_panel_batched.cu",
+             "pallas_chol.py:286"),
+            ("lu_panel_batched", "lu_panel_batched.cu", "pallas_lu.py:308"),
+            ("qr_panel_batched", "qr_panel_batched.cu", "pallas_qr.py:154")):
+        replaces[name] = (f"slate_tpu_torch/csrc/{source}",
+                          f"slate_tpu/internal/{ref}", streams,
+                          sum_launches(name, serve_launches["serve_ragged"],
+                                       wide_launches["stream_nb256"],
+                                       wide_launches["stream_nb512"]))
     line = []
     for name, (source, ref, path, launches) in replaces.items():
         r = rows[name]
@@ -7084,7 +7418,7 @@ def main(argv=None) -> int:
                      **({"wide": [{k: w[k] for k in (
                          "shape", "max_abs_err", "kernel_ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms",
-                         "bitwise_repeatable") if k in w}
+                         "bitwise_repeatable", "batch_invariant") if k in w}
                          for w in wide_rows[name]]}
                         if name in wide_rows else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -48,6 +48,24 @@
 // M == nb. Liveness is read on the device from tiles; the host never reads
 // it back.
 //
+// At the reference's wider panels, nb = 256, 384 and 512 (its route takes
+// min(plan.nb, bucket), slate_tpu/serve/batched.py:245), the three launches
+// keep their roles, as K2's and K3's do at those widths (chol_panel.cu,
+// lu_panel.cu):
+//   (a) takes the panel in 128-column tiles: grid (S, row tiles x column
+//       tiles, B), each (row tile, column tile, problem) the nb = 128
+//       update above, written into its columns of upd and work;
+//   (b) the nb x nb tile 0 no longer fits one block's shared memory: one
+//       thread-block cluster per problem whose tile 0 is live copies it
+//       from work into a per-problem f32 scratch (wide, from the wrapper)
+//       and factors it there by 128-column diagonal blocks (wide_factor.cuh
+//       wf_chol, wf_lu), writes fac's tile 0 and, when M > nb, U^-1 into
+//       uinv by wf_tri_inv;
+//   (c) one CTA per (128-row tile, 128-column tile, problem) of the live
+//       rows below tile 0, summing only U^-1's rows down to its column
+//       tile's end (batched_solve_wide).
+// nb <= 128 keeps the launches above, their code and their bits.
+//
 // The split S is a function of K and the device alone, never of B, of
 // tiles or of timing: S = ceil(slices / BP_SLICES), at most 16, slices the
 // 32-deep K slices, so that no CTA sums more than BP_SLICES slices (smaller
@@ -64,6 +82,7 @@
 #include "common.cuh"
 #include "panel_gemm.cuh"
 #include "storage.cuh"
+#include "wide_factor.cuh"
 
 using bf16_t = __nv_bfloat16;
 
@@ -91,6 +110,8 @@ struct Step {
   void* fac;    // [B, M, nb] row-major, storage
   float* work;  // [B, M, nb] row-major; == upd on f32 storage
   float* uinv;  // [B, nb, nb] row-major; null when M == nb
+  float* wide;  // [B, bp_wide_floats(nb)]: the wide factor's scratch;
+                // null up to nb = 128
 };
 
 // Element i of storage p, widened to f32.
@@ -133,27 +154,44 @@ __device__ inline long long live_rows(const Step& a, int b) {
 constexpr int BP_NB = 128;
 using BPG = PanelGemm<BP_NB>;
 
+// The 128-column tiles of a panel: one (nb columns) up to nb = 128.
+__host__ __device__ inline int bp_ctiles(int nb) {
+  return nb > BP_NB ? nb / BP_NB : 1;
+}
+
+// The wide factor's scratch of one problem, in floats: tile 0 (nb x nb),
+// the diagonal blocks' inverses (2 nb / 128 tiles of 128 x 128 at most:
+// wf_lu's; wf_chol takes half) and wf_tri_inv's scratch (nb x nb); 0 up to
+// nb = 128.
+__host__ __device__ inline long long bp_wide_floats(int nb) {
+  return nb > BP_NB ? 2LL * nb * nb + 2LL * nb * WF_T : 0;
+}
+
 // (a), the body of a kernel launched with BPG::THREADS threads on a
 // cluster of S CTAs: upd and work for the live rows of the 128-row tile
-// blockIdx.y of problem blockIdx.z, K split over the cluster; col's bits
+// blockIdx.y / ctiles, column tile blockIdx.y % ctiles (bp_ctiles: one up
+// to nb = 128), of problem blockIdx.z, K split over the cluster; col's bits
 // into upd and fac for its dead rows.
 __device__ inline void batched_update(const Step& a, float* smem) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int b = blockIdx.z, nb = a.nb;
-  const long long row0 = (long long)blockIdx.y * PG_BM;
+  const int b = blockIdx.z, nb = a.nb, ctiles = bp_ctiles(nb);
+  const int cw = nb > BP_NB ? BP_NB : nb;           // the tile's columns
+  const int c0 = (int)(blockIdx.y % ctiles) * BP_NB;
+  const long long row0 = (long long)(blockIdx.y / ctiles) * PG_BM;
   const int span = (int)min((long long)PG_BM, a.M - row0);
   const long long live = live_rows(a, b) - row0;
   const int rows = (int)(live < 0 ? 0 : (live > span ? span : live));
-  const long long col0 = b * a.col.sb + row0 * a.col.s0;
-  const long long out0 = ((long long)b * a.M + row0) * nb;
-  // the dead rows rows .. span-1, shared out over the cluster
-  for (int idx = rows * nb + rank * BPG::THREADS + (int)threadIdx.x;
-       idx < span * nb; idx += S * BPG::THREADS) {
-    const long long src = col0 + (idx / nb) * a.col.s0 + (idx % nb) * a.col.s1;
-    copy_element(a.upd, out0 + idx, a.col.p, src, a.bf16);
-    copy_element(a.fac, out0 + idx, a.col.p, src, a.bf16);
+  const long long col0 = b * a.col.sb + row0 * a.col.s0 + c0 * a.col.s1;
+  const long long out0 = ((long long)b * a.M + row0) * nb + c0;
+  // the dead rows rows .. span-1 of the tile, shared out over the cluster
+  for (int idx = rows * cw + rank * BPG::THREADS + (int)threadIdx.x;
+       idx < span * cw; idx += S * BPG::THREADS) {
+    const int r = idx / cw, c = idx % cw;
+    const long long src = col0 + r * a.col.s0 + c * a.col.s1;
+    copy_element(a.upd, out0 + (long long)r * nb + c, a.col.p, src, a.bf16);
+    copy_element(a.fac, out0 + (long long)r * nb + c, a.col.p, src, a.bf16);
   }
   if (rows == 0) return;  // the whole cluster: no cluster barrier follows
   int tx, ty;
@@ -163,7 +201,7 @@ __device__ inline void batched_update(const Step& a, float* smem) {
   const int kb = (int)min((long long)a.K, rank * kspan);
   const int ke = (int)min((long long)a.K, kb + kspan);
   const long long left0 = b * a.left.sb + row0 * a.left.s0;
-  const long long lead0 = b * a.lead.sb;
+  const long long lead0 = b * a.lead.sb + c0 * a.lead.s1;
   pg_pipeline<BP_NB>(
       acc, pg_slices(kb, ke),
       [&](int s, float* As) {
@@ -172,13 +210,13 @@ __device__ inline void batched_update(const Step& a, float* smem) {
               As, s, static_cast<const bf16_t*>(a.left.p) + left0, a.left.s0,
               a.left.s1, rows, PG_LOADS,
               static_cast<const bf16_t*>(a.lead.p) + lead0, a.lead.s0,
-              a.lead.s1, nb, PG_LOADS, kb, ke);
+              a.lead.s1, cw, PG_LOADS, kb, ke);
         } else {
           pg_stage_slice<BP_NB>(
               As, s, static_cast<const float*>(a.left.p) + left0, a.left.s0,
               a.left.s1, rows, a.stage_left,
               static_cast<const float*>(a.lead.p) + lead0, a.lead.s0,
-              a.lead.s1, nb, a.stage_lead, kb, ke);
+              a.lead.s1, cw, a.stage_lead, kb, ke);
         }
       },
       smem, tx, ty);
@@ -190,7 +228,7 @@ __device__ inline void batched_update(const Step& a, float* smem) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tx + BPG::TX * j;
-        if (c >= nb) continue;
+        if (c >= cw) continue;
         const float v =
             load_f32(a.col.p, col0 + r * a.col.s0 + c * a.col.s1, a.bf16) -
             acc[i][j];
@@ -201,7 +239,7 @@ __device__ inline void batched_update(const Step& a, float* smem) {
   } else {
     pg_cluster_sum<BP_NB>(acc, smem, rows, tx, ty,
                           [&](int r, int c, float4 s) {
-      if (c >= nb) return;
+      if (c >= cw) return;
       const long long x = col0 + r * a.col.s0 + c * a.col.s1;
       float4 v;
       v.x = load_f32(a.col.p, x, a.bf16) - s.x;
@@ -251,6 +289,67 @@ __device__ inline void batched_solve(const Step& a, float* smem) {
   }
 }
 
+// (c) at nb = 256 .. 512, the body of a kernel launched with BPG::THREADS
+// threads: fac rows nb + 128 blockIdx.x .. of problem blockIdx.z, columns
+// 128 blockIdx.y .. + 127, = work rows @ U^-1's columns, k over [0, 128
+// (blockIdx.y + 1)) only (U^-1's rows past the column tile are zero
+// there: wide_factor.cuh wf_solve_kernel's product); live rows only.
+__device__ inline void batched_solve_wide(const Step& a, float* smem) {
+  const int b = blockIdx.z, nb = a.nb, c0 = blockIdx.y * BP_NB;
+  const long long row0 = nb + (long long)blockIdx.x * PG_BM;
+  const long long live = live_rows(a, b) - row0;
+  if (live <= 0) return;
+  const int rows = (int)(live < PG_BM ? live : PG_BM);
+  const long long out0 = ((long long)b * a.M + row0) * nb + c0;
+  int tx, ty;
+  pg_thread<BP_NB>(tx, ty);
+  float acc[PG_RM][8] = {};
+  pg_product<BP_NB>(acc, a.work + out0 - c0, nb, 1, rows, PG_COPY16,
+                    a.uinv + (long long)b * nb * nb + c0, nb, 1, PG_COPY4, 0,
+                    c0 + BP_NB, smem, tx, ty);
+#pragma unroll
+  for (int i = 0; i < PG_RM; ++i) {
+    const int r = ty + BPG::TY * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      store_f32(a.fac, out0 + (long long)r * nb + tx + BPG::TX * j,
+                acc[i][j], a.bf16);
+    }
+  }
+}
+
+// The scratch of problem b's wide factor launch: tile 0, the diagonal
+// blocks' inverses, wf_tri_inv's scratch (bp_wide_floats).
+struct WideScratch {
+  float *tile, *slots, *t;
+};
+
+__device__ inline WideScratch wide_scratch(const Step& a, int b) {
+  float* tile = a.wide + b * bp_wide_floats(a.nb);
+  float* slots = tile + (long long)a.nb * a.nb;
+  return {tile, slots, slots + 2LL * a.nb * WF_T};
+}
+
+// fac's tile 0 of problem b (row-major, leading dimension nb, rounded to
+// the storage) = the factored tile in the scratch; every thread of the
+// cluster calls it after a wf_sync. With `lower` (Cholesky) fac is zero
+// above the diagonal and the tile's lower triangle is mirrored into its
+// upper one (U = L^T for wf_tri_inv): every read below the diagonal, every
+// write to the tile above it, so no CTA reads what another writes.
+__device__ inline void wide_store_tile(const Step& a, int b, float* tile,
+                                       bool lower) {
+  const int nb = a.nb, rank = wf_rank(), ctas = wf_ctas();
+  const long long out0 = (long long)b * a.M * nb;
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+       idx += ctas * blockDim.x) {
+    const int r = idx / nb, c = idx % nb;
+    const float v = (lower && c > r) ? 0.f : __ldcg(tile + idx);
+    store_f32(a.fac, out0 + idx, v, a.bf16);
+    if (lower && c > r) tile[idx] = __ldcg(tile + (long long)c * nb + r);
+  }
+}
+
 constexpr size_t update_smem_bytes() {
   constexpr size_t ring = BPG::SMEM_FLOATS;
   constexpr size_t partial = (size_t)PG_BM * pg_partial_ld<BP_NB>();
@@ -273,37 +372,43 @@ inline int staging_mode(int bf16, const void* p, long long stride_b,
 }
 
 // The step's operands as the C entry points receive them (strides in
-// elements; work is upd on f32 storage; uinv null when M == nb).
+// elements; work is upd on f32 storage; uinv null when M == nb; wide null
+// up to nb = 128).
 inline Step make_step(int bf16, const void* col, long long cb, long long cs0,
                       long long cs1, const void* left, long long lb,
                       long long ls0, long long ls1, const void* lead,
                       long long db, long long ds0, long long ds1,
                       const int* tiles, int k, int K, int M, int nb, int bw,
-                      void* upd, void* fac, float* work, float* uinv) {
+                      void* upd, void* fac, float* work, float* uinv,
+                      float* wide) {
   return Step{{col, cb, cs0, cs1},
               {left, lb, ls0, ls1},
               {lead, db, ds0, ds1},
               bf16,
               staging_mode(bf16, left, lb, ls1, ls0),
               staging_mode(bf16, lead, db, ds0, ds1),
-              tiles, k, K, M, nb, bw, 0, upd, fac, work, uinv};
+              tiles, k, K, M, nb, bw, 0, upd, fac, work, uinv, wide};
 }
 
 enum Launch { UPDATE = 0, FACTOR = 1, SOLVE = 2 };
 
-// The widths the update and solve take: at most the 128 columns of a CTA's
-// tile, whole 32-column blocks.
+// The widths the step takes: whole 32-column blocks up to the 128 columns
+// of a CTA's tile, or 256, 384 and 512 by 128-column tiles with the wide
+// factor (wide_factor.cuh wf_panel_nb).
 inline bool step_nb_ok(int nb) {
-  return nb == 32 || nb == 64 || nb == 96 || nb == 128;
+  return nb == 32 || nb == 64 || nb == 96 || nb == 128 || wf_panel_nb(nb);
 }
 
 // The launch arguments both entry points refuse: past the widths, no
 // problem, M not a positive multiple of nb, no such launch, a solve with
-// no rows below tile 0, or uinv given exactly when there are no rows below.
-inline bool step_args_ok(int which, int B, int M, int nb, const float* uinv) {
+// no rows below tile 0, uinv given exactly when there are no rows below,
+// or the wide factor's scratch given exactly when nb > 128.
+inline bool step_args_ok(int which, int B, int M, int nb, const float* uinv,
+                         const float* wide) {
   return step_nb_ok(nb) && B >= 1 && M >= nb && M % nb == 0 &&
          which >= UPDATE && which <= SOLVE && !(which == SOLVE && M == nb) &&
-         (uinv == nullptr) == (M == nb);
+         (uinv == nullptr) == (M == nb) &&
+         (wide == nullptr) == (nb <= BP_NB);
 }
 
 // Opt the update kernel into its shared memory and into clusters of more
@@ -343,7 +448,7 @@ int launch_update(Kernel update, int device, cudaStream_t stream, int B,
   attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(split, (a.M + PG_BM - 1) / PG_BM, B);
+  cfg.gridDim = dim3(split, (a.M + PG_BM - 1) / PG_BM * bp_ctiles(a.nb), B);
   cfg.blockDim = dim3(BPG::THREADS, 1, 1);
   cfg.dynamicSmemBytes = update_smem_bytes();
   cfg.stream = stream;
@@ -354,13 +459,46 @@ int launch_update(Kernel update, int device, cudaStream_t stream, int B,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <class Kernel>
-int launch_solve(Kernel solve, cudaStream_t stream, int B, const Step& a) {
+// (c): `solve` (batched_solve's kernel) over grid (row tiles below tile 0,
+// B), or at nb > 128 `wide` (batched_solve_wide's) over (row tiles,
+// column tiles, B).
+template <class Kernel, class WideKernel>
+int launch_solve(Kernel solve, WideKernel wide, cudaStream_t stream, int B,
+                 const Step& a) {
   constexpr size_t smem = sizeof(float) * BPG::SMEM_FLOATS;
-  SLATE_SET_SMEM(solve, smem);
-  const dim3 grid((a.M - a.nb + PG_BM - 1) / PG_BM, B);
-  solve<<<grid, BPG::THREADS, smem, stream>>>(a);
+  const int rtiles = (a.M - a.nb + PG_BM - 1) / PG_BM;
+  if (a.nb > BP_NB) {
+    SLATE_SET_SMEM(wide, smem);
+    wide<<<dim3(rtiles, bp_ctiles(a.nb), B), BPG::THREADS, smem, stream>>>(
+        a);
+  } else {
+    SLATE_SET_SMEM(solve, smem);
+    solve<<<dim3(rtiles, B), BPG::THREADS, smem, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// (b) at nb > 128: one cluster of WF_CLUSTER CTAs per problem (grid
+// (WF_CLUSTER, B)), WF_THREADS threads and WF_SMEM_BYTES each.
+template <class Kernel>
+int launch_factor_wide(Kernel kernel, cudaStream_t stream, int B,
+                       const Step& a) {
+  SLATE_SET_SMEM(kernel, WF_SMEM_BYTES);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = WF_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(WF_CLUSTER, B, 1);
+  cfg.blockDim = dim3(WF_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = WF_SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // What the update launch takes for a step on this device: *split = the

@@ -11,6 +11,12 @@
 // into fac, then, when M > nb, U^-1 = (L00^T)^-1 by K0's blocked doubling
 // (tri_inv.cuh) into uinv.
 //
+// At nb = 256, 384 and 512 (batched_step.cuh) the factor launch is one
+// thread-block cluster a problem: tile 0 of work copied (its lower
+// triangle) into the problem's scratch, factored there by K1's wide route
+// (wide_factor.cuh wf_chol), L00 into fac, U = L00^T mirrored into the
+// scratch and U^-1 by wf_tri_inv into uinv.
+//
 // Bound on this card: per live problem, 2 live_m K nb flops of the update,
 // nb^3/3 of the factor, nb^3/3 of U^-1 and 2 (live_m - nb) nb^2 of the
 // solve, against the bytes of the live rows of col, left and lead read once
@@ -76,57 +82,104 @@ chol_panel_batched_factor(Step a) {
   }
 }
 
+// (b) at nb = 256 .. 512: one cluster a problem (blockIdx.y), as above.
+__global__ void __launch_bounds__(WF_THREADS)
+chol_panel_batched_factor_wide(Step a) {
+  const int b = blockIdx.y, nb = a.nb;
+  if (a.k >= a.tiles[b]) return;  // the whole cluster: tile 0 dead
+  extern __shared__ __align__(16) float smem[];
+  const int rank = wf_rank(), ctas = wf_ctas();
+  const WideScratch w = wide_scratch(a, b);
+  const float* src = a.work + (long long)b * a.M * nb;
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+       idx += ctas * blockDim.x) {
+    w.tile[idx] = idx % nb > idx / nb ? 0.f : src[idx];
+  }
+  wf_sync();
+  wf_chol(w.tile, nb, nb, w.slots, smem);
+  wide_store_tile(a, b, w.tile, true);
+  if (a.uinv == nullptr) return;
+  wf_sync();
+  wf_tri_inv(w.tile, a.uinv + (long long)b * nb * nb, w.t, nb, nb, smem);
+}
+
 __global__ void __launch_bounds__(BPG::THREADS)
 chol_panel_batched_solve(Step a) {
   extern __shared__ __align__(16) float smem[];
   batched_solve(a, smem);
 }
 
+__global__ void __launch_bounds__(BPG::THREADS)
+chol_panel_batched_solve_wide(Step a) {
+  extern __shared__ __align__(16) float smem[];
+  batched_solve_wide(a, smem);
+}
+
 static int launch_factor(cudaStream_t stream, int B, const Step& a) {
+  if (a.nb > BP_NB) {
+    return launch_factor_wide(chol_panel_batched_factor_wide, stream, B, a);
+  }
   const size_t smem = factor_smem_bytes(a.nb);
   SLATE_SET_SMEM(chol_panel_batched_factor, smem);
   chol_panel_batched_factor<<<B, BP_FACTOR_THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// *fits = 1 when a panel of width nb at slab width bw fits: nb in {32, 64,
-// 96, 128} (at most the 128 columns of a CTA's tile, whole 32-column blocks
-// of the factor), bw divides nb (the plain version's slabs), and the factor
-// launch's shared memory within one block's opt-in limit; else 0.
+// *fits = 1 when a panel of width nb at slab width bw fits: bw divides nb
+// (the plain version's slabs), and nb in {32, 64, 96, 128} (at most the 128
+// columns of a CTA's tile, whole 32-column blocks of the factor) with the
+// factor launch's shared memory within one block's opt-in limit, or nb in
+// {256, 384, 512} where the card places the wide factor's cluster; else 0.
 extern "C" int slate_chol_panel_batched_fits(int device, int nb, int bw,
                                              int* fits) {
+  SLATE_SET_DEVICE(device);
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
   *fits = step_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
-          factor_smem_bytes(nb) <= (size_t)limit;
+          (nb > BP_NB || factor_smem_bytes(nb) <= (size_t)limit);
+  if (*fits && nb > BP_NB) {
+    return wf_fits(chol_panel_batched_factor_wide, device, fits);
+  }
+  return 0;
+}
+
+// *floats = the wide factor's scratch of one problem at width nb (0 up to
+// 128); the wrapper passes B times that.
+extern "C" int slate_chol_panel_batched_work(int device, int nb,
+                                             int* floats) {
+  (void)device;
+  *floats = (int)bp_wide_floats(nb);
   return 0;
 }
 
 // One launch of the step: which = 0 the update (a), 1 the factor (b), 2 the
 // solve (c, M > nb). bf16 is 0 for f32 storage, 1 for bf16; strides in
 // elements; bw is K7's and unused here; work is upd on f32 storage; uinv is
-// null when M == nb. Past the shape limits the launch is refused with an
+// null when M == nb; wide holds B slate_chol_panel_batched_work floats (null
+// up to nb = 128). Past the shape limits the launch is refused with an
 // error code.
 extern "C" int slate_chol_panel_batched(
     int device, void* stream, int which, int bf16, const void* col,
     long long cb, long long cs0, long long cs1, const void* left, long long lb,
     long long ls0, long long ls1, const void* lead, long long db,
     long long ds0, long long ds1, const int* tiles, int B, int k, int K, int M,
-    int nb, int bw, void* upd, void* fac, float* work, float* uinv) {
+    int nb, int bw, void* upd, void* fac, float* work, float* uinv,
+    float* wide) {
   SLATE_SET_DEVICE(device);
-  if (!step_args_ok(which, B, M, nb, uinv)) {
+  if (!step_args_ok(which, B, M, nb, uinv, wide)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Step a = make_step(bf16, col, cb, cs0, cs1, left, lb, ls0, ls1, lead,
                            db, ds0, ds1, tiles, k, K, M, nb, bw, upd, fac,
-                           work, uinv);
+                           work, uinv, wide);
   switch (which) {
     case UPDATE: return launch_update(chol_panel_batched_update, device, s, B,
                                       a);
     case FACTOR: return launch_factor(s, B, a);
-    default: return launch_solve(chol_panel_batched_solve, s, B, a);
+    default: return launch_solve(chol_panel_batched_solve,
+                                 chol_panel_batched_solve_wide, s, B, a);
   }
 }
 

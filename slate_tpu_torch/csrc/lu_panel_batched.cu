@@ -13,6 +13,13 @@
 // when M > nb, U^-1 = triu(tile)^-1 by K0's blocked doubling into uinv. A
 // step is three launches when M > nb and two when M == nb.
 //
+// At nb = 256, 384 and 512 (batched_step.cuh) the factor launch is one
+// thread-block cluster a problem: tile 0 of work copied into the problem's
+// scratch, factored there by K3's wide route (wide_factor.cuh wf_lu, the
+// zero-pivot rule at slab width bw inside each 128-column diagonal block,
+// so bw divides 128), packed L\U into fac and U^-1 by wf_tri_inv into
+// uinv.
+//
 // Bound on this card: per live problem, 2 live_m K nb flops of the update,
 // 2 nb^3/3 of the tile's LU and (live_m - nb) nb^2 of L21 = A21 U^-1 as a
 // triangular solve, against the live tiles' bytes read and written once. With
@@ -57,58 +64,105 @@ lu_panel_batched_factor(Step a) {
       smem);
 }
 
+// (b) at nb = 256 .. 512: one cluster a problem (blockIdx.y), as above.
+__global__ void __launch_bounds__(WF_THREADS)
+lu_panel_batched_factor_wide(Step a) {
+  const int b = blockIdx.y, nb = a.nb;
+  if (a.k >= a.tiles[b]) return;  // the whole cluster: tile 0 dead
+  extern __shared__ __align__(16) float smem[];
+  const int rank = wf_rank(), ctas = wf_ctas();
+  const WideScratch w = wide_scratch(a, b);
+  const float* src = a.work + (long long)b * a.M * nb;
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+       idx += ctas * blockDim.x) {
+    w.tile[idx] = src[idx];
+  }
+  wf_sync();
+  wf_lu(w.tile, nb, nb, a.bw, w.slots, smem);
+  wide_store_tile(a, b, w.tile, false);
+  if (a.uinv == nullptr) return;
+  wf_tri_inv(w.tile, a.uinv + (long long)b * nb * nb, w.t, nb, nb, smem);
+}
+
 __global__ void __launch_bounds__(BPG::THREADS)
 lu_panel_batched_solve(Step a) {
   extern __shared__ __align__(16) float smem[];
   batched_solve(a, smem);
 }
 
+__global__ void __launch_bounds__(BPG::THREADS)
+lu_panel_batched_solve_wide(Step a) {
+  extern __shared__ __align__(16) float smem[];
+  batched_solve_wide(a, smem);
+}
+
 static int launch_factor(cudaStream_t stream, int B, const Step& a) {
+  if (a.nb > BP_NB) {
+    return launch_factor_wide(lu_panel_batched_factor_wide, stream, B, a);
+  }
   const size_t smem = lu_factor_launch_bytes(a.nb);
   SLATE_SET_SMEM(lu_panel_batched_factor, smem);
   lu_panel_batched_factor<<<B, LF_THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// *fits = 1 when a panel of width nb at slab width bw fits: nb in {32, 64,
-// 96, 128} (at most the 128 columns of a CTA's tile, whole 32-column
-// blocks of the tile factor), bw divides nb (the slab rule of its zero
-// pivots), and the factor launch's shared memory within one block's opt-in
-// limit; else 0.
+// *fits = 1 when a panel of width nb at slab width bw fits: bw divides nb
+// (the slab rule of its zero pivots), and nb in {32, 64, 96, 128} (at most
+// the 128 columns of a CTA's tile, whole 32-column blocks of the tile
+// factor) with the factor launch's shared memory within one block's opt-in
+// limit, or nb in {256, 384, 512} with bw dividing 128 (a slab inside one
+// diagonal block) where the card places the wide factor's cluster; else 0.
 extern "C" int slate_lu_panel_batched_fits(int device, int nb, int bw,
                                            int* fits) {
+  SLATE_SET_DEVICE(device);
   int limit = 0;
   SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
       &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
   *fits = step_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
-          lu_factor_launch_bytes(nb) <= (size_t)limit;
+          (nb > BP_NB ? WF_T % bw == 0
+                      : lu_factor_launch_bytes(nb) <= (size_t)limit);
+  if (*fits && nb > BP_NB) {
+    return wf_fits(lu_panel_batched_factor_wide, device, fits);
+  }
+  return 0;
+}
+
+// *floats = the wide factor's scratch of one problem at width nb (0 up to
+// 128); the wrapper passes B times that.
+extern "C" int slate_lu_panel_batched_work(int device, int nb, int* floats) {
+  (void)device;
+  *floats = (int)bp_wide_floats(nb);
   return 0;
 }
 
 // One launch of the step: which = 0 the update (a), 1 the factor (b), 2 the
 // solve (c, M > nb). bf16 is 0 for f32 storage, 1 for bf16; strides in
 // elements; bw the tile factor's slab width; work is upd on f32 storage;
-// uinv is null when M == nb. Past the shape limits the launch is refused
+// uinv is null when M == nb; wide holds B slate_lu_panel_batched_work
+// floats (null up to nb = 128). Past the shape limits the launch is refused
 // with an error code.
 extern "C" int slate_lu_panel_batched(
     int device, void* stream, int which, int bf16, const void* col,
     long long cb, long long cs0, long long cs1, const void* left, long long lb,
     long long ls0, long long ls1, const void* lead, long long db,
     long long ds0, long long ds1, const int* tiles, int B, int k, int K, int M,
-    int nb, int bw, void* upd, void* fac, float* work, float* uinv) {
+    int nb, int bw, void* upd, void* fac, float* work, float* uinv,
+    float* wide) {
   SLATE_SET_DEVICE(device);
-  if (!step_args_ok(which, B, M, nb, uinv) || bw < 1 || nb % bw) {
+  if (!step_args_ok(which, B, M, nb, uinv, wide) || bw < 1 || nb % bw ||
+      (nb > BP_NB && WF_T % bw)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Step a = make_step(bf16, col, cb, cs0, cs1, left, lb, ls0, ls1, lead,
                            db, ds0, ds1, tiles, k, K, M, nb, bw, upd, fac,
-                           work, uinv);
+                           work, uinv, wide);
   switch (which) {
     case UPDATE: return launch_update(lu_panel_batched_update, device, s, B,
                                       a);
     case FACTOR: return launch_factor(s, B, a);
-    default: return launch_solve(lu_panel_batched_solve, s, B, a);
+    default: return launch_solve(lu_panel_batched_solve,
+                                 lu_panel_batched_solve_wide, s, B, a);
   }
 }
 

@@ -15,8 +15,9 @@ import ctypes
 
 import torch
 
-from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
-                      CudaKernel, batched_panel_step, batched_panel_step_plan,
+from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS,
+                      BATCHED_WORK_ARGS, I32, I64, P, CudaKernel,
+                      batched_panel_step, batched_panel_step_plan,
                       check_cuda_f32, device_and_stream, query, shape_query,
                       workspace)
 from .tri_inv import upper_tri_inv, upper_tri_inv_plain
@@ -38,13 +39,24 @@ CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
 CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
     "slate_chol_panel_batched": BATCHED_PANEL_ARGS,
     "slate_chol_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_chol_panel_batched_work": BATCHED_WORK_ARGS,
     "slate_chol_panel_batched_plan": BATCHED_PLAN_ARGS})
 
 # The kernels' limits as the CPU routes mirror them; on the card each
-# wrapper asks its kernel (slate_chol_tile_fits, slate_chol_panel_fits).
+# wrapper asks its kernel (slate_chol_tile_fits, slate_chol_panel_fits,
+# slate_chol_panel_batched_fits).
 TILE_MAX_N = 1024         # one block up to 128, one cluster past it
 PANEL_NB = (32, 64, 96, 128, 256, 384, 512)   # the one-block factor's
                           # widths, then the wide factor's (128-column tiles)
+
+
+def batched_width_ok(nb: int, bw: int) -> bool:
+    """The widths K6 takes, as the CPU route mirrors the kernel's gate
+    (``slate_chol_panel_batched_fits``): nb in :data:`PANEL_NB` and bw
+    dividing nb (the plain version's slabs).  The serving route asks it
+    of CPU tensors, so that a bucket takes the same route on both
+    devices."""
+    return nb in PANEL_NB and bw >= 1 and nb % bw == 0
 
 
 def chol_tile_plain(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
@@ -230,10 +242,12 @@ def chol_panel_batched(col: torch.Tensor, left: torch.Tensor,
     in f32): row tile i of problem b is live iff k + i < tiles[b], and a
     dead tile is ``col``'s bits in both outputs.  Any strides; M % nb ==
     0.  A CPU tensor takes the plain version; CUDA tensors launch K6 (nb
-    and bw within ``slate_chol_panel_batched_fits``) or raise.  On CUDA,
-    on the current stream: K6's update launch (every 128-row tile of every
-    problem, the K loop split over a thread-block cluster), its factor
-    launch (L00 and, when M > nb, U^-1, one block a problem) and, when M >
+    and bw within ``slate_chol_panel_batched_fits``: nb in {32, 64, 96,
+    128, 256, 384, 512}) or raise.  On CUDA, on the current stream: K6's
+    update launch (every 128-row tile of every problem, the K loop split
+    over a thread-block cluster; past nb = 128 every 128-column tile too),
+    its factor launch (L00 and, when M > nb, U^-1, one block a problem up
+    to nb = 128, one thread-block cluster a problem past it) and, when M >
     nb, its solve launch (the live rows below tile 0): three launches a
     step, two when M == nb, counted by CHOL_PANEL_BATCHED.  ``tiles`` is
     read on the device only; the f32 scratch the launches hand on (upd

@@ -267,12 +267,14 @@ def workspace(kernel: CudaKernel, symbol: str, t: torch.Tensor, *shape: int):
 # The ragged batched panel step of K6 and K7 (csrc/batched_step.cuh): the C
 # signature of a launch (device, stream, which, bf16, then col, left and
 # lead with their batch, row and column strides, tiles, B, k, K, M, nb, bw,
-# upd, fac, work, uinv) and of the update launch's plan (device, bf16, K,
+# upd, fac, work, uinv, wide), of the wide factor's scratch a problem
+# (device, nb, floats out) and of the update launch's plan (device, bf16, K,
 # nb, left and lead with their strides, then split, resident and staging
 # out); each step is the launches UPDATE, FACTOR and, when M > nb, SOLVE.
 BATCHED_PANEL_ARGS = [I32, P, I32, I32, P, I64, I64, I64, P, I64, I64, I64,
                       P, I64, I64, I64, P, I32, I32, I32, I32, I32, I32, P, P,
-                      P, P]
+                      P, P, P]
+BATCHED_WORK_ARGS = [I32, I32, ctypes.POINTER(I32)]
 BATCHED_PLAN_ARGS = [I32, I32, I32, I32, P, I64, I64, I64, P, I64, I64, I64,
                      ctypes.POINTER(I32), ctypes.POINTER(I32),
                      ctypes.POINTER(I32)]
@@ -303,9 +305,13 @@ def batched_panel_step(kernel: CudaKernel, col, left, lead, tiles, k: int,
     every problem, the K loop split over a thread-block cluster), the
     kernel's factor launch (tile 0 and, when M > nb, U^-1, one block a
     problem) and, when M > nb, the solve launch (the live rows below tile
-    0): three launches, two when M == nb, counted by ``kernel``.  ``tiles``
-    is read on the device only; the f32 scratch the launches hand on (upd
-    before rounding on bf16 storage, U^-1) is allocated here."""
+    0): three launches, two when M == nb, counted by ``kernel``.  Past nb =
+    128 (256, 384 or 512) the update and the solve take the panel in
+    128-column tiles and the factor launch is one thread-block cluster a
+    problem.  ``tiles`` is read on the device only; the f32 scratch the
+    launches hand on (upd before rounding on bf16 storage, U^-1, and past
+    nb = 128 the wide factor's, ``slate_{name}_work`` floats a problem)
+    is allocated here."""
     bsz, m, nb = col.shape
     kk = left.shape[2]
     check_batched_panel(kernel, col, left, lead, tiles, bw)
@@ -316,12 +322,16 @@ def batched_panel_step(kernel: CudaKernel, col, left, lead, tiles, k: int,
             torch.empty((bsz, m, nb), dtype=torch.float32, device=col.device))
     uinv = (torch.empty((bsz, nb, nb), dtype=torch.float32, device=col.device)
             if m > nb else None)
+    floats = shape_query(kernel, f"slate_{kernel.name}_work", col.device, nb)
+    wide = (torch.empty(bsz * floats, dtype=torch.float32, device=col.device)
+            if floats else None)
     dev, stream = device_and_stream(col)
     operands = (int(col.dtype == torch.bfloat16), col.data_ptr(),
                 *col.stride(), left.data_ptr(), *left.stride(),
                 lead.data_ptr(), *lead.stride(), tiles.data_ptr(), bsz, k, kk,
                 m, nb, bw, upd.data_ptr(), fac.data_ptr(), work.data_ptr(),
-                None if uinv is None else uinv.data_ptr())
+                None if uinv is None else uinv.data_ptr(),
+                None if wide is None else wide.data_ptr())
     for which in (UPDATE, FACTOR, SOLVE)[:3 if m > nb else 2]:
         kernel.launch(f"slate_{kernel.name}", dev, stream, which, *operands)
     return upd, fac
@@ -333,8 +343,8 @@ def batched_panel_step_plan(kernel: CudaKernel, col, left, lead) -> dict:
     of one (row tile, problem)'s cluster that share its K loop (a function
     of K, nb and the device alone, never of the batch); ``resident``, the
     clusters of that size the card holds at once; ``waves``, the grid's
-    clusters (every row tile of every problem, dead ones included) over
-    ``resident``; ``left``/``lead``, each "cp.async" (f32, unit stride along
+    clusters (every row tile, and past nb = 128 every 128-column tile, of
+    every problem, dead ones included) over ``resident``; ``left``/``lead``, each "cp.async" (f32, unit stride along
     K, aligned rows and batches: 16-byte copies), "cp.async4" (f32, unit
     stride along the other index: 4-byte copies) or "loads"."""
     bsz, m, nb = col.shape
@@ -342,7 +352,7 @@ def batched_panel_step_plan(kernel: CudaKernel, col, left, lead) -> dict:
         kernel, f"slate_{kernel.name}_plan", col.device,
         int(col.dtype == torch.bfloat16), left.shape[2], nb, left.data_ptr(),
         *left.stride(), lead.data_ptr(), *lead.stride(), outs=3)
-    clusters = bsz * -(-m // 128)
+    clusters = bsz * -(-m // 128) * max(1, nb // 128)
     return {"split": split, "resident": resident,
             "waves": -(-clusters // max(resident, 1)),
             "left": STAGING[staging & 3], "lead": STAGING[staging >> 2]}

@@ -17,8 +17,10 @@ import ctypes
 import torch
 
 from .chol_kernels import live_rows
-from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS, I32, I64, P,
-                      CudaKernel, batched_panel_step, batched_panel_step_plan,
+from .chol_kernels import PANEL_NB
+from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS,
+                      BATCHED_WORK_ARGS, I32, I64, P, CudaKernel,
+                      batched_panel_step, batched_panel_step_plan,
                       check_cuda_f32, device_and_stream, query,
                       shape_query, workspace)
 from .tri_inv import back_substitution_plain, upper_tri_inv_plain
@@ -38,6 +40,7 @@ LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
 LU_PANEL_BATCHED = CudaKernel("lu_panel_batched", "lu_panel_batched.cu", {
     "slate_lu_panel_batched": BATCHED_PANEL_ARGS,
     "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
+    "slate_lu_panel_batched_work": BATCHED_WORK_ARGS,
     "slate_lu_panel_batched_plan": BATCHED_PLAN_ARGS})
 
 # K4's widths as the CPU route mirrors them; on the card the wrapper asks
@@ -83,6 +86,17 @@ def select_width_ok(nb: int, bw: int) -> bool:
     the block (the plain version takes any bw that does)."""
     return bw >= 1 and nb % bw == 0 and (
         nb <= SELECT_BLOCK or (nb in SELECT_NB and SELECT_BLOCK % bw == 0))
+
+
+def batched_width_ok(nb: int, bw: int) -> bool:
+    """The widths K7 takes, as the CPU route mirrors the kernel's gate
+    (``slate_lu_panel_batched_fits``): nb in {32, 64, 96, 128} with bw
+    dividing nb, or 256, 384 or 512 with bw dividing 128 (a zero-pivot slab
+    inside one 128-column diagonal block of the wide factor).  The serving
+    route asks it of CPU tensors, so that a bucket takes the same route on
+    both devices."""
+    return nb in PANEL_NB and bw >= 1 and nb % bw == 0 and (
+        nb <= 128 or 128 % bw == 0)
 
 
 def select_plan(device: torch.device, w: int, nb: int, bw: int) -> dict:
@@ -309,13 +323,15 @@ def lu_panel_batched(col: torch.Tensor, left: torch.Tensor,
     in f32), fac packed L\\U with the unit lower diagonal implied; dead
     tiles (k + i >= tiles[b]) are ``col``'s bits in both outputs.  Any
     strides; M % nb == 0.  A CPU tensor takes the plain version; CUDA
-    tensors launch K7 (nb and bw within ``slate_lu_panel_batched_fits``)
-    or raise.  On CUDA, on the current stream: K7's update launch (every
-    128-row tile of every problem, the K loop split over a thread-block
-    cluster), its factor launch (the no-pivot LU of tile 0 and, when M >
-    nb, U^-1 by K0's doubling, one block a problem) and, when M > nb, its
-    solve launch (the live rows below tile 0): three launches a step, two
-    when M == nb, counted by LU_PANEL_BATCHED.  ``tiles`` is read on the
+    tensors launch K7 (nb and bw within ``slate_lu_panel_batched_fits``,
+    :func:`batched_width_ok` on the CPU) or raise.  On CUDA, on the current
+    stream: K7's update launch (every 128-row tile of every problem, the K
+    loop split over a thread-block cluster; past nb = 128 every 128-column
+    tile too), its factor launch (the no-pivot LU of tile 0 and, when M >
+    nb, U^-1 by K0's doubling, one block a problem up to nb = 128; one
+    thread-block cluster a problem past it, by 128-column diagonal blocks)
+    and, when M > nb, its solve launch (the live rows below tile 0): three
+    launches a step, two when M == nb, counted by LU_PANEL_BATCHED.  ``tiles`` is read on the
     device only."""
     bsz, m, nb = col.shape
     kk = left.shape[2]

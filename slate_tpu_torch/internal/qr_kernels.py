@@ -40,6 +40,8 @@ QR_PANEL_BATCHED = CudaKernel("qr_panel_batched", "qr_panel_batched.cu", {
                                I32, I32, P, P, P],
     "slate_qr_panel_batched_fits": [I32, I32, I32, I32,
                                     ctypes.POINTER(I32)],
+    "slate_qr_panel_batched_work": [I32, I32, I32, I32, I32,
+                                    ctypes.POINTER(I32)],
     "slate_qr_panel_batched_cluster": [I32, I32, I32, I32, I32,
                                        ctypes.POINTER(I32),
                                        ctypes.POINTER(I32)]})
@@ -166,9 +168,20 @@ def batched_panel_fits(device: torch.device, mm: int, w: int,
                        bw: int) -> bool:
     """True when K8 takes [*, mm, w] panels at slab width bw on this CUDA
     device, as the kernel itself counts (``slate_qr_panel_batched_fits``:
-    K5's limits, w <= 128 and bw <= 8, and its shared memory)."""
+    K5's limits, w <= 128 or w in {256, 384, 512}, mm >= w and bw <= 8,
+    and its shared memory)."""
     return fits(QR_PANEL_BATCHED, "slate_qr_panel_batched_fits", device, mm,
                 w, bw)
+
+
+def batched_width_ok(mm: int, w: int, bw: int) -> bool:
+    """The panels K8 takes, as the CPU route mirrors the kernel's gate
+    (:func:`batched_panel_fits`): w up to 128, or 256, 384 or 512 by
+    128-column blocks; mm >= w; 1 <= bw <= 8 (the slab's sums are
+    registers).  The serving route asks it of CPU tensors, so that a
+    bucket takes the same route on both devices."""
+    return (mm >= w and 1 <= bw <= 8
+            and (1 <= w <= QR_BLOCK or w in (256, 384, 512)))
 
 
 def batched_panel_cluster(device: torch.device, dtype: torch.dtype,
@@ -200,9 +213,13 @@ def qr_panel_batched(a: torch.Tensor, rows: torch.Tensor, bw: int = 8):
     problem.  Raggedness is by whole problem: rows[b] == 0 (a filler slot)
     passes ``a`` through bit for bit with T = 0; every live problem factors
     its whole panel.  Any strides.  A CPU tensor takes the plain version;
-    CUDA tensors launch K8 once (within :func:`batched_panel_fits`) or
-    raise; ``rows`` is read on the device only.  For bf16 storage the
-    wrapper allocates the f32 working panels, 4 B mm w bytes."""
+    CUDA tensors launch K8 once (within :func:`batched_panel_fits`: past w
+    = 128 each problem's cluster runs K5's wide routine by 128-column
+    blocks) or raise; ``rows`` is read on the device only.  The f32 scratch
+    is allocated here, as the kernel sizes it
+    (``slate_qr_panel_batched_work``): on bf16 storage the working panels,
+    4 B mm w bytes, and past w = 128 the wide routine's workspace (and on
+    bf16 its f32 T)."""
     bsz, mm, w = a.shape
     if mm < w or w < 1 or bw < 1 or rows.shape != (bsz,):
         raise ValueError(f"qr_panel_batched: needs mm >= w >= 1, bw >= 1 "
@@ -217,11 +234,13 @@ def qr_panel_batched(a: torch.Tensor, rows: torch.Tensor, bw: int = 8):
     rows = rows.contiguous()
     packed = torch.empty((bsz, mm, w), dtype=a.dtype, device=a.device)
     t = torch.empty((bsz, w, w), dtype=a.dtype, device=a.device)
-    bf16 = a.dtype == torch.bfloat16
-    work = torch.empty((bsz, mm, w), dtype=torch.float32,
-                       device=a.device) if bf16 else packed
+    bf16 = int(a.dtype == torch.bfloat16)
+    work, work_ptr = workspace(QR_PANEL_BATCHED,
+                               "slate_qr_panel_batched_work", a, bf16, bsz,
+                               mm, w)
     QR_PANEL_BATCHED.launch("slate_qr_panel_batched", *device_and_stream(a),
-                            int(bf16), a.data_ptr(), *a.stride(),
-                            rows.data_ptr(), bsz, mm, w, bw, work.data_ptr(),
+                            bf16, a.data_ptr(), *a.stride(), rows.data_ptr(),
+                            bsz, mm, w, bw,
+                            packed.data_ptr() if work is None else work_ptr,
                             packed.data_ptr(), t.data_ptr())
     return packed, t

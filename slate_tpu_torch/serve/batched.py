@@ -53,16 +53,16 @@ from ..drivers import cholesky as _chol
 from ..drivers import lu as _lu
 from ..drivers import qr as _qr
 from ..internal import batched as _bk
-from ..internal.chol_kernels import CHOL_PANEL_BATCHED
+from ..internal import chol_kernels as _ck
+from ..internal import lu_kernels as _lk
+from ..internal import qr_kernels as _qk
 from ..internal.getrf import panel_lu
 from ..internal.kernels import fits
-from ..internal.lu_kernels import LU_PANEL_BATCHED
-from ..internal.qr_kernels import batched_panel_fits
 from ..options import ErrorPolicy, Option, Options, resolve_abft
 from ..robust import certify as _cert
 from ..robust import health as _h
 from ..robust import precision as _prec
-from ..tune.plans import BATCH_NB, resolve_plan
+from ..tune.plans import resolve_plan
 from ..types import Uplo
 
 _TILE = 128
@@ -207,11 +207,16 @@ class RaggedPlan(NamedTuple):
 def _ragged_plan(op: str, a: torch.Tensor, opts: Options | None,
                  dtype=None) -> RaggedPlan | None:
     """The routing decision of one bucket, from its shape, dtype and the
-    plan of the op's batch kernel: a RaggedPlan when the plan is the hand
-    kernel and the bucket passes the kernel's gate (on the card asked of
-    the kernel itself), else None for the per-problem route.  ``dtype``
-    overrides the plan-key dtype (the precision rung factors in bf16 while
-    ``a`` itself stays f32).  The panel width is min(128, bucket)."""
+    plan of the op's batch kernel, by the reference's rule
+    (slate_tpu/serve/batched.py ``_ragged_plan``): the panel width is nb =
+    min(plan.nb, bucket), and the bucket goes per problem when the plan is
+    not the hand kernel, the bucket is not a multiple of nb, or nb not a
+    multiple of max(plan.bw, 8).  Then the kernel's gate: on the card asked
+    of the kernel itself, on the CPU its mirror (``batched_width_ok``), so
+    that a bucket takes the same route on both devices.  Returns a
+    RaggedPlan, or None for the per-problem route.  ``dtype`` overrides the
+    plan-key dtype (the precision rung factors in bf16 while ``a`` itself
+    stays f32).  The default plan (nb = 128) gives min(128, bucket)."""
     lsq = op == "least_squares_solve"
     n_bucket = int(a.shape[2] if lsq else a.shape[1])
     dtype = _prec.normalize_dtype(a.dtype if dtype is None else dtype)
@@ -222,20 +227,29 @@ def _ragged_plan(op: str, a: torch.Tensor, opts: Options | None,
         # ops honor Abft through the per-problem drivers
         return None
     plan = resolve_plan(RAGGED_OPS[op], n_bucket, dtype)
-    nb = min(BATCH_NB, n_bucket)
-    if plan.kernel != "cuda" or n_bucket % nb or nb % plan.bw:
+    if plan.kernel != "cuda":
         return None
-    if a.device.type == "cuda":
-        if lsq:
-            ok = batched_panel_fits(a.device, a.shape[1], nb, plan.bw)
-        else:
-            kernel = (CHOL_PANEL_BATCHED if op == "chol_solve"
-                      else LU_PANEL_BATCHED)
-            ok = fits(kernel, f"slate_{kernel.name}_fits", a.device, nb,
-                      plan.bw)
-        if not ok:
-            return None
+    nb = min(int(plan.nb), n_bucket)
+    if n_bucket % nb or nb % max(int(plan.bw), 8):
+        return None
+    if not _kernel_takes(op, a, nb, plan.bw):
+        return None
     return RaggedPlan(nb, plan.bw)
+
+
+def _kernel_takes(op: str, a: torch.Tensor, nb: int, bw: int) -> bool:
+    """The gate of the op's batch kernel (K6, K7 or K8) at panel width nb
+    and slab width bw for the bucket ``a``: on the card the kernel's own
+    answer, on the CPU its mirror."""
+    if op == "least_squares_solve":
+        if a.device.type == "cuda":
+            return _qk.batched_panel_fits(a.device, a.shape[1], nb, bw)
+        return _qk.batched_width_ok(a.shape[1], nb, bw)
+    mod, kernel = ((_ck, _ck.CHOL_PANEL_BATCHED) if op == "chol_solve"
+                   else (_lk, _lk.LU_PANEL_BATCHED))
+    if a.device.type == "cuda":
+        return fits(kernel, f"slate_{kernel.name}_fits", a.device, nb, bw)
+    return mod.batched_width_ok(nb, bw)
 
 
 def _escalate(op: str, h1: list, x1, a, b, opts: Options | None):

@@ -58,7 +58,8 @@ def _kernel_fits(op: str, n: int, nb: int, bw: int,
     """Does the op's hand kernel take the reference's problem at (n, nb,
     bw) on ``device``?  On the CPU the plain versions take any shape; on
     the card the kernel answers (K1 tiles up to 1024, K2, K3, K4 and K5
-    panels up to 512: the reference's own candidates)."""
+    panels and K6, K7 and K8 batch panels up to 512: the reference's own
+    candidates)."""
     if device.type == "cpu":
         return True
     from ..internal import chol_kernels, lu_kernels, qr_kernels

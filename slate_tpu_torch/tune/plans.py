@@ -74,9 +74,6 @@ OOC_PANEL_OP = "ooc_panel"
 ALL_OPS = OPS + (DIST_LOOKAHEAD_OP, SERVE_BUCKET_OP, OOC_PANEL_OP)
 # "ring" names the pipelined route of the dist_lookahead pseudo-op only
 KERNELS = ("cuda", "torch", "ring")
-# the batch panels' width: min(BATCH_NB, bucket), which on the geometric
-# ladder's rungs 32 * 2^k is always one of K6's and K7's widths
-BATCH_NB = 128
 
 
 class TilePlan(NamedTuple):

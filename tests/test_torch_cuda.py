@@ -1377,3 +1377,115 @@ def test_wide_calu_and_gels_launch_the_kernels(cuda):
     want = torch.linalg.lstsq(aq.double(), bq.double()).solution
     assert float((X.to_dense().double() - want).abs().max()) < \
         1e-4 * float(want.abs().max())
+
+
+# ---- the serving kernels at the tuned plan's width: K6-K8 past 128 ----
+
+@pytest.mark.parametrize("nb", [256, 384, 512])
+@pytest.mark.parametrize("chol", [True, False], ids=["K6", "K7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_batched_panels_match_plain_and_repeat(cuda, dtype, chol, nb):
+    """K6 and K7 at nb = 256, 384 and 512 against their plain versions: K
+    = nb of history and M = 2 nb with a live, a partly dead and a wholly
+    dead problem (three launches), then M = nb (two launches): live tiles
+    within the tolerance, dead tiles bit-equal to col, two launches bit
+    for bit, and each problem alone bit-equal to its slot in the batch."""
+    rng = np.random.default_rng(nb + chol)
+    kern, plain, counter = ((ck.chol_panel_batched,
+                             ck.chol_panel_batched_plain,
+                             ck.CHOL_PANEL_BATCHED) if chol else
+                            (lk.lu_panel_batched, lk.lu_panel_batched_plain,
+                             lk.LU_PANEL_BATCHED))
+    for k, m, tiles_b in ((1, 2 * nb, (3, 2, 1)), (0, nb, (1, 0, 1))):
+        col, left, lead = _batched_panel(rng, 3, m, nb, k, chol, dtype,
+                                         cuda)
+        tiles = torch.tensor(tiles_b, dtype=torch.int32, device=cuda)
+        before = counter.launches
+        got = kern(col, left, lead, tiles, k, 8)
+        assert counter.launches == before + (2 if m == nb else 3)
+        want = plain(col, left, lead, tiles, k, 8)
+        live = ck.live_rows(tiles, k, m, nb)
+        for g, w, h in zip(got, want, kern(col, left, lead, tiles, k, 8)):
+            assert g.dtype == dtype
+            _close_storage(g, w)
+            assert torch.equal(_bits(torch.where(live, col, g)), _bits(col))
+            assert torch.equal(_bits(g), _bits(h))
+        for b in range(3):
+            one = kern(col[b:b + 1], left[b:b + 1], lead[b:b + 1],
+                       tiles[b:b + 1], k, 8)
+            for g, h in zip(got, one):
+                assert torch.equal(_bits(g[b]), _bits(h[0]))
+
+
+@pytest.mark.parametrize("mm,w", [(512, 256), (768, 384), (1024, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_qr_panel_batched_matches_plain_and_repeats(cuda, dtype, mm,
+                                                          w):
+    """K8 at w = 256, 384 and 512 against its plain version (K5's wide
+    blocking), one launch; a rows = 0 slot keeps its bits with T = 0; two
+    launches and a problem run alone give the same bits."""
+    rng = np.random.default_rng(mm + w)
+    a = torch.from_numpy(rng.standard_normal((3, mm, w)).astype(
+        np.float32)).to(cuda).to(dtype)
+    rows = torch.tensor([mm, 0, mm - 7], dtype=torch.int32, device=cuda)
+    before = qk.QR_PANEL_BATCHED.launches
+    got = qk.qr_panel_batched(a, rows)
+    assert qk.QR_PANEL_BATCHED.launches == before + 1
+    for g, p in zip(got, qk.qr_panel_batched_plain(a, rows)):
+        assert g.dtype == dtype
+        _close_storage(g, p)
+    assert all(torch.equal(_bits(g), _bits(h))
+               for g, h in zip(got, qk.qr_panel_batched(a, rows)))
+    assert torch.equal(_bits(got[0][1]), _bits(a[1]))
+    assert not got[1][1].any()
+    alone = qk.qr_panel_batched(a[2:], rows[2:])
+    assert all(torch.equal(_bits(g[2]), _bits(h[0]))
+               for g, h in zip(got, alone))
+
+
+def test_wide_batched_gates_mirror_the_kernels_and_refuse(cuda):
+    """The CPU mirrors of K6's, K7's and K8's gates equal the kernels'
+    answers at every width from 1 to 512; past them the wrappers raise
+    (they never take the plain version on the card)."""
+    from slate_tpu_torch.internal.kernels import fits
+    for nb in range(1, 513):
+        for bw in (3, 8, 16, 256):
+            assert fits(ck.CHOL_PANEL_BATCHED,
+                        "slate_chol_panel_batched_fits", cuda, nb, bw) == \
+                ck.batched_width_ok(nb, bw), (nb, bw)
+            assert fits(lk.LU_PANEL_BATCHED,
+                        "slate_lu_panel_batched_fits", cuda, nb, bw) == \
+                lk.batched_width_ok(nb, bw), (nb, bw)
+        for bw in (1, 8, 9):
+            assert qk.batched_panel_fits(cuda, 1024, nb, bw) == \
+                qk.batched_width_ok(1024, nb, bw), (nb, bw)
+    assert not qk.batched_panel_fits(cuda, 300, 384, 8)
+    assert not qk.batched_width_ok(300, 384, 8)
+    rng = np.random.default_rng(33)
+    for kern, chol, nb, bw in ((ck.chol_panel_batched, True, 192, 8),
+                               (lk.lu_panel_batched, False, 384, 12)):
+        col, left, lead = _batched_panel(rng, 1, nb, nb, 0, chol,
+                                         torch.float32, cuda)
+        with pytest.raises(ValueError, match="past the kernel's limits"):
+            kern(col, left, lead, torch.ones(1, dtype=torch.int32,
+                                             device=cuda), 0, bw)
+    with pytest.raises(RuntimeError, match="slate_qr_panel_batched"):
+        qk.qr_panel_batched(torch.zeros((1, 1024, 640), device=cuda),
+                            torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+def test_ragged_plan_takes_the_plans_width_on_the_card(cuda):
+    """On CUDA tensors the serving route takes nb = min(plan.nb, bucket)
+    where the kernel's gate takes it: 512 for a 4096 bucket under the
+    override, 128 under the default plan."""
+    from slate_tpu_torch.serve import batched as sb
+    a = torch.zeros((2, 4096, 4096), device=cuda)
+    tall = torch.zeros((2, 4096, 2048), device=cuda)
+    for op, key, x in (("solve", "batch_getrf", a),
+                       ("chol_solve", "batch_potrf", a),
+                       ("least_squares_solve", "batch_geqrf", tall)):
+        assert sb._ragged_plan(op, x, None) == sb.RaggedPlan(128, 8)
+        with st.plan_override(key, st.TilePlan("cuda", 8, 512)):
+            assert sb._ragged_plan(op, x, None) == sb.RaggedPlan(512, 8)
+        with st.plan_override(key, st.TilePlan("cuda", 8, 384)):
+            assert sb._ragged_plan(op, x, None) is None      # 4096 % 384
