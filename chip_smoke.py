@@ -179,16 +179,16 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      each exiting 0.  Every phase before tune runs with the port's plan
      cache pointed at an empty file, whatever cache the machine holds;
  13. slice 14 (its own generator, --seed + 15): the spectral drivers,
-     BASELINE.md config 5 cut to one card: heev at n = 6144 (8192
-     before slice 23) in f32 and in f64 on the generator's heev matrix (A = Q diag(lambda) Q^T, lambda =
+     BASELINE.md config 5 cut to one card: heev at n = 4096 (8192
+     before slice 23, 6144 before slice 24) in f32 and in f64 on the generator's heev matrix (A = Q diag(lambda) Q^T, lambda =
      linspace(-1, 1, n) * sigma reversed, cond 1e3, formed in f64 on the
      card), cold and warm, heev_vals, the phase split (he2hb, stage2,
      backtransform, certify; synced), the recorded spans, the
      certificate's ratio against its tolerance and max|w - lambda| /
      max|lambda| against its bound, beside the library's own eigh on A;
-     svd at 6144 x 6144 f32 on the generator's svd matrix the same way;
-     hegv (itype 1, B = G G^T + n I): K2 143 and K0 47 launches, as
-     expected_posv_launches(6144, 128) gives; the parity routes at n =
+     svd at 4096 x 4096 f32 on the generator's svd matrix the same way;
+     hegv (itype 1, B = G G^T + n I): K2 95 and K0 31 launches, as
+     expected_posv_launches(4096, 128) gives; the parity routes at n =
      512 (MethodEig DC and QR, MethodSvd Bidiag) against the Auto
      route's values, with the chase's steps and its launches a step
      (torch.profiler on a 512 x 512 chase); stedc at n = 4096 on a random
@@ -209,7 +209,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      D2H bytes equal to the loop's (~23 GB in), cold and warm walls
      beside in-core posv's, the factor bit-equal across runs, and under
      torch.profiler the kernels' and the copies' device busy time, their
-     overlap and the device's idle share; getrf_ooc at n = 16384, f32, at
+     overlap and the device's idle share; getrf_ooc at n = 12288, f32, at
      the default width (256) on the orthogonal A: ||A[perm] - L U|| /
      ||A||, the solve through getrs on its factors beside the in-core
      partial-pivot gesv's, no hand kernel, the traffic, walls and idle
@@ -269,7 +269,7 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      dist_unmtr_he2hb), cold and warm, the certificate under 50 n eps, the
      eigenvalues within 2e-3 of the exact spectrum, its spans, no hand
      kernel; dist_heev_vals; dist_hegv (itype 1, 8192: dist_potrf's K1
-     on each of the 64 diagonal tiles); dist_svd at 8192 x 8192 under
+     on each of the 64 diagonal tiles); dist_svd at 6144 x 6144 under
      slice 14's svd bounds; dist_heev_dc, MethodEig.DC at 512 (the chase
      runs a step after another; stedc's merges row-distributed);
      dist_stedc at 4096 against the single route's; pdsyev and pdgesvd at
@@ -4018,10 +4018,10 @@ def check_slice13(st, seed, n, nb, nrhs, serve_reqs, reset, counts,
 # ---- slice 14: the spectral drivers ---------------------------------------
 
 # BASELINE.md config 5 ("dheev two-stage + dgesvd n=30k") cut to one card
-# and to the smoke's time: n = 6144 in f32 (and one heev in f64; 8192
-# before slice 23, whose phases took the difference; the mesh routes of
-# slice 18 keep DIST_SPEC_N)
-SPEC_N = 6144
+# and to the smoke's time: n = 4096 in f32 (and one heev in f64; 8192
+# before slice 23, 6144 before slice 24, whose phases took the
+# difference; the mesh routes of slice 18 keep DIST_SPEC_N)
+SPEC_N = 4096
 # the chase routes (MethodEig DC and QR, MethodSvd Bidiag) and the fault
 # drills: a chase runs its steps one after another, ~37 launches a step
 # for hb2st and ~66 for tb2bd, and n = 1024 takes 4600 steps against
@@ -4456,8 +4456,9 @@ def check_slice14(st, seed, nb, reset, counts, trace) -> dict:
 
 
 # ---- slice 15: durable jobs and compatibility (--seed + 16) ----
-OOC_N = 16384             # potrf_ooc and getrf_ooc (cut from the main
-#                           path's 20480 to keep the smoke's margin)
+OOC_N = 16384             # potrf_ooc (cut from the main path's 20480 to
+#                           keep the smoke's margin)
+GETRF_OOC_N = 12288       # getrf_ooc, no hand kernel (16384 before slice 24)
 OOC_NB = 128              # potrf_ooc's panel: K1 takes its f32 diagonal tile
 DRILL_N = 4096            # the kill-and-resume drill (32 and 16 steps)
 DRILL_EVERY = 4           # the killed run's cadence
@@ -4577,13 +4578,13 @@ def check_potrf_ooc(st, gen, nrhs, reset, counts, kernels, card,
 
 def check_getrf_ooc(st, gen, nb, nrhs, reset, counts, kernels, card,
                     failures) -> dict:
-    """getrf_ooc at n = OOC_N, f32, at the default width on the gesv
+    """getrf_ooc at n = GETRF_OOC_N, f32, at the default width on the gesv
     matrix (A = Q of a Gaussian): the residual of A[perm] = L U, the solve
     through getrs on its factors beside the in-core partial-pivot gesv,
     the traffic, the walls and the idle share."""
     from slate_tpu_torch.core import storage
     from slate_tpu_torch.tune.plans import ooc_panel_width
-    n = OOC_N
+    n = GETRF_OOC_N
     width = ooc_panel_width(n, "float32")
     a = orthogonal(n, gen)
     b = torch.randn(n, nrhs, generator=gen, device="cuda")
@@ -5632,6 +5633,8 @@ def check_slice17(st, seed, n, nb, nrhs, reset, counts, kernels,
 # take ~260k steps, so those two run at 512; everything else at
 # DIST_SPEC_N, slice 14's size before slice 23 cut it
 DIST_SPEC_N = 8192
+DIST_SVD_N = 6144               # dist_svd, no hand kernel (8192 before
+#                                 slice 24)
 DIST_STEDC_N = 4096
 DIST_STEDC_TOL = 1e-3           # the mesh stedc against the single route's
 DIST_PD_N = 2048                # pdsyev and pdgesvd, f64
@@ -5742,12 +5745,12 @@ def check_dist_heev_dc(st, g, gen, nb, failures) -> None:
 
 
 def check_dist_svd(st, g, gen, nb, reset, counts, failures) -> dict:
-    """dist_svd: svd on the one-rank mesh at DIST_SPEC_N squared, f32, on the
+    """dist_svd: svd on the one-rank mesh at DIST_SVD_N squared, f32, on the
     generator's svd matrix, cold and warm beside the single route's; the
     certificate and the singular values against the exact ones; no hand
     kernel."""
     from slate_tpu_torch.robust import certify
-    n = DIST_SPEC_N
+    n = DIST_SVD_N
     a, sigma = spectral_matrix("svd", n, gen, torch.float32)
     info = {st.Option.ErrorPolicy: st.ErrorPolicy.Info}
     (s1, _, _, h1), wall_single = _timed(lambda: st.svd(
@@ -6173,15 +6176,71 @@ def wide_posv_launches(n: int, nb: int) -> dict:
             "upper_tri_inv": panels - 1}
 
 
+def chol_tile_split(a: torch.Tensor) -> dict:
+    """K1's wide route on ``a`` split by wf_chol's globaltimer stamps
+    (chol_kernels.chol_tile_stamps; the last of three stamped launches,
+    which the launch counts leave out): the first diagonal block's factor
+    and inverse, which no product hides; then per step the products (the
+    step's start to the last worker's end) and the exposed diagonal chain
+    (the last worker's end to the step's closing barrier: the lookahead's
+    solve, update, factor and inverse outlasting the products, and the
+    barrier).  Emits a ``chol_tile_split`` line and returns it."""
+    from slate_tpu_torch.internal.chol_kernels import chol_tile_stamps
+    n = a.shape[0]
+    for _ in range(3):
+        _, stamps, cluster = chol_tile_stamps(a)
+    st = stamps.cpu().tolist()
+    nt = -(-n // 128)
+    start = st[nt][0]
+    first = 1e-3 * (st[0][16] - start)
+    steps = []
+    for s in range(1, nt):
+        begin, end = st[s - 1][16], st[s][16]
+        work = max(st[s][1:cluster])
+        steps.append({"products_us": 1e-3 * (work - begin),
+                      "exposed_chain_us": 1e-3 * (end - work),
+                      "chain_us": 1e-3 * (st[s][0] - begin)})
+    line = {"phase": "chol_tile_split", "n": n, "cluster": cluster,
+            "total_us": 1e-3 * (st[nt - 1][16] - start),
+            "first_factor_us": first,
+            "exposed_chain_us": first + sum(x["exposed_chain_us"]
+                                            for x in steps),
+            "products_us": sum(x["products_us"] for x in steps),
+            "steps": steps}
+    emit(line)
+    return line
+
+
+def qr_panel_split(x: torch.Tensor, bw: int = 8) -> dict:
+    """K5's wide route on ``x`` split by its device launches (torch.profiler
+    by kernel name, a mean over three calls): the block factors
+    (qr_wide_factor_kernel), the T merges (qr_merge_*), the strip updates
+    (qr_strip_kernel) and the panel's copy-in.  Emits a ``qr_panel_split``
+    line and returns it."""
+    from slate_tpu_torch.internal.qr_kernels import qr_panel
+    by_name = device_ms(lambda: qr_panel(x, bw), reps=3)
+
+    def pick(tag):
+        return sum(v for k, v in by_name.items() if tag in k)
+    line = {"phase": "qr_panel_split", "mm": x.shape[0], "w": x.shape[1],
+            "factor_ms": pick("qr_wide_factor_kernel"),
+            "merge_ms": pick("qr_merge_"),
+            "strips_ms": pick("qr_strip_kernel"),
+            "copy_ms": pick("qr_wide_copy_kernel")}
+    emit(line)
+    return line
+
+
 def check_wide_kernels(gen) -> dict:
-    """K1 at n = 256, 512 and 1024 and on an indefinite 512 tile (the same
-    first bad pivot as the plain version); K2 at [M, K] = [10240, 10240]
-    at nb = 256 and 512 and at a ragged K = 1000 with a transposed left;
-    K0 at n = 256 and 512 on a Cholesky U, and on a partially pivoted
-    LU's U within 1e-5 of the f64 inverse; K3 at W = 20480 and W = nb at
-    nb = 256 and 512.  Each against its plain version, timed beside its
-    bound and the library call, launched twice and compared bit for bit.
-    Returns {kernel name: [rows]}."""
+    """K1 at n = 256, 512 and 1024 (each with a ``chol_tile_split`` line: the
+    exposed diagonal chain against the products) and on an indefinite 512
+    tile (the same first bad pivot as the plain version); K2 at [M, K] =
+    [10240, 10240] at nb = 256 and 512 and at a ragged K = 1000 with a
+    transposed left; K0 at n = 256 and 512 on a Cholesky U, and on a
+    partially pivoted LU's U within 1e-5 of the f64 inverse; K3 at W =
+    20480 and W = nb at nb = 256 and 512. Each against its plain version,
+    timed beside its bound and the library call, launched twice and
+    compared bit for bit.  Returns {kernel name: [rows]}."""
     from slate_tpu_torch.internal.chol_kernels import (chol_tile,
                                                        chol_tile_plain)
     from slate_tpu_torch.internal.lu_kernels import (lu_panel_fused,
@@ -6212,6 +6271,10 @@ def check_wide_kernels(gen) -> dict:
             op_flops("potrf", (n, n)), 4 * (n * (n + 1) // 2 + n * n))
         row["bitwise_repeatable"] = repeat("chol_tile", n, [got],
                                            [chol_tile(a, 8)])
+        split = chol_tile_split(a)
+        row["split_us"] = {k: split[k] for k in ("first_factor_us",
+                                                 "exposed_chain_us",
+                                                 "products_us")}
         rows["chol_tile"].append(row)
     check_first_bad_pivot(gen, n=512, at=300)
     for m, k, left_t, nb in ((10240, 10240, False, 256),
@@ -6415,7 +6478,8 @@ def check_wide_select_qr(gen) -> dict:
     1024) with indices equal to the plain version's and (all rows live)
     lu_factor's, a ``lu_select_plan`` line each; K5 at WIDE_QR_SHAPES
     against its plain version (packed and T within 1e-4 + 1e-4 |plain|,
-    ||QR - A|| checked).  Each launched twice and compared bit for bit,
+    ||QR - A|| checked; a ``qr_panel_split`` line each: block factors, T
+    merges, strips).  Each launched twice and compared bit for bit,
     timed beside its bound and the library call (batched lu_factor_ex,
     torch.geqrf).  Returns {kernel name: [rows]}."""
     from slate_tpu_torch.internal.getrf import panel_lu
@@ -6484,8 +6548,11 @@ def check_wide_select_qr(gen) -> dict:
             time_ms(lambda: qr_panel_plain(x), 2),
             time_ms(lambda: torch.geqrf(x), 10),
             op_flops("geqrf", (mm, w)), 4 * (2 * mm * w + w * w))
+        split = qr_panel_split(x)
         row.update(cluster=panel_cluster(x.device, mm, w, 8),
-                   bitwise_repeatable=repeatable, qr_minus_a_rel=qr_err)
+                   bitwise_repeatable=repeatable, qr_minus_a_rel=qr_err,
+                   split_ms={k: split[k] for k in ("factor_ms", "merge_ms",
+                                                   "strips_ms", "copy_ms")})
         emit({"phase": "cluster", "check": "qr_panel", "mm": mm, "w": w,
               "cluster": row["cluster"], "bitwise_repeatable": repeatable,
               "qr_minus_a_rel": qr_err, "kernel_ms": row["kernel_ms"]})

@@ -168,15 +168,26 @@ chol_panel_factor_kernel(const float* __restrict__ upd, int nb,
 // (b) at nb = 256 .. 512, one cluster: fac's top nb x nb = lower(upd_0)
 // with zeros above, factored in place by wf_chol (slots: nb / 128 - 1
 // tiles for the diagonal blocks' inverses).
-__global__ void __launch_bounds__(WF_THREADS)
+__global__ void __launch_bounds__(WFC_THREADS)
 chol_panel_factor_wide_kernel(const float* __restrict__ upd, int nb,
                               float* __restrict__ fac,
                               float* __restrict__ slots) {
   extern __shared__ __align__(16) float smem[];
-  const int rank = wf_rank(), ctas = wf_ctas();
-  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+  const int rank = wf_rank(), ctas = wf_ctas(), q = nb / 4;
+  // 16-byte moves (upd and fac are K2's own row-major scratch, nb % 128
+  // == 0), zeros above the diagonal
+#pragma unroll 4
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * q;
        idx += ctas * blockDim.x) {
-    fac[idx] = idx % nb > idx / nb ? 0.f : upd[idx];
+    const int r = idx / q, c = 4 * (idx % q);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c <= r) {
+      v = *reinterpret_cast<const float4*>(upd + r * nb + c);
+      if (c + 1 > r) v.y = 0.f;
+      if (c + 2 > r) v.z = 0.f;
+      if (c + 3 > r) v.w = 0.f;
+    }
+    *reinterpret_cast<float4*>(fac + r * nb + c) = v;
   }
   wf_sync();
   wf_chol(fac, nb, nb, slots, smem);
@@ -315,7 +326,7 @@ extern "C" int slate_chol_panel_fits(int device, int nb, int* fits) {
   SLATE_SET_DEVICE(device);
   *fits = panel_nb_ok(nb);
   if (*fits && nb > 128) {
-    return wf_fits(chol_panel_factor_wide_kernel, device, fits);
+    return wfc_fits(chol_panel_factor_wide_kernel, device, fits);
   }
   return 0;
 }
@@ -334,8 +345,9 @@ extern "C" int slate_chol_panel_factor(int device, void* stream,
   SLATE_SET_DEVICE(device);
   if (wf_panel_nb(nb)) {
     if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return wf_launch(chol_panel_factor_wide_kernel,
-                     static_cast<cudaStream_t>(stream), upd, nb, fac, work);
+    return wfc_launch(chol_panel_factor_wide_kernel,
+                      static_cast<cudaStream_t>(stream), device, 1, upd, nb,
+                      fac, work);
   }
   if (nb != 32 && nb != 64 && nb != 96 && nb != 128) {
     return static_cast<int>(cudaErrorInvalidValue);

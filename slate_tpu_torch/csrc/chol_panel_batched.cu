@@ -82,8 +82,10 @@ chol_panel_batched_factor(Step a) {
   }
 }
 
-// (b) at nb = 256 .. 512: one cluster a problem (blockIdx.y), as above.
-__global__ void __launch_bounds__(WF_THREADS)
+// (b) at nb = 256 .. 512: one cluster a problem (blockIdx.y), as above;
+// the diagonal blocks' inverses that wf_chol forms (the last one too, when
+// there are rows below) start wfc_tri_inv's doubling.
+__global__ void __launch_bounds__(WFC_THREADS)
 chol_panel_batched_factor_wide(Step a) {
   const int b = blockIdx.y, nb = a.nb;
   if (a.k >= a.tiles[b]) return;  // the whole cluster: tile 0 dead
@@ -96,11 +98,12 @@ chol_panel_batched_factor_wide(Step a) {
     w.tile[idx] = idx % nb > idx / nb ? 0.f : src[idx];
   }
   wf_sync();
-  wf_chol(w.tile, nb, nb, w.slots, smem);
+  wf_chol(w.tile, nb, nb, w.slots, smem, a.uinv != nullptr);
   wide_store_tile(a, b, w.tile, true);
   if (a.uinv == nullptr) return;
   wf_sync();
-  wf_tri_inv(w.tile, a.uinv + (long long)b * nb * nb, w.t, nb, nb, smem);
+  wfc_tri_inv(w.tile, a.uinv + (long long)b * nb * nb, w.t, nb, nb, w.slots,
+              smem);
 }
 
 __global__ void __launch_bounds__(BPG::THREADS)
@@ -115,9 +118,10 @@ chol_panel_batched_solve_wide(Step a) {
   batched_solve_wide(a, smem);
 }
 
-static int launch_factor(cudaStream_t stream, int B, const Step& a) {
+static int launch_factor(cudaStream_t stream, int device, int B,
+                         const Step& a) {
   if (a.nb > BP_NB) {
-    return launch_factor_wide(chol_panel_batched_factor_wide, stream, B, a);
+    return wfc_launch(chol_panel_batched_factor_wide, stream, device, B, a);
   }
   const size_t smem = factor_smem_bytes(a.nb);
   SLATE_SET_SMEM(chol_panel_batched_factor, smem);
@@ -139,7 +143,7 @@ extern "C" int slate_chol_panel_batched_fits(int device, int nb, int bw,
   *fits = step_nb_ok(nb) && bw >= 1 && nb % bw == 0 &&
           (nb > BP_NB || factor_smem_bytes(nb) <= (size_t)limit);
   if (*fits && nb > BP_NB) {
-    return wf_fits(chol_panel_batched_factor_wide, device, fits);
+    return wfc_fits(chol_panel_batched_factor_wide, device, fits);
   }
   return 0;
 }
@@ -177,7 +181,7 @@ extern "C" int slate_chol_panel_batched(
   switch (which) {
     case UPDATE: return launch_update(chol_panel_batched_update, device, s, B,
                                       a);
-    case FACTOR: return launch_factor(s, B, a);
+    case FACTOR: return launch_factor(s, device, B, a);
     default: return launch_solve(chol_panel_batched_solve,
                                  chol_panel_batched_solve_wide, s, B, a);
   }

@@ -83,28 +83,71 @@ chol_tile_kernel(const float* __restrict__ a, long long as0, long long as1,
 // The wide route, one cluster: w (np x np, row-major) = lower(a) padded
 // with the identity, factored by wf_chol (slots: np / 128 - 1 tiles for the
 // diagonal blocks' inverses), then l (n x n) = its lower n x n corner.
-__global__ void __launch_bounds__(WF_THREADS)
+// vec: a row-major with as0 % 4 == 0, a and l 16-byte aligned, so the tile
+// moves in by 16-byte loads and out by 16-byte stores (w, np a multiple
+// of 128, takes them always). stamps: null, or wf_chol's
+// (slate_chol_tile_trace).
+__global__ void __launch_bounds__(WFC_THREADS)
 chol_tile_wide_kernel(const float* __restrict__ a, long long as0,
                       long long as1, float* __restrict__ l, int n,
                       float* __restrict__ w, int np,
-                      float* __restrict__ slots) {
+                      float* __restrict__ slots, int vec,
+                      long long* stamps) {
   extern __shared__ __align__(16) float smem[];
-  const int rank = wf_rank(), ctas = wf_ctas();
+  const int rank = wf_rank(), ctas = wf_ctas(), q = np / 4, nq = n / 4;
   const long long stride = (long long)ctas * blockDim.x;
-  for (long long idx = (long long)rank * blockDim.x + threadIdx.x;
-       idx < (long long)np * np; idx += stride) {
-    const int r = (int)(idx / np), c = (int)(idx % np);
-    float v = r == c ? 1.f : 0.f;
-    if (r < n && c <= r) v = a[r * as0 + c * as1];
-    w[idx] = v;
+  const long long first = (long long)rank * blockDim.x + threadIdx.x;
+#pragma unroll 4
+  for (long long idx = first; idx < (long long)np * q; idx += stride) {
+    const int r = (int)(idx / q), c = 4 * (int)(idx % q);
+    float e[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) e[t] = r == c + t ? 1.f : 0.f;
+    if (r < n && c <= r) {
+      if (vec) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + r * as0 + c);
+        e[0] = v.x;
+        e[1] = v.y;
+        e[2] = v.z;
+        e[3] = v.w;
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) e[t] = a[r * as0 + (c + t) * as1];
+      }
+#pragma unroll
+      for (int t = 1; t < 4; ++t)
+        if (c + t > r) e[t] = 0.f;
+    }
+    *reinterpret_cast<float4*>(w + (long long)r * np + c) =
+        make_float4(e[0], e[1], e[2], e[3]);
   }
   wf_sync();
-  wf_chol(w, np, np, slots, smem);
-  for (long long idx = (long long)rank * blockDim.x + threadIdx.x;
-       idx < (long long)n * n; idx += stride) {
-    const int r = (int)(idx / n), c = (int)(idx % n);
-    l[idx] = __ldcg(w + (long long)r * np + c);
+  wf_chol(w, np, np, slots, smem, false, stamps);
+#pragma unroll 4
+  for (long long idx = first; idx < (long long)n * nq; idx += stride) {
+    const int r = (int)(idx / nq), c = 4 * (int)(idx % nq);
+    const float4 v =
+        __ldcg(reinterpret_cast<const float4*>(w + (long long)r * np + c));
+    float* dst = l + (long long)r * n + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      dst[0] = v.x;
+      dst[1] = v.y;
+      dst[2] = v.z;
+      dst[3] = v.w;
+    }
   }
+}
+
+// 1 when the wide route moves a in by 16-byte loads: a row-major, as0 % 4
+// == 0, a and l 16-byte aligned.
+static int wide_vec(const float* a, long long as0, long long as1,
+                    const float* l) {
+  return as1 == 1 && as0 % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(l) % 16 == 0;
 }
 
 // *floats = the workspace of the wide route for an n x n tile (0 at n <=
@@ -126,7 +169,7 @@ extern "C" int slate_chol_tile_fits(int device, int n, int* fits) {
     *fits = 1;
     return 0;
   }
-  return wf_fits(chol_tile_wide_kernel, device, fits);
+  return wfc_fits(chol_tile_wide_kernel, device, fits);
 }
 
 // One launch for one n x n tile, within slate_chol_tile_fits; work holds
@@ -140,9 +183,10 @@ extern "C" int slate_chol_tile(int device, void* stream, const float* a,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int np = (n + WF_T - 1) / WF_T * WF_T;
-    return wf_launch(chol_tile_wide_kernel, static_cast<cudaStream_t>(stream),
-                     a, as0, as1, l, n, work, np,
-                     work + (long long)np * np);
+    return wfc_launch(chol_tile_wide_kernel,
+                      static_cast<cudaStream_t>(stream), device, 1, a, as0,
+                      as1, l, n, work, np, work + (long long)np * np,
+                      wide_vec(a, as0, as1, l), (long long*)nullptr);
   }
   const int np = (n + CF_BLOCK - 1) / CF_BLOCK * CF_BLOCK;
   const size_t smem = sizeof(float) * ((size_t)np * (np + 4) +
@@ -155,4 +199,27 @@ extern "C" int slate_chol_tile(int device, void* stream, const float* a,
                      static_cast<cudaStream_t>(stream)>>>(a, as0, as1, l, n,
                                                           np, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide route's launch (n > 128, as slate_chol_tile) with wf_chol's
+// stamps: stamps holds (np / 128 + 1) * WFC_STAMP_ROW zeroed int64s (np =
+// n rounded up to 128); *cluster = the cluster's CTAs. For chip_smoke.py's
+// split of K1's time into the exposed diagonal chain and the products; the
+// wrapper never calls it.
+extern "C" int slate_chol_tile_trace(int device, void* stream,
+                                     const float* a, long long as0,
+                                     long long as1, float* l, int n,
+                                     float* work, long long* stamps,
+                                     int* cluster) {
+  SLATE_SET_DEVICE(device);
+  if (n <= 128 || n % CF_BLOCK || n > WF_MAX_TILE || work == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int e = wfc_cluster(chol_tile_wide_kernel, device, 1, cluster);
+  if (e != 0) return e;
+  const int np = (n + WF_T - 1) / WF_T * WF_T;
+  return wfc_launch(chol_tile_wide_kernel, static_cast<cudaStream_t>(stream),
+                    device, 1, a, as0, as1, l, n, work, np,
+                    work + (long long)np * np, wide_vec(a, as0, as1, l),
+                    stamps);
 }

@@ -25,7 +25,11 @@ from .tri_inv import upper_tri_inv, upper_tri_inv_plain
 CHOL_TILE = CudaKernel("chol_tile", "chol_tile.cu", {
     "slate_chol_tile": [I32, P, P, I64, I64, P, I32, P],
     "slate_chol_tile_fits": [I32, I32, ctypes.POINTER(I32)],
-    "slate_chol_tile_work": [I32, I32, ctypes.POINTER(I32)]})
+    "slate_chol_tile_work": [I32, I32, ctypes.POINTER(I32)],
+    "slate_chol_tile_trace": [I32, P, P, I64, I64, P, I32, P, P,
+                              ctypes.POINTER(I32)]})
+# a row of the wide route's stamps (csrc/wide_factor.cuh WFC_STAMP_ROW)
+TILE_STAMP_ROW = 17
 CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
     "slate_chol_panel_update": [I32, P, P, I64, I64, P, I64, I64, P, I64,
                                 I64, I32, I32, I32, P],
@@ -117,6 +121,30 @@ def chol_tile(a: torch.Tensor, bw: int = 8) -> torch.Tensor:
     CHOL_TILE.launch("slate_chol_tile", *device_and_stream(a), a.data_ptr(),
                      a.stride(0), a.stride(1), out.data_ptr(), n, work_ptr)
     return out
+
+
+def chol_tile_stamps(a: torch.Tensor):
+    """K1's wide route once on a CUDA f32 tile (128 < n <= 1024, n % 32
+    == 0) with the diagonal chain's timestamps: (L, stamps, cluster).
+    stamps is [n_blocks + 1, TILE_STAMP_ROW] int64 globaltimer
+    nanoseconds (``wf_chol``'s layout: row s, entry r the time rank r ended
+    step s; entry 16 rank 0's time past the step's barrier; row n_blocks
+    entry 0 the start).  For chip_smoke.py's split of K1's time; the
+    launch is not counted in ``CHOL_TILE.launches``."""
+    n = a.shape[-1]
+    check_cuda_f32("chol_tile_stamps", a)
+    if not (128 < n <= TILE_MAX_N and n % 32 == 0 and a.shape == (n, n)):
+        raise ValueError(f"chol_tile_stamps: needs one tile past 128, got "
+                         f"{tuple(a.shape)}")
+    out = torch.empty((n, n), dtype=a.dtype, device=a.device)
+    work, work_ptr = workspace(CHOL_TILE, "slate_chol_tile_work", a, n)
+    stamps = torch.zeros((-(-n // 128) + 1, TILE_STAMP_ROW),
+                         dtype=torch.int64, device=a.device)
+    cluster = ctypes.c_int32(0)
+    CHOL_TILE.call("slate_chol_tile_trace", *device_and_stream(a),
+                   a.data_ptr(), a.stride(0), a.stride(1), out.data_ptr(), n,
+                   work_ptr, stamps.data_ptr(), ctypes.byref(cluster))
+    return out, stamps, cluster.value
 
 
 def chol_panel_plain(col, left, lead, bw: int = 8):

@@ -5,13 +5,15 @@ The same numpy inputs, from a seed, go through both packages; counts,
 ``abft_site``, the escalation path and the strike positions are held
 EXACT, solutions within 1e-5 relative in f32 and complex64 and 1e-12 in
 f64 and complex128 (both sides solve the same bytes, sums in another
-order).  The cases mirror tests/test_abft.py: the primitives' single and
+order). The cases mirror tests/test_abft.py: the primitives' single and
 double strikes, tile targeting and a miss, gesv (NoPiv, PartialPiv, CALU)
-and posv with clean, single, double and transient double strikes, gemm
-and trsm without a false detection, and batch_potrf's in-batch counts.
-The reference's drivers are wrapped in ``@annotate``, which calls
-``jax.core.trace_state_clean``; the installed JAX no longer exports that
-name, so the ``ref_drivers`` fixture restores it on the test side only.
+and posv with clean, single, double and transient double strikes, gemm and
+trsm without a false detection, and batch_potrf's in-batch counts. gesv
+and gemm/trsm are in test_torch_abft_gesv.py, the shared inputs in
+torch_abft_common.py. The reference's drivers are wrapped in
+``@annotate``, which calls ``jax.core.trace_state_clean``; the installed
+JAX no longer exports that name, so the ``ref_drivers`` fixture restores
+it on the test side only.
 """
 
 import numpy as np
@@ -29,53 +31,9 @@ import slate_tpu_torch as st
 from slate_tpu_torch.internal import batched as bk
 from slate_tpu_torch.robust import abft, faults
 
-N, NB = 96, 32
-RTOL = {np.float32: 1e-5, np.complex64: 1e-5, np.float64: 1e-12,
-        np.complex128: 1e-12}
-
-
-@pytest.fixture
-def ref_drivers(monkeypatch):
-    monkeypatch.setattr(jax.core, "trace_state_clean",
-                        jax._src.core.trace_state_clean, raising=False)
-
-
-def _info(pkg, **kv):
-    o = {pkg.Option.ErrorPolicy: "info", pkg.Option.Abft: "on"}
-    o.update({getattr(pkg.Option, k): v for k, v in kv.items()})
-    return o
-
-
-def _counts(h):
-    return int(h.abft_detected), int(h.abft_corrected), int(h.abft_site)
-
-
-def _close(got, want, dtype):
-    got, want = np.asarray(got), np.asarray(want)
-    scale = max(np.abs(want).max(), 1e-30)
-    assert np.abs(got - want).max() <= RTOL[dtype] * scale
-
-
-def _dense(seed, n=N, dtype=np.float64):
-    rng = np.random.default_rng(seed)
-    a = rng.standard_normal((n, n)) + n * np.eye(n)
-    b = rng.standard_normal((n, 2))
-    return a.astype(dtype), b.astype(dtype)
-
-
-def _hpd(seed, n=N, dtype=np.float64):
-    a, b = _dense(seed, n, np.float64)
-    return (a @ a.T / n + n * np.eye(n)).astype(dtype), b.astype(dtype)
-
-
-# ------------------------------------------------------------ primitives
-
-def _pair_sum_check(x, er, ec, **kw):
-    got = abft.sum_check(torch.from_numpy(x.copy()), torch.from_numpy(er),
-                         torch.from_numpy(ec), **kw)
-    want = ref_abft.sum_check(jnp.asarray(x), jnp.asarray(er),
-                              jnp.asarray(ec), **kw)
-    return got, want
+from torch_abft_common import (
+    _close, _counts, _hpd, _info, _pair_sum_check, _posv_pair, _spd_stack, N,
+    NB, ref_drivers)
 
 
 @pytest.mark.parametrize("payload", [np.nan, np.inf, 2.0 ** 80])
@@ -200,112 +158,6 @@ def test_fault_tile_targeting_and_miss():
         torch.zeros(12, 16), faults.FaultPlan(**cases[3][1]))).all()
 
 
-# ------------------------------------------------- dense gesv/posv paths
-
-def _gesv_pair(a, b, method, plans=(), **kw):
-    """gesv in both packages on the same bytes under the same fault plans;
-    returns ((F, X, h) of the port, (F, X, h) of the reference)."""
-    with faults.inject(*[faults.FaultPlan(**p) for p in plans]):
-        got = st.gesv(st.Matrix.from_numpy(a, NB, device="cpu"),
-                      st.Matrix.from_numpy(b, NB, device="cpu"),
-                      _info(st, MethodLU=getattr(st.MethodLU, method), **kw))
-    with ref_faults.inject(*[ref_faults.FaultPlan(**p) for p in plans]):
-        want = ref.gesv(ref.Matrix.from_numpy(a, NB, NB),
-                        ref.Matrix.from_numpy(b, NB, NB),
-                        _info(ref, MethodLU=getattr(ref.MethodLU, method),
-                              **kw))
-    return got, want
-
-
-METHODS = ["NoPiv", "PartialPiv", "CALU"]
-# a strike in the L part of the first panel's last tile: global tile
-# (N // NB - 1, 0), as tests/test_abft.py plants it
-PANEL_TILE = (N // NB - 1, 0)
-
-
-@pytest.mark.parametrize("method", METHODS)
-def test_gesv_abft_clean_zero_counters(ref_drivers, method):
-    a, b = _dense(10)
-    (_, X, h), (_, Xr, hr) = _gesv_pair(a, b, method)
-    assert _counts(h) == _counts(hr) == (0, 0, -1) and h.ok
-    _close(X.to_numpy(), Xr.to_numpy(), np.float64)
-
-
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("method", METHODS)
-def test_gesv_single_bitflip_located_and_corrected(ref_drivers, method,
-                                                   dtype):
-    """One bitflip in the first panel's last tile: located at that tile,
-    repaired in place, no escalation, the solution the clean one."""
-    a, b = _dense(11, dtype=dtype)
-    plan = dict(site="post_panel", kind="bitflip", seed=5,
-                tile=PANEL_TILE, nb=NB)
-    (_, X, h), (_, Xr, hr) = _gesv_pair(a, b, method, [plan])
-    assert _counts(h) == _counts(hr) == (1, 1, int(abft.site_code(
-        *PANEL_TILE)))
-    assert h.ok
-    _close(X.to_numpy(), Xr.to_numpy(), dtype)
-
-
-@pytest.mark.parametrize("kind", ["nan", "inf", "bitflip"])
-@pytest.mark.parametrize("method", METHODS)
-def test_gesv_double_strike_detected_not_corrected(ref_drivers, method,
-                                                   kind):
-    """Two struck elements: detected, refused, a health failure, at the
-    reference's first site.  A bitflip pair stays finite and is exactly
-    one refused event in both.  A refused NaN or Inf spreads through the
-    rest of the factorization, and on the pivoted routes how far depends
-    on the pivot search over a NaN column (LAPACK's and the tournament's
-    plain version skip it, XLA's argmax takes it), so there the later
-    events may differ in number; NoPiv's counts are held whole."""
-    a, b = _dense(12)
-    plan = dict(site="post_panel", kind=kind, seed=5, count=2,
-                tile=PANEL_TILE, nb=NB)
-    (_, _, h), (_, _, hr) = _gesv_pair(a, b, method, [plan],
-                                       UseFallbackSolver=False)
-    if kind == "bitflip" or method == "NoPiv":
-        assert _counts(h) == _counts(hr)
-    assert h.abft_site == int(hr.abft_site)
-    assert h.abft_corrected == int(hr.abft_corrected) == 0
-    det, cor, _ = _counts(h)
-    assert det >= 1 and cor < det and not h.ok
-    if kind == "bitflip":
-        assert (det, cor) == (1, 0)
-
-
-@pytest.mark.parametrize("method", METHODS)
-def test_gesv_transient_double_strike_saved_by_retry_rung(ref_drivers,
-                                                          method):
-    """The failed repair retries the SAME method once (the transient strike
-    is spent, the retry clean) below any method escalation: clean counts,
-    a healthy solve, the same factor type as the reference's."""
-    a, b = _dense(13)
-    plan = dict(site="post_panel", kind="bitflip", seed=5, count=2,
-                transient=True, tile=PANEL_TILE, nb=NB)
-    (_, _, h0), (_, _, h0r) = _gesv_pair(a, b, method, [plan],
-                                         UseFallbackSolver=False)
-    assert not h0.ok and _counts(h0) == _counts(h0r)
-    (F, X, h), (Fr, Xr, hr) = _gesv_pair(a, b, method, [plan],
-                                         UseFallbackSolver=True)
-    if method == "CALU":           # no rung below CALU: nothing retries
-        assert not h.ok and _counts(h) == _counts(hr)
-        return
-    assert h.ok and _counts(h) == _counts(hr) == (0, 0, -1)
-    np.testing.assert_array_equal(F.perm.numpy(), np.asarray(Fr.perm))
-    _close(X.to_numpy(), Xr.to_numpy(), np.float64)
-
-
-def _posv_pair(a, b, plans=(), dtype=np.float64, **kw):
-    with faults.inject(*[faults.FaultPlan(**p) for p in plans]):
-        got = st.posv(st.HermitianMatrix.from_numpy(a, NB, device="cpu"),
-                      st.Matrix.from_numpy(b, NB, device="cpu"),
-                      _info(st, **kw))
-    with ref_faults.inject(*[ref_faults.FaultPlan(**p) for p in plans]):
-        want = ref.posv(ref.HermitianMatrix.from_numpy(a, NB),
-                        ref.Matrix.from_numpy(b, NB, NB), _info(ref, **kw))
-    return got, want
-
-
 @pytest.mark.parametrize("dtype", [np.float64, np.float32, np.complex64,
                                    np.complex128])
 def test_posv_abft_clean_zero_counters(ref_drivers, dtype):
@@ -366,39 +218,6 @@ def test_posv_input_and_solve_sites(ref_drivers):
                                       np.isnan(Xr.to_numpy()))
 
 
-# --------------------------------------------- gemm/trsm (silent repair)
-
-def test_gemm_trsm_abft_clean_no_false_positive(ref_drivers):
-    """Checked gemm and trsm (left and right, lower and upper, a ragged
-    n) leave a clean result bit for bit as the unchecked call gives it,
-    and agree with the reference's checked calls."""
-    rng = np.random.default_rng(30)
-    on = {st.Option.Abft: st.Abft.On}
-    a, b = rng.standard_normal((72, 60)), rng.standard_normal((60, 84))
-    A, B = (st.Matrix.from_numpy(x, 32, device="cpu") for x in (a, b))
-    C = st.gemm(1.0, A, B, opts=on)
-    assert torch.equal(C.storage.data, st.gemm(1.0, A, B).storage.data)
-    Cr = ref.gemm(1.0, ref.Matrix.from_numpy(a, 32),
-                  ref.Matrix.from_numpy(b, 32), opts={ref.Option.Abft: "on"})
-    _close(C.to_numpy(), Cr.to_numpy(), np.float64)
-    n, nrhs = 100, 5
-    L = np.tril(rng.standard_normal((n, n))) + n * np.eye(n)
-    rhs = rng.standard_normal((n, nrhs))
-    for side, Lm, Lr, r in (
-            ("l", st.TriangularMatrix.from_numpy(L, 32, device="cpu"),
-             ref.TriangularMatrix.from_numpy(L, 32), rhs),
-            ("r", st.TriangularMatrix.from_numpy(L, 32,
-                                                 device="cpu").transpose(),
-             ref.TriangularMatrix.from_numpy(L, 32).T, rhs.T.copy())):
-        Bm = st.Matrix.from_numpy(r, 32, device="cpu")
-        X = st.trsm(side, 1.0, Lm, Bm, opts=on)
-        assert torch.equal(X.storage.data,
-                           st.trsm(side, 1.0, Lm, Bm).storage.data)
-        Xr = ref.trsm(side, 1.0, Lr, ref.Matrix.from_numpy(r, 32, 32),
-                      opts={ref.Option.Abft: "on"})
-        _close(X.to_numpy(), Xr.to_numpy(), np.float64)
-
-
 @pytest.mark.parametrize("upper", [False, True])
 def test_checked_trsm_repairs_a_struck_solution(upper, monkeypatch):
     """The checked block solve repairs one corrupted element of X (struck
@@ -431,18 +250,6 @@ def test_checked_trsm_repairs_a_struck_solution(upper, monkeypatch):
                                       check=True, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-12)
-
-
-# ------------------------------------------------ batch_potrf in-batch
-
-def _spd_stack(seed, n, sizes):
-    rng = np.random.default_rng(seed)
-    out = np.zeros((len(sizes), n, n))
-    for i, s in enumerate(sizes):
-        g = rng.standard_normal((s, s))
-        out[i] = np.eye(n)
-        out[i, :s, :s] = g @ g.T / max(s, 1) + np.eye(s)
-    return out.astype(np.float32)
 
 
 @pytest.mark.parametrize("plan", [
@@ -490,8 +297,6 @@ def test_batch_potrf_abft_counts_match_the_reference(plan):
                                    rtol=0, atol=1e-5)
 
 
-# ------------------------------------------- no host read below the boundary
-
 def test_abft_posv_reads_the_device_once_at_the_boundary(monkeypatch):
     """The checksum rungs never read a device value to the host, nor copy
     a host value to the device (on the card both wait for the device): an
@@ -528,8 +333,6 @@ def test_abft_posv_reads_the_device_once_at_the_boundary(monkeypatch):
     assert seen[32, True] == seen[32, False]
     assert seen[64, True] == seen[64, False]
 
-
-# ------------------------------------------------- serving under Abft
 
 @pytest.mark.parametrize("plan", [
     None,

@@ -1348,6 +1348,65 @@ def test_wide_qr_panel_matches_plain_and_repeats_bitwise(cuda, m, w):
         x.abs().max()) * m ** 0.5
 
 
+# ---- the redesigned wide routes: K1's lookahead factor, K5's strips ----
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+def test_wide_chol_tile_stamps_order_and_bits(cuda, n):
+    """K1's wide route with wf_chol's stamps (chol_tile_stamps, which the
+    launch count leaves out): the same bits as the wrapper's launch (the
+    stamps change no arithmetic), a cluster of 8 or 16 CTAs, and each
+    step's stamps in order: the step's start before rank 0's chain end and
+    every worker's end, and those before the step's closing barrier."""
+    a = torch.from_numpy(_spd(np.random.default_rng(n + 1), n)).to(cuda)
+    before = ck.CHOL_TILE.launches
+    got, stamps, cluster = ck.chol_tile_stamps(a)
+    assert ck.CHOL_TILE.launches == before
+    assert torch.equal(got, ck.chol_tile(a, 8))
+    assert cluster in (8, 16)
+    s, nt = stamps.cpu().tolist(), n // 128
+    assert 0 < s[nt][0] <= s[0][0] <= s[0][16]
+    for j in range(1, nt):
+        assert s[j - 1][16] <= s[j][0] <= s[j][16]
+        assert s[j - 1][16] <= max(s[j][1:cluster]) <= s[j][16]
+
+
+@pytest.mark.parametrize("mm,w,bw,zero", [
+    (4096, 256, 8, None), (2048, 512, 8, None), (3000, 256, 8, None),
+    (512, 512, 8, None), (512, 512, 1, None), (512, 512, 3, None),
+    (2048, 512, 3, None), (3000, 256, 1, None), (1024, 256, 8, 130),
+    (2048, 512, 8, 200)])
+def test_wide_qr_panel_strips_edges(cuda, mm, w, bw, zero):
+    """K5 past 128 (the block factors on a cluster, the T merges and the
+    strip updates of the columns right of each block as launches of their
+    own, one wrapper launch): mm = w, slabs of 1 and 3 columns that leave a
+    ragged last slab, 3000 rows; packed and T within 1e-4 + 1e-4 |plain|,
+    ||QR - A|| / max|A| < 1e-5 sqrt(mm), the same bits twice.  A zero
+    column in the second block (mu = 0) gets tau = 0 and keeps its
+    entries."""
+    rng = np.random.default_rng(mm + w + bw)
+    x_np = rng.standard_normal((mm, w)).astype(np.float32)
+    if zero is not None:
+        x_np[:, zero] = 0.0
+    x = torch.from_numpy(x_np).to(cuda)
+    before = qk.QR_PANEL.launches
+    got = qk.qr_panel(x, bw)
+    assert qk.QR_PANEL.launches == before + 1
+    for g, p in zip(got, qk.qr_panel_plain(x, bw)):
+        assert bool(((g - p).abs() <= ATOL + RTOL * p.abs()).all())
+    assert all(torch.equal(g, h) for g, h in zip(got, qk.qr_panel(x, bw)))
+    packed, T = (t.double() for t in got)
+    v = torch.tril(packed, -1)
+    v[torch.arange(w), torch.arange(w)] = 1
+    r = torch.zeros_like(packed)
+    r[:w] = torch.triu(packed[:w])
+    qr_ = r - v @ (T @ (v.T @ r))
+    assert float((qr_ - x.double()).abs().max()) < 1e-5 * float(
+        x.abs().max()) * mm ** 0.5
+    if zero is not None:
+        assert float(got[1][zero, zero]) == 0.0
+        assert torch.equal(got[0][zero + 1:, zero], x[zero + 1:, zero])
+
+
 def test_wide_calu_and_gels_launch_the_kernels(cuda):
     """CALU gesv at nb = 256 sends every tournament round to K4 and every
     clean factor to K3; the QR gels at nb = 512 every panel to K5."""

@@ -1,6 +1,7 @@
 """The port's QR and least-squares drivers (geqrf, gelqf, unmqr, unmlq,
 qr_multiply, cholqr, gels_cholqr, gels_qr, gels) and the rest of BLAS-3,
-against slate_tpu's on the CPU.
+against slate_tpu's on the CPU.  cholqr and the gels family are in
+test_torch_qr_gels.py, the shared inputs in torch_qr_common.py.
 
 The reference's public drivers are wrapped in ``@annotate``, which calls
 ``jax.core.trace_state_clean``; the installed JAX no longer exports that
@@ -17,44 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import slate_tpu as ref
 from slate_tpu.tune import TilePlan as RefPlan
 from slate_tpu.tune import plan_override as ref_override
 
 import slate_tpu_torch as st
-from slate_tpu_torch.convert import (lq_factors_from_jax, matrix_from_jax,
-                                     qr_factors_from_jax)
+from slate_tpu_torch.convert import lq_factors_from_jax, qr_factors_from_jax
 from slate_tpu_torch.drivers import qr as dq
 
-# f32 parity: both sides are blocked Householder (or CholQR) solves of the
-# same bytes, sums in another order; on the Gaussian matrices below
-# (cond <= ~10) factors and solutions agree to a few n eps of their
-# largest entry, which 1e-4 of max|.| holds with room.
-F32_RTOL = 1e-4
-
-
-@pytest.fixture
-def ref_drivers(monkeypatch):
-    monkeypatch.setattr(jax.core, "trace_state_clean",
-                        jax._src.core.trace_state_clean, raising=False)
-
-
-def _gauss(seed, m, n, dtype=np.float32):
-    return np.random.default_rng(seed).standard_normal((m, n)).astype(dtype)
-
-
-def _close(got, want, rtol=F32_RTOL):
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=rtol * np.abs(want).max())
-
-
-def _cpu(a, nb, nb2=None):
-    return st.Matrix.from_numpy(a, nb, nb2, device="cpu")
-
-
-def _opts(pkg, **kv):
-    return {getattr(pkg.Option, k): v for k, v in kv.items()}
+from torch_qr_common import (
+    _close, _cplx, _cpu, _gauss, _opts, _pair, F32_RTOL, ref_drivers)
 
 
 @pytest.mark.parametrize("m,n,nb,dtype,rtol", [
@@ -133,92 +106,6 @@ def test_gelqf_unmlq_and_qr_multiply(ref_drivers):
                  _cpu(np.zeros((m, 2), np.complex64), nb))
 
 
-def test_cholqr_matches_reference(ref_drivers):
-    """CholQR's Q and R are unique (R with a positive diagonal)."""
-    m, n, nb = 200, 64, 32
-    a = _gauss(7, m, n)
-    Qr, Rr = ref.cholqr(ref.Matrix.from_numpy(a, nb))
-    Q, R = st.cholqr(_cpu(a, nb))
-    _close(Q.to_numpy(), Qr.to_numpy())
-    _close(R.to_numpy(), Rr.to_numpy())
-    for meth in ("GemmA", "GemmC"):
-        _, R2 = st.cholqr(_cpu(a, nb), _opts(
-            st, MethodCholQR=getattr(st.MethodCholQR, meth)))
-        _close(R2.to_numpy(), R.to_numpy())
-
-
-@pytest.mark.parametrize("m,n,method", [
-    (300, 64, "Auto"), (200, 96, "Auto"), (300, 64, "QR"),
-    (200, 96, "CholQR"), (40, 100, "Auto")])
-def test_gels_matches_reference(ref_drivers, m, n, method):
-    """gels down both select_gels_method branches (300 x 64: CholQR by
-    default; 200 x 96: QR), each forced the other way, and the m < n
-    minimum-norm branch through gelqf; X against the reference's and the
-    f64 least-squares (or minimum-norm) solution."""
-    nb = 32
-    a, b = _gauss(8, m, n), _gauss(9, m, 3)
-    Xr = ref.gels(ref.Matrix.from_numpy(a, nb), ref.Matrix.from_numpy(b, nb),
-                  _opts(ref, MethodGels=getattr(ref.MethodGels, method)))
-    X = st.gels(_cpu(a, nb), _cpu(b, nb),
-                _opts(st, MethodGels=getattr(st.MethodGels, method)))
-    assert (X.m, X.n) == (n, 3)
-    _close(X.to_numpy(), Xr.to_numpy())
-    x64 = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64),
-                          rcond=None)[0]
-    _close(X.to_numpy(), x64)
-
-
-def test_gels_cholqr_and_gels_qr_match_reference(ref_drivers):
-    m, n, nb = 160, 48, 32
-    a, b = _gauss(10, m, n), _gauss(11, m, 2)
-    for name in ("gels_cholqr", "gels_qr"):
-        Xr = getattr(ref, name)(ref.Matrix.from_numpy(a, nb),
-                                ref.Matrix.from_numpy(b, nb))
-        X = getattr(st, name)(_cpu(a, nb), _cpu(b, nb))
-        _close(X.to_numpy(), Xr.to_numpy())
-    with pytest.raises(st.SlateError, match="m >= n"):
-        st.gels_qr(_cpu(a.T.copy(), nb), _cpu(b[:n], nb))
-
-
-def _gram_breaker(seed, m=120, n=40):
-    """f64 A with eight columns within 1e-9 of others: cond(A) ~ 1e9, so
-    A^H A (cond ~ 1e18, past 1/eps) fails Cholesky, while Householder QR
-    solves it to ~1e-7."""
-    a = _gauss(seed, m, n, np.float64)
-    noise = _gauss(seed + 1, m, 8, np.float64)
-    a[:, 30:38] = a[:, 2:10] + 1e-9 * noise
-    return a
-
-
-def test_gels_fallback_from_cholqr_to_qr(ref_drivers):
-    """m >= 3 n picks CholQR; its Gram matrix fails Cholesky, and the
-    UseFallbackSolver rung (the default) retries by Householder QR in both
-    packages; with the rung off, the failed attempt's health comes back."""
-    nb = 16
-    a, b = _gram_breaker(12), _gauss(14, 120, 2, np.float64)
-    Xr, hr = ref.gels(ref.Matrix.from_numpy(a, nb),
-                      ref.Matrix.from_numpy(b, nb),
-                      _opts(ref, ErrorPolicy=ref.ErrorPolicy.Info))
-    X, h = st.gels(_cpu(a, nb), _cpu(b, nb),
-                   _opts(st, ErrorPolicy=st.ErrorPolicy.Info))
-    assert h.ok and bool(hr.ok)
-    _close(X.to_numpy(), Xr.to_numpy(), 1e-5)
-    x64 = np.linalg.lstsq(a, b, rcond=None)[0]
-    _close(X.to_numpy(), x64, 1e-5)
-    no_fb = _opts(st, ErrorPolicy=st.ErrorPolicy.Info,
-                  UseFallbackSolver=False)
-    _, h1 = st.gels(_cpu(a, nb), _cpu(b, nb), no_fb)
-    _, hr1 = ref.gels(ref.Matrix.from_numpy(a, nb),
-                      ref.Matrix.from_numpy(b, nb),
-                      _opts(ref, ErrorPolicy=ref.ErrorPolicy.Info,
-                            UseFallbackSolver=False))
-    assert not h1.ok and not bool(hr1.ok)
-    assert (h1.info > 0) == (int(hr1.info) > 0)
-    with pytest.raises(st.SlateNotPositiveDefiniteError, match="Gram"):
-        st.gels(_cpu(a, nb), _cpu(b, nb),
-                _opts(st, UseFallbackSolver=False))
-
-
 def test_info_return_shapes_and_unported_rungs():
     a, b = _gauss(15, 96, 24), _gauss(16, 96, 2)
     info = _opts(st, ErrorPolicy=st.ErrorPolicy.Info)
@@ -255,34 +142,6 @@ def test_info_return_shapes_and_unported_rungs():
                        st.geqrf(_cpu(a, 32)).QR.to_dense())
     with pytest.raises(ValueError, match="MethodGels"):
         st.gels(_cpu(a, 32), _cpu(b, 32), _opts(st, MethodGels="qr"))
-
-
-def test_gels_cholqr_refinement_sweep():
-    """One corrected semi-normal-equations sweep (the speculative rung's
-    refine) moves X toward the f64 solution, not away."""
-    a, b = _gauss(17, 200, 40), _gauss(18, 200, 2)
-    x64 = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64),
-                          rcond=None)[0]
-    X0, _ = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None)
-    X1, h = dq._gels_cholqr_attempt(_cpu(a, 32), _cpu(b, 32), None,
-                                    refine=1)
-    assert h.ok
-    e0 = np.abs(X0.to_numpy() - x64).max()
-    e1 = np.abs(X1.to_numpy() - x64).max()
-    assert e1 <= 2 * e0 and e1 < 1e-5
-
-
-# ---------------------------------------------------------------- BLAS-3
-
-def _pair(a, nb=16, cls="Matrix", **kw):
-    """The same matrix in both packages (f64 or complex128)."""
-    R = getattr(ref, cls).from_numpy(a, nb, **kw)
-    return R, matrix_from_jax(R, device="cpu")
-
-
-def _cplx(seed, m, n):
-    rng = np.random.default_rng(seed)
-    return rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))
 
 
 def test_hemm_is_gemm_for_every_method():
