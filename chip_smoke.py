@@ -298,7 +298,12 @@ Phases, each of which fails the run (nonzero exit) when it goes wrong:
      indefinite 512 tile (the same first bad pivot, 300, as the plain
      version), K2 at [M, K] = [10240, 10240] at nb = 256 and 512 and at
      [2048, 1000] with a transposed left (a ragged K, plain-load
-     staging), K0 at n = 256 and 512 on a Cholesky U and on a pivoted
+     staging; since slice 25 the update on the tensor cores as a 3xTF32
+     product, its chol_panel_plan line with its route and its error
+     against the f64 product, at most twice torch.matmul's in f32), K0
+     at n = 256 and 512 on a Cholesky U (since slice 25 with a
+     tri_inv_split line: copy-in, diagonal inverses, each half-level of
+     the joins, store) and on a pivoted
      LU's U (within 1e-5 of f64), K3 at W = 20480 and W = nb at nb = 256
      and 512 on diagonally dominant panels, each against its plain
      version, timed beside its bound and library call, launched twice
@@ -538,9 +543,11 @@ def k2_launch_times(fn, reps: int = 5) -> dict:
 
     def pick(tag):
         return sum(v for k, v in by_name.items() if tag in k)
-    # the wide widths' factor and K0 launches are the *_wide_kernel ones,
-    # their solve wide_factor.cuh's wf_solve_kernel
-    parts = {"update": pick("chol_panel_update_kernel"),
+    # the wide widths' update is chol_panel_update_tc_kernel, their factor
+    # and K0 launches the *_wide_kernel ones, their solve wide_factor.cuh's
+    # wf_solve_kernel
+    parts = {"update": (pick("chol_panel_update_kernel")
+                        + pick("chol_panel_update_tc_kernel")),
              "factor": pick("chol_panel_factor"),
              "solve": (pick("chol_panel_solve_kernel")
                        + pick("wf_solve_kernel"))}
@@ -571,6 +578,25 @@ def card_rates() -> tuple[float, float]:
         peak = dict(fl.PEAK_TABLE)["h100"]["float32"]
         bw = dict(fl.BANDWIDTH_TABLE)["h100"]
     return peak, bw
+
+
+def tf32x3_bound(split_flops: float, flops: float,
+                 nbytes: float) -> tuple[float, str]:
+    """Least time for work of which ``split_flops`` (an f32 product's 2 m n
+    k) run on the tensor cores as a 3xTF32 split product, three TF32
+    passes at the card's TF32 rate (obs/flops.py split_product_seconds;
+    the H100's where the table lacks the card), and the rest of ``flops``
+    on the CUDA cores, against the bytes over the memory rate: in ms, and
+    which one it is."""
+    from slate_tpu_torch.obs import flops as fl
+    peak, bw = card_rates()
+    t_split = fl.split_product_seconds(split_flops)
+    if t_split is None:
+        t_split = fl.split_product_seconds(split_flops, kind="h100")
+    t_ops = t_split + (flops - split_flops) / peak
+    t_bytes = nbytes / bw
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -616,11 +642,12 @@ def within_tol(got, want, rtol: float = RTOL) -> bool:
 def tf32(fn):
     """``fn()`` with PyTorch's f32 matmuls in TF32: the control that the
     tolerances must reject."""
+    prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         return fn()
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def check(name, shape, got, want, reason, kernel_ms, plain_ms, library_ms,
@@ -769,7 +796,11 @@ def check_chol_panel(gen, m: int, k: int, left_t: bool,
                      nb: int = 128) -> dict:
     """K2 at [M, K] against its plain version (and its TF32 control when
     K > 0), launched twice and compared bit for bit; the row's kernel_ms is
-    K2's own launches' device time, K0's apart."""
+    K2's own launches' device time, K0's apart.  Past nb = 128 the update
+    runs on the tensor cores as a 3xTF32 product: its max |upd - upd64|
+    against the f64 product must be at most twice that of torch.matmul in
+    f32 on the same operands, and the row states its bound both ways (the
+    CUDA cores' f32 bound and the split product's on the tensor cores)."""
     from slate_tpu_torch.internal.chol_kernels import (
         chol_panel_fused, chol_panel_plain, panel_plan)
     col, left, lead = chol_panel_operands(gen, m, k, left_t, nb)
@@ -786,38 +817,62 @@ def check_chol_panel(gen, m: int, k: int, left_t: bool,
 
     times = k2_launch_times(lambda: chol_panel_fused(col, left, lead, 8))
     plan = panel_plan(col, left, lead)
-    fast = "loads" if left_t else "cp.async"
+    wide = nb > 128
+    fast = "loads" if left_t else ("tma" if wide else "cp.async")
     if k and not plan["left"] == plan["lead"] == fast:
         raise AssertionError(f"chol_panel_fused [{m}, {k}]: staging {plan} "
                              f"on left_transposed = {left_t}")
+    if plan["route"] != ("tf32x3" if wide else "fp32"):
+        raise AssertionError(f"chol_panel_fused nb = {nb}: route {plan}")
+    flops = panel_flops(m, k, nb, "potrf")
+    nbytes = 4 * (m * nb + m * k + k * nb + 2 * m * nb)
     row = check(
         "chol_panel_fused", {"M": m, "nb": nb, "K": k, "bw": 8,
                              "left_transposed": left_t},
         list(got), list(want),
-        "upd: K-long f32 sums with O(1) partial sums in another order; "
-        "fac: as upper_tri_inv and chol_tile on a top block with "
-        "cond <= ~5",
+        "upd: K-long f32 sums with O(1) partial sums in another order (past "
+        "nb = 128 a 3xTF32 product, held to f64 below); fac: as "
+        "upper_tri_inv and chol_tile on a top block with cond <= ~5",
         times["k2_own_ms"],
         time_ms(lambda: chol_panel_plain(col, left, lead, 8), 3),
-        time_ms(library, 10),
-        panel_flops(m, k, nb, "potrf"),
-        4 * (m * nb + m * k + k * nb + 2 * m * nb),
+        time_ms(library, 10), flops, nbytes,
         control=(tf32(lambda: chol_panel_plain(col, left, lead, 8))
                  if k else None))
-    row.update(times, plan=plan, bitwise_repeatable=repeatable,
+    accuracy = {}
+    if wide:
+        # the update against the f64 product, beside torch.matmul in f32
+        ref = col.double() - left.double() @ lead.double()
+        accuracy = {
+            "f64_err": float((got[0].double() - ref).abs().max()),
+            "matmul_f32_f64_err": float(
+                ((col - left @ lead).double() - ref).abs().max())}
+        del ref
+        split_flops = op_flops("gemm", (m, k), (k, nb))
+        tc_ms, tc_by = tf32x3_bound(split_flops, flops, nbytes)
+        row.update(bound_fp32_ms=row["bound_ms"],
+                   bound_fp32_by=row["bound_by"], bound_tf32x3_ms=tc_ms,
+                   bound_tf32x3_by=tc_by, bound_ms=tc_ms, bound_by=tc_by,
+                   bound_against="tf32x3")
+    row.update(times, plan=plan, bitwise_repeatable=repeatable, **accuracy,
                wrapper_ms=time_ms(lambda: chol_panel_fused(col, left, lead,
                                                            8), 10),
                library_device_ms=sum(device_ms(library).values()),
                library_cholesky_ms=time_ms(
                    lambda: library(torch.linalg.cholesky), 10))
-    emit({"phase": "chol_panel_plan", "M": m, "K": k, **plan,
-          "bitwise_repeatable": repeatable, **times,
+    emit({"phase": "chol_panel_plan", "M": m, "K": k, "nb": nb, **plan,
+          **accuracy, "bitwise_repeatable": repeatable, **times,
           "wrapper_ms": row["wrapper_ms"], "library_ms": row["library_ms"],
           "library_cholesky_ms": row["library_cholesky_ms"],
           "library_device_ms": row["library_device_ms"]})
     if not repeatable:
         raise AssertionError(f"chol_panel_fused [{m}, {k}]: two launches on "
                              f"the same input differ")
+    if accuracy and not (accuracy["f64_err"]
+                         <= 2 * accuracy["matmul_f32_f64_err"]):
+        raise AssertionError(f"chol_panel_fused [{m}, {k}], nb = {nb}: the "
+                             f"3xTF32 update is {accuracy['f64_err']} from "
+                             f"f64, more than twice torch.matmul's "
+                             f"{accuracy['matmul_f32_f64_err']}")
     return row
 
 
@@ -6211,6 +6266,37 @@ def chol_tile_split(a: torch.Tensor) -> dict:
     return line
 
 
+def tri_inv_split(u: torch.Tensor) -> dict:
+    """K0's wide route on ``u`` split by its globaltimer stamps
+    (tri_inv.upper_tri_inv_stamps, the last of three stamped launches,
+    which the launch counts leave out): the diagonal blocks' copy-in and
+    their inverses, each half-level of the joins (T = U12 X22, then X12 =
+    -X11 T) and the store, each phase to the slowest CTA's end.  Emits a
+    ``tri_inv_split`` line and returns it."""
+    from slate_tpu_torch.internal.tri_inv import (upper_tri_inv,
+                                                  upper_tri_inv_stamps)
+    for _ in range(3):
+        x, stamps, cluster = upper_tri_inv_stamps(u)
+    st = stamps.cpu().tolist()
+    n = u.shape[0]
+    halves = 2 * max(1, (-(-n // 128) - 1).bit_length())
+    start = min(r[0] for r in st)
+    ends = [max(r[p] for r in st) for p in range(3 + halves)]
+    ends.append(max(r[-1] for r in st))
+    us = [1e-3 * (b - a) for a, b in zip([start] + ends[1:-1], ends[1:])]
+    line = {"phase": "tri_inv_split", "n": n, "cluster": cluster,
+            "total_us": 1e-3 * (ends[-1] - start),
+            "copy_in_us": us[0], "diagonal_inverse_us": us[1],
+            "half_levels_us": us[2:-1], "store_us": us[-1],
+            "bit_equal_to_unstamped": bool(torch.equal(x,
+                                                       upper_tri_inv(u)))}
+    emit(line)
+    if not line["bit_equal_to_unstamped"]:
+        raise AssertionError(f"upper_tri_inv_stamps at {n}: not the "
+                             f"unstamped launch's bits")
+    return line
+
+
 def qr_panel_split(x: torch.Tensor, bw: int = 8) -> dict:
     """K5's wide route on ``x`` split by its device launches (torch.profiler
     by kernel name, a mean over three calls): the block factors
@@ -6236,9 +6322,11 @@ def check_wide_kernels(gen) -> dict:
     exposed diagonal chain against the products) and on an indefinite 512
     tile (the same first bad pivot as the plain version); K2 at [M, K] =
     [10240, 10240] at nb = 256 and 512 and at a ragged K = 1000 with a
-    transposed left; K0 at n = 256 and 512 on a Cholesky U, and on a
-    partially pivoted LU's U within 1e-5 of the f64 inverse; K3 at W =
-    20480 and W = nb at nb = 256 and 512. Each against its plain version,
+    transposed left (the update a 3xTF32 product, within twice
+    torch.matmul's f32 error of the f64 product); K0 at n = 256 and 512 on
+    a Cholesky U (each with a ``tri_inv_split`` line), and on a partially
+    pivoted LU's U within 1e-5 of the f64 inverse; K3 at W = 20480 and W =
+    nb at nb = 256 and 512. Each against its plain version,
     timed beside its bound and the library call, launched twice and
     compared bit for bit.  Returns {kernel name: [rows]}."""
     from slate_tpu_torch.internal.chol_kernels import (chol_tile,
@@ -6288,9 +6376,10 @@ def check_wide_kernels(gen) -> dict:
         got = upper_tri_inv(u)
         row = check(
             "upper_tri_inv", {"n": n}, [got], [upper_tri_inv_plain(u)],
-            "blocked doubling in both (128 x 128 diagonal blocks joined by "
-            "tiled products in the kernel), sums in another order, on U "
-            "with cond <= ~3",
+            "blocked doubling in both (128 x 128 diagonal blocks, a "
+            "1024-thread CTA each, joined by 32-row strips over the "
+            "cluster in the kernel), sums in another order, on U with "
+            "cond <= ~3",
             time_ms(lambda: upper_tri_inv(u), 20),
             time_ms(lambda: upper_tri_inv_plain(u), 3),
             time_ms(lambda: torch.linalg.solve_triangular(u, eye, upper=True),
@@ -6298,6 +6387,10 @@ def check_wide_kernels(gen) -> dict:
             op_flops("trtri", (n, n)), 4 * (n * (n + 1) // 2 + n * n))
         row["bitwise_repeatable"] = repeat("upper_tri_inv", n, [got],
                                            [upper_tri_inv(u)])
+        split = tri_inv_split(u)
+        row["split_us"] = {k: split[k] for k in (
+            "copy_in_us", "diagonal_inverse_us", "half_levels_us",
+            "store_us")}
         g = torch.randn(4 * n, n, generator=gen, device="cuda")
         up = torch.triu(torch.linalg.lu_factor(g)[0][:n]).contiguous()
         x64 = torch.linalg.inv(up.double())
@@ -7485,7 +7578,10 @@ def main(argv=None) -> int:
                      **({"wide": [{k: w[k] for k in (
                          "shape", "max_abs_err", "kernel_ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms",
-                         "bitwise_repeatable", "batch_invariant") if k in w}
+                         "bitwise_repeatable", "batch_invariant",
+                         "bound_against", "bound_fp32_ms", "bound_tf32x3_ms",
+                         "f64_err", "matmul_f32_f64_err", "split_us")
+                         if k in w}
                          for w in wide_rows[name]]}
                         if name in wide_rows else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -46,9 +46,30 @@
 //
 // At the reference's wider panels, nb = 256, 384 and 512 (slate_tpu/
 // internal/potrf.py:59-68), the three launches keep their roles:
-//   (a) takes the panel in 128-column tiles, a third grid dimension: each
-//       (row tile, column tile) is the nb = 128 update above, written into
-//       its columns of upd;
+//   (a) runs on the tensor cores as a split-precision product (3xTF32,
+//       tf32x3.cuh), the kernel below the narrow update: a CTA a 128 x 128
+//       output tile (grid (S, nb / 128, M / 128), the K loop split over a
+//       cluster of S CTAs as at the narrow widths), three warpgroups:
+//         - a producer warpgroup stages 32-deep K slices of left's 128
+//           rows and of lead's 128 columns into a ring of TC_STAGES
+//           slots, 128-byte swizzled, by TMA (one thread; tensor maps
+//           from cuTensorMapEncodeTiled, passed as __grid_constant__
+//           parameters; zeros past K) with full/empty mbarriers; an
+//           operand TMA cannot describe (not unit-stride along K, an
+//           unaligned base or row stride: the transposed left of a check)
+//           is loaded by the warpgroup's 128 threads into the same layout;
+//         - two consumer warpgroups, 64 rows each (setmaxnreg moves the
+//           producer's registers to them), split each slice into tf32 hi
+//           and lo parts: each its elements of left's 64 rows in
+//           registers (wgmma's A operand), and half of lead's columns into
+//           shared memory (the B operand, two buffers: slice i + 1's split
+//           runs beside slice i's products); then they release the slot,
+//           meet at one barrier, and issue per k8 step three wgmma (hi hi,
+//           hi lo, lo hi) into a fresh f32 accumulator, which they add to a
+//           running f32 sum after the slice (the tensor cores' own
+//           accumulation rounds toward zero; FADDs round to nearest);
+//         - the S partial tiles meet in rank order through distributed
+//           shared memory, without atomics;
 //   (b) factors the nb x nb diagonal block, which no longer fits one
 //       block's shared memory, by K1's wide route (wide_factor.cuh): one
 //       thread-block cluster, the block in device memory (fac's top rows)
@@ -60,11 +81,13 @@
 // Bound on this card: 2 M K nb flops of the update plus nb^3/3 + (M - nb)
 // nb^2 of the factor and the triangular solve, against the bytes of col,
 // left, lead, upd and fac read or written once. With K >= nb it is bound by
-// f32 operations: the reference asks for Precision.HIGHEST, so never TF32,
-// and wgmma takes no f32 operands, so every product is an FFMA on the CUDA
-// cores, at most 67 TFLOP/s. The design aims the update at that ceiling:
-// 128 x nb tiles a CTA, a 16 x 8 register tile a thread, a three-deep
-// cp.async ring, and the split filling the card when row tiles are few.
+// operations. The reference asks for Precision.HIGHEST, so never one TF32
+// pass: up to nb = 128 every product is an FFMA on the CUDA cores (at most
+// 67 TFLOP/s), which the narrow update aims at with 128 x nb tiles a CTA,
+// a 16 x 8 register tile a thread, a three-deep cp.async ring, and the
+// split filling the card when row tiles are few; past 128 the update's
+// three TF32 passes are bound by 3 x 2 M K nb / 494.7 TFLOP/s, a third of
+// the CUDA cores' bound.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -72,6 +95,7 @@
 #include "chol_factor.cuh"
 #include "common.cuh"
 #include "panel_gemm.cuh"
+#include "tf32x3.cuh"
 #include "wide_factor.cuh"
 
 namespace cg = cooperative_groups;
@@ -86,9 +110,8 @@ constexpr size_t update_smem_bytes() {
   return sizeof(float) * (ring > partial ? ring : partial);
 }
 
-// (a): upd for the 128-row tile blockIdx.y, K split over the cluster; its
-// columns NB blockIdx.z .. + NB of a panel ldo wide (ldo == NB but at the
-// wide widths, where NB = 128).
+// (a): upd for the 128-row tile blockIdx.y, K split over the cluster (nb
+// <= 128).
 template <int NB>
 __global__ void __launch_bounds__(PanelGemm<NB>::THREADS, 2)
 chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
@@ -96,13 +119,9 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
                          long long ls0, long long ls1, int fast_left,
                          const float* __restrict__ lead, long long ds0,
                          long long ds1, int fast_lead, int M, int K,
-                         int slices, float* __restrict__ upd, int ldo) {
+                         int slices, float* __restrict__ upd) {
   using G = PanelGemm<NB>;
   extern __shared__ __align__(16) float smem[];
-  const long long c0 = (long long)blockIdx.z * NB;
-  col += c0 * cs1;
-  lead += c0 * ds1;
-  upd += c0;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const long long row0 = (long long)blockIdx.y * PG_BM;
@@ -123,7 +142,7 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = tx + G::TX * j;
-        upd[(row0 + r) * ldo + c] =
+        upd[(row0 + r) * NB + c] =
             col[(row0 + r) * cs0 + c * cs1] - acc[i][j];
       }
     }
@@ -135,9 +154,257 @@ chol_panel_update_kernel(const float* __restrict__ col, long long cs0,
       out.y = crow[(c + 1) * cs1] - s.y;
       out.z = crow[(c + 2) * cs1] - s.z;
       out.w = crow[(c + 3) * cs1] - s.w;
-      *reinterpret_cast<float4*>(upd + (row0 + r) * ldo + c) = out;
+      *reinterpret_cast<float4*>(upd + (row0 + r) * NB + c) = out;
     });
   }
+}
+
+// ---- (a) at nb = 256 .. 512: the split-precision update on the tensor
+// cores (the design in the note at the top of this file)
+
+constexpr int TC_TILE = 128;          // output rows and columns of a CTA
+constexpr int TC_STAGES = 5;          // slots of the TMA ring
+constexpr int TC_BSPLITS = 2;         // buffers of lead's split slice
+constexpr int TC_THREADS = 384;       // consumer warpgroups 0, 1; producer 2
+constexpr int TC_SLICE = TC_TILE * TC_BK;    // one operand's staged slice
+constexpr int TC_SLOT = 2 * TC_SLICE;        // left's slice, then lead's
+// a buffer of lead's split slice: hi, then lo (left's rows are split in
+// registers)
+constexpr int TC_B_HI = 0, TC_B_LO = TC_SLICE, TC_SPLIT = 2 * TC_SLICE;
+constexpr int TC_LDP = TC_TILE + 4;          // a partial tile's row
+// registers a thread after the rebalance (setmaxnreg): the producer's few,
+// the consumers' accumulator, running sum and left's split; 128 (56 + 2 x
+// 224) = 384 x 168, the launch's allotment (without it the update ran ~9%
+// slower on an H100)
+constexpr int TC_PRODUCER_REGS = 56, TC_CONSUMER_REGS = 224;
+// shared memory, in floats past a 1024-byte aligned start: the ring, the
+// buffers of lead's split slice, then the barriers; the partial tile of the
+// split's sum reuses the ring
+constexpr size_t TC_SMEM_BYTES =
+    1024 +
+    sizeof(float) * (size_t)(TC_STAGES * TC_SLOT + TC_BSPLITS * TC_SPLIT) +
+    sizeof(uint64_t) * 2 * TC_STAGES;
+static_assert(TC_TILE * TC_LDP <= TC_STAGES * TC_SLOT,
+              "the partial tile fits the ring");
+static_assert(TC_SMEM_BYTES <= 232448, "a block's shared memory");
+
+// The producer thread p (of 128) loads one slice (128 rows x TC_BK, element
+// (r, k) at src[r * s_r + (k0 + k) * s_k], zeros at k0 + k >= K) into the
+// swizzled layout, walking the unit-stride index, 16 loads in flight.
+__device__ inline void tc_load_plain(float* dst, const float* src,
+                                     long long s_r, long long s_k, int k0,
+                                     int K, int p) {
+  const bool k_fast = s_k == 1 || s_r != 1;
+  constexpr int BATCH = 16;
+  for (int t0 = 0; t0 < TC_SLICE / 128; t0 += BATCH) {
+    float v[BATCH];
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      const int e = (t0 + t) * 128 + p;
+      const int r = k_fast ? e / TC_BK : e % TC_TILE;
+      const int k = k_fast ? e % TC_BK : e / TC_TILE;
+      v[t] = k0 + k < K ? src[r * s_r + (long long)(k0 + k) * s_k] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      const int e = (t0 + t) * 128 + p;
+      const int r = k_fast ? e / TC_BK : e % TC_TILE;
+      const int k = k_fast ? e % TC_BK : e / TC_TILE;
+      dst[tc_swizzled(r, k)] = v[t];
+    }
+  }
+}
+
+// upd[row tile blockIdx.z, column tile blockIdx.y] = col - left @ lead over
+// this CTA's K slices [rank * slices, + slices), the cluster's partials
+// summed in rank order; ldo = nb. Each consumer warpgroup splits its half
+// of slice i + 1's lead while slice i's products run (two buffers of the
+// split lead), so that between two slices the tensor cores wait only for
+// the sum, left's split in registers and one barrier.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+chol_panel_update_tc_kernel(const __grid_constant__ CUtensorMap left_map,
+                            const __grid_constant__ CUtensorMap lead_map,
+                            const float* __restrict__ col, long long cs0,
+                            long long cs1, const float* __restrict__ left,
+                            long long ls0, long long ls1, int tma_left,
+                            const float* __restrict__ lead, long long ds0,
+                            long long ds1, int tma_lead, int K, int slices,
+                            float* __restrict__ upd, int ldo) {
+  extern __shared__ unsigned char tc_raw[];
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(tc_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + TC_STAGES * TC_SLOT + TC_BSPLITS * TC_SPLIT);
+  uint64_t* empty = full + TC_STAGES;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, wg = tid / 128;
+  const long long row0 = (long long)blockIdx.z * TC_TILE;
+  const int c0 = blockIdx.y * TC_TILE;
+  const int total = (K + TC_BK - 1) / TC_BK;
+  const int sb = min(total, rank * slices);
+  const int n = min(total, sb + slices) - sb;
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      tc_bar_init(full + s, 128);
+      tc_bar_init(empty + s, 256);
+    }
+    tc_bar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 2) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        TC_PRODUCER_REGS));
+    const int p = tid - 256;
+    const uint32_t bytes = (tma_left + tma_lead) * TC_SLICE * sizeof(float);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % TC_STAGES;
+      if (i >= TC_STAGES) tc_bar_wait(empty + s, ((i / TC_STAGES) & 1) ^ 1);
+      float* a = ring + s * TC_SLOT;
+      float* b = a + TC_SLICE;
+      const int k0 = (sb + i) * TC_BK;
+      if (!tma_left) tc_load_plain(a, left + row0 * ls0, ls0, ls1, k0, K, p);
+      if (!tma_lead) tc_load_plain(b, lead + c0 * ds1, ds1, ds0, k0, K, p);
+      if (p == 0 && bytes) {
+        tc_bar_arrive_tx(full + s, bytes);
+        if (tma_left) tc_tma_load(a, &left_map, full + s, k0, (int)row0);
+        if (tma_lead) tc_tma_load(b, &lead_map, full + s, k0, c0);
+      } else {
+        tc_bar_arrive(full + s);
+      }
+    }
+    if (S > 1) {  // the consumers' two cluster barriers of the sum
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      TC_CONSUMER_REGS));
+  const int t = tid % 128, lane = tid % 32;
+  // this thread's elements of left in a k8 step (tc_wgmma_m64n128k8_rs):
+  // rows ar and ar + 8 of the slot, columns lane % 4 and lane % 4 + 4
+  const int ar = wg * 64 + t / 32 * 16 + lane / 4;
+  float acc[64], run[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = run[i] = 0.f;
+  uint32_t ahi[TC_BK / 8][4], alo[TC_BK / 8][4];
+  float* bsplit = ring + TC_STAGES * TC_SLOT;  // TC_BSPLITS buffers
+  // lead's slice of slot i: this warpgroup's half of its columns into
+  // buffer i % TC_BSPLITS, hi then lo
+  auto split_lead = [&](int i) {
+    const float* b = ring + (i % TC_STAGES) * TC_SLOT + TC_SLICE;
+    float* out = bsplit + (i % TC_BSPLITS) * TC_SPLIT;
+#pragma unroll
+    for (int j = 0; j < TC_SLICE / 8 / 128; ++j) {
+      tc_split4(b, out + TC_B_HI, out + TC_B_LO,
+                wg * (TC_SLICE / 8) + t + 128 * j);
+    }
+  };
+  // this thread's elements of left in slot i into registers, split; then
+  // the slot is released, and both warpgroups' halves of lead's split are
+  // published
+  auto split_left = [&](int i) {
+    const float* a = ring + (i % TC_STAGES) * TC_SLOT;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 8; ++kk)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float h, l;
+        tc_split(a[tc_swizzled(ar + 8 * (v & 1), 8 * kk + lane % 4 +
+                                                     4 * (v >> 1))],
+                 h, l);
+        ahi[kk][v] = __float_as_uint(h);
+        alo[kk][v] = __float_as_uint(l);
+      }
+    tc_bar_arrive(empty + i % TC_STAGES);
+    tc_fence_async();
+    tc_named_sync(1, 256);
+  };
+  if (n > 0) {
+    tc_bar_wait(full, 0);
+    split_lead(0);
+    split_left(0);
+  }
+  for (int i = 0; i < n; ++i) {
+    const float* bs = bsplit + (i % TC_BSPLITS) * TC_SPLIT;
+    const uint64_t b_hi = tc_desc(bs + TC_B_HI), b_lo = tc_desc(bs + TC_B_LO);
+    tc_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 8; ++kk) {
+      tc_wgmma_m64n128k8_rs(acc, ahi[kk], b_hi + 2 * kk, kk > 0);
+      tc_wgmma_m64n128k8_rs(acc, ahi[kk], b_lo + 2 * kk, 1);
+      tc_wgmma_m64n128k8_rs(acc, alo[kk], b_hi + 2 * kk, 1);
+    }
+    tc_wgmma_commit();
+    // the next slice's lead beside these products, into the other buffer:
+    // its last readers, the products of slice i - 1, completed before the
+    // barrier that published slice i
+    if (i + 1 < n) {
+      tc_bar_wait(full + (i + 1) % TC_STAGES, ((i + 1) / TC_STAGES) & 1);
+      split_lead(i + 1);
+    }
+    tc_wgmma_wait0();
+    tc_fence_acc(acc);
+    tc_fence_regs(ahi);
+    tc_fence_regs(alo);
+#pragma unroll
+    for (int r = 0; r < 64; ++r) run[r] += acc[r];
+    if (i + 1 < n) split_left(i + 1);
+  }
+  // this thread's outputs: d[4 j + 2 h + v] at row r0 + 8 h, column
+  // 8 j + 2 (lane % 4) + v of the tile (tc_wgmma_m64n128k8_rs's layout)
+  const int r0 = ar;
+  const int cq = 2 * (lane % 4);
+  if (S == 1) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long r = row0 + r0 + 8 * h;
+        const int c = c0 + 8 * j + cq;
+        const float* crow = col + r * cs0;
+        float2 out;
+        out.x = crow[c * cs1] - run[4 * j + 2 * h];
+        out.y = crow[(c + 1) * cs1] - run[4 * j + 2 * h + 1];
+        *reinterpret_cast<float2*>(upd + r * ldo + c) = out;
+      }
+    return;
+  }
+  tc_named_sync(2, 256);  // both warpgroups are done with the ring
+  float* P = ring;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* e = P + (r0 + 8 * h) * TC_LDP + 8 * j + cq;
+      e[0] = run[4 * j + 2 * h];
+      e[1] = run[4 * j + 2 * h + 1];
+    }
+  cluster.sync();
+  constexpr int Q = TC_TILE / 4;
+  const int lo_i = rank * (TC_TILE * Q) / S;
+  const int hi_i = (rank + 1) * (TC_TILE * Q) / S;
+  for (int idx = lo_i + tid; idx < hi_i; idx += 256) {
+    const int r = idx / Q, c = 4 * (idx % Q);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < S; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(P, q) + r * TC_LDP + c);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const float* crow = col + (row0 + r) * cs0 + (long long)(c0 + c) * cs1;
+    float4 out;
+    out.x = crow[0] - sum.x;
+    out.y = crow[cs1] - sum.y;
+    out.z = crow[2 * cs1] - sum.z;
+    out.w = crow[3 * cs1] - sum.w;
+    *reinterpret_cast<float4*>(upd + (row0 + r) * ldo + c0 + c) = out;
+  }
+  cluster.sync();  // no partial is read after this
 }
 
 constexpr int FACTOR_THREADS = 512;
@@ -208,23 +475,18 @@ chol_panel_solve_kernel(const float* __restrict__ upd,
                     fac + row0 * NB, smem);
 }
 
-// Opt the update kernel into its shared memory and into clusters of more
-// than 8, and choose the split *split for an [M, nb] panel K deep: the S
-// in 1..16 that minimises ceil(R / placed(S)) * ceil(slices / S), R the
-// output tiles (the row tiles times a wide panel's ctiles column tiles),
-// placed(S) the clusters of S CTAs the card holds at once, every
-// CTA at least PANEL_MIN_SLICES slices (ties to the smaller S). *slices =
-// K slices per CTA.
-template <int NB>
-int prepare_update(int device, int M, int K, int ctiles, int* split,
-                   int* slices) {
-  auto kernel = chol_panel_update_kernel<NB>;
-  constexpr size_t smem = update_smem_bytes<NB>();
-  constexpr int threads = PanelGemm<NB>::THREADS;
+// The split *split of a launch over `tiles` output tiles, K deep: the S in
+// 1..16 that minimises ceil(tiles / placed(S)) * ceil(slices / S),
+// placed(S) the clusters of S CTAs of `kernel` (threads, smem bytes) that
+// the card holds at once, every CTA at least PANEL_MIN_SLICES slices of
+// PG_KC (ties to the smaller S); *slices = K slices per CTA. Opts the
+// kernel into its shared memory and into clusters of more than 8.
+template <class Kernel>
+int choose_split(Kernel kernel, int device, int threads, size_t smem,
+                 long long tiles, int K, int* split, int* slices) {
   SLATE_SET_SMEM(kernel, smem);
   SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-  const long long tiles = (long long)ctiles * ((M + PG_BM - 1) / PG_BM);
   const int total = (K + PG_KC - 1) / PG_KC;
   int best = 1;
   long long best_cost = -1;
@@ -246,14 +508,33 @@ int prepare_update(int device, int M, int K, int ctiles, int* split,
   return 0;
 }
 
+// The split of the narrow update for an [M, nb] panel K deep (its output
+// tiles: the 128-row tiles).
+template <int NB>
+int prepare_update(int device, int M, int K, int* split, int* slices) {
+  return choose_split(chol_panel_update_kernel<NB>, device,
+                      PanelGemm<NB>::THREADS, update_smem_bytes<NB>(),
+                      (M + PG_BM - 1) / PG_BM, K, split, slices);
+}
+
+// The split of the tensor-core update at nb = 256 .. 512 (its output tiles:
+// 128 x 128; TC_BK == PG_KC, so a slice is the same depth).
+static_assert(TC_BK == PG_KC, "the split counts 32-deep slices");
+int prepare_update_tc(int device, int M, int K, int nb, int* split,
+                      int* slices) {
+  return choose_split(chol_panel_update_tc_kernel, device, TC_THREADS,
+                      TC_SMEM_BYTES,
+                      (long long)(nb / TC_TILE) * (M / TC_TILE), K, split,
+                      slices);
+}
+
 template <int NB>
 int launch_update(cudaStream_t stream, int device, const float* col,
                   long long cs0, long long cs1, const float* left,
                   long long ls0, long long ls1, const float* lead,
-                  long long ds0, long long ds1, int K, int M, float* upd,
-                  int nb) {
+                  long long ds0, long long ds1, int K, int M, float* upd) {
   int split = 1, slices = 0;
-  const int e = prepare_update<NB>(device, M, K, nb / NB, &split, &slices);
+  const int e = prepare_update<NB>(device, M, K, &split, &slices);
   if (e != 0) return e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -261,7 +542,7 @@ int launch_update(cudaStream_t stream, int device, const float* col,
   attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(split, (M + PG_BM - 1) / PG_BM, nb / NB);
+  cfg.gridDim = dim3(split, (M + PG_BM - 1) / PG_BM);
   cfg.blockDim = dim3(PanelGemm<NB>::THREADS, 1, 1);
   cfg.dynamicSmemBytes = update_smem_bytes<NB>();
   cfg.stream = stream;
@@ -270,7 +551,55 @@ int launch_update(cudaStream_t stream, int device, const float* col,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, chol_panel_update_kernel<NB>, col, cs0, cs1, left, ls0, ls1,
       staged_by_copy(left, ls1, ls0), lead, ds0, ds1,
-      staged_by_copy(lead, ds0, ds1), M, K, slices, upd, nb);
+      staged_by_copy(lead, ds0, ds1), M, K, slices, upd);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// Which operands of the tensor-core update TMA stages (bit 0 left, bit 1
+// lead; the others take the producer's plain loads), with their maps.
+int tc_staging(const float* left, long long ls0, long long ls1,
+               const float* lead, long long ds0, long long ds1, int M, int K,
+               int nb, CUtensorMap* left_map, CUtensorMap* lead_map) {
+  int staging = 0;
+  if (K > 0 && tc_tma_ok(left, ls1, ls0) &&
+      tc_tensor_map(left_map, left, M, K, ls0)) {
+    staging |= 1;
+  }
+  if (K > 0 && tc_tma_ok(lead, ds0, ds1) &&
+      tc_tensor_map(lead_map, lead, nb, K, ds1)) {
+    staging |= 2;
+  }
+  return staging;
+}
+
+int launch_update_tc(cudaStream_t stream, int device, const float* col,
+                     long long cs0, long long cs1, const float* left,
+                     long long ls0, long long ls1, const float* lead,
+                     long long ds0, long long ds1, int K, int M, float* upd,
+                     int nb) {
+  int split = 1, slices = 0;
+  const int e = prepare_update_tc(device, M, K, nb, &split, &slices);
+  if (e != 0) return e;
+  CUtensorMap left_map = {}, lead_map = {};
+  const int staging = tc_staging(left, ls0, ls1, lead, ds0, ds1, M, K, nb,
+                                 &left_map, &lead_map);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(split, nb / TC_TILE, M / TC_TILE);
+  cfg.blockDim = dim3(TC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = TC_SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, chol_panel_update_tc_kernel, left_map, lead_map, col, cs0, cs1,
+      left, ls0, ls1, staging & 1, lead, ds0, ds1, (staging >> 1) & 1, K,
+      slices, upd, nb);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -286,17 +615,13 @@ int launch_solve(cudaStream_t stream, const float* upd, const float* uinv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// return fn<nb>(args...) for the instantiated widths, fn<128> for the wide
-// ones
+// return fn<nb>(args...) for the narrow widths
 #define SLATE_PANEL_NB(fn, ...)                              \
   switch (nb) {                                              \
     case 32: return fn<32>(__VA_ARGS__);                     \
     case 64: return fn<64>(__VA_ARGS__);                     \
     case 96: return fn<96>(__VA_ARGS__);                     \
     case 128: return fn<128>(__VA_ARGS__);                   \
-    case 256:                                                \
-    case 384:                                                \
-    case 512: return fn<128>(__VA_ARGS__);                   \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
@@ -315,8 +640,12 @@ extern "C" int slate_chol_panel_update(int device, void* stream,
                                        float* upd) {
   SLATE_SET_DEVICE(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wf_panel_nb(nb)) {
+    return launch_update_tc(s, device, col, cs0, cs1, left, ls0, ls1, lead,
+                            ds0, ds1, K, M, upd, nb);
+  }
   SLATE_PANEL_NB(launch_update, s, device, col, cs0, cs1, left, ls0, ls1,
-                 lead, ds0, ds1, K, M, upd, nb)
+                 lead, ds0, ds1, K, M, upd)
 }
 
 // *fits = 1 when K2 takes a panel nb wide on this device: nb in {32, 64,
@@ -375,17 +704,25 @@ extern "C" int slate_chol_panel_solve(int device, void* stream,
 }
 
 // What launch (a) takes for this panel on this device: *split = the CTAs
-// of a row tile's cluster (the K split), *staging = 1 when left stages by
-// cp.async, plus 2 when lead does (else each takes the plain loads).
+// of an output tile's cluster (the K split), *staging = 1 when left stages
+// by copy (cp.async up to nb = 128, TMA past it), plus 2 when lead does
+// (else each takes the plain loads), *route = 0 for the f32 product on the
+// CUDA cores (nb <= 128), 1 for the 3xTF32 product on the tensor cores.
 extern "C" int slate_chol_panel_plan(int device, int M, int K, int nb,
                                      const float* left, long long ls0,
                                      long long ls1, const float* lead,
                                      long long ds0, long long ds1,
-                                     int* split, int* staging) {
+                                     int* split, int* staging, int* route) {
   SLATE_SET_DEVICE(device);
   int slices = 0;
+  *route = wf_panel_nb(nb) ? 1 : 0;
+  if (*route) {
+    CUtensorMap left_map = {}, lead_map = {};
+    *staging = tc_staging(left, ls0, ls1, lead, ds0, ds1, M, K, nb,
+                          &left_map, &lead_map);
+    return prepare_update_tc(device, M, K, nb, split, &slices);
+  }
   *staging = staged_by_copy(left, ls1, ls0) + 2 * staged_by_copy(lead, ds0,
                                                                  ds1);
-  SLATE_PANEL_NB(prepare_update, device, M, K, nb > 128 ? nb / 128 : 1,
-                 split, &slices)
+  SLATE_PANEL_NB(prepare_update, device, M, K, split, &slices)
 }

@@ -81,3 +81,23 @@ cudaError_t active_clusters(Kernel kernel, int device, int c, int threads,
   cache[key] = *n;
   return cudaSuccess;
 }
+
+// *fits = 1 when the card places one cluster of c CTAs of `kernel`
+// (threads, smem bytes of dynamic shared memory each): smem within a
+// block's opt-in limit, and cudaOccupancyMaxActiveClusters > 0. Opts the
+// kernel into that shared memory.
+template <class Kernel>
+int cluster_fits(Kernel kernel, int device, int c, int threads, size_t smem,
+                 int* fits) {
+  int limit = 0, placed = 0;
+  SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+  *fits = 0;
+  if (smem > (size_t)limit) return 0;
+  SLATE_RETURN_IF_ERROR(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  SLATE_RETURN_IF_ERROR(
+      active_clusters(kernel, device, c, threads, (int)smem, &placed));
+  *fits = placed > 0;
+  return 0;
+}

@@ -1,9 +1,11 @@
-// The wide factors: K1 past n = 128, K2's factor launch and K0 at nb = 256,
-// 384 and 512, and K3's factor launch at those widths. They port the same
-// TPU kernels as their one-block routes (chol_tile_pallas, chol_panel_fused,
-// upper_tri_inv and lu_panel_fused: slate_tpu/internal/pallas_chol.py:316,
-// :162, pallas_tri.py:28, pallas_lu.py:210) at the widths the reference's
-// gates give them (its tiles up to 1024, its panels up to 512).
+// The wide factors: K1 past n = 128, K2's factor launch at nb = 256, 384
+// and 512, and K3's (with U^-1) at those widths, and K6's and K7's a
+// problem. They port the same TPU kernels as their one-block routes
+// (chol_tile_pallas, chol_panel_fused, lu_panel_fused and the batched
+// panels: slate_tpu/internal/pallas_chol.py:316, :162, pallas_lu.py:210)
+// at the widths the reference's gates give them (its tiles up to 1024,
+// its panels up to 512). K0 past 128 (upper_tri_inv, pallas_tri.py:28) has
+// its own route in tri_inv.cu since slice 25.
 //
 // The hazard: a TPU kernel keeps a 256-1024 wide tile whole in VMEM. Here
 // one f32 diagonal block of 256-512 columns (256 KB-1 MB) does not fit one
@@ -22,11 +24,13 @@
 //   - the blocks below and to the right, then the trailing update: every
 //     CTA takes whole 128 x 128 output tiles in turn and forms each as one
 //     tiled product (panel_gemm.cuh: a 16 x 8 register tile a thread).
-// U^-1 of a wide upper-triangular U (K0 past 128) is the same doubling one
-// level up: the 128 x 128 diagonal blocks inverted at once, one CTA each,
-// then neighbouring inverted blocks joined, b = 1, 2, ... tiles: T = U12
-// X22 for every pair at once, a cluster barrier, X12 = -X11 T, a barrier
-// (LAPACK trtri's recursion, as in tri_inv.cuh).
+// U^-1 of a wide upper-triangular U inside K3's and K7's factor launches
+// (wf_tri_inv) is the same doubling one level up: the 128 x 128 diagonal
+// blocks inverted at once, one CTA each, then neighbouring inverted blocks
+// joined, b = 1, 2, ... tiles: T = U12 X22 for every pair at once, a
+// cluster barrier, X12 = -X11 T, a barrier (LAPACK trtri's recursion, as
+// in tri_inv.cuh). K0's own launch past 128 runs this recursion on
+// 1024-thread CTAs instead (tri_inv.cu).
 //
 // The Cholesky factor (wf_chol: K1's wide route, K2's and K6's factor
 // launches) is redesigned around its critical path, the chain of n / 128
@@ -870,17 +874,8 @@ int wf_launch(void (*kernel)(Params...), cudaStream_t stream,
 // within a block's opt-in limit, and cudaOccupancyMaxActiveClusters > 0).
 template <class Kernel>
 int wf_fits(Kernel kernel, int device, int* fits) {
-  int limit = 0, placed = 0;
-  SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  *fits = 0;
-  if (WF_SMEM_BYTES > (size_t)limit) return 0;
-  SLATE_SET_SMEM(kernel, WF_SMEM_BYTES);
-  SLATE_RETURN_IF_ERROR(active_clusters(kernel, device, WF_CLUSTER,
-                                        WF_THREADS, (int)WF_SMEM_BYTES,
-                                        &placed));
-  *fits = placed > 0;
-  return 0;
+  return cluster_fits(kernel, device, WF_CLUSTER, WF_THREADS, WF_SMEM_BYTES,
+                      fits);
 }
 
 // The cluster size of the Cholesky factor for `batch` clusters at once:
@@ -931,17 +926,8 @@ int wfc_launch(void (*kernel)(Params...), cudaStream_t stream, int device,
 // factor's kernel (its shared memory within a block's opt-in limit).
 template <class Kernel>
 int wfc_fits(Kernel kernel, int device, int* fits) {
-  int limit = 0, placed = 0;
-  SLATE_RETURN_IF_ERROR(cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-  *fits = 0;
-  if (WFC_SMEM_BYTES > (size_t)limit) return 0;
-  SLATE_SET_SMEM(kernel, WFC_SMEM_BYTES);
-  SLATE_RETURN_IF_ERROR(active_clusters(kernel, device, WF_CLUSTER,
-                                        WFC_THREADS, (int)WFC_SMEM_BYTES,
-                                        &placed));
-  *fits = placed > 0;
-  return 0;
+  return cluster_fits(kernel, device, WF_CLUSTER, WFC_THREADS,
+                      WFC_SMEM_BYTES, fits);
 }
 
 // A wide panel width: 256, 384 or 512.

@@ -38,7 +38,8 @@ CHOL_PANEL = CudaKernel("chol_panel_fused", "chol_panel.cu", {
     "slate_chol_panel_work": [I32, I32, ctypes.POINTER(I32)],
     "slate_chol_panel_solve": [I32, P, P, P, I32, I32, P],
     "slate_chol_panel_plan": [I32, I32, I32, I32, P, I64, I64, P, I64, I64,
-                              ctypes.POINTER(I32), ctypes.POINTER(I32)]})
+                              ctypes.POINTER(I32), ctypes.POINTER(I32),
+                              ctypes.POINTER(I32)]})
 
 CHOL_PANEL_BATCHED = CudaKernel("chol_panel_batched", "chol_panel_batched.cu", {
     "slate_chol_panel_batched": BATCHED_PANEL_ARGS,
@@ -171,8 +172,9 @@ def chol_panel_fused(col: torch.Tensor, left: torch.Tensor,
     A CPU tensor takes the plain version; CUDA tensors launch K2 (f32,
     nb within :func:`panel_fits`: 32, 64, 96, 128, 256, 384 or 512) or
     raise.  On CUDA, on the current stream: K2's update launch (upd over
-    every 128-row tile, and every 128-column tile of a wider panel, the K
-    loop split over a thread-block cluster when tiles are few) and its
+    every 128-row tile, the K loop split over a thread-block cluster when
+    tiles are few; past nb = 128 over every 128 x 128 tile, on the tensor
+    cores as a 3xTF32 split product) and its
     factor launch (L00 from tile 0: K1's blocked factor on one block up to
     nb = 128, K1's wide route on one cluster past it); when M > nb, K0 on
     U = L00^T (counted by K0's wrapper) and K2's solve launch, fac rows
@@ -216,19 +218,23 @@ def panel_plan(col: torch.Tensor, left: torch.Tensor,
                lead: torch.Tensor) -> dict:
     """How K2's update launch takes these CUDA operands, as the kernel's
     library reports it (``slate_chol_panel_plan``): ``split``, the CTAs
-    of one row tile's cluster that share its K loop (a function of M, K,
-    nb and the device alone), and ``left``/``lead``, each "cp.async" (unit
+    of one output tile's cluster that share its K loop (a function of M,
+    K, nb and the device alone); ``route``, "fp32" (FFMAs on the CUDA
+    cores, nb <= 128) or "tf32x3" (the split-precision product on the
+    tensor cores, nb = 256 .. 512); and ``left``/``lead``, each staged by
+    copy ("cp.async" on the fp32 route, "tma" on the tf32x3 route: unit
     stride along K, 16-byte aligned rows, as on the posv path) or "loads"
     (any other strides)."""
     m, nb = col.shape
     k = left.shape[1]
-    split, staging = query(CHOL_PANEL, "slate_chol_panel_plan", col.device,
-                           m, k, nb, left.data_ptr(), left.stride(0),
-                           left.stride(1), lead.data_ptr(), lead.stride(0),
-                           lead.stride(1), outs=2)
-    return {"split": split,
-            "left": "cp.async" if staging & 1 else "loads",
-            "lead": "cp.async" if staging & 2 else "loads"}
+    split, staging, route = query(
+        CHOL_PANEL, "slate_chol_panel_plan", col.device, m, k, nb,
+        left.data_ptr(), left.stride(0), left.stride(1), lead.data_ptr(),
+        lead.stride(0), lead.stride(1), outs=3)
+    copy = "tma" if route else "cp.async"
+    return {"split": split, "route": "tf32x3" if route else "fp32",
+            "left": copy if staging & 1 else "loads",
+            "lead": copy if staging & 2 else "loads"}
 
 
 def live_rows(tiles: torch.Tensor, k: int, m: int, nb: int) -> torch.Tensor:

@@ -26,9 +26,14 @@ from .kernels import I32, I64, P, CudaKernel, check_cuda_f32, \
 TRI_INV = CudaKernel("upper_tri_inv", "tri_inv.cu", {
     "slate_upper_tri_inv": [I32, P, P, I64, I64, P, I32, P],
     "slate_upper_tri_inv_fits": [I32, I32, ctypes.POINTER(I32)],
-    "slate_upper_tri_inv_work": [I32, I32, ctypes.POINTER(I32)]})
+    "slate_upper_tri_inv_work": [I32, I32, ctypes.POINTER(I32)],
+    "slate_upper_tri_inv_trace": [I32, P, P, I64, I64, P, I32, P, P,
+                                  ctypes.POINTER(I32)]})
 
 DIAG = 8      # the diagonal blocks the doubling starts from (TRI_DIAG)
+WIDE_N = 512  # the wide route's largest U (TI_MAX_N)
+STAMPS = 8    # the wide route's stamps a CTA (TI_STAMPS)
+WIDE_CLUSTER = 8   # its CTAs (TI_CLUSTER)
 
 
 def back_substitution_plain(u: torch.Tensor) -> torch.Tensor:
@@ -77,7 +82,8 @@ def upper_tri_inv(u: torch.Tensor) -> torch.Tensor:
     entries below the diagonal are ignored).  A CPU tensor takes the plain
     version; a CUDA tensor launches K0 (f32, n within the kernel's
     ``slate_upper_tri_inv_fits``: one block up to 128, one thread-block
-    cluster up to 512, in a workspace allocated here) or raises."""
+    cluster of 1024-thread CTAs up to 512, a CTA a 128-column diagonal
+    block, with the joins' scratch allocated here) or raises."""
     if u.device.type == "cpu":
         return upper_tri_inv_plain(u)
     check_cuda_f32("upper_tri_inv", u)
@@ -94,3 +100,27 @@ def upper_tri_inv(u: torch.Tensor) -> torch.Tensor:
                    u.data_ptr(), u.stride(0), u.stride(1), x.data_ptr(), n,
                    work_ptr)
     return x
+
+
+def upper_tri_inv_stamps(u: torch.Tensor):
+    """K0's wide route once on a CUDA f32 U (128 < n <= 512) with each
+    CTA's globaltimer stamps: (X, stamps, cluster).  stamps is [cluster,
+    STAMPS] int64 nanoseconds (``tri_inv.cu``'s layout: the start, the
+    copy-in, the diagonal inverse, each half-level of the joins, 0 where
+    the launch has fewer, the store).  For chip_smoke.py's split of K0's
+    time; the launch is not counted in ``TRI_INV.launches``, and X is the
+    counted launch's, bit for bit."""
+    check_cuda_f32("upper_tri_inv_stamps", u)
+    n = u.shape[-1]
+    if u.dim() != 2 or u.shape[0] != n or not 128 < n <= WIDE_N:
+        raise ValueError(f"upper_tri_inv_stamps: needs one square U past "
+                         f"128, got {tuple(u.shape)}")
+    x = torch.empty((n, n), dtype=u.dtype, device=u.device)
+    work, work_ptr = workspace(TRI_INV, "slate_upper_tri_inv_work", u, n)
+    stamps = torch.zeros((WIDE_CLUSTER, STAMPS), dtype=torch.int64,
+                         device=u.device)
+    cluster = ctypes.c_int32(0)
+    TRI_INV.call("slate_upper_tri_inv_trace", *device_and_stream(u),
+                 u.data_ptr(), u.stride(0), u.stride(1), x.data_ptr(), n,
+                 work_ptr, stamps.data_ptr(), ctypes.byref(cluster))
+    return x, stamps[:cluster.value], cluster.value

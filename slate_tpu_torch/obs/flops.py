@@ -35,13 +35,25 @@ _PEAK_OVERRIDE: list = [None]
 
 #: dense peaks per card, keyed by a lowercase substring of
 #: ``torch.cuda.get_device_name()`` and by STORAGE dtype.  f32 is the rate
-#: of the CUDA cores: the port forbids TF32, so no f32 product runs on the
-#: tensor cores.  float64 is ABSENT: an f64 line reads ``mfu: n/a``.
+#: of the CUDA cores, and every f32 ``mfu`` is taken against it: the port
+#: never runs an f32 product as one TF32 pass.  Its one f32 product on the
+#: tensor cores, K2's update at nb = 256..512, is a split product (3xTF32:
+#: each operand as two TF32 parts, three passes, ~f32 accuracy), bounded
+#: by :func:`split_product_seconds` against TF32_TABLE.  float64 is ABSENT:
+#: an f64 line reads ``mfu: n/a``.
 PEAK_TABLE = (
     # NVIDIA H100 SXM5 datasheet: FP32 67 TFLOP/s, BF16 tensor core
     # 989 TFLOP/s dense (1979 is with 2:4 sparsity); the card reports
     # itself as "NVIDIA H100 80GB HBM3" (700 W board)
     ("h100", {"bfloat16": 989e12, "float32": 67e12}),
+)
+
+#: the tensor cores' dense TF32 rate per card (FLOP/s), same keys as
+#: PEAK_TABLE; read only by :func:`split_product_seconds`
+TF32_TABLE = (
+    # NVIDIA H100 SXM5 datasheet: TF32 tensor core 494.7 TFLOP/s dense
+    # (989.4 is with 2:4 sparsity)
+    ("h100", 494.7e12),
 )
 
 #: memory rate per card (bytes/s), same keys as PEAK_TABLE
@@ -164,6 +176,22 @@ def chip_bandwidth():
         if key in kind:
             return rate, kind
     return None, kind
+
+
+def split_product_seconds(flops: float,
+                          kind: str | None = None) -> float | None:
+    """The least time of an f32 product of ``flops`` (2 m n k) run on the
+    tensor cores as a 3xTF32 split product (three TF32 passes: hi*hi +
+    hi*lo + lo*hi): 3 * flops / the TF32 rate of the card named ``kind``
+    (default: the local card), from TF32_TABLE.  None off the card or for
+    a card the table lacks."""
+    kind = _device_kind() if kind is None else kind.lower()
+    if kind is None:
+        return None
+    for key, rate in TF32_TABLE:
+        if key in kind:
+            return 3 * flops / rate
+    return None
 
 
 def peak(dtype=None) -> float | None:

@@ -16,6 +16,7 @@ JAX no longer exports that name, so the ``ref_drivers`` fixture restores
 it on the test side only.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

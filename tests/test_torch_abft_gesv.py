@@ -8,6 +8,7 @@ held EXACT, solutions within 1e-5 relative in f32 and complex64 and
 1e-12 in f64 and complex128.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

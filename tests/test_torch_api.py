@@ -17,6 +17,7 @@ the installed JAX no longer exports that name, so the ``ref_drivers``
 fixture restores it on the test side only.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import pytest
 import torch
 

@@ -10,6 +10,7 @@ the reference's, with the same escalation flags; the spectral values
 within 1e-9 relative.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

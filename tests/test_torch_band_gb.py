@@ -7,6 +7,7 @@ f64 and c128 solves and products within 1e-12 relative, f32 and c64
 within 1e-5; the health record equal.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ Tolerances as in test_torch_band.py: f64 and c128 within 1e-12 relative,
 f32 and c64 within 1e-5.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ and filler slots are bit-equal to the input.  The CUDA kernels themselves
 run only on the card (tests/test_torch_cuda.py).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

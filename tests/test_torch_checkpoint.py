@@ -15,6 +15,7 @@ run other kernels.  Tolerances: 1e-10 in f64 and 1e-4 in f32 against the
 in-core factor, as the reference's file holds them.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import hashlib
 import json
 

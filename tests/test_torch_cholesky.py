@@ -10,6 +10,7 @@ forces the route it compares with ``plan_override``; the port takes its
 kernels by default, and on CPU tensors each kernel runs its plain version.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

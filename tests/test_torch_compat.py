@@ -13,6 +13,7 @@ JAX no longer exports that name, so a fixture restores it on the test
 side only.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import os
 import pathlib
 import shutil

@@ -6,6 +6,7 @@ they must match the reference bit for bit.  Everything runs on the CPU
 (``device="cpu"``); inputs come from numpy with fixed seeds.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import ast
 import pathlib
 
@@ -211,3 +212,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert not _forbidden("slate_tpu_torch.core")
     assert _forbidden("slate_tpu.core") and _forbidden("jax.numpy")
     assert _forbidden("tools.slate_lint") and not _forbidden("toolsx")
+    # every CPU test file of the port caps its compute threads
+    # (tests/torch_threads.py); the card-only file runs alone and does not
+    cpu_tests = [f for f in sorted((PKG.parent / "tests").glob(
+        "test_torch_*.py")) if f.name != "test_torch_cuda.py"]
+    assert len(cpu_tests) > 40
+    assert [f.name for f in cpu_tests
+            if "torch_threads" not in set(_imports(f))] == []

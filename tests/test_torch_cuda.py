@@ -1186,16 +1186,33 @@ def test_wide_chol_tile_first_bad_pivot(cuda):
     assert not bool(torch.isfinite(torch.diagonal(got)[301:]).any())
 
 
-@pytest.mark.parametrize("nb,m,k", [(256, 1024, 0), (256, 1024, 700),
-                                    (384, 768, 384), (512, 2048, 1024),
-                                    (512, 512, 300)])
-def test_wide_chol_panel_matches_plain_and_repeats_bitwise(cuda, nb, m, k):
-    """K2 at nb = 256 .. 512 (the update by 128-column tiles, the wide
-    factor, K0's wide route on U = L00^T, the solve by column tiles),
-    K = 700 and 300 ragged, M = nb the last panel: against the plain
-    version, its launches, and two launches bit for bit."""
+@pytest.mark.parametrize("nb,m,k,left_t", [
+    (256, 1024, 0, False), (256, 1024, 700, False), (384, 768, 384, False),
+    (512, 2048, 1024, False), (512, 512, 300, False),
+    (256, 2048, 1000, False), (384, 1536, 700, False),
+    (384, 384, 1000, False), (256, 2048, 1000, True),
+    (512, 1024, 700, True), (256, 256, 8192, False), (512, 512, 6000, False)])
+def test_wide_chol_panel_matches_plain_and_repeats_bitwise(cuda, nb, m, k,
+                                                          left_t):
+    """K2 at nb = 256 .. 512 (the update on the tensor cores as a 3xTF32
+    product by 128 x 128 tiles, the wide factor, K0's wide route on U =
+    L00^T, the solve by column tiles): K = 700, 300 and 1000 not a multiple
+    of the 32-deep slice, M = nb the last panel, a transposed left (the
+    producer's plain loads), a deep K on few tiles (the K loop split over
+    a cluster, the partials summed through distributed shared memory):
+    against the plain version, its launches, and two launches bit for
+    bit."""
     col, left, lead = _panel_apart(np.random.default_rng(nb + m + k), m, nb,
                                    k, cuda)
+    if left_t:
+        left = left.T.contiguous().T
+    plan = ck.panel_plan(col, left, lead)
+    assert plan["route"] == "tf32x3"
+    if k:
+        assert plan["left"] == ("loads" if left_t else "tma")
+        assert plan["lead"] == "tma"
+    if k >= 6000:
+        assert plan["split"] > 1
     launches = ck.CHOL_PANEL.launches, TRI_INV.launches
     got = ck.chol_panel_fused(col, left, lead, 8)
     below = int(m > nb)
@@ -1223,6 +1240,54 @@ def test_wide_upper_tri_inv_matches_plain_and_f64(cuda, n):
     assert bool(((got - want).abs() <= ATOL + RTOL * want.abs().max()).all())
     assert torch.equal(got, upper_tri_inv(u))
     assert bool((torch.tril(got, -1) == 0).all())
+    # a transposed view, as K2 passes fac[:nb].mT: the same values read
+    # along the other stride, so the same bits
+    assert torch.equal(upper_tri_inv(u.T.contiguous().mT), got)
+
+
+@pytest.mark.parametrize("nb", [256, 512])
+def test_wide_chol_panel_update_error_against_f64(cuda, nb):
+    """The tensor-core update's max |upd - upd64| is at most twice that of
+    torch.matmul in f32 on the same operands at [M, K] = [2048, 2048]
+    (drawn as chip_smoke's chol_panel_operands draws them: lead apart
+    from left, entries of left @ lead O(1)); one TF32 pass is far
+    beyond it."""
+    col, left, lead = _panel_apart(np.random.default_rng(nb), 2048, nb, 2048,
+                                   cuda)
+    upd, _ = ck.chol_panel_fused(col, left, lead, 8)
+    ref = col.double() - left.double() @ lead.double()
+    err = float((upd.double() - ref).abs().max())
+    f32 = float(((col - left @ lead).double() - ref).abs().max())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = float(((col - left @ lead).double() - ref).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert err <= 2 * f32, (err, f32)
+    assert tf32 > 10 * f32, (tf32, f32)
+
+
+@pytest.mark.parametrize("n", [256, 384, 512])
+def test_wide_upper_tri_inv_stamps_order_and_bits(cuda, n):
+    """K0's wide route with its stamps (upper_tri_inv_stamps, which the
+    launch count leaves out): the same bits as the wrapper's launch, eight
+    CTAs, each CTA's stamps in order (start, copy-in, diagonal inverse, the
+    half-levels, the store), the half-levels log2(n / 128) rounded up, two
+    a level."""
+    from slate_tpu_torch.internal.tri_inv import upper_tri_inv_stamps
+    u = torch.linalg.cholesky(torch.from_numpy(
+        _spd(np.random.default_rng(n + 2), n)).to(cuda)).mT.contiguous()
+    before = TRI_INV.launches
+    got, stamps, cluster = upper_tri_inv_stamps(u)
+    assert TRI_INV.launches == before
+    assert torch.equal(got, upper_tri_inv(u))
+    assert cluster == 8 and tuple(stamps.shape) == (8, 8)
+    halves = 2 * int(np.ceil(np.log2(n / 128)))
+    for row in stamps.cpu().tolist():
+        seq = row[:3 + halves] + row[-1:]
+        assert 0 < seq[0] and seq == sorted(seq), row
+        assert row[3 + halves:-1] == [0] * (4 - halves)
 
 
 @pytest.mark.parametrize("nb,w", [(256, 256), (256, 4096), (384, 1536),

@@ -27,6 +27,7 @@ it on the test side only.  A world that deadlocks fails its test within
 the harness's deadline (tests/torch_dist_worlds.py).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

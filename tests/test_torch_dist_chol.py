@@ -21,6 +21,7 @@ installed JAX no longer exports; the reference fixture restores it on the
 test side only.  On the CPU the diagonal tiles take K1's plain version.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

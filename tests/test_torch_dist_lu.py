@@ -29,6 +29,7 @@ versions.  The reference's ``@annotate``d drivers need
 exports; the reference fixture restores it on the test side only.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

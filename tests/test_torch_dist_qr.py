@@ -25,6 +25,7 @@ factor panels by Householder reflections; on the CPU the port's local
 panels take K5's plain version.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

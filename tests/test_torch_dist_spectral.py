@@ -30,6 +30,7 @@ test side only.  No hand kernel runs here (hegv's dist_potrf takes K1's
 plain version on the CPU).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import scipy.linalg

@@ -8,6 +8,7 @@ and ex04 in a world of eight (2 x 4), with ex03 there on 2 x 2: the four
 ranks past that grid sit it out.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import contextlib
 import io
 

@@ -5,6 +5,7 @@ on 2D, 3D and 4D arrays), payloads, persistent against transient plans,
 the host-side sites and the seeded Poisson workload.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

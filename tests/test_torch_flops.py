@@ -5,6 +5,7 @@ equality: the same arithmetic), the peak table holds the H100 alone, and
 off the card the peak and MFU are None.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import importlib
 
 import pytest
@@ -73,6 +74,20 @@ def test_peak_table_and_off_card_behaviour():
     assert flops.achieved_gbps(3e9, 2.0) == ref_flops.achieved_gbps(3e9,
                                                                     2.0)
     assert flops.achieved_gbps(None, 1.0) is None
+
+
+def test_split_product_bound_reads_the_tf32_rate():
+    """The 3xTF32 product's bound is three passes at the H100's dense TF32
+    rate (its own table entry); the f32 peak every mfu reads is still the
+    CUDA cores' 67 TFLOP/s; off the card, and for a card the table lacks,
+    there is no bound."""
+    assert flops.TF32_TABLE == (("h100", 494.7e12),)
+    work = 2.0 * 10240 * 10240 * 256
+    assert flops.split_product_seconds(
+        work, kind="NVIDIA H100 80GB HBM3") == 3 * work / 494.7e12
+    assert dict(flops.PEAK_TABLE)["h100"]["float32"] == 67e12
+    assert flops.split_product_seconds(work) is None
+    assert flops.split_product_seconds(work, kind="some other card") is None
 
 
 def test_version():

@@ -4,6 +4,7 @@ whose float64 cases take the same shapes, so that a loadfile run spreads
 them over workers; the check is torch_hetrf_common.py's).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ Two reference hesv tests are red in the reference's own suite
 runs), so those cases are held against numpy/scipy instead.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import scipy.linalg

@@ -8,6 +8,7 @@ Tolerances: f64 and c128 solves within 1e-12 relative, f32 and c64 within
 equal.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

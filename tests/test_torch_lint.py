@@ -10,6 +10,7 @@ codes are 0, 1 and 2.  The lint is pure stdlib: nothing here needs jax or
 a GPU, and the lint's own modules import only the standard library.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import ast
 import json
 import pathlib

@@ -17,6 +17,7 @@ Speculate cases are in test_torch_mixed_c128.py, the GMRES late stops and
 the fallback after MaxIterations in test_torch_mixed_gmres.py.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

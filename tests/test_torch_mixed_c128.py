@@ -8,6 +8,7 @@ health flags, and X within 1e-12 relative (1e-12 * cond where cond is
 1e9).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

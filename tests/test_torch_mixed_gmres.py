@@ -8,6 +8,7 @@ health flags, and X within 1e-12 relative (1e-5, the f32 tolerance, where
 the result is the unconverged f32 solve).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import pytest
 
 from slate_tpu_torch.drivers import mixed

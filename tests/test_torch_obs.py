@@ -18,6 +18,7 @@ counts ``retraces`` where the port's counts ``captures``; the Prometheus
 text names its module, which differs only in the package's name.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import json
 import threading
 

@@ -14,6 +14,7 @@ directly, and one shape against the reference forced onto its Pallas
 panel, whose signs K5 shares.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

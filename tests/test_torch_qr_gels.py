@@ -9,6 +9,7 @@ reference's default plan takes XLA's CholQR2 panel (test_torch_qr.py
 says why).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ tests/test_pallas.py (packed 1e-5, T 1e-4).  The CUDA kernel itself runs
 only on the card (tests/test_torch_cuda.py).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ Sizes are small (buckets 32-64, nb 32, B <= 4): each reference batch is
 one XLA compile.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import contextlib
 import threading
 import time

@@ -18,6 +18,7 @@ The reference's drivers are wrapped in ``@annotate``, which calls
 ``jax.core.trace_state_clean``; the ``ref_drivers`` fixture restores it.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import json
 import warnings
 

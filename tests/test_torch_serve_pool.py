@@ -15,6 +15,7 @@ metrics-CLI, compare and SLO-device-row tests of the reference are ported
 in tests/test_torch_obs.py.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import threading
 import time
 import warnings

@@ -14,6 +14,7 @@ The metrics-CLI and compare tests of the reference are ported in
 tests/test_torch_obs.py.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import threading
 import time
 

@@ -16,6 +16,7 @@ reference's drivers are wrapped in ``@annotate``, which calls
 name, so the ``ref_drivers`` fixture restores it on the test side only.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import functools
 import types
 

@@ -10,6 +10,7 @@ for it.  Then the names that were new to the port in the same change
 reference's.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import ast
 import pathlib
 import re

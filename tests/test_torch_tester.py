@@ -13,6 +13,7 @@ ERROR row, raises without a GPU unless asked for the CPU, and runs on
 grids in a gloo world of four processes.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import contextlib
 import importlib.util
 import io

@@ -14,6 +14,7 @@ to XLA in the reference.  Every test points both packages' cache
 variables at files under ``tmp_path``.
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import json
 import os
 

@@ -11,6 +11,7 @@ on its Pallas panel.  The CUDA kernels at these widths run only on the card
 (tests/test_torch_cuda.py, the ``wide`` tests).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ kernels.  The CUDA kernels at these widths run only on the card
 (tests/test_torch_cuda.py, the ``wide_select`` and ``wide_qr`` tests).
 """
 
+import torch_threads  # noqa: F401  (one compute thread a worker)
 import numpy as np
 import pytest
 import torch
