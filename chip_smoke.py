@@ -524,15 +524,20 @@ def device_ms(fn, reps: int = 5, per_launch: bool = False) -> dict:
             for name, t in total.items()}
 
 
-def step_launch_times(name: str, tag: str, fn, reps: int = 5) -> dict:
+def step_launch_times(name: str, tag: str, fn, reps: int = 5,
+                      factor_tags: tuple = ()) -> dict:
     """K6's or K7's launches (update, factor, solve; the kernels named
-    ``{name}_{launch}``) per call of its wrapper ``fn``: device ms by
+    ``{name}_{launch}``, and in the factor's also any kernel named by one
+    of ``factor_tags``) per call of its wrapper ``fn``: device ms by
     launch, from torch.profiler, under the keys ``{tag}_own_ms`` and
     ``{tag}_launch_ms``."""
     by_name = device_ms(fn, reps, per_launch=True)
+    tags = {part: (f"{name}_{part}",) + (factor_tags if part == "factor"
+                                         else ())
+            for part in ("update", "factor", "solve")}
     parts = {part: sum(v for k, v in by_name.items()
-                       if f"{name}_{part}" in k)
-             for part in ("update", "factor", "solve")}
+                       if any(t in k for t in tags[part]))
+             for part in tags}
     return {f"{tag}_own_ms": sum(parts.values()), f"{tag}_launch_ms": parts}
 
 
@@ -559,8 +564,9 @@ def k3_launch_times(fn, reps: int = 5) -> dict:
     """K3's own launches (the factor with U^-1, the rows below) per call
     of a lu_panel_fused ``fn``: device ms by launch, from torch.profiler."""
     by_name = device_ms(fn, reps, per_launch=True)
-    # at nb = 256 .. 512: lu_panel_factor_wide_kernel and wf_solve_kernel
-    tags = {"factor": ("lu_panel_factor",),
+    # at nb = 256 .. 512: lu_panel_factor_wide_kernel with its second
+    # launch, U^-1 by K0's upper_tri_inv_wide_kernel, and wf_solve_kernel
+    tags = {"factor": ("lu_panel_factor", "upper_tri_inv_wide"),
             "below": ("lu_panel_below_kernel", "wf_solve_kernel")}
     parts = {part: sum(v for k, v in by_name.items()
                        if any(t in k for t in tags[part]))
@@ -6297,6 +6303,105 @@ def tri_inv_split(u: torch.Tensor) -> dict:
     return line
 
 
+def lu_panel_split(x: torch.Tensor, bw: int = 8) -> dict:
+    """K3's wide factor launch on the panel ``x`` split by its globaltimer
+    stamps (lu_kernels.lu_panel_stamps, the last of three stamped launches,
+    which the launch counts leave out): the diagonal chain, each 128-column
+    block's factor and its two triangular inverses; per step the products
+    (the step's start to the last CTA's end of its tiles) and the chain
+    left exposed past them (to the step's closing barrier); and U^-1 of
+    the whole nb x nb U.  Emits a ``lu_panel_split`` line, the factored
+    block and U^-1 checked bit-equal to the counted launch's, and returns
+    it."""
+    from slate_tpu_torch.internal.lu_kernels import (lu_panel_fused,
+                                                     lu_panel_stamps)
+    from slate_tpu_torch.internal.tri_inv import upper_tri_inv
+    w, nb = x.shape
+    for _ in range(3):
+        top, uinv, stamps, k0_stamps, cluster = lu_panel_stamps(x, bw)
+    st = stamps.cpu().tolist()
+    k0 = [v for r in k0_stamps.cpu().tolist() for v in r if v]
+    nt = nb // 128
+    start, fac_end = st[nt][:2]
+    # U^-1: K0's launch after the factor's (none when W == nb)
+    u0, u1 = (min(k0), max(k0)) if k0 else (0, 0)
+    us = lambda a, b: 1e-3 * (b - a) if a and b else 0.0  # noqa: E731
+    blocks, steps = [], []
+    # a step's products follow block j's factor and its inverses; the
+    # lookahead's quarters of block j + 1 arrive in rank 0 within step j
+    begin = st[0][19]
+    for j in range(nt):
+        row = st[j]
+        blocks.append({"factor_us": us(row[17], row[18]),
+                       "inverses_us": us(row[18], row[19]),
+                       "lookahead_us": (us(begin, st[j + 1][0])
+                                          if j + 1 < nt else 0.0),
+                       "lt_copied_us": us(row[18], row[1])})
+        if not row[16]:
+            continue
+        work = max([v for v in row[2:16] if v] or [begin])
+        steps.append({"products_us": us(begin, work),
+                      "exposed_us": us(work, row[16])})
+        begin = row[16]
+    want = lu_panel_fused(x, bw)
+    same = bool(torch.equal(top, want[:nb])) and (
+        uinv is None or bool(torch.equal(uinv, upper_tri_inv(
+            torch.triu(want[:nb])))))
+    line = {"phase": "lu_panel_split", "W": w, "nb": nb, "cluster": cluster,
+            "total_us": us(start, u1 or fac_end),
+            "factor_launch_us": us(start, fac_end),
+            "diagonal_chain_us": sum(b["factor_us"] + b["inverses_us"]
+                                     for b in blocks),
+            "exposed_us": us(start, st[0][19]) + sum(s["exposed_us"]
+                                                     for s in steps),
+            "products_us": sum(s["products_us"] for s in steps),
+            "u_inverse_us": us(u0, u1), "blocks": blocks, "steps": steps,
+            "bit_equal_to_unstamped": same}
+    emit(line)
+    if not same:
+        raise AssertionError(f"lu_panel_stamps at [{w}, {nb}]: not the "
+                             f"unstamped launch's bits")
+    return line
+
+
+def lu_select_split(x: torch.Tensor, live=None, bw: int = 8) -> dict:
+    """K4's wide launch on the round ``x`` split by chunk 0's globaltimer
+    stamps (lu_kernels.lu_select_stamps, the last of three stamped
+    launches, which the launch counts leave out): per 128-column block the
+    load of its columns, the column chain, L11 and U, and the update of
+    the columns right of it, each to the slowest CTA's end.  Emits a
+    ``lu_select_split`` line (the pivots checked equal to the counted
+    launch's) and returns it."""
+    from slate_tpu_torch.internal.lu_kernels import (lu_select,
+                                                     lu_select_stamps)
+    for _ in range(3):
+        piv, stamps, cluster = lu_select_stamps(x, live, bw)
+    st = stamps.cpu().tolist()
+    blocks = []
+    for blk in st:
+        ends = [max(r[p] for r in blk) for p in range(5)]
+        begin = min(r[0] for r in blk)
+        prev, parts = begin, []
+        for e in ends[1:]:
+            parts.append(1e-3 * (e - prev) if e else 0.0)
+            prev = e or prev
+        blocks.append(dict(zip(("load_us", "chain_us", "l11_u_us",
+                                "update_us"), parts)))
+    first = min(r[0] for r in st[0])
+    last = max(v for blk in st for r in blk for v in r)
+    same = bool(torch.equal(piv, lu_select(x, nrows=live)))
+    line = {"phase": "lu_select_split", "G": x.shape[0], "W": x.shape[1],
+            "nb": x.shape[2], "cluster": cluster,
+            "total_us": 1e-3 * (last - first),
+            **{k: sum(b[k] for b in blocks) for k in blocks[0]},
+            "blocks": blocks, "pivots_equal_unstamped": same}
+    emit(line)
+    if not same:
+        raise AssertionError(f"lu_select_stamps {tuple(x.shape)}: not the "
+                             f"unstamped launch's pivots")
+    return line
+
+
 def qr_panel_split(x: torch.Tensor, bw: int = 8) -> dict:
     """K5's wide route on ``x`` split by its device launches (torch.profiler
     by kernel name, a mean over three calls): the block factors
@@ -6326,7 +6431,8 @@ def check_wide_kernels(gen) -> dict:
     torch.matmul's f32 error of the f64 product); K0 at n = 256 and 512 on
     a Cholesky U (each with a ``tri_inv_split`` line), and on a partially
     pivoted LU's U within 1e-5 of the f64 inverse; K3 at W = 20480 and W =
-    nb at nb = 256 and 512. Each against its plain version,
+    nb at nb = 256 and 512 (each with a ``lu_panel_split`` line: the
+    diagonal chain, the products and U^-1). Each against its plain version,
     timed beside its bound and the library call, launched twice and
     compared bit for bit.  Returns {kernel name: [rows]}."""
     from slate_tpu_torch.internal.chol_kernels import (chol_tile,
@@ -6435,6 +6541,10 @@ def check_wide_kernels(gen) -> dict:
                 witness=[library()])
             row.update(times, bitwise_repeatable=repeat(
                 "lu_panel_fused", (w, nb), [got], [lu_panel_fused(x, 8)]))
+            split = lu_panel_split(x)
+            row["split_us"] = {k: split[k] for k in (
+                "diagonal_chain_us", "exposed_us", "products_us",
+                "u_inverse_us")}
             emit({"phase": "lu_panel_plan", "W": w, "nb": nb, **times,
                   "bitwise_repeatable": True, "kernel_ms": row["kernel_ms"]})
             rows["lu_panel_fused"].append(row)
@@ -6569,7 +6679,9 @@ def check_wide_select_qr(gen) -> dict:
     """K4 at WIDE_SELECT_SHAPES (the main path's 5120-row round-1 chunks at
     nb = 256 and 512, reduction rounds, a chunk with 700 live rows of
     1024) with indices equal to the plain version's and (all rows live)
-    lu_factor's, a ``lu_select_plan`` line each; K5 at WIDE_QR_SHAPES
+    lu_factor's, a ``lu_select_plan`` line each and, all rows live, a
+    ``lu_select_split`` line (per 128-column block the load, the column
+    chain, L11 and U, the update); K5 at WIDE_QR_SHAPES
     against its plain version (packed and T within 1e-4 + 1e-4 |plain|,
     ||QR - A|| checked; a ``qr_panel_split`` line each: block factors, T
     merges, strips).  Each launched twice and compared bit for bit,
@@ -6611,6 +6723,10 @@ def check_wide_select_qr(gen) -> dict:
                "library_ms": time_ms(lambda: torch.linalg.lu_factor_ex(x),
                                      5),
                "bound_ms": b_ms, "bound_by": b_by, "cluster": plan["cluster"]}
+        if nrows is None:
+            split = lu_select_split(x)
+            row["split_us"] = {k: split[k] for k in (
+                "load_us", "chain_us", "l11_u_us", "update_us")}
         emit(row)
         emit({"phase": "lu_select_plan", "shape": shape, **plan,
               "kernel_ms": row["kernel_ms"]})
@@ -6835,7 +6951,11 @@ def check_serve_wide_kernels(gen) -> dict:
                             for mb in live_m if mb)
                 nbytes = esz * (3 * SERVE_B * SERVE_M * nb + sum(live_m) * kk
                                 + sum(1 for mb in live_m if mb) * kk * nb)
-                times = step_launch_times(name, tag, run, reps=3)
+                # K7's factor launch forms U^-1 in a second kernel, K0's
+                # upper_tri_inv_wide_kernel
+                times = step_launch_times(
+                    name, tag, run, reps=3,
+                    factor_tags=() if chol else ("upper_tri_inv_wide",))
                 row = check(
                     name, {"B": SERVE_B, "M": SERVE_M, "nb": nb, "K": kk,
                            "bw": 8, "dtype": str(dtype)[6:],

@@ -60,7 +60,8 @@
 //       from work into a per-problem f32 scratch (wide, from the wrapper)
 //       and factors it there by 128-column diagonal blocks (wide_factor.cuh
 //       wf_chol, wf_lu), writes fac's tile 0 and, when M > nb, U^-1 into
-//       uinv by wf_tri_inv;
+//       uinv (K6: wfc_tri_inv in the same launch; K7: K0's wide route in a
+//       second launch, tri_inv_wide.cuh);
 //   (c) one CTA per (128-row tile, 128-column tile, problem) of the live
 //       rows below tile 0, summing only U^-1's rows down to its column
 //       tile's end (batched_solve_wide).
@@ -161,8 +162,8 @@ __host__ __device__ inline int bp_ctiles(int nb) {
 
 // The wide factor's scratch of one problem, in floats: tile 0 (nb x nb),
 // the diagonal blocks' inverses (2 nb / 128 tiles of 128 x 128 at most:
-// wf_lu's; wf_chol takes half) and wf_tri_inv's scratch (nb x nb); 0 up to
-// nb = 128.
+// wf_lu's; wf_chol takes half) and U^-1's scratch T (nb x nb: wfc_tri_inv's
+// or K0's wide route's); 0 up to nb = 128.
 __host__ __device__ inline long long bp_wide_floats(int nb) {
   return nb > BP_NB ? 2LL * nb * nb + 2LL * nb * WF_T : 0;
 }
@@ -320,12 +321,12 @@ __device__ inline void batched_solve_wide(const Step& a, float* smem) {
 }
 
 // The scratch of problem b's wide factor launch: tile 0, the diagonal
-// blocks' inverses, wf_tri_inv's scratch (bp_wide_floats).
+// blocks' inverses, U^-1's scratch (bp_wide_floats).
 struct WideScratch {
   float *tile, *slots, *t;
 };
 
-__device__ inline WideScratch wide_scratch(const Step& a, int b) {
+__host__ __device__ inline WideScratch wide_scratch(const Step& a, int b) {
   float* tile = a.wide + b * bp_wide_floats(a.nb);
   float* slots = tile + (long long)a.nb * a.nb;
   return {tile, slots, slots + 2LL * a.nb * WF_T};
@@ -333,10 +334,11 @@ __device__ inline WideScratch wide_scratch(const Step& a, int b) {
 
 // fac's tile 0 of problem b (row-major, leading dimension nb, rounded to
 // the storage) = the factored tile in the scratch; every thread of the
-// cluster calls it after a wf_sync. With `lower` (Cholesky) fac is zero
-// above the diagonal and the tile's lower triangle is mirrored into its
-// upper one (U = L^T for wf_tri_inv): every read below the diagonal, every
-// write to the tile above it, so no CTA reads what another writes.
+// cluster calls it after a fenced cluster barrier. With `lower` (Cholesky)
+// fac is zero above the diagonal and the tile's lower triangle is mirrored
+// into its upper one (U = L^T for wfc_tri_inv): every read below the
+// diagonal, every write to the tile above it, so no CTA reads what another
+// writes.
 __device__ inline void wide_store_tile(const Step& a, int b, float* tile,
                                        bool lower) {
   const int nb = a.nb, rank = wf_rank(), ctas = wf_ctas();
@@ -476,29 +478,6 @@ int launch_solve(Kernel solve, WideKernel wide, cudaStream_t stream, int B,
     solve<<<dim3(rtiles, B), BPG::THREADS, smem, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// (b) at nb > 128: one cluster of WF_CLUSTER CTAs per problem (grid
-// (WF_CLUSTER, B)), WF_THREADS threads and WF_SMEM_BYTES each.
-template <class Kernel>
-int launch_factor_wide(Kernel kernel, cudaStream_t stream, int B,
-                       const Step& a) {
-  SLATE_SET_SMEM(kernel, WF_SMEM_BYTES);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = WF_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(WF_CLUSTER, B, 1);
-  cfg.blockDim = dim3(WF_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = WF_SMEM_BYTES;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // What the update launch takes for a step on this device: *split = the

@@ -15,7 +15,7 @@
 // thread-block cluster a problem: tile 0 of work copied (its lower
 // triangle) into the problem's scratch, factored there by K1's wide route
 // (wide_factor.cuh wf_chol), L00 into fac, U = L00^T mirrored into the
-// scratch and U^-1 by wf_tri_inv into uinv.
+// scratch and U^-1 by wfc_tri_inv into uinv.
 //
 // Bound on this card: per live problem, 2 live_m K nb flops of the update,
 // nb^3/3 of the factor, nb^3/3 of U^-1 and 2 (live_m - nb) nb^2 of the

@@ -36,15 +36,18 @@
 // shared memory, and the two launches keep their roles:
 //   (a) one thread-block cluster copies the top nb x nb into out's top
 //       rows and factors it there by 128-column diagonal blocks, each in
-//       lu_factor.cuh's one-block routine on one CTA (wide_factor.cuh
-//       wf_lu), then forms U^-1 by the blocked doubling one level up
-//       (wf_tri_inv), in the same launch;
+//       lu_factor.cuh's one-block routine on one CTA with a lookahead over
+//       the cluster (wide_factor.cuh wf_lu); then, in a second launch of
+//       the same call, K0's wide route forms U^-1 of the packed L\U
+//       (tri_inv_wide.cuh, reading U's upper triangle through its
+//       strides);
 //   (b) one CTA per (128-row tile, 128-column tile) of the rows below
 //       multiplies by that U^-1 (wide_factor.cuh wf_solve_kernel), summing
 //       only over U^-1's rows down to the column tile's end.
 #include "common.cuh"
 #include "lu_factor.cuh"
 #include "panel_gemm.cuh"
+#include "tri_inv_wide.cuh"
 #include "wide_factor.cuh"
 
 // (a): row tile 0 of the panel, factored, into rows 0 .. nb-1 of out; U^-1
@@ -113,26 +116,53 @@ static bool panel_nb_ok(int nb) {
 }
 
 // (a) at nb = 256 .. 512, one cluster: out's top nb x nb = the panel's top
-// block, factored in place by wf_lu (work: 2 (nb / 128) slots of 128 x 128
-// for the diagonal blocks' inverses, then nb x nb for wf_tri_inv's
-// scratch), and U^-1 into uinv [nb, nb] unless it is null.
-__global__ void __launch_bounds__(WF_THREADS)
+// block, factored in place by wf_lu (work: 2 (nb / 128 - 1) slots of 128 x
+// 128 for the diagonal blocks' inverses, then nb x nb for K0's T when U^-1
+// follows in a second launch, tri_inv_wide.cuh).
+__global__ void __launch_bounds__(WFC_THREADS)
 lu_panel_factor_wide_kernel(const float* __restrict__ p, long long ps0,
                             long long ps1, int nb, int bw,
-                            float* __restrict__ out,
-                            float* __restrict__ uinv,
-                            float* __restrict__ work) {
+                            float* __restrict__ out, float* __restrict__ work,
+                            long long* stamps) {
   extern __shared__ __align__(16) float smem[];
   const int rank = wf_rank(), ctas = wf_ctas();
-  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
-       idx += ctas * blockDim.x) {
-    out[idx] = p[(idx / nb) * ps0 + (idx % nb) * ps1];
+  const int first = rank * blockDim.x + threadIdx.x;
+  const int stride = ctas * blockDim.x;
+  if (ps1 == 1 && ps0 % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+    // 16-byte moves, several a thread in flight
+    const int q = nb / 4;
+#pragma unroll 4
+    for (int idx = first; idx < nb * q; idx += stride) {
+      const int r = idx / q, c = 4 * (idx % q);
+      *reinterpret_cast<float4*>(out + r * nb + c) =
+          *reinterpret_cast<const float4*>(p + r * ps0 + c);
+    }
+  } else {
+    for (int idx = first; idx < nb * nb; idx += stride) {
+      out[idx] = p[(idx / nb) * ps0 + (idx % nb) * ps1];
+    }
   }
-  wf_sync();
-  wf_lu(out, nb, nb, bw, work, smem);
-  if (uinv != nullptr) {
-    wf_tri_inv(out, uinv, work + 2 * nb * WF_T, nb, nb, smem);
-  }
+  wf_lu(out, nb, nb, bw, work, smem, stamps);
+}
+
+// (a) at nb = 256 .. 512: the factor's cluster, then, when uinv is not
+// null, U^-1 of the packed L\U's upper triangle by K0's wide route on
+// the same stream (its stamps after wf_lu's when stamps is not null).
+static int launch_factor_wide(int device, cudaStream_t stream, const float* p,
+                              long long ps0, long long ps1, int nb, int bw,
+                              float* out, float* uinv, float* work,
+                              long long* stamps) {
+  const int e = wfc_launch(lu_panel_factor_wide_kernel, stream, device, 1, p,
+                           ps0, ps1, nb, bw, out, work, stamps);
+  if (e != 0 || uinv == nullptr) return e;
+  long long* k0 = stamps == nullptr
+                      ? nullptr
+                      : stamps + (nb / WF_T + 1) * WFL_STAMP_ROW;
+  return ti_launch_wide(stream,
+                        ti_args_packed(out, nb, 0, uinv, 0,
+                                       work + 2 * nb * WF_T, 0, nb, nullptr,
+                                       0, k0),
+                        1);
 }
 
 // *fits = 1 when K3 takes a panel of width nb at slab width bw on this
@@ -150,7 +180,12 @@ extern "C" int slate_lu_panel_fits(int device, int nb, int bw, int* fits) {
           ((panel_nb_ok(nb) && lu_factor_launch_bytes(nb) <= (size_t)limit) ||
            (wf_panel_nb(nb) && WF_T % bw == 0));
   if (*fits && nb > 128) {
-    return wf_fits(lu_panel_factor_wide_kernel, device, fits);
+    const int e = wfc_fits(lu_panel_factor_wide_kernel, device, fits);
+    if (e == 0 && *fits) {
+      return cluster_fits(upper_tri_inv_wide_kernel, device, TI_CLUSTER,
+                          TI_THREADS, TI_SMEM_BYTES, fits);
+    }
+    return e;
   }
   return 0;
 }
@@ -174,9 +209,8 @@ extern "C" int slate_lu_panel_factor(int device, void* stream, const float* p,
     if (bw < 1 || WF_T % bw || work == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return wf_launch(lu_panel_factor_wide_kernel,
-                     static_cast<cudaStream_t>(stream), p, ps0, ps1, nb, bw,
-                     out, uinv, work);
+    return launch_factor_wide(device, static_cast<cudaStream_t>(stream), p,
+                              ps0, ps1, nb, bw, out, uinv, work, nullptr);
   }
   if (!panel_nb_ok(nb) || bw < 1 || nb % bw) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -217,4 +251,25 @@ extern "C" int slate_lu_panel_plan(int device, const float* p, long long ps0,
   SLATE_SET_DEVICE(device);
   *staging = staged_by_copy(p, ps1, ps0);
   return 0;
+}
+
+// The wide factor launch (a) once with globaltimer stamps (stamps: int64,
+// zeroed: (nb / 128 + 1) rows of WFL_STAMP_ROW for wf_lu, then TI_CLUSTER x
+// TI_STAMPS for K0's launch when uinv is not null; *cluster = the factor's
+// CTAs): for chip_smoke.py's split of K3's time. The wrapper never calls
+// it; the results are slate_lu_panel_factor's, bit for bit.
+extern "C" int slate_lu_panel_trace(int device, void* stream, const float* p,
+                                    long long ps0, long long ps1, int nb,
+                                    int bw, float* out, float* uinv,
+                                    float* work, long long* stamps,
+                                    int* cluster) {
+  SLATE_SET_DEVICE(device);
+  if (!wf_panel_nb(nb) || bw < 1 || WF_T % bw || work == nullptr ||
+      stamps == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int e = wfc_cluster(lu_panel_factor_wide_kernel, device, 1, cluster);
+  if (e != 0) return e;
+  return launch_factor_wide(device, static_cast<cudaStream_t>(stream), p,
+                            ps0, ps1, nb, bw, out, uinv, work, stamps);
 }

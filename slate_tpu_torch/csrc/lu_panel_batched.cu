@@ -17,8 +17,9 @@
 // thread-block cluster a problem: tile 0 of work copied into the problem's
 // scratch, factored there by K3's wide route (wide_factor.cuh wf_lu, the
 // zero-pivot rule at slab width bw inside each 128-column diagonal block,
-// so bw divides 128), packed L\U into fac and U^-1 by wf_tri_inv into
-// uinv.
+// so bw divides 128), packed L\U into fac; then, in a second launch of the
+// same step's factor call, U^-1 of each live problem's packed L\U by K0's
+// wide route (tri_inv_wide.cuh: a cluster a problem) into uinv.
 //
 // Bound on this card: per live problem, 2 live_m K nb flops of the update,
 // 2 nb^3/3 of the tile's LU and (live_m - nb) nb^2 of L21 = A21 U^-1 as a
@@ -32,6 +33,7 @@
 #include "batched_step.cuh"
 #include "common.cuh"
 #include "lu_factor.cuh"
+#include "tri_inv_wide.cuh"
 
 __global__ void __launch_bounds__(BPG::THREADS, 2)
 lu_panel_batched_update(Step a) {
@@ -64,8 +66,10 @@ lu_panel_batched_factor(Step a) {
       smem);
 }
 
-// (b) at nb = 256 .. 512: one cluster a problem (blockIdx.y), as above.
-__global__ void __launch_bounds__(WF_THREADS)
+// (b) at nb = 256 .. 512: one cluster a problem (blockIdx.y), tile 0 of
+// work factored by wf_lu in the problem's scratch and stored into fac; U^-1
+// follows in launch_factor's second launch.
+__global__ void __launch_bounds__(WFC_THREADS)
 lu_panel_batched_factor_wide(Step a) {
   const int b = blockIdx.y, nb = a.nb;
   if (a.k >= a.tiles[b]) return;  // the whole cluster: tile 0 dead
@@ -73,15 +77,15 @@ lu_panel_batched_factor_wide(Step a) {
   const int rank = wf_rank(), ctas = wf_ctas();
   const WideScratch w = wide_scratch(a, b);
   const float* src = a.work + (long long)b * a.M * nb;
-  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb;
+  // 16-byte moves (work and the scratch are row-major, nb % 4 == 0)
+#pragma unroll 4
+  for (int idx = rank * blockDim.x + threadIdx.x; idx < nb * nb / 4;
        idx += ctas * blockDim.x) {
-    w.tile[idx] = src[idx];
+    reinterpret_cast<float4*>(w.tile)[idx] =
+        reinterpret_cast<const float4*>(src)[idx];
   }
-  wf_sync();
   wf_lu(w.tile, nb, nb, a.bw, w.slots, smem);
   wide_store_tile(a, b, w.tile, false);
-  if (a.uinv == nullptr) return;
-  wf_tri_inv(w.tile, a.uinv + (long long)b * nb * nb, w.t, nb, nb, smem);
 }
 
 __global__ void __launch_bounds__(BPG::THREADS)
@@ -96,9 +100,22 @@ lu_panel_batched_solve_wide(Step a) {
   batched_solve_wide(a, smem);
 }
 
-static int launch_factor(cudaStream_t stream, int B, const Step& a) {
+// (b); at nb > 128 the factor's clusters, then, when M > nb, U^-1 of each
+// live problem's packed L\U by K0's wide route (a cluster a problem, the
+// dead ones skipped) on the same stream: one launch of the step.
+static int launch_factor(cudaStream_t stream, int device, int B,
+                         const Step& a) {
   if (a.nb > BP_NB) {
-    return launch_factor_wide(lu_panel_batched_factor_wide, stream, B, a);
+    const int e =
+        wfc_launch(lu_panel_batched_factor_wide, stream, device, B, a);
+    if (e != 0 || a.uinv == nullptr) return e;
+    const long long per = bp_wide_floats(a.nb);
+    const WideScratch w0 = wide_scratch(a, 0);
+    return ti_launch_wide(
+        stream,
+        ti_args_packed(w0.tile, a.nb, per, a.uinv, (long long)a.nb * a.nb,
+                       w0.t, per, a.nb, a.tiles, a.k, nullptr),
+        B);
   }
   const size_t smem = lu_factor_launch_bytes(a.nb);
   SLATE_SET_SMEM(lu_panel_batched_factor, smem);
@@ -122,9 +139,23 @@ extern "C" int slate_lu_panel_batched_fits(int device, int nb, int bw,
           (nb > BP_NB ? WF_T % bw == 0
                       : lu_factor_launch_bytes(nb) <= (size_t)limit);
   if (*fits && nb > BP_NB) {
-    return wf_fits(lu_panel_batched_factor_wide, device, fits);
+    const int e = wfc_fits(lu_panel_batched_factor_wide, device, fits);
+    if (e == 0 && *fits) {
+      return cluster_fits(upper_tri_inv_wide_kernel, device, TI_CLUSTER,
+                          TI_THREADS, TI_SMEM_BYTES, fits);
+    }
+    return e;
   }
   return 0;
+}
+
+// *cluster = the CTAs a problem's wide factor runs on when B problems are
+// launched at once (wfc_cluster: 16 where the card places B clusters of 16,
+// else 8).
+extern "C" int slate_lu_panel_batched_cluster(int device, int B,
+                                              int* cluster) {
+  SLATE_SET_DEVICE(device);
+  return wfc_cluster(lu_panel_batched_factor_wide, device, B, cluster);
 }
 
 // *floats = the wide factor's scratch of one problem at width nb (0 up to
@@ -160,7 +191,7 @@ extern "C" int slate_lu_panel_batched(
   switch (which) {
     case UPDATE: return launch_update(lu_panel_batched_update, device, s, B,
                                       a);
-    case FACTOR: return launch_factor(s, B, a);
+    case FACTOR: return launch_factor(s, device, B, a);
     default: return launch_solve(lu_panel_batched_solve,
                                  lu_panel_batched_solve_wide, s, B, a);
   }

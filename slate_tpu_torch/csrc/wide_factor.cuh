@@ -1,6 +1,5 @@
 // The wide factors: K1 past n = 128, K2's factor launch at nb = 256, 384
-// and 512, and K3's (with U^-1) at those widths, and K6's and K7's a
-// problem. They port the same TPU kernels as their one-block routes
+// and 512, and K3's at those widths, and K6's and K7's a problem. They port the same TPU kernels as their one-block routes
 // (chol_tile_pallas, chol_panel_fused, lu_panel_fused and the batched
 // panels: slate_tpu/internal/pallas_chol.py:316, :162, pallas_lu.py:210)
 // at the widths the reference's gates give them (its tiles up to 1024,
@@ -15,22 +14,14 @@
 // of np x np, np a multiple of WF_T = 128, and one launch of one
 // thread-block cluster factors it by 128-column diagonal blocks.
 //
-// The LU and the inverse (wf_lu, wf_tri_inv; WF_CLUSTER CTAs of 128
-// threads) meet at a full cluster barrier between the steps:
-//   - the diagonal block: one CTA copies it into its shared memory and
-//     factors it there by the one-block routine of the narrow kernels
-//     (lu_factor.cuh), then inverts its triangular factors by K0's blocked
-//     doubling (tri_inv.cuh) into 128 x 128 slots of device memory;
-//   - the blocks below and to the right, then the trailing update: every
-//     CTA takes whole 128 x 128 output tiles in turn and forms each as one
-//     tiled product (panel_gemm.cuh: a 16 x 8 register tile a thread).
-// U^-1 of a wide upper-triangular U inside K3's and K7's factor launches
-// (wf_tri_inv) is the same doubling one level up: the 128 x 128 diagonal
-// blocks inverted at once, one CTA each, then neighbouring inverted blocks
-// joined, b = 1, 2, ... tiles: T = U12 X22 for every pair at once, a
-// cluster barrier, X12 = -X11 T, a barrier (LAPACK trtri's recursion, as
-// in tri_inv.cuh). K0's own launch past 128 runs this recursion on
-// 1024-thread CTAs instead (tri_inv.cu).
+// Each diagonal block is factored on one CTA by the one-block routine of
+// the narrow kernels (chol_factor.cuh, lu_factor.cuh) and its triangles
+// inverted by K0's blocked doubling (tri_inv.cuh) into 128 x 128 slots of
+// device memory, which the products below and right of it read. Both
+// factors (wf_chol, wf_lu below) run on 256-thread CTAs with a lookahead
+// over the cluster. U^-1 of the whole wide U that K3's and K7's factor
+// calls need is K0's own wide route, a second launch on the packed L\U
+// (tri_inv_wide.cuh).
 //
 // The Cholesky factor (wf_chol: K1's wide route, K2's and K6's factor
 // launches) is redesigned around its critical path, the chain of n / 128
@@ -97,19 +88,7 @@
 constexpr int WF_T = 128;        // the diagonal block and the output tile
 constexpr int WF_CLUSTER = 8;    // the CTAs of the one cluster (portable)
 constexpr int WF_THREADS = PanelGemm<WF_T>::THREADS;
-constexpr int WF_LDS = WF_T + 4;      // the diagonal block and its inverse
 constexpr int WF_LDT = WF_T / 2 + 4;  // the doubling's scratch
-// shared memory of a CTA: the diagonal block, its inverse, the doubling's
-// scratch and the factor routines' warp slots; the products' ring fits in
-// the same bytes
-constexpr int WF_SMEM_FLOATS =
-    2 * WF_T * WF_LDS + WF_T * WF_LDT + lu_factor_scratch(WF_THREADS);
-constexpr size_t WF_SMEM_BYTES = sizeof(float) * WF_SMEM_FLOATS;
-static_assert(WF_SMEM_FLOATS >= PanelGemm<WF_T>::SMEM_FLOATS,
-              "the products' ring must fit the factor's shared memory");
-static_assert(lu_factor_scratch(WF_THREADS) >=
-                  chol_factor_scratch(WF_THREADS),
-              "the warp slots serve both factors");
 
 constexpr int WF_MAX_TILE = 1024;   // K1's widest tile
 constexpr int WF_MAX_PANEL = 512;   // K0's, K2's and K3's widest panel
@@ -129,16 +108,6 @@ __device__ inline int wf_ctas() {
   return (int)cooperative_groups::this_cluster().num_blocks();
 }
 
-// s (WF_T x WF_T in shared memory, leading dimension WF_LDS) = the tile at
-// g (leading dimension ld, 16-byte aligned rows) through L2.
-__device__ inline void wf_load_tile(float* s, const float* g, long long ld) {
-  for (int idx = threadIdx.x; idx < WF_T * WF_T / 4; idx += blockDim.x) {
-    const int r = idx / (WF_T / 4), c = 4 * (idx % (WF_T / 4));
-    *reinterpret_cast<float4*>(s + r * WF_LDS + c) =
-        __ldcg(reinterpret_cast<const float4*>(g + r * ld + c));
-  }
-}
-
 // g (leading dimension ld) = the tile s (leading dimension lds) in shared
 // memory; with `lower`, zeros above the diagonal.
 __device__ inline void wf_store_tile(float* g, long long ld, const float* s,
@@ -154,35 +123,6 @@ __device__ inline void wf_store_tile(float* g, long long ld, const float* s,
     }
     *reinterpret_cast<float4*>(g + r * ld + c) = v;
   }
-}
-
-// g (leading dimension ld) = scale * acc, or g -= acc with `sub` (g read
-// through L2), for this thread's part of the tile (pg_thread's layout).
-__device__ inline void wf_store_acc(float* g, long long ld,
-                                   const float (&acc)[PG_RM][8], float scale,
-                                   bool sub, int tx, int ty) {
-  using G = PanelGemm<WF_T>;
-#pragma unroll
-  for (int i = 0; i < PG_RM; ++i) {
-    float* row = g + (long long)(ty + G::TY * i) * ld;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float* e = row + tx + G::TX * j;
-      *e = sub ? __ldcg(e) - acc[i][j] : scale * acc[i][j];
-    }
-  }
-}
-
-// Invert the upper-triangular tile s in shared memory (only its upper
-// triangle and diagonal are read) by K0's doubling into g (leading
-// dimension ld): every thread of the CTA calls it.
-__device__ inline void wf_invert_tile(const float* s, float* g, long long ld,
-                                      float* smem) {
-  float* x = smem + WF_T * WF_LDS;
-  float* t = x + WF_T * WF_LDS;
-  upper_tri_inv_doubling(s, WF_LDS, x, WF_LDS, t, WF_LDT, WF_T);
-  wf_store_tile(g, ld, x, WF_LDS, false);
-  __syncthreads();
 }
 
 // ---- the wide Cholesky factor (K1 past 128, K2's and K6's factor launch):
@@ -202,7 +142,10 @@ constexpr int WFC_AQ = 3 * WFC_TILE;
 constexpr int WFC_FLAGS = WFC_AQ + WFC_QROWS * WFC_LD;
 constexpr int WFC_SCRATCH = WFC_FLAGS + 4 * WFC_GROUP;
 constexpr int WFC_SMEM_FLOATS =
-    WFC_SCRATCH + chol_factor_scratch(WFC_THREADS);
+    WFC_SCRATCH + (lu_factor_scratch(WFC_THREADS) >
+                           chol_factor_scratch(WFC_THREADS)
+                       ? lu_factor_scratch(WFC_THREADS)
+                       : chol_factor_scratch(WFC_THREADS));
 constexpr size_t WFC_SMEM_BYTES = sizeof(float) * WFC_SMEM_FLOATS;
 static_assert(WF_T * WF_LDT <= WFC_TILE,
               "the doubling's scratch fits one staged tile");
@@ -617,11 +560,11 @@ __device__ inline void wf_chol(float* w, long long ld, int np, float* uinv,
 
 // x = U^-1 for U = L^T, after wf_chol(w = u, ..., last_inverse = true) and
 // with L mirrored into u's upper tiles (row-major, leading dimension ld):
-// wf_tri_inv's doubling, on this file's 256-thread products, so that x's
-// bits are wf_tri_inv's. The diagonal tiles are the slots transposed (the
-// same doubling); then for b = 1, 2, ...: T = U12 X22 for every pair of
-// neighbouring inverted blocks at once, a barrier, X12 = -X11 T, a
-// barrier. t is np x np scratch (leading dimension ld); x is written whole,
+// K0's doubling one level up (LAPACK trtri's recursion, as in tri_inv.cuh),
+// on this file's 256-thread products, with the first wide port's bits. The
+// diagonal tiles are the slots transposed (the same doubling); then for b
+// = 1, 2, ...: T = U12 X22 for every pair of neighbouring inverted blocks
+// at once, a barrier, X12 = -X11 T, a barrier. t is np x np scratch (leading dimension ld); x is written whole,
 // zero below the diagonal. Called and synced as wf_chol.
 __device__ inline void wfc_tri_inv(const float* u, float* x, float* t,
                                    long long ld, int np, const float* slots,
@@ -676,130 +619,277 @@ __device__ inline void wfc_tri_inv(const float* u, float* x, float* t,
   }
 }
 
-// The unpivoted LU of the np x np workspace w (as wf_chol's), in place into
-// packed L\U with the unit lower diagonal implied; the zero-pivot rule of
-// lu_factor_smem at slab width bw (WF_T % bw == 0) inside each diagonal
-// block, whose Inf or NaN reaches the tiles below and right through the
-// block's inverses. slots: 2 (np / WF_T - 1) tiles of WF_T x WF_T floats
-// (U_jj^-1 and (L_jj^-1)^T a step). Called and synced as wf_chol.
-__device__ inline void wf_lu(float* w, long long ld, int np, int bw,
-                             float* slots, float* smem) {
-  const int rank = wf_rank(), ctas = wf_ctas(), nt = np / WF_T;
-  int tx, ty;
-  pg_thread<WF_T>(tx, ty);
-  for (int j = 0; j < nt; ++j) {
-    float* wjj = w + (long long)j * WF_T * ld + j * WF_T;
-    float* uslot = slots + (long long)2 * j * WF_T * WF_T;
-    float* lslot = uslot + WF_T * WF_T;
-    if (rank == 0) {
-      wf_load_tile(smem, wjj, ld);
-      __syncthreads();
-      lu_factor_smem(smem, WF_LDS, WF_T, bw,
-                     smem + 2 * WF_T * WF_LDS + WF_T * WF_LDT);
-      wf_store_tile(wjj, ld, smem, WF_LDS, false);
-      if (j + 1 < nt) {
-        wf_invert_tile(smem, uslot, WF_T, smem);      // U_jj^-1 (reads
-                                                      // the tile only)
-        // L_jj^T with its unit diagonal in the upper triangle: the
-        // doubling gives (L_jj^T)^-1 = (L_jj^-1)^T
-        for (int idx = threadIdx.x; idx < WF_T * WF_T; idx += blockDim.x) {
-          const int r = idx / WF_T, c = idx % WF_T;
-          if (c > r) smem[r * WF_LDS + c] = smem[c * WF_LDS + r];
-          if (c == r) smem[r * WF_LDS + c] = 1.f;
-        }
-        __syncthreads();
-        wf_invert_tile(smem, lslot, WF_T, smem);
-      }
-    }
-    wf_sync();
-    if (j + 1 == nt) break;
-    // items 0 .. m-1: the tiles below, L21 = A21 U_jj^-1; m .. 2m-1: the
-    // tiles right, U12 = L_jj^-1 A12 (A(r, k) = lslot[k][r]), each in place
-    const int m = nt - j - 1;
-    for (int p = rank; p < 2 * m; p += ctas) {
-      float acc[PG_RM][8] = {};
-      if (p < m) {
-        float* t = w + (long long)(j + 1 + p) * WF_T * ld + j * WF_T;
-        pg_upper_product<WF_T>(acc, t, ld, 1, WF_T, PG_COPY16, uslot, WF_T,
-                               smem, tx, ty);
-        wf_store_acc(t, ld, acc, 1.f, false, tx, ty);
-      } else {
-        float* t = wjj + (p - m + 1) * WF_T;
-        pg_product<WF_T>(acc, lslot, 1, WF_T, WF_T, PG_COPY4, t, ld, 1,
-                         PG_COPY4, 0, WF_T, smem, tx, ty);
-        wf_store_acc(t, ld, acc, 1.f, false, tx, ty);
-      }
-    }
-    wf_sync();
-    // the trailing tiles (i, k), i, k > j: A_ik -= L_ij U_jk
-    for (int p = rank; p < m * m; p += ctas) {
-      const int i = j + 1 + p / m, k = j + 1 + p % m;
-      float acc[PG_RM][8] = {};
-      pg_product<WF_T>(acc, w + (long long)i * WF_T * ld, ld, 1, WF_T,
-                       PG_COPY16, w + k * WF_T, ld, 1, PG_COPY4, j * WF_T,
-                       (j + 1) * WF_T, smem, tx, ty);
-      wf_store_acc(w + (long long)i * WF_T * ld + k * WF_T, ld, acc, 1.f,
-                   true, tx, ty);
-    }
-    wf_sync();
-  }
-}
+// ---- the wide LU factor (K3's factor launch past 128 columns, K7's a
+// problem): wf_chol's design for the unpivoted LU, whose chain of nt =
+// np / 128 diagonal blocks needs both triangles' inverses a step:
+//   - rank 0 factors the diagonal block D_jj in its shared memory
+//     (lu_factor_smem, the zero-pivot rule at slab width bw) and inverts
+//     U_jj (K0's doubling), while rank 1 copies L_jj^T out of rank 0's
+//     shared memory (distributed shared memory, after a flag) and inverts
+//     it at the same time: uslot(j) = (U_jj^-1)^T, lslot(j) = L_jj^-1,
+//     each row-major 128 x 128 in device memory;
+//   - a lookahead group of WFL_GROUP = 8 CTAs forms block j + 1 by 32-row
+//     or 32-column quarters: ranks 0 .. 3 a quarter of L_{j+1,j} =
+//     A_{j+1,j} U_jj^-1 each, ranks 4 .. 7 a quarter of U_{j,j+1} = L_jj^-1
+//     A_{j,j+1} each (formed transposed), which they send into ranks 0 ..
+//     3's shared memory; then ranks 0 .. 3 send their quarter of A_{j+1,j+1}
+//     - L_{j+1,j} U_{j,j+1} into rank 0's D, and rank 0 factors it. A
+//     step's chain is one quarter product, one quarter update, the factor
+//     and the slower of the two inverses;
+//   - meanwhile the other CTAs form the rest of column j and row j (L_ij,
+//     U_jk past j + 1) and, past the split barrier's first half, the
+//     trailing tiles A_ik -= L_ij U_jk but (j + 1, j + 1).
+// Hand-offs are wf_chol's release-store flags (tags j + 1, never reset; no
+// atomics), products wfc_mma's and wfc_product's (f32 FMAs, k ascending),
+// so each output is summed in one order whatever CTA forms it: the bits do
+// not depend on the cluster size, and a launch repeats bit for bit.
+constexpr int WFL_GROUP = 8;        // the lookahead: L quarters, U quarters
+constexpr int WFL_QUARTERS = WF_T / WFC_QROWS;
+// wf_lu's stamps (globaltimer, ns), a row of WFL_STAMP_ROW a block j:
+// entry r in 2 .. 15 the time rank r ended its tiles of step j (the step
+// after block j's factor), 0 the time rank 0 holds block j's four updated
+// quarters (j > 0), 1 the time rank 1 holds L_jj^T, 16 rank 0's time past
+// step j's closing barrier, 17 .. 19 block j's factor start, factor end
+// and U_jj^-1's end; row nt, entry 0 the start, 1 the end
+constexpr int WFL_STAMP_ROW = 20;
+static_assert(2 * WFL_QUARTERS + 2 <= 4 * WFC_GROUP, "wf_lu's flags fit");
 
-// x = U^-1 for the upper-triangular np x np U in u (row-major, leading
-// dimension ld, 16-byte aligned rows; only its upper tiles and the upper
-// triangles of its diagonal tiles are read), np a multiple of WF_T; x and
-// t (scratch) np x np with the same leading dimension. x is written whole,
-// zero below the diagonal. Called and synced as wf_chol.
-__device__ inline void wf_tri_inv(const float* u, float* x, float* t,
-                                  long long ld, int np, float* smem) {
+// The unpivoted LU of the np x np workspace w (row-major, leading dimension
+// ld, 16-byte aligned rows; np a multiple of WF_T, np > WF_T), in place
+// into packed L\U with the unit lower diagonal implied; the zero-pivot rule
+// of lu_factor_smem at slab width bw (WF_T % bw == 0) inside each diagonal
+// block, whose Inf or NaN reaches the tiles below and right through the
+// block's inverses. slots: 2 (np / WF_T - 1) tiles of WF_T x WF_T floats.
+// Launched with WFC_THREADS threads and WFC_SMEM_FLOATS of shared memory a
+// CTA on a cluster of at least WFL_GROUP; every thread of the cluster calls
+// it once its part of w is written (it starts with a fenced cluster
+// barrier); it ends with one. stamps: null, or (np / WF_T + 1) rows of
+// WFL_STAMP_ROW (see there).
+__device__ inline void wf_lu(float* w, long long ld, int np, int bw,
+                             float* slots, float* smem,
+                             long long* stamps = nullptr) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   const int rank = wf_rank(), ctas = wf_ctas(), nt = np / WF_T;
-  int tx, ty;
-  pg_thread<WF_T>(tx, ty);
-  for (int d = rank; d < nt; d += ctas) {
-    const long long off = (long long)d * WF_T * ld + d * WF_T;
-    wf_load_tile(smem, u + off, ld);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* D = smem;
+  float* As = smem + WFC_TILE;   // a staged operand; the inverse X
+  float* Bs = As + WFC_TILE;     // a staged operand; U_{j,j+1}^T; scratch
+  float* Aq = smem + WFC_AQ;     // a quarter's operand, then L_{j+1,j}[q]
+  int* uflags = reinterpret_cast<int*>(smem + WFC_FLAGS);  // U quarters in
+  int* dfree = uflags + WFL_QUARTERS;   // rank 0's D stored, free again
+  int* dflags = dfree + 1;              // D quarters in
+  int* fflag = dflags + WFL_QUARTERS;   // L^T in
+  // the CTAs that take column j's and row j's tiles past j + 1: those past
+  // the group on a cluster of 16, the U quarters' on one of 8
+  const int xfirst = ctas >= 2 * WFL_GROUP ? WFL_GROUP : WFL_GROUP / 2;
+  auto tile = [&](int i, int k) {
+    return w + (long long)i * WF_T * ld + (long long)k * WF_T;
+  };
+  auto uslot = [&](int j) { return slots + (long long)2 * j * WF_T * WF_T; };
+  auto lslot = [&](int j) { return uslot(j) + WF_T * WF_T; };
+  auto stamp = [&](int row, int col) {
+    if (stamps != nullptr && threadIdx.x == 0)
+      stamps[row * WFL_STAMP_ROW + col] = wfc_now();
+  };
+  // block b in rank 0's D: rank 0 factors it, then (with `inverses`)
+  // inverts U_bb while rank 1 inverts L_bb^T; rank 0 stores the factored
+  // block last
+  auto diag = [&](int b, bool inverses) {
+    if (rank == 0) {
+      stamp(b, 17);
+      lu_factor_smem(D, WFC_LD, WF_T, bw, smem + WFC_SCRATCH);
+      stamp(b, 18);
+      if (!inverses) {   // the last block: stored before the last barrier
+        wf_store_tile(tile(b, b), ld, D, WFC_LD, false);
+        return;
+      }
+      // L^T with its unit diagonal in the upper triangle (the doubling
+      // reads no more) into rank 1's D: (L^T)^-1 = (L^-1)^T
+      float* d1 = cluster.map_shared_rank(D, 1);
+      for (int idx = threadIdx.x; idx < WF_T * WF_T / 4;
+           idx += WFC_THREADS) {
+        const int r = idx & (WF_T - 1), c = (idx >> 7) << 2;
+        float l[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          l[t] = c + t > r ? D[(c + t) * WFC_LD + r] : c + t == r ? 1.f : 0.f;
+        *reinterpret_cast<float4*>(d1 + r * WFC_LD + c) =
+            make_float4(l[0], l[1], l[2], l[3]);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0)
+        wfc_flag_store(cluster.map_shared_rank(fflag, 1), b + 1);
+      wfc_upper_inv(D, As, Bs);   // U^-1 from the upper triangle
+      float* s = uslot(b);
+      for (int idx = threadIdx.x; idx < WF_T * WF_T; idx += WFC_THREADS) {
+        const int c = idx >> 7, k = idx & (WF_T - 1);
+        s[idx] = As[k * WFC_LD + c];
+      }
+      stamp(b, 19);
+    } else if (rank == 1 && inverses) {
+      wfc_flags_wait(fflag, 1, b + 1);
+      stamp(b, 1);
+      wfc_upper_inv(D, As, Bs);
+      float* s = lslot(b);
+      for (int idx = threadIdx.x; idx < WF_T * WF_T; idx += WFC_THREADS) {
+        const int r = idx >> 7, k = idx & (WF_T - 1);
+        s[idx] = As[k * WFC_LD + r];
+      }
+    }
+  };
+  // rank 0, past its arrival at a step's closing barrier: block b (not the
+  // last) to device memory, then D freed for the next step's quarters
+  auto release = [&](int b) {
+    wf_store_tile(tile(b, b), ld, D, WFC_LD, false);
     __syncthreads();
-    wf_invert_tile(smem, x + off, ld, smem);
+    if (threadIdx.x < WFL_QUARTERS)
+      wfc_flag_store(cluster.map_shared_rank(dfree, threadIdx.x), b + 1);
+  };
+  if (threadIdx.x < 2 * WFL_QUARTERS + 2) uflags[threadIdx.x] = 0;
+  wfc_arrive();
+  wfc_wait();
+  if (rank == 0) {
+    stamp(nt, 0);
+    wfc_stage(D, tile(0, 0), ld);
+    pg_cp_async_commit();
+    pg_cp_async_wait<0>();
+    __syncthreads();
   }
-  // the tiles below the diagonal are zero
-  const long long below = (long long)nt * (nt - 1) / 2 * WF_T * WF_T;
-  for (long long idx = (long long)rank * blockDim.x + threadIdx.x;
-       idx < below; idx += (long long)ctas * blockDim.x) {
-    const long long tile = idx / (WF_T * WF_T);
-    const int e = (int)(idx % (WF_T * WF_T));
-    int r = 1;
-    while ((long long)r * (r + 1) / 2 <= tile) ++r;
-    const int c = (int)(tile - (long long)r * (r - 1) / 2);
-    x[((long long)r * WF_T + e / WF_T) * ld + c * WF_T + e % WF_T] = 0.f;
-  }
-  wf_sync();
-  for (int b = 1; b < nt; b *= 2) {
-    // the output tiles (r, c) of every pair at this level: r in
-    // [i0, i0 + b), c in [i0 + b, min(i0 + 2b, nt)), i0 = 2 b p
-    const int pairs = (nt - b + 2 * b - 1) / (2 * b);
-    const int items = pairs * b * b;
-    for (int half = 0; half < 2; ++half) {
-      for (int p = rank; p < items; p += ctas) {
-        const int i0 = p / (b * b) * 2 * b, j0 = i0 + b;
-        const int r = i0 + p % (b * b) / b, c = j0 + p % b;
-        if (c >= nt) continue;
-        float acc[PG_RM][8] = {};
-        float* out = (half ? x : t) + (long long)r * WF_T * ld + c * WF_T;
-        if (half == 0) {   // T = U12 X22: k over X22's rows j0 .. c
-          pg_product<WF_T>(acc, u + (long long)r * WF_T * ld, ld, 1, WF_T,
-                           PG_COPY16, x + c * WF_T, ld, 1, PG_COPY4,
-                           j0 * WF_T, (c + 1) * WF_T, smem, tx, ty);
-          wf_store_acc(out, ld, acc, 1.f, false, tx, ty);
-        } else {           // X12 = -X11 T: k over X11's columns r .. j0-1
-          pg_product<WF_T>(acc, x + (long long)r * WF_T * ld, ld, 1, WF_T,
-                           PG_COPY16, t + c * WF_T, ld, 1, PG_COPY4,
-                           r * WF_T, j0 * WF_T, smem, tx, ty);
-          wf_store_acc(out, ld, acc, -1.f, false, tx, ty);
+  diag(0, true);
+  wfc_arrive();
+  if (rank == 0) release(0);
+  wfc_wait();
+  for (int j = 0; j + 1 < nt; ++j) {
+    const int m = nt - j - 1, tag = j + 1;
+    const int q = rank % WFL_QUARTERS, q0 = q * WFC_QROWS;
+    if (rank < WFL_QUARTERS) {
+      // L_{j+1,j}[q] = A_{j+1,j}[q] U_jj^-1, kept in Aq
+      for (int idx = threadIdx.x; idx < WFC_QROWS * WF_T / 4;
+           idx += WFC_THREADS) {
+        const int r = idx >> 5, c = (idx & 31) << 2;
+        pg_cp_async16(Aq + r * WFC_LD + c, tile(j + 1, j) + (q0 + r) * ld + c,
+                      16);
+      }
+      wfc_stage(As, uslot(j), WF_T);
+      pg_cp_async_commit();
+      pg_cp_async_wait<0>();
+      __syncthreads();
+      float acc[2][8] = {};
+      wfc_mma<2>(acc, Aq, As);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = ty + 16 * i;
+        float* g = tile(j + 1, j) + (long long)(q0 + r) * ld;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          g[tx + 16 * c] = acc[i][c];
+          Aq[r * WFC_LD + tx + 16 * c] = acc[i][c];
         }
       }
-      wf_sync();
+    } else if (rank < WFL_GROUP) {
+      // U_{j,j+1}[:, q] = L_jj^-1 A_{j,j+1}[:, q], formed transposed (acc[i]
+      // [c] is U(tx + 16 c, q0 + ty + 16 i)) and sent to ranks 0 .. 3's Bs
+      const float* a = tile(j, j + 1) + q0;
+      wfc_stage(As, lslot(j), WF_T);
+      pg_cp_async_commit();
+      constexpr int PER = WFC_QROWS * WF_T / WFC_THREADS;
+      float v[PER];   // all of a thread's loads in flight at once
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int idx = threadIdx.x + e * WFC_THREADS;
+        v[e] = __ldcg(a + (idx >> 5) * ld + (idx & (WFC_QROWS - 1)));
+      }
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int idx = threadIdx.x + e * WFC_THREADS;
+        Aq[(idx & (WFC_QROWS - 1)) * WFC_LD + (idx >> 5)] = v[e];
+      }
+      pg_cp_async_wait<0>();
+      __syncthreads();
+      float acc[2][8] = {};
+      wfc_mma<2>(acc, Aq, As);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = q0 + ty + 16 * i;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          tile(j, j + 1)[(long long)(tx + 16 * r) * ld + c] = acc[i][r];
+        for (int to = 0; to < WFL_QUARTERS; ++to) {
+          float* u = cluster.map_shared_rank(Bs, to) + c * WFC_LD;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) u[tx + 16 * r] = acc[i][r];
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < WFL_QUARTERS)
+        wfc_flag_store(cluster.map_shared_rank(uflags, threadIdx.x) + q, tag);
     }
+    if (rank >= xfirst) {
+      // the rest of column j, L_ij = A_ij U_jj^-1, and of row j, U_jk =
+      // L_jj^-1 A_jk, past j + 1
+      for (int p = rank - xfirst; p < 2 * (m - 1); p += ctas - xfirst) {
+        float acc[8][8] = {};
+        if (p < m - 1) {
+          float* t = tile(j + 2 + p, j);
+          wfc_product(acc, t, ld, uslot(j), WF_T, false, 0, 1, As, Bs);
+          wfc_store(t, ld, acc, 1.f, false);
+        } else {
+          float* t = tile(j, j + 3 + p - m);
+          wfc_product(acc, lslot(j), WF_T, t, ld, true, 0, 1, As, Bs);
+          wfc_store(t, ld, acc, 1.f, false);
+        }
+      }
+    }
+    wfc_arrive();   // column j's and row j's tiles published
+    if (rank < WFL_QUARTERS) {
+      // D[q] = A_{j+1,j+1}[q] - L_{j+1,j}[q] U_{j,j+1}, into rank 0's D once
+      // the U quarters are in and rank 0 has stored block j
+      float a[2][8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          a[i][c] = __ldcg(tile(j + 1, j + 1) +
+                           (long long)(q0 + ty + 16 * i) * ld + tx + 16 * c);
+      wfc_flags_wait(uflags, WFL_QUARTERS + 1, tag);
+      float s[2][8] = {};
+      wfc_mma<2>(s, Aq, Bs);
+      float* d0 = cluster.map_shared_rank(D, 0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = q0 + ty + 16 * i;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          d0[r * WFC_LD + tx + 16 * c] = a[i][c] - s[i][c];
+      }
+      __syncthreads();
+      if (threadIdx.x == 0)
+        wfc_flag_store(cluster.map_shared_rank(dflags, 0) + q, tag);
+      if (rank == 0) {
+        wfc_flags_wait(dflags, WFL_QUARTERS, tag);
+        stamp(j + 1, 0);
+      }
+    }
+    if (rank < 2) diag(j + 1, j + 2 < nt);
+    wfc_wait();
+    if (rank >= 2) {
+      // the trailing tiles (i, k), i, k > j, but (j+1, j+1): A_ik -= L_ij U_jk
+      for (int p = rank - 2; p < m * m - 1; p += ctas - 2) {
+        const int i = j + 1 + (p + 1) / m, k = j + 1 + (p + 1) % m;
+        float acc[8][8] = {};
+        wfc_product(acc, tile(i, j), ld, tile(j, k), ld, true, 0, 1, As, Bs);
+        wfc_store(tile(i, k), ld, acc, 1.f, true);
+      }
+      stamp(j, rank);
+    }
+    wfc_arrive();
+    if (rank == 0 && j + 2 < nt) release(j + 1);
+    wfc_wait();
+    if (rank == 0) stamp(j, 16);
   }
+  if (rank == 0) stamp(nt, 1);
 }
 
 // fac rows below a wide panel's top block: out[nb + r][c] (row-major,
@@ -845,37 +935,6 @@ int wf_launch_solve(cudaStream_t stream, const float* a, long long as0,
   wf_solve_kernel<MODE><<<grid, WF_THREADS, smem, stream>>>(a, as0, as1, M,
                                                            nb, xinv, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Launch one cluster of WF_CLUSTER CTAs of `kernel` (WF_THREADS threads,
-// WF_SMEM_BYTES of dynamic shared memory each) on `stream`.
-template <class... Params, class... Args>
-int wf_launch(void (*kernel)(Params...), cudaStream_t stream,
-              Args... args) {
-  SLATE_SET_SMEM(kernel, WF_SMEM_BYTES);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = WF_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(WF_CLUSTER, 1, 1);
-  cfg.blockDim = dim3(WF_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = WF_SMEM_BYTES;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
-}
-
-// *fits = 1 when the card places one cluster of `kernel` (its shared memory
-// within a block's opt-in limit, and cudaOccupancyMaxActiveClusters > 0).
-template <class Kernel>
-int wf_fits(Kernel kernel, int device, int* fits) {
-  return cluster_fits(kernel, device, WF_CLUSTER, WF_THREADS, WF_SMEM_BYTES,
-                      fits);
 }
 
 // The cluster size of the Cholesky factor for `batch` clusters at once:

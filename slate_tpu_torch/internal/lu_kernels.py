@@ -23,25 +23,31 @@ from .kernels import (BATCHED_PANEL_ARGS, BATCHED_PLAN_ARGS,
                       batched_panel_step, batched_panel_step_plan,
                       check_cuda_f32, device_and_stream, query,
                       shape_query, workspace)
-from .tri_inv import back_substitution_plain, upper_tri_inv_plain
+from .tri_inv import (STAMPS, WIDE_CLUSTER, back_substitution_plain,
+                      upper_tri_inv_plain)
 
 LU_PANEL = CudaKernel("lu_panel_fused", "lu_panel.cu", {
     "slate_lu_panel_factor": [I32, P, P, I64, I64, I32, I32, P, P, P],
     "slate_lu_panel_work": [I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_below": [I32, P, P, I64, I64, I32, I32, P, P],
     "slate_lu_panel_fits": [I32, I32, I32, ctypes.POINTER(I32)],
-    "slate_lu_panel_plan": [I32, P, I64, I64, ctypes.POINTER(I32)]})
+    "slate_lu_panel_plan": [I32, P, I64, I64, ctypes.POINTER(I32)],
+    "slate_lu_panel_trace": [I32, P, P, I64, I64, I32, I32, P, P, P, P,
+                             ctypes.POINTER(I32)]})
 LU_SELECT = CudaKernel("lu_select", "lu_select.cu", {
     "slate_lu_select": [I32, P, P, I64, I64, I64, P, I32, I32, I32, I32, P,
                         P],
     "slate_lu_select_fits": [I32, I32, I32, I32, ctypes.POINTER(I32)],
     "slate_lu_select_work": [I32, I32, I32, I32, ctypes.POINTER(I32)],
-    "slate_lu_select_plan": [I32, I32, I32, I32, *[ctypes.POINTER(I32)] * 5]})
+    "slate_lu_select_plan": [I32, I32, I32, I32, *[ctypes.POINTER(I32)] * 5],
+    "slate_lu_select_trace": [I32, P, P, I64, I64, I64, P, I32, I32, I32,
+                              I32, P, P, P, ctypes.POINTER(I32)]})
 LU_PANEL_BATCHED = CudaKernel("lu_panel_batched", "lu_panel_batched.cu", {
     "slate_lu_panel_batched": BATCHED_PANEL_ARGS,
     "slate_lu_panel_batched_fits": [I32, I32, I32, ctypes.POINTER(I32)],
     "slate_lu_panel_batched_work": BATCHED_WORK_ARGS,
-    "slate_lu_panel_batched_plan": BATCHED_PLAN_ARGS})
+    "slate_lu_panel_batched_plan": BATCHED_PLAN_ARGS,
+    "slate_lu_panel_batched_cluster": [I32, I32, ctypes.POINTER(I32)]})
 
 # K4's widths as the CPU route mirrors them; on the card the wrapper asks
 # the kernel (slate_lu_select_fits).  Past SELECT_BLOCK columns a chunk is
@@ -159,10 +165,11 @@ def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
     strides.  A CPU tensor takes the plain version; CUDA tensors launch K3
     (f32, nb and bw within :func:`panel_fits`) or raise.  On CUDA, on the
     current stream: K3's factor launch (row tile 0 factored and, when W >
-    nb, U^-1 formed in the same launch: one block up to nb = 128, one
-    thread-block cluster past it, with its scratch allocated here) and,
-    when W > nb, its launch for the rows below; LU_PANEL counts the one or
-    two launches."""
+    nb, U^-1 formed: one block up to nb = 128, in the same launch; past it
+    one thread-block cluster, then K0's wide kernel on the packed L\\U as
+    the call's second launch, with their scratch allocated here) and, when
+    W > nb, its launch for the rows below; LU_PANEL counts the one or two
+    calls."""
     w, nb = panel.shape
     if w < nb or w % nb or bw < 1 or nb % bw:
         raise ValueError(f"lu_panel_fused: needs W % nb == 0 and nb % bw == "
@@ -186,6 +193,48 @@ def lu_panel_fused(panel: torch.Tensor, bw: int = 8) -> torch.Tensor:
         LU_PANEL.launch("slate_lu_panel_below", dev, stream, *strides, w,
                         uinv.data_ptr(), out.data_ptr())
     return out
+
+
+# the wide factor's stamps a row (csrc/wide_factor.cuh WFL_STAMP_ROW), and
+# K4's a (block, CTA) (csrc/lu_select.cu SEL_STAMPS, SEL_MAX_CLUSTER CTAs)
+PANEL_STAMP_ROW = 20
+SELECT_STAMPS = 5
+SELECT_MAX_CLUSTER = 16
+
+
+def lu_panel_stamps(panel: torch.Tensor, bw: int = 8):
+    """K3's wide factor launch once on a CUDA f32 panel [W, nb] (nb in
+    {256, 384, 512}) with its globaltimer stamps: (the top nb rows of out,
+    U^-1 or None when W == nb, stamps, k0_stamps, cluster).  stamps is
+    [nb / 128 + 1, PANEL_STAMP_ROW] int64 nanoseconds (``wf_lu``'s layout:
+    row j, entry r in 2 .. 15 the time rank r ended its tiles of step j, 0
+    the time rank 0 held block j's updated quarters, 1 the time rank 1 held
+    L_jj^T, 16 rank 0's time past the step's closing barrier, 17-19 block
+    j's factor start, factor end and U_jj^-1's end; the last row's entries
+    0 and 1 the start and the end); k0_stamps is [WIDE_CLUSTER, STAMPS],
+    each CTA's stamps of the U^-1 launch (``tri_inv.cu``'s layout, zero
+    when W == nb).  For chip_smoke.py's
+    split of K3's time; the launch is not counted in ``LU_PANEL.launches``,
+    and its bits are the counted launch's."""
+    check_cuda_f32("lu_panel_stamps", panel)
+    w, nb = panel.shape
+    if nb not in SELECT_NB or w % nb:
+        raise ValueError(f"lu_panel_stamps: needs a wide panel, got "
+                         f"{tuple(panel.shape)}")
+    out = torch.empty((nb, nb), dtype=panel.dtype, device=panel.device)
+    uinv = (torch.empty((nb, nb), dtype=panel.dtype, device=panel.device)
+            if w > nb else None)
+    work, work_ptr = workspace(LU_PANEL, "slate_lu_panel_work", panel, nb)
+    rows = (nb // 128 + 1) * PANEL_STAMP_ROW
+    stamps = torch.zeros(rows + WIDE_CLUSTER * STAMPS, dtype=torch.int64,
+                         device=panel.device)
+    cluster = ctypes.c_int32(0)
+    LU_PANEL.call("slate_lu_panel_trace", *device_and_stream(panel),
+                  panel.data_ptr(), panel.stride(0), panel.stride(1), nb, bw,
+                  out.data_ptr(), None if uinv is None else uinv.data_ptr(),
+                  work_ptr, stamps.data_ptr(), ctypes.byref(cluster))
+    return (out, uinv, stamps[:rows].view(-1, PANEL_STAMP_ROW),
+            stamps[rows:].view(WIDE_CLUSTER, STAMPS), cluster.value)
 
 
 def _live_rows(nrows, g: int, w: int, device) -> torch.Tensor:
@@ -291,6 +340,45 @@ def lu_select(chunks: torch.Tensor, nrows=None, bw: int = 8) -> torch.Tensor:
     return piv
 
 
+def lu_select_stamps(chunks: torch.Tensor, nrows=None, bw: int = 8):
+    """K4's wide launch once on a CUDA round [G, W, nb] (nb in {256, 384,
+    512}) with chunk 0's globaltimer stamps: (piv, stamps, cluster).
+    stamps is [nb / 128, cluster, SELECT_STAMPS] int64 nanoseconds, a
+    (128-column block, CTA): the block's start, its rows loaded, its
+    column chain done, L11 and U formed, the update done (0 where the last
+    block has none).  For chip_smoke.py's split of K4's time; the launch
+    is not counted in ``LU_SELECT.launches``, and piv is the counted
+    launch's."""
+    check_cuda_f32("lu_select_stamps", chunks)
+    g, w, nb = chunks.shape
+    if nb not in SELECT_NB:
+        raise ValueError(f"lu_select_stamps: needs a wide round, got "
+                         f"{tuple(chunks.shape)}")
+    live = _live_rows(nrows, g, w, chunks.device)
+    piv = torch.empty((g, nb), dtype=torch.int64, device=chunks.device)
+    work, work_ptr = workspace(LU_SELECT, "slate_lu_select_work", chunks, w,
+                               nb, g)
+    stamps = torch.zeros((nb // SELECT_BLOCK, SELECT_MAX_CLUSTER,
+                          SELECT_STAMPS), dtype=torch.int64,
+                         device=chunks.device)
+    cluster = ctypes.c_int32(0)
+    LU_SELECT.call("slate_lu_select_trace", *device_and_stream(chunks),
+                   chunks.data_ptr(), chunks.stride(0), chunks.stride(1),
+                   chunks.stride(2), live.data_ptr(), g, w, nb, bw,
+                   piv.data_ptr(), work_ptr, stamps.data_ptr(),
+                   ctypes.byref(cluster))
+    return piv, stamps[:, :cluster.value], cluster.value
+
+
+def batched_factor_cluster(device: torch.device, batch: int) -> int:
+    """The CTAs of each problem's cluster in K7's wide factor launch over
+    ``batch`` problems on this CUDA device, as the kernel's library picks
+    it (``slate_lu_panel_batched_cluster``): 16 where the card places that
+    many clusters of 16 at once, else 8."""
+    return query(LU_PANEL_BATCHED, "slate_lu_panel_batched_cluster", device,
+                 batch)
+
+
 def lu_panel_batched_plain(col, left, lead, tiles, k: int, bw: int = 8):
     """K7's arithmetic in torch ops: per problem, on the operands widened
     to f32, upd = col - left @ lead, row tile 0 by :func:`lu_tile_plain`
@@ -328,8 +416,9 @@ def lu_panel_batched(col: torch.Tensor, left: torch.Tensor,
     stream: K7's update launch (every 128-row tile of every problem, the K
     loop split over a thread-block cluster; past nb = 128 every 128-column
     tile too), its factor launch (the no-pivot LU of tile 0 and, when M >
-    nb, U^-1 by K0's doubling, one block a problem up to nb = 128; one
-    thread-block cluster a problem past it, by 128-column diagonal blocks)
+    nb, U^-1 by K0's doubling, one block a problem up to nb = 128; past it
+    one thread-block cluster a problem by 128-column diagonal blocks, then
+    K0's wide kernel a problem as the call's second launch)
     and, when M > nb, its solve launch (the live rows below tile 0): three
     launches a step, two when M == nb, counted by LU_PANEL_BATCHED.  ``tiles`` is read on the
     device only."""

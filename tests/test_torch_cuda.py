@@ -1290,13 +1290,14 @@ def test_wide_upper_tri_inv_stamps_order_and_bits(cuda, n):
         assert row[3 + halves:-1] == [0] * (4 - halves)
 
 
-@pytest.mark.parametrize("nb,w", [(256, 256), (256, 4096), (384, 1536),
-                                  (512, 2048)])
+@pytest.mark.parametrize("nb,w", [(256, 256), (256, 4096), (384, 384),
+                                  (384, 1536), (512, 512), (512, 2048)])
 def test_wide_lu_panel_matches_plain_and_repeats_bitwise(cuda, nb, w):
     """K3 at nb = 256 .. 512 on a diagonally dominant panel (the top block
-    by 128-column diagonal blocks on one cluster, U^-1 in the same launch,
-    the rows below by column tiles), W = nb alone: against the plain
-    version, its launches, and two launches bit for bit."""
+    by 128-column diagonal blocks on one cluster with a lookahead, then
+    U^-1 by K0's wide route in the same call, the rows below by column
+    tiles), W = nb alone: against the plain version, its launches, and two
+    launches bit for bit."""
     rng = np.random.default_rng(nb + w)
     p = rng.standard_normal((w, nb)).astype(np.float32)
     p[:nb] += nb * np.eye(nb, dtype=np.float32)
@@ -1307,6 +1308,153 @@ def test_wide_lu_panel_matches_plain_and_repeats_bitwise(cuda, nb, w):
     torch.testing.assert_close(got, lk.lu_panel_plain(panel, 8), rtol=RTOL,
                                atol=ATOL)
     assert torch.equal(got, lk.lu_panel_fused(panel, 8))
+
+
+def _bidiagonal_zero_pivot(j, n):
+    """An n x n A = L U with pivot j exactly 0 in f32 at any width: L unit
+    lower and U upper bidiagonal with entries in {-1, 0, 1} (U's other
+    pivots +-1), so that every block's inverse and product is exact, plus
+    integers under pivot j."""
+    rng = np.random.default_rng(200 + j)
+    lo = np.eye(n) + np.diag(rng.integers(-1, 2, n - 1), -1)
+    up = np.diag(rng.choice([-1.0, 1.0], n)) + np.diag(
+        rng.integers(-1, 2, n - 1), 1)
+    up[j, j] = 0
+    a = lo @ up
+    a[j + 1:, j] += rng.integers(1, 3, n - j - 1)
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("nb,j", [(256, 37), (256, 200), (512, 300),
+                                  (512, 450)])
+def test_wide_lu_panel_zero_pivot_health_matches_plain(cuda, nb, j):
+    """A planted exact-zero pivot in the wide factor's first, second, third
+    or last diagonal block: the kernel applies the zero-pivot rule at slab
+    width bw inside the block, as the plain version's slabs do, so the
+    health read finds the same first bad pivot and non-finite entries; the
+    entries that both hold finite agree."""
+    from slate_tpu_torch.robust.health import from_pivots
+    a = _bidiagonal_zero_pivot(j, nb)
+    panel = torch.from_numpy(np.concatenate([a, np.random.default_rng(
+        j).standard_normal((nb, nb)).astype(np.float32)])).to(cuda)
+    for bw in (4, 8):
+        got = lk.lu_panel_fused(panel, bw)
+        want = lk.lu_panel_plain(panel, bw)
+        hg = from_pivots(torch.diagonal(got[:nb]))
+        hw = from_pivots(torch.diagonal(want[:nb]))
+        assert (hg.info, hg.nonfinite) == (hw.info, hw.nonfinite), (hg, hw)
+        assert hg.info == j + 1
+        both = torch.isfinite(got) & torch.isfinite(want)
+        torch.testing.assert_close(got[both], want[both], rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("nb", [256, 384, 512])
+def test_wide_lu_factor_bits_ignore_cluster_and_batch(cuda, nb):
+    """wf_lu's bits do not depend on the cluster size or the batch: K7's
+    factor launch on one problem (a cluster of 16) and on twelve (more than
+    the card places clusters of 16: clusters of 8, as the library's choice
+    shows) gives each problem the same bits, and those are K3's factored
+    top block of the same tile; K7's U^-1 (K0's wide route a problem) is
+    K0's launch on that block."""
+    rng = np.random.default_rng(nb)
+    bsz = 12
+    assert lk.batched_factor_cluster(cuda, 1) == 16
+    assert lk.batched_factor_cluster(cuda, bsz) == 8
+    col, left, lead = _batched_panel(rng, bsz, 2 * nb, nb, 0, False,
+                                     torch.float32, cuda)
+    tiles = torch.full((bsz,), 2, dtype=torch.int32, device=cuda)
+    _, fac = lk.lu_panel_batched(col, left, lead, tiles, 0, 8)
+    for b in (0, 5, 11):
+        _, one = lk.lu_panel_batched(col[b:b + 1], left[b:b + 1],
+                                     lead[b:b + 1], tiles[b:b + 1], 0, 8)
+        assert torch.equal(_bits(fac[b]), _bits(one[0]))
+        top = lk.lu_panel_fused(col[b], 8)
+        assert torch.equal(_bits(fac[b][:nb]), _bits(top[:nb]))
+        x = col[b][nb:] @ upper_tri_inv(torch.triu(top[:nb]))
+        torch.testing.assert_close(fac[b][nb:], x, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("nb,w", [(256, 256), (256, 2048), (512, 512),
+                                  (512, 1024)])
+def test_wide_lu_panel_stamps_order_and_bits(cuda, nb, w):
+    """K3's wide factor launch with its stamps (lu_panel_stamps, which the
+    launch count leaves out): the counted launch's factored block and, with
+    rows below, U^-1 = K0's launch on it, bit for bit; each block's factor
+    start, factor end and (but the last) inverse end in order; the steps'
+    closing barriers in order; K0's stamps only when there are rows
+    below."""
+    rng = np.random.default_rng(nb + w + 1)
+    p = rng.standard_normal((w, nb)).astype(np.float32)
+    p[:nb] += nb * np.eye(nb, dtype=np.float32)
+    panel = torch.from_numpy(p).to(cuda)
+    before = lk.LU_PANEL.launches
+    top, uinv, stamps, k0, cluster = lk.lu_panel_stamps(panel, 8)
+    assert lk.LU_PANEL.launches == before
+    want = lk.lu_panel_fused(panel, 8)
+    assert torch.equal(top, want[:nb])
+    assert cluster in (8, 16)
+    nt = nb // 128
+    st = stamps.cpu().tolist()
+    start, end = st[nt][:2]
+    assert 0 < start < end
+    for j in range(nt):
+        seq = st[j][17:19] + (st[j][19:20] if j + 1 < nt else [])
+        assert start <= seq[0] and seq == sorted(seq) and seq[-1] <= end
+    closes = [st[j][16] for j in range(nt - 1)]
+    assert closes == sorted(closes) and all(closes)
+    if w > nb:
+        assert torch.equal(uinv, upper_tri_inv(torch.triu(want[:nb])))
+        assert int(k0[k0 > 0].min()) >= end
+    else:
+        assert uinv is None and not bool(k0.any())
+
+
+def _tied_round(rng, g, w, nb, cuda):
+    """A Gaussian round whose every chunk holds its column 0's largest
+    magnitude twice, in rows 5 and w / 2 with opposite signs (the lower row
+    must win)."""
+    x = rng.standard_normal((g, w, nb)).astype(np.float32)
+    x[:, 5, 0], x[:, w // 2, 0] = 9.0, -9.0
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("g,w,nb,nrows", [
+    (4, 5120, 256, (5120, 5000, 4000, 300)), (2, 512, 256, (512, 100)),
+    (2, 1024, 512, (700, 1024))])
+def test_wide_select_dead_rows_and_ties(cuda, g, w, nb, nrows):
+    """K4 at the wide widths on rounds with dead rows (a chunk whose live
+    rows run out before nb pivots) and tied magnitudes: indices bit-equal
+    to the plain version's (the lowest row on a tie, dead rows only once
+    no live row is left), and the same bits twice."""
+    x = _tied_round(np.random.default_rng(w + nb), g, w, nb, cuda)
+    live = torch.tensor(nrows, dtype=torch.int32, device=cuda)
+    got = lk.lu_select(x, nrows=live)
+    assert torch.equal(got, lk.lu_select_plain(x, live))
+    assert torch.equal(got, lk.lu_select(x, nrows=live))
+    assert int(got[0, 0]) == 5
+
+
+@pytest.mark.parametrize("g,w,nb", [(4, 5120, 256), (4, 5120, 512),
+                                    (2, 512, 256), (2, 1024, 512)])
+def test_wide_select_stamps_order_and_pivots(cuda, g, w, nb):
+    """K4's wide launch with its stamps (lu_select_stamps, which the launch
+    count leaves out): the counted launch's pivots; per block and CTA the
+    stamps in order (start, load, chain, L11 and U, update; the last block
+    has no U or update)."""
+    x = torch.from_numpy(np.random.default_rng(g + w + nb).standard_normal(
+        (g, w, nb)).astype(np.float32)).to(cuda)
+    before = lk.LU_SELECT.launches
+    piv, stamps, cluster = lk.lu_select_stamps(x)
+    assert lk.LU_SELECT.launches == before
+    assert torch.equal(piv, lk.lu_select(x))
+    assert cluster == lk.select_plan(cuda, w, nb, 8)["cluster"]
+    st = stamps.cpu().tolist()
+    assert len(st) == nb // 128 and len(st[0]) == cluster
+    for blk, rows in enumerate(st):
+        for r in rows:
+            seq = r if blk + 1 < len(st) else r[:3]
+            assert 0 < seq[0] and seq == sorted(seq), (blk, r)
 
 
 @pytest.mark.parametrize("nb", [256, 512])

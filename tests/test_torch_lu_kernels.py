@@ -315,3 +315,19 @@ def test_gates_carry_hopper_limits():
         assert not ig._lu_select_ok(blocks, NB)      # 128 % 48
     with pytest.raises(ValueError):
         lk.lu_panel_fused(torch.zeros((200, NB)), 8)   # W % nb
+
+
+@pytest.mark.parametrize("which", ["panel", "select"])
+def test_stamped_trace_launches_refuse_the_cpu(which):
+    """K3's and K4's stamped trace launches (lu_panel_stamps,
+    lu_select_stamps, behind chip_smoke.py's split lines) run only on the
+    card: a CPU tensor is refused before any library is loaded, and so is
+    a width the wide routes do not take."""
+    if which == "panel":
+        with pytest.raises(ValueError, match="lu_panel_stamps"):
+            lk.lu_panel_stamps(torch.zeros(512, 256))
+        with pytest.raises(ValueError, match="lu_panel_stamps"):
+            lk.lu_panel_stamps(torch.zeros(256, 128))
+    else:
+        with pytest.raises(ValueError, match="lu_select_stamps"):
+            lk.lu_select_stamps(torch.zeros(2, 512, 256))
